@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's four CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+Builds the port's seven CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each against its plain PyTorch version on the card, drives the fused
 statistics plan end to end at full width through ``SeriesFrame``, runs the
-single-family plans, times every kernel, and prints one JSON line per phase.
-The second-to-last line lists the kernels; the last line names the device
-and is printed only when every phase passed.
+single-family plans, then the three further paths -- the §6 banded spatial
+AR fit, rolling moments and cross-spectra -- times every kernel, and prints
+one JSON line per phase.  The second-to-last line lists the kernels; the
+last line names the device and is printed only when every phase passed.
 
     python3 chip_smoke.py [--seed 0] [--chunks 64]
 
 Full width: d = 64 channels, 64 chunks of 65,536 rows (2^22 samples per
 channel, 1 GiB of float32 on the card), plan = autocovariance(16),
 yule_walker(8), arma(2, 1), moments(64), moments(1024), welch(256, 128).
+Rolling moments (w = 64, 1024) run over the same series, cross-spectra over
+its first 131,072 rows (nperseg 256, overlap 128), and the spatial fit over
+a banded AR(1) of d = 131,072, b = 4, simulated for 2,048 steps.
 Exits non-zero, printing no result, without a GPU or when a phase fails.
 """
 from __future__ import annotations
@@ -48,6 +52,33 @@ CARRY = max(WINDOWS) - 1  # the fused plan's halo: W_fused - 1
 # against the same sum taken over |y|; a mean likewise against sqrt(var).
 # Counts must match exactly.
 TOL = {"lag": 1e-4, "moments": 1e-4, "psd": 1e-3, "fit": 1e-2}
+# Kernels 5-7, each entry against its own scale (see scaled_error): a window
+# sum against the same window's sum of |x| (or its sum of x^2, itself), held
+# to the float64 plain version; a banded product against sum_o |a_o| |x_o|;
+# a cross-spectral entry (s, f, i, j) against sqrt(P_i(f) P_j(f)), P the
+# power averaged over segments (a single segment's coefficient can come
+# arbitrarily close to 0, so its own modulus is no scale for the rounding of
+# a 256-term contraction).
+TOL_NEW = {"window": 1e-5, "band": 1e-5, "csd": 1e-4}
+
+# The §6 spatial fit: a sensor-lattice-sized banded AR(1).  The true
+# diagonals are uniform in +-TRUE_DIAG, so every row and column absolute sum
+# is below (2b+1) TRUE_DIAG = 0.45 >= ||A||_2; the stationary covariance lies
+# between I and I / (1 - 0.45^2), and the step 2 / (lambda_min + lambda_max)
+# of that range contracts the error by about 0.11 per step.
+SPATIAL_D, SPATIAL_B, SPATIAL_T, SPATIAL_PARTS = 131072, 4, 2048, 16
+SPATIAL_STEPS, PLAIN_STEPS, TRUE_DIAG = 20, 3, 0.05
+A_NORM = (2 * SPATIAL_B + 1) * TRUE_DIAG
+STEP_SIZE = 2.0 / (1.0 + 1.0 / (1.0 - A_NORM**2))
+CSD_ROWS = 131072
+# The fit's NLL is a float32 mean of (T-1) d = 2.7e8 squared residuals.  It
+# must fall at every step until its excess over the minimum reaches that
+# mean's rounding (the error contracts by about 0.11 per step, the excess by
+# about 0.013, so within a handful of steps); from there it may only move
+# within NLL_NOISE of itself (a few float32 ulps; a float32 sum of n terms
+# may round by up to about log2(n) ulps).
+NLL_NOISE = 1e-6
+NLL_MIN_DESCENT = 3  # steps that must fall strictly before the noise floor
 
 KERNEL_INFO = {
     "fused_plan_megakernel": ("src/repro_torch/kernels/fused_plan/csrc/fused_plan.cu",
@@ -58,6 +89,12 @@ KERNEL_INFO = {
                           "src/repro/kernels/window_stats/kernel.py:182"),
     "segment_dft_power": ("src/repro_torch/kernels/segment_dft/csrc/segment_dft.cu",
                           "src/repro/kernels/segment_dft/kernel.py:130"),
+    "window_moments": ("src/repro_torch/kernels/window_stats/csrc/window_stats.cu",
+                       "src/repro/kernels/window_stats/kernel.py:272"),
+    "segment_csd": ("src/repro_torch/kernels/segment_dft/csrc/segment_dft.cu",
+                    "src/repro/kernels/segment_dft/kernel.py:82"),
+    "banded_matvec": ("src/repro_torch/kernels/banded_matvec/csrc/banded_matvec.cu",
+                      "src/repro/kernels/banded_matvec/kernel.py:41"),
 }
 
 
@@ -248,6 +285,125 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def scaled_error(got, want, scale, max_elems: int = 1 << 26) -> tuple:
+    """(max |got - want|, max |got - want| / scale, all finite) of two
+    tensors of one shape, real or complex (complex entries by the modulus of
+    the difference), in float64, over chunks of the leading axis.  ``scale``
+    has ``got``'s shape or broadcasts against it with a leading 1.  An entry
+    that matches exactly counts 0 whatever its scale."""
+    if tuple(got.shape) != tuple(want.shape):
+        fail("shape mismatch", got=list(got.shape), want=list(want.shape))
+    wide = torch.complex128 if got.is_complex() else torch.float64
+    rows = max(1, max_elems // max(1, got[:1].numel()))
+    err, rel, finite = 0.0, 0.0, True
+    for i in range(0, got.shape[0], rows):
+        g, w = got[i: i + rows], want[i: i + rows]
+        sc = scale if scale.shape[0] == 1 else scale[i: i + rows]
+        diff = (g.to(wide) - w.to(wide)).abs()
+        ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / sc.double())
+        err = max(err, diff.max().item())
+        rel = max(rel, ratio.max().item())
+        finite = finite and bool(torch.isfinite(torch.view_as_real(g) if g.is_complex()
+                                                else g).all())
+    return err, rel, finite
+
+
+def planted_error_caught(got, want, scale, tol: float) -> bool:
+    """Whether :func:`scaled_error` rejects ``got`` with one middle entry
+    moved by 2 tol of its own scale (checked on that entry's leading slice)."""
+    idx = tuple(n // 2 for n in got.shape)
+    sidx = tuple(i if scale.shape[k] > 1 else 0 for k, i in enumerate(idx))
+    row = slice(idx[0], idx[0] + 1)
+    planted = got[row].clone()
+    planted[(0,) + idx[1:]] += 2 * tol * scale[sidx].item()
+    srow = scale if scale.shape[0] == 1 else scale[row]
+    return scaled_error(planted, want[row], srow)[1] > tol
+
+
+def new_kernel_case(fn, plain, scale_fn, args: tuple, tol: float) -> dict:
+    """One parity case of kernels 5-7: two launches (bitwise equal), the plain
+    version, each entry against its own scale, and a planted error."""
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    want, scale = plain(*args), scale_fn(*args)
+    err, rel, finite = scaled_error(got, want, scale)
+    res = {"max_abs_err": err, "max_rel_err": rel, "tol": tol, "finite": finite,
+           "bitwise_repeat": bool(torch.equal(got, again)),
+           "planted_error_caught": planted_error_caught(got, want, scale, tol),
+           "shape": list(got.shape)}
+    res["ok"] = finite and rel <= tol and res["bitwise_repeat"] and res["planted_error_caught"]
+    return res
+
+
+def window_scale(x, window: int):
+    """Per window sum: the window's sum of |x| (first moment) and its sum of
+    x^2 (second), float64 plain version, (n - w + 1, 2, d)."""
+    from repro_torch.kernels.window_stats.ref import window_moments_ref
+
+    return torch.stack([window_moments_ref(x.abs(), window)[:, 0],
+                        window_moments_ref(x, window)[:, 1]], 1)
+
+
+def csd_scale(segments, taper, detrend: bool = True):
+    """sqrt(P_i(f) P_j(f)), P the plain power averaged over segments:
+    (1, F, d, d)."""
+    from repro_torch.kernels.segment_dft.ref import segment_dft_power_ref
+
+    p = segment_dft_power_ref(segments, taper, detrend).mean(0)
+    return (p[:, :, None] * p[:, None, :]).sqrt()[None]
+
+
+def band_scale(diags, x):
+    """sum_o |a_o| |x_o| per output of the banded product."""
+    from repro_torch.kernels.banded_matvec.ref import banded_matvec_ref
+
+    return banded_matvec_ref(diags.float().abs(), x.float().abs())
+
+
+def band_valid(d: int, b: int, device):
+    """(d, 2b+1) mask of the diagonal slots that lie on the matrix."""
+    cols = torch.arange(d, device=device)[:, None] + torch.arange(-b, b + 1, device=device)
+    return (cols >= 0) & (cols < d)
+
+
+def band_csr(diags):
+    """The banded matrix of (d, 2b+1) diagonals as a sparse CSR tensor."""
+    d, w = diags.shape
+    b = (w - 1) // 2
+    cols = torch.arange(d, device=diags.device)[:, None] + torch.arange(-b, b + 1,
+                                                                        device=diags.device)
+    valid = (cols >= 0) & (cols < d)
+    crow = torch.nn.functional.pad(torch.cumsum(valid.sum(1), 0), (1, 0))
+    return torch.sparse_csr_tensor(crow, cols[valid], diags[valid], (d, d))
+
+
+def new_kernel_work(name: str, shape: dict) -> tuple:
+    """(bytes, operations of the function, operations of the kernel's design)
+    of kernel 5, 6 or 7 on the inputs of ``shape``: each input read once,
+    each output written once; a segment's spectrum counts a real FFT
+    (2.5 L log2 L) plus detrend and taper, where the kernel contracts
+    against twiddles (4 L F); a complex outer product 6 operations per
+    entry; a rolling window sum 2 operations per start and moment (add the
+    entering row, subtract the leaving one) plus one square per row."""
+    f4 = 4
+    if name == "window_moments":
+        n, d, w = shape["n"], shape["d"], shape["w"]
+        n_out = n - w + 1
+        ops = n * d + 4 * n_out * d
+        return n * d * f4 + n_out * 2 * d * f4, ops, ops
+    if name == "segment_csd":
+        S, L, d = shape["S"], shape["L"], shape["d"]
+        F = L // 2 + 1
+        outer = 6 * S * F * d * d
+        return (S * L * d * f4 + L * f4 + S * F * d * d * 8,
+                S * d * (2.5 * L * math.log2(L) + 3 * L) + outer,
+                S * d * (4 * L * F + 3 * L) + outer)
+    if name == "banded_matvec":
+        m, d, b, valid = shape["m"], shape["d"], shape["b"], shape["valid_slots"]
+        return d * (2 * b + 1) * f4 + 2 * m * d * f4, 2 * valid * m, 2 * valid * m
+    raise KeyError(name)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -260,6 +416,7 @@ def main() -> None:
     from repro_torch.core.estimators.spectral import hann_window
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels import _build
+    from repro_torch.kernels.banded_matvec import ops as bm, ref as bmr
     from repro_torch.kernels.fused_plan import ops as fp, ref as fpr
     from repro_torch.kernels.segment_dft import ops as sd, ref as sdr
     from repro_torch.kernels.window_stats import ops as ws, ref as wsr
@@ -399,8 +556,70 @@ def main() -> None:
         "tail": check_kernel(sd.segment_fft_power, sdr.segment_dft_power_ref,
                              (seg_tail, taper), TOL["psd"]),
     }
+    # kernels 5-7: the main-path shapes, then an edge grid; every entry held
+    # to its own scale (TOL_NEW), two launches bitwise equal, one planted
+    # error caught per case
+    centred = series - series.mean(0)
+    csd_segs = series[:CSD_ROWS].unfold(0, NPERSEG, STEP).transpose(1, 2)
+    fit_diags = (torch.rand((SPATIAL_D, 2 * SPATIAL_B + 1), generator=gen, device=dev) * 2
+                 - 1) * TRUE_DIAG  # off-matrix slots left non-zero on purpose
+    fit_x = torch.randn((SPATIAL_T - 1, SPATIAL_D), generator=gen, device=dev)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def band_plain(diags, x):
+        return bmr.banded_matvec_ref(diags.float(), x.float())
+
+    def window_case(x, w):
+        return new_kernel_case(ws.windowed_moments, wsr.window_moments_ref, window_scale,
+                               (x, w), TOL_NEW["window"])
+
+    def csd_case(segs, taper_, detrend=True):
+        return new_kernel_case(sd.segment_csd, sdr.segment_csd_ref, csd_scale,
+                               (segs, taper_, detrend), TOL_NEW["csd"])
+
+    def band_case(diags, x):
+        return new_kernel_case(bm.banded_matvec_rows, band_plain, band_scale, (diags, x),
+                               TOL_NEW["band"])
+
+    def hann(L):
+        return torch.hann_window(L, periodic=False, device=dev)
+
+    parity["window_moments"] = {
+        "main_w64": window_case(centred, WINDOWS[0]),
+        "main_w1024": window_case(centred, WINDOWS[1]),
+        "w_one": window_case(rand(1000, 3) + 2.0, 1),
+        "w_is_n": window_case(rand(500, 5), 500),
+        "n_below_chain": window_case(rand(40, 2), 7),
+        "d_one": window_case(rand(3000, 1) * 10.0, 100),
+    }
+    parity["segment_csd"] = {
+        "main": csd_case(csd_segs, taper),
+        "odd_L": csd_case(rand(5, 33, 3), hann(33)),
+        "d_one": csd_case(rand(4, 64, 1), hann(64)),
+        "two_channel_tiles": csd_case(rand(6, 64, 70), hann(64)),
+        "no_detrend": csd_case(rand(6, 64, 70) + 1.0, hann(64), False),
+    }
+    parity["banded_matvec"] = {
+        "fit": band_case(fit_diags, fit_x),
+        "simulate_nrhs_1": band_case(fit_diags, fit_x[:1]),
+        "transposed_band": band_case(bmr.band_transpose(fit_diags), fit_x),
+        "d_not_tile_multiple": band_case(rand(1000, 7), rand(5, 1000)),
+        "b_zero": band_case(rand(300, 1), rand(3, 300)),
+        "b_over_tile": band_case(rand(700, 601) * 0.05, rand(4, 700)),
+        "nrhs_1": band_case(rand(1000, 7), rand(1, 1000)),
+        "halo_two_float4": band_case(rand(4096, 13), rand(7, 4096)),
+        "unaligned_rows": band_case(rand(1000, 7), rand(5 * 1000 + 1)[1:].view(5, 1000)),
+        "bf16": band_case(rand(513, 5, dtype=torch.bfloat16),
+                          rand(6, 513, dtype=torch.bfloat16)),
+    }
+    del fit_x
     emit({"phase": "parity", "tolerance": "per leaf: max|kernel - plain| <= tol * scale "
-          "(max|plain|; sum of y: per channel, the sum over |y|)",
+          "(max|plain|; sum of y: per channel, the sum over |y|); kernels 5-7 per entry: "
+          "a window sum against that window's sum of |x| (or of x^2), float64 plain; a "
+          "banded product against sum |a||x|; a cross-spectral entry against "
+          "sqrt(P_i(f) P_j(f)), P averaged over segments",
           "kernels": parity})
     bad = [f"{k}/{c}" for k, cases in parity.items() for c, r in cases.items() if not r["ok"]]
     if bad:
@@ -505,7 +724,193 @@ def main() -> None:
     if not all(r["ok"] for r in single.values()):
         fail("single-family plans", bad=[k for k, r in single.items() if not r["ok"]])
 
-    # ------------------------------------------------ 5. timing
+    # ------------------------------------------------ 5. spatial fit (§6)
+    from repro_torch import banded_predict, fit_banded_ar, welch_csd, windowed_moments
+    from repro_torch.core.estimators.spatial import banded_nll
+    from repro_torch.core.estimators.spectral import welch_psd
+    from repro_torch.core.estimators.stats import mean as series_mean
+
+    g_fit = torch.Generator(device=dev)
+    g_fit.manual_seed(args.seed + 2)
+    valid = band_valid(SPATIAL_D, SPATIAL_B, dev)
+    true_diags = (torch.rand((SPATIAL_D, 2 * SPATIAL_B + 1), generator=g_fit, device=dev) * 2
+                  - 1) * TRUE_DIAG * valid
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xs = torch.empty((SPATIAL_T, SPATIAL_D), device=dev)
+    xs[0] = torch.randn(SPATIAL_D, generator=g_fit, device=dev)
+    for t in range(SPATIAL_T - 1):  # x_{t+1} = A x_t + eps_t, kernel 7 at nrhs = 1
+        xs[t + 1] = banded_predict(true_diags, xs[t]) + torch.randn(
+            SPATIAL_D, generator=g_fit, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim_launches = launch_counts()["banded_matvec"]
+    fit = fit_banded_ar(xs, SPATIAL_B, n_steps=SPATIAL_STEPS, step_size=STEP_SIZE,
+                        num_parts=SPATIAL_PARTS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    band_launches = launch_counts()["banded_matvec"]
+    fit_launches = band_launches - sim_launches
+    trace = fit.nll_trace.tolist()
+    rises = [b - a for a, b in zip(trace, trace[1:])]
+    descent = next((k for k, r in enumerate(rises) if r >= 0), len(rises))
+    coef_err = (fit.diags - true_diags)[valid]
+    rms_err = coef_err.square().mean().sqrt().item()
+
+    # the first PLAIN_STEPS steps again, on each backend
+    short = {be: fit_banded_ar(xs, SPATIAL_B, n_steps=PLAIN_STEPS, step_size=STEP_SIZE,
+                               num_parts=SPATIAL_PARTS, backend=be)
+             for be in ("cuda", "torch")}
+    plain_diags_err = (short["cuda"].diags - short["torch"].diags).abs().max().item()
+    plain_nll_rel = ((short["cuda"].nll_trace - short["torch"].nll_trace).abs()
+                     / short["torch"].nll_trace.abs()).max().item()
+    del short
+
+    # one step's device time, split: the kernel (its prepared launch), the
+    # d/d diags shifted products (on this step's cotangent), the rest
+    x_prev = xs[:-1]
+
+    def fit_step():
+        dg = fit.diags.clone().requires_grad_(True)
+        v = banded_nll(dg, xs)
+        torch.autograd.grad(v, dg)
+
+    step_event_ms = cuda_ms(fit_step, 5, warmup=1)
+    step_split, step_busy_ms, step_wall_ms = device_split(fit_step, calls=3)
+    step_ms = step_busy_ms if step_busy_ms > 0 else step_event_ms
+    prep_fit = bm.prepare_banded_matvec(fit.diags.t().contiguous(), x_prev)
+    fit_kernel_ms = graph_ms([prep_fit.launch])
+    kernel_ms = fit_kernel_ms[len(fit_kernel_ms) // 2]
+    cot = (xs[1:] - prep_fit.launch()) * (-1.0 / (SPATIAL_T - 1))
+    ddiags_ms = cuda_ms(lambda: bmr.band_gradient(cot, x_prev, SPATIAL_B), 5, warmup=1)
+
+    # a loss differentiated with respect to x: the forward and A^T g
+    grads, dx_launches = {}, None
+    for be in ("cuda", "torch"):
+        xx = x_prev.clone().requires_grad_(True)
+        reset_launch_counts()
+        loss = torch.sin(banded_predict(true_diags, xx, backend=be)).square().sum()
+        (grads[be],) = torch.autograd.grad(loss, xx)
+        torch.cuda.synchronize()
+        if be == "cuda":
+            dx_launches = launch_counts()["banded_matvec"]
+        del xx, loss
+    # |d loss / d pred| = |sin(2 pred)| <= 1
+    dx_scale = band_scale(bmr.band_transpose(true_diags), torch.ones((1, SPATIAL_D), device=dev))
+    dx_err, dx_rel, dx_finite = scaled_error(grads["cuda"], grads["torch"], dx_scale)
+    del grads, cot, prep_fit
+
+    spatial = {
+        "phase": "spatial_fit", "d": SPATIAL_D, "bandwidth": SPATIAL_B, "T": SPATIAL_T,
+        "num_parts": SPATIAL_PARTS, "steps": SPATIAL_STEPS, "step_size": STEP_SIZE,
+        "simulate_ms": (t1 - t0) * 1e3, "simulate_launches": sim_launches,
+        "fit_ms": (t2 - t1) * 1e3, "fit_ms_per_step": (t2 - t1) * 1e3 / SPATIAL_STEPS,
+        "launches_per_step": fit_launches / SPATIAL_STEPS, "nll_trace": trace,
+        "nll_monotone": (descent >= NLL_MIN_DESCENT
+                         and all(r <= NLL_NOISE * abs(a) for r, a in zip(rises, trace))),
+        "nll_strict_descent_steps": descent, "nll_max_rise": max(rises),
+        "nll_noise_rel": NLL_NOISE,
+        "rms_coef_err": rms_err, "max_coef_err": coef_err.abs().max().item(),
+        "expected_rms_coef_err": 1 / math.sqrt(SPATIAL_T),
+        "plain_steps": PLAIN_STEPS, "plain_diags_max_abs_err": plain_diags_err,
+        "plain_nll_max_rel_err": plain_nll_rel,
+        "step_device_ms": {"step": step_ms, "step_events_ms": step_event_ms,
+                           "step_wall_ms": step_wall_ms, "kernel": kernel_ms,
+                           "d_diags": ddiags_ms, "rest": step_ms - kernel_ms - ddiags_ms,
+                           "by_kernel_name": step_split,
+                           "note": "step: profiler device-busy ms per step (CUDA-event ms "
+                                   "if the profiler saw no device work); kernel: CUDA graph of "
+                                   "the prepared launch; d_diags: CUDA events around the "
+                                   "shifted products on this step's cotangent"},
+        "dx_loss": {"launches": dx_launches, "max_abs_err": dx_err, "max_rel_err": dx_rel,
+                    "tol": TOL_NEW["band"], "finite": dx_finite},
+    }
+    spatial["ok"] = (spatial["nll_monotone"] and rms_err < 0.05 and math.isfinite(rms_err)
+                     and fit_launches == SPATIAL_STEPS and plain_diags_err <= 1e-5
+                     and plain_nll_rel <= 1e-5 and dx_launches == 2 and dx_finite
+                     and dx_rel <= TOL_NEW["band"])
+    emit(spatial)
+    if not spatial["ok"]:
+        fail("spatial fit")
+    del xs, x_prev, fit
+
+    # ------------------------------------------------ 6. rolling moments
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rolling = {w: windowed_moments(series, w) for w in WINDOWS}
+    torch.cuda.synchronize()
+    rolling_ms = (time.perf_counter() - t0) * 1e3
+    rolling_launches = launch_counts()["window_moments"]
+    mu = series_mean(series)
+    members, plain32 = {}, {}
+    for w, got in rolling.items():
+        s64 = wsr.window_moments_ref(series - mu, w)  # float64 plain sums
+        m_c = s64[:, 0] / w
+        want = {"mean": m_c + mu, "var": torch.clamp(s64[:, 1] / w - m_c * m_c, min=0.0)}
+        members[f"w{w}"] = compare(got, want, TOL["moments"])
+        members[f"w{w}"]["shape_ok"] = tuple(got["var"].shape) == (n_total - w + 1, D)
+        members[f"w{w}"]["var_nonnegative"] = bool((got["var"] >= 0).all())
+        # the reference's float32 cumulative-sum formula, against float64
+        s32 = wsr.window_moments_ref(series - mu, w, torch.float32)
+        plain32[f"w{w}"] = scaled_error(s32, s64, window_scale(series - mu, w))[1]
+        del s64, s32, want
+    rolling_ok = (rolling_launches == len(WINDOWS)
+                  and all(r["ok"] and r["shape_ok"] and r["var_nonnegative"]
+                          for r in members.values()))
+    emit({"phase": "rolling_moments", "samples_per_channel": n_total, "channels": D,
+          "windows": list(WINDOWS), "ms": rolling_ms, "launches": rolling_launches,
+          "output_gbytes": sum((n_total - w + 1) * 2 * D * 4 for w in WINDOWS) / 1e9,
+          "against_float64": members,
+          "window_sums_parity": {k: parity["window_moments"][f"main_w{w}"]["max_rel_err"]
+                                 for k, w in (("w64", 64), ("w1024", 1024))},
+          "float32_cumsum_formula_rel_err": plain32, "ok": rolling_ok})
+    if not rolling_ok:
+        fail("rolling moments")
+    del rolling
+
+    # ------------------------------------------------ 7. cross-spectra
+    x_csd = series[:CSD_ROWS]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    freqs, csd = welch_csd(x_csd, nperseg=NPERSEG, overlap=OVERLAP)
+    torch.cuda.synchronize()
+    csd_ms = (time.perf_counter() - t0) * 1e3
+    csd_launches = launch_counts()["segment_csd"]
+    _, psd = welch_psd(x_csd, nperseg=NPERSEG, overlap=OVERLAP)  # kernel 4
+    psd_launches = launch_counts()["segment_dft_power"]
+    mult = torch.full((NPERSEG // 2 + 1,), 2.0, device=dev)
+    mult[0] = mult[-1] = 1.0
+    psd2 = psd / mult[:, None]  # two-sided, as the CSD diagonal
+    pair = (psd2[:, :, None] * psd2[:, None, :]).sqrt()[None]
+    herm = scaled_error(csd[None], csd.transpose(1, 2).conj()[None], pair)
+    diag = torch.diagonal(csd, dim1=1, dim2=2)
+    diag_err = scaled_error(diag.real[None], psd2[None], psd2[None])
+    imag_diag = diag.imag.abs().max().item()
+    _, csd_plain = welch_csd(x_csd, nperseg=NPERSEG, overlap=OVERLAP, backend="torch")
+    plain_err = scaled_error(csd[None], csd_plain[None], pair)
+    cross = {"phase": "cross_spectra", "rows": CSD_ROWS, "channels": D, "nperseg": NPERSEG,
+             "overlap": OVERLAP, "segments": (CSD_ROWS - OVERLAP) // STEP,
+             "primitive_gbytes": (CSD_ROWS - OVERLAP) // STEP * (NPERSEG // 2 + 1) * D * D * 8
+             / 1e9, "ms": csd_ms, "launches": csd_launches, "psd_launches": psd_launches,
+             "shape": list(csd.shape), "dtype": str(csd.dtype),
+             "hermitian_rel_err": herm[1], "diag_vs_welch_psd_rel_err": diag_err[1],
+             "diag_max_abs_imag": imag_diag, "vs_plain_rel_err": plain_err[1],
+             "tol": TOL_NEW["csd"], "freqs_ok": bool(torch.equal(
+                 freqs, torch.fft.rfftfreq(NPERSEG, device=dev)))}
+    cross["ok"] = (csd_launches == 1 and psd_launches == 1 and herm[2] and plain_err[2]
+                   and tuple(csd.shape) == (NPERSEG // 2 + 1, D, D)
+                   and csd.dtype == torch.complex64 and cross["freqs_ok"]
+                   and max(herm[1], diag_err[1], plain_err[1]) <= TOL_NEW["csd"])
+    emit(cross)
+    if not cross["ok"]:
+        fail("cross spectra")
+    del csd, csd_plain
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 8. timing
     # Rotate over 8 distinct chunks (134 MB > the 50 MB L2) so every call
     # reads its series from device memory, as the main path does.
     rot = max(1, min(8, args.chunks - 1))
@@ -624,6 +1029,78 @@ def main() -> None:
         "fused_lag_moments": f"y ({CHUNK + CARRY}, {D}), H=0, windows={WINDOWS}",
         "segment_dft_power": f"segments ({S}, {NPERSEG}, {D})",
     }
+    # kernels 5-7 at their paths' shapes: each operand exceeds the 50 MB L2
+    # (1.07 GB series, 67 MB of segments, a 1.07 GB fit operand), so one
+    # prepared launch replayed reads from device memory every time
+    fit_x = torch.randn((SPATIAL_T - 1, SPATIAL_D), generator=gen, device=dev)
+    C256, S256 = (t.contiguous() for t in sdr.dft_power_matrices(NPERSEG, taper))
+    segs_c = csd_segs.contiguous()
+    xt = centred.t().contiguous()[None]  # (1, d, n) for avg_pool1d
+    csr, fit_xt = band_csr(fit_diags * band_valid(SPATIAL_D, SPATIAL_B, dev)), fit_x.t().contiguous()
+    F = torch.nn.functional
+
+    def pool_sums(w):
+        return torch.stack([F.avg_pool1d(xt, w, 1) * w, F.avg_pool1d(xt * xt, w, 1) * w])
+
+    def fft_csd(segs):
+        f = torch.fft.rfft((segs - segs.mean(1, keepdim=True)) * taper[:, None], dim=1)
+        return torch.einsum("sfi,sfj->sfij", f, f.conj())
+
+    new_cases = {  # name: (prepared launch, wrapper call, plain call, library call, shape)
+        "window_moments_w64": (ws.prepare_window_moments(centred, 64),
+                               lambda: ws.windowed_moments(centred, 64),
+                               lambda: wsr.window_moments_ref(centred, 64),
+                               lambda: pool_sums(64), dict(n=n_total, d=D, w=64)),
+        "window_moments": (ws.prepare_window_moments(centred, 1024),
+                           lambda: ws.windowed_moments(centred, 1024),
+                           lambda: wsr.window_moments_ref(centred, 1024),
+                           lambda: pool_sums(1024), dict(n=n_total, d=D, w=1024)),
+        "segment_csd": (sd.prepare_segment_csd(segs_c, C256, S256, True),
+                        lambda: sd.segment_csd(segs_c, taper),
+                        lambda: sdr.segment_csd_ref(segs_c, taper),
+                        lambda: fft_csd(segs_c),
+                        dict(S=segs_c.shape[0], L=NPERSEG, d=D)),
+        "banded_matvec": (bm.prepare_banded_matvec(fit_diags.t().contiguous(), fit_x),
+                          lambda: bm.banded_matvec_rows(fit_diags, fit_x),
+                          lambda: bmr.banded_matvec_ref(fit_diags, fit_x),
+                          lambda: torch.sparse.mm(csr, fit_xt),
+                          dict(m=SPATIAL_T - 1, d=SPATIAL_D, b=SPATIAL_B,
+                               valid_slots=int(band_valid(SPATIAL_D, SPATIAL_B, dev).sum()))),
+    }
+    # each yardstick computes the same function: check it against the plain version
+    library_check.update({
+        "window_moments": {"max_rel_err": scaled_error(
+            pool_sums(1024)[:, 0].permute(2, 0, 1), wsr.window_moments_ref(centred, 1024),
+            window_scale(centred, 1024))[1]},
+        "segment_csd": {"max_rel_err": scaled_error(fft_csd(segs_c), sdr.segment_csd_ref(
+            segs_c, taper), csd_scale(segs_c, taper))[1]},
+        "banded_matvec": {"max_rel_err": scaled_error(
+            torch.sparse.mm(csr, fit_xt).t(), bmr.banded_matvec_ref(fit_diags * band_valid(
+                SPATIAL_D, SPATIAL_B, dev), fit_x), band_scale(fit_diags, fit_x))[1]},
+    })
+    for name in ("window_moments", "segment_csd", "banded_matvec"):
+        library_check[name]["ok"] = library_check[name]["max_rel_err"] <= 1e-4
+        if not library_check[name]["ok"]:
+            fail("a library yardstick disagrees with the plain version", check=library_check)
+    for name, (prep, wrapper, plain, lib, shape) in new_cases.items():
+        samples = graph_ms([prep.launch])
+        kernel = name if name in KERNEL_INFO else "window_moments"
+        nbytes, flops, design = new_kernel_work(kernel, shape)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        timing[name] = {
+            "ms": samples[len(samples) // 2], "ms_samples": samples,
+            # CUDA events around launches made from the host (the profiler
+            # recorded none or a third of these launches in one run)
+            "host_launch_ms": cuda_ms(prep.launch, 5, warmup=1),
+            "wrapper_ms": cuda_ms(wrapper, 5, warmup=1),
+            "plain_ms": cuda_ms(plain, 3, warmup=1),
+            "library_ms": cuda_ms(lib, 3, warmup=1),
+        }
+        bounds[name] = (b_ms, b_by)
+        work[name] = (nbytes, flops, design)
+        shapes[name] = ", ".join(f"{k}={v}" for k, v in shape.items())
+        split[name] = None
+    del new_cases, fit_x, fit_xt, csr, segs_c, xt
     emit({"phase": "timing", "note": "main-path chunk shapes, cold series (8 rotating "
           "chunks); ms: median over repeats of a CUDA graph of the prepared launches "
           "(kernel and its reduction), ms_samples sorted; profiler_ms: profiler device "
@@ -636,15 +1113,27 @@ def main() -> None:
                           "design_ms_at_fp32_peak": work[k][2] / PEAK_FP32 * 1e3,
                           "shape": shapes[k], "device_ms_by_kernel": split[k]}
                       for k, t in timing.items()},
-          "library_check": library_check})
+          "library_check": library_check,
+          "library_calls": {"window_moments": "F.avg_pool1d(x^T, w, 1) * w on x and on x^2 "
+                                              "(two calls: no single call gives both sums)",
+                            "segment_csd": "torch.fft.rfft of the detrended, tapered segments, "
+                                           "then einsum('sfi,sfj->sfij', f, f.conj())",
+                            "banded_matvec": "torch.sparse.mm(band as CSR, x^T) (x^T "
+                                             "prepared once)"}})
 
-    # ------------------------------------------------ 6. the kernels line
+    # ------------------------------------------------ 9. the kernels line
+    # launches: each kernel's count from the run of its own path (the fused
+    # plan for kernels 1-4, the spatial fit with its simulation for 7,
+    # rolling moments for 5, cross-spectra for 6); ms and bound of kernel 5
+    # at w = 1024
+    path_launches = {**counts, "banded_matvec": band_launches,
+                     "window_moments": rolling_launches, "segment_csd": csd_launches}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name],
+            "launches": path_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in parity[name].values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": t["library_ms"],

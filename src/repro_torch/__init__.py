@@ -1,20 +1,26 @@
 """repro_torch -- the PyTorch/CUDA port of the weak-memory time-series engine.
 
 The JAX package `repro` is the reference; this package re-creates its fused
-statistics plan on PyTorch, with each Pallas kernel on that path rewritten
+statistics plan, its rolling moments and cross-spectra, and its §6 banded
+spatial AR fit on PyTorch, with each Pallas kernel on those paths rewritten
 as a hand-written CUDA kernel for Hopper (sm_90a).  It imports nothing from
 `repro` and no JAX.
 
-Entry points run on the card (``device="cuda"``) unless the caller asks for
-the CPU (``device="cpu"``), where every kernel wrapper runs its plain
-PyTorch version:
+Entry points run on the card (CUDA tensors, ``device="cuda"``) unless the
+caller asks for the CPU (CPU tensors, ``device="cpu"``), where every kernel
+wrapper runs its plain PyTorch version:
 
   SeriesFrame.from_array / from_chunks -> .autocovariance(...) ... .collect()
   analyze(series, requests, device=...)
   StatPlan(requests, d, device=...)
+  windowed_moments(x, window)               rolling mean and variance
+  welch_csd(x, nperseg, overlap)            cross-spectral density matrix
+  banded_predict / banded_nll / fit_banded_ar, BandedARModel
 """
 import torch
 
+from .core.estimators import (BandedARModel, banded_nll, banded_predict, fit_banded_ar,
+                              welch_csd, windowed_moments)
 from .core.frame import Deferred, SeriesFrame
 from .core.plan import StatPlan, analyze
 
@@ -24,4 +30,5 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["SeriesFrame", "Deferred", "StatPlan", "analyze", "__version__"]
+__all__ = ["SeriesFrame", "Deferred", "StatPlan", "analyze", "windowed_moments", "welch_csd",
+           "BandedARModel", "banded_predict", "banded_nll", "fit_banded_ar", "__version__"]

@@ -9,9 +9,10 @@ a :class:`Backend` supplies one implementation of each (see
                tensors each kernel wrapper runs its plain version; for CUDA
                tensors it launches the kernel or raises.
   ``"torch"``  plain PyTorch on any device -- the port of ``JnpBackend``,
-               the in-package oracle.  Segment power uses the taper-folded
-               twiddle contraction (as the reference's ``ref.py`` oracle),
-               never a library FFT.
+               the in-package oracle.  Segment power and cross-spectra use
+               the taper-folded twiddle contraction (as the reference's
+               ``ref.py`` oracle), never a library FFT; the banded matvec
+               sums shifted products and is differentiated by autograd.
 
 The reference's ``AutoBackend`` and ``CircuitBreakerBackend`` arrive with
 the port's calibration and fault-handling slices.
@@ -22,13 +23,15 @@ from typing import Dict, Protocol, Union, runtime_checkable
 
 import torch
 
+from ..kernels.banded_matvec import ops as bm
+from ..kernels.banded_matvec.ref import banded_matvec_ref
 from ..kernels.fused_plan import ops as fp
 from ..kernels.fused_plan.ref import fused_plan_update_ref
 from ..kernels.segment_dft import ops as sd
-from ..kernels.segment_dft.ref import segment_dft_power_ref
+from ..kernels.segment_dft.ref import segment_csd_ref, segment_dft_power_ref
 from ..kernels.window_stats import ops as ws
 from ..kernels.window_stats.ref import (fused_lag_moments_ref, lagged_sums_ref,
-                                        masked_lagged_sums_ref)
+                                        masked_lagged_sums_ref, window_moments_ref)
 
 __all__ = ["Backend", "TorchBackend", "CudaBackend", "PRIMITIVE_NAMES",
            "register_backend", "get_backend", "list_backends", "resolve_device"]
@@ -121,25 +124,17 @@ class TorchBackend:
         return masked_lagged_sums_ref(y_padded, start_mask, max_lag)
 
     def windowed_moments(self, x, window):
-        x = (x[:, None] if x.ndim == 1 else x).float()
-        n, d = x.shape
-        if n - window + 1 < 1:
-            raise ValueError(f"series of length {n} has no full window of width {window}")
-        zero = x.new_zeros((1, d))
-        cs = torch.cat([zero, torch.cumsum(x, 0)])
-        cs2 = torch.cat([zero, torch.cumsum(x * x, 0)])
-        return torch.stack([cs[window:] - cs[:-window], cs2[window:] - cs2[:-window]], 1)
+        """The reference's formula: one float32 cumulative sum."""
+        return window_moments_ref(x, window, torch.float32)
 
     def segment_fft_power(self, segments, taper, detrend=True):
         return segment_dft_power_ref(segments, taper, detrend)
 
     def segment_csd(self, segments, taper, detrend=True):
-        raise NotImplementedError(
-            "segment_csd is not ported yet (ROADMAP Queue A item 10, welch_csd)")
+        return segment_csd_ref(segments, taper, detrend)
 
     def banded_matvec(self, diags, x):
-        raise NotImplementedError(
-            "banded_matvec is not ported yet (ROADMAP Queue A item 10)")
+        return banded_matvec_ref(diags.float(), x.float())
 
     def fused_lagged_moments(self, y_padded, start_mask, max_lag, window):
         return fused_lag_moments_ref(y_padded, start_mask, max_lag, window)
@@ -157,9 +152,12 @@ class TorchBackend:
 class CudaBackend:
     """The hand-written Hopper kernels (port of ``PallasBackend``).
 
-    Four primitives run the port's CUDA kernels; ``windowed_moments``,
-    ``segment_csd`` and ``banded_matvec`` raise until their kernels are
-    ported (ROADMAP Queue B items 5-7).
+    Every primitive runs one of the port's CUDA kernels on CUDA tensors:
+    ``lagged_sums`` and ``masked_lagged_sums`` the cross-window-stats kernel,
+    ``fused_lagged_moments`` and ``fused_plan_update`` their fused kernels,
+    ``windowed_moments`` the rolling-moments kernel, ``segment_fft_power``
+    and ``segment_csd`` the segment-DFT kernels, and ``banded_matvec`` the
+    banded kernel, differentiable through its autograd backward.
     """
 
     name = "cuda"
@@ -171,19 +169,18 @@ class CudaBackend:
         return ws.masked_lagged_sums(y_padded, start_mask, max_lag)
 
     def windowed_moments(self, x, window):
-        raise NotImplementedError(
-            "the windowed_moments kernel is not ported yet (ROADMAP Queue B item 5)")
+        return ws.windowed_moments(x, window)
 
     def segment_fft_power(self, segments, taper, detrend=True):
         return sd.segment_fft_power(segments, taper, detrend)
 
     def segment_csd(self, segments, taper, detrend=True):
-        raise NotImplementedError(
-            "the segment_csd kernel is not ported yet (ROADMAP Queue B item 6)")
+        return sd.segment_csd(segments, taper, detrend)
 
     def banded_matvec(self, diags, x):
-        raise NotImplementedError(
-            "the banded_matvec kernel is not ported yet (ROADMAP Queue B item 7)")
+        """x (..., d): the leading axes fold into the kernel's rows, no
+        transpose."""
+        return bm.banded_matvec_rows(diags, x)
 
     def fused_lagged_moments(self, y_padded, start_mask, max_lag, window):
         return ws.fused_lagged_moments(y_padded, start_mask, max_lag, window)

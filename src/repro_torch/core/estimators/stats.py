@@ -10,7 +10,7 @@ from ..backend import BackendSpec, get_backend
 
 Normalization = Literal["paper", "standard"]
 
-__all__ = ["mean", "gamma_normalizer", "autocovariance"]
+__all__ = ["mean", "gamma_normalizer", "autocovariance", "windowed_moments"]
 
 
 def mean(x: torch.Tensor) -> torch.Tensor:
@@ -46,3 +46,22 @@ def autocovariance(x: torch.Tensor, max_lag: int, normalization: Normalization =
     s = get_backend(backend, x.device).lagged_sums(x, max_lag)
     norm = gamma_normalizer(x.shape[0], max_lag, normalization).to(s.device)
     return s * norm[:, None, None]
+
+
+def windowed_moments(x: torch.Tensor, window: int, backend: BackendSpec = None) -> dict:
+    """Rolling mean and population variance over every full width-``window``
+    slice: {"mean": (n_win, d), "var": (n_win, d)}, from the backend's
+    ``windowed_moments`` sums (the rolling-moments kernel on "cuda").
+
+    The sums run on the globally centred series: the variance is
+    shift-invariant, and E[x^2] - E[x]^2 in float32 cancels catastrophically
+    for a high-mean series, so the second moment is taken about the global
+    mean and clamped at 0.
+    """
+    if x.ndim == 1:
+        x = x[:, None]
+    mu = mean(x.float())
+    s = get_backend(backend, x.device).windowed_moments(x - mu[None, :], window)
+    m_c = s[:, 0] / window
+    var = torch.clamp(s[:, 1] / window - m_c * m_c, min=0.0)
+    return {"mean": m_c + mu[None, :], "var": var}

@@ -1,14 +1,17 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-Every ``kernels/*/csrc/*.cu`` is compiled by ONE ``nvcc`` call into a shared
-library with a plain C interface, under ``build/repro_torch/`` at the root
-of the checkout, on first use.  A header-only C interface keeps the build to
-seconds (no PyTorch headers are compiled).  The library's file name carries
-a hash of the sources and flags, so an edited source never loads a stale
-build.
+Every ``kernels/*/csrc/*.cu`` is compiled into one shared library with a
+plain C interface, under ``build/repro_torch/`` at the root of the
+checkout, on first use: one ``nvcc -c`` per source, all started together,
+then one ``nvcc -shared`` link.  A header-only C interface keeps the build
+to seconds (no PyTorch headers are compiled).  The library's file name
+carries a hash of the sources and flags, so an edited source never loads a
+stale build.
 
-The C entry points take a pointer to a :class:`PlanParams` (mirrored below
-from ``csrc/stats_tiles.cuh``) and the CUDA stream; each returns
+The C entry points take a pointer to a parameter struct (mirrored below:
+:class:`PlanParams` from ``csrc/stats_tiles.cuh``, :class:`MomentParams`
+from ``window_stats/csrc/window_stats.cu``, :class:`BandParams` from
+``banded_matvec/csrc/banded_matvec.cu``) and the CUDA stream; each returns
 ``cudaGetLastError()`` after its launches, and :func:`check` raises on a
 non-zero code.
 """
@@ -23,14 +26,15 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["PlanParams", "WelchMember", "library", "build", "check",
-           "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC"]
+__all__ = ["PlanParams", "WelchMember", "MomentParams", "BandParams", "library", "build",
+           "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "BAND_COLS",
+           "BAND_PASS", "BAND_VCOLS", "THREADS"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 # Compile-time constants of csrc/stats_tiles.cuh.
 MAX_WINDOWS = 8
@@ -38,6 +42,11 @@ MAX_WELCH = 4
 TILE = 64
 FREQ_TILE = 32
 KC = 32
+THREADS = 256
+# Compile-time constants of banded_matvec/csrc/banded_matvec.cu.
+BAND_COLS = 256
+BAND_PASS = 8
+BAND_VCOLS = 1024
 
 
 class WelchMember(ctypes.Structure):
@@ -89,8 +98,41 @@ class PlanParams(ctypes.Structure):
     ]
 
 
+class MomentParams(ctypes.Structure):
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("n", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("n_out", ctypes.c_int),
+        ("chain", ctypes.c_int),
+        ("ctas", ctypes.c_int),
+    ]
+
+
+class BandParams(ctypes.Structure):
+    _fields_ = [
+        ("coef", ctypes.c_void_p),
+        ("x", ctypes.c_void_p),
+        ("y", ctypes.c_void_p),
+        ("m", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("b", ctypes.c_int),
+        ("halo", ctypes.c_int),
+        ("vec", ctypes.c_int),
+        ("rows_per_cta", ctypes.c_int),
+        ("rows_per_pass", ctypes.c_int),
+        ("col_tiles", ctypes.c_int),
+        ("row_slabs", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+    ]
+
+
 ENTRY_POINTS = ("rt_cross_lag_sums", "rt_fused_lag_moments", "rt_segment_power",
-                "rt_fused_plan")
+                "rt_fused_plan", "rt_window_moments", "rt_segment_csd", "rt_banded_matvec")
+STRUCT_SIZES = (("rt_plan_params_size", PlanParams), ("rt_welch_member_size", WelchMember),
+                ("rt_moment_params_size", MomentParams), ("rt_band_params_size", BandParams))
 
 
 def sources() -> list:
@@ -107,9 +149,10 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> tuple:
     """Compile every ``csrc/*.cu`` into one library; returns (path, seconds,
-    compiler output).  Reuses an existing build of the same sources.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
-    per kernel in the compiler output)."""
+    compiler output).  Reuses an existing build of the same sources.  The
+    sources compile in parallel, one ``nvcc`` each; ``verbose`` adds
+    ``-Xptxas -v`` (registers, shared memory and spills per kernel in the
+    compiler output)."""
     srcs = sources()
     headers = sorted(KERNELS_DIR.glob("csrc/*.cuh"))
     digest = hashlib.sha1()
@@ -120,17 +163,31 @@ def build(verbose: bool = False) -> tuple:
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp.so")
+    objs = [BUILD_DIR / f"{tag}.{src.parent.parent.name}.{src.stem}.o" for src in srcs]
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    cmd = [_nvcc(), *flags, "-I", str(KERNELS_DIR / "csrc"), "-o", str(tmp),
-           *map(str, srcs)]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *flags, "-I", str(KERNELS_DIR / "csrc"), "-c",
+                               "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(src, proc.returncode, log) for src, proc, log in zip(srcs, procs, logs)
+              if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, link.stdout + link.stderr))
     seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src} ({code}):\n{log}" for src, code, log in failed))
     os.replace(tmp, out)
-    return out, seconds, proc.stdout + proc.stderr
+    return out, seconds, "".join(logs)
 
 
 def load(path) -> ctypes.CDLL:
@@ -140,8 +197,7 @@ def load(path) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name, struct in (("rt_plan_params_size", PlanParams),
-                         ("rt_welch_member_size", WelchMember)):
+    for name, struct in STRUCT_SIZES:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         if fn() != ctypes.sizeof(struct):

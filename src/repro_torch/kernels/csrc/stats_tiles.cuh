@@ -13,7 +13,8 @@
 //                 mask), so K windows cost O(K) per row, not O(max w);
 //   welch_role    one CTA: detrended, tapered |DFT|^2 of a group of
 //                 candidate segments for one 32-frequency x 64-channel tile,
-//                 as two contractions against the taper-folded twiddles.
+//                 as two contractions against the taper-folded twiddles
+//                 (seg_dft_tile, which the cross-spectra kernel shares).
 //
 // A Pallas kernel on the TPU accumulates into an output block that every
 // step of a sequential grid revisits.  CTAs here run in parallel and in no
@@ -196,13 +197,16 @@ static __device__ void moment_role(const PlanParams& p, int cta, float* smem) {
   __syncthreads();
 }
 
-// ------------------------------------------------------ segment DFT power
-// Adds re^2 + im^2 of one segment to psd for the CTA's (32 f x 64 channel)
-// tile: re = C^T (y - mu), im = S^T (y - mu), mu the per-channel mean.
-static __device__ void seg_power_tile(const float* seg, int L, int d,
-                                      const float* C, const float* S, int F,
-                                      int f0, int j0, int detrend,
-                                      float psd[2][4], float* smem) {
+// ------------------------------------------------------ segment DFT
+// The DFT of one segment for the CTA's (32 f x 64 channel) tile:
+// re = C^T (y - mu), im = S^T (y - mu), mu the per-channel mean (0 without
+// detrend).  Thread (tx, ty) holds frequencies f0 + 2 ty + r and channels
+// j0 + 4 tx + c in re[r][c], im[r][c].  Ends after a __syncthreads(), so
+// the caller may reuse smem at once.
+static __device__ void seg_dft_tile(const float* seg, int L, int d,
+                                    const float* C, const float* S, int F,
+                                    int f0, int j0, int detrend,
+                                    float re[2][4], float im[2][4], float* smem) {
   float* Ys = smem;                    // [RT_KC][RT_TILE]
   float* Cs = Ys + RT_KC * RT_TILE;    // [RT_KC][RT_FT]
   float* Ss = Cs + RT_KC * RT_FT;      // [RT_KC][RT_FT]
@@ -226,7 +230,6 @@ static __device__ void seg_power_tile(const float* seg, int L, int d,
     __syncthreads();
   }
 
-  float re[2][4], im[2][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -262,6 +265,15 @@ static __device__ void seg_power_tile(const float* seg, int L, int d,
     }
     __syncthreads();
   }
+}
+
+// Adds re^2 + im^2 of one segment to psd for the CTA's tile.
+static __device__ void seg_power_tile(const float* seg, int L, int d,
+                                      const float* C, const float* S, int F,
+                                      int f0, int j0, int detrend,
+                                      float psd[2][4], float* smem) {
+  float re[2][4], im[2][4];
+  seg_dft_tile(seg, L, d, C, S, F, f0, j0, detrend, re, im, smem);
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll

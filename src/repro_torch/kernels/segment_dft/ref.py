@@ -1,6 +1,6 @@
-"""Plain PyTorch version of the segment-DFT power kernel (port of
-`repro.kernels.segment_dft.ref`): the matmul form against taper-folded
-twiddle matrices."""
+"""Plain PyTorch versions of the segment-DFT kernels (port of
+`repro.kernels.segment_dft.ref`): power and cross-spectra, both in the
+matmul form against taper-folded twiddle matrices (no library FFT)."""
 from __future__ import annotations
 
 import functools
@@ -8,7 +8,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["dft_phase", "dft_power_matrices", "segment_dft_power_ref"]
+__all__ = ["dft_phase", "dft_power_matrices", "segment_dft_power_ref", "segment_dft_ref",
+           "segment_csd_ref"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -34,13 +35,27 @@ def dft_power_matrices(L: int, taper: torch.Tensor) -> tuple:
     return taper * torch.cos(ang), -taper * torch.sin(ang)
 
 
-def segment_dft_power_ref(segments: torch.Tensor, taper: torch.Tensor,
-                          detrend: bool = True) -> torch.Tensor:
-    """(S, L, d) segments -> (S, L//2+1, d) power |rfft((y - mean) taper)|^2."""
+def segment_dft_ref(segments: torch.Tensor, taper: torch.Tensor,
+                    detrend: bool = True) -> tuple:
+    """(S, L, d) segments -> (re, im), each (S, L//2+1, d) float32: the real
+    and imaginary parts of rfft((y - mean) taper) per segment."""
     y = segments.float()
     if detrend:
         y = y - y.mean(dim=1, keepdim=True)
     C, S = dft_power_matrices(segments.shape[1], taper)
-    re = torch.einsum("std,tf->sfd", y, C)
-    im = torch.einsum("std,tf->sfd", y, S)
+    return torch.einsum("std,tf->sfd", y, C), torch.einsum("std,tf->sfd", y, S)
+
+
+def segment_dft_power_ref(segments: torch.Tensor, taper: torch.Tensor,
+                          detrend: bool = True) -> torch.Tensor:
+    """(S, L, d) segments -> (S, L//2+1, d) power |rfft((y - mean) taper)|^2."""
+    re, im = segment_dft_ref(segments, taper, detrend)
     return re * re + im * im
+
+
+def segment_csd_ref(segments: torch.Tensor, taper: torch.Tensor,
+                    detrend: bool = True) -> torch.Tensor:
+    """(S, L, d) segments -> (S, L//2+1, d, d) complex64 per-segment
+    cross-spectral products rfft_i * conj(rfft_j), Hermitian in (i, j)."""
+    f = torch.complex(*segment_dft_ref(segments, taper, detrend))
+    return f[..., :, None] * f.conj()[..., None, :]

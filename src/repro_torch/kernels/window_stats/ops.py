@@ -9,23 +9,28 @@ kernel launches or the call raises.
 Kernels (``csrc/window_stats.cu``):
   * ``cross_window_stats`` -- S(h) = sum_k a_k b_{k+h}^T; serves
     ``lagged_sums``, ``cross_lagged_sums`` and ``masked_lagged_sums``;
-  * ``fused_lag_moments`` -- masked lag sums plus K-window moment sums.
+  * ``fused_lag_moments`` -- masked lag sums plus K-window moment sums;
+  * ``window_moments`` -- rolling [sum x, sum x^2] per window start; serves
+    ``windowed_moments``.
 """
 from __future__ import annotations
 
 import torch
 
+from .._build import THREADS, MomentParams
 from .._launch import (Kernel, Prepared, add_lag, add_moments, check_window_count,
                        new_params, on_cuda, register, require, sm_count)
 from .ref import (as_2d, cross_lagged_sums_ref, extend_rows, fused_lag_moments_ref,
-                  normalize_windows)
+                  normalize_windows, window_moments_ref)
 
-__all__ = ["CROSS_WINDOW_STATS", "FUSED_LAG_MOMENTS", "cross_lagged_sums",
-           "lagged_sums", "masked_lagged_sums", "fused_lagged_moments",
-           "prepare_cross_lagged_sums", "prepare_fused_lag_moments"]
+__all__ = ["CROSS_WINDOW_STATS", "FUSED_LAG_MOMENTS", "WINDOW_MOMENTS", "cross_lagged_sums",
+           "lagged_sums", "masked_lagged_sums", "fused_lagged_moments", "windowed_moments",
+           "prepare_cross_lagged_sums", "prepare_fused_lag_moments",
+           "prepare_window_moments", "moment_chain"]
 
 CROSS_WINDOW_STATS = register(Kernel("cross_window_stats", "rt_cross_lag_sums"))
 FUSED_LAG_MOMENTS = register(Kernel("fused_lag_moments", "rt_fused_lag_moments"))
+WINDOW_MOMENTS = register(Kernel("window_moments", "rt_window_moments"))
 
 
 def prepare_cross_lagged_sums(a: torch.Tensor, b: torch.Tensor, max_lag: int) -> Prepared:
@@ -59,6 +64,46 @@ def prepare_fused_lag_moments(y: torch.Tensor, start_mask: torch.Tensor, max_lag
     mom_part, mom = add_moments(p, windows, prefix, L + max(windows) - 1, sms, y.device)
     return Prepared(FUSED_LAG_MOMENTS, p, y.device, (lag, mom),
                     (y, m, prefix, lag_part, mom_part))
+
+
+def moment_chain(n_out: int, d: int, window: int, sms: int) -> int:
+    """Window starts per thread of the rolling-moments kernel: long enough
+    that a chain's first window (``window`` reads) costs at most half its
+    slide, short enough that about 512 threads per SM have a chain."""
+    per_thread = -(-n_out * d // (512 * sms))
+    return max(64, min(max(2 * window, 1024), per_thread))
+
+
+def prepare_window_moments(x: torch.Tensor, window: int) -> Prepared:
+    """Rolling moment sums of a contiguous float32 (n, d) series;
+    ``.launch()`` returns (n - window + 1, 2, d)."""
+    n, d = x.shape
+    require(x, "x", (n, d))
+    n_out = n - window + 1
+    if window < 1 or n_out < 1:
+        raise ValueError(f"series of length {n} has no full window of width {window}")
+    out = torch.empty((n_out, 2, d), device=x.device)
+    require(out, "out", (n_out, 2, d))
+    p = MomentParams()
+    p.x, p.out = x.data_ptr(), out.data_ptr()
+    p.n, p.d, p.w, p.n_out = n, d, window, n_out
+    p.chain = moment_chain(n_out, d, window, sm_count(x.device))
+    chains = -(-n_out // p.chain)
+    p.ctas = -(-chains * d // THREADS)
+    return Prepared(WINDOW_MOMENTS, p, x.device, out, (x,))
+
+
+def windowed_moments(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(n - window + 1, 2, d) of [sum x, sum x^2] over every full
+    width-``window`` slice of ``x`` ((n,) or (n, d), any float dtype, float32
+    out).  Raises ValueError when the series has no full window."""
+    x = as_2d(x).float()
+    n = x.shape[0]
+    if window < 1 or n - window + 1 < 1:
+        raise ValueError(f"series of length {n} has no full window of width {window}")
+    if not on_cuda(x):
+        return window_moments_ref(x, window)
+    return prepare_window_moments(x.contiguous(), window).launch()
 
 
 def cross_lagged_sums(a: torch.Tensor, b: torch.Tensor, max_lag: int) -> torch.Tensor:

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["normalize_windows", "as_2d", "extend_rows", "cross_lagged_sums_ref",
-           "lagged_sums_ref", "masked_lagged_sums_ref", "fused_lag_moments_ref"]
+           "lagged_sums_ref", "masked_lagged_sums_ref", "fused_lag_moments_ref",
+           "window_moments_ref"]
 
 
 def normalize_windows(window: "int | tuple") -> tuple:
@@ -89,3 +90,20 @@ def fused_lag_moments_ref(y_padded: torch.Tensor, start_mask: torch.Tensor,
         moms.append(torch.stack([(m * s1).sum(0), (m * s2).sum(0)]))
     mom = torch.stack(moms)
     return lag, (mom[0] if single else mom)
+
+
+def window_moments_ref(x: torch.Tensor, window: int, dtype=torch.float64) -> torch.Tensor:
+    """(n-window+1, 2, d) float32 of [sum x, sum x^2] over every full
+    width-``window`` slice, as differences of one cumulative sum taken in
+    ``dtype``.  In float64 (the default) the cumulative sums keep about 1e-16
+    of their magnitude, so this is the precise plain version; in float32 it
+    is the ``JnpBackend`` formula, which loses digits over long series."""
+    x = as_2d(x)
+    n, d = x.shape
+    if window < 1 or n - window + 1 < 1:
+        raise ValueError(f"series of length {n} has no full window of width {window}")
+    xt = x.to(dtype).t().contiguous()  # (d, n): each channel's scan runs along memory
+    cs = torch.nn.functional.pad(torch.cumsum(xt, 1), (1, 0))
+    cs2 = torch.nn.functional.pad(torch.cumsum(xt * xt, 1), (1, 0))
+    sums = torch.stack([cs[:, window:] - cs[:, :-window], cs2[:, window:] - cs2[:, :-window]])
+    return sums.permute(2, 0, 1).float().contiguous()

@@ -21,6 +21,14 @@ def test_imports_and_runs_without_jax():
         "out = repro_torch.analyze(x, [plan.autocovariance_request(3), plan.moments_request(8),"
         " plan.welch_request(32, 16)], chunk_size=120, device='cpu')\n"
         "assert out['autocovariance'].shape == (4, 2, 2)\n"
+        "import torch\n"
+        "from repro_torch.core.estimators import spatial, spectral, stats\n"
+        "from repro_torch.kernels.banded_matvec import ops, ref\n"
+        "xt = torch.from_numpy(x)\n"
+        "assert repro_torch.windowed_moments(xt, 16)['var'].shape == (485, 2)\n"
+        "assert repro_torch.welch_csd(xt, 32, 16)[1].shape == (17, 2, 2)\n"
+        "fit = repro_torch.fit_banded_ar(xt, 1, n_steps=2, step_size=0.5)\n"
+        "assert fit.diags.shape == (2, 3) and fit.nll_trace.shape == (2,)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -79,3 +79,60 @@ def test_welch_bound_counts_an_fft_not_the_twiddle_contraction():
     ms, by = smoke.bound_ms(nbytes, 513 * 64 * (2.5 * 256 * 8 + 3 * 256 + 3 * 129))
     assert by == "bytes"
     assert ms == pytest.approx(nbytes / smoke.PEAK_BYTES * 1e3)
+
+
+# ------------------------------------------------ kernels 5-7 checks
+def test_scaled_error_is_per_entry_and_takes_complex_and_broadcast_scales():
+    want = torch.tensor([[1.0 + 1.0j, 100.0 + 0.0j]])
+    got = want.clone()
+    got[0, 0] += 2e-4
+    scale = torch.tensor([[1.0, 100.0]])
+    err, rel, finite = smoke.scaled_error(got, want, scale)
+    assert finite and err == pytest.approx(2e-4, rel=1e-3) and rel == pytest.approx(2e-4, rel=1e-3)
+    # a leading 1 broadcasts over the rows, which are walked in chunks
+    want = torch.randn(10, 3, dtype=torch.float64)
+    scale = torch.ones(1, 3)
+    assert smoke.scaled_error(want.clone(), want, scale, max_elems=3)[1] == 0.0
+    bad = want.clone()
+    bad[7, 1] = float("nan")
+    assert not smoke.scaled_error(bad, want, scale, max_elems=3)[2]
+
+
+@pytest.mark.parametrize("shape,scale_shape", [((6, 4), (6, 4)), ((5, 3, 2, 2), (1, 3, 2, 2))])
+def test_planted_error_is_caught_at_its_own_scale(shape, scale_shape):
+    g = torch.Generator().manual_seed(3)
+    want = torch.randn(shape, generator=g)
+    scale = torch.rand(scale_shape, generator=g) + 1e-3
+    assert smoke.planted_error_caught(want.clone(), want, scale, 1e-5)
+
+
+def test_new_kernel_bounds_at_the_slice_shapes():
+    """The byte bounds of kernels 5-7 at the shapes the paths run."""
+    n, d = 2**22, 64
+    b5, f5, _ = smoke.new_kernel_work("window_moments", dict(n=n, d=d, w=1024))
+    assert smoke.bound_ms(b5, f5) == (pytest.approx(b5 / smoke.PEAK_BYTES * 1e3), "bytes")
+    assert 0.9 < b5 / smoke.PEAK_BYTES * 1e3 < 1.0  # 3.22 GB: 0.96 ms
+    b6, f6, design6 = smoke.new_kernel_work("segment_csd", dict(S=1023, L=256, d=64))
+    assert smoke.bound_ms(b6, f6)[1] == "bytes" and design6 > f6
+    assert 1.30 < b6 / smoke.PEAK_BYTES * 1e3 < 1.32  # 4.32 GB written, 4.39 GB moved
+    valid = 131072 * 9 - 4 * 5
+    b7, f7, _ = smoke.new_kernel_work("banded_matvec",
+                                      dict(m=2047, d=131072, b=4, valid_slots=valid))
+    assert smoke.bound_ms(b7, f7)[1] == "bytes"
+    assert 0.64 < b7 / smoke.PEAK_BYTES * 1e3 < 0.645  # 2.15 GB
+    assert f7 / smoke.PEAK_FP32 * 1e3 == pytest.approx(0.0721, rel=1e-2)
+
+
+def test_band_helpers_and_the_fit_step_size():
+    g = torch.Generator().manual_seed(4)
+    d, b = 11, 2
+    diags = torch.randn(d, 2 * b + 1, generator=g) * smoke.band_valid(d, b, "cpu")
+    x = torch.randn(d, 3, generator=g)
+    from repro_torch.core.estimators.spatial import banded_to_dense
+
+    dense = banded_to_dense(diags)
+    torch.testing.assert_close(torch.sparse.mm(smoke.band_csr(diags), x), dense @ x)
+    assert int(smoke.band_valid(d, b, "cpu").sum()) == d * (2 * b + 1) - b * (b + 1)
+    # 2 / (lambda_min + lambda_max) with the covariance between I and I / (1 - 0.45^2)
+    assert smoke.A_NORM == pytest.approx(0.45)
+    assert smoke.STEP_SIZE == pytest.approx(2 / (1 + 1 / (1 - 0.45**2)))
