@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's seven CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+Builds the port's eight CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each against its plain PyTorch version on the card, drives the fused
 statistics plan end to end at full width through ``SeriesFrame``, runs the
-single-family plans, then the three further paths -- the §6 banded spatial
-AR fit, rolling moments and cross-spectra -- times every kernel, and prints
-one JSON line per phase.  The second-to-last line lists the kernels; the
-last line names the device and is printed only when every phase passed.
+single-family plans, then the three further statistics paths -- the §6
+banded spatial AR fit, rolling moments and cross-spectra -- times kernels
+1-7, then checks and times kernel 8 (sliding-window attention) and serves
+h2o-danube-1.8b at full width and depth through ``ServeEngine.generate``,
+printing one JSON line per phase.  The second-to-last line lists the
+kernels; the last line names the device and is printed only when every
+phase passed.
 
     python3 chip_smoke.py [--seed 0] [--chunks 64]
 
@@ -16,12 +19,17 @@ channel, 1 GiB of float32 on the card), plan = autocovariance(16),
 yule_walker(8), arma(2, 1), moments(64), moments(1024), welch(256, 128).
 Rolling moments (w = 64, 1024) run over the same series, cross-spectra over
 its first 131,072 rows (nperseg 256, overlap 128), and the spatial fit over
-a banded AR(1) of d = 131,072, b = 4, simulated for 2,048 steps.
+a banded AR(1) of d = 131,072, b = 4, simulated for 2,048 steps.  Serving:
+h2o-danube-1.8b (24 layers, d_model 2560, 32 query / 8 KV heads of 80,
+window 4096) in bf16 with random weights from ``--seed``, 4 prompts of
+8,000 tokens, 32 greedy new tokens each.
 Exits non-zero, printing no result, without a GPU or when a phase fails.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -80,6 +88,42 @@ CSD_ROWS = 131072
 NLL_NOISE = 1e-6
 NLL_MIN_DESCENT = 3  # steps that must fall strictly before the noise floor
 
+# Kernel 8 and the serving path: h2o-danube-1.8b at full width and depth in
+# bf16, 4 requests of 8,000 prompt tokens (above the 4,096 window, not a
+# multiple of 64; the prefill ring shifts 3,904) and 32 greedy new tokens
+# each (decode wraps the ring).  Kernel 8's layer shape is that prefill's.
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "danube", 4, 8000, 32
+SWA_B, SWA_S, SWA_H, SWA_KVH, SWA_D, SWA_W = 4, 8000, 32, 8, 80, 4096
+# Kernel 8 per entry against its row's max|v| (an output row is a convex
+# combination of its window's rows of v): f32 1e-5 (both sides accumulate in
+# f32 in another order); bf16 1e-2 (P is rounded to bf16 before P V on both
+# sides, at other points: the kernel before normalising, the plain version
+# after).  That scale bounds the output but, over a full window of random
+# v, is about 100 times a typical output entry; so each output row (one
+# position and head, D entries) is also held by its norm, ||kernel - plain||
+# / ||plain||: at most SWA_ROW_TOL in every row, and at most SWA_ROW_MEAN_TOL
+# on average over the rows whose window is full.  On the H100, bf16 (each
+# side rounds P and the output to bf16) read 1.47e-2 at most over the 1.02M
+# rows of the layer shape and 4.1-4.8e-3 on average; f32 (accumulation
+# order) 1.2e-6 and 8.4e-7: the limits are about twice the bf16 readings.
+# The kernel run at W - 64 against the plain version at W must fail them.
+# The served model's logits against the plain path's: 3e-2 of the row's
+# max|logit| (24 bf16 layers, each rounding its activations).
+SWA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SWA_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+SWA_ROW_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SWA_FAULT = 64  # keys dropped from the window in the fault readings
+SERVE_TOL = 3e-2
+SWA_EDGE = {  # name: (S, W, G, D) at B = 1, 2 KV heads
+    "s1000_w70_g4_d80": (1000, 70, 4, 80),
+    "s1000_w1_g4_d80": (1000, 1, 4, 80),
+    "s1000_w_is_s_g1_d64": (1000, 1000, 1, 64),
+    "s1000_w4096_g4_d128": (1000, 4096, 4, 128),
+    "s1000_w70_g1_d128": (1000, 70, 1, 128),
+    "s1000_w70_g4_d64": (1000, 70, 4, 64),
+}
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+
 KERNEL_INFO = {
     "fused_plan_megakernel": ("src/repro_torch/kernels/fused_plan/csrc/fused_plan.cu",
                               "src/repro/kernels/fused_plan/kernel.py:145"),
@@ -95,6 +139,8 @@ KERNEL_INFO = {
                     "src/repro/kernels/segment_dft/kernel.py:82"),
     "banded_matvec": ("src/repro_torch/kernels/banded_matvec/csrc/banded_matvec.cu",
                       "src/repro/kernels/banded_matvec/kernel.py:41"),
+    "swa_attention": ("src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
+                      "src/repro/kernels/swa_attention/kernel.py:90"),
 }
 
 
@@ -280,8 +326,8 @@ def device_split(fn, calls: int = 5) -> tuple:
     return top, sum(split.values()), wall
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32) -> tuple:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -404,38 +450,74 @@ def new_kernel_work(name: str, shape: dict) -> tuple:
     raise KeyError(name)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--chunks", type=int, default=64, help="chunks of 65,536 rows")
-    args = ap.parse_args()
+def swa_work(b: int, s: int, h: int, kvh: int, d: int, window: int, itemsize: int) -> tuple:
+    """(bytes, operations) of sliding-window attention: q, k, v read once,
+    out written once; 4 D operations (a multiply-add in each of Q K^T and
+    P V) per unmasked (query, key) pair of every head."""
+    from repro_torch.kernels.swa_attention.ref import valid_pairs
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
+    nbytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * itemsize
+    return nbytes, 4 * d * valid_pairs(s, window) * b * h
+
+
+def row_norm_errors(got, want):
+    """||got - want|| / ||want|| over the last axis, in float64, per row of
+    a (B, ...) tensor (a row that matches exactly counts 0)."""
+    out = []
+    for g, w in zip(got, want):
+        diff = (g.double() - w.double()).norm(dim=-1)
+        ref = w.double().norm(dim=-1)
+        out.append(torch.where(diff == 0, torch.zeros_like(diff), diff / ref))
+    return torch.stack(out)
+
+
+def planted_row_error_caught(got, want, tol: float) -> bool:
+    """Whether :func:`row_norm_errors` rejects ``got`` with one middle entry
+    moved by 2 tol of its row's norm (checked on that entry's leading slice)."""
+    idx = tuple(n // 2 for n in got.shape)
+    row = slice(idx[0], idx[0] + 1)
+    planted = got[row].clone()
+    planted[(0,) + idx[1:]] += 2 * tol * want[idx[:-1]].double().norm().item()
+    return row_norm_errors(planted, want[row]).max().item() > tol
+
+
+def row_rel_errors(got, want):
+    """max |got - want| / max |want| over the last axis (one logits row)."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1e-30)
+
+
+def greedy_disagreements(plain, tokens, tol: float) -> tuple:
+    """(decided, disagreeing) steps: a step is decided where the plain
+    logits' top-2 margin exceeds ``tol`` of the row's max|logit|; there
+    the served token must be the plain argmax.  plain (B, T, V), tokens
+    (B, T)."""
+    top2 = plain.float().topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > tol * plain.float().abs().amax(-1)
+    wrong = decided & (plain.argmax(-1) != tokens.to(plain.device).long())
+    return int(decided.sum()), int(wrong.sum())
+
+
+def serve_launches_ok(launches: dict, layers: int) -> bool:
+    """Kernel 8 pinned on the serving path: one launch per layer in each
+    prefill (the generate's, the split prefill's, the extended one's),
+    none in decode."""
+    return (launches["generate"] == layers and launches["prefill"] == layers
+            and launches["extended_prefill"] == layers and launches["decode"] == 0)
+
+
+def stats_paths(args, dev) -> dict:
+    """Phases 2-8: kernels 1-7 against their plain versions, the fused plan
+    end to end, the single-family plans, the spatial fit, rolling moments,
+    cross-spectra and the kernels' timing.  Returns each kernel's parity
+    cases, timing, bound and launches on its own path."""
     from repro_torch import SeriesFrame
     from repro_torch.core.estimators.spectral import hann_window
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels import _build
     from repro_torch.kernels.banded_matvec import ops as bm, ref as bmr
     from repro_torch.kernels.fused_plan import ops as fp, ref as fpr
     from repro_torch.kernels.segment_dft import ops as sd, ref as sdr
     from repro_torch.kernels.window_stats import ops as ws, ref as wsr
-
-    dev = torch.device("cuda", 0)
-
-    # ---------------------------------------------------- 1. device, build
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-          "nvidia-smi: no output", flush=True)
-    path, nvcc_s, log = _build.build(verbose=True)
-    _build.library()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "nvcc_seconds": nvcc_s, "library": os.path.relpath(path, ROOT),
-          "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "ptxas": ptxas})
 
     # ------------------------------------------------ 2. kernel parity
     n_total = args.chunks * CHUNK
@@ -1121,13 +1203,314 @@ def main() -> None:
                             "banded_matvec": "torch.sparse.mm(band as CSR, x^T) (x^T "
                                              "prepared once)"}})
 
-    # ------------------------------------------------ 9. the kernels line
     # launches: each kernel's count from the run of its own path (the fused
     # plan for kernels 1-4, the spatial fit with its simulation for 7,
     # rolling moments for 5, cross-spectra for 6); ms and bound of kernel 5
     # at w = 1024
-    path_launches = {**counts, "banded_matvec": band_launches,
-                     "window_moments": rolling_launches, "segment_csd": csd_launches}
+    launches = {**counts, "banded_matvec": band_launches,
+                "window_moments": rolling_launches, "segment_csd": csd_launches}
+    return {"parity": parity, "timing": timing, "bounds": bounds, "launches": launches}
+
+
+def swa_kernel(args, dev) -> dict:
+    """Phase 9: kernel 8 against the chunked plain version at the prefill's
+    layer shape and over an edge grid (bf16 and f32), then timed at the
+    layer shape beside its bound, the plain version and SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.swa_attention import ops as sw, ref as swr
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 4)
+
+    def qkv(b, s, h, kvh, d, dtype):
+        return tuple(torch.randn((b, s, n, d), generator=gen, device=dev).to(dtype)
+                     for n in (h, kvh, kvh))
+
+    def row_scale(q, k, v, window):
+        return swr.swa_row_scale(v, window, q.shape[2])
+
+    def rows_check(got, want, window):
+        """(max, mean over the full-window rows) of the per-row norm error,
+        and whether both are within their limits."""
+        rows = row_norm_errors(got, want)
+        worst, mean = rows.max().item(), rows[:, min(window, want.shape[1]) - 1:].mean().item()
+        return worst, mean, worst <= SWA_ROW_TOL[want.dtype] and mean <= SWA_ROW_MEAN_TOL[want.dtype]
+
+    def case(q, k, v, window, fault: bool = False):
+        tol, row_tol = SWA_TOL[q.dtype], SWA_ROW_TOL[q.dtype]
+        got, again = sw.swa_attention(q, k, v, window), sw.swa_attention(q, k, v, window)
+        torch.cuda.synchronize()
+        want, scale = swr.swa_attention_chunked(q, k, v, window), row_scale(q, k, v, window)
+        err, rel, finite = scaled_error(got, want, scale)
+        worst, mean, rows_ok = rows_check(got, want, window)
+        res = {"max_abs_err": err, "max_rel_err": rel, "tol": tol, "finite": finite,
+               "row_norm_rel_err": worst, "row_norm_rel_err_full_window_mean": mean,
+               "row_tol": row_tol, "row_mean_tol": SWA_ROW_MEAN_TOL[q.dtype],
+               "bitwise_repeat": bool(torch.equal(got, again)),
+               "planted_error_caught": planted_error_caught(got, want, scale, tol),
+               "planted_row_error_caught": planted_row_error_caught(got, want, row_tol),
+               "shape": list(got.shape)}
+        res["ok"] = (finite and rel <= tol and rows_ok and res["bitwise_repeat"]
+                     and res["planted_error_caught"] and res["planted_row_error_caught"])
+        if fault:  # the kernel at W - SWA_FAULT held to the plain version at W
+            bad = sw.swa_attention(q, k, v, window - SWA_FAULT)
+            worst, mean, rows_ok = rows_check(bad, want, window)
+            res["fault"] = {"window": window - SWA_FAULT,
+                            "max_rel_err": scaled_error(bad, want, scale)[1],
+                            "row_norm_rel_err": worst, "row_norm_rel_err_full_window_mean": mean,
+                            "caught": not rows_ok}
+            res["ok"] = res["ok"] and res["fault"]["caught"]
+        return res
+
+    full = qkv(SWA_B, SWA_S, SWA_H, SWA_KVH, SWA_D, torch.bfloat16)
+    parity = {"layer_shape": case(*full, SWA_W, fault=True)}
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for name, (s, w, g, d) in SWA_EDGE.items():
+            parity[f"{name}_{tag}"] = case(*qkv(1, s, 2 * g, 2, d, dtype), w)
+    emit({"phase": "parity_swa_attention", "tolerance": "per entry: max|kernel - chunked "
+          "plain| <= tol * the row's max|v| over its window; per output row: ||kernel - "
+          "plain|| / ||plain|| <= row_tol, and <= row_mean_tol on average over the rows whose "
+          "window is full; two launches bitwise equal; an error of 2 tol "
+          "planted in one entry caught by each check; at the layer shape the kernel at "
+          f"W - {SWA_FAULT} fails the row checks",
+          "tol": {"bf16": SWA_TOL[torch.bfloat16], "f32": SWA_TOL[torch.float32]},
+          "row_tol": {"bf16": SWA_ROW_TOL[torch.bfloat16], "f32": SWA_ROW_TOL[torch.float32]},
+          "row_mean_tol": {"bf16": SWA_ROW_MEAN_TOL[torch.bfloat16],
+                           "f32": SWA_ROW_MEAN_TOL[torch.float32]},
+          "cases": parity})
+    bad = [c for c, r in parity.items() if not r["ok"]]
+    if bad:
+        fail("kernel 8 parity", cases=bad)
+
+    # timing at the layer shape (q 164 MB: it comes from device memory)
+    q, k, v = full
+    scale = SWA_D ** -0.5
+    prep = sw.prepare_swa_attention(q, k, v, SWA_W, scale)
+    samples = graph_ms([prep.launch])
+    plain = swr.swa_attention_chunked(q, k, v, SWA_W)
+    pos = torch.arange(SWA_S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - SWA_W)
+    qt, kt, vt = (t.transpose(1, 2) for t in full)  # (B, heads, S, D) views
+    gqa = "enable_gqa=True"
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    try:
+        lib_out = sdpa()
+    except RuntimeError as err:  # this backend without GQA: repeat K/V before the call
+        gqa = f"K/V repeated to {SWA_H} heads before the call ({str(err)[:80]})"
+        kt = kt.repeat_interleave(SWA_H // SWA_KVH, dim=1)
+        vt = vt.repeat_interleave(SWA_H // SWA_KVH, dim=1)
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                        attn_mask=band)
+
+        lib_out = sdpa()
+    lib_rel = scaled_error(lib_out.transpose(1, 2), plain, row_scale(q, k, v, SWA_W))[1]
+    if lib_rel > SWA_TOL[torch.bfloat16]:
+        fail("the SDPA yardstick disagrees with the plain version", max_rel_err=lib_rel)
+    del lib_out, plain
+    nbytes, flops = swa_work(SWA_B, SWA_S, SWA_H, SWA_KVH, SWA_D, SWA_W, 2)
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
+    ms = samples[len(samples) // 2]
+    timing = {
+        "ms": ms, "ms_samples": samples,
+        "host_launch_ms": cuda_ms(prep.launch, 5, warmup=1),
+        "wrapper_ms": cuda_ms(lambda: sw.swa_attention(q, k, v, SWA_W), 5, warmup=1),
+        "plain_ms": cuda_ms(lambda: swr.swa_attention_chunked(q, k, v, SWA_W), 3, warmup=1),
+        "library_ms": cuda_ms(sdpa, 3, warmup=1),
+    }
+    emit({"phase": "timing_swa_attention", "shape": f"q ({SWA_B}, {SWA_S}, {SWA_H}, {SWA_D}), "
+          f"k/v ({SWA_B}, {SWA_S}, {SWA_KVH}, {SWA_D}) bf16, W={SWA_W}", **timing,
+          "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+          "gbytes": nbytes / 1e9, "tflop": flops / 1e12, "tflop_per_s": flops / ms / 1e9,
+          "library_call": f"F.scaled_dot_product_attention(band mask, {gqa}) under "
+                          "sdpa_kernel(EFFICIENT_ATTENTION): all S^2 pairs",
+          "library_max_rel_err": lib_rel,
+          "note": "ms: median of CUDA-graph replays of the prepared launch; host_launch_ms, "
+                  "wrapper_ms, plain_ms, library_ms: CUDA events around calls from the host"})
+    return {"parity": parity, "timing": timing, "bound": (b_ms, b_by)}
+
+
+def lm_serve(args, dev) -> int:
+    """Phase 10: serve h2o-danube-1.8b at full width and depth in bf16 with
+    random weights from ``--seed``: 4 prompts of 8,000 tokens, 32 greedy
+    new tokens each, through ``ServeEngine.generate``.  Checks the kernel
+    path against the same model on the chunked plain attention, and that a
+    window cut by SWA_FAULT keys fails that check; returns kernel 8's
+    launches in the generate."""
+    from repro_torch import ServeEngine, get_arch, init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, prefill
+
+    cfg = get_arch(SERVE_ARCH)
+    B, P, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=args.seed, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    n_params = sum(t.numel() for t in params.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 3)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    eng = ServeEngine(cfg, params, max_len=P + NEW, dtype=torch.bfloat16, device=dev)
+    eng.generate(prompts[:, :1000], 2)  # warm-up: cuBLAS handles at these widths
+
+    # the user's call, once, with the launch counts read around it
+    launches = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, NEW, keep_logits=True)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches["generate"] = launch_counts()["swa_attention"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = torch.from_numpy(res.tokens).to(dev)
+
+    # the same work split: prefill alone, then the decode steps alone
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, cache = prefill(params, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches["prefill"] = launch_counts()["swa_attention"]
+    cache = eng._grow_cache(cache, B)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, NEW):
+        _, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": P + i - 1}, cfg)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
+    launches["decode"] = launch_counts()["swa_attention"]
+    # where the time goes: device time by kernel of one generate, of one
+    # prefill and of one decode step (repeated at the same position, which
+    # rewrites the same cache slot with the same values)
+    split, busy_ms, wall_ms = device_split(lambda: eng.generate(prompts, NEW), calls=1)
+    pre_split, pre_busy, pre_wall = device_split(
+        lambda: prefill(params, {"tokens": prompts}, cfg), calls=1)
+    step = {"tokens": tokens[:, NEW - 2], "pos": P + NEW - 2}
+    dec_split, dec_busy, dec_wall = device_split(lambda: decode_step(params, cache, step, cfg),
+                                                 calls=3)
+    del cache
+
+    # 1-2: the plain path (chunked attention), the kernel path's tokens forced
+    plain_first, pcache = prefill(params, {"tokens": prompts}, cfg, attention=swa_attention_chunked)
+    pcache = eng._grow_cache(pcache, B)
+    steps = [plain_first]
+    for i in range(1, NEW):
+        logits, pcache = decode_step(params, pcache, {"tokens": tokens[:, i - 1],
+                                                      "pos": P + i - 1}, cfg)
+        steps.append(logits)
+    del pcache
+    plain = torch.stack([t.float() for t in steps], 1)  # (B, NEW, V)
+    served = res.logits
+    prefill_err = row_rel_errors(served[:, 0], plain[:, 0]).max().item()
+    decode_err = row_rel_errors(served[:, 1:], plain[:, 1:]).max().item()
+    # 3: one prefill over the prompt and the first NEW - 1 tokens gives the
+    # last decode step's logits (the ring cache at full width)
+    reset_launch_counts()
+    last, _ = prefill(params, {"tokens": torch.cat([prompts, tokens[:, :NEW - 1]], 1)}, cfg)
+    launches["extended_prefill"] = launch_counts()["swa_attention"]
+    ring_err = row_rel_errors(last, served[:, NEW - 1]).max().item()
+    del last
+    # a fault at full width: the kernel path with the window cut by SWA_FAULT
+    # keys; its prefill logits must fail check 1 against the plain path's
+    fault_cfg = dataclasses.replace(cfg, swa_window=cfg.swa_window - SWA_FAULT)
+    fault_first, _ = prefill(params, {"tokens": prompts}, fault_cfg)
+    fault_err = row_rel_errors(fault_first, plain[:, 0]).max().item()
+    del fault_first
+    # 4: greedy tokens equal the plain path's where its top-2 margin decides
+    decided, wrong = greedy_disagreements(plain, tokens, SERVE_TOL)
+    finite = bool(torch.isfinite(served).all() and torch.isfinite(plain).all())
+    out = {
+        "phase": "lm_serve", "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.resolved_head_dim,
+        "window": cfg.swa_window, "params": n_params, "dtype": "bfloat16",
+        "batch": B, "prompt_len": P, "new_tokens": NEW, "init_ms": init_ms,
+        "generate_ms": generate_ms, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "tokens_per_s": B * NEW / (generate_ms / 1e3),
+        "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+        "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_memory_gb": peak_gb,
+        "profiled_generate": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                              "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+                              "device_ms_by_kernel": split},
+        "profiled_prefill": {"wall_ms": pre_wall, "device_busy_ms": pre_busy,
+                             "device_ms_by_kernel": pre_split},
+        "profiled_decode_step": {"wall_ms": dec_wall, "device_busy_ms": dec_busy,
+                                 "device_ms_by_kernel": dec_split},
+        "launches": launches, "tol": SERVE_TOL,
+        "checks": {"prefill_vs_plain_rel_err": prefill_err,
+                   "teacher_forced_decode_vs_plain_rel_err": decode_err,
+                   "extended_prefill_vs_last_decode_rel_err": ring_err,
+                   "greedy_decided_steps": decided, "greedy_disagreements": wrong,
+                   "finite": finite},
+        "fault": {"window": fault_cfg.swa_window, "prefill_vs_plain_rel_err": fault_err,
+                  "caught": fault_err > SERVE_TOL},
+        "first_row_tokens": res.tokens[0][:8].tolist(),
+    }
+    out["ok"] = (serve_launches_ok(launches, cfg.n_layers) and finite
+                 and tuple(res.tokens.shape) == (B, NEW)
+                 and max(prefill_err, decode_err, ring_err) <= SERVE_TOL and wrong == 0
+                 and out["fault"]["caught"])
+    emit(out)
+    if not out["ok"]:
+        fail("lm_serve")
+    return launches["generate"]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunks", type=int, default=64, help="chunks of 65,536 rows")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs an NVIDIA GPU")
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+
+    # ---------------------------------------------------- 1. device, build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+          "nvidia-smi: no output", flush=True)
+    path, nvcc_s, log = _build.build(verbose=True)
+    _build.library()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit({"phase": "build", "nvcc_seconds": nvcc_s, "library": os.path.relpath(path, ROOT),
+          "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "ptxas": ptxas})
+
+    # phases 2-8 (the statistics paths, kernels 1-7); their multi-GB
+    # tensors are freed on return
+    stats = stats_paths(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 9-10: kernel 8 alone, then the LM serving path through it
+    swa = swa_kernel(args, dev)
+    serve_launches = lm_serve(args, dev)
+
+    # ------------------------------------------------ 11. the kernels line
+    # launches: each kernel's count from the run of its own path (kernel 8:
+    # the lm_serve generate, one prefill)
+    parity = {**stats["parity"], "swa_attention": swa["parity"]}
+    timing = {**stats["timing"], "swa_attention": swa["timing"]}
+    bounds = {**stats["bounds"], "swa_attention": swa["bound"]}
+    path_launches = {**stats["launches"], "swa_attention": serve_launches}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         t = timing[name]

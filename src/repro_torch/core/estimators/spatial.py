@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..backend import BackendSpec, get_backend
+from ..backend import BackendSpec, get_backend, resolve_device
 
 __all__ = [
     "BandedARModel",
@@ -62,11 +62,11 @@ class BandedARModel:
         return (self.diags.shape[1] - 1) // 2
 
     @classmethod
-    def from_numpy(cls, diags, device="cpu") -> "BandedARModel":
+    def from_numpy(cls, diags, device="cuda") -> "BandedARModel":
         """A model from (d, 2b+1) diagonals held as a numpy array (for
         example the reference's fitted ``diags``), as float32 on
-        ``device``."""
-        return cls(torch.as_tensor(np.array(diags, np.float32), device=device))
+        ``device`` (the card unless the CPU is asked for)."""
+        return cls(torch.as_tensor(np.array(diags, np.float32), device=resolve_device(device)))
 
     def to_numpy(self) -> np.ndarray:
         """The (d, 2b+1) float32 diagonals as a numpy array."""

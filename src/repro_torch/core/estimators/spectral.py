@@ -8,13 +8,16 @@ from typing import Optional, Tuple
 import torch
 
 from ...kernels.fused_plan.ref import welch_candidates
-from ..backend import BackendSpec, get_backend
+from ..backend import BackendSpec, get_backend, resolve_device
 
 __all__ = ["hann_window", "welch_psd", "welch_csd", "welch_chunk_kernel"]
 
 
-def hann_window(n: int, device="cpu") -> torch.Tensor:
-    return 0.5 - 0.5 * torch.cos(2 * math.pi * torch.arange(n, device=device) / n)
+def hann_window(n: int, device="cuda") -> torch.Tensor:
+    """Periodic Hann taper of length ``n`` on ``device`` (the card unless
+    the CPU is asked for)."""
+    dev = resolve_device(device)
+    return 0.5 - 0.5 * torch.cos(2 * math.pi * torch.arange(n, device=dev) / n)
 
 
 def _one_sided(psd: torch.Tensor, nperseg: int, fs: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -68,7 +71,7 @@ def welch_csd(x: torch.Tensor, nperseg: int = 256, overlap: Optional[int] = None
     return torch.fft.rfftfreq(nperseg, d=1.0 / fs, device=x.device), csd.mean(0) * scale
 
 
-def welch_chunk_kernel(nperseg: int, step: int, scale, be, device="cpu"):
+def welch_chunk_kernel(nperseg: int, step: int, scale, be, device="cuda"):
     """Offset-aware chunk kernel accumulating Welch segment-PSD partials:
     only the stride-aligned candidate starts are gathered and transformed."""
     w = hann_window(nperseg, device)

@@ -4,12 +4,14 @@
   segment_dft    -- segment_dft_power, segment_csd
   fused_plan     -- fused_plan_megakernel
   banded_matvec  -- banded_matvec (with its autograd backward)
+  swa_attention  -- swa_attention (sliding-window causal attention, forward)
 
 :data:`KERNELS` maps each kernel's name to its :class:`~._launch.Kernel`,
 whose ``launches`` attribute counts its launches.
 """
 from ._launch import KERNELS
-from . import banded_matvec, fused_plan, segment_dft, window_stats  # noqa: F401  (registers kernels)
+from . import (banded_matvec, fused_plan, segment_dft, swa_attention,  # noqa: F401  (registers kernels)
+               window_stats)
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
 

@@ -11,7 +11,8 @@ stale build.
 The C entry points take a pointer to a parameter struct (mirrored below:
 :class:`PlanParams` from ``csrc/stats_tiles.cuh``, :class:`MomentParams`
 from ``window_stats/csrc/window_stats.cu``, :class:`BandParams` from
-``banded_matvec/csrc/banded_matvec.cu``) and the CUDA stream; each returns
+``banded_matvec/csrc/banded_matvec.cu``, :class:`SwaParams` from
+``swa_attention/csrc/swa_attention.cu``) and the CUDA stream; each returns
 ``cudaGetLastError()`` after its launches, and :func:`check` raises on a
 non-zero code.
 """
@@ -26,9 +27,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["PlanParams", "WelchMember", "MomentParams", "BandParams", "library", "build",
+__all__ = ["PlanParams", "WelchMember", "MomentParams", "BandParams", "SwaParams", "library",
+           "build",
            "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "BAND_COLS",
-           "BAND_PASS", "BAND_VCOLS", "THREADS"]
+           "BAND_PASS", "BAND_VCOLS", "SWA_MAX_D", "THREADS"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
@@ -47,6 +49,8 @@ THREADS = 256
 BAND_COLS = 256
 BAND_PASS = 8
 BAND_VCOLS = 1024
+# Compile-time constants of swa_attention/csrc/swa_attention.cu.
+SWA_MAX_D = 128
 
 
 class WelchMember(ctypes.Structure):
@@ -129,10 +133,30 @@ class BandParams(ctypes.Structure):
     ]
 
 
+class SwaParams(ctypes.Structure):
+    _fields_ = [
+        ("q", ctypes.c_void_p),
+        ("k", ctypes.c_void_p),
+        ("v", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("B", ctypes.c_int),
+        ("S", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("KVH", ctypes.c_int),
+        ("D", ctypes.c_int),
+        ("G", ctypes.c_int),
+        ("window", ctypes.c_int),
+        ("dtype", ctypes.c_int),
+        ("scale", ctypes.c_float),
+    ]
+
+
 ENTRY_POINTS = ("rt_cross_lag_sums", "rt_fused_lag_moments", "rt_segment_power",
-                "rt_fused_plan", "rt_window_moments", "rt_segment_csd", "rt_banded_matvec")
+                "rt_fused_plan", "rt_window_moments", "rt_segment_csd", "rt_banded_matvec",
+                "rt_swa_attention")
 STRUCT_SIZES = (("rt_plan_params_size", PlanParams), ("rt_welch_member_size", WelchMember),
-                ("rt_moment_params_size", MomentParams), ("rt_band_params_size", BandParams))
+                ("rt_moment_params_size", MomentParams), ("rt_band_params_size", BandParams),
+                ("rt_swa_params_size", SwaParams))
 
 
 def sources() -> list:

@@ -167,3 +167,92 @@ def test_fit_step_launches_the_banded_kernel_once(dev):
         assert launch_counts()["banded_matvec"] == (2 if backend == "cuda" else 0)
     scale = bmr.banded_matvec_ref(bmr.band_transpose(diags).abs(), torch.ones_like(x))  # |dL/dy| <= 1
     assert ((grads["cuda"] - grads["torch"]).abs() / scale).max() <= 1e-5
+
+
+# ------------------------------------------------ kernel 8: swa_attention --
+
+SWA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# per output row, ||kernel - plain|| / ||plain||: at most, and on average
+# over the rows whose window is full (chip_smoke.py's limits)
+SWA_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+SWA_ROW_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _qkv(dev, b, s, h, kvh, d, dtype, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return tuple(torch.randn((b, s, n, d), generator=g, device=dev).to(dtype)
+                 for n in (h, kvh, kvh))
+
+
+@pytest.mark.parametrize("s,window,group,d,dtype", [
+    (1000, 70, 4, 80, torch.bfloat16), (1000, 1, 4, 80, torch.bfloat16),
+    (1000, 2000, 1, 64, torch.bfloat16), (300, 70, 4, 128, torch.bfloat16),
+    (1000, 70, 4, 80, torch.float32), (250, 16, 1, 128, torch.float32),
+    (128, 300, 4, 64, torch.float32)])
+def test_swa_kernel_matches_chunked_plain(dev, s, window, group, d, dtype):
+    """Each output entry within tol of its row's max|v| of the chunked plain
+    version, and each output row within its limits of its own norm; two
+    launches bitwise equal; one launch per call."""
+    from repro_torch.kernels.swa_attention import ops as sw, ref as swr
+
+    q, k, v = _qkv(dev, 1, s, 2 * group, 2, d, dtype)
+    reset_launch_counts()
+    got, again = sw.swa_attention(q, k, v, window), sw.swa_attention(q, k, v, window)
+    assert launch_counts()["swa_attention"] == 2
+    want = swr.swa_attention_chunked(q, k, v, window)
+    scale = swr.swa_row_scale(v, window, 2 * group)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert ((got.float() - want.float()).abs() / scale).max() <= SWA_TOL[dtype]
+    rows = (got.double() - want.double()).norm(dim=-1) / want.double().norm(dim=-1)
+    assert rows.max() <= SWA_ROW_TOL[dtype]
+    assert rows[:, min(window, s) - 1:].mean() <= SWA_ROW_MEAN_TOL[dtype]
+    assert torch.equal(got, again)
+
+
+def test_swa_kernel_refuses_grad_and_bad_shapes(dev):
+    from repro_torch.kernels.swa_attention import ops as sw
+
+    q, k, v = _qkv(dev, 1, 64, 4, 1, 16, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sw.swa_attention(q.clone().requires_grad_(True), k, v, 8)
+    with pytest.raises(ValueError, match="head dims"):
+        sw.swa_attention(*_qkv(dev, 1, 64, 4, 1, 12, torch.bfloat16), 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_generate_kernel_path_matches_plain_path(dev, dtype):
+    """Reduced h2o-danube (window 16, G = 4), a prompt longer than the
+    window: the kernel path's tokens equal the plain path's, its logits are
+    close, and prefill launches the kernel once per layer, decode never."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_arch("danube").reduced()
+    params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (2, 40), generator=g, device=dev)
+    eng = ServeEngine(cfg, params, max_len=48, dtype=dtype, device=dev)
+    reset_launch_counts()
+    served = eng.generate(prompts, 8, keep_logits=True)
+    assert launch_counts()["swa_attention"] == cfg.n_layers
+    # the plain path: prefill on the chunked plain attention, then decode on
+    # the served tokens
+    reset_launch_counts()
+    logits, cache = prefill(params, {"tokens": prompts}, cfg, attention=swa_attention_chunked)
+    cache = eng._grow_cache(cache, prompts.shape[0])
+    tokens = torch.from_numpy(served.tokens).to(dev)
+    steps = [logits]
+    for i in range(1, 8):
+        logits, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": 40 + i - 1},
+                                    cfg)
+        steps.append(logits)
+    assert launch_counts()["swa_attention"] == 0
+    got, want = served.logits, torch.stack([s.float() for s in steps], 1)
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= (1e-4 if dtype == torch.float32 else 3e-2)
+    if dtype == torch.float32:
+        np.testing.assert_array_equal(served.tokens, want.argmax(-1).cpu().numpy())

@@ -251,15 +251,18 @@ def test_struct_mirrors_have_the_c_layout():
 
 
 def test_new_struct_mirrors_have_the_c_layout():
-    """MomentParams (window_stats.cu) and BandParams (banded_matvec.cu): the
-    pointers first, then ints, padded to 8 bytes."""
+    """MomentParams (window_stats.cu), BandParams (banded_matvec.cu) and
+    SwaParams (swa_attention.cu): the pointers first, then ints (and the
+    float scale), padded to 8 bytes."""
     import ctypes
 
     assert ctypes.sizeof(_build.MomentParams) == 2 * 8 + 6 * 4
     assert ctypes.sizeof(_build.BandParams) == 3 * 8 + 10 * 4
+    assert ctypes.sizeof(_build.SwaParams) == 4 * 8 + 8 * 4 + 4 + 4
+    assert _build.SwaParams.scale.offset == 4 * 8 + 8 * 4
     names = {n for n, _ in _build.STRUCT_SIZES}
     assert names == {"rt_plan_params_size", "rt_welch_member_size", "rt_moment_params_size",
-                     "rt_band_params_size"}
+                     "rt_band_params_size", "rt_swa_params_size"}
 
 
 def test_kernels_are_registered_with_counters():
@@ -267,7 +270,7 @@ def test_kernels_are_registered_with_counters():
 
     assert set(KERNELS) == {"cross_window_stats", "fused_lag_moments", "segment_dft_power",
                             "fused_plan_megakernel", "window_moments", "segment_csd",
-                            "banded_matvec"}
+                            "banded_matvec", "swa_attention"}
     reset_launch_counts()
     ws.masked_lagged_sums(torch.zeros((10, 2)), torch.ones(8, dtype=torch.bool), 2)
     assert launch_counts() == dict.fromkeys(KERNELS, 0)  # the CPU runs plain versions

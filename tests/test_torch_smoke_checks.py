@@ -136,3 +136,77 @@ def test_band_helpers_and_the_fit_step_size():
     # 2 / (lambda_min + lambda_max) with the covariance between I and I / (1 - 0.45^2)
     assert smoke.A_NORM == pytest.approx(0.45)
     assert smoke.STEP_SIZE == pytest.approx(2 / (1 + 1 / (1 - 0.45**2)))
+
+
+# ------------------------------------------------ kernel 8 and lm_serve checks
+def test_swa_bound_at_the_prefill_layer_shape():
+    """(4, 32, 8000, 80), W = 4096, bf16: 24,381,440 pairs per head, 1.00
+    TFLOP, 0.41 GB -- bound by operations at 1.01 ms (989 TFLOP/s)."""
+    nbytes, flops = smoke.swa_work(4, 8000, 32, 8, 80, 4096, 2)
+    assert nbytes == 409_600_000
+    assert flops == 4 * 80 * 24_381_440 * 4 * 32
+    ms, by = smoke.bound_ms(nbytes, flops, smoke.PEAK_BF16)
+    assert by == "operations" and ms == pytest.approx(1.0098, rel=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_planted_error_is_caught_at_the_row_scale(dtype):
+    """An error of 2 tol of its row's max|v| in one output entry is caught;
+    the chunked plain version against itself is not flagged."""
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked, swa_row_scale
+
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(2, 300, n, 16, generator=g).to(dtype) for n in (8, 2, 2))
+    want = swa_attention_chunked(q, k, v, 70)
+    scale = swa_row_scale(v, 70, 8)
+    tol = smoke.SWA_TOL[dtype]
+    assert smoke.scaled_error(want.clone(), want, scale)[1] == 0.0
+    assert smoke.planted_error_caught(want.clone(), want, scale, tol)
+
+
+def test_row_norm_errors_and_the_planted_row_error():
+    want = torch.randn(2, 5, 3, 16, generator=torch.Generator().manual_seed(7))
+    got = want.clone()
+    assert smoke.row_norm_errors(got, want).shape == (2, 5, 3)
+    assert smoke.row_norm_errors(got, want).max() == 0
+    got[1, 2, 0] *= 1.001
+    rows = smoke.row_norm_errors(got, want)
+    assert rows[1, 2, 0] == pytest.approx(1e-3, rel=1e-4) and rows.sum() == rows[1, 2, 0]
+    for tol in (1e-5, 1e-2):
+        assert smoke.planted_row_error_caught(want.clone(), want, tol)
+
+
+@pytest.mark.parametrize("window", [70, 200])
+def test_swa_row_check_passes_rounding_and_fails_a_cut_window(window):
+    """bf16 on the CPU: the chunked plain version (P rounded to bf16) against
+    the dense one (P in f32) passes the row check; the same with the window
+    cut by SWA_FAULT keys fails it."""
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked, swa_attention_ref
+
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(1, 400, n, 64, generator=g).to(torch.bfloat16) for n in (8, 2, 2))
+    want = swa_attention_ref(q, k, v, window)
+    tol, mean_tol = smoke.SWA_ROW_TOL[torch.bfloat16], smoke.SWA_ROW_MEAN_TOL[torch.bfloat16]
+    rows = smoke.row_norm_errors(swa_attention_chunked(q, k, v, window), want)
+    assert rows.max() <= tol and rows[:, window - 1:].mean() <= mean_tol
+    bad = smoke.row_norm_errors(swa_attention_chunked(q, k, v, window - smoke.SWA_FAULT), want)
+    assert bad.max() > 5 * tol and bad[:, window - 1:].mean() > 5 * mean_tol
+
+
+def test_row_rel_errors_and_the_top2_margin_rule():
+    plain = torch.tensor([[[5.0, 1.0, 0.0], [2.0, 1.99, 0.0], [0.0, 3.0, 1.0]]])  # (1, 3, 3)
+    # step 1's margin (0.01) is below tol * max|logit| = 0.06: undecided
+    assert smoke.greedy_disagreements(plain, torch.tensor([[0, 1, 1]]), 3e-2) == (2, 0)
+    assert smoke.greedy_disagreements(plain, torch.tensor([[0, 0, 1]]), 3e-2) == (2, 0)
+    assert smoke.greedy_disagreements(plain, torch.tensor([[1, 0, 1]]), 3e-2) == (2, 1)
+    got = plain.clone()
+    got[0, 2, 1] += 0.06
+    rel = smoke.row_rel_errors(got, plain)
+    assert rel.shape == (1, 3) and rel[0, 2] == pytest.approx(0.02) and rel[0, 0] == 0
+
+
+def test_serving_launch_pin():
+    pinned = {"generate": 24, "prefill": 24, "extended_prefill": 24, "decode": 0}
+    assert smoke.serve_launches_ok(pinned, 24)
+    for key, bad in (("decode", 1), ("generate", 48), ("prefill", 0), ("extended_prefill", 23)):
+        assert not smoke.serve_launches_ok({**pinned, key: bad}, 24)

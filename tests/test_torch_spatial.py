@@ -216,7 +216,7 @@ def test_reference_weights_carried_into_the_port():
     both predict the same and score the same NLL on the same inputs."""
     xs = _rand(150, 24, seed=27)
     fit = jsp.fit_banded_ar(jnp.asarray(xs), 2, n_steps=10, backend="jnp")
-    model = tsp.BandedARModel.from_numpy(np.asarray(fit.diags))
+    model = tsp.BandedARModel.from_numpy(np.asarray(fit.diags), device="cpu")
     assert (model.d, model.bandwidth) == (24, 2)
     np.testing.assert_array_equal(model.to_numpy(), np.asarray(fit.diags))
     probe = _rand(7, 24, seed=28)
