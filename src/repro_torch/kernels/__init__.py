@@ -7,13 +7,15 @@
   swa_attention  -- swa_attention (sliding-window causal attention, forward)
 
 :data:`KERNELS` maps each kernel's name to its :class:`~._launch.Kernel`,
-whose ``launches`` attribute counts its launches.
+whose ``launches`` attribute counts its launches; the two kernels with
+Welch members (segment_dft_power, fused_plan_megakernel) also count their
+launches per Welch path ("fft", "twiddle"), in ``path_launches``.
 """
 from ._launch import KERNELS
 from . import (banded_matvec, fused_plan, segment_dft, swa_attention,  # noqa: F401  (registers kernels)
                window_stats)
 
-__all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "launch_counts", "path_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> dict:
@@ -21,6 +23,13 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def path_counts() -> dict:
+    """{kernel name: {Welch path: launches}} of the kernels with Welch paths."""
+    return {name: dict(k.path_launches) for name, k in KERNELS.items() if k.path_launches}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        for path in k.path_launches:
+            k.path_launches[path] = 0

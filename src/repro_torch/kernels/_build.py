@@ -29,8 +29,9 @@ from pathlib import Path
 
 __all__ = ["PlanParams", "WelchMember", "MomentParams", "BandParams", "SwaParams", "library",
            "build",
-           "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "BAND_COLS",
-           "BAND_PASS", "BAND_VCOLS", "SWA_MAX_D", "THREADS"]
+           "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "LAG_GROUP",
+           "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "BAND_COLS", "BAND_PASS", "BAND_VCOLS",
+           "SWA_MAX_D", "THREADS"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
@@ -44,6 +45,10 @@ MAX_WELCH = 4
 TILE = 64
 FREQ_TILE = 32
 KC = 32
+LAG_GROUP = 3
+FFT_MAX_L = 4096
+FFT_FLOATS = 8192
+FFT_MAX_CHAN = 64
 THREADS = 256
 # Compile-time constants of banded_matvec/csrc/banded_matvec.cu.
 BAND_COLS = 256
@@ -57,6 +62,8 @@ class WelchMember(ctypes.Structure):
     _fields_ = [
         ("cos", ctypes.c_void_p),
         ("sin", ctypes.c_void_p),
+        ("taper", ctypes.c_void_p),
+        ("roots", ctypes.c_void_p),
         ("offs", ctypes.c_void_p),
         ("part", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
@@ -69,6 +76,9 @@ class WelchMember(ctypes.Structure):
         ("n_groups", ctypes.c_int),
         ("f_tiles", ctypes.c_int),
         ("ctas", ctypes.c_int),
+        ("fft", ctypes.c_int),
+        ("chan", ctypes.c_int),
+        ("chan_tiles", ctypes.c_int),
     ]
 
 
@@ -84,6 +94,7 @@ class PlanParams(ctypes.Structure):
         ("lag_slab", ctypes.c_int),
         ("lag_slabs", ctypes.c_int),
         ("lag_ctas", ctypes.c_int),
+        ("lag_groups", ctypes.c_int),
         ("lag_part", ctypes.c_void_p),
         ("lag_out", ctypes.c_void_p),
         ("K", ctypes.c_int),
@@ -157,6 +168,13 @@ ENTRY_POINTS = ("rt_cross_lag_sums", "rt_fused_lag_moments", "rt_segment_power",
 STRUCT_SIZES = (("rt_plan_params_size", PlanParams), ("rt_welch_member_size", WelchMember),
                 ("rt_moment_params_size", MomentParams), ("rt_band_params_size", BandParams),
                 ("rt_swa_params_size", SwaParams))
+# The constants above that mirror csrc/stats_tiles.cuh: Python name -> C
+# macro, in the order rt_stats_constants writes them (checked at load).
+STATS_CONSTANTS = {"MAX_WINDOWS": "RT_MAX_WINDOWS", "MAX_WELCH": "RT_MAX_WELCH",
+                   "TILE": "RT_TILE", "FREQ_TILE": "RT_FT", "KC": "RT_KC",
+                   "LAG_GROUP": "RT_LAG_GROUP", "FFT_MAX_L": "RT_FFT_MAX_L",
+                   "FFT_FLOATS": "RT_FFT_FLOATS", "FFT_MAX_CHAN": "RT_FFT_MAX_CHAN",
+                   "THREADS": "RT_THREADS"}
 
 
 def sources() -> list:
@@ -227,6 +245,14 @@ def load(path) -> ctypes.CDLL:
         if fn() != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} layout mismatch: C {fn()} "
                                f"bytes, ctypes {ctypes.sizeof(struct)}")
+    consts = (ctypes.c_int * len(STATS_CONSTANTS))()
+    lib.rt_stats_constants.argtypes = [ctypes.c_void_p]
+    lib.rt_stats_constants.restype = None
+    lib.rt_stats_constants(consts)
+    want = [globals()[name] for name in STATS_CONSTANTS]
+    if list(consts) != want:
+        raise RuntimeError(f"stats_tiles.cuh constants {dict(zip(STATS_CONSTANTS, consts))} "
+                           f"differ from _build.py's {dict(zip(STATS_CONSTANTS, want))}")
     return lib
 
 

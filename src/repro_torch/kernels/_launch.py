@@ -16,28 +16,38 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ._build import FREQ_TILE, KC, MAX_WELCH, MAX_WINDOWS, TILE, PlanParams, check, library
+from ._build import (FFT_FLOATS, FFT_MAX_CHAN, FFT_MAX_L, FREQ_TILE, KC, LAG_GROUP, MAX_WELCH,
+                     MAX_WINDOWS, TILE, PlanParams, check, library)
 
 __all__ = ["Kernel", "KERNELS", "Prepared", "on_cuda", "require", "new_params", "add_lag",
-           "add_moments", "add_welch", "check_window_count", "sm_count", "register"]
+           "add_moments", "add_welch", "welch_path", "fft_channels",
+           "check_window_count", "sm_count", "register"]
 
-# Work per launch is split so the grid holds a few waves of CTAs.
-_WAVES = 4
+# Grid shapes, chosen by timing their variants on the H100
+# (tools/kernel_variants/variants_bench.py stats): the lag contraction in
+# one wave of about LAG_CTAS_PER_SM CTAs per SM (two fit at once), the
+# moment role likewise, and WELCH_GROUP candidate segments per Welch CTA.
 _MIN_SLAB = 256
-WELCH_GROUP = 8  # candidate segments per Welch CTA
+LAG_CTAS_PER_SM = 2
+MOM_CTAS_PER_SM = 2
+WELCH_GROUP = 2
 
 
 class Kernel:
     """One hand-written CUDA kernel: its C entry point and its launch count.
 
     ``launches`` is a plain integer, incremented once per launch of the
-    kernel (with its fixed-order reduction, where it has one).
+    kernel (with its fixed-order reduction, where it has one).  A kernel
+    with Welch members also counts, in ``path_launches``, its launches per
+    Welch path ("fft", "twiddle"): once per launch for each path that one of
+    the launch's members took.
     """
 
-    def __init__(self, name: str, entry: str):
+    def __init__(self, name: str, entry: str, paths: tuple = ()):
         self.name = name
         self.entry = entry
         self.launches = 0
+        self.path_launches: Dict[str, int] = dict.fromkeys(paths, 0)
 
     def __call__(self, params: PlanParams, device: torch.device) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -45,6 +55,10 @@ class Kernel:
             code = getattr(library(), self.entry)(ctypes.byref(params), stream)
         check(code, self.name)
         self.launches += 1
+        if self.path_launches:
+            for path in {"fft" if params.welch[j].fft else "twiddle"
+                         for j in range(params.n_welch)}:
+                self.path_launches[path] += 1
 
 
 @dataclasses.dataclass
@@ -134,10 +148,15 @@ def _slab(count: int, pieces: int, align: int) -> tuple:
 
 def add_lag(p: PlanParams, max_lag: int, sms: int, device: torch.device) -> tuple:
     """Enable the lag family: S(h) = sum_{t<n} a_t y_{t+h}^T, h <= max_lag.
-    ``y`` must hold n + max_lag rows.  Returns (partials, output)."""
-    per_slab = (max_lag + 1) * p.d_tiles * p.d_tiles
+    ``y`` must hold n + max_lag rows.  The lags split into runs of at most
+    LAG_GROUP (one CTA stages a slab's rows once for its run; the CTA's
+    decomposition is ``lag_role``'s in csrc/stats_tiles.cuh), and the starts
+    into slabs for about LAG_CTAS_PER_SM CTAs per SM.  Returns (partials,
+    output)."""
     p.H = max_lag
-    p.lag_slab, p.lag_slabs = _slab(p.n, max(1, _ceil_div(_WAVES * sms, per_slab)), KC)
+    p.lag_groups = _ceil_div(max_lag + 1, LAG_GROUP)
+    per_slab = p.lag_groups * p.d_tiles * p.d_tiles
+    p.lag_slab, p.lag_slabs = _slab(p.n, max(1, LAG_CTAS_PER_SM * sms // per_slab), KC)
     p.lag_ctas = p.lag_slabs * per_slab
     part = torch.empty((p.lag_slabs, p.H + 1, p.d, p.d), device=device)
     out = torch.empty((p.H + 1, p.d, p.d), device=device)
@@ -164,7 +183,8 @@ def add_moments(p: PlanParams, windows: tuple, prefix: torch.Tensor, rows: int,
     p.prefix = prefix.data_ptr()
     p.c_groups = _ceil_div(p.d, 32)
     p.mom_rows = rows
-    p.mom_slab, p.mom_slabs = _slab(rows, max(1, _ceil_div(2 * sms, p.c_groups)), 8)
+    p.mom_slab, p.mom_slabs = _slab(rows, max(1, _ceil_div(MOM_CTAS_PER_SM * sms, p.c_groups)),
+                                    8)
     p.mom_ctas = p.mom_slabs * p.c_groups
     part = torch.empty((p.mom_slabs, p.K, 2, p.d), device=device)
     out = torch.empty((p.K, 2, p.d), device=device)
@@ -172,30 +192,64 @@ def add_moments(p: PlanParams, windows: tuple, prefix: torch.Tensor, rows: int,
     return part, out
 
 
-def add_welch(p: PlanParams, cos: torch.Tensor, sin: torch.Tensor,
-              offs: Optional[torch.Tensor], n_entries: int, n_cand: int,
-              tile: int, group: int, device: torch.device,
-              out: Optional[torch.Tensor] = None) -> tuple:
-    """Add one Welch member: entries are candidate starts (``offs``) or, with
-    ``offs=None``, contiguous segments of ``y``.  Returns (partials, output).
-    With ``out`` given and ``group == 1`` the partials are the output."""
+def welch_path(L: int) -> str:
+    """The Welch path that serves segments of length ``L``: "fft" for a power
+    of two from 2 to FFT_MAX_L, else "twiddle" (the DFT as a contraction)."""
+    return "fft" if 2 <= L <= FFT_MAX_L and L & (L - 1) == 0 else "twiddle"
+
+
+def fft_channels(L: int, d: int) -> int:
+    """Channels per CTA of the FFT path: a power of two >= 2 (two channels
+    per complex sequence), at most FFT_MAX_CHAN, at most what d needs, and
+    at most FFT_FLOATS / L (one (L, chan) tile of shared memory)."""
+    need = 1 << max(1, (d - 1).bit_length())
+    return max(2, min(FFT_MAX_CHAN, FFT_FLOATS // L, need))
+
+
+def add_welch(p: PlanParams, taper: torch.Tensor, offs: Optional[torch.Tensor],
+              n_entries: int, n_cand: int, tile: int, group: int, device: torch.device,
+              out: Optional[torch.Tensor] = None, path: Optional[str] = None) -> tuple:
+    """Add one Welch member of segment length ``len(taper)``, on ``path``
+    (default :func:`welch_path`): entries are candidate starts (``offs``) or,
+    with ``offs=None``, contiguous segments of ``y``, each written on its own
+    into ``out`` (S, F, d).  ``group`` entries per CTA (the twiddle path
+    writes per entry only with ``group == 1``).  Returns (partials, output,
+    operands): the operands are the tensors the launch reads (roots and
+    taper, or the twiddle matrices), to be kept alive with it."""
+    from .segment_dft.ref import dft_power_matrices, fft_roots
+
     j = p.n_welch
     if j >= MAX_WELCH:
         raise ValueError(f"the kernels take at most {MAX_WELCH} Welch members "
                          f"per launch")
-    L, F = cos.shape
-    require(cos, "cos", (L, F))
-    require(sin, "sin", (L, F))
-    m = p.welch[j]
-    m.cos, m.sin = cos.data_ptr(), sin.data_ptr()
-    m.offs = 0 if offs is None else offs.data_ptr()
+    L = taper.shape[0]
+    F = L // 2 + 1
+    path = path or welch_path(L)
+    if path == "fft" and welch_path(L) != "fft":
+        raise ValueError(f"the FFT path takes L a power of two from 2 to {FFT_MAX_L}, "
+                         f"got {L}")
     if offs is not None:
         require(offs, "offsets", (n_entries,), torch.int32)
+    m = p.welch[j]
+    m.offs = 0 if offs is None else offs.data_ptr()
     m.L, m.F = L, F
     m.n_entries, m.n_cand, m.tile, m.group = n_entries, n_cand, tile, group
     m.n_groups = max(1, _ceil_div(n_entries, group))
-    m.f_tiles = _ceil_div(F, FREQ_TILE)
-    m.ctas = m.n_groups * m.f_tiles * p.d_tiles
+    if path == "fft":
+        taper = taper.to(device=device, dtype=torch.float32).contiguous()
+        roots = fft_roots(L, device)
+        m.taper, m.roots = taper.data_ptr(), roots.data_ptr()
+        m.fft, m.chan = 1, fft_channels(L, p.d)
+        m.chan_tiles = _ceil_div(p.d, m.chan)
+        m.f_tiles = 1
+        m.ctas = m.n_groups * m.chan_tiles
+        operands = (taper, roots)
+    else:
+        cos, sin = (t.contiguous() for t in dft_power_matrices(L, taper.to(device)))
+        m.cos, m.sin = cos.data_ptr(), sin.data_ptr()
+        m.f_tiles = _ceil_div(F, FREQ_TILE)
+        m.ctas = m.n_groups * m.f_tiles * p.d_tiles
+        operands = (cos, sin)
     if out is None:
         part = torch.empty((m.n_groups, F, p.d), device=device)
         out = torch.empty((F, p.d), device=device)
@@ -203,4 +257,4 @@ def add_welch(p: PlanParams, cos: torch.Tensor, sin: torch.Tensor,
         part = out
     m.part, m.out = part.data_ptr(), out.data_ptr()
     p.n_welch = j + 1
-    return part, out
+    return part, out, operands

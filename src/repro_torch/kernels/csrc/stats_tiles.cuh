@@ -1,20 +1,46 @@
 // Shared __device__ routines of the port's Hopper kernels (sm_90a, fp32).
 //
-// Three routines carry every kernel of the fused statistics plan:
+// Four routines carry every kernel of the fused statistics plan:
 //
-//   lag_role      one CTA: S(h) tile = sum_{t in slab} a_t y_{t+h}^T for one
-//                 lag h, one 64 x 64 channel tile, one slab of window starts
-//                 (an fp32 SGEMM-shaped contraction staged through shared
-//                 memory, 4 x 4 outputs per thread);
-//   moment_role   one CTA: the K-window moment sums of one slab of rows.
-//                 sum_s m_s sum_{j<w} y_{s+j} = sum_t c_w(t) y_t, where
-//                 c_w(t) counts the valid starts of windows covering row t
-//                 (an exact integer, read off the prefix count of the start
-//                 mask), so K windows cost O(K) per row, not O(max w);
-//   welch_role    one CTA: detrended, tapered |DFT|^2 of a group of
-//                 candidate segments for one 32-frequency x 64-channel tile,
-//                 as two contractions against the taper-folded twiddles
-//                 (seg_dft_tile, which the cross-spectra kernel shares).
+//   lag_role       one CTA: S(h) tiles = sum_{t in slab} a_t y_{t+h}^T for a
+//                  group of up to RT_LAG_GROUP consecutive lags, one 64 x 64
+//                  channel tile, one slab of window starts.  Bound on the
+//                  H100: fp32 FMAs.  The rows of a and y are staged once per
+//                  step for the whole lag group (lag h reads the y buffer h
+//                  rows down), by 16-byte cp.async copies into a ring of
+//                  RT_LAG_STAGES steps, so the copies of step k+1 overlap the
+//                  FMAs of step k; the row mask decides the zero-fill of a
+//                  row's copies.  Each thread keeps a 4 x 4 tile per lag and
+//                  a sliding window of the y fragments its lags need: per
+//                  row it loads one float4 of a and one new float4 of y
+//                  (32 bytes of shared memory) for 16 FMAs per lag, 0.67
+//                  byte per FMA with 3 lags, against the SM's 1 byte per
+//                  FMA, so the FMAs, not the shared-memory loads, set the
+//                  pace.  At 3 lags a thread needs no more than the 128
+//                  registers of two CTAs per SM (4 lags spilled and ran
+//                  slower on the H100).
+//   moment_role    one CTA: the K-window moment sums of one slab of rows.
+//                  sum_s m_s sum_{j<w} y_{s+j} = sum_t c_w(t) y_t, where
+//                  c_w(t) counts the valid starts of windows covering row t
+//                  (an exact integer, read off the prefix count of the start
+//                  mask), so K windows cost O(K) per row, not O(max w);
+//   welch_fft_role one CTA: detrended, tapered |rfft|^2 of a group of
+//                  segments for one channel tile, summed over the group (or
+//                  written per segment), for L a power of two up to
+//                  RT_FFT_MAX_L.  Bound on the H100: bytes (an FFT's 2.5 L
+//                  log2 L operations per channel against 4 L bytes read).
+//                  A segment's (L, chan) tile comes into shared memory by
+//                  cp.async while the previous one is transformed; two real
+//                  channels form one complex sequence, transformed in place
+//                  by radix-4 Stockham stages (radix 2 last for odd log2 L)
+//                  with roots from a host-built (L/2)-entry table, then split
+//                  two-for-one.  One CTA covers every frequency, so a segment
+//                  is read once and its means taken once;
+//   welch_role     one CTA: the same power as a DFT by two contractions
+//                  against the taper-folded twiddles, for one 32-frequency x
+//                  64-channel tile (seg_dft_tile, which the cross-spectra
+//                  kernel shares): the path of L that is not a power of two
+//                  or above RT_FFT_MAX_L.
 //
 // A Pallas kernel on the TPU accumulates into an output block that every
 // step of a sequential grid revisits.  CTAs here run in parallel and in no
@@ -28,32 +54,55 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define RT_THREADS 256
 #define RT_KC 32      // rows staged into shared memory per step
-#define RT_TILE 64    // channel tile (lag outputs: RT_TILE x RT_TILE per CTA)
-#define RT_FT 32      // frequency tile of the segment DFT
+#define RT_TILE 64    // channel tile (lag outputs: RT_TILE x RT_TILE per lag and CTA)
+#define RT_FT 32      // frequency tile of the twiddle DFT
 #define RT_LANES 8    // row lanes of the moment role (RT_THREADS / 32)
 #define RT_MAX_WINDOWS 8
 #define RT_MAX_WELCH 4
 #define RT_MAX_SECTIONS (2 + RT_MAX_WELCH)
-#define RT_SMEM_FLOATS 4608
+#define RT_SMEM_FLOATS 4608  // seg_dft_tile's staging
+#define RT_MOM_SMEM_FLOATS (RT_LANES * 2 * RT_MAX_WINDOWS * 32)
+// Design constants, chosen by timing their variants on the H100 (PERF.md).
+// RT_LAG_GROUP is mirrored by _build.py's LAG_GROUP, checked at load.
+#define RT_LAG_GROUP 3     // most lags per CTA (4 spilled at 128 registers)
+#define RT_LAG_STAGES 2    // cp.async ring of the lag contraction
+#define RT_MIN_CTAS 2      // CTAs per SM the plan kernels are built for (128 registers)
+#define RT_FFT_MIN_CTAS 2  // the same, for the standalone FFT power kernel
+#define RT_LAG_A (RT_KC * RT_TILE)
+#define RT_LAG_B ((RT_KC + RT_LAG_GROUP - 1) * RT_TILE)
+#define RT_LAG_SMEM_FLOATS (RT_LAG_STAGES * (RT_LAG_A + RT_LAG_B))
+#define RT_FFT_MAX_L 4096
+#define RT_FFT_FLOATS 8192     // most floats of one staged (L, chan) segment tile
+#define RT_FFT_MAX_CHAN 64
+// (f, sequence) pairs per thread in the two-for-one split: L/2 + 1 rows of
+// at most RT_FFT_FLOATS / (2 L) sequences (at most RT_FFT_MAX_CHAN / 2)
+#define RT_FFT_OUT ((RT_FFT_FLOATS / 4 + RT_FFT_MAX_CHAN / 2 + RT_THREADS - 1) / RT_THREADS)
 
 // One Welch member of a launch.  Candidate entry e starts at series row
 // (e / n_cand) * tile + offs[e]; offs[e] < 0 marks a masked or misaligned
 // candidate, which contributes nothing.  offs == nullptr: entry e is the
-// contiguous segment at row e * L (the standalone segment-power kernel).
+// contiguous segment at row e * L, and its power is written on its own
+// (the standalone segment-power kernel).
 struct WelchMember {
-  const float* cos;  // (L, F) taper-folded twiddles
-  const float* sin;  // (L, F)
-  const int* offs;   // (n_entries,) local starts, -1 invalid
-  float* part;       // (n_groups, F, d) per-CTA-group power sums
-  float* out;        // (F, d) reduced power sum
+  const float* cos;    // twiddle path: (L, F) taper-folded twiddles
+  const float* sin;    // twiddle path: (L, F)
+  const float* taper;  // FFT path: (L,) window
+  const float* roots;  // FFT path: (L/2, 2) exp(-2 pi i k / L), k < L/2
+  const int* offs;     // (n_entries,) local starts, -1 invalid
+  float* part;         // (n_groups, F, d) per-CTA-group power sums
+  float* out;          // (F, d) reduced power sum
   int L, F;
   int n_entries, n_cand, tile;
-  int group;         // candidate entries per CTA
+  int group;           // candidate entries per CTA
   int n_groups, f_tiles;
-  int ctas;          // n_groups * f_tiles * d_tiles
+  int ctas;            // twiddle: n_groups * f_tiles * d_tiles; FFT: n_groups * chan_tiles
+  int fft;             // 1: the FFT path
+  int chan;            // FFT path: channels per CTA (a power of two, L * chan <= RT_FFT_FLOATS)
+  int chan_tiles;
 };
 
 struct PlanParams {
@@ -61,8 +110,9 @@ struct PlanParams {
   const float* a;  // (n, d) left lag factor, or nullptr: y masked by m
   const float* m;  // (n,) start mask as 0/1 floats, or nullptr: all valid
   int n, d, d_tiles;
-  // lag family: S(h) = sum_{t<n} a_t y_{t+h}^T for h = 0..H
-  int H, lag_slab, lag_slabs, lag_ctas;
+  // lag family: S(h) = sum_{t<n} a_t y_{t+h}^T for h = 0..H, in lag_groups
+  // runs of consecutive lags
+  int H, lag_slab, lag_slabs, lag_ctas, lag_groups;
   float* lag_part;  // (lag_slabs, H+1, d, d)
   float* lag_out;   // (H+1, d, d)
   // moment family: sums over rows [0, mom_rows) with window counts c_w(t)
@@ -78,69 +128,175 @@ struct PlanParams {
   int detrend;
 };
 
-// ---------------------------------------------------------------- lag sums
-static __device__ void lag_role(const PlanParams& p, int cta, float* smem) {
-  const int tiles2 = p.d_tiles * p.d_tiles;
-  const int tile = cta % tiles2;
-  const int rest = cta / tiles2;
-  const int h = rest % (p.H + 1);
-  const int slab = rest / (p.H + 1);
-  const int i0 = (tile / p.d_tiles) * RT_TILE;
-  const int j0 = (tile % p.d_tiles) * RT_TILE;
-  const int t_begin = slab * p.lag_slab;
-  const int t_end = min(t_begin + p.lag_slab, p.n);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* As = smem;                    // [RT_KC][RT_TILE] left factor rows
-  float* Bs = smem + RT_KC * RT_TILE;  // [RT_KC][RT_TILE] rows shifted by h
+// ------------------------------------------------------------ async copies
+// cp.async copies global -> shared; zero-filled when !full (the source
+// address is then not read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  for (int t0 = t_begin; t0 < t_end; t0 += RT_KC) {
-    for (int e = threadIdx.x; e < RT_KC * RT_TILE; e += RT_THREADS) {
-      const int r = e / RT_TILE, c = e % RT_TILE, t = t0 + r;
-      float av = 0.f, bv = 0.f;
-      if (t < t_end) {
-        if (i0 + c < p.d) {
-          if (p.a != nullptr) {
-            av = p.a[(size_t)t * p.d + i0 + c];
-          } else if (p.m == nullptr || p.m[t] != 0.f) {
-            av = p.y[(size_t)t * p.d + i0 + c];
-          }
-        }
-        if (j0 + c < p.d) bv = p.y[(size_t)(t + h) * p.d + j0 + c];
-      }
-      As[e] = av;
-      Bs[e] = bv;
+// Starts copying rows [0, nrows) of a row-major (.., d) matrix, columns
+// [c0, c0 + width), into shared rows of `width` floats.  Shared row r comes
+// from source row src_row(r), or is zero when that is negative; columns >= d
+// are zero.  `vec`: 16-byte copies (d, c0, width and the base 16-byte
+// aligned), else 4-byte copies.  Each copy calls src_row: the lanes that
+// copy one row read the same mask word, one broadcast transaction for the
+// warp (reading it once per row and shuffling it to the row's lanes was
+// 4-6% slower on the H100 and spilled at 128 registers; PERF.md).
+template <typename RowOf>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int d, int c0,
+                                           int width, int nrows, bool vec, RowOf src_row) {
+  if (vec) {
+    const int per_row = width / 4;
+    for (int e = threadIdx.x; e < nrows * per_row; e += RT_THREADS) {
+      const int r = e / per_row, c = (e % per_row) * 4;
+      const long long row = src_row(r);
+      const bool ok = row >= 0 && c0 + c < d;
+      cp_async16(dst + r * width + c, ok ? src + row * d + c0 + c : src, ok);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < RT_KC; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[k * RT_TILE + ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k * RT_TILE + tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
+  } else {
+    for (int e = threadIdx.x; e < nrows * width; e += RT_THREADS) {
+      const int r = e / width, c = e % width;
+      const long long row = src_row(r);
+      const bool ok = row >= 0 && c0 + c < d;
+      cp_async4(dst + e, ok ? src + row * d + c0 + c : src, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+// ---------------------------------------------------------------- lag sums
+// One staged step: acc[g] += sum_k A[k] (x) B[k + g] over the RT_KC rows of
+// the step, for the thread's rows ty*4.. and columns tx*4.. .  b holds the
+// NG y fragments of rows k .. k+NG-1 (slot (k+g) % NG), so each row loads
+// one new fragment.
+template <int NG>
+__device__ __forceinline__ void lag_step(const float* As, const float* Bs, int tx, int ty,
+                                         float acc[NG][4][4]) {
+  float4 b[NG];
+#pragma unroll
+  for (int g = 0; g + 1 < NG; ++g)
+    b[g] = *reinterpret_cast<const float4*>(&Bs[g * RT_TILE + tx * 4]);
+#pragma unroll
+  for (int k = 0; k < RT_KC; ++k) {
+    b[(k + NG - 1) % NG] =
+        *reinterpret_cast<const float4*>(&Bs[(k + NG - 1) * RT_TILE + tx * 4]);
+    const float4 av = *reinterpret_cast<const float4*>(&As[k * RT_TILE + ty * 4]);
+    const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const float4 bv = b[(k + g) % NG];
       const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a4[r], b4[c], acc[r][c]);
+        for (int c = 0; c < 4; ++c) acc[g][r][c] = fmaf(a4[r], b4[c], acc[g][r][c]);
     }
-    __syncthreads();
   }
+}
 
-  float* out = p.lag_part + ((size_t)slab * (p.H + 1) + h) * p.d * p.d;
+// Lags h0 .. h0+NG-1 of the tile (i0, j0) over the starts of one slab.
+template <int NG>
+__device__ void lag_group(const PlanParams& p, int h0, int i0, int j0, int slab,
+                          float* smem) {
+  const int t_begin = slab * p.lag_slab;
+  const int t_end = min(t_begin + p.lag_slab, p.n);
+  const int b_end = t_end + h0 + NG - 1;  // this group reads y rows [t_begin + h0, b_end)
+  const int steps = (t_end - t_begin + RT_KC - 1) / RT_KC;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* A = p.a != nullptr ? p.a : p.y;
+  const bool vec = p.d % 4 == 0 && aligned16(A) && aligned16(p.y);
+
+  auto issue = [&](int s) {
+    float* As = smem + (s % RT_LAG_STAGES) * (RT_LAG_A + RT_LAG_B);
+    const int t0 = t_begin + s * RT_KC;
+    stage_rows(As, A, p.d, i0, RT_TILE, RT_KC, vec, [&](int r) -> long long {
+      const int t = t0 + r;
+      const bool live = t < t_end && (p.a != nullptr || p.m == nullptr || p.m[t] != 0.f);
+      return live ? t : -1;
+    });
+    stage_rows(As + RT_LAG_A, p.y, p.d, j0, RT_TILE, RT_KC + NG - 1, vec,
+               [&](int r) -> long long {
+                 const int t = t0 + h0 + r;
+                 return t < b_end ? t : -1;
+               });
+  };
+
+  float acc[NG][4][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty * 4 + r;
-    if (i >= p.d) continue;
+  for (int g = 0; g < NG; ++g)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx * 4 + c;
-      if (j < p.d) out[(size_t)i * p.d + j] = acc[r][c];
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[g][r][c] = 0.f;
+
+  for (int s = 0; s < RT_LAG_STAGES - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<RT_LAG_STAGES - 2>();  // step s has landed
+    __syncthreads();                     // ... for every thread; step s-1's slot is free
+    if (s + RT_LAG_STAGES - 1 < steps) issue(s + RT_LAG_STAGES - 1);
+    cp_async_commit();
+    const float* As = smem + (s % RT_LAG_STAGES) * (RT_LAG_A + RT_LAG_B);
+    lag_step<NG>(As, As + RT_LAG_A, tx, ty, acc);
+  }
+  cp_async_wait<0>();
+
+
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    float* out = p.lag_part + ((size_t)slab * (p.H + 1) + h0 + g) * p.d * p.d;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + ty * 4 + r;
+      if (i >= p.d) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j0 + tx * 4 + c;
+        if (j < p.d) out[(size_t)i * p.d + j] = acc[g][r][c];
+      }
     }
+  }
+}
+
+// CTA -> (channel tile, lag group, slab), the tile fastest.  The H+1 lags
+// split into lag_groups runs of consecutive lags; the first (H+1) %
+// lag_groups runs hold one lag more (tests/test_torch_fft_plan.py: lag_cta
+// models it).  _launch.add_lag keeps every run at most RT_LAG_GROUP long.
+static __device__ void lag_role(const PlanParams& p, int cta, float* smem) {
+  const int tiles2 = p.d_tiles * p.d_tiles;
+  const int tile = cta % tiles2;
+  const int rest = cta / tiles2;
+  const int grp = rest % p.lag_groups;
+  const int slab = rest / p.lag_groups;
+  const int base = (p.H + 1) / p.lag_groups, extra = (p.H + 1) % p.lag_groups;
+  const int ng = base + (grp < extra ? 1 : 0);
+  const int h0 = grp * base + min(grp, extra);
+  const int i0 = (tile / p.d_tiles) * RT_TILE;
+  const int j0 = (tile % p.d_tiles) * RT_TILE;
+  static_assert(RT_LAG_GROUP == 3, "lag_role instantiates lag_group<1..3>");
+  switch (ng) {
+    case 1: lag_group<1>(p, h0, i0, j0, slab, smem); break;
+    case 2: lag_group<2>(p, h0, i0, j0, slab, smem); break;
+    case 3: lag_group<3>(p, h0, i0, j0, slab, smem); break;
+    default: __trap();  // a run longer than RT_LAG_GROUP: the launch fails
   }
 }
 
@@ -158,6 +314,8 @@ static __device__ void moment_role(const PlanParams& p, int cta, float* smem) {
   for (int k = 0; k < RT_MAX_WINDOWS; ++k) s1[k] = s2[k] = 0.f;
 
   if (c < p.d) {
+    // unrolled so that several rows' loads are in flight at once
+#pragma unroll 4
     for (int t = r_begin + lane; t < r_end; t += RT_LANES) {
       const float v = p.y[(size_t)t * p.d + c];
       const float v2 = v * v;
@@ -195,6 +353,233 @@ static __device__ void moment_role(const PlanParams& p, int cta, float* smem) {
     }
   }
   __syncthreads();
+}
+
+// ------------------------------------------------------ segment FFT power
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// W^k = exp(-2 pi i k / L) for 0 <= k < L from the table of k < half = L/2
+// (W^(k + L/2) = -W^k).
+__device__ __forceinline__ float2 fft_root(const float2* roots, int k, int half) {
+  const float2 w = __ldg(&roots[k & (half - 1)]);
+  return k < half ? w : make_float2(-w.x, -w.y);
+}
+
+// In-place DFT of R points: out_r = sum_q a_q W_R^(q r).
+template <int R>
+__device__ __forceinline__ void butterfly(float2* a);
+template <>
+__device__ __forceinline__ void butterfly<2>(float2* a) {
+  const float2 t = a[1];
+  a[1] = csub(a[0], t);
+  a[0] = cadd(a[0], t);
+}
+template <>
+__device__ __forceinline__ void butterfly<4>(float2* a) {
+  const float2 s02 = cadd(a[0], a[2]), d02 = csub(a[0], a[2]);
+  const float2 s13 = cadd(a[1], a[3]), d13 = csub(a[1], a[3]);
+  a[0] = cadd(s02, s13);
+  a[2] = csub(s02, s13);
+  a[1] = make_float2(d02.x + d13.y, d02.y - d13.x);  // d02 - i d13
+  a[3] = make_float2(d02.x - d13.y, d02.y + d13.x);  // d02 + i d13
+}
+
+// One radix-R Stockham stage over the 2^lp complex sequences of buf, in
+// place (z[t][q] at buf[t * 2^lp + q]); sub-DFTs of length Ns are done.
+// Butterfly j of a sequence reads rows j + r L/R, twiddles them by
+// W^(r (j % Ns) L / (Ns R)), and writes rows (j / Ns) Ns R + j % Ns + r Ns.
+// All reads land in registers before the first write.  FIRST (Ns = 1, unit
+// twiddles): the rows are the raw series pairs, taken as (y - mu) * taper.
+template <int R, bool FIRST>
+__device__ void fft_stage(float2* buf, int L, int lp, int Ns, const float2* roots,
+                          const float* taper, const float* mu) {
+  constexpr int PER = RT_FFT_FLOATS / 2 / RT_THREADS / R;  // butterflies per thread, at most
+  const int nb = (L / R) << lp;
+  const int stride = L / R;
+  const int span = L / (Ns * R);
+  const int qmask = (1 << lp) - 1;
+  float2 v[PER][R];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int b = threadIdx.x + u * RT_THREADS;
+    if (b < nb) {
+      const int q = b & qmask, j = b >> lp;
+      const int k = j & (Ns - 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int t = j + r * stride;
+        float2 x = buf[(t << lp) + q];
+        if (FIRST) {
+          const float w = __ldg(&taper[t]);
+          x = make_float2((x.x - mu[2 * q]) * w, (x.y - mu[2 * q + 1]) * w);
+        } else if (r > 0) {
+          x = cmul(x, fft_root(roots, r * k * span, L / 2));
+        }
+        v[u][r] = x;
+      }
+      butterfly<R>(v[u]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int b = threadIdx.x + u * RT_THREADS;
+    if (b < nb) {
+      const int q = b & qmask, j = b >> lp;
+      const int k = j & (Ns - 1);
+      const int d0 = (j - k) * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) buf[((d0 + r * Ns) << lp) + q] = v[u][r];
+    }
+  }
+  __syncthreads();
+}
+
+// Forward DFT, natural order, of the 2^lp sequences of buf (L a power of
+// two >= 2): radix 4 while 4 divides what is left, radix 2 last.
+static __device__ void fft_pairs(float2* buf, int L, int lp, const float2* roots,
+                          const float* taper, const float* mu) {
+  int Ns = 1;
+  if (L >= 4) {
+    fft_stage<4, true>(buf, L, lp, Ns, roots, taper, mu);
+    Ns = 4;
+  } else {
+    fft_stage<2, true>(buf, L, lp, Ns, roots, taper, mu);
+    Ns = 2;
+  }
+  while (Ns < L) {
+    if (L / Ns >= 4) {
+      fft_stage<4, false>(buf, L, lp, Ns, roots, taper, mu);
+      Ns *= 4;
+    } else {
+      fft_stage<2, false>(buf, L, lp, Ns, roots, taper, mu);
+      Ns *= 2;
+    }
+  }
+}
+
+// mu[c] = mean of column c of the (L, C) tile x (0 without detrend), each
+// summed in a fixed order: RT_THREADS / C row lanes, then the lanes in turn.
+static __device__ void channel_means(const float* x, int L, int C, int detrend, float* red,
+                              float* mu) {
+  const int c = threadIdx.x % C, lane = threadIdx.x / C, lanes = RT_THREADS / C;
+  float s = 0.f;
+  if (detrend)
+    for (int t = lane; t < L; t += lanes) s += x[t * C + c];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  if ((int)threadIdx.x < C) {
+    float m = 0.f;
+    if (detrend) {
+      for (int l = 0; l < lanes; ++l) m += red[l * C + threadIdx.x];
+      m /= (float)L;
+    }
+    mu[threadIdx.x] = m;
+  }
+  __syncthreads();
+}
+
+// Adds |X_a(f)|^2 and |X_b(f)|^2, f = 0..L/2, of each sequence z = x_a + i
+// x_b of the transformed tile to acc: X_a = (Z(f) + conj Z(L-f)) / 2, X_b =
+// (Z(f) - conj Z(L-f)) / (2i).  Thread pairs (f, q) = e / 2^lp, e % 2^lp for
+// e = threadIdx.x + u RT_THREADS.
+__device__ __forceinline__ void split_power(const float2* z, int L, int lp,
+                                            float acc[RT_FFT_OUT][2]) {
+  const int F = L / 2 + 1;
+  const int qmask = (1 << lp) - 1;
+#pragma unroll
+  for (int u = 0; u < RT_FFT_OUT; ++u) {
+    const int e = threadIdx.x + u * RT_THREADS;
+    if (e < (F << lp)) {
+      const int f = e >> lp, q = e & qmask;
+      const float2 zf = z[(f << lp) + q];
+      const float2 zc = z[(((L - f) & (L - 1)) << lp) + q];
+      const float ar = zf.x + zc.x, ai = zf.y - zc.y;
+      const float br = zf.x - zc.x, bi = zf.y + zc.y;
+      acc[u][0] += 0.25f * (ar * ar + ai * ai);
+      acc[u][1] += 0.25f * (br * br + bi * bi);
+    }
+  }
+}
+
+// Writes acc (pairs as in split_power) to the (F, d) slab `out`, channels
+// j0 + 2q and j0 + 2q + 1 below d.
+__device__ __forceinline__ void store_power(float* out, int L, int lp, int d, int j0,
+                                            float acc[RT_FFT_OUT][2]) {
+  const int F = L / 2 + 1;
+  const int qmask = (1 << lp) - 1;
+#pragma unroll
+  for (int u = 0; u < RT_FFT_OUT; ++u) {
+    const int e = threadIdx.x + u * RT_THREADS;
+    if (e < (F << lp)) {
+      const int f = e >> lp, c = j0 + 2 * (e & qmask);
+      if (c < d) out[(size_t)f * d + c] = acc[u][0];
+      if (c + 1 < d) out[(size_t)f * d + c + 1] = acc[u][1];
+    }
+  }
+}
+
+// CTA -> (channel tile, group of entries), the tile fastest.  The group's
+// valid segments come through two shared buffers: the next one's copy is in
+// flight while this one is transformed.
+static __device__ void welch_fft_role(const PlanParams& p, const WelchMember& w, int cta,
+                                      float* smem) {
+  const int ct = cta % w.chan_tiles;
+  const int g = cta / w.chan_tiles;
+  const int L = w.L, C = w.chan, lp = __ffs(C / 2) - 1;
+  const int j0 = ct * C;
+  float* buf[2] = {smem, smem + L * C};
+  float* red = smem + 2 * L * C;  // [RT_THREADS]
+  float* mu = red + RT_THREADS;   // [RT_FFT_MAX_CHAN]
+  const bool vec = p.d % 4 == 0 && C % 4 == 0 && aligned16(p.y);
+  const float2* roots = reinterpret_cast<const float2*>(w.roots);
+
+  float acc[RT_FFT_OUT][2];
+#pragma unroll
+  for (int u = 0; u < RT_FFT_OUT; ++u) acc[u][0] = acc[u][1] = 0.f;
+
+  const int e_end = min((g + 1) * w.group, w.n_entries);
+  auto row_of = [&](int e) -> long long {  // first series row of entry e, -1 if invalid
+    if (w.offs == nullptr) return (long long)e * L;
+    const int off = w.offs[e];  // the same entry for every thread: no divergence
+    return off < 0 ? -1 : (long long)(e / w.n_cand) * w.tile + off;
+  };
+  auto next_valid = [&](int e) {
+    while (e < e_end && row_of(e) < 0) ++e;
+    return e;
+  };
+  auto issue = [&](float* dst, long long row0) {
+    stage_rows(dst, p.y, p.d, j0, C, L, vec, [&](int r) -> long long { return row0 + r; });
+  };
+
+  int e = next_valid(g * w.group), cur = 0;
+  if (e < e_end) issue(buf[0], row_of(e));
+  cp_async_commit();
+  while (e < e_end) {
+    const int e_next = next_valid(e + 1);
+    if (e_next < e_end) issue(buf[cur ^ 1], row_of(e_next));
+    cp_async_commit();
+    cp_async_wait<1>();  // entry e has landed
+    __syncthreads();
+    channel_means(buf[cur], L, C, p.detrend, red, mu);
+    float2* z = reinterpret_cast<float2*>(buf[cur]);
+    fft_pairs(z, L, lp, roots, w.taper, mu);
+    split_power(z, L, lp, acc);
+    if (w.offs == nullptr) {  // one output per segment
+      store_power(w.part + (size_t)e * w.F * p.d, L, lp, p.d, j0, acc);
+#pragma unroll
+      for (int u = 0; u < RT_FFT_OUT; ++u) acc[u][0] = acc[u][1] = 0.f;
+    }
+    __syncthreads();  // buf[cur] is read out before it takes the next copy
+    cur ^= 1;
+    e = e_next;
+  }
+  cp_async_wait<0>();
+  if (w.offs != nullptr) store_power(w.part + (size_t)g * w.F * p.d, L, lp, p.d, j0, acc);
 }
 
 // ------------------------------------------------------ segment DFT
@@ -320,6 +705,39 @@ static __device__ void welch_role(const PlanParams& p, const WelchMember& w,
       if (j < p.d) out[(size_t)f * p.d + j] = psd[r][c];
     }
   }
+}
+
+// One Welch member's CTA, on the member's path.
+static __device__ void welch_member_role(const PlanParams& p, const WelchMember& w, int cta,
+                                         float* smem) {
+  if (w.fft) {
+    welch_fft_role(p, w, cta, smem);
+  } else {
+    welch_role(p, w, cta, smem);
+  }
+}
+
+// ----------------------------------------------------- launch configuration
+// Dynamic shared memory of a launch: the most that any of its roles needs.
+static int plan_smem_bytes(const PlanParams& p, bool lag, bool mom, bool welch) {
+  int floats = 0;
+  if (lag && p.lag_ctas > 0) floats = max(floats, RT_LAG_SMEM_FLOATS);
+  if (mom && p.mom_ctas > 0) floats = max(floats, RT_MOM_SMEM_FLOATS);
+  if (welch)
+    for (int j = 0; j < p.n_welch; ++j) {
+      const WelchMember& w = p.welch[j];
+      floats = max(floats, w.fft ? 2 * w.L * w.chan + RT_THREADS + RT_FFT_MAX_CHAN
+                                 : RT_SMEM_FLOATS);
+    }
+  return floats * (int)sizeof(float);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB
+// default only on request).
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // --------------------------------------------------- fixed-order reduction

@@ -7,17 +7,25 @@
 // of detrended, tapered |DFT|^2 over its stride-aligned candidate starts.
 //
 // Bound on the H100: operations.  At the full-width chunk (65,536 rows,
-// d = 64, H = 16, Welch 256/128) the lag part is 9.1 GFLOP and the Welch
-// part 4.3 GFLOP of fp32 FMAs against a 16.8 MB chunk.  The TPU kernel walks
-// the chunk once on a sequential grid; here the grid holds CTAs of three
-// roles side by side (lag tiles, moment slabs, Welch candidate groups; see
-// stats_tiles.cuh), so the families overlap on the SMs and every role reads
-// the chunk through L2.  Each CTA writes a partial; one reduce launch sums
-// them in a fixed order, so repeated runs are bit-identical.
+// d = 64, H = 16, Welch 256/128) the lag sums are 9.1 GFLOP of fp32 FMAs
+// against a 16.8 MB chunk, and set the pace; the Welch power is an FFT
+// (about 0.2 GFLOP).  The TPU kernel walks the chunk once on a sequential
+// grid; here the grid holds CTAs of three roles side by side (lag groups,
+// moment slabs, Welch candidate groups; see stats_tiles.cuh), so the
+// families overlap on the SMs and every role reads the chunk through L2.
+// A lag CTA stages each slab's rows once for a group of up to three lags,
+// through a cp.async ring, and keeps 4 x 4 outputs per lag in registers
+// (0.67 byte of shared memory per FMA).  A Welch member whose segment length
+// is a power of two up to RT_FFT_MAX_L takes the shared-memory FFT, any
+// other the twiddle contraction.  The roles share one dynamic shared-memory
+// size, the most any role of the launch needs (67 KB at the full-width
+// chunk, the FFT role's), and a register cap of 128 (two CTAs per SM).
+// Each CTA writes a partial; one reduce launch sums them in a fixed order,
+// so repeated runs are bit-identical.
 #include "stats_tiles.cuh"
 
-static __global__ void __launch_bounds__(RT_THREADS) fused_plan_kernel(PlanParams p) {
-  __shared__ __align__(16) float smem[RT_SMEM_FLOATS];
+static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) fused_plan_kernel(PlanParams p) {
+  extern __shared__ __align__(16) float smem[];
   int b = blockIdx.x;
   if (b < p.lag_ctas) {
     lag_role(p, b, smem);
@@ -31,7 +39,7 @@ static __global__ void __launch_bounds__(RT_THREADS) fused_plan_kernel(PlanParam
   b -= p.mom_ctas;
   for (int j = 0; j < p.n_welch; ++j) {
     if (b < p.welch[j].ctas) {
-      welch_role(p, p.welch[j], b, smem);
+      welch_member_role(p, p.welch[j], b, smem);
       return;
     }
     b -= p.welch[j].ctas;
@@ -42,8 +50,11 @@ extern "C" int rt_fused_plan(const PlanParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int ctas = p->lag_ctas + p->mom_ctas;
   for (int j = 0; j < p->n_welch; ++j) ctas += p->welch[j].ctas;
-  fused_plan_kernel<<<ctas, RT_THREADS, 0, st>>>(*p);
-  cudaError_t err = cudaGetLastError();
+  const int smem = plan_smem_bytes(*p, true, true, true);
+  cudaError_t err = allow_smem(fused_plan_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_plan_kernel<<<ctas, RT_THREADS, smem, st>>>(*p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_families(*p, true, true, st);
 }
@@ -51,3 +62,11 @@ extern "C" int rt_fused_plan(const PlanParams* p, void* stream) {
 // Struct sizes, checked against the ctypes mirrors when the library loads.
 extern "C" int rt_plan_params_size() { return (int)sizeof(PlanParams); }
 extern "C" int rt_welch_member_size() { return (int)sizeof(WelchMember); }
+
+// Compile-time constants that _build.py mirrors (STATS_CONSTANTS, in this
+// order), checked when the library loads.
+extern "C" void rt_stats_constants(int* out) {
+  const int c[] = {RT_MAX_WINDOWS, RT_MAX_WELCH, RT_TILE, RT_FT, RT_KC,
+                   RT_LAG_GROUP, RT_FFT_MAX_L, RT_FFT_FLOATS, RT_FFT_MAX_CHAN, RT_THREADS};
+  for (int i = 0; i < (int)(sizeof(c) / sizeof(c[0])); ++i) out[i] = c[i];
+}

@@ -4,7 +4,8 @@
 Handles what the device kernel must not: reach-aware zero-extension, the
 per-Welch-member candidate-offset tables (stride alignment against the
 chunk's global index ``z0``, a device tensor: no host sync), twiddle
-construction and the optional bf16 staging.  CUDA tensors run
+tables (the FFT path's roots, cached per length and device, or the
+twiddles of the contraction path) and the optional bf16 staging.  CUDA tensors run
 ``csrc/fused_plan.cu`` in one launch (plus its fixed-order reduction); CPU
 tensors run the plain version (``ref.py``).
 """
@@ -16,14 +17,14 @@ import torch
 
 from .._launch import (WELCH_GROUP, Kernel, Prepared, add_lag, add_moments, add_welch,
                        new_params, on_cuda, register, require, sm_count)
-from ..segment_dft.ref import dft_power_matrices
 from ..tiling import clamp_block_t, resolve_block
 from ..window_stats.ref import as_2d, extend_rows
 from .ref import fused_plan_update_ref, stage
 
 __all__ = ["FUSED_PLAN", "fused_plan_update", "prepare_fused_plan", "candidate_offsets"]
 
-FUSED_PLAN = register(Kernel("fused_plan_megakernel", "rt_fused_plan"))
+FUSED_PLAN = register(Kernel("fused_plan_megakernel", "rt_fused_plan",
+                            paths=("fft", "twiddle")))
 
 
 def candidate_offsets(z0: torch.Tensor, L: int, num_tiles: int, block_t: int,
@@ -95,12 +96,10 @@ def prepare_fused_plan(y_padded: torch.Tensor, start_mask: torch.Tensor, z0, max
     psds, n_segs = [], []
     for Lseg, step, taper in zip(seg_lens, seg_steps, tapers):
         offs = candidate_offsets(z0, L, num_tiles, bt, step, start_mask)
-        C, S = dft_power_matrices(Lseg, taper.to(dev))
-        C, S = C.contiguous(), S.contiguous()
         flat = offs.reshape(-1).contiguous()
-        part, out = add_welch(p, C, S, flat, flat.numel(), offs.shape[1], bt,
-                              WELCH_GROUP, dev)
-        keep += [C, S, flat, part]
+        part, out, operands = add_welch(p, taper, flat, flat.numel(), offs.shape[1], bt,
+                                        WELCH_GROUP, dev)
+        keep += [flat, part, *operands]
         psds.append(out)
         n_segs.append((offs >= 0).float().sum())
     return Prepared(FUSED_PLAN, p, dev, (lag, mom, tuple(psds), tuple(n_segs)), tuple(keep))

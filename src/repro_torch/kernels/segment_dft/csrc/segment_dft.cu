@@ -2,17 +2,23 @@
 //
 // segment_power_kernel replaces src/repro/kernels/segment_dft/kernel.py:
 // segment_dft_power_pallas (body _dft_power_kernel): |rfft((y - mean) *
-// taper)|^2 per segment, as two contractions against the taper-folded
-// twiddle matrices (L, F = L/2 + 1).
+// taper)|^2 per segment, (S, F = L/2 + 1, d).
 //
-// Bound on the H100: operations.  Each segment costs 2 * L * F * d * 2 fp32
-// FLOPs against L * d * 4 bytes read (about 129 FLOP per byte at L = 256),
-// so the twiddle contractions dominate.  One CTA computes one segment's
-// (32 frequencies x 64 channels) output tile: it takes the per-channel mean
-// first (the detrend happens in the kernel), then stages 32-row tiles of the
-// centred segment and of both twiddle matrices through shared memory and
-// keeps 2 x 4 re/im register tiles per thread.  Each output element is
-// written by exactly one CTA, so no reduction pass is needed.
+// Bound on the H100: bytes.  An FFT costs about 2.5 L log2 L operations per
+// segment and channel against 4 L bytes read and 2 L bytes written (at
+// 511 segments of (256, 64): 0.2 GFLOP against 50 MB).  The TPU kernel
+// contracts against the taper-folded twiddles (4 L F operations, 26 times an
+// FFT's at L = 256, and 4.3 times the byte bound even at the fp32 peak), so
+// for L a power of two up to RT_FFT_MAX_L this kernel runs welch_fft_role
+// (stats_tiles.cuh): one CTA takes four consecutive segments for one channel
+// tile (segment_dft/ops.py FFT_GROUP), copies each (L, chan) tile into
+// shared memory by cp.async while the previous one is transformed, takes the
+// per-channel means in a fixed order, and transforms two channels per
+// complex sequence in place (radix-4 Stockham, roots from the host's table),
+// so each segment is read once and each output written once, by one CTA.
+// Any other L keeps the twiddle contraction (welch_role): one CTA per
+// (segment, 32-frequency x 64-channel tile), staging 32-row tiles of the
+// centred segment and of both twiddle matrices through shared memory.
 //
 // segment_csd_kernel replaces kernel.py: segment_csd_pallas (body
 // _csd_kernel): per segment, rfft_i * conj(rfft_j) for every channel pair.
@@ -29,8 +35,14 @@
 // d <= 64 a CTA's writes are one contiguous run.  No reduction, no atomics.
 #include "stats_tiles.cuh"
 
+static __global__ void __launch_bounds__(RT_THREADS, RT_FFT_MIN_CTAS)
+segment_power_fft_kernel(PlanParams p) {
+  extern __shared__ __align__(16) float smem[];
+  welch_fft_role(p, p.welch[0], blockIdx.x, smem);
+}
+
 static __global__ void __launch_bounds__(RT_THREADS) segment_power_kernel(PlanParams p) {
-  __shared__ __align__(16) float smem[RT_SMEM_FLOATS];
+  extern __shared__ __align__(16) float smem[];
   welch_role(p, p.welch[0], blockIdx.x, smem);
 }
 
@@ -98,7 +110,14 @@ static __global__ void __launch_bounds__(RT_THREADS) segment_csd_kernel(PlanPara
 
 extern "C" int rt_segment_power(const PlanParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  segment_power_kernel<<<p->welch[0].ctas, RT_THREADS, 0, st>>>(*p);
+  const int smem = plan_smem_bytes(*p, false, false, true);
+  if (p->welch[0].fft) {
+    const cudaError_t err = allow_smem(segment_power_fft_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    segment_power_fft_kernel<<<p->welch[0].ctas, RT_THREADS, smem, st>>>(*p);
+  } else {
+    segment_power_kernel<<<p->welch[0].ctas, RT_THREADS, smem, st>>>(*p);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -3,19 +3,31 @@
 and cross-spectra ``segment_csd``.
 
 CUDA tensors run ``csrc/segment_dft.cu``; CPU tensors run the plain versions
-(``ref.py``).  A CUDA tensor never falls back to the plain version.
+(``ref.py``).  A CUDA tensor never falls back to the plain version.  The
+power kernel takes one of two paths, chosen by the segment length
+(``_launch.welch_path``): the shared-memory FFT for a power of two up to
+``FFT_MAX_L``, the twiddle contraction for any other length; the
+cross-spectra kernel always contracts against the twiddles.
 """
 from __future__ import annotations
 
 import torch
 
-from .._launch import Kernel, Prepared, add_welch, new_params, on_cuda, register, require
-from .ref import dft_power_matrices, segment_csd_ref, segment_dft_power_ref
+from .._launch import (Kernel, Prepared, add_welch, new_params, on_cuda, register, require,
+                       welch_path)
+from .ref import segment_csd_ref, segment_dft_power_ref
 
 __all__ = ["SEGMENT_DFT_POWER", "SEGMENT_CSD", "segment_fft_power", "segment_csd",
            "prepare_segment_power", "prepare_segment_csd"]
 
-SEGMENT_DFT_POWER = register(Kernel("segment_dft_power", "rt_segment_power"))
+SEGMENT_DFT_POWER = register(Kernel("segment_dft_power", "rt_segment_power",
+                                   paths=("fft", "twiddle")))
+# Segments per CTA on the FFT path, one after the other, the next one's copy
+# in flight during this one's transform: of 1, 2, 3 and 4, four was the
+# fastest at 511 segments of (256, 64) on the H100, 2-3% ahead of one, and
+# within 1% of two, the fastest, at 1,023; three was the slowest at both
+# (tools/kernel_variants/variants_bench.py stats; PERF.md).
+FFT_GROUP = 4
 SEGMENT_CSD = register(Kernel("segment_csd", "rt_segment_csd"))
 
 
@@ -27,20 +39,20 @@ def _check_segments(segments: torch.Tensor, taper: torch.Tensor) -> None:
         raise ValueError(f"taper must be ({L},), got {tuple(taper.shape)}")
 
 
-def prepare_segment_power(segments: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+def prepare_segment_power(segments: torch.Tensor, taper: torch.Tensor,
                           detrend: bool) -> Prepared:
-    """(S, L, d) contiguous float32 segments (S >= 1) and (L, F) twiddles;
+    """(S, L, d) contiguous float32 segments (S >= 1) and their (L,) taper;
     ``.launch()`` returns the (S, F, d) power."""
     S, L, d = segments.shape
     require(segments, "segments", (S, L, d))
     if S == 0:
         raise ValueError("need at least one segment")
-    F = cos.shape[1]
-    out = torch.empty((S, F, d), device=segments.device)
+    out = torch.empty((S, L // 2 + 1, d), device=segments.device)
     p = new_params(segments.view(S * L, d), 0)
     p.detrend = int(detrend)
-    add_welch(p, cos, sin, None, S, 1, L, 1, segments.device, out=out)
-    return Prepared(SEGMENT_DFT_POWER, p, segments.device, out, (segments, cos, sin))
+    group = FFT_GROUP if welch_path(L) == "fft" else 1  # the twiddle path: one a CTA
+    _, _, operands = add_welch(p, taper, None, S, 1, L, group, segments.device, out=out)
+    return Prepared(SEGMENT_DFT_POWER, p, segments.device, out, (segments,) + operands)
 
 
 def segment_fft_power(segments: torch.Tensor, taper: torch.Tensor,
@@ -59,28 +71,26 @@ def segment_fft_power(segments: torch.Tensor, taper: torch.Tensor,
         return segment_dft_power_ref(segments, taper, detrend)
     if segments.shape[0] == 0:
         return segments.new_zeros((0, L // 2 + 1, segments.shape[2]))
-    C, Sn = dft_power_matrices(L, taper)
-    return prepare_segment_power(segments.float().contiguous(), C.contiguous(),
-                                 Sn.contiguous(), detrend).launch()
+    return prepare_segment_power(segments.float().contiguous(), taper, detrend).launch()
 
 
-def prepare_segment_csd(segments: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+def prepare_segment_csd(segments: torch.Tensor, taper: torch.Tensor,
                         detrend: bool) -> Prepared:
-    """(S, L, d) contiguous float32 segments (S >= 1) and (L, F) twiddles;
+    """(S, L, d) contiguous float32 segments (S >= 1) and their (L,) taper;
     ``.launch()`` returns the (S, F, d, d) complex64 cross-spectra, a view of
     the kernel's interleaved (re, im) float32 output."""
     S, L, d = segments.shape
     require(segments, "segments", (S, L, d))
     if S == 0:
         raise ValueError("need at least one segment")
-    F = cos.shape[1]
-    out = torch.empty((S, F, d, d, 2), device=segments.device)
+    out = torch.empty((S, L // 2 + 1, d, d, 2), device=segments.device)
     p = new_params(segments.view(S * L, d), 0)
     p.detrend = int(detrend)
-    add_welch(p, cos, sin, None, S, 1, L, 1, segments.device, out=out)
+    _, _, operands = add_welch(p, taper, None, S, 1, L, 1, segments.device, out=out,
+                               path="twiddle")
     p.welch[0].ctas *= p.d_tiles  # one CTA per (segment, f tile, i tile, j tile)
     return Prepared(SEGMENT_CSD, p, segments.device, torch.view_as_complex(out),
-                    (segments, cos, sin, out))
+                    (segments, out) + operands)
 
 
 def segment_csd(segments: torch.Tensor, taper: torch.Tensor,
@@ -101,6 +111,4 @@ def segment_csd(segments: torch.Tensor, taper: torch.Tensor,
     if S == 0:
         return torch.zeros((0, L // 2 + 1, d, d), dtype=torch.complex64,
                            device=segments.device)
-    C, Sn = dft_power_matrices(L, taper)
-    return prepare_segment_csd(segments.float().contiguous(), C.contiguous(),
-                               Sn.contiguous(), detrend).launch()
+    return prepare_segment_csd(segments.float().contiguous(), taper, detrend).launch()

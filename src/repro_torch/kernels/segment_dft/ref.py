@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the segment-DFT kernels (port of
 `repro.kernels.segment_dft.ref`): power and cross-spectra, both in the
-matmul form against taper-folded twiddle matrices (no library FFT)."""
+matmul form against taper-folded twiddle matrices (no library FFT); and
+the host-built tables the kernels read: the twiddles, and the roots of the
+FFT path."""
 from __future__ import annotations
 
 import functools
@@ -8,8 +10,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["dft_phase", "dft_power_matrices", "segment_dft_power_ref", "segment_dft_ref",
-           "segment_csd_ref"]
+__all__ = ["dft_phase", "dft_power_matrices", "fft_roots_host", "fft_roots",
+           "segment_dft_power_ref", "segment_dft_ref", "segment_csd_ref"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -25,6 +27,22 @@ def _phase_host(L: int) -> np.ndarray:
 def dft_phase(L: int, device: torch.device) -> torch.Tensor:
     """(L, L//2+1) float32 phase index t*f mod L on ``device`` (copied once)."""
     return torch.from_numpy(_phase_host(L)).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def fft_roots_host(L: int) -> np.ndarray:
+    """(L//2, 2) float32 (cos, sin) of exp(-2 pi i k / L), k < L/2: the FFT
+    path's roots.  The phase k is already reduced mod L in exact integers
+    (as in :func:`_phase_host`); the angle and both functions are taken in
+    float64 and rounded once to float32."""
+    ang = np.arange(max(L // 2, 1), dtype=np.int64) * (2.0 * np.pi / L)
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def fft_roots(L: int, device: torch.device) -> torch.Tensor:
+    """:func:`fft_roots_host` on ``device``, copied once per (L, device)."""
+    return torch.from_numpy(fft_roots_host(L)).to(device)
 
 
 def dft_power_matrices(L: int, taper: torch.Tensor) -> tuple:

@@ -11,10 +11,13 @@
 // d = 64, H = 16) the lag sums are (H+1) * n * d^2 * 2 = 9.1 GFLOP of fp32
 // FMAs against 17 MB of input, far above the card's fp32 ridge point.  The
 // (H+1, d, d) accumulator (278 KB at that width) does not fit in one CTA's
-// shared memory, so the work is split over (lag, 64 x 64 channel tile, slab
-// of starts); each CTA stages 32-row tiles through shared memory and keeps a
-// 4 x 4 register tile per thread.  Per-slab partials are summed in a fixed
-// order by reduce_parts_kernel (no float atomics: runs are bit-identical).
+// shared memory, so the work is split over (64 x 64 channel tile, group of
+// up to three consecutive lags, slab of starts).  A CTA stages each step's
+// rows once for its whole lag group through a cp.async ring and keeps a
+// 4 x 4 register tile per lag, with a sliding window of the shifted rows,
+// so FMAs, not shared-memory loads, set its pace (lag_role in
+// stats_tiles.cuh).  Per-slab partials are summed in a fixed order by
+// reduce_parts_kernel (no float atomics: runs are bit-identical).
 // The moment sums cost O(K) per row through exact window counts (see
 // stats_tiles.cuh) and are bound by the one read of the rows.
 //
@@ -46,13 +49,13 @@ struct MomentParams {
   int ctas;        // ceil(ceil(n_out / chain) * d / RT_THREADS)
 };
 
-static __global__ void __launch_bounds__(RT_THREADS) cross_lag_kernel(PlanParams p) {
-  __shared__ __align__(16) float smem[RT_SMEM_FLOATS];
+static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) cross_lag_kernel(PlanParams p) {
+  extern __shared__ __align__(16) float smem[];
   lag_role(p, blockIdx.x, smem);
 }
 
-static __global__ void __launch_bounds__(RT_THREADS) fused_lag_moments_kernel(PlanParams p) {
-  __shared__ __align__(16) float smem[RT_SMEM_FLOATS];
+static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) fused_lag_moments_kernel(PlanParams p) {
+  extern __shared__ __align__(16) float smem[];
   if ((int)blockIdx.x < p.lag_ctas) {
     lag_role(p, blockIdx.x, smem);
   } else {
@@ -62,16 +65,22 @@ static __global__ void __launch_bounds__(RT_THREADS) fused_lag_moments_kernel(Pl
 
 extern "C" int rt_cross_lag_sums(const PlanParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cross_lag_kernel<<<p->lag_ctas, RT_THREADS, 0, st>>>(*p);
-  cudaError_t err = cudaGetLastError();
+  const int smem = plan_smem_bytes(*p, true, false, false);
+  cudaError_t err = allow_smem(cross_lag_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cross_lag_kernel<<<p->lag_ctas, RT_THREADS, smem, st>>>(*p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_families(*p, true, false, st);
 }
 
 extern "C" int rt_fused_lag_moments(const PlanParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  fused_lag_moments_kernel<<<p->lag_ctas + p->mom_ctas, RT_THREADS, 0, st>>>(*p);
-  cudaError_t err = cudaGetLastError();
+  const int smem = plan_smem_bytes(*p, true, true, false);
+  cudaError_t err = allow_smem(fused_lag_moments_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_lag_moments_kernel<<<p->lag_ctas + p->mom_ctas, RT_THREADS, smem, st>>>(*p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_families(*p, true, true, st);
 }

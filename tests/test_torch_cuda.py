@@ -34,6 +34,17 @@ def _close(got, want, tol):
         assert (a - b).abs().max() <= tol * b.abs().max()
 
 
+def _per_bin(got, want, tol, per_segment=True):
+    """Each entry of a power against the plain power at its (frequency,
+    channel): averaged over segments for (S, F, d), itself for a power
+    summed over segments (F, d) -- chip_smoke.py's TOL_NEW["psd"] check."""
+    g, w = (got, want) if per_segment else (got[None], want[None])
+    diff = (g.double() - w.double()).abs()
+    scale = w.double().mean(0, keepdim=True).expand_as(diff)
+    assert bool(((diff == 0) | (diff <= tol * scale)).all()), (
+        (diff / scale).nan_to_num(posinf=float("inf")).max().item())
+
+
 def _series(dev, n=600, d=70):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -54,8 +65,10 @@ def test_segment_power_kernel_matches_plain(dev):
     taper = torch.hann_window(64, periodic=False, device=dev)
     segs = _series(dev)[:512].reshape(8, 64, 70)
     for detrend in (True, False):
-        _close(sd.segment_fft_power(segs, taper, detrend),
-               sdr.segment_dft_power_ref(segs, taper, detrend), 1e-3)
+        got, want = (sd.segment_fft_power(segs, taper, detrend),
+                     sdr.segment_dft_power_ref(segs, taper, detrend))
+        _close(got, want, 1e-3)
+        _per_bin(got, want, 1e-3)
 
 
 def test_megakernel_matches_plain_and_repeats_bitwise(dev):
@@ -92,6 +105,102 @@ def test_plan_on_the_card_matches_torch_backend(dev):
     for key in ("mean", "var", "count"):
         np.testing.assert_allclose(got["moments"][key].cpu(), want["moments"][key].cpu(),
                                    rtol=1e-4, atol=1e-5)
+
+
+# ----------------------------- kernels 1-4: the Welch paths, lag groups
+FFT_LENGTHS = [2, 4, 8, 16, 64, 256, 1024, 4096]  # 4096: FFT_MAX_L
+
+
+def _segments(dev, S, L, d, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn((S, L, d), generator=g, device=dev) + 2.0
+
+
+def _power_case(dev, S, L, d, detrend, path):
+    """The segment power on ``path`` against the plain version: 1e-3 of
+    max|plain| (chip_smoke.py's TOL["psd"]) and 1e-3 per bin (TOL_NEW["psd"];
+    the offset of 2 makes the DC bin tens of times the others without
+    detrend); two launches bitwise equal."""
+    from repro_torch.kernels import path_counts
+
+    segs = _segments(dev, S, L, d, L + d)
+    # the symmetric Hann window of 2 points is zero; a flat one would leave
+    # the detrended DC bin pure rounding
+    taper = (torch.hann_window(L, periodic=False, device=dev) if L > 2
+             else torch.tensor([0.25, 1.0], device=dev))
+    reset_launch_counts()
+    got, again = sd.segment_fft_power(segs, taper, detrend), sd.segment_fft_power(
+        segs, taper, detrend)
+    assert path_counts()["segment_dft_power"][path] == 2
+    want = sdr.segment_dft_power_ref(segs, taper, detrend)
+    assert got.shape == want.shape
+    _close(got, want, 1e-3)
+    _per_bin(got, want, 1e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("detrend", [True, False])
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("L", FFT_LENGTHS)
+def test_segment_power_fft_path_matches_plain(dev, L, d, detrend):
+    _power_case(dev, 5, L, d, detrend, "fft")
+
+
+@pytest.mark.parametrize("d", [1, 64, 65])
+@pytest.mark.parametrize("L", [17, 255])
+def test_segment_power_twiddle_path_matches_plain(dev, L, d):
+    _power_case(dev, 4, L, d, True, "twiddle")
+
+
+@pytest.mark.parametrize("n,d,H,seg_lens,seg_steps", [
+    (700, 70, 0, (256, 17), (128, 5)), (700, 70, 1, (256, 17), (128, 5)),
+    (700, 70, 16, (256, 17), (128, 5)), (700, 70, 40, (256, 17), (128, 5)),
+    (600, 1, 16, (256, 17), (64, 3)),    # d = 1
+    (24, 3, 40, (16,), (8,)),             # max_lag > chunk
+])
+def test_megakernel_lag_groups_and_welch_paths(dev, n, d, H, seg_lens, seg_steps):
+    """Lag (1e-4), moments (1e-4) and both Welch paths (1e-3 of max|plain|,
+    1e-3 per bin) against the plain version; counts exact; two launches
+    bitwise equal; each launch counted once per Welch path it took."""
+    from repro_torch.kernels import path_counts
+
+    windows = (5, 12)
+    reach = max(H, max(windows) - 1, max(seg_lens) - 1)
+    y = _series(dev, n + reach, d)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[n // 3:: 7] = False
+    tapers = tuple(torch.hann_window(L, periodic=False, device=dev) for L in seg_lens)
+    args = (y, mask, 3, H, windows, seg_lens, seg_steps, tapers)
+    reset_launch_counts()
+    got, again = fp.fused_plan_update(*args), fp.fused_plan_update(*args)
+    assert launch_counts()["fused_plan_megakernel"] == 2
+    paths = {"fft" if L in (16, 256) else "twiddle" for L in seg_lens}
+    assert {k for k, v in path_counts()["fused_plan_megakernel"].items() if v} == paths
+    want = fpr.fused_plan_update_ref(*args)
+    _close(got[0], want[0], 1e-4)
+    _close(got[1], want[1], 1e-4)
+    _close(got[2], want[2], 1e-3)
+    for g, w in zip(got[2], want[2]):
+        _per_bin(g, w, 1e-3, per_segment=False)
+    assert [float(v) for v in got[3]] == [float(v) for v in want[3]]
+    assert all(torch.equal(a, b) for a, b in zip(again[:2] + again[2], got[:2] + got[2]))
+
+
+@pytest.mark.parametrize("d", [1, 64, 130])
+@pytest.mark.parametrize("n,H", [(2000, 0), (2000, 16), (2000, 40), (30, 40)])
+def test_cross_lag_kernel_lag_groups(dev, n, H, d):
+    """Kernel 2 (and kernel 3's lag part) at H = 0, 16, 40 and H > n: 1e-4
+    of max|plain|, repeats bitwise."""
+    y = _series(dev, n, d)
+    got, again = ws.lagged_sums(y, H), ws.lagged_sums(y, H)
+    _close(got, wsr.lagged_sums_ref(y, H), 1e-4)
+    assert torch.equal(got, again)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[::3] = False
+    yy = wsr.extend_rows(y, n + max(H, 7))
+    _close(ws.fused_lagged_moments(yy, mask, H, (3, 8)),
+           wsr.fused_lag_moments_ref(yy, mask, H, (3, 8)), 1e-4)
 
 
 # ------------------------------------------------------- kernels 5, 6 and 7

@@ -230,11 +230,11 @@ def test_launch_validation_raises_before_any_launch():
     with pytest.raises(ValueError, match="shape"):
         ws.prepare_cross_lagged_sums(torch.zeros((10, 2)), torch.zeros((11, 2)), 2)
     p = _launch.new_params(y, 30)
-    cos = torch.zeros((16, 9))
+    taper = torch.ones(16)
     for _ in range(_build.MAX_WELCH):
-        _launch.add_welch(p, cos, cos, None, 1, 1, 16, 1, y.device)
+        _launch.add_welch(p, taper, None, 1, 1, 16, 1, y.device)
     with pytest.raises(ValueError, match="at most 4 Welch members"):
-        _launch.add_welch(p, cos, cos, None, 1, 1, 16, 1, y.device)
+        _launch.add_welch(p, taper, None, 1, 1, 16, 1, y.device)
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         ws.cross_lagged_sums(torch.zeros((4, 2), device="meta"), torch.zeros((4, 2)), 1)
 
@@ -245,9 +245,25 @@ def test_struct_mirrors_have_the_c_layout():
     built library at load time on the card)."""
     import ctypes
 
-    assert ctypes.sizeof(_build.WelchMember) == 80
+    assert ctypes.sizeof(_build.WelchMember) == 7 * 8 + 12 * 4
     assert _build.PlanParams.welch.offset % 8 == 0
     assert ctypes.sizeof(_build.PlanParams) == _build.PlanParams.detrend.offset + 8
+
+
+def test_python_constants_match_the_c_defines():
+    """_build.STATS_CONSTANTS against the #defines of csrc/stats_tiles.cuh,
+    and the order in which rt_stats_constants (fused_plan.cu) writes them
+    (the built library is checked against them at load on the card)."""
+    import re
+
+    src = (_build.KERNELS_DIR / "csrc" / "stats_tiles.cuh").read_text()
+    defines = dict(re.findall(r"^#define (RT_\w+) (\d+)\b", src, re.M))
+    assert ({name: int(defines[macro]) for name, macro in _build.STATS_CONSTANTS.items()}
+            == {name: getattr(_build, name) for name in _build.STATS_CONSTANTS})
+    cu = (_build.KERNELS_DIR / "fused_plan" / "csrc" / "fused_plan.cu").read_text()
+    body = cu[cu.index("void rt_stats_constants"):]
+    assert (re.findall(r"RT_\w+", body[body.index("{"): body.index("};")])
+            == list(_build.STATS_CONSTANTS.values()))
 
 
 def test_new_struct_mirrors_have_the_c_layout():

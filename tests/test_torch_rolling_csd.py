@@ -175,8 +175,7 @@ def test_wrappers_validate_and_count_no_cpu_launches():
     with pytest.raises(ValueError, match="no full window"):
         ws.prepare_window_moments(torch.zeros(10, 2), 11)
     with pytest.raises(TypeError, match="float32"):
-        sd.prepare_segment_csd(torch.zeros(2, 8, 1, dtype=torch.float64), torch.zeros(8, 5),
-                               torch.zeros(8, 5), True)
+        sd.prepare_segment_csd(torch.zeros(2, 8, 1, dtype=torch.float64), torch.zeros(8), True)
 
 
 @pytest.mark.parametrize("n_out,d,window,sms,want", [

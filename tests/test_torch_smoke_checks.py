@@ -210,3 +210,49 @@ def test_serving_launch_pin():
     assert smoke.serve_launches_ok(pinned, 24)
     for key, bad in (("decode", 1), ("generate", 48), ("prefill", 0), ("extended_prefill", 23)):
         assert not smoke.serve_launches_ok({**pinned, key: bad}, 24)
+
+
+def _ar_power(S=40, L=64, d=6, seed=0):
+    """Per-segment power |rfft|^2 of AR(1) segments with phi from 0.3 to
+    0.95: the high bins of the phi = 0.95 channel are hundreds of times
+    fainter than its low bins, which set max|power|."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((S * L, d), generator=g, dtype=torch.float64)
+    phi = torch.linspace(0.3, 0.95, d, dtype=torch.float64)
+    for t in range(1, x.shape[0]):
+        x[t] += phi * x[t - 1]
+    segs = x.reshape(S, L, d)
+    segs = segs - segs.mean(1, keepdim=True)
+    return (torch.fft.rfft(segs, dim=1).abs() ** 2).float()
+
+
+@pytest.mark.parametrize("per_segment", [True, False])
+def test_power_is_held_per_bin_where_normwise_misses_a_faint_bin(per_segment):
+    power = _ar_power()
+    want = power if per_segment else power.sum(0)
+    noise = 1 + 1e-6 * torch.randn(want.shape, generator=torch.Generator().manual_seed(1))
+    assert smoke.power_bin_error(want * noise, want, per_segment)["ok"]
+    # 15% off in the faintest high-frequency bin of the faintest channel
+    scale = want.mean(0) if per_segment else want
+    F = scale.shape[0]
+    f = F // 2 + int(scale[F // 2:, -1].argmin())
+    bad = want.clone()
+    bad[..., f, -1] *= 1.15
+    assert smoke.leaf_error(bad, want)[1] < smoke.TOL["psd"]  # normwise passes it
+    res = smoke.power_bin_error(bad, want, per_segment)
+    assert not res["ok"] and res["max_rel_err"] > 0.1
+
+
+@pytest.mark.parametrize("per_segment", [True, False])
+def test_planted_bin_error_lands_in_a_faint_high_bin_and_is_caught(per_segment):
+    power = _ar_power()
+    want = power if per_segment else power.sum(0)
+    got = want * (1 + 1e-7)
+    res = smoke.planted_bin_error(got, want, per_segment)
+    scale = want.mean(0) if per_segment else want
+    F = scale.shape[0]
+    assert res["caught"] and F // 2 <= res["bin"] < F
+    assert scale[res["bin"], res["channel"]] == scale[F // 2:].min()  # the faintest there
+    assert res["channel"] >= 3  # one of the high-phi channels
+    assert 1.5 * smoke.TOL_NEW["psd"] < res["per_bin_rel"] < 2.5 * smoke.TOL_NEW["psd"]
+    assert res["normwise_rel"] < smoke.TOL["psd"] and res["bin_share_of_max"] < 1e-2

@@ -1,16 +1,37 @@
-"""Time design variants of the banded matvec and rolling-moments kernels on
-one NVIDIA GPU, each held against the port's plain version.
+"""Time design variants of the port's kernels on one NVIDIA GPU, each held
+against the port's plain version.
 
     python3 tools/kernel_variants/variants_bench.py [banded|moments|all]
+    python3 tools/kernel_variants/variants_bench.py stats BASELINE_KERNELS_DIR
 
-Builds the two variant files with nvcc into build/kernel_variants/ and, at
-the shapes of chip_smoke.py (banded: x (2,047, 131,072), b = 4; moments:
-2^22 x 64, w = 64 and 1,024), prints one line per variant: the median of 5
-samples of 10 back-to-back launches (CUDA events), the extremes, and the
-largest error against the plain version relative to its largest value.
-The banded run also times a 1.07 GB `copy_` as the card's copy rate.
+banded, moments: builds the two variant files with nvcc into
+build/kernel_variants/ and, at the shapes of chip_smoke.py (banded: x
+(2,047, 131,072), b = 4; moments: 2^22 x 64, w = 64 and 1,024), prints one
+line per variant: the median of 5 samples of 10 back-to-back launches (CUDA
+events), the extremes, and the largest error against the plain version
+relative to its largest value.  The banded run also times a 1.07 GB
+`copy_` as the card's copy rate.
+
+stats: times the eight kernels of this checkout against those of another
+version of ``src/repro_torch/kernels`` (a copy of the package directory,
+for example a parent commit's, unpacked with ``git archive`` into a
+directory that .gitignore lists), both built here and loaded side by side,
+at chip_smoke.py's shapes, in turns (baseline, this, this, baseline); then
+sweeps the launch shapes of this checkout's kernels 1-3 (lag and moment
+slabs, Welch candidates per CTA) and kernel 4's segments per CTA on the FFT
+path at 511 and 1,023 segments (the main path's and the cross-spectra's
+welch_psd).
+Each time is the median of 5 samples of a CUDA graph of 8 prepared
+launches (kernels 1-4, on 8 distinct chunks: a cold 134 MB) or of one
+launch (kernels 5-8), replayed 10 times.  Writes every sample to
+build/kernel_variants/variants_stats.json.
 """
 import ctypes
+import importlib
+import importlib.util
+import inspect
+import json
+import math
 import os
 import subprocess
 import sys
@@ -113,6 +134,195 @@ def moments(gen, dev) -> None:
                   f"max {hi:.4f}) err {err:.2e} ctas {p.ctas}", flush=True)
 
 
+def load_kernels(name: str, directory: str):
+    """The kernels package in ``directory`` imported as ``name`` (its modules
+    import each other relatively), built with its own sources."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(directory, "__init__.py"), submodule_search_locations=[directory])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    mods = {sub: importlib.import_module(f"{name}.{sub}") for sub in (
+        "_build", "_launch", "fused_plan.ops", "segment_dft.ops", "segment_dft.ref",
+        "window_stats.ops", "banded_matvec.ops", "swa_attention.ops")}
+    path, seconds, log = mods["_build"].build(verbose=True)
+    mods["_build"].library()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    print(f"{name}: built {os.path.basename(path)} in {seconds:.1f} s", flush=True)
+    for ln in ptxas:
+        print(f"  {ln}", flush=True)
+    return mods
+
+
+def graph_samples(launches: list, replays: int = 10, repeats: int = 5) -> list:
+    """ms per launch, sorted: ``repeats`` samples of a CUDA graph of the
+    launches replayed ``replays`` times."""
+    for launch in launches:
+        launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for launch in launches:
+            launch()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    samples = []
+    for _ in range(repeats):
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(stop) / (replays * len(launches)))
+    del graph
+    return sorted(samples)
+
+
+def stats(baseline_dir: str, gen, dev) -> None:
+    from repro_torch.core.estimators.spectral import hann_window
+    from repro_torch.kernels.fused_plan.ref import welch_candidates
+    from repro_torch.kernels.segment_dft.ref import dft_power_matrices
+
+    old = load_kernels("baseline_kernels", os.path.abspath(baseline_dir))
+    new = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
+    D, CHUNK, H, WINDOWS, L, STEP = 64, 65536, 16, (64, 1024), 256, 128
+    CARRY, ROT = max(WINDOWS) - 1, 8
+    series = torch.randn((ROT * CHUNK + CARRY, D), generator=gen, device=dev)
+    taper = hann_window(L, dev)
+    starts = torch.arange(CHUNK, device=dev)
+    z0 = torch.zeros((), dtype=torch.int32, device=dev)
+    mask_mega = starts <= CHUNK - CARRY - 1
+    mask_lag = starts <= CHUNK - H - 1
+    ys = [series[i * CHUNK: i * CHUNK + CHUNK + CARRY] for i in range(ROT)]
+    segs = [welch_candidates(y[: CHUNK + L - 1], starts <= CHUNK - L, z0, L, STEP)[0]
+            .contiguous() for y in ys]
+    lag_ops = [(torch.where(mask_lag[:, None], y[:CHUNK], 0.0).contiguous(),
+                y[: CHUNK + H].contiguous()) for y in ys]
+    C, S = (t.contiguous() for t in dft_power_matrices(L, taper))
+
+    def spectral_operands(prepare):
+        """The operands after the segments: (cos, sin) for a package whose
+        segment kernels took the twiddle matrices, else (taper,)."""
+        return (C, S) if "cos" in inspect.signature(prepare).parameters else (taper,)
+
+    def preps(m, which):
+        """Prepared launches of kernels 1-4 of package ``m``."""
+        fp, sd, ws = m["fused_plan.ops"], m["segment_dft.ops"], m["window_stats.ops"]
+        if which == "fused_plan_megakernel":
+            return [fp.prepare_fused_plan(y, mask_mega, z0, H, WINDOWS, (L,), (STEP,),
+                                          (taper,)) for y in ys]
+        if which == "cross_window_stats":
+            return [ws.prepare_cross_lagged_sums(a, b, H) for a, b in lag_ops]
+        if which == "fused_lag_moments":
+            return [ws.prepare_fused_lag_moments(y.contiguous(), mask_mega, 0, WINDOWS)
+                    for y in ys]
+        ops = spectral_operands(sd.prepare_segment_power)
+        return [sd.prepare_segment_power(s, *ops, True) for s in segs]
+
+    # kernels 5-8 at chip_smoke.py's shapes
+    x5 = torch.randn((2**22, D), generator=gen, device=dev)
+    csd_segs = x5[:131072].unfold(0, L, STEP).transpose(1, 2).contiguous()
+    diags = torch.randn((131072, 9), generator=gen, device=dev) * 0.05
+    x7 = torch.randn((2047, 131072), generator=gen, device=dev)
+    q = torch.randn((4, 8000, 32, 80), generator=gen, device=dev).bfloat16()
+    kv = [torch.randn((4, 8000, 8, 80), generator=gen, device=dev).bfloat16()
+          for _ in range(2)]
+
+    def single(m, which):
+        ws, sd = m["window_stats.ops"], m["segment_dft.ops"]
+        if which == "window_moments":
+            return [ws.prepare_window_moments(x5, 1024)]
+        if which == "segment_csd":
+            ops = spectral_operands(sd.prepare_segment_csd)
+            return [sd.prepare_segment_csd(csd_segs, *ops, True)]
+        if which == "banded_matvec":
+            return [m["banded_matvec.ops"].prepare_banded_matvec(diags.t().contiguous(), x7)]
+        return [m["swa_attention.ops"].prepare_swa_attention(q, kv[0], kv[1], 4096,
+                                                              1 / math.sqrt(80))]
+
+    record = {"device": torch.cuda.get_device_name(0), "turns": {}, "sweeps": {}}
+
+    def flat(r):
+        """Every tensor of a launch's (nested) outputs, real, float32."""
+        items = [t for t in (r if isinstance(r, tuple) else (r,)) for t in (
+            t if isinstance(t, tuple) else (t,)) if t is not None]
+        return [torch.view_as_real(t) if t.is_complex() else t.float() for t in items]
+    names = ["fused_plan_megakernel", "cross_window_stats", "fused_lag_moments",
+             "segment_dft_power", "window_moments", "segment_csd", "banded_matvec",
+             "swa_attention"]
+    for name in names:
+        make = preps if name in names[:4] else single
+        # parity of this package's first launch against the baseline's
+        got, want = make(new, name)[0].launch(), make(old, name)[0].launch()
+        err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                  for a, b in zip(flat(got), flat(want)))
+        del got, want
+        turns = []
+        for label, m in (("baseline", old), ("this", new), ("this", new), ("baseline", old)):
+            launches = [p.launch for p in make(m, name)]
+            samples = graph_samples(launches)
+            turns.append((label, samples))
+            torch.cuda.empty_cache()
+        med = {lab: sorted(x[2] for l2, x in turns if l2 == lab) for lab in ("baseline", "this")}
+        record["turns"][name] = {"samples": turns, "rel_diff_vs_baseline": err}
+        print(f"{name}: baseline {med['baseline']} ms, this {med['this']} ms, "
+              f"speed-up {sum(med['baseline']) / sum(med['this']):.3f}x, "
+              f"max rel diff {err:.2e}", flush=True)
+
+    # launch-shape sweeps of this package
+    lch, fpm = new["_launch"], new["fused_plan.ops"]
+    defaults = (lch.LAG_CTAS_PER_SM, fpm.WELCH_GROUP)
+    sweeps = [("lag_ctas_per_sm", k, "fused_plan_megakernel") for k in (1, 2, 3, 4)]
+    sweeps += [("lag_ctas_per_sm", k, "cross_window_stats") for k in (1, 2, 3, 4)]
+    sweeps += [("welch_group", g, "fused_plan_megakernel") for g in (1, 2, 4, 8)]
+    for knob, value, name in sweeps:
+        lch.LAG_CTAS_PER_SM, fpm.WELCH_GROUP = defaults
+        setattr(*{"lag_ctas_per_sm": (lch, "LAG_CTAS_PER_SM"),
+                  "welch_group": (fpm, "WELCH_GROUP")}[knob], value)
+        samples = graph_samples([p.launch for p in preps(new, name)])
+        record["sweeps"][f"{name}/{knob}={value}"] = samples
+        print(f"sweep {name} {knob}={value}: ms {samples[2]:.4f} (min {samples[0]:.4f} "
+              f"max {samples[-1]:.4f})", flush=True)
+    lch.LAG_CTAS_PER_SM, fpm.WELCH_GROUP = defaults
+    for mom in (2, 4, 8):
+        lch.MOM_CTAS_PER_SM = mom
+        for name in ("fused_lag_moments", "fused_plan_megakernel"):
+            samples = graph_samples([p.launch for p in preps(new, name)])
+            record["sweeps"][f"{name}/mom_ctas_per_sm={mom}"] = samples
+            print(f"sweep {name} mom_ctas_per_sm={mom}: ms {samples[2]:.4f} (min "
+                  f"{samples[0]:.4f} max {samples[-1]:.4f})", flush=True)
+    lch.MOM_CTAS_PER_SM = 2
+
+    # kernel 4 on the FFT path, segments per CTA: the wrapper takes one; a
+    # group keeps the next segment's copy in flight during this one's
+    # transform.  At 511 segments (the main path's chunk) and at 1,023 (the
+    # cross-spectra phase's welch_psd), each on 8 distinct sets of segments.
+    sdm = new["segment_dft.ops"]
+    for n_seg in (511, 1023):
+        sets = [x5[i * 131072: i * 131072 + (n_seg + 1) * STEP].unfold(0, L, STEP)
+                .transpose(1, 2).contiguous() for i in range(ROT)]
+        want = sdm.prepare_segment_power(sets[0], taper, True).launch().clone()
+        for group in (1, 2, 3, 4):
+            def prep(segs):
+                out = torch.empty((n_seg, L // 2 + 1, D), device=dev)
+                p = lch.new_params(segs.view(n_seg * L, D), 0)
+                p.detrend = 1
+                _, _, ops = lch.add_welch(p, taper, None, n_seg, 1, L, group, dev, out=out)
+                return lch.Prepared(sdm.SEGMENT_DFT_POWER, p, dev, out, (segs,) + ops)
+            preps_g = [prep(segs) for segs in sets]
+            same = torch.equal(preps_g[0].launch(), want)
+            samples = graph_samples([p.launch for p in preps_g])
+            record["sweeps"][f"segment_dft_power_{n_seg}/group={group}"] = samples
+            print(f"sweep segment_dft_power {n_seg} segments, group={group}: ms "
+                  f"{samples[2]:.4f} (min {samples[0]:.4f} max {samples[-1]:.4f}) "
+                  f"equal to group 1: {same}", flush=True)
+            del preps_g
+        del sets
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "variants_stats.json"), "w") as f:
+        json.dump(record, f, indent=1)
+
+
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if not torch.cuda.is_available():
@@ -120,7 +330,14 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    print(torch.cuda.get_device_name(0), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip() or torch.cuda.get_device_name(0), flush=True)
+    if which == "stats":
+        if len(sys.argv) < 3:
+            sys.exit("stats needs the baseline kernels directory")
+        stats(sys.argv[2], gen, dev)
+        return
     if which in ("banded", "all"):
         banded(gen, dev)
     if which in ("moments", "all"):
