@@ -125,13 +125,21 @@ SWA_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 SWA_ROW_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 SWA_FAULT = 64  # keys dropped from the window in the fault readings
 SERVE_TOL = 3e-2
-SWA_EDGE = {  # name: (S, W, G, D) at B = 1, 2 KV heads
+SWA_EDGE = {  # name: (S, W, G, D[, B, KVH]); B = 1 and 2 KV heads unless given
     "s1000_w70_g4_d80": (1000, 70, 4, 80),
     "s1000_w1_g4_d80": (1000, 1, 4, 80),
     "s1000_w_is_s_g1_d64": (1000, 1000, 1, 64),
     "s1000_w4096_g4_d128": (1000, 4096, 4, 128),
     "s1000_w70_g1_d128": (1000, 70, 1, 128),
     "s1000_w70_g4_d64": (1000, 70, 4, 64),
+    # D a multiple of 8 but not of 16; the registry's G = 7 and 16 at D =
+    # 128; S below one key tile and S = 1; two batch rows of 8 KV heads
+    "s1000_w70_g4_d72": (1000, 70, 4, 72),
+    "s1000_w300_g7_d128": (1000, 300, 7, 128),
+    "s500_w100_g16_d128": (500, 100, 16, 128),
+    "s40_w16_g4_d80": (40, 16, 4, 80),
+    "s1_w4_g4_d80": (1, 4, 4, 80),
+    "s700_w200_g4_d80_b2_kvh8": (700, 200, 4, 80, 2, 8),
 }
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 
@@ -1378,8 +1386,9 @@ def swa_kernel(args, dev) -> dict:
     full = qkv(SWA_B, SWA_S, SWA_H, SWA_KVH, SWA_D, torch.bfloat16)
     parity = {"layer_shape": case(*full, SWA_W, fault=True)}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        for name, (s, w, g, d) in SWA_EDGE.items():
-            parity[f"{name}_{tag}"] = case(*qkv(1, s, 2 * g, 2, d, dtype), w)
+        for name, (s, w, g, d, *bk) in SWA_EDGE.items():
+            b, kvh = bk or (1, 2)
+            parity[f"{name}_{tag}"] = case(*qkv(b, s, kvh * g, kvh, d, dtype), w)
     emit({"phase": "parity_swa_attention", "tolerance": "per entry: max|kernel - chunked "
           "plain| <= tol * the row's max|v| over its window; per output row: ||kernel - "
           "plain|| / ||plain|| <= row_tol, and <= row_mean_tol on average over the rows whose "
@@ -1440,6 +1449,7 @@ def swa_kernel(args, dev) -> dict:
     }
     emit({"phase": "timing_swa_attention", "shape": f"q ({SWA_B}, {SWA_S}, {SWA_H}, {SWA_D}), "
           f"k/v ({SWA_B}, {SWA_S}, {SWA_KVH}, {SWA_D}) bf16, W={SWA_W}", **timing,
+          "rate_reference": flash_rate_reference(full),
           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
           "gbytes": nbytes / 1e9, "tflop": flops / 1e12, "tflop_per_s": flops / ms / 1e9,
           "library_call": f"F.scaled_dot_product_attention(band mask, {gqa}) under "
@@ -1448,6 +1458,32 @@ def swa_kernel(args, dev) -> dict:
           "note": "ms: median of CUDA-graph replays of the prepared launch; host_launch_ms, "
                   "wrapper_ms, plain_ms, library_ms: CUDA events around calls from the host"})
     return {"parity": parity, "timing": timing, "bound": (b_ms, b_by)}
+
+
+def flash_rate_reference(qkv) -> dict:
+    """A rate yardstick for kernel 8, not its library_ms: PyTorch's
+    FlashAttention-2 (F.scaled_dot_product_attention, is_causal=True, under
+    SDPBackend.FLASH_ATTENTION) at the same q, k, v computes plain causal
+    attention, another function; its TFLOP/s counts the causal pairs.  It
+    shows what a tuned kernel reaches at this D on this card.  The port
+    never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.swa_attention.ref import valid_pairs
+
+    qt, kt, vt = (t.transpose(1, 2) for t in qkv)  # (B, heads, S, D) views
+    b, h, s, d = qt.shape
+
+    def flash():  # K/V read as they are (KVH heads), as kernel 8 reads them
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+    ms = cuda_ms(flash, 5, warmup=1)
+    pairs = valid_pairs(s, s) * b * h
+    return {"call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) under "
+                    "FLASH_ATTENTION", "gqa": True, "ms": ms, "causal_pairs": pairs,
+            "tflop_per_s": 4 * d * pairs / ms / 1e9,
+            "note": "another function (causal, no window); not library_ms"}
 
 
 def lm_serve(args, dev) -> int:
@@ -1601,8 +1637,11 @@ def main() -> None:
           "nvidia-smi: no output", flush=True)
     path, nvcc_s, log = _build.build(verbose=True)
     _build.library()
+    # registers and spills per kernel, and ptxas's notes of wgmma serialized
+    # or setmaxnreg ignored (kernel 8's warp specialisation needs neither)
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             if any(key in ln for key in ("registers", "spill", "Compiling entry",
+                                          "Performance Loss", "setmaxnreg"))]
     emit({"phase": "build", "nvcc_seconds": nvcc_s, "library": os.path.relpath(path, ROOT),
           "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
           "cuda": torch.version.cuda, "ptxas": ptxas})

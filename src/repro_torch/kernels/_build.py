@@ -14,7 +14,9 @@ from ``window_stats/csrc/window_stats.cu``, :class:`BandParams` from
 ``banded_matvec/csrc/banded_matvec.cu``, :class:`SwaParams` from
 ``swa_attention/csrc/swa_attention.cu``) and the CUDA stream; each returns
 ``cudaGetLastError()`` after its launches, and :func:`check` raises on a
-non-zero code.
+non-zero code.  The struct sizes and the design constants mirrored below
+(``STATS_CONSTANTS``, ``SWA_CONSTANTS``) are checked against the library
+at load.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ __all__ = ["PlanParams", "WelchMember", "MomentParams", "BandParams", "SwaParams
            "build",
            "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "LAG_GROUP",
            "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "BAND_COLS", "BAND_PASS", "BAND_VCOLS",
-           "SWA_MAX_D", "THREADS"]
+           "SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS", "SWA_PANEL", "SWA_MAX_D",
+           "THREADS"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
@@ -54,7 +57,14 @@ THREADS = 256
 BAND_COLS = 256
 BAND_PASS = 8
 BAND_VCOLS = 1024
-# Compile-time constants of swa_attention/csrc/swa_attention.cu.
+# Compile-time constants of swa_attention/csrc/swa_attention.cu (bf16 path):
+# keys per K/V tile, ring stages, consumer warpgroups of SWA_WG_ROWS
+# flattened rows, D columns per shared-memory panel.
+SWA_KEYS = 64
+SWA_STAGES = 4
+SWA_CONSUMERS = 3
+SWA_WG_ROWS = 64
+SWA_PANEL = 16
 SWA_MAX_D = 128
 
 
@@ -175,6 +185,9 @@ STATS_CONSTANTS = {"MAX_WINDOWS": "RT_MAX_WINDOWS", "MAX_WELCH": "RT_MAX_WELCH",
                    "LAG_GROUP": "RT_LAG_GROUP", "FFT_MAX_L": "RT_FFT_MAX_L",
                    "FFT_FLOATS": "RT_FFT_FLOATS", "FFT_MAX_CHAN": "RT_FFT_MAX_CHAN",
                    "THREADS": "RT_THREADS"}
+# Those that mirror swa_attention.cu, in the order rt_swa_constants writes them.
+SWA_CONSTANTS = {name: name for name in ("SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS",
+                                         "SWA_PANEL", "SWA_MAX_D")}
 
 
 def sources() -> list:
@@ -245,14 +258,17 @@ def load(path) -> ctypes.CDLL:
         if fn() != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} layout mismatch: C {fn()} "
                                f"bytes, ctypes {ctypes.sizeof(struct)}")
-    consts = (ctypes.c_int * len(STATS_CONSTANTS))()
-    lib.rt_stats_constants.argtypes = [ctypes.c_void_p]
-    lib.rt_stats_constants.restype = None
-    lib.rt_stats_constants(consts)
-    want = [globals()[name] for name in STATS_CONSTANTS]
-    if list(consts) != want:
-        raise RuntimeError(f"stats_tiles.cuh constants {dict(zip(STATS_CONSTANTS, consts))} "
-                           f"differ from _build.py's {dict(zip(STATS_CONSTANTS, want))}")
+    for entry, names, source in (("rt_stats_constants", STATS_CONSTANTS, "stats_tiles.cuh"),
+                                 ("rt_swa_constants", SWA_CONSTANTS, "swa_attention.cu")):
+        consts = (ctypes.c_int * len(names))()
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = None
+        fn(consts)
+        want = [globals()[name] for name in names]
+        if list(consts) != want:
+            raise RuntimeError(f"{source} constants {dict(zip(names, consts))} "
+                               f"differ from _build.py's {dict(zip(names, want))}")
     return lib
 
 

@@ -294,23 +294,28 @@ def _qkv(dev, b, s, h, kvh, d, dtype, seed=0):
                  for n in (h, kvh, kvh))
 
 
-@pytest.mark.parametrize("s,window,group,d,dtype", [
-    (1000, 70, 4, 80, torch.bfloat16), (1000, 1, 4, 80, torch.bfloat16),
-    (1000, 2000, 1, 64, torch.bfloat16), (300, 70, 4, 128, torch.bfloat16),
-    (1000, 70, 4, 80, torch.float32), (250, 16, 1, 128, torch.float32),
-    (128, 300, 4, 64, torch.float32)])
-def test_swa_kernel_matches_chunked_plain(dev, s, window, group, d, dtype):
+@pytest.mark.parametrize("s,window,group,d,dtype,b,kvh", [
+    (1000, 70, 4, 80, torch.bfloat16, 1, 2), (1000, 1, 4, 80, torch.bfloat16, 1, 2),
+    (1000, 2000, 1, 64, torch.bfloat16, 1, 2), (300, 70, 4, 128, torch.bfloat16, 1, 2),
+    # D a multiple of 8 but not of 16; the registry's G = 7 and 16 at D =
+    # 128; S below one key tile and S = 1; two batch rows of 8 KV heads
+    (1000, 70, 4, 72, torch.bfloat16, 1, 2), (1000, 300, 7, 128, torch.bfloat16, 1, 2),
+    (500, 100, 16, 128, torch.bfloat16, 1, 2), (40, 16, 4, 80, torch.bfloat16, 1, 2),
+    (1, 4, 4, 80, torch.bfloat16, 1, 2), (700, 200, 4, 80, torch.bfloat16, 2, 8),
+    (1000, 70, 4, 80, torch.float32, 1, 2), (250, 16, 1, 128, torch.float32, 1, 2),
+    (128, 300, 4, 64, torch.float32, 1, 2)])
+def test_swa_kernel_matches_chunked_plain(dev, s, window, group, d, dtype, b, kvh):
     """Each output entry within tol of its row's max|v| of the chunked plain
     version, and each output row within its limits of its own norm; two
     launches bitwise equal; one launch per call."""
     from repro_torch.kernels.swa_attention import ops as sw, ref as swr
 
-    q, k, v = _qkv(dev, 1, s, 2 * group, 2, d, dtype)
+    q, k, v = _qkv(dev, b, s, kvh * group, kvh, d, dtype)
     reset_launch_counts()
     got, again = sw.swa_attention(q, k, v, window), sw.swa_attention(q, k, v, window)
     assert launch_counts()["swa_attention"] == 2
     want = swr.swa_attention_chunked(q, k, v, window)
-    scale = swr.swa_row_scale(v, window, 2 * group)
+    scale = swr.swa_row_scale(v, window, kvh * group)
     assert got.dtype == dtype and got.shape == q.shape
     assert ((got.float() - want.float()).abs() / scale).max() <= SWA_TOL[dtype]
     rows = (got.double() - want.double()).norm(dim=-1) / want.double().norm(dim=-1)

@@ -3,6 +3,7 @@ against the port's plain version.
 
     python3 tools/kernel_variants/variants_bench.py [banded|moments|all]
     python3 tools/kernel_variants/variants_bench.py stats BASELINE_KERNELS_DIR
+    python3 tools/kernel_variants/variants_bench.py swa
 
 banded, moments: builds the two variant files with nvcc into
 build/kernel_variants/ and, at the shapes of chip_smoke.py (banded: x
@@ -20,11 +21,16 @@ at chip_smoke.py's shapes, in turns (baseline, this, this, baseline); then
 sweeps the launch shapes of this checkout's kernels 1-3 (lag and moment
 slabs, Welch candidates per CTA) and kernel 4's segments per CTA on the FFT
 path at 511 and 1,023 segments (the main path's and the cross-spectra's
-welch_psd).
-Each time is the median of 5 samples of a CUDA graph of 8 prepared
-launches (kernels 1-4, on 8 distinct chunks: a cold 134 MB) or of one
-launch (kernels 5-8), replayed 10 times.  Writes every sample to
-build/kernel_variants/variants_stats.json.
+welch_psd), and kernel 8's design points and ablations (``swa`` alone
+runs only those): a copy of swa_attention.cu patched to each point of
+SWA_POINTS (key tile, ring stages, consumer warpgroups, overlap, pingpong)
+and to the ablations of SWA_ABLATIONS (the TMA stream, the products or the
+softmax compiled out), at q (4, 8,000, 32, 80), k/v (4, 8,000, 8, 80),
+W = 4,096, and the points of SWA_TURNS timed again in turns.  Each time is
+the median of 5 samples of a CUDA graph of 8 prepared launches (kernels
+1-4, on 8 distinct chunks: a cold 134 MB) or of one launch (kernels 5-8),
+replayed 10 times.  Writes every sample to
+build/kernel_variants/variants_stats.json (``swa``: variants_swa.json).
 """
 import ctypes
 import importlib
@@ -33,6 +39,7 @@ import inspect
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -318,9 +325,223 @@ def stats(baseline_dir: str, gen, dev) -> None:
                   f"equal to group 1: {same}", flush=True)
             del preps_g
         del sets
+    record["sweeps"].update(swa_sweep(new, q, kv, dev))
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "variants_stats.json"), "w") as f:
         json.dump(record, f, indent=1)
+
+
+# Design points of kernel 8's bf16 path, swept at the layer shape: (key
+# tile, ring stages, consumer warpgroups, overlap, pingpong); the first is
+# the checkout's own design, swa_attention.cu as it stands, and every other
+# one a patched copy of it (_point_source).  Overlap: the next tile's Q K^T
+# issued with this tile's P V (off: each tile's products and softmax one
+# after the other); pingpong: the consumer warpgroups take turns to issue
+# (off: each issues when its stage is full).
+SWA_POINTS = [(64, 4, 3, 1, 1), (64, 4, 3, 0, 0), (64, 4, 3, 1, 0), (64, 4, 3, 0, 1),
+              (64, 3, 3, 1, 1), (64, 5, 3, 1, 1), (128, 3, 3, 1, 1), (128, 3, 2, 1, 1),
+              (128, 3, 2, 0, 0), (128, 2, 2, 1, 1), (128, 4, 2, 1, 1), (64, 4, 2, 1, 1)]
+# Points timed in turns (A B C D D C B A, SWA_ROUNDS times), so that their
+# medians stand apart from the spread between turns: the checkout's design
+# with and without overlap and pingpong, and two consumers at 128 keys and
+# 3 stages (the first design of this kernel on wgmma) likewise.
+SWA_TURNS = [(64, 4, 3, 1, 1), (64, 4, 3, 0, 0), (128, 3, 2, 1, 1), (128, 3, 2, 0, 0)]
+SWA_ROUNDS = 10
+_SWA_PRODUCER_REGS = 24
+
+# (anchor, replacement) in the consumer's tile loop and turns
+_NO_OVERLAP = [
+    ("      issue_s(stage);  // the next S and the last P V in flight together\n"
+     "      issue_pv(prev);\n      turn_pass();\n      wgmma_wait<1>();\n"
+     "      consume(it, true, prev);\n",
+     "      issue_pv(prev);\n      wgmma_wait<0>();\n      fence_regs(o);\n"
+     "      release(prev);\n      issue_s(stage);\n      turn_pass();\n"
+     "      wgmma_wait<0>();\n      consume(it, false, 0);\n")]
+_NO_PINGPONG = [
+    ("  auto turn_wait = [&]() { bar_sync(1 + wg, 256); };\n", "  auto turn_wait = [&]() {};\n"),
+    ("  auto turn_pass = [&]() { bar_arrive(1 + (wg + 1) % SWA_CONSUMERS, 256); };\n",
+     "  auto turn_pass = [&]() {};\n"),
+    ("  if (wg == SWA_CONSUMERS - 1) bar_arrive(1, 256);\n", ""),
+    ("  if (wg == 0) bar_sync(1, 256);\n", "")]
+
+
+def _patch(text: str, patches, what: str) -> str:
+    for anchor, patched in patches:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"{what}: anchor not found once: {anchor!r}")
+        text = text.replace(anchor, patched)
+    return text
+
+
+def _wgmma_ss(n: int) -> str:
+    """swa_attention.cu's wgmma_ss overload for a key tile of n: S (64 x n)
+    = / += Q K^T, m64n{n}k16, both operands from shared memory."""
+    r = n // 2
+    outs = [f'"+f"(d[{i}])' for i in range(r)]
+    return ("__device__ __forceinline__ void wgmma_ss(float (&d)[%d], uint64_t a, uint64_t b, "
+            "int acc) {\n  asm volatile(\n"
+            '      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %%%d, 0;\\n"\n'
+            '      "wgmma.mma_async.sync.aligned.m64n%dk16.f32.bf16.bf16 "\n'
+            '      "{%s}, "\n'
+            '      "%%%d, %%%d, p, 1, 1, 0, 0;\\n}\\n"\n'
+            "      : %s\n"
+            '      : "l"(a), "l"(b), "r"(acc));\n}\n'
+            % (r, r + 2, n, ", ".join(f"%{i}" for i in range(r)), r, r + 1,
+               ",\n        ".join(", ".join(outs[i:i + 8]) for i in range(0, r, 8))))
+
+
+def swa_consumer_regs(consumers: int) -> int:
+    """Registers a consumer thread may take with setmaxnreg.inc: the CTA's
+    launch allocation (65,536 / threads, in steps of 8) less the producer
+    warpgroup's, shared by the consumers, at most 240."""
+    threads = 128 * (consumers + 1)
+    launch = min(255, 65536 // threads) // 8 * 8
+    return min(240, (launch * (consumers + 1) - _SWA_PRODUCER_REGS) // consumers // 8 * 8)
+
+
+def _point_source(text: str, point) -> str:
+    """swa_attention.cu's text patched to the design point (key tile, ring
+    stages, consumer warpgroups, overlap, pingpong)."""
+    keys, stages, consumers, overlap, pingpong = point
+    for name, value in (("SWA_KEYS", keys), ("SWA_STAGES", stages),
+                        ("SWA_CONSUMERS", consumers),
+                        ("SWA_CONSUMER_REGS", swa_consumer_regs(consumers))):
+        line = re.findall(rf"^#define {name} \d+", text, re.M)
+        if len(line) != 1:
+            raise RuntimeError(f"#define {name} not found once")
+        text = text.replace(line[0], f"#define {name} {value}")
+    if f"void wgmma_ss(float (&d)[{keys // 2}]" not in text:
+        anchor = "// O (64 x N, f32) += P"
+        text = _patch(text, [(anchor, _wgmma_ss(keys) + anchor)], f"keys={keys}")
+    if not overlap:
+        text = _patch(text, _NO_OVERLAP, "overlap=0")
+    if not pingpong:
+        text = _patch(text, _NO_PINGPONG, "pingpong=0")
+    return text
+
+
+def _point_name(point) -> str:
+    return ",".join(f"{n}={v}" for n, v in
+                    zip(("keys", "stages", "consumers", "overlap", "pingpong"), point))
+
+
+# Ablations of the checkout's design: parts of the bf16 path compiled out of a
+# copy of swa_attention.cu (the text at each anchor gains an #ifdef), to see
+# which part sets the kernel's time.  ABL_NO_TMA: the producer signals each
+# stage without loading it (K and V stay the zeros written at the start);
+# ABL_NO_S, ABL_NO_PV: the products are not issued; ABL_NO_SOFTMAX: P is S
+# packed as it is.  Results are garbage; only the times count.
+SWA_ABLATIONS = {"tma_only": ("NO_S", "NO_PV", "NO_SOFTMAX"), "no_tma": ("NO_TMA",),
+                 "products_only": ("NO_TMA", "NO_SOFTMAX"),
+                 "qk_only": ("NO_TMA", "NO_SOFTMAX", "NO_PV"),
+                 "pv_only": ("NO_TMA", "NO_SOFTMAX", "NO_S"),
+                 "softmax_only": ("NO_TMA", "NO_S", "NO_PV")}
+_ABLATION_PATCHES = [
+    ("  auto issue_s = [&](int stage) {\n",
+     "  auto issue_s = [&](int stage) {\n"
+     "#ifdef ABL_NO_S\n    wgmma_commit();\n    return;\n#endif\n"),
+    ("  auto issue_pv = [&](int stage) {\n",
+     "  auto issue_pv = [&](int stage) {\n"
+     "#ifdef ABL_NO_PV\n    wgmma_commit();\n    return;\n#endif\n"),
+    ("    if (kt + SWA_KEYS - 1 <= w_lo && kt > w_hi - W)  // inside every row's window\n",
+     "#ifdef ABL_NO_SOFTMAX\n    alpha_a = alpha_b = 1.f;\n    if (false)\n#else\n"
+     "    if (kt + SWA_KEYS - 1 <= w_lo && kt > w_hi - W)\n#endif\n"),
+    ("      softmax(Masked<true>(), kt, alpha_a, alpha_b);\n",
+     "#ifndef ABL_NO_SOFTMAX\n      softmax(Masked<true>(), kt, alpha_a, alpha_b);\n"
+     "#else\n      ;\n#endif\n"),
+    ("        mbar_expect_tx(&full[stage], 2 * Sm::KV_BYTES);\n",
+     "#ifdef ABL_NO_TMA\n        mbar_arrive(&full[stage]);\n        continue;\n#endif\n"
+     "        mbar_expect_tx(&full[stage], 2 * Sm::KV_BYTES);\n"),
+    ("  if (threadIdx.x == 0) {\n    for (int i = 0; i < SWA_STAGES; ++i) {\n",
+     "#ifdef ABL_NO_TMA\n"
+     "  for (int i = threadIdx.x; i < 2 * SWA_STAGES * Sm::KV_BYTES / 16; i += blockDim.x)\n"
+     "    reinterpret_cast<uint4*>(ks)[i] = make_uint4(0, 0, 0, 0);\n#endif\n"
+     "  if (threadIdx.x == 0) {\n    for (int i = 0; i < SWA_STAGES; ++i) {\n"),
+]
+
+
+def swa_sweep(m, q, kv, dev) -> dict:
+    """Kernel 8 built from package ``m``'s swa_attention.cu once per design
+    point of SWA_POINTS (a patched copy in build/ for all but the first) and
+    once per ablation of SWA_ABLATIONS, all compiled together, each launched
+    at the layer shape through the same SwaParams as the package's wrapper,
+    held to the package's own launch (largest difference over the largest
+    entry) and timed as a CUDA graph; then the points of SWA_TURNS in turns."""
+    src = os.path.join(os.path.dirname(m["_build"].__file__), "swa_attention", "csrc",
+                       "swa_attention.cu")
+    os.makedirs(OUT, exist_ok=True)
+    text = open(src).read()
+    builds = []
+    for i, point in enumerate(SWA_POINTS):
+        path = os.path.join(OUT, f"swa_point_{i}.cu")
+        with open(path, "w") as f:
+            f.write(_point_source(text, point) if i else text)
+        builds.append(("swa_attention/" + _point_name(point), path, []))
+    ablated = os.path.join(OUT, "swa_attention_ablated.cu")
+    with open(ablated, "w") as f:
+        f.write(_patch(text, _ABLATION_PATCHES, "ablation"))
+    builds += [(f"swa_attention/ablation={name}", ablated, [f"-DABL_{f}" for f in flags])
+               for name, flags in SWA_ABLATIONS.items()]
+    libs, procs = [], []
+    for i, (_, path, defines) in enumerate(builds):
+        lib = os.path.join(OUT, f"swa_{i}.so")
+        libs.append(lib)
+        procs.append(subprocess.Popen(
+            ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", lib, path] + defines,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [proc.communicate()[0] for proc in procs]
+    prep = m["swa_attention.ops"].prepare_swa_attention(q, kv[0], kv[1], 4096, 1 / math.sqrt(80))
+    want = prep.launch().clone()
+    out, launchers = {}, {}
+    for (key, _, _), lib, proc, log in zip(builds, libs, procs, logs):
+        if proc.returncode != 0:
+            print(f"sweep {key}: build failed\n{log[-2000:]}", flush=True)
+            continue
+        fn = ctypes.CDLL(lib).rt_swa_attention
+        fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+
+        def launch(fn=fn, key=key):  # on the current stream: the capture's, inside graph_samples
+            if fn(ctypes.byref(prep.params), torch.cuda.current_stream(dev).cuda_stream) != 0:
+                raise RuntimeError(f"{key}: launch failed")
+        prep.out.zero_()
+        launch()
+        torch.cuda.synchronize()
+        diff = ((prep.out.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        samples = graph_samples([launch])
+        out[key] = samples
+        launchers[key] = launch
+        print(f"sweep {key}: ms {samples[2]:.4f} (min {samples[0]:.4f} max {samples[-1]:.4f}) "
+              f"max rel diff to the package's launch {diff:.2e}; D=80 build: "
+              f"{_ptxas_d80(log)}", flush=True)
+    keys = ["swa_attention/" + _point_name(point) for point in SWA_TURNS]
+    if all(k in launchers for k in keys):
+        turns = {k: [] for k in keys}
+        for _ in range(SWA_ROUNDS):
+            for k in keys + keys[::-1]:
+                turns[k].append(graph_samples([launchers[k]]))
+        for k in keys:
+            every = sorted(x for sample in turns[k] for x in sample)
+            medians = [sample[2] for sample in turns[k]]
+            out[k.replace("swa_attention/", "swa_turns/")] = turns[k]
+            print(f"turns {k}: ms {every[len(every) // 2]:.4f} over {len(every)} samples (min "
+                  f"{every[0]:.4f} max {every[-1]:.4f}); turn medians "
+                  f"{' '.join(f'{x:.4f}' for x in medians)}", flush=True)
+    return out
+
+
+def _ptxas_d80(log: str) -> str:
+    """The -Xptxas -v lines of the D = 80 bf16 kernel: registers, spills and
+    any performance note."""
+    lines, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry" in ln:
+            keep = "swa_bf16_kernelILi80E" in ln
+        elif keep and ("spill" in ln or "registers" in ln):
+            lines.append(ln.split(":", 1)[-1].strip() if "registers" in ln else ln.strip())
+        elif "ILi80E" in ln and "C75" in ln:
+            lines.append(ln.split("(C75", 1)[1][:80])
+    return "; ".join(lines)
 
 
 def main() -> None:
@@ -337,6 +558,16 @@ def main() -> None:
         if len(sys.argv) < 3:
             sys.exit("stats needs the baseline kernels directory")
         stats(sys.argv[2], gen, dev)
+        return
+    if which == "swa":
+        m = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
+        q = torch.randn((4, 8000, 32, 80), generator=gen, device=dev).bfloat16()
+        kv = [torch.randn((4, 8000, 8, 80), generator=gen, device=dev).bfloat16()
+              for _ in range(2)]
+        record = swa_sweep(m, q, kv, dev)
+        os.makedirs(OUT, exist_ok=True)
+        with open(os.path.join(OUT, "variants_swa.json"), "w") as f:
+            json.dump(record, f, indent=1)
         return
     if which in ("banded", "all"):
         banded(gen, dev)
