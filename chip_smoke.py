@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's eight CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+Builds the port's nine CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
 holds each against its plain PyTorch version on the card, drives the fused
 statistics plan end to end at full width through ``SeriesFrame``, runs the
 single-family plans, then the three further statistics paths -- the §6
 banded spatial AR fit, rolling moments and cross-spectra -- times kernels
-1-7, then checks and times kernel 8 (sliding-window attention) and serves
+1-7 and 7b (the gradient of kernel 7's diagonals), then checks and times
+kernel 8 (sliding-window attention) and serves
 h2o-danube-1.8b at full width and depth through ``ServeEngine.generate``,
 printing one JSON line per phase.  The second-to-last line lists the
 kernels; the last line names the device and is printed only when every
@@ -28,7 +29,9 @@ Exits non-zero, printing no result, without a GPU or when a phase fails.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -158,6 +161,9 @@ KERNEL_INFO = {
                     "src/repro/kernels/segment_dft/kernel.py:82"),
     "banded_matvec": ("src/repro_torch/kernels/banded_matvec/csrc/banded_matvec.cu",
                       "src/repro/kernels/banded_matvec/kernel.py:41"),
+    # the d diags half of kernel 7's VJP, which the reference computes in jnp
+    "band_gradient": ("src/repro_torch/kernels/banded_matvec/csrc/banded_matvec.cu",
+                      "src/repro/kernels/banded_matvec/ops.py:69"),
     "swa_attention": ("src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
                       "src/repro/kernels/swa_attention/kernel.py:90"),
 }
@@ -418,6 +424,16 @@ def planted_bin_error(got, want, per_segment: bool) -> dict:
             "caught": not res["ok"], "normwise_rel": leaf_error(planted, w)[1]}
 
 
+def empty_launch(prep) -> None:
+    """An empty kernel on the grid, block and shared memory of a prepared
+    banded product (the launch alone, for comparison with short launches)."""
+    from repro_torch.kernels import _build
+
+    stream = torch.cuda.current_stream(prep.device).cuda_stream
+    _build.check(_build.library().rt_band_empty(ctypes.byref(prep.params), stream),
+                 "band_empty")
+
+
 def new_kernel_case(fn, plain, scale_fn, args: tuple, tol: float) -> dict:
     """One parity case of kernels 5-7: two launches (bitwise equal), the plain
     version, each entry against its own scale, and a planted error."""
@@ -458,6 +474,13 @@ def band_scale(diags, x):
     return banded_matvec_ref(diags.float().abs(), x.float().abs())
 
 
+def grad_scale(g, x, b: int):
+    """sum_n |g||x| per entry of d diags (0 in the off-matrix slots)."""
+    from repro_torch.kernels.banded_matvec.ref import band_gradient
+
+    return band_gradient(g.abs(), x.abs(), b)
+
+
 def band_valid(d: int, b: int, device):
     """(d, 2b+1) mask of the diagonal slots that lie on the matrix."""
     cols = torch.arange(d, device=device)[:, None] + torch.arange(-b, b + 1, device=device)
@@ -477,12 +500,14 @@ def band_csr(diags):
 
 def new_kernel_work(name: str, shape: dict) -> tuple:
     """(bytes, operations of the function, operations of the kernel's design)
-    of kernel 5, 6 or 7 on the inputs of ``shape``: each input read once,
+    of kernel 5, 6, 7 or 7b on the inputs of ``shape``: each input read once,
     each output written once; a segment's spectrum counts a real FFT
     (2.5 L log2 L) plus detrend and taper, where the kernel contracts
     against twiddles (4 L F); a complex outer product 6 operations per
     entry; a rolling window sum 2 operations per start and moment (add the
-    entering row, subtract the leaving one) plus one square per row."""
+    entering row, subtract the leaving one) plus one square per row; the
+    banded product and its gradient one multiply-add per valid diagonal slot
+    and row (y from the diagonals and x, or d diags from g and x)."""
     f4 = 4
     if name == "window_moments":
         n, d, w = shape["n"], shape["d"], shape["w"]
@@ -496,7 +521,7 @@ def new_kernel_work(name: str, shape: dict) -> tuple:
         return (S * L * d * f4 + L * f4 + S * F * d * d * 8,
                 S * d * (2.5 * L * math.log2(L) + 3 * L) + outer,
                 S * d * (4 * L * F + 3 * L) + outer)
-    if name == "banded_matvec":
+    if name in ("banded_matvec", "band_gradient"):  # y from x, or d diags from g and x
         m, d, b, valid = shape["m"], shape["d"], shape["b"], shape["valid_slots"]
         return d * (2 * b + 1) * f4 + 2 * m * d * f4, 2 * valid * m, 2 * valid * m
     raise KeyError(name)
@@ -751,6 +776,23 @@ def stats_paths(args, dev) -> dict:
         return new_kernel_case(bm.banded_matvec_rows, band_plain, band_scale, (diags, x),
                                TOL_NEW["band"])
 
+    def transposed_case(diags, x):
+        """A^T x through the kernel's flag (the diagonals where they lie),
+        held to the plain version on band_transpose(diags), and bitwise equal
+        to the kernel on that copy."""
+        res = new_kernel_case(lambda a, v: bm.prepare_banded_matvec(a, v, True).launch(),
+                              lambda a, v: band_plain(bmr.band_transpose(a), v),
+                              lambda a, v: band_scale(bmr.band_transpose(a), v), (diags, x),
+                              TOL_NEW["band"])
+        res["bitwise_vs_band_transpose"] = bool(torch.equal(
+            bm.prepare_banded_matvec(diags, x, True).launch(),
+            bm.prepare_banded_matvec(bmr.band_transpose(diags), x).launch()))
+        res["ok"] = res["ok"] and res["bitwise_vs_band_transpose"]
+        return res
+
+    def grad_case(g, x, b, fn=bm.band_gradient):
+        return new_kernel_case(fn, bmr.band_gradient, grad_scale, (g, x, b), TOL_NEW["band"])
+
     def hann(L):
         return torch.hann_window(L, periodic=False, device=dev)
 
@@ -781,17 +823,43 @@ def stats_paths(args, dev) -> dict:
         "unaligned_rows": band_case(rand(1000, 7), rand(5 * 1000 + 1)[1:].view(5, 1000)),
         "bf16": band_case(rand(513, 5, dtype=torch.bfloat16),
                           rand(6, 513, dtype=torch.bfloat16)),
+        "transposed_flag_fit": transposed_case(fit_diags, fit_x),
+        "transposed_flag_nrhs_1": transposed_case(fit_diags, fit_x[:1]),
+        "transposed_flag_generic": transposed_case(rand(1000, 7), rand(5, 1000)),
     }
-    del fit_x
+    # kernel 7b, d diags: each entry against sum_n |g||x|, off-matrix slots exactly 0
+    fit_g = rand(SPATIAL_T - 1, SPATIAL_D)
+    parity["band_gradient"] = {
+        "fit": grad_case(fit_g, fit_x, SPATIAL_B),
+        "d_not_tile_multiple": grad_case(rand(5, 1000), rand(5, 1000), 3),
+        "b_zero": grad_case(rand(3, 300), rand(3, 300), 0),
+        "b_over_tile": grad_case(rand(4, 700), rand(4, 700), 300),
+        "nrhs_1": grad_case(rand(1, 1000), rand(1, 1000), 3),
+        "halo_two_float4": grad_case(rand(7, 4096), rand(7, 4096), 6),
+        "d_below_band": grad_case(rand(9, 8), rand(9, 8), 6),
+        "unaligned_rows": grad_case(rand(5 * 1000 + 1)[1:].view(5, 1000),
+                                    rand(5 * 1000 + 1)[1:].view(5, 1000), 3),
+    }
+
+    def dropped_offset(g, x, b):  # the fault: one offset's products never summed
+        out = bm.band_gradient(g, x, b)
+        out[:, b + 1] = 0.0
+        return out
+
+    fault = grad_case(fit_g, fit_x, SPATIAL_B, dropped_offset)
+    faults = {"band_gradient_dropped_offset": {"max_rel_err": fault["max_rel_err"],
+                                               "caught": not fault["ok"]}}
+    del fit_x, fit_g
     emit({"phase": "parity", "tolerance": "per leaf: max|kernel - plain| <= tol * scale "
           "(max|plain|; sum of y: per channel, the sum over |y|); the power of kernels 1 "
           "and 4 also per bin (TOL_NEW psd): each entry against the plain power at its "
           "(f, channel), averaged over segments; kernels 5-7 per entry: "
           "a window sum against that window's sum of |x| (or of x^2), float64 plain; a "
           "banded product against sum |a||x|; a cross-spectral entry against "
-          "sqrt(P_i(f) P_j(f)), P averaged over segments",
-          "kernels": parity})
+          "sqrt(P_i(f) P_j(f)), P averaged over segments; d diags against sum_n |g||x|",
+          "kernels": parity, "planted_faults": faults})
     bad = [f"{k}/{c}" for k, cases in parity.items() for c, r in cases.items() if not r["ok"]]
+    bad += [f"fault {k} not caught" for k, r in faults.items() if not r["caught"]]
     if bad:
         fail("kernel parity", cases=bad)
 
@@ -932,6 +1000,7 @@ def stats_paths(args, dev) -> dict:
     t2 = time.perf_counter()
     band_launches = launch_counts()["banded_matvec"]
     fit_launches = band_launches - sim_launches
+    grad_launches = launch_counts()["band_gradient"]
     trace = fit.nll_trace.tolist()
     rises = [b - a for a, b in zip(trace, trace[1:])]
     descent = next((k for k, r in enumerate(rises) if r >= 0), len(rises))
@@ -947,8 +1016,8 @@ def stats_paths(args, dev) -> dict:
                      / short["torch"].nll_trace.abs()).max().item()
     del short
 
-    # one step's device time, split: the kernel (its prepared launch), the
-    # d/d diags shifted products (on this step's cotangent), the rest
+    # one step's device time, split: the product and the d diags kernel
+    # (each its prepared launch, on this step's operands), the rest
     x_prev = xs[:-1]
 
     def fit_step():
@@ -959,14 +1028,21 @@ def stats_paths(args, dev) -> dict:
     step_event_ms = cuda_ms(fit_step, 5, warmup=1)
     step_split, step_busy_ms, step_wall_ms = device_split(fit_step, calls=3)
     step_ms = step_busy_ms if step_busy_ms > 0 else step_event_ms
-    prep_fit = bm.prepare_banded_matvec(fit.diags.t().contiguous(), x_prev)
+    prep_fit = bm.prepare_banded_matvec(fit.diags, x_prev)
     fit_kernel_ms = graph_ms([prep_fit.launch])
     kernel_ms = fit_kernel_ms[len(fit_kernel_ms) // 2]
     cot = (xs[1:] - prep_fit.launch()) * (-1.0 / (SPATIAL_T - 1))
-    ddiags_ms = cuda_ms(lambda: bmr.band_gradient(cot, x_prev, SPATIAL_B), 5, warmup=1)
+    prep_grad = bm.prepare_band_gradient(cot, x_prev, SPATIAL_B)
+    ddiags_samples = graph_ms([prep_grad.launch])
+    ddiags_ms = ddiags_samples[len(ddiags_samples) // 2]
+    ddiags_plain_ms = cuda_ms(lambda: bmr.band_gradient(cot, x_prev, SPATIAL_B), 5, warmup=1)
 
-    # a loss differentiated with respect to x: the forward and A^T g
-    grads, dx_launches = {}, None
+    # a loss differentiated with respect to x: the forward and A^T g, which
+    # reads the diagonals where they lie (band_transpose is never called)
+    grads, dx_launches, transposes = {}, None, []
+    real_transpose = {mod: mod.band_transpose for mod in (bm, bmr)}
+    for mod, real in real_transpose.items():
+        mod.band_transpose = lambda dg, real=real: transposes.append(1) or real(dg)
     for be in ("cuda", "torch"):
         xx = x_prev.clone().requires_grad_(True)
         reset_launch_counts()
@@ -974,19 +1050,23 @@ def stats_paths(args, dev) -> dict:
         (grads[be],) = torch.autograd.grad(loss, xx)
         torch.cuda.synchronize()
         if be == "cuda":
-            dx_launches = launch_counts()["banded_matvec"]
+            dx_launches = launch_counts()
         del xx, loss
+    for mod, real in real_transpose.items():
+        mod.band_transpose = real
     # |d loss / d pred| = |sin(2 pred)| <= 1
     dx_scale = band_scale(bmr.band_transpose(true_diags), torch.ones((1, SPATIAL_D), device=dev))
     dx_err, dx_rel, dx_finite = scaled_error(grads["cuda"], grads["torch"], dx_scale)
-    del grads, cot, prep_fit
+    del grads, cot, prep_fit, prep_grad
 
     spatial = {
         "phase": "spatial_fit", "d": SPATIAL_D, "bandwidth": SPATIAL_B, "T": SPATIAL_T,
         "num_parts": SPATIAL_PARTS, "steps": SPATIAL_STEPS, "step_size": STEP_SIZE,
         "simulate_ms": (t1 - t0) * 1e3, "simulate_launches": sim_launches,
         "fit_ms": (t2 - t1) * 1e3, "fit_ms_per_step": (t2 - t1) * 1e3 / SPATIAL_STEPS,
-        "launches_per_step": fit_launches / SPATIAL_STEPS, "nll_trace": trace,
+        "launches_per_step": {"banded_matvec": fit_launches / SPATIAL_STEPS,
+                              "band_gradient": grad_launches / SPATIAL_STEPS},
+        "nll_trace": trace,
         "nll_monotone": (descent >= NLL_MIN_DESCENT
                          and all(r <= NLL_NOISE * abs(a) for r, a in zip(rises, trace))),
         "nll_strict_descent_steps": descent, "nll_max_rise": max(rises),
@@ -997,18 +1077,24 @@ def stats_paths(args, dev) -> dict:
         "plain_nll_max_rel_err": plain_nll_rel,
         "step_device_ms": {"step": step_ms, "step_events_ms": step_event_ms,
                            "step_wall_ms": step_wall_ms, "kernel": kernel_ms,
-                           "d_diags": ddiags_ms, "rest": step_ms - kernel_ms - ddiags_ms,
+                           "d_diags": ddiags_ms, "d_diags_samples": ddiags_samples,
+                           "d_diags_plain": ddiags_plain_ms,
+                           "rest": step_ms - kernel_ms - ddiags_ms,
                            "by_kernel_name": step_split,
                            "note": "step: profiler device-busy ms per step (CUDA-event ms "
-                                   "if the profiler saw no device work); kernel: CUDA graph of "
-                                   "the prepared launch; d_diags: CUDA events around the "
-                                   "shifted products on this step's cotangent"},
-        "dx_loss": {"launches": dx_launches, "max_abs_err": dx_err, "max_rel_err": dx_rel,
+                                   "if the profiler saw no device work); kernel, d_diags: CUDA "
+                                   "graph of the prepared launch of the product and of the d "
+                                   "diags kernel on this step's operands; d_diags_plain: CUDA "
+                                   "events around the plain version's shifted products"},
+        "dx_loss": {"launches": dx_launches, "band_transpose_calls": len(transposes),
+                    "max_abs_err": dx_err, "max_rel_err": dx_rel,
                     "tol": TOL_NEW["band"], "finite": dx_finite},
     }
     spatial["ok"] = (spatial["nll_monotone"] and rms_err < 0.05 and math.isfinite(rms_err)
-                     and fit_launches == SPATIAL_STEPS and plain_diags_err <= 1e-5
-                     and plain_nll_rel <= 1e-5 and dx_launches == 2 and dx_finite
+                     and fit_launches == SPATIAL_STEPS and grad_launches == SPATIAL_STEPS
+                     and plain_diags_err <= 1e-5 and plain_nll_rel <= 1e-5
+                     and dx_launches["banded_matvec"] == 2
+                     and dx_launches["band_gradient"] == 0 and not transposes and dx_finite
                      and dx_rel <= TOL_NEW["band"])
     emit(spatial)
     if not spatial["ok"]:
@@ -1210,10 +1296,11 @@ def stats_paths(args, dev) -> dict:
         "fused_lag_moments": f"y ({CHUNK + CARRY}, {D}), H=0, windows={WINDOWS}",
         "segment_dft_power": f"segments ({S}, {NPERSEG}, {D})",
     }
-    # kernels 5-7 at their paths' shapes: each operand exceeds the 50 MB L2
+    # kernels 5-7b at their paths' shapes: each operand exceeds the 50 MB L2
     # (1.07 GB series, 67 MB of segments, a 1.07 GB fit operand), so one
     # prepared launch replayed reads from device memory every time
     fit_x = torch.randn((SPATIAL_T - 1, SPATIAL_D), generator=gen, device=dev)
+    fit_g = torch.randn((SPATIAL_T - 1, SPATIAL_D), generator=gen, device=dev)
     segs_c = csd_segs.contiguous()
     xt = centred.t().contiguous()[None]  # (1, d, n) for avg_pool1d
     csr, fit_xt = band_csr(fit_diags * band_valid(SPATIAL_D, SPATIAL_B, dev)), fit_x.t().contiguous()
@@ -1226,15 +1313,21 @@ def stats_paths(args, dev) -> dict:
         f = torch.fft.rfft((segs - segs.mean(1, keepdim=True)) * taper[:, None], dim=1)
         return torch.einsum("sfi,sfj->sfij", f, f.conj())
 
+    def unfold_gradient(g, x, b):
+        """d diags as one contraction over the neighbourhoods of x."""
+        return torch.einsum("nr,nrw->rw", g, F.pad(x, (b, b)).unfold(1, 2 * b + 1, 1))
+
     # the simulation's shape, 2,047 of the spatial path's 2,067 launches: one
     # right-hand side.  Timed cold, as the bytes bound assumes: a graph of
     # NRHS1_COPIES launches, each on its own copy of the diagonals and its
     # own row of x (115 MB in all, over the 50 MB L2), so every launch reads
     # device memory.  The simulation keeps its diagonals warm in L2 from step
     # to step: warm_ms replays one launch NRHS1_COPIES times, for comparison
-    # only (no bound is stated for it).
-    nrhs1 = [bm.prepare_banded_matvec(fit_diags.t().contiguous(), fit_x[i: i + 1].contiguous())
+    # only (no bound is stated for it); empty_launch_ms is an empty kernel on
+    # the same grid in a graph of as many launches, the launch alone.
+    nrhs1 = [bm.prepare_banded_matvec(fit_diags.clone(), fit_x[i: i + 1].contiguous())
              for i in range(NRHS1_COPIES)]
+    valid_slots = int(band_valid(SPATIAL_D, SPATIAL_B, dev).sum())
     new_cases = {  # name: (prepared launches, wrapper call, plain call, library call, shape)
         "window_moments_w64": ([ws.prepare_window_moments(centred, 64)],
                                lambda: ws.windowed_moments(centred, 64),
@@ -1249,19 +1342,23 @@ def stats_paths(args, dev) -> dict:
                         lambda: sdr.segment_csd_ref(segs_c, taper),
                         lambda: fft_csd(segs_c),
                         dict(S=segs_c.shape[0], L=NPERSEG, d=D)),
-        "banded_matvec": ([bm.prepare_banded_matvec(fit_diags.t().contiguous(), fit_x)],
+        "banded_matvec": ([bm.prepare_banded_matvec(fit_diags, fit_x)],
                           lambda: bm.banded_matvec_rows(fit_diags, fit_x),
                           lambda: bmr.banded_matvec_ref(fit_diags, fit_x),
                           lambda: torch.sparse.mm(csr, fit_xt),
                           dict(m=SPATIAL_T - 1, d=SPATIAL_D, b=SPATIAL_B,
-                               valid_slots=int(band_valid(SPATIAL_D, SPATIAL_B, dev).sum()))),
+                               valid_slots=valid_slots)),
         "banded_matvec_nrhs_1": (nrhs1,
                                  lambda: bm.banded_matvec_rows(fit_diags, fit_x[:1]),
                                  lambda: bmr.banded_matvec_ref(fit_diags, fit_x[:1]),
                                  lambda: torch.sparse.mm(csr, fit_xt[:, :1]),
-                                 dict(m=1, d=SPATIAL_D, b=SPATIAL_B,
-                                      valid_slots=int(band_valid(SPATIAL_D, SPATIAL_B,
-                                                                 dev).sum()))),
+                                 dict(m=1, d=SPATIAL_D, b=SPATIAL_B, valid_slots=valid_slots)),
+        "band_gradient": ([bm.prepare_band_gradient(fit_g, fit_x, SPATIAL_B)],
+                          lambda: bm.band_gradient(fit_g, fit_x, SPATIAL_B),
+                          lambda: bmr.band_gradient(fit_g, fit_x, SPATIAL_B),
+                          lambda: unfold_gradient(fit_g, fit_x, SPATIAL_B),
+                          dict(m=SPATIAL_T - 1, d=SPATIAL_D, b=SPATIAL_B,
+                               valid_slots=valid_slots)),
     }
     # each yardstick computes the same function: check it against the plain version
     library_check.update({
@@ -1273,8 +1370,11 @@ def stats_paths(args, dev) -> dict:
         "banded_matvec": {"max_rel_err": scaled_error(
             torch.sparse.mm(csr, fit_xt).t(), bmr.banded_matvec_ref(fit_diags * band_valid(
                 SPATIAL_D, SPATIAL_B, dev), fit_x), band_scale(fit_diags, fit_x))[1]},
+        "band_gradient": {"max_rel_err": scaled_error(
+            unfold_gradient(fit_g, fit_x, SPATIAL_B), bmr.band_gradient(fit_g, fit_x, SPATIAL_B),
+            grad_scale(fit_g, fit_x, SPATIAL_B))[1]},
     })
-    for name in ("window_moments", "segment_csd", "banded_matvec"):
+    for name in ("window_moments", "segment_csd", "banded_matvec", "band_gradient"):
         library_check[name]["ok"] = library_check[name]["max_rel_err"] <= 1e-4
         if not library_check[name]["ok"]:
             fail("a library yardstick disagrees with the plain version", check=library_check)
@@ -1295,11 +1395,14 @@ def stats_paths(args, dev) -> dict:
         if len(preps) > 1:
             warm = graph_ms([preps[0].launch] * len(preps))
             timing[name]["warm_ms"], timing[name]["warm_ms_samples"] = warm[len(warm) // 2], warm
+            empty = graph_ms([functools.partial(empty_launch, p) for p in preps])
+            timing[name]["empty_launch_ms"] = empty[len(empty) // 2]
+            timing[name]["empty_launch_ms_samples"] = empty
         bounds[name] = (b_ms, b_by)
         work[name] = (nbytes, flops, design)
         shapes[name] = ", ".join(f"{k}={v}" for k, v in shape.items())
         split[name] = None
-    del new_cases, nrhs1, fit_x, fit_xt, csr, segs_c, xt
+    del new_cases, nrhs1, fit_x, fit_g, fit_xt, csr, segs_c, xt
     emit({"phase": "timing", "note": "main-path chunk shapes, cold series (8 rotating "
           "chunks); ms: median over repeats of a CUDA graph of the prepared launches "
           "(kernel and its reduction), ms_samples sorted; profiler_ms: profiler device "
@@ -1307,7 +1410,9 @@ def stats_paths(args, dev) -> dict:
           "CUDA events around back-to-back calls, host work included; "
           f"banded_matvec_nrhs_1: a graph of {NRHS1_COPIES} launches at one right-hand "
           "side, each on its own copy of the diagonals (cold, beyond the L2); warm_ms: one "
-          "launch replayed as often, the diagonals warm in L2 as in the simulation",
+          "launch replayed as often, the diagonals warm in L2 as in the simulation; "
+          "empty_launch_ms: an empty kernel on the same grid, block and shared memory in a "
+          "graph of as many launches (the launch alone; not a bound)",
           "kernels": {k: {**t, "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                           "share_of_bound": bounds[k][0] / t["ms"],
                           "gbytes": work[k][0] / 1e9, "function_gflop": work[k][1] / 1e9,
@@ -1321,13 +1426,16 @@ def stats_paths(args, dev) -> dict:
                             "segment_csd": "torch.fft.rfft of the detrended, tapered segments, "
                                            "then einsum('sfi,sfj->sfij', f, f.conj())",
                             "banded_matvec": "torch.sparse.mm(band as CSR, x^T) (x^T "
-                                             "prepared once)"}})
+                                             "prepared once)",
+                            "band_gradient": "torch.einsum('nr,nrw->rw', g, F.pad(x, (b, b))"
+                                             ".unfold(1, 2b+1, 1))"}})
 
     # launches: each kernel's count from the run of its own path (the fused
-    # plan for kernels 1-4, the spatial fit with its simulation for 7,
+    # plan for kernels 1-4, the spatial fit with its simulation for 7, the
+    # fit for 7b,
     # rolling moments for 5, cross-spectra for 6); ms and bound of kernel 5
     # at w = 1024
-    launches = {**counts, "banded_matvec": band_launches,
+    launches = {**counts, "banded_matvec": band_launches, "band_gradient": grad_launches,
                 "window_moments": rolling_launches, "segment_csd": csd_launches}
     return {"parity": parity, "timing": timing, "bounds": bounds, "launches": launches}
 

@@ -15,7 +15,7 @@ A is stored as stacked diagonals, (d, 2b+1): ``diags[i, b+o] = A[i, i+o]``
 for offsets o in [-b, b] (zero where i+o falls off the matrix).  The
 predictor goes through the backend's ``banded_matvec`` (the banded kernel on
 "cuda"); its gradient with respect to the diagonals is banded-local, so a
-fit step launches the kernel once.
+fit step launches the product once and the kernel of that gradient once.
 """
 from __future__ import annotations
 

@@ -317,7 +317,10 @@ class _PlanGroup:
             total = count * w
             m1 = sums[0] / total
             m2 = sums[1] / total
-            return {"mean": m1, "var": torch.clamp(m2 - m1 * m1, min=0.0), "count": count}
+            # a fresh count: the state's own leaf when the tail adds nothing, and
+            # results must not alias a state that a donated update may reuse
+            return {"mean": m1, "var": torch.clamp(m2 - m1 * m1, min=0.0),
+                    "count": count.clone()}
 
         return fin
 

@@ -10,12 +10,13 @@ stale build.
 
 The C entry points take a pointer to a parameter struct (mirrored below:
 :class:`PlanParams` from ``csrc/stats_tiles.cuh``, :class:`MomentParams`
-from ``window_stats/csrc/window_stats.cu``, :class:`BandParams` from
-``banded_matvec/csrc/banded_matvec.cu``, :class:`SwaParams` from
+from ``window_stats/csrc/window_stats.cu``, :class:`BandParams` and
+:class:`BandGradParams` from ``banded_matvec/csrc/banded_matvec.cu``,
+:class:`SwaParams` from
 ``swa_attention/csrc/swa_attention.cu``) and the CUDA stream; each returns
 ``cudaGetLastError()`` after its launches, and :func:`check` raises on a
 non-zero code.  The struct sizes and the design constants mirrored below
-(``STATS_CONSTANTS``, ``SWA_CONSTANTS``) are checked against the library
+(``STATS_CONSTANTS``, ``BAND_CONSTANTS``, ``SWA_CONSTANTS``) are checked against the library
 at load.
 """
 from __future__ import annotations
@@ -29,10 +30,12 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["PlanParams", "WelchMember", "MomentParams", "BandParams", "SwaParams", "library",
+__all__ = ["PlanParams", "WelchMember", "MomentParams", "BandParams", "BandGradParams",
+           "SwaParams", "library",
            "build",
            "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "LAG_GROUP",
-           "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "BAND_COLS", "BAND_PASS", "BAND_VCOLS",
+           "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "BAND_COLS", "BAND_PASS",
+           "BAND_MAX_SLABS", "BAND_OFFSETS",
            "SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS", "SWA_PANEL", "SWA_MAX_D",
            "THREADS"]
 
@@ -53,10 +56,13 @@ FFT_MAX_L = 4096
 FFT_FLOATS = 8192
 FFT_MAX_CHAN = 64
 THREADS = 256
-# Compile-time constants of banded_matvec/csrc/banded_matvec.cu.
+# Compile-time constants of banded_matvec/csrc/banded_matvec.cu: the generic
+# paths' columns per CTA and most rows staged per pass, the vector
+# gradient's most CTAs per cluster, the generic gradient's offsets per thread.
 BAND_COLS = 256
 BAND_PASS = 8
-BAND_VCOLS = 1024
+BAND_MAX_SLABS = 8
+BAND_OFFSETS = 17
 # Compile-time constants of swa_attention/csrc/swa_attention.cu (bf16 path):
 # keys per K/V tile, ring stages, consumer warpgroups of SWA_WG_ROWS
 # flattened rows, D columns per shared-memory panel.
@@ -138,7 +144,7 @@ class MomentParams(ctypes.Structure):
 
 class BandParams(ctypes.Structure):
     _fields_ = [
-        ("coef", ctypes.c_void_p),
+        ("diags", ctypes.c_void_p),
         ("x", ctypes.c_void_p),
         ("y", ctypes.c_void_p),
         ("m", ctypes.c_int),
@@ -146,10 +152,31 @@ class BandParams(ctypes.Structure):
         ("b", ctypes.c_int),
         ("halo", ctypes.c_int),
         ("vec", ctypes.c_int),
+        ("transposed", ctypes.c_int),
+        ("threads", ctypes.c_int),
         ("rows_per_cta", ctypes.c_int),
         ("rows_per_pass", ctypes.c_int),
         ("col_tiles", ctypes.c_int),
         ("row_slabs", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
+    ]
+
+
+class BandGradParams(ctypes.Structure):
+    _fields_ = [
+        ("g", ctypes.c_void_p),
+        ("x", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("m", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("b", ctypes.c_int),
+        ("halo", ctypes.c_int),
+        ("vec", ctypes.c_int),
+        ("threads", ctypes.c_int),
+        ("rows_per_cta", ctypes.c_int),
+        ("col_tiles", ctypes.c_int),
+        ("row_slabs", ctypes.c_int),
+        ("offset_chunks", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
     ]
 
@@ -174,9 +201,10 @@ class SwaParams(ctypes.Structure):
 
 ENTRY_POINTS = ("rt_cross_lag_sums", "rt_fused_lag_moments", "rt_segment_power",
                 "rt_fused_plan", "rt_window_moments", "rt_segment_csd", "rt_banded_matvec",
-                "rt_swa_attention")
+                "rt_band_gradient", "rt_band_empty", "rt_swa_attention")
 STRUCT_SIZES = (("rt_plan_params_size", PlanParams), ("rt_welch_member_size", WelchMember),
                 ("rt_moment_params_size", MomentParams), ("rt_band_params_size", BandParams),
+                ("rt_band_grad_params_size", BandGradParams),
                 ("rt_swa_params_size", SwaParams))
 # The constants above that mirror csrc/stats_tiles.cuh: Python name -> C
 # macro, in the order rt_stats_constants writes them (checked at load).
@@ -185,6 +213,9 @@ STATS_CONSTANTS = {"MAX_WINDOWS": "RT_MAX_WINDOWS", "MAX_WELCH": "RT_MAX_WELCH",
                    "LAG_GROUP": "RT_LAG_GROUP", "FFT_MAX_L": "RT_FFT_MAX_L",
                    "FFT_FLOATS": "RT_FFT_FLOATS", "FFT_MAX_CHAN": "RT_FFT_MAX_CHAN",
                    "THREADS": "RT_THREADS"}
+# Those that mirror banded_matvec.cu, in the order rt_band_constants writes them.
+BAND_CONSTANTS = {"BAND_COLS": "BM_COLS", "BAND_PASS": "BM_PASS",
+                  "BAND_MAX_SLABS": "BG_MAX_SLABS", "BAND_OFFSETS": "BG_OFFSETS"}
 # Those that mirror swa_attention.cu, in the order rt_swa_constants writes them.
 SWA_CONSTANTS = {name: name for name in ("SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS",
                                          "SWA_PANEL", "SWA_MAX_D")}
@@ -259,6 +290,7 @@ def load(path) -> ctypes.CDLL:
             raise RuntimeError(f"{struct.__name__} layout mismatch: C {fn()} "
                                f"bytes, ctypes {ctypes.sizeof(struct)}")
     for entry, names, source in (("rt_stats_constants", STATS_CONSTANTS, "stats_tiles.cuh"),
+                                 ("rt_band_constants", BAND_CONSTANTS, "banded_matvec.cu"),
                                  ("rt_swa_constants", SWA_CONSTANTS, "swa_attention.cu")):
         consts = (ctypes.c_int * len(names))()
         fn = getattr(lib, entry)

@@ -5,8 +5,8 @@ y[..., r] = sum_{o=-b..b} diags[r, b+o] * x[..., r+o], with x read as 0 off
 the matrix.  The 2b+1 shifted products are summed in order o = -b..b; the
 (..., d, 2b+1) neighbourhood gather of the reference is never built, so the
 plain version stays within a few copies of x at any size.  Differentiable by
-autograd; the kernel wrapper's backward (``ops.py``) reuses the helpers
-here.
+autograd.  On CPU tensors the kernel wrappers (``ops.py``) run these helpers;
+on the card the kernels are held to them.
 """
 from __future__ import annotations
 

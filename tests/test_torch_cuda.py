@@ -234,19 +234,39 @@ def test_segment_csd_kernel_matches_plain(dev, S, L, d, detrend):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("d,b,m,dtype,offset", [
+BAND_SHAPES = [
     (1000, 3, 5, torch.float32, 0), (300, 0, 3, torch.float32, 0),    # float4 path
     (4096, 6, 7, torch.float32, 0), (131072, 4, 1, torch.float32, 0),  # float4, two-float4 halo
     (700, 300, 4, torch.float32, 0), (513, 2, 6, torch.bfloat16, 0),   # shared-memory path
     (1000, 3, 5, torch.float32, 1),                                     # unaligned rows
-])
-def test_banded_matvec_kernel_matches_plain(dev, d, b, m, dtype, offset):
-    """Each output within 1e-5 of sum_o |diag| |x|; off-matrix slots hold
-    random values; repeats bitwise."""
+]
+
+
+def _band_operands(dev, d, b, m, dtype, offset, rows=1):
+    """Diagonals with random off-matrix slots and ``rows`` (m, d) operands,
+    the latter starting ``offset`` floats past a 16-byte boundary."""
     g = torch.Generator(device=dev)
     g.manual_seed(d + b)
     diags = torch.randn((d, 2 * b + 1), generator=g, device=dev).to(dtype)
-    x = torch.randn(offset + m * d, generator=g, device=dev)[offset:].view(m, d).to(dtype)
+    xs = [torch.randn(offset + m * d, generator=g, device=dev)[offset:].view(m, d).to(dtype)
+          for _ in range(rows)]
+    return diags, xs
+
+
+def _within(got, want, scale, tol=1e-5):
+    """Each entry within tol of its own scale; an entry whose scale is 0 (an
+    off-matrix slot of d diags) must match exactly."""
+    diff = (got.double() - want.double()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((diff == 0) | (diff <= tol * scale.double())).all()), (
+        (diff / scale.double()).nan_to_num(posinf=float("inf")).max().item())
+
+
+@pytest.mark.parametrize("d,b,m,dtype,offset", BAND_SHAPES)
+def test_banded_matvec_kernel_matches_plain(dev, d, b, m, dtype, offset):
+    """Each output within 1e-5 of sum_o |diag| |x|; off-matrix slots hold
+    random values; repeats bitwise."""
+    diags, (x,) = _band_operands(dev, d, b, m, dtype, offset)
     got, again = bm.banded_matvec_rows(diags, x), bm.banded_matvec_rows(diags, x)
     want = bmr.banded_matvec_ref(diags.float(), x.float())
     scale = bmr.banded_matvec_ref(diags.float().abs(), x.float().abs())
@@ -254,16 +274,56 @@ def test_banded_matvec_kernel_matches_plain(dev, d, b, m, dtype, offset):
     assert torch.equal(got, again)
 
 
-def test_fit_step_launches_the_banded_kernel_once(dev):
-    """One launch per fit step (the diagonals' gradient is plain PyTorch);
-    two when the loss needs d/dx (the forward and A^T g), and that d/dx
+@pytest.mark.parametrize("d,b,m,dtype,offset", BAND_SHAPES + [(131072, 4, 2047, torch.float32, 0)])
+def test_band_gradient_kernel_matches_plain(dev, d, b, m, dtype, offset):
+    """d diags within 1e-5 of sum_n |g| |x| (off-matrix slots exactly 0,
+    though the output's memory held random values before the launch);
+    repeats bitwise; dropping one offset fails the check."""
+    _, (g, x) = _band_operands(dev, d, b, m, dtype, offset, rows=2)
+    g, x = g.float(), x.float()
+    junk = torch.randn(d * (2 * b + 1) + 64, device=dev)  # memory the output may reuse
+    del junk
+    got, again = bm.band_gradient(g, x, b), bm.band_gradient(g, x, b)
+    want = bmr.band_gradient(g, x, b)
+    scale = bmr.band_gradient(g.abs(), x.abs(), b)
+    _within(got, want, scale)
+    assert torch.equal(got, again)
+    dropped = got.clone()
+    dropped[:, b + min(1, b)] = 0.0  # the fault: one offset's products never summed
+    with pytest.raises(AssertionError):
+        _within(dropped, want, scale)
+
+
+@pytest.mark.parametrize("d,b,m,offset", [(1000, 3, 5, 0), (4096, 6, 7, 0), (131072, 4, 1, 0),
+                                          (131072, 4, 2047, 0), (5, 4, 3, 0), (700, 300, 4, 0),
+                                          (1000, 3, 5, 1)])
+def test_transposed_flag_is_bitwise_the_kernel_on_band_transpose(dev, d, b, m, offset):
+    """A^T x through the flag (the diagonals read where they lie) is bitwise
+    the product kernel on band_transpose(diags), on every path."""
+    diags, (x,) = _band_operands(dev, d, b, m, torch.float32, offset)
+    flag = bm.prepare_banded_matvec(diags, x.contiguous(), transposed=True).launch()
+    copy = bm.prepare_banded_matvec(bmr.band_transpose(diags), x.contiguous()).launch()
+    assert torch.equal(flag, copy)
+    _within(flag, bmr.banded_matvec_ref(bmr.band_transpose(diags), x),
+            bmr.banded_matvec_ref(bmr.band_transpose(diags).abs(), x.abs()))
+
+
+def test_fit_step_launches_the_banded_kernel_once(dev, monkeypatch):
+    """One product launch and one d diags launch per fit step; two product
+    launches and no d diags launch when the loss needs d/dx (the forward and
+    A^T g), with no band_transpose built on the card's path, and that d/dx
     matches the plain backend's."""
+    transposes = []
+    for module in (bm, bmr):
+        real = module.band_transpose
+        monkeypatch.setattr(module, "band_transpose",
+                            lambda dg, real=real: transposes.append(dg.device.type) or real(dg))
     g = torch.Generator(device=dev)
     g.manual_seed(5)
     x = torch.randn((64, 4096), generator=g, device=dev)
     reset_launch_counts()
     fit = tsp.fit_banded_ar(x, 2, n_steps=3, step_size=0.8)
-    assert launch_counts()["banded_matvec"] == 3
+    assert launch_counts()["banded_matvec"] == 3 and launch_counts()["band_gradient"] == 3
     plain = tsp.fit_banded_ar(x, 2, n_steps=3, step_size=0.8, backend="torch")
     assert (fit.diags - plain.diags).abs().max() <= 1e-5
     diags = 0.1 * torch.randn((4096, 5), generator=g, device=dev)
@@ -274,6 +334,8 @@ def test_fit_step_launches_the_banded_kernel_once(dev):
         loss = torch.sin(tsp.banded_predict(diags, xx, backend=backend)).square().sum()
         (grads[backend],) = torch.autograd.grad(loss, xx)
         assert launch_counts()["banded_matvec"] == (2 if backend == "cuda" else 0)
+        assert launch_counts()["band_gradient"] == 0
+    assert transposes == []  # neither backend builds A^T on the card
     scale = bmr.banded_matvec_ref(bmr.band_transpose(diags).abs(), torch.ones_like(x))  # |dL/dy| <= 1
     assert ((grads["cuda"] - grads["torch"]).abs() / scale).max() <= 1e-5
 

@@ -172,3 +172,69 @@ def test_tiling_matches_reference():
             jt.pad_tiles(jnp.asarray(x), bt, halo).shape
         assert tt.pad_to_multiple(n, 8) == jt.pad_to_multiple(n, 8)
     assert tt.resolve_block("fused_plan_update", "block_t", 96) == 96
+
+
+def _leaves(tree):
+    """Every tensor of a state tree (tuples, dicts, dataclasses)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    elif hasattr(tree, "__dataclass_fields__"):
+        tree = [getattr(tree, name) for name in tree.__dataclass_fields__]
+    elif not isinstance(tree, (tuple, list)):
+        return []
+    return [leaf for item in tree for leaf in _leaves(item)]
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_strided_offset_aware_member_keeps_the_group_stride(stride):
+    """An offset-aware generic member joins group 0 at stride 1 whatever its
+    own stride (the contract the reference breaks: there a stride-2 member
+    sets the whole group's engine stride): the other members equal the same
+    plan without it, and it sees the group's 397 starts.  Against the
+    reference only at stride 1, where the two agree."""
+    from repro.core.frame import SeriesFrame as JaxFrame
+
+    x = np.random.default_rng(1).standard_normal((400, 2)).astype(np.float32)
+
+    def starts(y, mask, z0):
+        return mask.float().sum() if isinstance(mask, torch.Tensor) else jnp.sum(mask)
+
+    def run(frame, member):
+        handle = (frame.map_reduce(starts, h_right=3, stride=stride, takes_offset=True,
+                                   name="k") if member else None)
+        acov, mom = frame.autocovariance(2), frame.moments(4)
+        return handle and handle.result(), acov.result(), mom.result()
+
+    seen, acov, mom = run(SeriesFrame.from_array(x, device="cpu"), True)
+    _, acov0, mom0 = run(SeriesFrame.from_array(x, device="cpu"), False)
+    assert float(seen) == 397
+    np.testing.assert_allclose(acov.numpy(), acov0.numpy(), atol=1e-5)
+    for key in mom0:
+        np.testing.assert_allclose(mom[key].numpy(), mom0[key].numpy(), atol=1e-5)
+    if stride == 1:
+        jseen, jacov, jmom = run(JaxFrame.from_array(x), True)
+        assert float(jseen) == 397
+        np.testing.assert_allclose(acov.numpy(), np.asarray(jacov), atol=1e-5)
+        for key in mom0:
+            np.testing.assert_allclose(mom[key].numpy(), np.asarray(jmom[key]), atol=1e-5)
+
+
+def test_moments_count_is_fresh_across_an_append():
+    """A collect() result holds its own moments count, not the carried
+    state's leaf: it still reads the first count after an append of 5 rows,
+    and no state leaf shares its memory."""
+    rng = np.random.default_rng(0)
+    frame = SeriesFrame.from_array(rng.standard_normal((50, 3)).astype(np.float32),
+                                   device="cpu")
+    frame.yule_walker(3)
+    frame.moments(16)
+    first = frame.collect()["moments"]
+    count = first["count"]
+    assert all(count.data_ptr() != leaf.data_ptr() for leaf in _leaves(frame._states))
+    frame.append(rng.standard_normal((5, 3)).astype(np.float32))
+    second = frame.collect()["moments"]
+    assert float(first["count"]) == 35 and float(count) == 35  # 50 - 16 + 1 windows
+    assert float(second["count"]) == 40
+    assert all(count.data_ptr() != leaf.data_ptr() for leaf in _leaves(frame._states))

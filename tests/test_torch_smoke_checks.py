@@ -123,6 +123,33 @@ def test_new_kernel_bounds_at_the_slice_shapes():
     assert f7 / smoke.PEAK_FP32 * 1e3 == pytest.approx(0.0721, rel=1e-2)
 
 
+def test_band_gradient_bound_and_its_per_entry_check():
+    """Kernel 7b's bound at the fit shape (g and x read once: the product's
+    2.15 GB), and its check: d diags held per entry to sum_n |g||x| passes
+    the plain version on a rounding-sized error, and fails it with one
+    offset dropped, and with a non-zero off-matrix slot (whose scale is 0)."""
+    valid = 131072 * 9 - 4 * 5
+    shape = dict(m=2047, d=131072, b=4, valid_slots=valid)
+    assert smoke.new_kernel_work("band_gradient", shape) == smoke.new_kernel_work(
+        "banded_matvec", shape)
+    nbytes, flops, _ = smoke.new_kernel_work("band_gradient", shape)
+    assert nbytes == 2 * 2047 * 131072 * 4 + 131072 * 9 * 4
+    assert smoke.bound_ms(nbytes, flops) == (pytest.approx(0.6421, rel=1e-3), "bytes")
+    from repro_torch.kernels.banded_matvec.ref import band_gradient
+
+    g = torch.Generator().manual_seed(6)
+    gy, x, b = torch.randn(40, 30, generator=g), torch.randn(40, 30, generator=g), 3
+    want, scale = band_gradient(gy, x, b), smoke.grad_scale(gy, x, b)
+    tol = smoke.TOL_NEW["band"]
+    assert smoke.scaled_error(want * (1 + 1e-7), want, scale)[1] <= tol
+    dropped = want.clone()
+    dropped[:, b + 1] = 0.0
+    assert smoke.scaled_error(dropped, want, scale)[1] > tol
+    off = want.clone()
+    off[0, 0] = 1e-30  # row 0 has no neighbour at offset -b
+    assert float(scale[0, 0]) == 0 and smoke.scaled_error(off, want, scale)[1] > tol
+
+
 def test_band_helpers_and_the_fit_step_size():
     g = torch.Generator().manual_seed(4)
     d, b = 11, 2

@@ -144,7 +144,8 @@ def test_fit_differentiates_only_the_diagonals(monkeypatch):
     launch on the card): x needs no gradient there."""
     calls = []
     real = bm._matvec
-    monkeypatch.setattr(bm, "_matvec", lambda dg, x: calls.append(tuple(x.shape)) or real(dg, x))
+    monkeypatch.setattr(bm, "_matvec",
+                        lambda dg, x, *t: calls.append(tuple(x.shape)) or real(dg, x, *t))
     tsp.fit_banded_ar(_t(_rand(30, 8, seed=9)), 1, n_steps=2, step_size=0.5)
     assert calls == [(29, 8), (29, 8)]  # one forward per step, no A^T g
     calls.clear()

@@ -1,17 +1,27 @@
 """Time design variants of the port's kernels on one NVIDIA GPU, each held
 against the port's plain version.
 
-    python3 tools/kernel_variants/variants_bench.py [banded|moments|all]
+    python3 tools/kernel_variants/variants_bench.py [moments|all]
+    python3 tools/kernel_variants/variants_bench.py banded [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py stats BASELINE_KERNELS_DIR
     python3 tools/kernel_variants/variants_bench.py swa
 
-banded, moments: builds the two variant files with nvcc into
-build/kernel_variants/ and, at the shapes of chip_smoke.py (banded: x
-(2,047, 131,072), b = 4; moments: 2^22 x 64, w = 64 and 1,024), prints one
-line per variant: the median of 5 samples of 10 back-to-back launches (CUDA
-events), the extremes, and the largest error against the plain version
-relative to its largest value.  The banded run also times a 1.07 GB
-`copy_` as the card's copy rate.
+moments: builds the variant file with nvcc into build/kernel_variants/ and,
+at chip_smoke.py's shape (2^22 x 64, w = 64 and 1,024), prints one line per
+variant: the median of 5 samples of 10 back-to-back launches (CUDA events),
+the extremes, and the largest error against the plain version relative to
+its largest value.
+
+banded: kernel 7 (the banded product) and 7b (the gradient of its
+diagonals) at the spatial fit's shapes, x and g (2,047, 131,072), b = 4, and
+at one right-hand side cold: every design point of BAND_POINTS (rows in
+flight a thread, patched into copies of banded_matvec.cu; threads per CTA,
+row slabs and waves of the wrappers' launch shapes), held to the plain
+version, then every point of each kernel with the shipped one in turns; with BASELINE_KERNELS_DIR (an earlier ``src/repro_torch/kernels``),
+old against new in turns (baseline, this, this, baseline) for the product at
+both shapes, A^T through the flag against the transposed copy, the wrapper
+at one right-hand side, and d diags against the baseline's plain products.
+Samples go to build/kernel_variants/variants_banded.json.
 
 stats: times the eight kernels of this checkout against those of another
 version of ``src/repro_torch/kernels`` (a copy of the package directory,
@@ -76,39 +86,243 @@ def median_ms(run) -> tuple:
     return samples[2], samples[0], samples[-1]
 
 
-def banded(gen, dev) -> None:
-    from repro_torch.kernels.banded_matvec.ref import banded_matvec_ref
+# Design points of kernel 7 and its gradient (7b), swept at the spatial
+# fit's shapes: (kernel, patched #defines, launch-shape constants of ops.py).
+# The defines are the rows a thread loads before it computes (BM_ROWS,
+# BG_ROWS); "SOURCE" names another source in this directory to build in
+# place of banded_matvec.cu (band_gradient_ring.cu: 7b's rows staged
+# through a ring of bulk copies, RING_STAGES stages of RING_ROWS rows).  The
+# first point of each kernel is the checkout's own design.
+_RING = "band_gradient_ring.cu"
+BAND_POINTS = [
+    ("band_gradient", {}, {}),
+    ("band_gradient", {}, {"GRAD_THREADS": 256}), ("band_gradient", {"BG_ROWS": 1}, {}),
+    ("band_gradient", {"BG_ROWS": 4}, {}), ("band_gradient", {}, {"GRAD_SLABS": 2}),
+    ("band_gradient", {}, {"GRAD_SLABS": 4}), ("band_gradient", {"SOURCE": _RING}, {}),
+    ("band_gradient", {"SOURCE": _RING, "RING_ROWS": 4, "RING_STAGES": 3}, {}),
+    ("banded_matvec", {}, {}), ("banded_matvec", {"BM_ROWS": 1}, {}),
+    ("banded_matvec", {"BM_ROWS": 4}, {}), ("banded_matvec", {}, {"WAVES": 2}),
+    ("banded_matvec", {}, {"WAVES": 4}), ("banded_matvec", {}, {"ROWS_THREADS": 128}),
+    ("banded_matvec_nrhs_1", {}, {}), ("banded_matvec_nrhs_1", {}, {"ONE_ROW_THREADS": 128}),
+    ("banded_matvec_nrhs_1", {}, {"ONE_ROW_THREADS": 256}),
+]
+BAND_ROUNDS = 5
+NRHS1_COPIES = 20  # chip_smoke.py's cold one-right-hand-side graph
 
-    class BP(ctypes.Structure):
-        _fields_ = [("coef", ctypes.c_void_p), ("x", ctypes.c_void_p), ("y", ctypes.c_void_p)] + [
-            (k, ctypes.c_int) for k in ("m", "d", "b", "h", "rpc")]
 
-    lib = build("banded_matvec_variants")
-    lib.launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+def _band_point_name(point) -> str:
+    kernel, defines, knobs = point
+    parts = [f"{k}={v}" for k, v in {**defines, **knobs}.items()]
+    return kernel + ("/" + ",".join(parts) if parts else "/shipped")
+
+
+def _define_source(text: str, defines: dict) -> str:
+    for name, value in defines.items():
+        line = re.findall(rf"^#define {name} \d+", text, re.M)
+        if len(line) != 1:
+            raise RuntimeError(f"#define {name} not found once")
+        text = text.replace(line[0], f"#define {name} {value}")
+    return text
+
+
+def _turns(launchers: dict, rounds: int) -> dict:
+    """Graph samples of each launcher, in turns A B .. B A, ``rounds`` times:
+    {key: [sorted samples of one turn, ...]}."""
+    keys = list(launchers)
+    out = {k: [] for k in keys}
+    for _ in range(rounds):
+        for k in keys + keys[::-1]:
+            out[k].append(launchers[k]())
+            torch.cuda.empty_cache()
+    return out
+
+
+def _report_turns(label: str, turns: dict) -> dict:
+    """Median over every sample of each key, each turn's median, and in how
+    many of the paired turns (the same round and pass) the first key was
+    faster than each other one."""
+    keys = list(turns)
+    rec = {}
+    for k in keys:
+        every = sorted(x for sample in turns[k] for x in sample)
+        meds = [sample[len(sample) // 2] for sample in turns[k]]
+        rec[k] = {"median_ms": every[len(every) // 2], "turn_medians": meds,
+                  "min_ms": every[0], "max_ms": every[-1]}
+        wins = ""
+        if k != keys[0]:
+            first = [sample[len(sample) // 2] for sample in turns[keys[0]]]
+            won = sum(a < b for a, b in zip(first, meds))
+            rec[k]["first_wins"] = won
+            wins = f"; {keys[0]} faster in {won} of {len(meds)} paired turns"
+        print(f"turns {label} {k}: ms {every[len(every) // 2]:.5f} over {len(every)} samples "
+              f"(min {every[0]:.5f} max {every[-1]:.5f}); turn medians "
+              f"{' '.join(f'{x:.5f}' for x in meds)}{wins}", flush=True)
+    return rec
+
+
+def _events_samples(fn, calls: int = 10, repeats: int = 5) -> list:
+    """ms per call, sorted: ``repeats`` samples of ``calls`` back-to-back
+    calls between CUDA events (host work included)."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    samples = []
+    for _ in range(repeats):
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(stop) / calls)
+    return sorted(samples)
+
+
+def _band_prepare(m, diags, x, transposed=False):
+    """A product launch of package ``m``: this checkout's wrapper reads the
+    diagonals (d, 2b+1) where they lie; an earlier one took them band-major."""
+    prepare = m["banded_matvec.ops"].prepare_banded_matvec
+    if "coef" in inspect.signature(prepare).parameters:
+        if transposed:
+            diags = m["banded_matvec.ref"].band_transpose(diags)
+        return prepare(diags.t().contiguous(), x)
+    return prepare(diags, x, transposed)
+
+
+def banded(baseline_dir, gen, dev) -> None:
+    """Kernel 7 and its gradient at the spatial fit's shapes (x and g
+    (2,047, 131,072), b = 4; one right-hand side cold): the design points of
+    BAND_POINTS (patched copies of banded_matvec.cu built side by side, and
+    the wrappers' launch shapes), each held to the plain version, then all
+    the points of each kernel in turns; then, with
+    ``baseline_dir`` (an earlier ``src/repro_torch/kernels``), the product at
+    both shapes, A^T, the wrapper at one right-hand side and d diags (the
+    baseline's plain products where it has no kernel) in turns baseline,
+    this, this, baseline, BAND_ROUNDS times.  Samples go to
+    build/kernel_variants/variants_banded.json."""
+    new = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
+    old = load_kernels("baseline_kernels", os.path.abspath(baseline_dir)) if baseline_dir else None
+    ops, ref = new["banded_matvec.ops"], new["banded_matvec.ref"]
     m, d, b = 2047, 131072, 4
     diags = torch.randn((d, 2 * b + 1), generator=gen, device=dev) * 0.05
     x = torch.randn((m, d), generator=gen, device=dev)
-    coef = diags.t().contiguous()
-    want = banded_matvec_ref(diags, x)
-    # (variant, rows per CTA, columns per CTA, rows staged per pass)
-    for variant, rpc, cols, passes in [(0, 228, 256, 8), (0, 64, 256, 8), (1, 256, 256, 16),
-                                       (2, 256, 256, 32), (3, 64, 256, 0), (3, 16, 256, 0),
-                                       (4, 64, 256, 0), (5, 16, 1024, 0), (5, 64, 1024, 0)]:
-        y = torch.empty_like(x)
-        p = BP(coef.data_ptr(), x.data_ptr(), y.data_ptr(), m, d, b, b, rpc)
-        ctas = -(-d // cols) * -(-m // rpc)
-        smem = passes * (256 + 2 * b) * 4
+    g = torch.randn((m, d), generator=gen, device=dev)
+    copies = [diags.clone() for _ in range(NRHS1_COPIES)]
+    rows = [x[i: i + 1].contiguous() for i in range(NRHS1_COPIES)]
+    want = {"banded_matvec": ref.banded_matvec_ref(diags, x),
+            "banded_matvec_nrhs_1": ref.banded_matvec_ref(diags, x[:1]),
+            "band_gradient": ref.band_gradient(g, x, b)}
 
-        def run():
-            if lib.launch(variant, ctypes.byref(p), ctas, smem) != 0:
-                raise RuntimeError(f"variant {variant}: launch failed")
-        ms, lo, hi = median_ms(run)
-        err = ((y - want).abs().max() / want.abs().max()).item()
-        print(f"banded variant {variant} rows/CTA {rpc}: ms {ms:.4f} (min {lo:.4f} max {hi:.4f}) "
-              f"err {err:.2e} ctas {ctas}", flush=True)
-    y = torch.empty_like(x)
-    ms, lo, hi = median_ms(lambda: y.copy_(x))
-    print(f"copy_ of 1.07 GB: ms {ms:.4f} (min {lo:.4f} max {hi:.4f})", flush=True)
+    def preps(pkg_ops, kernel):
+        if kernel == "band_gradient":
+            return [pkg_ops.prepare_band_gradient(g, x, b)]
+        if kernel == "banded_matvec":
+            return [pkg_ops.prepare_banded_matvec(diags, x)]
+        return [pkg_ops.prepare_banded_matvec(a, r) for a, r in zip(copies, rows)]
+
+    src = os.path.join(os.path.dirname(new["_build"].__file__), "banded_matvec", "csrc",
+                       "banded_matvec.cu")
+    text = open(src).read()
+    os.makedirs(OUT, exist_ok=True)
+    builds = {}
+    for point in BAND_POINTS:
+        key = tuple(sorted(point[1].items()))
+        if key and key not in builds:
+            defines = dict(point[1])
+            base = (open(os.path.join(HERE, defines.pop("SOURCE"))).read()
+                    if "SOURCE" in defines else text)
+            path = os.path.join(OUT, f"band_point_{len(builds)}.cu")
+            with open(path, "w") as f:
+                f.write(_define_source(base, defines))
+            builds[key] = path
+    procs = {key: subprocess.Popen(
+        ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", path[:-3] + ".so", path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for key, path in builds.items()}
+    libs = {}
+    for key, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"band point {key}: build failed\n{log[-2000:]}")
+        lib = libs[key] = ctypes.CDLL(builds[key][:-3] + ".so")
+        size = lib.rt_band_grad_params_size
+        size.restype = ctypes.c_int
+        if size() != ctypes.sizeof(new["_build"].BandGradParams):
+            raise RuntimeError(f"band point {key}: BandGradParams differs from _build.py's")
+    record = {"device": torch.cuda.get_device_name(0), "points": {}, "turns": {}}
+    defaults = {k: getattr(ops, k) for k in ("GRAD_SLABS", "GRAD_THREADS", "ROWS_THREADS",
+                                             "WAVES", "ONE_ROW_THREADS")}
+    launchers = {}
+    for point in BAND_POINTS:
+        kernel, defines, knobs = point
+        for k, v in {**defaults, **knobs}.items():
+            setattr(ops, k, v)
+        ps = preps(ops, kernel)
+        for k, v in defaults.items():
+            setattr(ops, k, v)
+        key = tuple(sorted(defines.items()))
+        if key:
+            entry = getattr(libs[key], "rt_band_gradient" if kernel == "band_gradient"
+                            else "rt_banded_matvec")
+            entry.argtypes, entry.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+
+            def launch_of(prep, entry=entry):
+                def launch():  # on the current stream: the capture's, inside graph_samples
+                    if entry(ctypes.byref(prep.params),
+                             torch.cuda.current_stream(dev).cuda_stream) != 0:
+                        raise RuntimeError("launch failed")
+                    return prep.out
+                return launch
+            calls = [launch_of(prep) for prep in ps]
+        else:
+            calls = [prep.launch for prep in ps]
+        got = calls[0]().clone()
+        err = ((got - want[kernel]).abs().max() / want[kernel].abs().max()).item()
+        again = calls[0]()
+        samples = graph_samples(calls)
+        name = _band_point_name(point)
+        record["points"][name] = {"samples": samples, "max_rel_err": err,
+                                  "bitwise_repeat": bool(torch.equal(got, again)),
+                                  "shape": {k: getattr(ps[0].params, k) for k, t in
+                                            ps[0].params._fields_ if t is ctypes.c_int}}
+        launchers[name] = (lambda calls=calls: graph_samples(calls))
+        print(f"point {name}: ms {samples[2]:.5f} (min {samples[0]:.5f} max {samples[-1]:.5f}) "
+              f"max rel err {err:.2e}", flush=True)
+    # every point of each kernel in turns with its shipped one
+    for kernel in ("band_gradient", "banded_matvec", "banded_matvec_nrhs_1"):
+        names = [n for n in record["points"] if n.split("/")[0] == kernel]
+        record["turns"][f"{kernel}/points"] = _report_turns(
+            kernel, _turns({n: launchers[n] for n in names}, BAND_ROUNDS))
+    if old is not None:
+        oops = old["banded_matvec.ops"]
+        pairs = {
+            "banded_matvec": ([p.launch for p in [_band_prepare(old, diags, x)]],
+                              [p.launch for p in preps(ops, "banded_matvec")]),
+            "banded_matvec_nrhs_1": ([_band_prepare(old, a, r).launch
+                                      for a, r in zip(copies, rows)],
+                                     [p.launch for p in preps(ops, "banded_matvec_nrhs_1")]),
+            "banded_matvec_transposed": ([_band_prepare(old, diags, x, True).launch],
+                                         [_band_prepare(new, diags, x, True).launch]),
+        }
+        for name, (base, this) in pairs.items():
+            same = bool(torch.equal(base[0](), this[0]()))
+            turns = _turns({"baseline": lambda base=base: graph_samples(base),
+                            "this": lambda this=this: graph_samples(this)}, BAND_ROUNDS)
+            record["turns"][name] = _report_turns(f"{name} (bitwise equal: {same})", turns)
+        # host work included: the wrappers at one right-hand side, and d diags
+        # (the baseline computes it as plain products, the checkout launches 7b)
+        base_grad = (oops.band_gradient if hasattr(oops, "prepare_band_gradient")
+                     else old["banded_matvec.ref"].band_gradient)
+        wrappers = {
+            "wrapper_nrhs_1": (lambda: oops.banded_matvec_rows(diags, x[:1]),
+                               lambda: ops.banded_matvec_rows(diags, x[:1])),
+            "d_diags": (lambda: base_grad(g, x, b), lambda: ops.band_gradient(g, x, b)),
+        }
+        for name, (base, this) in wrappers.items():
+            turns = _turns({"baseline": lambda base=base: _events_samples(base),
+                            "this": lambda this=this: _events_samples(this)}, BAND_ROUNDS)
+            record["turns"][name] = _report_turns(name, turns)
+    with open(os.path.join(OUT, "variants_banded.json"), "w") as f:
+        json.dump(record, f, indent=1)
 
 
 def moments(gen, dev) -> None:
@@ -151,7 +365,7 @@ def load_kernels(name: str, directory: str):
     spec.loader.exec_module(pkg)
     mods = {sub: importlib.import_module(f"{name}.{sub}") for sub in (
         "_build", "_launch", "fused_plan.ops", "segment_dft.ops", "segment_dft.ref",
-        "window_stats.ops", "banded_matvec.ops", "swa_attention.ops")}
+        "window_stats.ops", "banded_matvec.ops", "banded_matvec.ref", "swa_attention.ops")}
     path, seconds, log = mods["_build"].build(verbose=True)
     mods["_build"].library()
     ptxas = [ln.strip() for ln in log.splitlines()
@@ -243,7 +457,7 @@ def stats(baseline_dir: str, gen, dev) -> None:
             ops = spectral_operands(sd.prepare_segment_csd)
             return [sd.prepare_segment_csd(csd_segs, *ops, True)]
         if which == "banded_matvec":
-            return [m["banded_matvec.ops"].prepare_banded_matvec(diags.t().contiguous(), x7)]
+            return [_band_prepare(m, diags, x7)]
         return [m["swa_attention.ops"].prepare_swa_attention(q, kv[0], kv[1], 4096,
                                                               1 / math.sqrt(80))]
 
@@ -263,6 +477,7 @@ def stats(baseline_dir: str, gen, dev) -> None:
         got, want = make(new, name)[0].launch(), make(old, name)[0].launch()
         err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                   for a, b in zip(flat(got), flat(want)))
+        same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
         del got, want
         turns = []
         for label, m in (("baseline", old), ("this", new), ("this", new), ("baseline", old)):
@@ -271,10 +486,11 @@ def stats(baseline_dir: str, gen, dev) -> None:
             turns.append((label, samples))
             torch.cuda.empty_cache()
         med = {lab: sorted(x[2] for l2, x in turns if l2 == lab) for lab in ("baseline", "this")}
-        record["turns"][name] = {"samples": turns, "rel_diff_vs_baseline": err}
+        record["turns"][name] = {"samples": turns, "rel_diff_vs_baseline": err,
+                                 "bitwise_equal": same}
         print(f"{name}: baseline {med['baseline']} ms, this {med['this']} ms, "
               f"speed-up {sum(med['baseline']) / sum(med['this']):.3f}x, "
-              f"max rel diff {err:.2e}", flush=True)
+              f"max rel diff {err:.2e}, bitwise equal {same}", flush=True)
 
     # launch-shape sweeps of this package
     lch, fpm = new["_launch"], new["fused_plan.ops"]
@@ -570,7 +786,7 @@ def main() -> None:
             json.dump(record, f, indent=1)
         return
     if which in ("banded", "all"):
-        banded(gen, dev)
+        banded(sys.argv[2] if which == "banded" and len(sys.argv) > 2 else None, gen, dev)
     if which in ("moments", "all"):
         moments(gen, dev)
 
