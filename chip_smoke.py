@@ -6,7 +6,8 @@ holds each against its plain PyTorch version on the card, drives the fused
 statistics plan end to end at full width through ``SeriesFrame``, runs the
 single-family plans, then the three further statistics paths -- the §6
 banded spatial AR fit, rolling moments and cross-spectra -- times kernels
-1-7 and 7b (the gradient of kernel 7's diagonals), then checks and times
+1-7 and 7b (the gradient of kernel 7's diagonals; kernel 3 also at the
+moments finalize's tail), then checks and times
 kernel 8 (sliding-window attention) and serves
 h2o-danube-1.8b at full width and depth through ``ServeEngine.generate``,
 printing one JSON line per phase.  The second-to-last line lists the
@@ -81,6 +82,13 @@ TOL = {"lag": 1e-4, "moments": 1e-4, "psd": 1e-3, "fit": 1e-2}
 # 2.1e-5 at the main path's shape and up to 4.1e-4 over 5 segments of L =
 # 4,096 (tests/test_torch_cuda.py).
 TOL_NEW = {"window": 1e-5, "band": 1e-5, "csd": 1e-4, "psd": 1e-3}
+# Kernel 3's edge grid (TOL["lag"], TOL["moments"]): lags, widths and
+# windows (one, the main path's two, eight), masks with holes.
+LAGMOM_N = 3000
+LAGMOM_LAGS = (0, 1, 16, 40)
+LAGMOM_DIMS = (1, 63, 64, 65, 130)
+LAGMOM_WINDOWS = {"w1": (1,), "w64_1024": (64, 1024),
+                  "w8": (3, 8, 17, 64, 100, 257, 512, 1024)}
 
 # The §6 spatial fit: a sensor-lattice-sized banded AR(1).  The true
 # diagonals are uniform in +-TRUE_DIAG, so every row and column absolute sum
@@ -351,6 +359,64 @@ def device_split(fn, calls: int = 5) -> tuple:
     return top, sum(split.values()), wall
 
 
+def kernels_per_call(fn, calls: int) -> dict:
+    """{device kernel name: launches per call of ``fn``} from torch.profiler
+    (empty when the profiler records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            out[ev.key[:60]] = ev.count / calls
+    return out
+
+
+def lag_moments_work(rows: int, n: int, valid: int, d: int, windows: int) -> tuple:
+    """(bytes, operations of the function, operations of the design) of
+    kernel 3 at H = 0 over ``rows`` rows of d channels, ``n`` starts of
+    which ``valid`` count, and ``windows`` windows: the series and the start
+    mask read once, S(0) and the moment sums written once; S(0) is
+    symmetric, so the function needs its d (d + 1) / 2 distinct entries, a
+    multiply-add each per valid start (the design's cost counts all d^2),
+    plus per row and channel a square and a multiply-add per window and
+    moment."""
+    nbytes = rows * d * 4 + n + (d * d + windows * 2 * d) * 4
+    per_row = rows * d * (1 + 4 * windows)
+    return nbytes, valid * d * (d + 1) + per_row, valid * d * d * 2 + per_row
+
+
+def lag_moments_library(a, y, weights):
+    """Kernel 3 at H = 0 as two fp32 cuBLAS products (TF32 is off): S(0) =
+    a^T y[:n] with a the masked head rows, and the moment sums C [y, y^2]
+    with C (K, rows) the exact window counts c_w(t) as floats."""
+    s0 = torch.mm(a.t(), y[: a.shape[0]])
+    mom = torch.mm(weights, torch.cat([y, y * y], 1))
+    return s0[None], mom.view(weights.shape[0], 2, y.shape[1])
+
+
+def lag_moments_library_operands(y, mask, windows):
+    """(a, y, C) of :func:`lag_moments_library`: the masked head rows and
+    the window counts c_w(t) = #valid starts in [t - w + 1, t], over the rows
+    [0, n + max(windows) - 1) of ``y``."""
+    n = mask.shape[0]
+    rows = n + max(windows) - 1
+    prefix = torch.nn.functional.pad(torch.cumsum(mask, 0), (1, 0))
+    t = torch.arange(rows, device=y.device)
+    hi = prefix[torch.clamp(t + 1, max=n)]
+    weights = torch.stack([(hi - prefix[torch.clamp(t + 1 - w, 0, n)]).float() for w in windows])
+    a = torch.where(mask[:, None], y[:n], 0.0).contiguous()
+    return a, y[:rows].contiguous(), weights.contiguous()
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32) -> tuple:
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -432,6 +498,64 @@ def empty_launch(prep) -> None:
     stream = torch.cuda.current_stream(prep.device).cuda_stream
     _build.check(_build.library().rt_band_empty(ctypes.byref(prep.params), stream),
                  "band_empty")
+
+
+# Kernel 3's planted fault: the sum of a cluster's slabs leaves out the
+# pair's middle slab.  The shipped source has no switch for it; a copy of
+# window_stats.cu with this line patched is built beside the library.
+LAGMOM_FAULT = ("if (q < C) v += x[h][q];",
+                "if (q < C && g * C + q != ((p.rows + p.slab - 1) / p.slab - 1) / 2) "
+                "v += x[h][q];")
+
+
+def lagmom_fault_source() -> str:
+    """window_stats.cu's text with LAGMOM_FAULT patched in."""
+    from repro_torch.kernels import _build
+
+    text = (_build.KERNELS_DIR / "window_stats" / "csrc" / "window_stats.cu").read_text()
+    if text.count(LAGMOM_FAULT[0]) != 1:
+        raise RuntimeError(f"planted fault: {LAGMOM_FAULT[0]!r} not found once in window_stats.cu")
+    return text.replace(*LAGMOM_FAULT)
+
+
+def start_lagmom_fault_build():
+    """Starts nvcc on the faulty copy (lagmom_fault_source) under build/;
+    returns a function that waits for it and returns the copy's
+    rt_lag_moments_sym, which takes the shipped wrapper's prepared params."""
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "planted"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / f"window_stats_dropped_slab.{os.getpid()}.cu"
+    cu.write_text(lagmom_fault_source())
+    so = cu.with_suffix(".so")
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                             str(_build.KERNELS_DIR / "csrc"), "-o", str(so), str(cu)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    @functools.lru_cache(maxsize=None)
+    def finish():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the planted fault's copy:\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(so))
+        lib.rt_lagmom_params_size.restype = ctypes.c_int
+        if lib.rt_lagmom_params_size() != ctypes.sizeof(_build.LagMomParams):
+            raise RuntimeError("planted fault's copy: LagMomParams differs from _build.py's")
+        entry = lib.rt_lag_moments_sym
+        entry.argtypes, entry.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+        return entry
+    return finish
+
+
+def lag_moments_empty(prep) -> None:
+    """An empty kernel on the grid, cluster and shared memory of a prepared
+    launch of kernel 3's symmetric path (the launch alone)."""
+    from repro_torch.kernels import _build
+
+    stream = torch.cuda.current_stream(prep.device).cuda_stream
+    _build.check(_build.library().rt_lag_moments_empty(ctypes.byref(prep.params), stream),
+                 "lag_moments_empty")
 
 
 def new_kernel_case(fn, plain, scale_fn, args: tuple, tol: float) -> dict:
@@ -583,12 +707,14 @@ def serve_launches_ok(launches: dict, layers: int) -> bool:
             and launches["extended_prefill"] == layers and launches["decode"] == 0)
 
 
-def stats_paths(args, dev) -> dict:
+def stats_paths(args, dev, lagmom_fault) -> dict:
     """Phases 2-8: kernels 1-7 against their plain versions, the fused plan
     end to end, the single-family plans, the spatial fit, rolling moments,
     cross-spectra and the kernels' timing.  Returns each kernel's parity
-    cases, timing, bound and launches on its own path."""
+    cases, timing, bound and launches on its own path.  ``lagmom_fault``:
+    start_lagmom_fault_build's function."""
     from repro_torch import SeriesFrame
+    from repro_torch.kernels import _build
     from repro_torch.core.estimators.spectral import hann_window
     from repro_torch.kernels import launch_counts, path_counts, reset_launch_counts
     from repro_torch.kernels.banded_matvec import ops as bm, ref as bmr
@@ -616,6 +742,9 @@ def stats_paths(args, dev) -> dict:
     lag_tail = (tail, torch.ones(CARRY, dtype=torch.bool, device=dev), H)
     mom_chunk = (series[: CHUNK + CARRY], starts <= CHUNK - CARRY - 1, 0, WINDOWS)
     mom_tail = (tail, tail_rows <= CARRY - WINDOWS[0], 0, WINDOWS[0])
+    # a moments-only plan's merge boundary: the two carried halves, every start valid
+    mom_boundary = (series[CHUNK - CARRY: CHUNK + CARRY],
+                    torch.ones(CARRY, dtype=torch.bool, device=dev), 0, WINDOWS)
     seg_chunk, _ = fpr.welch_candidates(series[: CHUNK + NPERSEG - 1],
                                         starts <= CHUNK - NPERSEG, z0, NPERSEG, STEP)
     seg_tail, _ = fpr.welch_candidates(tail, tail_rows <= CARRY - NPERSEG, z0, NPERSEG, STEP)
@@ -706,14 +835,63 @@ def stats_paths(args, dev) -> dict:
         return res
 
     def lag_moments_check(case_args):
-        """Kernel 3: (lag, mom) against the plain version."""
+        """Kernel 3: (lag, mom) against the plain version, two launches
+        bitwise equal; at H = 0 S(0) bitwise equal to its transpose."""
         got = ws.fused_lagged_moments(*case_args)
         again = ws.fused_lagged_moments(*case_args)
         want = wsr.fused_lag_moments_ref(*case_args)
-        y, mask, _, window = case_args
+        y, mask, max_lag, window = case_args
         abs_mom = abs_moment_sums(y, mask, window)
         torch.cuda.synchronize()
-        return parts_check(got, again, want, mega_tols, abs_mom)
+        res = parts_check(got, again, want, mega_tols, abs_mom)
+        if max_lag == 0:
+            res["symmetric"] = bool(torch.equal(got[0][0], got[0][0].t()))
+            res["ok"] = res["ok"] and res["symmetric"]
+        return res
+
+    def lag_moments_grid():
+        """Kernel 3 over H in LAGMOM_LAGS, d in LAGMOM_DIMS and the windows of
+        LAGMOM_WINDOWS, masks with holes (n = LAGMOM_N starts), each case
+        as lag_moments_check; reported as one summary."""
+        cases = {}
+        for max_lag in LAGMOM_LAGS:
+            for d in LAGMOM_DIMS:
+                for wname, windows in LAGMOM_WINDOWS.items():
+                    reach = max(max_lag, max(windows) - 1)
+                    y = torch.randn((LAGMOM_N + reach, d), generator=gen, device=dev)
+                    mask = torch.ones(LAGMOM_N, dtype=torch.bool, device=dev)
+                    mask[LAGMOM_N // 3:: 5] = False
+                    mask[-LAGMOM_N // 10:] = False
+                    cases[f"h{max_lag}_d{d}_{wname}"] = lag_moments_check(
+                        (y, mask, max_lag, windows))
+        worst = max(cases, key=lambda k: max(r["max_rel_err"] for r in cases[k]["parts"].values()))
+        return {"cases": len(cases), "n": LAGMOM_N, "lags": list(LAGMOM_LAGS),
+                "dims": list(LAGMOM_DIMS), "windows": {k: list(w) for k, w in LAGMOM_WINDOWS.items()},
+                "worst": worst, "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+                "max_rel_err": {part: max(r["parts"][part]["max_rel_err"] for r in cases.values())
+                                for part in ("lag", "mom")},
+                "all_bitwise_repeat": all(r["bitwise_repeat"] for r in cases.values()),
+                "all_symmetric_h0": all(r["symmetric"] for r in cases.values() if "symmetric" in r),
+                "bad": [k for k, r in cases.items() if not r["ok"]],
+                "ok": all(r["ok"] for r in cases.values())}
+
+    def dropped_slab(case_args):
+        """The fault: the middle slab's partial left out of the in-launch sum
+        (LAGMOM_FAULT's copy of the kernel, on the shipped wrapper's prepared
+        launch), held to the plain version as in lag_moments_check."""
+        y, mask, max_lag, windows = case_args
+        prep = ws.prepare_fused_lag_moments(y.contiguous(), mask, max_lag, windows)
+        _build.check(lagmom_fault()(ctypes.byref(prep.params),
+                                    torch.cuda.current_stream(dev).cuda_stream),
+                     "lag_moments_sym (planted fault)")
+        lag, mom = prep.out
+        want = wsr.fused_lag_moments_ref(*case_args)
+        torch.cuda.synchronize()
+        res = parts_check((lag, mom), (lag, mom), want, mega_tols,
+                          abs_moment_sums(y, mask, windows))
+        return {"slab": (-(-prep.params.rows // prep.params.slab) - 1) // 2,
+                "max_rel_err": {k: r["max_rel_err"] for k, r in res["parts"].items()},
+                "caught": not res["ok"]}
 
     parity = {"fused_plan_megakernel": {"chunk": mega_check(mega_chunk, plant=True),
                                         "merge_boundary": mega_check(boundary)}}
@@ -729,7 +907,9 @@ def stats_paths(args, dev) -> dict:
                                     (series[:CHUNK], H), TOL["lag"]),
     }
     parity["fused_lag_moments"] = {"chunk": lag_moments_check(mom_chunk),
-                                   "tail": lag_moments_check(mom_tail)}
+                                   "tail": lag_moments_check(mom_tail),
+                                   "merge_boundary": lag_moments_check(mom_boundary),
+                                   "grid": lag_moments_grid()}
     odd_segs = series[: 40 * 255].reshape(40, 255, D)  # not a power of two: twiddles
     parity["segment_dft_power"] = {
         "chunk": power_check((seg_chunk, taper)),
@@ -848,7 +1028,8 @@ def stats_paths(args, dev) -> dict:
 
     fault = grad_case(fit_g, fit_x, SPATIAL_B, dropped_offset)
     faults = {"band_gradient_dropped_offset": {"max_rel_err": fault["max_rel_err"],
-                                               "caught": not fault["ok"]}}
+                                               "caught": not fault["ok"]},
+              "fused_lag_moments_dropped_slab": dropped_slab(mom_chunk)}
     del fit_x, fit_g
     emit({"phase": "parity", "tolerance": "per leaf: max|kernel - plain| <= tol * scale "
           "(max|plain|; sum of y: per channel, the sum over |y|); the power of kernels 1 "
@@ -879,18 +1060,24 @@ def stats_paths(args, dev) -> dict:
         first = frame.collect()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        before = launch_counts()
         frame.append(chunk_list[-1])
+        appended = launch_counts()
         second = frame.collect()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        return first, second, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        # the launches of the append's one update and of the collect after
+        # it, each counted on its own (the totals run on)
+        steps = {"append": {k: v - before[k] for k, v in appended.items()},
+                 "collect": {k: v - appended[k] for k, v in launch_counts().items()}}
+        return first, second, (t1 - t0) * 1e3, (t2 - t1) * 1e3, steps
 
     run_plan("cuda", chunks[:3])  # warm-up: library, cuBLAS and cuSOLVER handles
     reset_launch_counts()
-    first, second, collect_ms, append_ms = run_plan("cuda", chunks)
+    first, second, collect_ms, append_ms, steps = run_plan("cuda", chunks)
     counts, paths = launch_counts(), path_counts()
     updates = len(chunks)
-    plain_first, plain_second, plain_collect_ms, plain_append_ms = run_plan("torch", chunks)
+    plain_first, plain_second, plain_collect_ms, plain_append_ms, _ = run_plan("torch", chunks)
     # where the time goes: device time by kernel over one whole run, against
     # its wall time (the run includes frame set-up, collect, append, collect)
     busy_by_kernel, busy_ms, wall_ms = device_split(lambda: run_plan("cuda", chunks), calls=1)
@@ -918,6 +1105,9 @@ def stats_paths(args, dev) -> dict:
                                                   "segment_dft_power")))
     emit({"phase": "main_path", "samples_per_channel": n_total, "channels": D,
           "chunks": updates, "updates": updates, "launches": counts,
+          "launches_by_step": steps,
+          # the moments finalize's tail (w = 64): the collect after the append
+          "fused_lag_moments_per_collect": steps["collect"]["fused_lag_moments"],
           "welch_path_launches": paths,
           "collect_ms": collect_ms, "append_collect_ms": append_ms,
           "samples_per_s": (n_total - CHUNK) * D / (collect_ms / 1e3),
@@ -945,9 +1135,9 @@ def stats_paths(args, dev) -> dict:
     }
     few = chunks[:8]
     for name, (declare, kernel) in plans.items():
-        results = {}
+        results, frames = {}, {}
         for backend in ("cuda", "torch"):
-            frame = SeriesFrame.from_chunks(few, backend=backend, device=dev)
+            frame = frames[backend] = SeriesFrame.from_chunks(few, backend=backend, device=dev)
             declare(frame)
             reset_launch_counts()
             torch.cuda.synchronize()
@@ -967,6 +1157,18 @@ def stats_paths(args, dev) -> dict:
             single[name]["per_bin"] = power_bin_error(results["cuda"]["welch"][1],
                                                       results["torch"]["welch"][1], False)
             cmp["ok"] = cmp["ok"] and single[name]["per_bin"]["ok"]
+        if name == "moments_only":
+            # one more chunk's update, then the collect after it, each
+            # counted on its own (expected: the chunk and its merge boundary;
+            # the finalize's tail)
+            reset_launch_counts()
+            frames["cuda"].append(chunks[len(few)])
+            torch.cuda.synchronize()
+            single[name]["launches_per_chunk"] = launch_counts()[kernel]
+            reset_launch_counts()
+            frames["cuda"].collect()
+            torch.cuda.synchronize()
+            single[name]["launches_per_collect"] = launch_counts()[kernel]
         single[name]["ok"] = cmp["ok"] and launched >= 2 * len(few)
     emit({"phase": "single_family", "plans": single})
     if not all(r["ok"] for r in single.values()):
@@ -1185,6 +1387,11 @@ def stats_paths(args, dev) -> dict:
     ys_lag = [(series[i * CHUNK: i * CHUNK + CHUNK + H], lag_chunk[1], H) for i in range(rot)]
     ys_mom = [(series[i * CHUNK: i * CHUNK + CHUNK + CARRY], mom_chunk[1], 0, WINDOWS)
               for i in range(rot)]
+    # kernel 3 at the tail of the moments finalize: the carried 1,023 rows
+    # zero-extended by w - 1 = 63 (1,086 rows), 960 valid starts, w = 64
+    ys_tail = [(wsr.extend_rows(series[(i + 1) * CHUNK - CARRY: (i + 1) * CHUNK],
+                                CARRY + WINDOWS[0] - 1).contiguous(), mom_tail[1], 0, (WINDOWS[0],))
+               for i in range(rot)]
     segs = [fpr.welch_candidates(series[i * CHUNK: i * CHUNK + CHUNK + NPERSEG - 1],
                                  starts <= CHUNK - NPERSEG, z0, NPERSEG, STEP)[0].contiguous()
             for i in range(rot)]
@@ -1214,17 +1421,24 @@ def stats_paths(args, dev) -> dict:
         "cross_window_stats": [ws.prepare_cross_lagged_sums(a, b, H) for a, b in lag_operands],
         "fused_lag_moments": [ws.prepare_fused_lag_moments(y.contiguous(), m, h, w)
                               for y, m, h, w in ys_mom],
+        "fused_lag_moments_tail": [ws.prepare_fused_lag_moments(y, m, h, w)
+                                   for y, m, h, w in ys_tail],
         "segment_dft_power": [sd.prepare_segment_power(s, taper, True) for s in segs],
     }
     wrappers = {
         "fused_plan_megakernel": (fp.fused_plan_update, fpr.fused_plan_update_ref, ys_mega),
         "cross_window_stats": (ws.masked_lagged_sums, wsr.masked_lagged_sums_ref, ys_lag),
         "fused_lag_moments": (ws.fused_lagged_moments, wsr.fused_lag_moments_ref, ys_mom),
+        "fused_lag_moments_tail": (ws.fused_lagged_moments, wsr.fused_lag_moments_ref, ys_tail),
         "segment_dft_power": (sd.segment_fft_power, sdr.segment_dft_power_ref,
                               [(s, taper) for s in segs]),
     }
+    lagmom_operands = {name: [lag_moments_library_operands(y, m, w) for y, m, _, w in ys]
+                       for name, ys in (("fused_lag_moments", ys_mom),
+                                        ("fused_lag_moments_tail", ys_tail))}
     libraries = {"cross_window_stats": (lag_library, lag_operands),
-                 "segment_dft_power": (rfft_power, [(s, taper) for s in segs])}
+                 "segment_dft_power": (rfft_power, [(s, taper) for s in segs]),
+                 **{name: (lag_moments_library, ops) for name, ops in lagmom_operands.items()}}
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on: the library GEMM would not be full fp32")
     library_check = {
@@ -1234,6 +1448,11 @@ def stats_paths(args, dev) -> dict:
         "segment_dft_power": compare(rfft_power(segs[0], taper),
                                      sdr.segment_dft_power_ref(segs[0], taper), TOL["psd"]),
     }
+    for name, ys in (("fused_lag_moments", ys_mom), ("fused_lag_moments_tail", ys_tail)):
+        y, m, _, w = ys[0]
+        got = lag_moments_library(*lagmom_operands[name][0])
+        want = wsr.fused_lag_moments_ref(y, m, 0, w)
+        library_check[name] = parts_check(got, got, want, mega_tols, abs_moment_sums(y, m, w))
     if not all(r["ok"] for r in library_check.values()):
         fail("a library yardstick disagrees with the plain version", check=library_check)
 
@@ -1247,10 +1466,18 @@ def stats_paths(args, dev) -> dict:
             "ms": samples[len(samples) // 2], "ms_samples": samples,
             "profiler_ms": device_split(rotating(lambda f: f(), [(f,) for f in launches]),
                                         calls=rot)[1],
+            "device_kernels_per_call": kernels_per_call(
+                rotating(lambda f: f(), [(f,) for f in launches]), rot),
             "wrapper_ms": cuda_ms(rotating(fn, a), 40),
             "plain_ms": cuda_ms(rotating(plain, a), 8),
             "library_ms": cuda_ms(rotating(*lib), 40) if lib else None,
         }
+    # the tail's launches are short: beside them, an empty kernel on the same
+    # grid, cluster and shared memory, in a graph of as many launches
+    empty = graph_ms([functools.partial(lag_moments_empty, p)
+                      for p in prepared["fused_lag_moments_tail"]])
+    timing["fused_lag_moments_tail"]["empty_launch_ms"] = empty[len(empty) // 2]
+    timing["fused_lag_moments_tail"]["empty_launch_ms_samples"] = empty
 
     # Bounds from this run's inputs: the bytes the function must move (each
     # input read once, each output written once) and the fp32 operations it
@@ -1274,8 +1501,8 @@ def stats_paths(args, dev) -> dict:
     mega_lag_flops = n_mega * (H + 1) * D * D * 2
     n_lag = int(lag_chunk[1].sum().item())
     lag_bytes = (CHUNK + H) * D * f4 + CHUNK + (H + 1) * D * D * f4
-    n_mom = int(mom_chunk[1].sum().item())
-    mom_bytes = rows_mom * D * f4 + CHUNK + (D * D + len(WINDOWS) * 2 * D) * f4
+    n_tail = int(mom_tail[1].sum().item())
+    rows_tail = CARRY + WINDOWS[0] - 1
     S = segs[0].shape[0]
     seg_bytes = S * NPERSEG * D * f4 + NPERSEG * f4 + S * F * D * f4
     work = {  # (bytes, function flops, flops of this design)
@@ -1284,8 +1511,9 @@ def stats_paths(args, dev) -> dict:
                                   mega_lag_flops + mom_flops_rows + n_seg * D * design_flops),
         "cross_window_stats": (lag_bytes, n_lag * (H + 1) * D * D * 2,
                                n_lag * (H + 1) * D * D * 2),
-        "fused_lag_moments": (mom_bytes, n_mom * D * D * 2 + mom_flops_rows,
-                              n_mom * D * D * 2 + mom_flops_rows),
+        "fused_lag_moments": lag_moments_work(rows_mom, CHUNK, int(mom_chunk[1].sum().item()),
+                                              D, len(WINDOWS)),
+        "fused_lag_moments_tail": lag_moments_work(rows_tail, CARRY, n_tail, D, 1),
         "segment_dft_power": (seg_bytes, S * D * fft_flops, S * D * design_flops),
     }
     bounds = {k: bound_ms(b, f) for k, (b, f, _) in work.items()}
@@ -1294,6 +1522,8 @@ def stats_paths(args, dev) -> dict:
                                  f"welch {NPERSEG}/{OVERLAP}",
         "cross_window_stats": f"y ({CHUNK + H}, {D}), H={H}",
         "fused_lag_moments": f"y ({CHUNK + CARRY}, {D}), H=0, windows={WINDOWS}",
+        "fused_lag_moments_tail": f"y ({rows_tail}, {D}), {n_tail} of {CARRY} starts, H=0, "
+                                  f"window {WINDOWS[0]}",
         "segment_dft_power": f"segments ({S}, {NPERSEG}, {D})",
     }
     # kernels 5-7b at their paths' shapes: each operand exceeds the 50 MB L2
@@ -1409,7 +1639,9 @@ def stats_paths(args, dev) -> dict:
           "time of the same launches made from the host; wrapper_ms, plain_ms, library_ms: "
           "CUDA events around back-to-back calls, host work included; "
           f"banded_matvec_nrhs_1: a graph of {NRHS1_COPIES} launches at one right-hand "
-          "side, each on its own copy of the diagonals (cold, beyond the L2); warm_ms: one "
+          "side, each on its own copy of the diagonals (cold, beyond the L2); "
+          "fused_lag_moments_tail: kernel 3 at the moments finalize's tail, 8 rotating tails "
+          "(278 KB each, within the L2 as after the collect that carries them); warm_ms: one "
           "launch replayed as often, the diagonals warm in L2 as in the simulation; "
           "empty_launch_ms: an empty kernel on the same grid, block and shared memory in a "
           "graph of as many launches (the launch alone; not a bound)",
@@ -1421,7 +1653,10 @@ def stats_paths(args, dev) -> dict:
                           "shape": shapes[k], "device_ms_by_kernel": split[k]}
                       for k, t in timing.items()},
           "library_check": library_check,
-          "library_calls": {"window_moments": "F.avg_pool1d(x^T, w, 1) * w on x and on x^2 "
+          "library_calls": {"fused_lag_moments": "torch.mm(a^T, y[:n]) (a the masked head "
+                                                 "rows) and torch.mm(C, torch.cat([y, y*y], 1)) "
+                                                 "(C the window counts), fp32",
+                            "window_moments": "F.avg_pool1d(x^T, w, 1) * w on x and on x^2 "
                                               "(two calls: no single call gives both sums)",
                             "segment_csd": "torch.fft.rfft of the detrended, tapered segments, "
                                            "then einsum('sfi,sfj->sfij', f, f.conj())",
@@ -1743,6 +1978,7 @@ def main() -> None:
                          timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
           "nvidia-smi: no output", flush=True)
+    lagmom_fault = start_lagmom_fault_build()  # beside the library's own nvcc processes
     path, nvcc_s, log = _build.build(verbose=True)
     _build.library()
     # registers and spills per kernel, and ptxas's notes of wgmma serialized
@@ -1756,7 +1992,7 @@ def main() -> None:
 
     # phases 2-8 (the statistics paths, kernels 1-7); their multi-GB
     # tensors are freed on return
-    stats = stats_paths(args, dev)
+    stats = stats_paths(args, dev, lagmom_fault)
     gc.collect()
     torch.cuda.empty_cache()
     # phases 9-10: kernel 8 alone, then the LM serving path through it

@@ -10,14 +10,14 @@ stale build.
 
 The C entry points take a pointer to a parameter struct (mirrored below:
 :class:`PlanParams` from ``csrc/stats_tiles.cuh``, :class:`MomentParams`
-from ``window_stats/csrc/window_stats.cu``, :class:`BandParams` and
-:class:`BandGradParams` from ``banded_matvec/csrc/banded_matvec.cu``,
-:class:`SwaParams` from
+and :class:`LagMomParams` from ``window_stats/csrc/window_stats.cu``,
+:class:`BandParams` and :class:`BandGradParams` from
+``banded_matvec/csrc/banded_matvec.cu``, :class:`SwaParams` from
 ``swa_attention/csrc/swa_attention.cu``) and the CUDA stream; each returns
 ``cudaGetLastError()`` after its launches, and :func:`check` raises on a
 non-zero code.  The struct sizes and the design constants mirrored below
-(``STATS_CONSTANTS``, ``BAND_CONSTANTS``, ``SWA_CONSTANTS``) are checked against the library
-at load.
+(``STATS_CONSTANTS``, ``LAGMOM_CONSTANTS``, ``BAND_CONSTANTS``,
+``SWA_CONSTANTS``) are checked against the library at load.
 """
 from __future__ import annotations
 
@@ -30,11 +30,13 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["PlanParams", "WelchMember", "MomentParams", "BandParams", "BandGradParams",
+__all__ = ["PlanParams", "WelchMember", "MomentParams", "LagMomParams", "BandParams",
+           "BandGradParams",
            "SwaParams", "library",
            "build",
            "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "LAG_GROUP",
-           "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "BAND_COLS", "BAND_PASS",
+           "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "LM_ROWS", "LM_STAGES",
+           "LM_MAX_CLUSTER", "LM_MAX_SLAB", "LM_BLK", "LM_PART_FLOATS", "BAND_COLS", "BAND_PASS",
            "BAND_MAX_SLABS", "BAND_OFFSETS",
            "SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS", "SWA_PANEL", "SWA_MAX_D",
            "THREADS"]
@@ -56,6 +58,15 @@ FFT_MAX_L = 4096
 FFT_FLOATS = 8192
 FFT_MAX_CHAN = 64
 THREADS = 256
+# Compile-time constants of window_stats/csrc/window_stats.cu, kernel 3 at
+# H = 0: rows per ring step, ring steps, most CTAs per cluster, most rows
+# per CTA, the register tile's side; and the floats of one CTA's partial.
+LM_ROWS = 56
+LM_STAGES = 2
+LM_MAX_CLUSTER = 16
+LM_MAX_SLAB = 512
+LM_BLK = 8
+LM_PART_FLOATS = TILE * TILE + 2 * MAX_WINDOWS * TILE
 # Compile-time constants of banded_matvec/csrc/banded_matvec.cu: the generic
 # paths' columns per CTA and most rows staged per pass, the vector
 # gradient's most CTAs per cluster, the generic gradient's offsets per thread.
@@ -142,6 +153,28 @@ class MomentParams(ctypes.Structure):
     ]
 
 
+class LagMomParams(ctypes.Structure):
+    _fields_ = [
+        ("y", ctypes.c_void_p),
+        ("prefix", ctypes.c_void_p),
+        ("part", ctypes.c_void_p),
+        ("lag_out", ctypes.c_void_p),
+        ("mom_out", ctypes.c_void_p),
+        ("arrive", ctypes.c_void_p),
+        ("n", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("windows", ctypes.c_int * MAX_WINDOWS),
+        ("d_tiles", ctypes.c_int),
+        ("pairs", ctypes.c_int),
+        ("slab", ctypes.c_int),
+        ("cluster", ctypes.c_int),
+        ("groups", ctypes.c_int),
+        ("vec", ctypes.c_int),
+    ]
+
+
 class BandParams(ctypes.Structure):
     _fields_ = [
         ("diags", ctypes.c_void_p),
@@ -199,11 +232,13 @@ class SwaParams(ctypes.Structure):
     ]
 
 
-ENTRY_POINTS = ("rt_cross_lag_sums", "rt_fused_lag_moments", "rt_segment_power",
+ENTRY_POINTS = ("rt_cross_lag_sums", "rt_fused_lag_moments", "rt_lag_moments_sym",
+                "rt_lag_moments_empty", "rt_lag_moments_occupancy", "rt_segment_power",
                 "rt_fused_plan", "rt_window_moments", "rt_segment_csd", "rt_banded_matvec",
                 "rt_band_gradient", "rt_band_empty", "rt_swa_attention")
 STRUCT_SIZES = (("rt_plan_params_size", PlanParams), ("rt_welch_member_size", WelchMember),
-                ("rt_moment_params_size", MomentParams), ("rt_band_params_size", BandParams),
+                ("rt_moment_params_size", MomentParams),
+                ("rt_lagmom_params_size", LagMomParams), ("rt_band_params_size", BandParams),
                 ("rt_band_grad_params_size", BandGradParams),
                 ("rt_swa_params_size", SwaParams))
 # The constants above that mirror csrc/stats_tiles.cuh: Python name -> C
@@ -213,6 +248,9 @@ STATS_CONSTANTS = {"MAX_WINDOWS": "RT_MAX_WINDOWS", "MAX_WELCH": "RT_MAX_WELCH",
                    "LAG_GROUP": "RT_LAG_GROUP", "FFT_MAX_L": "RT_FFT_MAX_L",
                    "FFT_FLOATS": "RT_FFT_FLOATS", "FFT_MAX_CHAN": "RT_FFT_MAX_CHAN",
                    "THREADS": "RT_THREADS"}
+# Those that mirror window_stats.cu, in the order rt_lagmom_constants writes them.
+LAGMOM_CONSTANTS = {name: name for name in ("LM_ROWS", "LM_STAGES", "LM_MAX_CLUSTER",
+                                            "LM_MAX_SLAB", "LM_BLK")}
 # Those that mirror banded_matvec.cu, in the order rt_band_constants writes them.
 BAND_CONSTANTS = {"BAND_COLS": "BM_COLS", "BAND_PASS": "BM_PASS",
                   "BAND_MAX_SLABS": "BG_MAX_SLABS", "BAND_OFFSETS": "BG_OFFSETS"}
@@ -290,6 +328,7 @@ def load(path) -> ctypes.CDLL:
             raise RuntimeError(f"{struct.__name__} layout mismatch: C {fn()} "
                                f"bytes, ctypes {ctypes.sizeof(struct)}")
     for entry, names, source in (("rt_stats_constants", STATS_CONSTANTS, "stats_tiles.cuh"),
+                                 ("rt_lagmom_constants", LAGMOM_CONSTANTS, "window_stats.cu"),
                                  ("rt_band_constants", BAND_CONSTANTS, "banded_matvec.cu"),
                                  ("rt_swa_constants", SWA_CONSTANTS, "swa_attention.cu")):
         consts = (ctypes.c_int * len(names))()

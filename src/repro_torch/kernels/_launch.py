@@ -38,6 +38,8 @@ class Kernel:
 
     ``launches`` is a plain integer, incremented once per launch of the
     kernel (with its fixed-order reduction, where it has one).  A kernel
+    with more than one C entry (kernel 3: H = 0 and H > 0) is called with
+    the entry of its prepared launch, and counts them all.  A kernel
     with Welch members also counts, in ``path_launches``, its launches per
     Welch path ("fft", "twiddle"): once per launch for each path that one of
     the launch's members took.
@@ -49,13 +51,13 @@ class Kernel:
         self.launches = 0
         self.path_launches: Dict[str, int] = dict.fromkeys(paths, 0)
 
-    def __call__(self, params: PlanParams, device: torch.device) -> None:
+    def __call__(self, params, device: torch.device, entry: Optional[str] = None) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
-            code = getattr(library(), self.entry)(ctypes.byref(params), stream)
+            code = getattr(library(), entry or self.entry)(ctypes.byref(params), stream)
         check(code, self.name)
         self.launches += 1
-        if self.path_launches:
+        if self.path_launches:  # PlanParams with Welch members
             for path in {"fft" if params.welch[j].fft else "twiddle"
                          for j in range(params.n_welch)}:
                 self.path_launches[path] += 1
@@ -64,17 +66,19 @@ class Kernel:
 @dataclasses.dataclass
 class Prepared:
     """One filled launch: the kernel, its params, and every buffer the
-    params point into (``keep``), held alive as long as this object."""
+    params point into (``keep``), held alive as long as this object;
+    ``entry`` names the C entry when it is not the kernel's own."""
 
     kernel: Kernel
-    params: PlanParams
+    params: Any
     device: torch.device
     out: Any
     keep: tuple
+    entry: Optional[str] = None
 
     def launch(self) -> Any:
         """Launch (again) and return the outputs."""
-        self.kernel(self.params, self.device)
+        self.kernel(self.params, self.device, self.entry)
         return self.out
 
 

@@ -9,15 +9,21 @@ kernel launches or the call raises.
 Kernels (``csrc/window_stats.cu``):
   * ``cross_window_stats`` -- S(h) = sum_k a_k b_{k+h}^T; serves
     ``lagged_sums``, ``cross_lagged_sums`` and ``masked_lagged_sums``;
-  * ``fused_lag_moments`` -- masked lag sums plus K-window moment sums;
+  * ``fused_lag_moments`` -- masked lag sums plus K-window moment sums; at
+    max_lag = 0 (every call of the port's paths) one launch of its
+    symmetric path (``lag_moments_sym_kernel``, grid :func:`sym_shape`);
   * ``window_moments`` -- rolling [sum x, sum x^2] per window start; serves
     ``windowed_moments``.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from .._build import THREADS, MomentParams
+from .._build import (LM_MAX_CLUSTER, LM_MAX_SLAB, LM_PART_FLOATS, THREADS, TILE, LagMomParams,
+                      MomentParams, check, library)
 from .._launch import (Kernel, Prepared, add_lag, add_moments, check_window_count,
                        new_params, on_cuda, register, require, sm_count)
 from .ref import (as_2d, cross_lagged_sums_ref, extend_rows, fused_lag_moments_ref,
@@ -26,7 +32,7 @@ from .ref import (as_2d, cross_lagged_sums_ref, extend_rows, fused_lag_moments_r
 __all__ = ["CROSS_WINDOW_STATS", "FUSED_LAG_MOMENTS", "WINDOW_MOMENTS", "cross_lagged_sums",
            "lagged_sums", "masked_lagged_sums", "fused_lagged_moments", "windowed_moments",
            "prepare_cross_lagged_sums", "prepare_fused_lag_moments",
-           "prepare_window_moments", "moment_chain"]
+           "prepare_window_moments", "moment_chain", "sym_shape", "resident_clusters"]
 
 CROSS_WINDOW_STATS = register(Kernel("cross_window_stats", "rt_cross_lag_sums"))
 FUSED_LAG_MOMENTS = register(Kernel("fused_lag_moments", "rt_fused_lag_moments"))
@@ -45,16 +51,99 @@ def prepare_cross_lagged_sums(a: torch.Tensor, b: torch.Tensor, max_lag: int) ->
     return Prepared(CROSS_WINDOW_STATS, p, b.device, out, (a, b, part))
 
 
+# Launch shape of kernel 3's symmetric path (H = 0), chosen by timing its
+# variants on the H100 (tools/kernel_variants/variants_bench.py lagmom):
+# about LAGMOM_CTAS_PER_SM CTAs per SM over the tile pairs, but no more
+# clusters than the device holds at once (one wave); slabs of at least
+# LAGMOM_MIN_SLAB rows (short launches: the merge boundary, the tail); and
+# clusters of up to LAGMOM_CLUSTER slabs.
+LAGMOM_CTAS_PER_SM = 2
+LAGMOM_MIN_SLAB = 32
+LAGMOM_CLUSTER = LM_MAX_CLUSTER
+
+
+def sym_shape(n: int, rows: int, d: int, windows: int, sms: int,
+              resident: "int | None" = None) -> dict:
+    """Grid of ``lag_moments_sym_kernel`` for ``n`` starts over ``rows`` moment
+    rows of d channels: tile pairs I <= J of 64 channels, each split into
+    ``cluster`` x ``groups`` slabs of ``slab`` rows (one CTA each; the last
+    slabs may be empty).  ``resident``: the clusters of LAGMOM_CLUSTER CTAs
+    the device holds at once (:func:`resident_clusters`), which caps the
+    CTAs a pair asks for."""
+    d_tiles = -(-d // TILE)
+    pairs = d_tiles * (d_tiles + 1) // 2
+    want = max(1, LAGMOM_CTAS_PER_SM * sms // pairs)
+    if resident:
+        want = min(want, max(1, resident // pairs) * LAGMOM_CLUSTER)
+    slab = min(LM_MAX_SLAB, max(LAGMOM_MIN_SLAB, -(-rows // want)))
+    slabs = -(-rows // slab)
+    cluster = min(LAGMOM_CLUSTER, slabs)
+    return {"n": n, "rows": rows, "d": d, "K": windows, "d_tiles": d_tiles, "pairs": pairs,
+            "slab": slab, "cluster": cluster, "groups": -(-slabs // cluster)}
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(index: int, windows: int, pairs: int, cluster: int) -> int:
+    p = LagMomParams()
+    p.d_tiles, p.pairs, p.K = 1, pairs, windows
+    p.slab, p.cluster, p.groups = LM_MAX_SLAB, cluster, 1
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        check(library().rt_lag_moments_occupancy(ctypes.byref(p), out), "lag_moments_occupancy")
+    return out[1]
+
+
+def resident_clusters(device: torch.device, windows: int, pairs: int) -> int:
+    """Clusters of LAGMOM_CLUSTER CTAs of the symmetric path that ``device``
+    holds at once (CUDA's occupancy calculator, at the most shared memory a
+    launch of ``windows`` windows may take)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _resident_clusters(index, windows, pairs, LAGMOM_CLUSTER)
+
+
+def _prepare_lag_moments_sym(y: torch.Tensor, start_mask: torch.Tensor, windows: tuple,
+                             rows: int) -> Prepared:
+    """The H = 0 launch: S(0) (1, d, d) and the moment sums (K, 2, d).  The
+    arrival counters (one per tile pair and cluster rank) are zeros padded
+    after the prefix count (no launch of their own); the kernel leaves them
+    at zero."""
+    L, d = start_mask.shape[0], y.shape[1]
+    K = len(windows)
+    pairs = (-(-d // TILE)) * (-(-d // TILE) + 1) // 2
+    sms = sm_count(y.device)
+    s = sym_shape(L, rows, d, K, sms, resident_clusters(y.device, K, pairs))
+    buf = torch.nn.functional.pad(torch.cumsum(start_mask, 0, dtype=torch.int32),
+                                  (1, s["pairs"] * s["cluster"]))
+    p = LagMomParams()
+    for k in ("n", "rows", "d", "K", "d_tiles", "pairs", "slab", "cluster", "groups"):
+        setattr(p, k, s[k])
+    for k, w in enumerate(windows):
+        p.windows[k] = int(w)
+    p.vec = int(d % 4 == 0 and y.data_ptr() % 16 == 0)
+    lag = torch.empty((1, d, d), device=y.device)
+    mom = torch.empty((len(windows), 2, d), device=y.device)
+    part = torch.empty((s["pairs"] * s["groups"] * LM_PART_FLOATS if s["groups"] > 1 else 0,),
+                       device=y.device)
+    p.y, p.prefix, p.arrive = y.data_ptr(), buf.data_ptr(), buf[L + 1:].data_ptr()
+    p.part, p.lag_out, p.mom_out = part.data_ptr(), lag.data_ptr(), mom.data_ptr()
+    return Prepared(FUSED_LAG_MOMENTS, p, y.device, (lag, mom), (y, buf, part),
+                    entry="rt_lag_moments_sym")
+
+
 def prepare_fused_lag_moments(y: torch.Tensor, start_mask: torch.Tensor, max_lag: int,
                               windows: tuple) -> Prepared:
     """Masked lag sums and K-window moment sums.  ``y`` is (L + reach, d)
     contiguous float32, reach = max(max_lag, max(windows) - 1);
-    ``start_mask`` is (L,) bool.  ``.launch()`` returns (lag, mom (K, 2, d))."""
+    ``start_mask`` is (L,) bool.  ``.launch()`` returns (lag, mom (K, 2, d)).
+    At max_lag = 0 the launch is the symmetric path's (S(0) exactly
+    symmetric), else the lag groups' with its reduction."""
     L = start_mask.shape[0]
     reach = max(max_lag, max(windows) - 1)
     require(y, "y", (L + reach, y.shape[1]))
     require(start_mask, "start_mask", (L,), torch.bool)
     check_window_count(windows)
+    if max_lag == 0:
+        return _prepare_lag_moments_sym(y, start_mask, windows, L + max(windows) - 1)
     m = start_mask.float()
     prefix = torch.nn.functional.pad(torch.cumsum(start_mask, 0, dtype=torch.int32), (1, 0))
     p = new_params(y, L)

@@ -6,6 +6,10 @@ installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
+import ctypes
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,8 @@ from repro_torch.kernels.banded_matvec import ops as bm, ref as bmr
 from repro_torch.kernels.fused_plan import ops as fp, ref as fpr
 from repro_torch.kernels.segment_dft import ops as sd, ref as sdr
 from repro_torch.kernels.window_stats import ops as ws, ref as wsr
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -201,6 +207,98 @@ def test_cross_lag_kernel_lag_groups(dev, n, H, d):
     yy = wsr.extend_rows(y, n + max(H, 7))
     _close(ws.fused_lagged_moments(yy, mask, H, (3, 8)),
            wsr.fused_lag_moments_ref(yy, mask, H, (3, 8)), 1e-4)
+
+
+# -------------------------------------------- kernel 3, its symmetric path
+LAGMOM_WINDOWS = [(1,), (64, 1024), (3, 8, 17, 64, 100, 257, 512, 1024)]
+
+
+def _lagmom_case(dev, n, d, max_lag, windows, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + n + d + max_lag)
+    y = torch.randn((n + max(max_lag, max(windows) - 1), d), generator=g, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[n // 3:: 5] = False
+    mask[-(n // 10):] = False
+    return y, mask
+
+
+def _lagmom_close(got, want, y, mask, windows, tol=1e-4):
+    """chip_smoke.py's kernel 3 check: S within tol of max|S|; each moment sum
+    within tol of the same sum over |y| (a first-moment sum cancels)."""
+    assert (got[0] - want[0]).abs().max() <= tol * want[0].abs().max()
+    scale = wsr.fused_lag_moments_ref(y.abs(), mask, 0, windows)[1]
+    err = (got[1] - want[1]).abs()
+    assert bool(((err == 0) | (err <= tol * scale)).all())
+
+
+@pytest.mark.parametrize("windows", LAGMOM_WINDOWS)
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("max_lag", [0, 1, 16, 40])
+def test_fused_lag_moments_kernel_grid(dev, max_lag, d, windows):
+    """Kernel 3 against the plain version (TOL lag and moments 1e-4),
+    bitwise repeatable; at H = 0 (the symmetric path) S(0) is bitwise its
+    transpose."""
+    y, mask = _lagmom_case(dev, 3000, d, max_lag, windows)
+    got = ws.fused_lagged_moments(y, mask, max_lag, windows)
+    again = ws.fused_lagged_moments(y, mask, max_lag, windows)
+    _lagmom_close(got, wsr.fused_lag_moments_ref(y, mask, max_lag, windows), y, mask, windows)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    if max_lag == 0:
+        assert torch.equal(got[0][0], got[0][0].t())
+
+
+@pytest.mark.parametrize("rows,n,windows", [(1086, 1023, (64,)), (2046, 1023, (64, 1024)),
+                                            (65536 + 1023, 65536, (64, 1024))])
+def test_lag_moments_path_shapes_launch_once_and_replay(dev, rows, n, windows):
+    """The tail, merge-boundary and chunk shapes: one launch per call, the
+    arrival counters left at zero, and a CUDA graph of the launch replays
+    to the same result."""
+    y, mask = _lagmom_case(dev, n, 64, 0, windows)
+    assert y.shape[0] == rows
+    prep = ws.prepare_fused_lag_moments(y, mask, 0, windows)
+    reset_launch_counts()
+    got = tuple(t.clone() for t in prep.launch())
+    assert launch_counts()["fused_lag_moments"] == 1
+    _lagmom_close(got, wsr.fused_lag_moments_ref(y, mask, 0, windows), y, mask, windows)
+    arrive = prep.keep[1][n + 1:]
+    torch.cuda.synchronize()
+    assert int(arrive.abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        prep.launch()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(prep.out[0], got[0]) and torch.equal(prep.out[1], got[1])
+    assert int(arrive.abs().sum()) == 0
+
+
+@pytest.fixture(scope="module")
+def lagmom_fault():
+    """chip_smoke.py's copy of kernel 3 with the planted fault (the middle
+    slab's partial left out of the in-launch sum), built here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.start_lagmom_fault_build()()
+
+
+@pytest.mark.parametrize("n,d,windows", [(65536, 64, (64, 1024)), (3000, 130, (64,))])
+def test_lag_moments_slab_left_out_is_caught(dev, lagmom_fault, n, d, windows):
+    """The planted fault: the faulty copy's launch on the shipped wrapper's
+    prepared params fails the check; the shipped kernel on the same params
+    passes."""
+    y, mask = _lagmom_case(dev, n, d, 0, windows)
+    want = wsr.fused_lag_moments_ref(y, mask, 0, windows)
+    prep = ws.prepare_fused_lag_moments(y, mask, 0, windows)
+    assert lagmom_fault(ctypes.byref(prep.params), torch.cuda.current_stream().cuda_stream) == 0
+    faulty = tuple(t.clone() for t in prep.out)
+    with pytest.raises(AssertionError):
+        _lagmom_close(faulty, want, y, mask, windows)
+    _lagmom_close(prep.launch(), want, y, mask, windows)
 
 
 # ------------------------------------------------------- kernels 5, 6 and 7

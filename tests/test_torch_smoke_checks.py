@@ -123,6 +123,41 @@ def test_new_kernel_bounds_at_the_slice_shapes():
     assert f7 / smoke.PEAK_FP32 * 1e3 == pytest.approx(0.0721, rel=1e-2)
 
 
+def test_kernel3_bound_counts_the_distinct_entries_of_s0():
+    """Kernel 3 at the chunk (66,559 rows, 64,513 valid starts of 65,536,
+    windows (64, 1,024)): 17.12 MB against 0.307 GFLOP (d (d + 1) entries
+    a valid start, not 2 d^2), so bytes bound it at about 0.0051 ms; the
+    design's full-d^2 count is reported beside it."""
+    nbytes, flops, design = smoke.lag_moments_work(65536 + 1023, 65536, 65536 - 1023, 64, 2)
+    assert nbytes == pytest.approx(17.122e6, rel=1e-3)
+    assert flops == pytest.approx(0.3067e9, rel=1e-3)
+    assert design - flops == (65536 - 1023) * 64 * 63
+    assert smoke.bound_ms(nbytes, flops) == (pytest.approx(0.005111, rel=1e-3), "bytes")
+    tail = smoke.lag_moments_work(1086, 1023, 960, 64, 1)
+    assert smoke.bound_ms(*tail[:2])[1] == "bytes" and tail[1] < tail[2]
+
+
+@pytest.mark.parametrize("n,d,windows", [(1023, 64, (64,)), (500, 5, (64, 1024)),
+                                         (300, 3, (1, 7, 300))])
+def test_kernel3_library_yardstick_is_the_same_function(n, d, windows):
+    """The two cuBLAS products (S(0) = a^T y over the masked head rows, the
+    moment sums as the window counts times [y, y^2]) against the plain
+    version, per part as chip_smoke.py holds them."""
+    from repro_torch.kernels.window_stats.ref import fused_lag_moments_ref
+
+    g = torch.Generator().manual_seed(n + d)
+    y = torch.randn((n + max(windows) - 1, d), generator=g)
+    mask = torch.ones(n, dtype=torch.bool)
+    mask[n // 3:: 5] = False
+    mask[-(n // 10):] = False
+    got = smoke.lag_moments_library(*smoke.lag_moments_library_operands(y, mask, windows))
+    lag, mom = fused_lag_moments_ref(y, mask, 0, windows)
+    abs_mom = fused_lag_moments_ref(y.abs(), mask, 0, windows)[1]
+    assert smoke.compare(got[0], lag, smoke.TOL["lag"])["ok"]
+    assert smoke.compare_moment_sums(got[1], mom, abs_mom, smoke.TOL["moments"])["ok"]
+    assert tuple(got[1].shape) == (len(windows), 2, d)
+
+
 def test_band_gradient_bound_and_its_per_entry_check():
     """Kernel 7b's bound at the fit shape (g and x read once: the product's
     2.15 GB), and its check: d diags held per entry to sum_n |g||x| passes

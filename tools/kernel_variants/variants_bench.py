@@ -4,6 +4,8 @@ against the port's plain version.
     python3 tools/kernel_variants/variants_bench.py [moments|all]
     python3 tools/kernel_variants/variants_bench.py banded [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py stats BASELINE_KERNELS_DIR
+    python3 tools/kernel_variants/variants_bench.py lagmom [BASELINE_KERNELS_DIR]
+    python3 tools/kernel_variants/variants_bench.py split [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py swa
 
 moments: builds the variant file with nvcc into build/kernel_variants/ and,
@@ -23,13 +25,16 @@ both shapes, A^T through the flag against the transposed copy, the wrapper
 at one right-hand side, and d diags against the baseline's plain products.
 Samples go to build/kernel_variants/variants_banded.json.
 
-stats: times the eight kernels of this checkout against those of another
-version of ``src/repro_torch/kernels`` (a copy of the package directory,
-for example a parent commit's, unpacked with ``git archive`` into a
-directory that .gitignore lists), both built here and loaded side by side,
-at chip_smoke.py's shapes, in turns (baseline, this, this, baseline); then
-sweeps the launch shapes of this checkout's kernels 1-3 (lag and moment
-slabs, Welch candidates per CTA) and kernel 4's segments per CTA on the FFT
+stats: times the kernels of this checkout (1-8, 7b, and kernel 3 also at the
+moments finalize's tail shape) against those of another version of
+``src/repro_torch/kernels`` (a copy of the package directory, for example a
+parent commit's, unpacked with ``git archive`` into a directory that
+.gitignore lists), both built here and loaded side by side, at
+chip_smoke.py's shapes, in turns (baseline, this, this, baseline, STATS_ROUNDS
+times: 2 STATS_ROUNDS paired turns, and in how many of them this checkout
+was faster); then kernel 3's design points (``lagmom``); then sweeps the
+launch shapes of this checkout's kernels 1-2 (lag and moment slabs, Welch
+candidates per CTA) and kernel 4's segments per CTA on the FFT
 path at 511 and 1,023 segments (the main path's and the cross-spectra's
 welch_psd), and kernel 8's design points and ablations (``swa`` alone
 runs only those): a copy of swa_attention.cu patched to each point of
@@ -41,6 +46,23 @@ the median of 5 samples of a CUDA graph of 8 prepared launches (kernels
 1-4, on 8 distinct chunks: a cold 134 MB) or of one launch (kernels 5-8),
 replayed 10 times.  Writes every sample to
 build/kernel_variants/variants_stats.json (``swa``: variants_swa.json).
+
+lagmom: kernel 3's symmetric path (H = 0) at the main path's chunk (y (66,559,
+64), 65,536 starts, windows (64, 1,024)), the moments finalize's tail (y
+(1,086, 64), 960 of 1,023 starts, w = 64) and a moments-only plan's merge
+boundary (y (2,046, 64), 1,023 starts): every design point of LAGMOM_POINTS
+(ring rows and stages, launch bounds, patched into copies of
+window_stats.cu; CTAs per SM, cluster size and least slab of ops.py), held
+to the plain version, then every point with the shipped one in turns,
+LAGMOM_ROUNDS times; with BASELINE_KERNELS_DIR, the shipped point against
+the baseline's kernel 3 in turns at the chunk and the tail.  Samples go to
+build/kernel_variants/variants_lagmom.json.
+
+split: kernel 3's device kernels per call, by name, with their device ms
+per call (torch.profiler over 8 rotating prepared launches, after one warm
+pass), at the chunk, the tail and the merge boundary: of the baseline's
+package when BASELINE_KERNELS_DIR is given, else of this checkout's
+(``stats`` reports both).
 """
 import ctypes
 import importlib
@@ -107,12 +129,124 @@ BAND_POINTS = [
     ("banded_matvec_nrhs_1", {}, {"ONE_ROW_THREADS": 256}),
 ]
 BAND_ROUNDS = 5
+STATS_ROUNDS = 5
+
+# Design points of kernel 3's symmetric path: (patched #defines of
+# window_stats.cu, launch-shape constants or functions of
+# window_stats/ops.py).  The first point is the checkout's own design;
+# free_grid in place of ops.resident_clusters lets a pair ask for more
+# clusters than the device holds at once (a second wave).  A point whose
+# result is off the plain version by more than LAGMOM_TOL, or is not
+# bitwise repeatable or symmetric, is reported invalid and not timed in
+# turns.
+def free_grid(device, windows, pairs):
+    return None
+
+
+LAGMOM_TOL = 1e-4  # chip_smoke.py's TOL["lag"] and TOL["moments"]
+LAGMOM_POINTS = [
+    ({}, {}),
+    ({"LM_ROWS": 28}, {}), ({"LM_ROWS": 112}, {}),
+    ({"LM_STAGES": 3}, {}), ({"LM_STAGES": 4}, {}),
+    ({"LM_MIN_CTAS": 1}, {"LAGMOM_CTAS_PER_SM": 1}), ({}, {"LAGMOM_CTAS_PER_SM": 1}),
+    ({}, {"resident_clusters": free_grid}),
+    ({}, {"LAGMOM_MIN_SLAB": 16}), ({}, {"LAGMOM_MIN_SLAB": 64}),
+    ({}, {"LAGMOM_CLUSTER": 8}), ({"VARIANT": "generic_staging"}, {}),
+]
+# Alternatives to parts of the shipped design, as patches of a copy of
+# window_stats.cu (timed as design points): generic_staging copies the rows
+# with stats_tiles.cuh's stage_rows (as they lie, the tile's shape a
+# run-time value), so its reads take the identity slot (no swizzle).
+LAGMOM_VARIANTS = {
+    "generic_staging": [
+        ("int lm_slot(int f) { return f ^ ((f >> 3) & 1); }", "int lm_slot(int f) { return f; }"),
+        ("    lm_stage_rows(As, p.y, p.d, t.i0, p.vec != 0, row_of);\n"
+         "    if (!t.diag) lm_stage_rows(As + LM_ROWS * RT_TILE, p.y, p.d, t.j0, p.vec != 0, row_of);",
+         "    stage_rows(As, p.y, p.d, t.i0, RT_TILE, LM_ROWS, p.vec != 0, row_of);\n"
+         "    if (!t.diag) stage_rows(As + LM_ROWS * RT_TILE, p.y, p.d, t.j0, RT_TILE, LM_ROWS,\n"
+         "                            p.vec != 0, row_of);")],
+}
+LAGMOM_ROUNDS = 5
+# Ablations of kernel 3's symmetric path: parts compiled out of a copy of
+# window_stats.cu (an #ifdef at each anchor of _LAGMOM_ABLATION_PATCHES), to
+# see which part sets its time.  LOOP_ONLY: the CTA leaves after its steps
+# (no reduction); NO_LAG, NO_MOM: the products or the moment sums skipped;
+# NO_COPY: no rows copied; NO_PROLOGUE: no prefix counts copied (every start
+# valid); NO_CROSS: the clusters of a pair are not summed.  Results are garbage;
+# only the times count.
+LAGMOM_ABLATIONS = {"loop_only": ("LOOP_ONLY",), "no_lag": ("NO_LAG",), "no_mom": ("NO_MOM",),
+                    "no_copy": ("NO_COPY",), "no_prologue": ("NO_PROLOGUE",),
+                    "no_cross": ("NO_CROSS",), "copy_only": ("LOOP_ONLY", "NO_LAG", "NO_MOM"),
+                    "sums_only": ("NO_COPY", "NO_LAG", "NO_MOM"),
+                    "reduce_only": ("NO_COPY", "NO_LAG", "NO_MOM", "NO_PROLOGUE"),
+                    "probe": ("PROBE",)}
+# PROBE: the shipped kernel, and thread 0 of every CTA records clock64() at
+# eight points (start; loop start; loop end; row lanes summed; cluster
+# barrier passed; cluster sums stored; arrival known; end) into the unused
+# tail of its cluster's stored sums (groups > 1), read back as cycles after
+# the start.
+LAGMOM_PROBES = ("start", "prologue", "loop", "lanes", "cluster_sync", "cluster_sums",
+                 "arrival", "end")
+_LAGMOM_ABLATION_PATCHES = [
+    ("  const LmTile t(p, pair);\n",
+     "#ifdef ABL_PROBE\n  long long probe[8] = {clock64(), 0, 0, 0, 0, 0, 0, 0};\n#endif\n"
+     "  const LmTile t(p, pair);\n"),
+    ("  float acc[LM_BLK][LM_BLK];\n",
+     "#ifdef ABL_PROBE\n  __syncthreads();\n  probe[1] = clock64();\n#endif\n"
+     "  float acc[LM_BLK][LM_BLK];\n"),
+    ("  // the row lanes in order: entry q = 8 r + c of block b is e = q nblk + b\n",
+     "#ifdef ABL_PROBE\n  probe[2] = clock64();\n#endif\n"
+     "  // the row lanes in order: entry q = 8 r + c of block b is e = q nblk + b\n"),
+    ("  // the cluster's slabs in rank order, through distributed shared memory:\n",
+     "#ifdef ABL_PROBE\n  __syncthreads();\n  probe[3] = clock64();\n#endif\n"
+     "  // the cluster's slabs in rank order, through distributed shared memory:\n"),
+    ("  const int share = (total + C - 1) / C;\n",
+     "#ifdef ABL_PROBE\n  probe[4] = clock64();\n#endif\n"
+     "  const int share = (total + C - 1) / C;\n"),
+    ("  cluster_arrive();  // this CTA is done",
+     "#ifdef ABL_PROBE\n  __syncthreads();\n  probe[5] = clock64();\n#endif\n"
+     "  cluster_arrive();  // this CTA is done"),
+    ("    if (*flag) lm_share_sum(p, t, pair, e0, e1);\n",
+     "#ifdef ABL_PROBE\n    probe[6] = clock64();\n#endif\n"
+     "    if (*flag) lm_share_sum(p, t, pair, e0, e1);\n"),
+    ("  cluster_wait();  // no CTA leaves while another may still read its shared memory\n",
+     "  cluster_wait();  // no CTA leaves while another may still read its shared memory\n"
+     "#ifdef ABL_PROBE\n  probe[7] = clock64();\n"
+     "  if (threadIdx.x == 0 && p.groups > 1)\n    for (int i = 0; i < 8; ++i)\n"
+     "      reinterpret_cast<int*>(p.part)[(size_t)cl * LM_PART_FLOATS + 4096 + rank * 8 + i] =\n"
+     "          i == 6 && probe[6] == 0 ? -1 : (int)(probe[i] - probe[0]);\n#endif\n"),
+    ("#define LM_ROWS ",
+     "#ifdef ABL_NO_LAG\n#define LAG_ON false\n#else\n#define LAG_ON true\n#endif\n"
+     "#ifdef ABL_NO_MOM\n#define MOM_ON false\n#else\n#define MOM_ON true\n#endif\n"
+     "#define LM_ROWS "),
+    ("    if (lanes == LM_FAST_LANES && r_end == LM_ROWS",
+     "    if (LAG_ON && lanes == LM_FAST_LANES && r_end == LM_ROWS"),
+    ("    } else if (lane < lanes) {\n      for (int r = lane; r < r_end; r += lanes) {\n",
+     "    } else if (LAG_ON && lane < lanes) {\n      for (int r = lane; r < r_end; r += lanes) {\n"),
+    ("    if (t.diag) {\n      // window k's counts",
+     "    if (MOM_ON && t.diag) {\n      // window k's counts"),
+    ("    lm_stage_rows(As, p.y, p.d, t.i0, p.vec != 0, row_of);\n",
+     "#ifndef ABL_NO_COPY\n    lm_stage_rows(As, p.y, p.d, t.i0, p.vec != 0, row_of);\n#endif\n"),
+    ("    cp_async4(pre + (k + 1) * (p.slab + 1) + i, p.prefix + idx, true);\n",
+     "#ifdef ABL_NO_PROLOGUE\n    pre[(k + 1) * (p.slab + 1) + i] = k < 0 ? i : 0;\n#else\n"
+     "    cp_async4(pre + (k + 1) * (p.slab + 1) + i, p.prefix + idx, true);\n#endif\n"),
+    ("  __syncthreads();  // the ring is read out: it now holds the row lanes' tiles\n",
+     "  __syncthreads();  // the ring is read out: it now holds the row lanes' tiles\n"
+     "#ifdef ABL_LOOP_ONLY\n  {\n    float sum = 0.f;\n#pragma unroll\n"
+     "    for (int i = 0; i < LM_BLK; ++i)\n#pragma unroll\n"
+     "      for (int j = 0; j < LM_BLK; ++j) sum += acc[i][j];\n#pragma unroll\n"
+     "    for (int k = 0; k < KW; ++k) sum += m1[k] + m2[k];\n"
+     "    if (sum == 1.2345e30f) p.lag_out[threadIdx.x] = sum;\n    return;\n  }\n#endif\n"),
+    ("  if (p.groups > 1) {\n    // share `rank`",
+     "#ifdef ABL_NO_CROSS\n  if (false) {\n#else\n  if (p.groups > 1) {\n#endif\n"
+     "    // share `rank`"),
+]
 NRHS1_COPIES = 20  # chip_smoke.py's cold one-right-hand-side graph
 
 
 def _band_point_name(point) -> str:
     kernel, defines, knobs = point
-    parts = [f"{k}={v}" for k, v in {**defines, **knobs}.items()]
+    parts = [f"{k}={getattr(v, '__name__', v)}" for k, v in {**defines, **knobs}.items()]
     return kernel + ("/" + ",".join(parts) if parts else "/shipped")
 
 
@@ -365,7 +499,8 @@ def load_kernels(name: str, directory: str):
     spec.loader.exec_module(pkg)
     mods = {sub: importlib.import_module(f"{name}.{sub}") for sub in (
         "_build", "_launch", "fused_plan.ops", "segment_dft.ops", "segment_dft.ref",
-        "window_stats.ops", "banded_matvec.ops", "banded_matvec.ref", "swa_attention.ops")}
+        "window_stats.ops", "window_stats.ref", "banded_matvec.ops", "banded_matvec.ref",
+        "swa_attention.ops")}
     path, seconds, log = mods["_build"].build(verbose=True)
     mods["_build"].library()
     ptxas = [ln.strip() for ln in log.splitlines()
@@ -399,6 +534,230 @@ def graph_samples(launches: list, replays: int = 10, repeats: int = 5) -> list:
     return sorted(samples)
 
 
+def lagmom_shapes(series, dev) -> dict:
+    """Kernel 3's shapes on the main paths, each on 8 distinct operand sets
+    of ``series`` (rows of 64 channels): (y, start mask, windows) lists."""
+    from repro_torch.kernels.window_stats.ref import extend_rows
+
+    chunk, carry, rot = 65536, 1023, 8
+    starts = torch.arange(chunk, device=dev)
+    tail_mask = torch.arange(carry, device=dev) <= carry - 64
+    ones = torch.ones(carry, dtype=torch.bool, device=dev)
+    return {
+        "chunk": [(series[i * chunk: i * chunk + chunk + carry], starts <= chunk - carry - 1,
+                   (64, 1024)) for i in range(rot)],
+        "tail": [(extend_rows(series[(i + 1) * chunk - carry: (i + 1) * chunk],
+                              carry + 63).contiguous(), tail_mask, (64,)) for i in range(rot)],
+        "boundary": [(series[(i + 1) * chunk - carry: (i + 1) * chunk + carry], ones, (64, 1024))
+                     for i in range(rot)],
+    }
+
+
+def _lagmom_turns(label, launchers: dict, rounds: int) -> dict:
+    """_turns and _report_turns, plus in how many paired turns each key
+    beat the first."""
+    turns = _turns(launchers, rounds)
+    rec = _report_turns(label, turns)
+    keys = list(turns)
+    first = [x[len(x) // 2] for x in turns[keys[0]]]
+    for k in keys[1:]:
+        mine = [x[len(x) // 2] for x in turns[k]]
+        rec[k]["wins_over_first"] = sum(a < b for a, b in zip(mine, first))
+        print(f"turns {label} {k}: faster than {keys[0]} in {rec[k]['wins_over_first']} of "
+              f"{len(mine)} paired turns; median ratio {keys[0]} / {k} "
+              f"{rec[keys[0]]['median_ms'] / rec[k]['median_ms']:.3f}", flush=True)
+    return {"samples": turns, "report": rec}
+
+
+def lagmom(new, old, series, gen, dev) -> dict:
+    """Kernel 3's symmetric path: the design points of LAGMOM_POINTS at the
+    shapes of :func:`lagmom_shapes`, each held to the plain version, then in
+    turns with the shipped point; with ``old`` (a baseline package), the
+    shipped point against the baseline's kernel 3 in turns at the chunk and
+    the tail."""
+    ops, ref = new["window_stats.ops"], new["window_stats.ref"]
+    kdir = os.path.dirname(new["_build"].__file__)
+    text = open(os.path.join(kdir, "window_stats", "csrc", "window_stats.cu")).read()
+    os.makedirs(OUT, exist_ok=True)
+    builds = {}
+    for defines, _ in LAGMOM_POINTS:
+        key = tuple(sorted(defines.items()))
+        if key and key not in builds:  # the design points
+            path = os.path.join(OUT, f"lagmom_point_{len(builds)}.cu")
+            with open(path, "w") as f:
+                f.write(_patch(text, LAGMOM_VARIANTS[defines["VARIANT"]], defines["VARIANT"])
+                        if "VARIANT" in defines else _define_source(text, defines))
+            builds[key] = path
+    ablated = os.path.join(OUT, "lagmom_ablated.cu")
+    with open(ablated, "w") as f:
+        f.write(_patch(text, _LAGMOM_ABLATION_PATCHES, "lagmom ablation"))
+    flags = {}
+    for name, abl in LAGMOM_ABLATIONS.items():
+        key = (("ABLATION", name),)
+        builds[key] = os.path.join(OUT, f"lagmom_ablation_{name}.cu")
+        with open(builds[key], "w") as f:
+            f.write(open(ablated).read())
+        flags[key] = [f"-DABL_{a}" for a in abl]
+    procs = {key: subprocess.Popen(
+        ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", os.path.join(kdir, "csrc"),
+         "-o", path[:-3] + ".so", path] + flags.get(key, []),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for key, path in builds.items()}
+    entries, occupancies = {}, {}
+    for key, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"lagmom point {key}: build failed\n{log[-2000:]}")
+        lib = ctypes.CDLL(builds[key][:-3] + ".so")
+        size = lib.rt_lagmom_params_size
+        size.restype = ctypes.c_int
+        if size() != ctypes.sizeof(new["_build"].LagMomParams):
+            raise RuntimeError(f"lagmom point {key}: LagMomParams differs from _build.py's")
+        entry = lib.rt_lag_moments_sym
+        entry.argtypes, entry.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+        entries[key] = entry
+        occupancy = lib.rt_lag_moments_occupancy
+        occupancy.argtypes, occupancy.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+        occupancies[key] = occupancy
+        print(f"lagmom point {dict(key)}: ptxas {_ptxas_of(log, 'lag_moments_sym_kernel')}",
+              flush=True)
+    knobs0 = {k: getattr(ops, k) for k in ("LAGMOM_CTAS_PER_SM", "LAGMOM_MIN_SLAB",
+                                            "LAGMOM_CLUSTER", "resident_clusters")}
+    occupancies[()] = new["_build"].library().rt_lag_moments_occupancy
+    record = {"device": torch.cuda.get_device_name(0), "points": {}, "turns": {},
+              "ablations": {}}
+    shapes = lagmom_shapes(series, dev)
+    for shape in ("chunk", "tail"):
+        preps = [ops.prepare_fused_lag_moments(y.contiguous(), m, 0, w) for y, m, w in shapes[shape]]
+        for name in LAGMOM_ABLATIONS:
+            entry = entries[(("ABLATION", name),)]
+
+            def launch_of(prep, entry=entry):
+                def launch():
+                    if entry(ctypes.byref(prep.params),
+                             torch.cuda.current_stream(dev).cuda_stream) != 0:
+                        raise RuntimeError("launch failed")
+                return launch
+            samples = graph_samples([launch_of(prep) for prep in preps])
+            record["ablations"][f"{shape}/{name}"] = samples
+            print(f"lagmom ablation {shape} {name}: ms {samples[2]:.5f} (min {samples[0]:.5f} "
+                  f"max {samples[-1]:.5f})", flush=True)
+            if name == "probe" and preps[0].params.groups > 1:
+                launch_of(preps[0])()
+                torch.cuda.synchronize()
+                cyc = preps[0].keep[2].view(torch.int32).view(-1, 5120)[:, 4096:4096 + 64]
+                cyc = cyc.reshape(-1, 8).double()
+                stats = {k: [cyc[:, i].mean().item(), cyc[:, i].max().item()]
+                         for i, k in enumerate(LAGMOM_PROBES)}
+                record["ablations"][f"{shape}/probe_cycles"] = stats
+                print(f"lagmom probe {shape} cycles after start (mean, max over CTAs): " +
+                      "; ".join(f"{k} {m:.0f} {x:.0f}" for k, (m, x) in stats.items()), flush=True)
+        samples = graph_samples([prep.launch for prep in preps])
+        print(f"lagmom ablation {shape} shipped: ms {samples[2]:.5f}", flush=True)
+    for shape, cases in shapes.items():
+        y0, m0, w0 = cases[0]
+        want = ref.fused_lag_moments_ref(y0, m0, 0, w0)
+        launchers = {}
+        for defines, knobs in LAGMOM_POINTS:
+            for k, v in {**knobs0, **knobs}.items():
+                setattr(ops, k, v)
+            preps = [ops.prepare_fused_lag_moments(y.contiguous(), m, 0, w) for y, m, w in cases]
+            for k, v in knobs0.items():
+                setattr(ops, k, v)
+            key = tuple(sorted(defines.items()))
+            if key:
+                def launch_of(prep, entry=entries[key]):
+                    def launch():  # on the current stream: the capture's, inside graph_samples
+                        if entry(ctypes.byref(prep.params),
+                                 torch.cuda.current_stream(dev).cuda_stream) != 0:
+                            raise RuntimeError("launch failed")
+                        return prep.out
+                    return launch
+                calls = [launch_of(prep) for prep in preps]
+            else:
+                calls = [prep.launch for prep in preps]
+            lag, mom = (t.clone() for t in calls[0]())
+            again = calls[0]()
+            err = {"lag": ((lag - want[0]).abs().max() / want[0].abs().max()).item(),
+                   "mom": ((mom - want[1]).abs().max() / want[1].abs().max()).item()}
+            same = bool(torch.equal(lag, again[0]) and torch.equal(mom, again[1]))
+            symmetric = bool(torch.equal(lag[0], lag[0].t()))
+            samples = graph_samples(calls)
+            name = _band_point_name(("lagmom", defines, knobs)).split("/", 1)[1]
+            params = preps[0].params
+            occ = (ctypes.c_int * 2)()
+            with torch.cuda.device(dev):
+                if occupancies[key](ctypes.byref(params), occ) != 0:
+                    raise RuntimeError(f"lagmom point {name}: occupancy query failed")
+            occ = tuple(occ)
+            valid = max(err.values()) <= LAGMOM_TOL and same and symmetric
+            record["points"][f"{shape}/{name}"] = {
+                "samples": samples, "max_rel_err": err, "bitwise_repeat": same,
+                "symmetric": symmetric, "valid": valid, "occupancy": occ,
+                "grid": {k: getattr(params, k) for k in ("slab", "cluster", "groups", "pairs")}}
+            if valid:
+                launchers[name] = (lambda calls=calls: graph_samples(calls))
+            print(f"lagmom {shape} {name}: {'' if valid else 'INVALID (not timed in turns) '}"
+                  f"ms {samples[2]:.5f} (min {samples[0]:.5f} max "
+                  f"{samples[-1]:.5f}) rel err lag {err['lag']:.2e} mom {err['mom']:.2e} "
+                  f"repeat {same} symmetric {symmetric} slab {params.slab} cluster "
+                  f"{params.cluster} groups {params.groups}; CTAs per SM, resident clusters "
+                  f"{occ}", flush=True)
+        record["turns"][f"{shape}/points"] = _lagmom_turns(f"lagmom {shape}", launchers,
+                                                           LAGMOM_ROUNDS)
+        if old is not None and shape in ("chunk", "tail"):
+            oops = old["window_stats.ops"]
+            base = [oops.prepare_fused_lag_moments(y.contiguous(), m, 0, w) for y, m, w in cases]
+            this = [ops.prepare_fused_lag_moments(y.contiguous(), m, 0, w) for y, m, w in cases]
+            record["turns"][f"{shape}/baseline"] = _lagmom_turns(
+                f"lagmom {shape} against the baseline",
+                {"baseline": lambda: graph_samples([p.launch for p in base]),
+                 "this": lambda: graph_samples([p.launch for p in this])}, STATS_ROUNDS)
+    with open(os.path.join(OUT, "variants_lagmom.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    return record
+
+
+def profile_split(launches: list, rounds: int = 5) -> dict:
+    """{device kernel name: [launches per call, device ms per call]} of
+    ``launches`` (one call each), profiled over ``rounds`` passes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for launch in launches:
+        launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for launch in launches:
+                launch()
+        torch.cuda.synchronize()
+    calls = rounds * len(launches)
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            out[ev.key[:60]] = [ev.count / calls, us / calls / 1e3]
+    return out
+
+
+def split(new, old, series, dev) -> dict:
+    """Kernel 3's device kernels per call at the chunk and the tail, for
+    this checkout and (``old``) the baseline."""
+    record = {}
+    for label, m in (("this", new), ("baseline", old)):
+        if m is None:
+            continue
+        ops = m["window_stats.ops"]
+        for shape, cases in lagmom_shapes(series, dev).items():
+            preps = [ops.prepare_fused_lag_moments(y.contiguous(), mk, 0, w) for y, mk, w in cases]
+            rec = record[f"{label}/{shape}"] = profile_split([p.launch for p in preps])
+            print(f"split {label} {shape}: " + "; ".join(
+                f"{k}: {c:.2f} a call, {ms:.5f} ms" for k, (c, ms) in rec.items()), flush=True)
+    return record
+
+
 def stats(baseline_dir: str, gen, dev) -> None:
     from repro_torch.core.estimators.spectral import hann_window
     from repro_torch.kernels.fused_plan.ref import welch_candidates
@@ -420,6 +779,7 @@ def stats(baseline_dir: str, gen, dev) -> None:
     lag_ops = [(torch.where(mask_lag[:, None], y[:CHUNK], 0.0).contiguous(),
                 y[: CHUNK + H].contiguous()) for y in ys]
     C, S = (t.contiguous() for t in dft_power_matrices(L, taper))
+    tails = lagmom_shapes(series, dev)["tail"]
 
     def spectral_operands(prepare):
         """The operands after the segments: (cos, sin) for a package whose
@@ -437,6 +797,8 @@ def stats(baseline_dir: str, gen, dev) -> None:
         if which == "fused_lag_moments":
             return [ws.prepare_fused_lag_moments(y.contiguous(), mask_mega, 0, WINDOWS)
                     for y in ys]
+        if which == "fused_lag_moments_tail":
+            return [ws.prepare_fused_lag_moments(y.contiguous(), m, 0, w) for y, m, w in tails]
         ops = spectral_operands(sd.prepare_segment_power)
         return [sd.prepare_segment_power(s, *ops, True) for s in segs]
 
@@ -445,6 +807,7 @@ def stats(baseline_dir: str, gen, dev) -> None:
     csd_segs = x5[:131072].unfold(0, L, STEP).transpose(1, 2).contiguous()
     diags = torch.randn((131072, 9), generator=gen, device=dev) * 0.05
     x7 = torch.randn((2047, 131072), generator=gen, device=dev)
+    g7 = torch.randn((2047, 131072), generator=gen, device=dev)
     q = torch.randn((4, 8000, 32, 80), generator=gen, device=dev).bfloat16()
     kv = [torch.randn((4, 8000, 8, 80), generator=gen, device=dev).bfloat16()
           for _ in range(2)]
@@ -458,6 +821,8 @@ def stats(baseline_dir: str, gen, dev) -> None:
             return [sd.prepare_segment_csd(csd_segs, *ops, True)]
         if which == "banded_matvec":
             return [_band_prepare(m, diags, x7)]
+        if which == "band_gradient":
+            return [m["banded_matvec.ops"].prepare_band_gradient(g7, x7, 4)]
         return [m["swa_attention.ops"].prepare_swa_attention(q, kv[0], kv[1], 4096,
                                                               1 / math.sqrt(80))]
 
@@ -468,29 +833,36 @@ def stats(baseline_dir: str, gen, dev) -> None:
         items = [t for t in (r if isinstance(r, tuple) else (r,)) for t in (
             t if isinstance(t, tuple) else (t,)) if t is not None]
         return [torch.view_as_real(t) if t.is_complex() else t.float() for t in items]
-    names = ["fused_plan_megakernel", "cross_window_stats", "fused_lag_moments",
-             "segment_dft_power", "window_moments", "segment_csd", "banded_matvec",
-             "swa_attention"]
+    multi = ["fused_plan_megakernel", "cross_window_stats", "fused_lag_moments",
+             "fused_lag_moments_tail", "segment_dft_power"]
+    names = multi + ["window_moments", "segment_csd", "banded_matvec", "band_gradient",
+                     "swa_attention"]
     for name in names:
-        make = preps if name in names[:4] else single
+        make = preps if name in multi else single
         # parity of this package's first launch against the baseline's
         got, want = make(new, name)[0].launch(), make(old, name)[0].launch()
         err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                   for a, b in zip(flat(got), flat(want)))
         same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
         del got, want
-        turns = []
-        for label, m in (("baseline", old), ("this", new), ("this", new), ("baseline", old)):
-            launches = [p.launch for p in make(m, name)]
-            samples = graph_samples(launches)
-            turns.append((label, samples))
-            torch.cuda.empty_cache()
-        med = {lab: sorted(x[2] for l2, x in turns if l2 == lab) for lab in ("baseline", "this")}
-        record["turns"][name] = {"samples": turns, "rel_diff_vs_baseline": err,
-                                 "bitwise_equal": same}
-        print(f"{name}: baseline {med['baseline']} ms, this {med['this']} ms, "
-              f"speed-up {sum(med['baseline']) / sum(med['this']):.3f}x, "
+        base, this = make(old, name), make(new, name)
+        rec = _lagmom_turns(f"{name} (bitwise equal: {same}, max rel diff {err:.2e})",
+                            {"baseline": lambda: graph_samples([p.launch for p in base]),
+                             "this": lambda: graph_samples([p.launch for p in this])},
+                            STATS_ROUNDS)
+        del base, this
+        torch.cuda.empty_cache()
+        rep = rec["report"]
+        record["turns"][name] = {**rec, "rel_diff_vs_baseline": err, "bitwise_equal": same,
+                                 "speed_up": rep["baseline"]["median_ms"] / rep["this"]["median_ms"]}
+        print(f"{name}: baseline {rep['baseline']['median_ms']:.5f} ms, this "
+              f"{rep['this']['median_ms']:.5f} ms, speed-up "
+              f"{record['turns'][name]['speed_up']:.3f}x, this faster in "
+              f"{rep['this']['wins_over_first']} of {2 * STATS_ROUNDS} paired turns, "
               f"max rel diff {err:.2e}, bitwise equal {same}", flush=True)
+    del g7
+    record["lagmom"] = lagmom(new, old, series, gen, dev)
+    record["split"] = split(new, old, series, dev)
 
     # launch-shape sweeps of this package
     lch, fpm = new["_launch"], new["fused_plan.ops"]
@@ -509,7 +881,7 @@ def stats(baseline_dir: str, gen, dev) -> None:
     lch.LAG_CTAS_PER_SM, fpm.WELCH_GROUP = defaults
     for mom in (2, 4, 8):
         lch.MOM_CTAS_PER_SM = mom
-        for name in ("fused_lag_moments", "fused_plan_megakernel"):
+        for name in ("fused_plan_megakernel",):
             samples = graph_samples([p.launch for p in preps(new, name)])
             record["sweeps"][f"{name}/mom_ctas_per_sm={mom}"] = samples
             print(f"sweep {name} mom_ctas_per_sm={mom}: ms {samples[2]:.4f} (min "
@@ -746,6 +1118,18 @@ def swa_sweep(m, q, kv, dev) -> dict:
     return out
 
 
+def _ptxas_of(log: str, kernel: str) -> str:
+    """The -Xptxas -v lines (registers, spills) of the kernel whose mangled
+    name holds ``kernel``."""
+    lines, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry" in ln:
+            keep = kernel in ln
+        elif keep and ("spill" in ln or "registers" in ln):
+            lines.append(ln.split(":", 1)[-1].strip() if "registers" in ln else ln.strip())
+    return "; ".join(lines)
+
+
 def _ptxas_d80(log: str) -> str:
     """The -Xptxas -v lines of the D = 80 bf16 kernel: registers, spills and
     any performance note."""
@@ -774,6 +1158,19 @@ def main() -> None:
         if len(sys.argv) < 3:
             sys.exit("stats needs the baseline kernels directory")
         stats(sys.argv[2], gen, dev)
+        return
+    if which in ("lagmom", "split"):
+        new = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
+        old = (load_kernels("baseline_kernels", os.path.abspath(sys.argv[2]))
+               if len(sys.argv) > 2 else None)
+        series = torch.randn((8 * 65536 + 1023, 64), generator=gen, device=dev)
+        if which == "split":  # the baseline's alone when it is given
+            record = split(None if old is not None else new, old, series, dev)
+            os.makedirs(OUT, exist_ok=True)
+            with open(os.path.join(OUT, "variants_split.json"), "w") as f:
+                json.dump(record, f, indent=1)
+        else:
+            lagmom(new, old, series, gen, dev)
         return
     if which == "swa":
         m = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
