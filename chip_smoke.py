@@ -7,7 +7,9 @@ statistics plan end to end at full width through ``SeriesFrame``, runs the
 single-family plans, then the three further statistics paths -- the §6
 banded spatial AR fit, rolling moments and cross-spectra -- times kernels
 1-7 and 7b (the gradient of kernel 7's diagonals; kernel 3 also at the
-moments finalize's tail), then checks and times
+moments finalize's tail), drives the multi-tenant session (FrameSession
+over RollingStatsService: kernels 1-4 launched once per arrival batch and
+per batched query for every tenant), then checks and times
 kernel 8 (sliding-window attention) and serves
 h2o-danube-1.8b at full width and depth through ``ServeEngine.generate``,
 printing one JSON line per phase.  The second-to-last line lists the
@@ -21,7 +23,11 @@ channel, 1 GiB of float32 on the card), plan = autocovariance(16),
 yule_walker(8), arma(2, 1), moments(64), moments(1024), welch(256, 128).
 Rolling moments (w = 64, 1024) run over the same series, cross-spectra over
 its first 131,072 rows (nperseg 256, overlap 128), and the spatial fit over
-a banded AR(1) of d = 131,072, b = 4, simulated for 2,048 steps.  Serving:
+a banded AR(1) of d = 131,072, b = 4, simulated for 2,048 steps.  The
+session: 65,536 tenants of d = 16, 8 ticks of 256 rows each, plan
+autocovariance(16), yule_walker(8), moments(32), moments(128), welch(64,
+32), then an eviction
+session of 16,384 tenants over a 2,048-sample ring of 8 buckets.  Serving:
 h2o-danube-1.8b (24 layers, d_model 2560, 32 query / 8 KV heads of 80,
 window 4096) in bf16 with random weights from ``--seed``, 4 prompts of
 8,000 tokens, 32 greedy new tokens each.
@@ -153,6 +159,22 @@ SWA_EDGE = {  # name: (S, W, G, D[, B, KVH]); B = 1 and 2 KV heads unless given
     "s700_w200_g4_d80_b2_kvh8": (700, 200, 4, 80, 2, 8),
 }
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+
+# The multi-tenant session (FrameSession over RollingStatsService): 65,536
+# tenants of d = 16 channels, 8 ticks of a (65,536, 256, 16) arrival batch
+# (1.07 GB a tick, 2,048 samples a tenant); the plan autocovariance(16),
+# yule_walker(8), moments(32), moments(128), welch(64, 32): moments(128)
+# sets the carry at 127 rows, so a finalize corrects the lag members' tails
+# with kernel 2, moments(32)'s with kernel 3 and Welch's with kernel 4.  The
+# eviction session: 16,384 tenants, a ring of 8 buckets over 2,048 samples,
+# 12 ticks (the ring wraps).  Parity is held with the reference tests'
+# tolerances (tests/test_frame.py: allclose rtol, atol per member).
+SESSION_D, SESSION_USERS, SESSION_ROWS, SESSION_TICKS = 16, 65536, 256, 8
+SESSION_QUERY, SESSION_SAMPLED = 4096, 16
+EVICT_USERS, EVICT_WINDOW, EVICT_BUCKETS, EVICT_TICKS, EVICT_SAMPLED = 16384, 2048, 8, 12, 8
+SESSION_LAGS, SESSION_YW, SESSION_WINDOWS, SESSION_WELCH = 16, 8, (32, 128), (64, 32)
+SESSION_TOL = {"autocovariance": (1e-4, 1e-4), "yule_walker": (1e-3, 1e-4),
+               "moments": (1e-5, 1e-5), "welch": (1e-4, 1e-4)}
 
 KERNEL_INFO = {
     "fused_plan_megakernel": ("src/repro_torch/kernels/fused_plan/csrc/fused_plan.cu",
@@ -397,24 +419,40 @@ def lag_moments_work(rows: int, n: int, valid: int, d: int, windows: int) -> tup
 def lag_moments_library(a, y, weights):
     """Kernel 3 at H = 0 as two fp32 cuBLAS products (TF32 is off): S(0) =
     a^T y[:n] with a the masked head rows, and the moment sums C [y, y^2]
-    with C (K, rows) the exact window counts c_w(t) as floats."""
-    s0 = torch.mm(a.t(), y[: a.shape[0]])
-    mom = torch.mm(weights, torch.cat([y, y * y], 1))
-    return s0[None], mom.view(weights.shape[0], 2, y.shape[1])
+    with C (K, rows) the exact window counts c_w(t) as floats.  A leading
+    tenant axis on every operand makes both batched products."""
+    s0 = torch.matmul(a.transpose(-1, -2), y[..., : a.shape[-2], :])
+    mom = torch.matmul(weights, torch.cat([y, y * y], -1))
+    return s0.unsqueeze(-3), mom.view(weights.shape[:-1] + (2, y.shape[-1]))
 
 
 def lag_moments_library_operands(y, mask, windows):
     """(a, y, C) of :func:`lag_moments_library`: the masked head rows and
     the window counts c_w(t) = #valid starts in [t - w + 1, t], over the rows
-    [0, n + max(windows) - 1) of ``y``."""
-    n = mask.shape[0]
+    [0, n + max(windows) - 1) of ``y`` (a leading tenant axis on ``y`` and
+    ``mask`` carries through)."""
+    n = mask.shape[-1]
     rows = n + max(windows) - 1
-    prefix = torch.nn.functional.pad(torch.cumsum(mask, 0), (1, 0))
+    prefix = torch.nn.functional.pad(torch.cumsum(mask, -1), (1, 0))
     t = torch.arange(rows, device=y.device)
-    hi = prefix[torch.clamp(t + 1, max=n)]
-    weights = torch.stack([(hi - prefix[torch.clamp(t + 1 - w, 0, n)]).float() for w in windows])
-    a = torch.where(mask[:, None], y[:n], 0.0).contiguous()
-    return a, y[:rows].contiguous(), weights.contiguous()
+    hi = prefix[..., torch.clamp(t + 1, max=n)]
+    weights = torch.stack([(hi - prefix[..., torch.clamp(t + 1 - w, 0, n)]).float()
+                           for w in windows], -2)
+    a = torch.where(mask[..., None], y[..., :n, :], 0.0).contiguous()
+    return a, y[..., :rows, :].contiguous(), weights.contiguous()
+
+
+def lag_library(a, b):
+    """Kernel 2's S(h)^T for h = 0..H as one fp32 GEMM over an unfolded
+    view (TF32 is off); batched over a leading tenant axis."""
+    if a.ndim == 3:
+        return torch.matmul(b.unfold(1, a.shape[1], 1), a[:, None])
+    return torch.matmul(b.unfold(0, a.shape[0], 1), a)
+
+
+def rfft_power(s, w):
+    """Kernel 4's per-segment power of (S, L, d) segments: one rfft."""
+    return torch.fft.rfft((s - s.mean(1, keepdim=True)) * w[:, None], dim=1).abs() ** 2
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32) -> tuple:
@@ -1404,13 +1442,6 @@ def stats_paths(args, dev, lagmom_fault) -> dict:
             it[0] += 1
         return call
 
-    def rfft_power(s, w):
-        return torch.fft.rfft((s - s.mean(1, keepdim=True)) * w[:, None], dim=1).abs() ** 2
-
-    def lag_library(a, b):
-        """S(h)^T for h = 0..H as one batched fp32 GEMM (TF32 is off)."""
-        return torch.matmul(b.unfold(0, a.shape[0], 1), a)
-
     # The kernel alone: its launches (with the fixed-order reduction) on
     # operands prepared once per chunk, captured into one CUDA graph and
     # replayed, so neither host work nor launch gaps enter the device time.
@@ -1673,6 +1704,545 @@ def stats_paths(args, dev, lagmom_fault) -> dict:
     launches = {**counts, "banded_matvec": band_launches, "band_gradient": grad_launches,
                 "window_moments": rolling_launches, "segment_csd": csd_launches}
     return {"parity": parity, "timing": timing, "bounds": bounds, "launches": launches}
+
+
+
+# ---------------------------------------------------------- the session
+class SessionSource:
+    """Arrival batches of a session, tick by tick, made on the card from a
+    seed: per tenant and channel a stable AR(1) (phi from 0.3 to 0.9), a
+    period-50 sinusoid with a random phase and white noise; the AR state
+    carries from one tick to the next.  Two sources of one seed give the
+    same ticks."""
+
+    def __init__(self, users: int, seed: int, dev):
+        self.g = torch.Generator(device=dev)
+        self.g.manual_seed(seed)
+        self.users, self.dev, self.t = users, dev, 0
+        shape = (users, 1, SESSION_D)
+        self.phi = 0.3 + 0.6 * torch.rand(shape, generator=self.g, device=dev)
+        self.phase = torch.rand(shape, generator=self.g, device=dev) * (2 * math.pi)
+        self.state = torch.zeros(shape, device=dev)
+
+    def next(self) -> "torch.Tensor":
+        rows = SESSION_ROWS
+        x = torch.randn((self.users, rows, SESSION_D), generator=self.g, device=self.dev)
+        a, shift = self.phi, 1
+        while shift < rows:  # x_t += a^shift x_{t-shift}: the AR(1) as a log-step scan
+            x = torch.cat([x[:, :shift], x[:, shift:] + a * x[:, :-shift]], 1)
+            a, shift = a * a, shift * 2
+        steps = torch.arange(1, rows + 1, device=self.dev, dtype=torch.float32)[None, :, None]
+        x = x + self.phi ** steps * self.state
+        self.state = x[:, -1:]
+        t = torch.arange(self.t, self.t + rows, device=self.dev).remainder(50).float()
+        x = x + torch.sin(t[None, :, None] * (2 * math.pi / 50) + self.phase)
+        x = x + 0.5 * torch.randn(x.shape, generator=self.g, device=self.dev)
+        self.t += rows
+        return x.contiguous()
+
+
+def new_session(dev, users: int, **kw):
+    from repro_torch import FrameSession
+
+    sess = FrameSession(d=SESSION_D, num_users=users, device=dev, **kw)
+    sess.autocovariance(SESSION_LAGS)
+    sess.yule_walker(SESSION_YW)
+    for w in SESSION_WINDOWS:
+        sess.moments(w)
+    sess.welch(nperseg=SESSION_WELCH[0], overlap=SESSION_WELCH[1])
+    return sess
+
+
+def session_compare(got, want, index=None) -> dict:
+    """Every member of a session result against ``want`` (``index`` picks
+    one tenant of a batched result), allclose-style: the worst
+    |got - want| / (atol + rtol |want|) per member, at most 1, finite;
+    counts exact."""
+    out = {}
+    for name, w in want.items():
+        rtol, atol = SESSION_TOL[name.split("_2")[0]]
+        g = got[name]
+        worst, finite, exact = 0.0, True, True
+        for (path, a), (_, b) in zip(leaves(g), leaves(w)):
+            a = a if index is None else a[index]
+            b = b.to(a.device)
+            finite &= bool(torch.isfinite(a).all())
+            if path.endswith("/count"):
+                exact &= bool(torch.equal(a.float(), b.float()))
+                continue
+            ratio = (a.double() - b.double()).abs() / (atol + rtol * b.double().abs())
+            worst = max(worst, ratio.max().item())
+        out[name] = {"worst": worst, "ok": finite and exact and worst <= 1.0}
+    return out
+
+
+def session_ok(report: dict) -> bool:
+    return all(v["ok"] for v in report.values())
+
+
+def batched_results_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(leaves(a), leaves(b)))
+
+
+def profile_once(fn) -> tuple:
+    """(device busy ms, wall ms, device ms by kernel, top 6) of one call of
+    ``fn`` under torch.profiler; busy is 0 when the profiler records no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            split[ev.key[:60]] = us / 1e3
+    top = dict(sorted(split.items(), key=lambda kv: -kv[1])[:6])
+    return sum(split.values()), wall, top
+
+
+def fft_flops(L: int) -> float:
+    """A segment's power per channel: a real FFT (2.5 L log2 L), detrend and
+    taper (3 L), |.|^2 (3 F)."""
+    return 2.5 * L * math.log2(L) + 3 * L + 3 * (L // 2 + 1)
+
+
+def tenant_rel(got, want, scale=None, max_elems: int = 1 << 26) -> tuple:
+    """(worst relative error, its tenant, all finite) of a batched leaf (B,
+    ...) against ``want``, tenant by tenant: each tenant's max|got - want|
+    over its own max|want| (normwise per tenant), or entry by entry over
+    ``scale`` (broadcasting against ``got``, leading axis 1 or B).  An
+    entry that matches exactly counts 0."""
+    if tuple(got.shape) != tuple(want.shape):
+        fail("shape mismatch", got=list(got.shape), want=list(want.shape))
+    rows = max(1, max_elems // max(1, got[:1].numel()))
+    worst, at, finite = 0.0, -1, True
+    for i in range(0, got.shape[0], rows):
+        g, w = got[i: i + rows].double(), want[i: i + rows].double()
+        diff = (g - w).abs().flatten(1)
+        if scale is None:
+            ref = w.abs().flatten(1).amax(1, keepdim=True)
+        else:
+            sc = scale if scale.shape[0] == 1 else scale[i: i + rows]
+            ref = sc.double().expand_as(g).flatten(1)
+        ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / ref).amax(1)
+        k = int(ratio.argmax())
+        if ratio[k].item() > worst or at < 0:
+            worst, at = ratio[k].item(), i + k
+        finite = finite and bool(torch.isfinite(got[i: i + rows]).all())
+    return worst, at, finite
+
+
+def tenant_parity(leaves_: dict) -> dict:
+    """{leaf: (got, want, tol, scale or None; tol None: exact)} held tenant
+    by tenant (:func:`tenant_rel`); reports each leaf's worst tenant."""
+    out = {}
+    for name, (g, w, tol, scale) in leaves_.items():
+        if tol is None:
+            out[name] = {"exact": bool(torch.equal(g, w)), "ok": bool(torch.equal(g, w))}
+            continue
+        rel, at, finite = tenant_rel(g, w, scale)
+        out[name] = {"max_rel_err": rel, "tenant": at, "tol": tol, "finite": finite,
+                     "ok": finite and rel <= tol}
+    return out
+
+
+def moment_leaves(tag: str, got, want, abs_mom, tol: float) -> dict:
+    """Batched moment sums (B, K, 2, d) per window and moment, as
+    :func:`compare_moment_sums` holds one problem's: each first-moment sum
+    per channel against the same sum over |y|, each second-moment sum
+    normwise per tenant."""
+    out = {}
+    for k in range(got.shape[1]):
+        out[f"{tag}/w{k}/sum_y"] = (got[:, k, 0], want[:, k, 0], tol,
+                                    abs_mom[:, k, 0].clamp_min(1e-30))
+        out[f"{tag}/w{k}/sum_y2"] = (got[:, k, 1], want[:, k, 1], tol, None)
+    return out
+
+
+def power_leaves(tag: str, got, want, tenants: int) -> dict:
+    """A batched power -- (B, F, d) summed over segments, or (B S, F, d) per
+    segment -- held per tenant normwise (TOL["psd"]) and per bin
+    (TOL_NEW["psd"]): each entry against the tenant's plain power at its
+    (frequency, channel), averaged over the tenant's segments."""
+    g, w = (t.reshape((tenants, -1) + tuple(t.shape[-2:])) for t in (got, want))
+    return {f"{tag}/normwise": (g, w, TOL["psd"], None),
+            f"{tag}/per_bin": (g, w, TOL_NEW["psd"], w.double().mean(1, keepdim=True))}
+
+
+def event_ms(fn, samples: int = 5) -> list:
+    """Device ms of single calls of ``fn`` (CUDA events), ``samples``
+    samples after one warm-up call, sorted."""
+    fn()
+    return sorted(cuda_ms(fn, 1, warmup=0) for _ in range(samples))
+
+
+def batched_kernel_times(dev, sess, last_chunk, query_ids) -> dict:
+    """Kernels 1-4 in their batched launch form: kernel 1 at the session's
+    ingest shape (the chunk and the merge boundary, every tenant), kernels
+    2, 3 and 4 at a batched query's tail corrections.  Each launch is held
+    tenant by tenant against the batched plain version on the same inputs
+    (the one-problem rows' tolerances), and must reject two planted faults
+    in a middle tenant: its largest lag partial left out of its sum, and
+    its result read from its neighbour's slot.  ms: median of a CUDA graph
+    of the prepared launch (with its reduction) replayed; bound from this
+    run's inputs (each input read once, each output written once; valid
+    starts and segments only); plain_ms and library_ms (a one-call PyTorch
+    version, checked against the plain version first): median of single
+    calls after a warm-up."""
+    from repro_torch.core.estimators.spectral import hann_window
+    from repro_torch.kernels.fused_plan import ops as fp, ref as fpr
+    from repro_torch.kernels.fused_plan.ref import welch_candidates
+    from repro_torch.kernels.segment_dft import ops as sd, ref as sdr
+    from repro_torch.kernels.window_stats import ops as ws, ref as wsr
+
+    f4, d, H = 4, SESSION_D, SESSION_LAGS
+    L, step = SESSION_WELCH[0], SESSION_WELCH[0] - SESSION_WELCH[1]
+    taper = hann_window(L, dev)
+    carry = max(SESSION_WINDOWS) - 1
+    K = len(SESSION_WINDOWS)
+    F = L // 2 + 1
+    out = {}
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the library GEMM would not be full fp32")
+
+    def faults(prep, got, first, tenants):
+        """The two planted faults in a copy of ``first`` (the launch's
+        first output), each held by ``got``'s own leaves check."""
+        m = tenants // 2
+        planted = {}
+        p = prep.params
+        if p.lag_ctas:  # the launch sums lag partials
+            part = next(t for t in prep.keep if tuple(t.shape) == (
+                tenants, p.lag_slabs, p.H + 1, p.d, p.d))
+            j = int(part[m].flatten(1).abs().amax(1).argmax())
+            bad = first.clone()
+            bad[m] -= part[m, j]
+            planted["partial_left_out"] = bad
+        bad = first.clone()
+        row = first.shape[0] // 2
+        bad[row] = first[row + 1]
+        planted["neighbour_slot"] = bad
+        return {k: not all(r["ok"] for r in got(v).values()) for k, v in planted.items()}
+
+    def record(name, prep, plain, leaves_of, tenants, nbytes, flops, shape, library=None,
+               replays=5):
+        """``leaves_of(result, want)`` -> the leaves for tenant_parity;
+        the first output of the launch is the faults' target."""
+        got = prep.launch()
+        want = plain()
+        torch.cuda.synchronize()
+        parity = tenant_parity(leaves_of(got, want))
+        first = got[0] if isinstance(got, tuple) else got
+
+        def check(bad):
+            return tenant_parity(leaves_of((bad,) + tuple(got[1:])
+                                           if isinstance(got, tuple) else bad, want))
+        caught = faults(prep, check, first, tenants)
+        lib = None
+        if library is not None:
+            lib_parity = tenant_parity(leaves_of(library(), want))
+            if not all(r["ok"] for r in lib_parity.values()):
+                fail("a batched library yardstick disagrees with the plain version",
+                     kernel=name, check=lib_parity)
+            lib = event_ms(library)
+        del got, want
+        samples = graph_ms([prep.launch], replays=replays, repeats=3)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        ms = samples[len(samples) // 2]
+        plain_samples = event_ms(plain)
+        out[name] = {"ms": ms, "ms_samples": samples, "bound_ms": b_ms, "bound_by": b_by,
+                     "share": b_ms / ms, "bytes": nbytes, "flops": flops,
+                     "plain_ms": plain_samples[len(plain_samples) // 2],
+                     "plain_ms_samples": plain_samples,
+                     "library_ms": lib[len(lib) // 2] if lib else None,
+                     "library_ms_samples": lib, "shape": shape, "tenants": tenants,
+                     "parity": parity, "faults_caught": caught,
+                     "ok": all(r["ok"] for r in parity.values()) and all(caught.values())}
+
+    # kernel 1: the chunk of an ingest tick and its merge boundary, every tenant
+    users, rows = last_chunk.shape[:2]
+    z0 = torch.full((users,), (SESSION_TICKS - 1) * rows, dtype=torch.int32, device=dev)
+    y = torch.cat([last_chunk, last_chunk.new_zeros((users, carry, d))], 1)
+    starts = torch.arange(rows, device=dev)
+    cases = {"fused_plan_megakernel": (y, (starts <= rows - carry - 1).expand(users, rows)
+                                       .contiguous(), z0),
+             "fused_plan_megakernel_boundary": (
+                 y[:, rows - carry: rows + carry].contiguous(),
+                 (torch.arange(carry, device=dev) + carry + 1 <= 2 * carry).expand(
+                     users, carry).contiguous(), z0 + rows - carry)}
+    for name, (yy, mask, zz) in cases.items():
+        args = (yy, mask, zz, H, SESSION_WINDOWS, (L,), (step,), (taper,))
+        abs_mom = wsr.fused_lag_moments_ref(yy.abs(), mask, 0, SESSION_WINDOWS)[1]
+
+        def mega_leaves(got, want, abs_mom=abs_mom):
+            return {"lag": (got[0], want[0], TOL["lag"], None),
+                    **moment_leaves("mom", got[1], want[1], abs_mom, TOL["moments"]),
+                    **power_leaves("psd", got[2][0], want[2][0], users),
+                    "n_seg": (got[3][0], want[3][0], None, None)}
+        n_valid = int(mask.sum().item())
+        n_seg = int(fp.fused_plan_update(*args)[3][0].sum().item())
+        mrows = mask.shape[1] + carry
+        nbytes = (users * mrows * d * f4 + mask.numel() + L * f4
+                  + users * ((H + 1) * d * d + K * 2 * d + F * d) * f4)
+        flops = (n_valid * (H + 1) * d * d * 2 + users * mrows * d * (1 + 4 * K)
+                 + n_seg * d * fft_flops(L))
+        record(name, fp.prepare_fused_plan(*args), lambda: fpr.fused_plan_update_ref(*args),
+               mega_leaves, users, nbytes, flops,
+               f"y ({users}, {mrows}, {d}), H={H}, windows={SESSION_WINDOWS}, "
+               f"welch {L}/{SESSION_WELCH[1]}, {n_valid} valid starts", replays=3)
+        del args, abs_mom
+    del y, cases
+
+    # kernels 2, 3, 4: the tail corrections of a batched query
+    states = sess.partials_batch(query_ids)
+    if len(states) != 1:
+        fail("the session's requests compiled to more than one plan group", groups=len(states))
+    state = states[0]
+    tail, B = state.tail, len(query_ids)
+    rows_t = torch.arange(carry, device=dev)
+    ones = torch.ones((B, carry), dtype=torch.bool, device=dev)
+    ext = torch.nn.functional.pad(tail, (0, 0, 0, H)).contiguous()
+    record("cross_window_stats", ws.prepare_cross_lagged_sums(tail.contiguous(), ext, H),
+           lambda: wsr.masked_lagged_sums_ref(tail, ones, H),
+           lambda got, want: {"lag": (got, want, TOL["lag"], None)}, B,
+           B * ((carry + H) * d + carry * d + (H + 1) * d * d) * f4,
+           B * carry * (H + 1) * d * d * 2, f"tail ({B}, {carry}, {d}), H={H}",
+           library=lambda: lag_library(tail, ext).transpose(-1, -2))
+    w = SESSION_WINDOWS[0]
+    mask = ((rows_t >= carry - state.length[:, None]) & (rows_t <= carry - w)).contiguous()
+    y3 = torch.nn.functional.pad(tail, (0, 0, 0, w - 1)).contiguous()
+    abs3 = wsr.fused_lag_moments_ref(y3.abs(), mask, 0, (w,))[1]
+    lib3 = lag_moments_library_operands(y3, mask, (w,))
+    valid = int(mask.sum().item())
+    nbytes, flops, _ = lag_moments_work(carry + w - 1, carry, 0, d, 1)
+    record("fused_lag_moments", ws.prepare_fused_lag_moments(y3, mask, 0, (w,)),
+           lambda: wsr.fused_lag_moments_ref(y3, mask, 0, (w,)),
+           lambda got, want: {"lag": (got[0], want[0], TOL["lag"], None),
+                              **moment_leaves("mom", got[1], want[1], abs3, TOL["moments"])},
+           B, B * nbytes, B * flops + valid * d * (d + 1),
+           f"tail ({B}, {carry + w - 1}, {d}), H=0, window {w}, {valid} valid starts",
+           library=lambda: lag_moments_library(*lib3))
+    del abs3, lib3
+    wmask = (rows_t >= carry - state.length[:, None]) & (rows_t <= carry - L)
+    wins, ok = welch_candidates(tail, wmask, state.t0 + state.length - carry, L, step)
+    segs = wins.reshape(-1, L, d).contiguous()
+    n_seg = int(ok.sum().item())
+    record("segment_dft_power", sd.prepare_segment_power(segs, taper, True),
+           lambda: sdr.segment_dft_power_ref(segs, taper),
+           lambda got, want: power_leaves("psd", got, want, B), B,
+           n_seg * L * d * f4 + L * f4 + n_seg * F * d * f4, n_seg * d * fft_flops(L),
+           f"segments ({segs.shape[0]}, {L}, {d}), {n_seg} valid",
+           library=lambda: rfft_power(segs, taper))
+    return out
+
+
+def session_phase(args, dev) -> dict:
+    """The multi-tenant session at 65,536 tenants (growing) and 16,384
+    (eviction): launches per tick and per query, parity of sampled tenants
+    with per-user frames and the plain session, the retained window,
+    repeatability, kill-and-restart, a planted NaN; times a tick, a batched
+    query and kernels 1-4 in their batched form."""
+    import numpy as np
+
+    from repro_torch import SeriesFrame
+    from repro_torch.core.integrity import sentinel_scan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 18)
+    users, rows = SESSION_USERS, SESSION_ROWS
+    ids = np.arange(users)
+    sample = np.sort(rng.choice(users, SESSION_SAMPLED, replace=False))
+    sample_t = torch.as_tensor(sample, device=dev)
+    checks, metrics = {}, {}
+
+    # ---- growing session: 8 ticks, every tenant each tick
+    sess = new_session(dev, users)
+    plain = new_session(dev, SESSION_SAMPLED, backend="torch")
+    src = SessionSource(users, args.seed, dev)
+    kept, tick_ms, chunk = [], [], None
+    reset_launch_counts()
+    for tick in range(SESSION_TICKS):
+        del chunk
+        chunk = src.next()
+        torch.cuda.synchronize()
+        if tick == SESSION_TICKS - 1:  # the profiled tick
+            busy, wall, top = profile_once(lambda: sess.ingest(ids, chunk))
+            metrics["profiled_tick"] = {"device_busy_ms": busy, "wall_ms": wall,
+                                        "busy_share": busy / wall, "by_kernel": top}
+        else:
+            t0 = time.perf_counter()
+            sess.ingest(ids, chunk)
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        part = chunk[sample_t]
+        kept.append(part)
+        plain.ingest(np.arange(SESSION_SAMPLED), part)
+    counts = launch_counts()
+    steady = sorted(tick_ms[1:])
+    ms_tick = steady[len(steady) // 2]
+    metrics.update({"ingest_ms_per_tick": ms_tick, "tick_ms": tick_ms,
+                    "samples_per_s": users * rows / (ms_tick / 1e3),
+                    "channel_values_per_s": users * rows * SESSION_D / (ms_tick / 1e3),
+                    "launches": counts})
+    checks["launches_per_tick"] = {
+        "megakernel": counts["fused_plan_megakernel"], "ticks": SESSION_TICKS,
+        "ok": counts["fused_plan_megakernel"] == 2 * SESSION_TICKS
+        and all(v == 0 for k, v in counts.items() if k != "fused_plan_megakernel")}
+
+    # ---- parity: sampled tenants against per-user frames and the plain session
+    got_b = sess.query_batch(sample)
+    plain_b = plain.query_batch(np.arange(SESSION_SAMPLED))
+    parity = {"query": {}, "query_batch": {}, "plain_session": {}}
+    for i, u in enumerate(sample):
+        frame = SeriesFrame.from_chunks([k[i] for k in kept], device=dev)
+        frame.autocovariance(SESSION_LAGS)
+        frame.yule_walker(SESSION_YW)
+        for w in SESSION_WINDOWS:
+            frame.moments(w)
+        frame.welch(nperseg=SESSION_WELCH[0], overlap=SESSION_WELCH[1])
+        want = frame.collect()
+        for key, rep in (("query", session_compare(sess.query(int(u)), want)),
+                         ("query_batch", session_compare(got_b, want, i)),
+                         ("plain_session", session_compare(plain_b, want, i))):
+            for name, r in rep.items():
+                cur = parity[key].setdefault(name, {"worst": 0.0, "ok": True})
+                cur["worst"] = max(cur["worst"], r["worst"])
+                cur["ok"] &= r["ok"]
+    checks["parity"] = {**parity, "tenants": sample.tolist(),
+                        "ok": all(session_ok(v) for v in parity.values())}
+    del plain, plain_b, kept, got_b
+
+    # ---- a batched query of 4,096 tenants: launches as a one-tenant query's
+    query_ids = np.sort(rng.choice(users, SESSION_QUERY, replace=False))
+    per_query = {}
+    for label, q in (("batch", query_ids), ("one", query_ids[:1])):
+        reset_launch_counts()
+        sess.query_batch(q)
+        torch.cuda.synchronize()
+        per_query[label] = launch_counts()
+    metrics["query_batch_ms"] = cuda_ms(lambda: sess.query_batch(query_ids), 5, warmup=1)
+    metrics["query_batch_tenants"] = SESSION_QUERY
+    busy, wall, top = profile_once(lambda: sess.query_batch(query_ids))
+    metrics["profiled_query"] = {"device_busy_ms": busy, "wall_ms": wall,
+                                 "busy_share": busy / wall, "by_kernel": top}
+    want_q = {"cross_window_stats": 2, "fused_lag_moments": 1, "segment_dft_power": 1,
+              "fused_plan_megakernel": 0}
+    checks["launches_per_query"] = {
+        **per_query, "ok": per_query["batch"] == per_query["one"]
+        and all(per_query["batch"][k] == v for k, v in want_q.items())}
+
+    # ---- repeatability: the same ticks into a second session, bitwise
+    again = new_session(dev, users)
+    src2 = SessionSource(users, args.seed, dev)
+    for _ in range(SESSION_TICKS):
+        again.ingest(ids, src2.next())
+    lanes_a = sess.state_template()["group_0"]["lanes"].flatten()
+    lanes_b = again.state_template()["group_0"]["lanes"].flatten()
+    checks["repeatable"] = {"ok": all(torch.equal(a, b) for a, b in zip(lanes_a, lanes_b))}
+    del again, src2, lanes_a, lanes_b
+
+    # ---- kill and restart: export, import into a fresh session, bitwise
+    snap = sess.export_state()
+    fresh = new_session(dev, users)
+    fresh.import_state(snap)
+    del snap
+    checks["restart"] = {"ok": batched_results_equal(sess.query_batch(query_ids),
+                                                     fresh.query_batch(query_ids))}
+    del fresh
+    gc.collect()
+
+    # ---- kernels 1-4 in their batched form, at the session's shapes
+    kernels = batched_kernel_times(dev, sess, chunk, query_ids)
+    checks["batched_kernels"] = {"bad": [k for k, v in kernels.items() if not v["ok"]],
+                                 "ok": all(v["ok"] for v in kernels.values())}
+    del sess, chunk, src
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- eviction session: the ring wraps; one tenant poisoned at the end
+    ev_users = EVICT_USERS
+    ev_ids = np.arange(ev_users)
+    ev_sample = np.sort(rng.choice(ev_users, EVICT_SAMPLED, replace=False))
+    ev = new_session(dev, ev_users, window=EVICT_WINDOW, num_buckets=EVICT_BUCKETS)
+    src = SessionSource(ev_users, args.seed + 1, dev)
+    kept = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(EVICT_TICKS):
+        chunk = src.next()
+        ev.ingest(ev_ids, chunk)
+        kept.append(chunk[torch.as_tensor(ev_sample, device=dev)])
+    torch.cuda.synchronize()
+    metrics["eviction_ms_per_tick"] = (time.perf_counter() - t0) * 1e3 / EVICT_TICKS
+    ev_counts = launch_counts()
+    retained = ev.retained_lengths()
+    start = EVICT_TICKS * rows - EVICT_WINDOW
+    plan = ev.plan
+    ev_b = ev.query_batch(ev_sample)
+    ev_par = {"query": {}, "query_batch": {}}
+    for i, u in enumerate(ev_sample):
+        x = torch.cat([k[i] for k in kept], 0)[start:]
+        want = plan.finalize(plan.from_chunk(x, t0=start), cache=False)
+        for key, rep in (("query", session_compare(ev.query(int(u)), want)),
+                         ("query_batch", session_compare(ev_b, want, i))):
+            for name, r in rep.items():
+                cur = ev_par[key].setdefault(name, {"worst": 0.0, "ok": True})
+                cur["worst"] = max(cur["worst"], r["worst"])
+                cur["ok"] &= r["ok"]
+    checks["eviction"] = {
+        **ev_par, "retained": int(retained.min().item()),
+        "megakernel": ev_counts["fused_plan_megakernel"],
+        "ok": bool((retained == EVICT_WINDOW).all().item())
+        and ev_counts["fused_plan_megakernel"] == 2 * EVICT_TICKS
+        and all(session_ok(v) for v in ev_par.values())}
+    del kept, ev_b
+
+    victim = int(rng.integers(ev_users))
+    chunk = src.next()
+    chunk[victim, SESSION_ROWS // 2, 3] = float("nan")
+    verdict, _ = sentinel_scan(chunk)
+    ev.ingest(ev_ids, chunk)  # unsanitized: the victim's lane is poisoned
+    healthy = ev.audit()
+    lane_mask = ev.lane_health
+    bucket = (EVICT_TICKS * rows // (EVICT_WINDOW // EVICT_BUCKETS)) % EVICT_BUCKETS
+    checks["planted_nan"] = {
+        "victim": victim, "scan_flags": np.flatnonzero(~verdict).tolist(),
+        "audit_flags": np.flatnonzero(~healthy).tolist(),
+        "lanes_flagged": [list(map(int, ij)) for ij in zip(*np.nonzero(~lane_mask))],
+        "ok": np.flatnonzero(~verdict).tolist() == [victim]
+        and np.flatnonzero(~healthy).tolist() == [victim]
+        and [tuple(map(int, ij)) for ij in zip(*np.nonzero(~lane_mask))] == [(bucket, victim)]}
+    del ev, src, chunk
+
+    metrics["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    metrics["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "session", "device": torch.cuda.get_device_name(0),
+          "growing": {"tenants": users, "d": SESSION_D, "rows_per_tick": rows,
+                      "ticks": SESSION_TICKS},
+          "eviction": {"tenants": ev_users, "window": EVICT_WINDOW, "buckets": EVICT_BUCKETS,
+                       "ticks": EVICT_TICKS},
+          "metrics": metrics, "checks": checks})
+    emit({"phase": "session_kernels", "note": "kernels 1-4 in their batched launch form: "
+          "kernel 1 at an ingest tick of every tenant (chunk and merge boundary), kernels "
+          "2-4 at a batched query's tail corrections; each held tenant by tenant against "
+          "the batched plain version (one-problem tolerances), with two planted faults "
+          "caught; ms: median of a CUDA graph of the prepared launch and its reduction; "
+          "bound from this run's inputs; plain_ms, library_ms: median of single calls "
+          "after a warm-up (CUDA events)",
+          "kernels": kernels})
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        fail("session checks failed", failed=bad)
+    return {"kernels": kernels, "metrics": metrics}
 
 
 def swa_kernel(args, dev) -> dict:
@@ -1993,6 +2563,10 @@ def main() -> None:
     # phases 2-8 (the statistics paths, kernels 1-7); their multi-GB
     # tensors are freed on return
     stats = stats_paths(args, dev, lagmom_fault)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the multi-tenant session: kernels 1-4 batched over tenants
+    session_phase(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
     # phases 9-10: kernel 8 alone, then the LM serving path through it

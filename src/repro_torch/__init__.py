@@ -11,6 +11,8 @@ caller asks for the CPU (CPU tensors, ``device="cpu"``), where every kernel
 wrapper runs its plain PyTorch version:
 
   SeriesFrame.from_array / from_chunks -> .autocovariance(...) ... .collect()
+  FrameSession(d, num_users, ...) -> .autocovariance(...) ... .ingest(ids, chunks)
+      -> .query(user) / .query_batch(users)     many users, one plan
   analyze(series, requests, device=...)
   StatPlan(requests, d, device=...)
   windowed_moments(x, window)               rolling mean and variance
@@ -22,11 +24,12 @@ import torch
 
 from .core.estimators import (BandedARModel, banded_nll, banded_predict, fit_banded_ar,
                               welch_csd, windowed_moments)
-from .core.frame import Deferred, SeriesFrame
+from .core.frame import (Deferred, FrameSession, SeriesFrame, session_state_from_numpy,
+                         session_state_to_numpy)
 from .core.plan import StatPlan, analyze
 from .configs import get_arch
 from .models import init_params
-from .serving import ServeEngine
+from .serving import RollingStatsService, ServeEngine
 
 # The plain versions on the card are full fp32, like the kernels: no TF32.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -34,6 +37,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["SeriesFrame", "Deferred", "StatPlan", "analyze", "windowed_moments", "welch_csd",
+__all__ = ["SeriesFrame", "Deferred", "FrameSession", "RollingStatsService",
+           "session_state_from_numpy", "session_state_to_numpy", "StatPlan", "analyze",
+           "windowed_moments", "welch_csd",
            "BandedARModel", "banded_predict", "banded_nll", "fit_banded_ar", "get_arch",
            "init_params", "ServeEngine", "__version__"]

@@ -20,12 +20,14 @@ def innovation_algorithm(gamma: torch.Tensor, m_max: int,
 
     ``ridge`` adds ridge * I to each V_k before its solve (0.0 is exact).
     Returns theta (m_max, m_max, d, d) with theta[m-1, j-1] = Theta_{m,j},
-    and V (m_max+1, d, d).
+    and V (m_max+1, d, d); a leading batch of gammas (B, m_max+1, d, d)
+    runs every recursion at once and gives both a leading batch axis.
     """
-    if gamma.shape[0] < m_max + 1:
-        raise ValueError(f"need gamma up to lag {m_max}, got {gamma.shape[0] - 1}")
-    d = gamma.shape[1]
-    G = lambda h: gamma[h].T
+    if gamma.shape[-3] < m_max + 1:
+        raise ValueError(f"need gamma up to lag {m_max}, got {gamma.shape[-3] - 1}")
+    d = gamma.shape[-1]
+    T = lambda a: a.transpose(-1, -2)
+    G = lambda h: T(gamma[..., h, :, :])
     reg = ridge * torch.eye(d, device=gamma.device, dtype=gamma.dtype)
     theta = [[None] * (m + 1) for m in range(m_max + 1)]
     V = [G(0)]
@@ -33,14 +35,14 @@ def innovation_algorithm(gamma: torch.Tensor, m_max: int,
         for k in range(m):
             acc = G(m - k)
             for j in range(k):
-                acc = acc - theta[m][m - j] @ V[j] @ theta[k][k - j].T
-            theta[m][m - k] = torch.linalg.solve((V[k] + reg).T, acc.T).T
+                acc = acc - theta[m][m - j] @ V[j] @ T(theta[k][k - j])
+            theta[m][m - k] = T(torch.linalg.solve(T(V[k] + reg), T(acc)))
         Vm = G(0)
         for j in range(m):
-            Vm = Vm - theta[m][m - j] @ V[j] @ theta[m][m - j].T
+            Vm = Vm - theta[m][m - j] @ V[j] @ T(theta[m][m - j])
         V.append(Vm)
-    out = gamma.new_zeros((m_max, m_max, d, d))
+    out = gamma.new_zeros(gamma.shape[:-3] + (m_max, m_max, d, d))
     for m in range(1, m_max + 1):
         for j in range(1, m + 1):
-            out[m - 1, j - 1] = theta[m][j]
-    return out, torch.stack(V)
+            out[..., m - 1, j - 1, :, :] = theta[m][j]
+    return out, torch.stack(V, -3)

@@ -22,14 +22,15 @@ def hann_window(n: int, device="cuda") -> torch.Tensor:
 
 def _one_sided(psd: torch.Tensor, nperseg: int, fs: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-sided -> one-sided: double every bin but DC (and Nyquist for even
-    ``nperseg``); returns (freqs, psd)."""
-    nfreq = psd.shape[0]
+    ``nperseg``); returns (freqs, psd).  A batch of PSDs (B, nfreq, d) gives
+    freqs (B, nfreq), as the reference's vmap does."""
+    nfreq = psd.shape[-2]
     mult = torch.full((nfreq,), 2.0, device=psd.device)
     mult[0] = 1.0
     if nperseg % 2 == 0:
         mult[-1] = 1.0
     freqs = torch.arange(nfreq, device=psd.device) * (1.0 / (nperseg * (1.0 / fs)))
-    return freqs, psd * mult[:, None]
+    return freqs.expand(psd.shape[:-1]), psd * mult[:, None]
 
 
 def _segments(x: torch.Tensor, nperseg: int, overlap: int) -> torch.Tensor:
@@ -73,13 +74,17 @@ def welch_csd(x: torch.Tensor, nperseg: int = 256, overlap: Optional[int] = None
 
 def welch_chunk_kernel(nperseg: int, step: int, scale, be, device="cuda"):
     """Offset-aware chunk kernel accumulating Welch segment-PSD partials:
-    only the stride-aligned candidate starts are gathered and transformed."""
+    only the stride-aligned candidate starts are gathered and transformed.
+    Batched operands (y (B, rows, d), mask (B, L), z0 (B,)) stack every
+    tenant's candidates into ONE ``segment_fft_power`` call (B * K
+    segments), then sum each tenant's valid powers."""
     w = hann_window(nperseg, device)
 
     def chunk_kernel(y_padded: torch.Tensor, start_mask: torch.Tensor, z0) -> dict:
         wins, valid = welch_candidates(y_padded, start_mask, z0, nperseg, step)
-        power = be.segment_fft_power(wins, w) * scale
-        psd = torch.where(valid[:, None, None], power, 0.0).sum(0)
-        return {"psd": psd, "n_seg": valid.float().sum()}
+        power = be.segment_fft_power(wins.reshape((-1,) + wins.shape[-2:]), w) * scale
+        power = power.reshape(wins.shape[:-2] + power.shape[-2:])
+        psd = torch.where(valid[..., None, None], power, 0.0).sum(-3)
+        return {"psd": psd, "n_seg": valid.float().sum(-1)}
 
     return chunk_kernel

@@ -26,9 +26,10 @@ def gamma_normalizer(n, max_lag: int, normalization: Normalization) -> torch.Ten
     "paper":    1/(N-h-1), the divisor clamped to >= 1
     "standard": 1/N (biased, keeps the block-Toeplitz matrix PSD)
 
-    ``n`` may be an int or a 0-d integer tensor (a state's length).
+    ``n`` may be an int, a 0-d integer tensor (a state's length) or a (B,)
+    one (a batch of states' lengths: the result is then (B, max_lag+1)).
     """
-    n = torch.as_tensor(n)
+    n = torch.as_tensor(n)[..., None]
     h = torch.arange(max_lag + 1, device=n.device)
     if normalization == "paper":
         return 1.0 / torch.clamp(n - h - 1, min=1)

@@ -1,5 +1,6 @@
-"""SeriesFrame -- the lazy front door to every read path (port of the array
-and chunk placements of `repro.core.frame`).
+"""SeriesFrame and FrameSession -- the lazy front doors to every read path
+(port of the array and chunk placements and of the multi-tenant session of
+`repro.core.frame`).
 
 A :class:`SeriesFrame` holds a data placement (a materialized array, or a
 stream of chunks) plus deferred estimator requests.  ``.autocovariance``,
@@ -9,11 +10,18 @@ compiles everything pending into ONE fused `StatPlan` and walks the data
 once; ``.append(chunk)`` folds new samples into the carried state, so a
 re-collect costs one walk of the new samples only.  Results are memoized
 until the next append.
+
+A :class:`FrameSession` serves the same requests for many users at once:
+one plan compiled at the first ingest, one stacked per-user state in a
+`repro_torch.serving.rolling.RollingStatsService` per plan group, every
+arrival batch ingested by one batched update (one megakernel launch for the
+chunks and one for the merge boundary, whatever the number of users), and a
+batched query finalized by `StatPlan.finalize_batch`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,8 +29,10 @@ import torch
 from .backend import BackendSpec, get_backend, resolve_device
 from .plan import (StatPlan, StatRequest, arma_request, autocovariance_request,
                    kernel_request, moments_request, welch_request, yule_walker_request)
+from .streaming import _FIELDS, state_from_numpy, state_to_numpy
 
-__all__ = ["SeriesFrame", "Deferred", "as_series"]
+__all__ = ["SeriesFrame", "FrameSession", "Deferred", "as_series", "session_state_from_numpy",
+           "session_state_to_numpy"]
 
 
 def as_series(x, device="cuda") -> torch.Tensor:
@@ -228,3 +238,241 @@ class SeriesFrame(_DeferredRequests):
         self._chunk_list = []  # weak memory: the raw chunks are gone once folded
         self._replayable = False
         return states
+
+
+class FrameSession(_DeferredRequests):
+    """Multi-tenant deferred statistics: one fused plan, millions of users.
+
+    The deferred requests compile into ONE `StatPlan` at the first ingest;
+    each plan group's per-user states live stacked in a
+    `RollingStatsService`.  Every user's statistics ride one batched update
+    per arrival batch, and a batched query is a gather, a fold of the lanes
+    and one batched finalize.  Per-user results equal a dedicated per-user
+    :class:`SeriesFrame` to float round-off.
+
+    Args:
+      d: series dimension.
+      num_users: number of user series served.
+      requests: optional `StatRequest` list; the deferred-request methods
+        (``.autocovariance(...)`` etc.) also work until the first ingest.
+      num_shards: independent ingest lanes (growing mode only).
+      window / num_buckets: sliding-window eviction mode (see
+        `RollingStatsService`); queries cover the retained horizon.
+      backend: compute backend of every traversal ("cuda" by default).
+      compensated: carry Neumaier error companions through every fold
+        (snapshots then restore only into a compensated session).
+      device: where the states live ("cuda" unless the CPU is asked for).
+    """
+
+    def __init__(self, d: int, num_users: int, requests: Optional[Sequence[StatRequest]] = None,
+                 num_shards: int = 1, window: Optional[int] = None,
+                 num_buckets: Optional[int] = None, backend: BackendSpec = None,
+                 compensated: bool = False, device="cuda"):
+        self.d = d
+        self.num_users = num_users
+        self.num_shards = num_shards
+        self.window = window
+        self._num_buckets = num_buckets
+        self._device = resolve_device(device)
+        self._backend = get_backend(backend, self._device)
+        self.compensated = compensated
+        self._recorded: list = []
+        self._name_counts: dict = {}
+        self._plan: Optional[StatPlan] = None
+        self._services: Optional[list] = None
+        for req in requests or []:
+            self._defer(req)
+
+    def _defer(self, req: StatRequest) -> str:
+        if self._plan is not None:
+            raise ValueError("the session's fused plan is compiled at the first ingest; "
+                             "declare every request before ingesting")
+        if not isinstance(req, StatRequest):
+            raise TypeError(f"requests must be StatRequest (see the *_request "
+                            f"factories), got {type(req).__name__}")
+        name = self._unique_name(req.name or req.default_name())
+        self._recorded.append(dataclasses.replace(req, name=name))
+        return name
+
+    @property
+    def plan(self) -> StatPlan:
+        self._ensure_plan()
+        return self._plan
+
+    @property
+    def request_names(self) -> tuple:
+        """Names of every deferred request, in declaration order (the keys of
+        ``query`` / ``query_batch`` results)."""
+        return tuple(r.name for r in self._recorded)
+
+    def _ensure_plan(self):
+        if self._plan is not None:
+            return
+        if not self._recorded:
+            raise ValueError("a session needs at least one deferred request")
+        from ..serving.rolling import RollingStatsService
+
+        self._plan = StatPlan(list(self._recorded), d=self.d, backend=self._backend,
+                              compensated=self.compensated, device=self._device)
+        self._services = [RollingStatsService(g.engine, self.num_users,
+                                              num_shards=self.num_shards, window=self.window,
+                                              num_buckets=self._num_buckets)
+                          for g in self._plan.groups]
+
+    def _check_groups(self, state: dict, what: str) -> None:
+        keys = {f"group_{i}" for i in range(len(self._services))}
+        if set(state) != keys:
+            raise ValueError(f"{what} has groups {sorted(state)} but this session's plan "
+                             f"compiled {sorted(keys)}; the deferred requests must match "
+                             f"the exporter's")
+
+    # -- write path -----------------------------------------------------------
+    def ingest(self, user_ids, chunks, shard: int = 0, t0=None) -> None:
+        """Absorb one arrival batch: ``chunks[i]`` ((k, c, d)) extends user
+        ``user_ids[i]``'s series (see `RollingStatsService.ingest`).  Built-in
+        requests compile to one plan group: one batched update, two
+        megakernel launches on the card, however many users and
+        statistics."""
+        self._ensure_plan()
+        chunks = torch.as_tensor(chunks, dtype=torch.float32, device=self._device)
+        for svc in self._services:
+            svc.ingest(user_ids, chunks, shard=shard, t0=t0)
+
+    # -- read path ------------------------------------------------------------
+    def query(self, user_id: int) -> dict:
+        """Every deferred statistic of one user, ``{request_name: result}``,
+        equal to a dedicated per-user SeriesFrame's ``collect()``."""
+        self._ensure_plan()
+        states = tuple(svc.partial(user_id) for svc in self._services)
+        return self._plan.finalize(states, cache=False)
+
+    def partials_batch(self, user_ids) -> tuple:
+        """Per plan group, the merged `PartialState` of every user in
+        ``user_ids`` (one gather and lane fold per group), each leaf with a
+        leading ``len(user_ids)`` axis: what :meth:`query_batch` finalizes."""
+        self._ensure_plan()
+        return tuple(svc.partials_batch(user_ids) for svc in self._services)
+
+    def query_batch(self, user_ids) -> dict:
+        """Many users at once: one gather and lane fold per plan group, then
+        ONE batched finalize (each tail correction one kernel launch for all
+        of them); every result has a leading ``len(user_ids)`` axis."""
+        merged = self.partials_batch(user_ids)
+        return self._plan.finalize_batch(merged)
+
+    # -- durability -----------------------------------------------------------
+    def export_state(self) -> dict:
+        """Host snapshot of everything the session serves from: per plan
+        group, the stacked lanes (CPU copies) and the eviction cursor.
+        :meth:`import_state` on a fresh session with the same requests and
+        config then answers bit for bit as this one did."""
+        self._ensure_plan()
+        return {f"group_{i}": svc.export_state() for i, svc in enumerate(self._services)}
+
+    def import_state(self, state: dict) -> None:
+        """Install an :meth:`export_state` snapshot (same requests, same
+        num_users / num_shards / window / compensated config); a reference
+        snapshot goes through :func:`session_state_from_numpy` first."""
+        self._ensure_plan()
+        self._check_groups(state, "snapshot")
+        for i, svc in enumerate(self._services):
+            svc.import_state(state[f"group_{i}"])
+
+    def state_template(self) -> dict:
+        """The live state with :meth:`export_state`'s structure, without a
+        device-to-host copy."""
+        self._ensure_plan()
+        return {f"group_{i}": svc.state_template() for i, svc in enumerate(self._services)}
+
+    def tenant_axes(self) -> dict:
+        """Flat checkpoint key -> tenant axis of every leaf of
+        :meth:`export_state`, keyed as the reference's checkpoints key them:
+        lane leaves carry tenants on axis 1, the cursors on axis 0."""
+        from ..serving.rolling import state_paths
+
+        self._ensure_plan()
+        axes = {}
+        for i, svc in enumerate(self._services):
+            axes[f"group_{i}/counts"] = 0
+            axes.update(dict.fromkeys(state_paths(svc.state_template()["lanes"],
+                                                  f"group_{i}/lanes"), 1))
+        return axes
+
+    # -- integrity ------------------------------------------------------------
+    def audit(self) -> np.ndarray:
+        """Finite-sweep every tenant's lanes on the device (one host copy per
+        plan group): a host (num_users,) bool, True where every lane of
+        every group is healthy."""
+        self._ensure_plan()
+        healthy = None
+        for svc in self._services:
+            h = svc.audit()
+            healthy = h if healthy is None else healthy & h
+        return healthy
+
+    @property
+    def lane_health(self) -> np.ndarray:
+        """(num_lanes, num_users) health mask of the last :meth:`audit`,
+        True where that lane is healthy in every plan group (all True
+        before an audit, and for a tenant or state imported since)."""
+        self._ensure_plan()
+        mask = self._services[0].lane_health
+        for svc in self._services[1:]:
+            mask &= svc.lane_health
+        return mask
+
+    def export_tenant(self, user_id: int) -> dict:
+        """Host snapshot of ONE tenant's slice of every group's state."""
+        self._ensure_plan()
+        return {f"group_{i}": svc.export_tenant(user_id) for i, svc in enumerate(self._services)}
+
+    def import_tenant(self, user_id: int, state: dict) -> None:
+        """Restore ONE tenant's lanes from :meth:`export_tenant` (or
+        :meth:`tenant_slice`), leaving every other tenant untouched."""
+        self._ensure_plan()
+        self._check_groups(state, "tenant snapshot")
+        for i, svc in enumerate(self._services):
+            svc.import_tenant(user_id, state[f"group_{i}"])
+
+    def tenant_slice(self, state: dict, user_id: int) -> dict:
+        """ONE tenant's slice of a full :meth:`export_state` snapshot
+        (host-side)."""
+        self._ensure_plan()
+        self._check_groups(state, "snapshot")
+        return {f"group_{i}": svc.tenant_slice(state[f"group_{i}"], user_id)
+                for i, svc in enumerate(self._services)}
+
+    def lengths(self) -> torch.Tensor:
+        """(num_users,) samples ingested per user (evicted ones too)."""
+        self._ensure_plan()
+        return self._services[0].lengths()
+
+    def retained_lengths(self) -> torch.Tensor:
+        """(num_users,) samples a query covers now (= ``lengths`` in growing
+        mode; the ring-retained span in eviction mode)."""
+        self._ensure_plan()
+        return self._services[0].retained_lengths()
+
+
+def session_state_from_numpy(snapshot: dict, device="cpu") -> dict:
+    """A session snapshot of numpy leaves as the port's snapshot, on
+    ``device``.  Takes the reference's ``FrameSession.export_state()`` after
+    ``jax.device_get`` ({"group_i": {"lanes": PartialState of numpy arrays,
+    "counts": ndarray}}) or :func:`session_state_to_numpy`'s output (lanes as
+    a dict of fields); :meth:`FrameSession.import_state` then serves the
+    exporter's tenants."""
+    out = {}
+    for group, entry in snapshot.items():
+        lanes = entry["lanes"]
+        fields = lanes if isinstance(lanes, dict) else {f: getattr(lanes, f) for f in _FIELDS}
+        out[group] = {"lanes": state_from_numpy(fields, device),
+                      "counts": np.asarray(entry["counts"]).astype(np.int64)}
+    return out
+
+
+def session_state_to_numpy(snapshot: dict) -> dict:
+    """The port's session snapshot with numpy leaves: {"group_i": {"lanes":
+    {field: arrays}, "counts": ndarray}} (the reference's field names)."""
+    return {group: {"lanes": state_to_numpy(entry["lanes"]),
+                    "counts": np.asarray(entry["counts"])}
+            for group, entry in snapshot.items()}

@@ -13,6 +13,16 @@ segments) are members, each chunk-kernel call is ONE ``fused_plan_update``
 -- on the "cuda" backend one launch of the megakernel.  Single-family plans
 keep the narrower primitives.  ``forecast`` and ``anomaly`` requests arrive
 with the port's forecast slice.
+
+Batches of series (a multi-tenant session's tenants; the reference's
+``jax.vmap``) ride the same code: ``init_batch`` / ``update_batch`` /
+``merge_batch`` carry states with a leading tenant axis, each chunk-kernel
+call serves every tenant at once, and ``finalize_batch`` makes each tail
+correction (kernel 2 for the lag members, kernel 3 for a moment window
+inside the carry, kernel 4 for a Welch member) ONE batched call, as a
+finalize of one series does.  A generic ``kernel_request`` member in a
+batched plan receives batched operands: y (B, rows, d), mask (B, L), z0
+(B,).
 """
 from __future__ import annotations
 
@@ -233,8 +243,8 @@ class _PlanGroup:
             if self.has_lagged:
                 out["lagged"] = lag
             if ws:
-                count = mask.float().sum()
-                out["moments"] = {key: {"sums": mom[k], "count": count}
+                count = mask.float().sum(-1)
+                out["moments"] = {key: {"sums": mom[..., k, :, :], "count": count}
                                   for k, key in enumerate(self.moment_windows.values())}
             for info, psd, n_seg in zip(self._welch_info, psds, n_segs):
                 out[info.name] = {"psd": psd * info.scale, "n_seg": n_seg}
@@ -244,10 +254,10 @@ class _PlanGroup:
         if self.moment_windows:
             ws = tuple(self.moment_windows)
             lag, moms = be.fused_lagged_moments(y, mask, self.max_lag, ws)
-            count = mask.float().sum()
+            count = mask.float().sum(-1)
             if self.has_lagged:
                 out["lagged"] = lag
-            out["moments"] = {key: {"sums": moms[k], "count": count}
+            out["moments"] = {key: {"sums": moms[..., k, :, :], "count": count}
                               for k, key in enumerate(self.moment_windows.values())}
         elif self.has_lagged:
             out["lagged"] = be.masked_lagged_sums(y, mask, self.max_lag)
@@ -263,10 +273,10 @@ class _PlanGroup:
         """Serial lag sums S(0..H): the shared entry covers starts with a
         full fused window; the missing pairs start inside the carried tail,
         recovered by one masked contraction."""
-        s = self._stat_entry(state, "lagged")[: H + 1]
+        s = self._stat_entry(state, "lagged")[..., : H + 1, :, :]
         carry = self.engine.carry
         if carry > 0:
-            ones = torch.ones((carry,), dtype=torch.bool, device=self.device)
+            ones = torch.ones(state.tail.shape[:-1], dtype=torch.bool, device=self.device)
             s = s + self.backend.masked_lagged_sums(state.tail, ones, H)
         return s
 
@@ -275,7 +285,7 @@ class _PlanGroup:
 
         def fin(state: PartialState):
             s = self._corrected_gamma_sums(state, H)
-            return s * gamma_normalizer(state.length, H, normalization)[:, None, None]
+            return s * gamma_normalizer(state.length, H, normalization)[..., None, None]
 
         return fin
 
@@ -285,7 +295,8 @@ class _PlanGroup:
 
         def fin(state: PartialState):
             s = self._corrected_gamma_sums(state, p)
-            return yule_walker(s * gamma_normalizer(state.length, p, normalization)[:, None, None], p)
+            norm = gamma_normalizer(state.length, p, normalization)[..., None, None]
+            return yule_walker(s * norm, p)
 
         return fin
 
@@ -295,7 +306,7 @@ class _PlanGroup:
 
         def fin(state: PartialState):
             s = self._corrected_gamma_sums(state, m)
-            return fit_arma(s * gamma_normalizer(state.length, m, "standard")[:, None, None],
+            return fit_arma(s * gamma_normalizer(state.length, m, "standard")[..., None, None],
                             p, q, m)
 
         return fin
@@ -310,13 +321,13 @@ class _PlanGroup:
             if carry >= w:
                 # the last W_fused - w member windows, all inside the tail
                 rows = self._tail_rows()
-                mask = (rows >= carry - state.length) & (rows <= carry - w)
+                mask = (rows >= carry - state.length[..., None]) & (rows <= carry - w)
                 _, mom = self.backend.fused_lagged_moments(state.tail, mask, 0, w)
                 sums = sums + mom
-                count = count + mask.float().sum()
-            total = count * w
-            m1 = sums[0] / total
-            m2 = sums[1] / total
+                count = count + mask.float().sum(-1)
+            total = (count * w)[..., None]
+            m1 = sums[..., 0, :] / total
+            m2 = sums[..., 1, :] / total
             # a fresh count: the state's own leaf when the tail adds nothing, and
             # results must not alias a state that a donated update may reuse
             return {"mean": m1, "var": torch.clamp(m2 - m1 * m1, min=0.0),
@@ -337,10 +348,10 @@ class _PlanGroup:
             carry = self.engine.carry
             if carry >= nperseg:
                 rows = self._tail_rows()
-                mask = (rows >= carry - state.length) & (rows <= carry - nperseg)
+                mask = (rows >= carry - state.length[..., None]) & (rows <= carry - nperseg)
                 z0 = state.t0 + state.length - carry
                 entry = tree_sum(entry, ck(state.tail, mask, z0))
-            return _one_sided(entry["psd"] / entry["n_seg"], nperseg, fs)
+            return _one_sided(entry["psd"] / entry["n_seg"][..., None, None], nperseg, fs)
 
         return _Member(name, nperseg, step, ck, fin)
 
@@ -421,6 +432,24 @@ class StatPlan:
 
     def init(self, t0=0):
         return tuple(g.engine.init(t0) for g in self.groups)
+
+    # -- batches of series: a leading tenant axis on every state leaf ------
+    def init_batch(self, batch: int, t0=0):
+        return tuple(g.engine.init_batch(batch, t0) for g in self.groups)
+
+    def update_batch(self, states, chunks: torch.Tensor, t0=None):
+        """(B, c, d) chunks into B series' states: per group, the two
+        chunk-kernel calls of one update, whatever B."""
+        return tuple(g.engine.update_batch(s, chunks, t0) for g, s in zip(self.groups, states))
+
+    def merge_batch(self, a, b):
+        return tuple(g.engine.merge_batch(x, y) for g, x, y in zip(self.groups, a, b))
+
+    def finalize_batch(self, states) -> dict:
+        """``{request_name: result}`` with a leading tenant axis on every
+        result: each member's tail correction is one batched backend call
+        for all tenants (never cached)."""
+        return self.finalize(states, cache=False)
 
     def from_chunk(self, chunk: torch.Tensor, t0=0):
         return tuple(g.engine.from_chunk(chunk, t0) for g in self.groups)

@@ -8,13 +8,20 @@ inside its segment plus the only context a later merge needs: the first and
 last ``W-1`` samples, the length and the global start index.
 
 ``init`` / ``from_chunk`` / ``update`` / ``merge`` / ``finalize`` keep the
-reference's semantics.  ``length`` and ``t0`` stay 0-d int32 tensors on the
+reference's semantics.  ``length`` and ``t0`` stay int32 tensors on the
 engine's device and ``merge`` orders its operands with ``torch.where``, so
 an update never synchronises with the host.  The reference's ``jit``,
 ``lax.scan`` and buffer donation become eager methods: ``consume`` is a
 Python loop of updates.  Compensated mode threads a Neumaier error companion
 (``stat_err``) through every fold; ``stat`` itself stays bit-identical to
 plain mode.
+
+Batches of independent series (the reference's ``vmap``: ``init_batch``,
+``update_batch``, ``merge_batch``, ``consume_batch``) are states whose every
+leaf has a leading series axis -- ``length`` and ``t0`` are (B,) -- and the
+same methods serve them: an update of B series makes the same chunk-kernel
+calls as an update of one (the chunk and the merge boundary), each over
+all B series at once.
 """
 from __future__ import annotations
 
@@ -38,6 +45,9 @@ _FIELDS = ("stat", "sample_sum", "head", "tail", "length", "t0", "stat_err")
 @dataclasses.dataclass
 class PartialState:
     """Mergeable partial result of a weak-memory estimator over one segment.
+
+    A batch of B states (see ``StreamingEngine.init_batch``) has a leading
+    B axis on every leaf below.
 
     Attributes:
       stat: tensor or dict of tensors -- sum of the kernel contributions of
@@ -69,6 +79,12 @@ class PartialState:
         it = iter(leaves)
         return PartialState(**{f: tree_map(lambda _: next(it), getattr(self, f))
                                for f in _FIELDS})
+
+
+def _bcast(cond: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A per-series ``cond`` (lead,) shaped to broadcast against ``leaf``
+    (lead, ...)."""
+    return cond.reshape(cond.shape + (1,) * (leaf.ndim - cond.ndim))
 
 
 def resolved_stat(state: PartialState) -> Any:
@@ -147,6 +163,12 @@ class StreamingEngine:
     def _scalar(self, v) -> torch.Tensor:
         return torch.as_tensor(v, device=self.device).to(torch.int32)
 
+    def _per_series(self, v, lead: tuple) -> torch.Tensor:
+        """``v`` (a scalar or a (B,) array) as an int32 tensor of shape
+        ``lead``, owning its storage."""
+        t = self._scalar(v)
+        return t.expand(lead).clone() if lead else t
+
     def _call_kernel(self, y, mask, z0):
         if self.kernel_takes_offset:
             return self.chunk_kernel(y, mask, z0)
@@ -156,6 +178,16 @@ class StreamingEngine:
         return self._stat_zeros(self.device)
 
     # -- monoid ------------------------------------------------------------
+    def init_batch(self, batch: int, t0=0) -> PartialState:
+        """Neutral states of ``batch`` independent series (a leading axis on
+        every leaf); ``t0`` is a scalar or a (batch,) array of global
+        starts."""
+        one = self.init()
+        tiled = one.unflatten([leaf.expand((batch,) + leaf.shape).clone()
+                               for leaf in one.flatten()])
+        tiled.t0 = self._per_series(t0, (batch,))
+        return tiled
+
     def init(self, t0=0) -> PartialState:
         """The neutral element (an empty segment starting at ``t0``)."""
         z = lambda *s: torch.zeros(s, device=self.device)
@@ -171,38 +203,43 @@ class StreamingEngine:
 
     def from_chunk(self, chunk: torch.Tensor, t0=0) -> PartialState:
         """Lift one contiguous chunk into a PartialState (only windows fully
-        inside the chunk enter ``stat``)."""
+        inside the chunk enter ``stat``).  A (B, c, d) chunk lifts B series
+        at once (``t0`` scalar or (B,)), with one chunk-kernel call."""
         if chunk.ndim == 1:
             chunk = chunk[:, None]
-        c = chunk.shape[0]
+        lead, c = tuple(chunk.shape[:-2]), chunk.shape[-2]
         if c == 0:
-            return self.init(t0)
+            return self.init_batch(lead[0], t0) if lead else self.init(t0)
         w, carry, dev = self.window, self.carry, self.device
-        t0 = self._scalar(t0)
-        y = torch.cat([chunk, chunk.new_zeros((carry, self.d))])
+        t0 = self._per_series(t0, lead)
+        y = torch.cat([chunk, chunk.new_zeros(lead + (carry, self.d))], -2)
         starts = torch.arange(c, device=dev)
         mask = starts <= c - w
         if self.stride > 1:
-            mask &= torch.remainder(t0 + starts, self.stride) == 0
+            mask = mask & (torch.remainder(t0[..., None] + starts, self.stride) == 0)
+        mask = mask.expand(lead + (c,)).contiguous()
         stat = self._call_kernel(y, mask, t0)
 
         rows = torch.arange(carry, device=dev)
-        head = torch.where((rows < c)[:, None], chunk[rows.clamp(0, c - 1)], 0.0)
+        head = torch.where((rows < c)[:, None], chunk[..., rows.clamp(0, c - 1), :], 0.0)
         tidx = c - carry + rows
-        tail = torch.where((tidx >= 0)[:, None], chunk[tidx.clamp(0, c - 1)], 0.0)
+        tail = torch.where((tidx >= 0)[:, None], chunk[..., tidx.clamp(0, c - 1), :], 0.0)
+        if self.compensated:
+            err = tree_map(lambda z: z.expand(lead + z.shape).clone(), self._zeros_stat())
         return PartialState(
             stat=stat,
-            sample_sum=chunk.sum(0),
+            sample_sum=chunk.sum(-2),
             head=head,
             tail=tail,
-            length=self._scalar(c),
+            length=self._per_series(c, lead),
             t0=t0,
-            stat_err=self._zeros_stat() if self.compensated else None,
+            stat_err=err if self.compensated else None,
         )
 
     def update(self, state: PartialState, chunk: torch.Tensor, t0=None) -> PartialState:
         """Absorb the next chunk: ``merge(state, from_chunk(chunk, end))``.
-        ``t0`` seeds the global start when ``state`` is still empty."""
+        ``t0`` seeds the global start when ``state`` is still empty.  A batch
+        of states takes a (B, c, d) chunk and a (B,) ``t0``."""
         start = state.t0 + state.length
         if t0 is not None:
             start = torch.where(state.length == 0, self._scalar(t0), start)
@@ -215,10 +252,14 @@ class StreamingEngine:
         return self.update(state, chunk)
 
     def merge(self, a: PartialState, b: PartialState) -> PartialState:
-        """The monoid sum of two states covering adjacent segments.
+        """The monoid sum of two states covering adjacent segments (or of two
+        batches of states, series by series).
 
         Commutative: operands are ordered by ``t0`` on the device, empty
-        states sort last.  The boundary-straddling windows are recovered
+        states sort last.  Only the halos, lengths and starts are put in
+        that order: the sums (and their Neumaier companions) are added as
+        they come, since a float sum, and Neumaier's residue, are the same
+        bits in either order.  The boundary-straddling windows are recovered
         from the carried halos with one chunk-kernel call, even when one
         operand is empty (its mask is then all false).
         """
@@ -227,27 +268,31 @@ class StreamingEngine:
         key_a = torch.where(a.length > 0, a.t0, far)
         key_b = torch.where(b.length > 0, b.t0, far)
         swap = key_b < key_a
-        la, lb = a.flatten(), b.flatten()
-        first = a.unflatten([torch.where(swap, v, u) for u, v in zip(la, lb)])
-        second = a.unflatten([torch.where(swap, u, v) for u, v in zip(la, lb)])
 
+        def order(u, v):
+            s = _bcast(swap, u)
+            return torch.where(s, v, u), torch.where(s, u, v)
+
+        first_len, second_len = order(a.length, b.length)
+        first_t0, second_t0 = order(a.t0, b.t0)
         if self.compensated:
-            stat, err = tree_neumaier_merge(first.stat, first.stat_err,
-                                            second.stat, second.stat_err)
+            stat, err = tree_neumaier_merge(a.stat, a.stat_err, b.stat, b.stat_err)
         else:
-            stat, err = tree_sum(first.stat, second.stat), None
+            stat, err = tree_sum(a.stat, b.stat), None
         if carry > 0:
-            k_first = torch.clamp(first.length, max=carry)
-            k_second = torch.clamp(second.length, max=carry)
+            first_head, second_head = order(a.head, b.head)
+            first_tail, second_tail = order(a.tail, b.tail)
+            k_first = torch.clamp(first_len, max=carry)[..., None]
+            k_second = torch.clamp(second_len, max=carry)[..., None]
             # z = first's tail ++ second's head: every complete window in z
             # straddles the boundary, and every straddling window lies in z.
-            z = torch.cat([first.tail, second.head])
+            z = torch.cat([first_tail, second_head], -2)
             starts = torch.arange(carry, device=dev)
             mask = (starts >= carry - k_first) & (starts + w <= carry + k_second)
             # row s of z sits at global index first.t0 + first.length - carry + s
-            z0 = first.t0 + first.length - carry
+            z0 = first_t0 + first_len - carry
             if self.stride > 1:
-                mask &= torch.remainder(z0 + starts, self.stride) == 0
+                mask = mask & (torch.remainder(z0[..., None] + starts, self.stride) == 0)
             boundary = self._call_kernel(z, mask, z0)
             if self.compensated:
                 stat, err = tree_neumaier_add(stat, err, boundary)
@@ -255,26 +300,29 @@ class StreamingEngine:
                 stat = tree_sum(stat, boundary)
 
             rows = torch.arange(carry, device=dev)
+            lf, ls = first_len[..., None], second_len[..., None]
             head = torch.where(
-                (rows < first.length)[:, None],
-                first.head,
-                second.head[torch.clamp(rows - first.length, 0, carry - 1)],
+                (rows < lf)[..., None],
+                first_head,
+                torch.take_along_dim(second_head, torch.clamp(rows - lf, 0, carry - 1)[..., None],
+                                     dim=-2),
             )
             tail = torch.where(
-                (rows >= carry - second.length)[:, None],
-                second.tail,
-                first.tail[torch.clamp(rows + second.length, 0, carry - 1)],
+                (rows >= carry - ls)[..., None],
+                second_tail,
+                torch.take_along_dim(first_tail, torch.clamp(rows + ls, 0, carry - 1)[..., None],
+                                     dim=-2),
             )
         else:
-            head, tail = first.head, first.tail
+            head, tail = a.head, a.tail
 
         return PartialState(
             stat=stat,
-            sample_sum=first.sample_sum + second.sample_sum,
+            sample_sum=a.sample_sum + b.sample_sum,
             head=head,
             tail=tail,
-            length=first.length + second.length,
-            t0=torch.where(first.length > 0, first.t0, second.t0),
+            length=first_len + second_len,
+            t0=torch.where(first_len > 0, first_t0, second_t0),
             stat_err=err,
         )
 
@@ -287,3 +335,18 @@ class StreamingEngine:
         for chunk in chunks:
             state = self.update(state, chunk)
         return state
+
+    # -- batches of series (the reference's vmapped entry points) ----------
+    def update_batch(self, states: PartialState, chunks: torch.Tensor,
+                     t0=None) -> PartialState:
+        """B series absorb one (B, c, d) chunk stack: two chunk-kernel calls
+        (the chunks and the merge boundary), whatever B."""
+        return self.update(states, chunks, t0)
+
+    def merge_batch(self, a: PartialState, b: PartialState) -> PartialState:
+        """Series-by-series monoid sum of two batches of states."""
+        return self.merge(a, b)
+
+    def consume_batch(self, states: PartialState, chunks) -> PartialState:
+        """Fold a (k, B, c, d) stack: k batched updates over all B series."""
+        return self.consume(states, chunks)

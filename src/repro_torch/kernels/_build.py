@@ -106,6 +106,9 @@ class WelchMember(ctypes.Structure):
         ("fft", ctypes.c_int),
         ("chan", ctypes.c_int),
         ("chan_tiles", ctypes.c_int),
+        ("offs_stride", ctypes.c_longlong),
+        ("part_stride", ctypes.c_longlong),
+        ("out_stride", ctypes.c_longlong),
     ]
 
 
@@ -137,6 +140,16 @@ class PlanParams(ctypes.Structure):
         ("n_welch", ctypes.c_int),
         ("welch", WelchMember * MAX_WELCH),
         ("detrend", ctypes.c_int),
+        ("batch", ctypes.c_int),
+        ("tenant_ctas", ctypes.c_int),
+        ("y_stride", ctypes.c_longlong),
+        ("a_stride", ctypes.c_longlong),
+        ("m_stride", ctypes.c_longlong),
+        ("prefix_stride", ctypes.c_longlong),
+        ("lag_part_stride", ctypes.c_longlong),
+        ("lag_out_stride", ctypes.c_longlong),
+        ("mom_part_stride", ctypes.c_longlong),
+        ("mom_out_stride", ctypes.c_longlong),
     ]
 
 

@@ -6,12 +6,19 @@ launch through a :class:`Kernel`, which counts its launches.  Partials and
 outputs are allocated with ``torch.empty`` on the operands' device; the
 kernels allocate nothing and launch on the current stream without
 synchronising.
+
+A batched launch serves B tenants of one shape (a multi-tenant session's
+arrival batch): ``new_params`` takes the (B, rows, d) series, each ``add_*``
+gives its partials and outputs a leading tenant axis, and the per-tenant
+strides go into the params (see csrc/stats_tiles.cuh).  One launch, and one
+count, whatever B.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -102,16 +109,22 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
                      f"CPU, got {sorted(kinds)}")
 
 
-def require(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32) -> None:
-    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``."""
+def require(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32,
+            lead: tuple = ()) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and shape
+    ``lead + shape``: ``lead`` holds the tenant axis of a batched launch,
+    which the kernels index with 64-bit offsets, so the 32-bit limit holds
+    per problem (``shape``)."""
+    shape = tuple(lead) + tuple(shape)
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.numel() >= 2**31:
-        raise ValueError(f"{name} has {t.numel()} elements; the kernels index "
+    per = math.prod(shape[len(lead):])
+    if per >= 2**31:
+        raise ValueError(f"{name} has {per} elements per problem; the kernels index "
                          f"with 32-bit integers")
 
 
@@ -128,13 +141,20 @@ def sm_count(device: torch.device) -> int:
 
 
 def new_params(y: torch.Tensor, n: int) -> PlanParams:
-    """Params over the (rows, d) series ``y`` with ``n`` window starts."""
+    """Params over the (rows, d) series ``y`` -- or B tenants' (B, rows, d)
+    series, contiguous -- with ``n`` window starts each.  ``p.lead`` (on the
+    Python side only) is the launch's tenant axes: (B,) batched, else ();
+    the ``add_*`` functions give their partials and outputs these leading
+    axes."""
     p = PlanParams()
+    p.lead = tuple(y.shape[:-2])
     p.y = y.data_ptr()
     p.n = n
-    p.d = y.shape[1]
+    p.d = y.shape[-1]
     p.d_tiles = _ceil_div(p.d, TILE)
     p.H = 0
+    p.batch = y.shape[0] if p.lead else 1
+    p.y_stride = y.shape[1] * y.shape[2] if p.lead else 0
     return p
 
 
@@ -155,16 +175,20 @@ def add_lag(p: PlanParams, max_lag: int, sms: int, device: torch.device) -> tupl
     ``y`` must hold n + max_lag rows.  The lags split into runs of at most
     LAG_GROUP (one CTA stages a slab's rows once for its run; the CTA's
     decomposition is ``lag_role``'s in csrc/stats_tiles.cuh), and the starts
-    into slabs for about LAG_CTAS_PER_SM CTAs per SM.  Returns (partials,
-    output)."""
+    into slabs for about LAG_CTAS_PER_SM CTAs per SM over the whole batch (so
+    one slab a tenant once the batch fills the card).  Returns (partials,
+    output), with the leading axes ``p.lead``."""
     p.H = max_lag
     p.lag_groups = _ceil_div(max_lag + 1, LAG_GROUP)
     per_slab = p.lag_groups * p.d_tiles * p.d_tiles
-    p.lag_slab, p.lag_slabs = _slab(p.n, max(1, LAG_CTAS_PER_SM * sms // per_slab), KC)
+    pieces = max(1, LAG_CTAS_PER_SM * sms // (per_slab * p.batch))
+    p.lag_slab, p.lag_slabs = _slab(p.n, pieces, KC)
     p.lag_ctas = p.lag_slabs * per_slab
-    part = torch.empty((p.lag_slabs, p.H + 1, p.d, p.d), device=device)
-    out = torch.empty((p.H + 1, p.d, p.d), device=device)
+    part = torch.empty(p.lead + (p.lag_slabs, p.H + 1, p.d, p.d), device=device)
+    out = torch.empty(p.lead + (p.H + 1, p.d, p.d), device=device)
     p.lag_part, p.lag_out = part.data_ptr(), out.data_ptr()
+    if p.lead:
+        p.lag_part_stride, p.lag_out_stride = part[0].numel(), out[0].numel()
     return part, out
 
 
@@ -177,22 +201,26 @@ def check_window_count(windows: tuple) -> None:
 def add_moments(p: PlanParams, windows: tuple, prefix: torch.Tensor, rows: int,
                 sms: int, device: torch.device) -> tuple:
     """Enable the moment family over rows [0, rows) of ``y``; ``prefix`` is
-    the (n+1,) int32 prefix count of the start mask.  Returns (partials,
-    output (K, 2, d))."""
+    the (n+1,) int32 prefix count of the start mask, after the leading axes
+    ``p.lead``.  Returns (partials, output (K, 2, d)), with the leading axes
+    ``p.lead``."""
     check_window_count(windows)
-    require(prefix, "prefix", (p.n + 1,), torch.int32)
+    require(prefix, "prefix", (p.n + 1,), torch.int32, p.lead)
     p.K = len(windows)
     for k, w in enumerate(windows):
         p.windows[k] = int(w)
     p.prefix = prefix.data_ptr()
+    p.prefix_stride = p.n + 1 if p.lead else 0
     p.c_groups = _ceil_div(p.d, 32)
     p.mom_rows = rows
-    p.mom_slab, p.mom_slabs = _slab(rows, max(1, _ceil_div(MOM_CTAS_PER_SM * sms, p.c_groups)),
-                                    8)
+    pieces = max(1, _ceil_div(MOM_CTAS_PER_SM * sms, p.c_groups) // p.batch)
+    p.mom_slab, p.mom_slabs = _slab(rows, pieces, 8)
     p.mom_ctas = p.mom_slabs * p.c_groups
-    part = torch.empty((p.mom_slabs, p.K, 2, p.d), device=device)
-    out = torch.empty((p.K, 2, p.d), device=device)
+    part = torch.empty(p.lead + (p.mom_slabs, p.K, 2, p.d), device=device)
+    out = torch.empty(p.lead + (p.K, 2, p.d), device=device)
     p.mom_part, p.mom_out = part.data_ptr(), out.data_ptr()
+    if p.lead:
+        p.mom_part_stride, p.mom_out_stride = part[0].numel(), out[0].numel()
     return part, out
 
 
@@ -219,7 +247,9 @@ def add_welch(p: PlanParams, taper: torch.Tensor, offs: Optional[torch.Tensor],
     into ``out`` (S, F, d).  ``group`` entries per CTA (the twiddle path
     writes per entry only with ``group == 1``).  Returns (partials, output,
     operands): the operands are the tensors the launch reads (roots and
-    taper, or the twiddle matrices), to be kept alive with it."""
+    taper, or the twiddle matrices), to be kept alive with it.  Batched
+    (``p.lead`` = (B,)): ``offs`` is (B, n_entries), one table per tenant,
+    and the partials and output get the leading tenant axis."""
     from .segment_dft.ref import dft_power_matrices, fft_roots
 
     j = p.n_welch
@@ -233,7 +263,7 @@ def add_welch(p: PlanParams, taper: torch.Tensor, offs: Optional[torch.Tensor],
         raise ValueError(f"the FFT path takes L a power of two from 2 to {FFT_MAX_L}, "
                          f"got {L}")
     if offs is not None:
-        require(offs, "offsets", (n_entries,), torch.int32)
+        require(offs, "offsets", (n_entries,), torch.int32, p.lead)
     m = p.welch[j]
     m.offs = 0 if offs is None else offs.data_ptr()
     m.L, m.F = L, F
@@ -255,10 +285,13 @@ def add_welch(p: PlanParams, taper: torch.Tensor, offs: Optional[torch.Tensor],
         m.ctas = m.n_groups * m.f_tiles * p.d_tiles
         operands = (cos, sin)
     if out is None:
-        part = torch.empty((m.n_groups, F, p.d), device=device)
-        out = torch.empty((F, p.d), device=device)
+        part = torch.empty(p.lead + (m.n_groups, F, p.d), device=device)
+        out = torch.empty(p.lead + (F, p.d), device=device)
     else:
         part = out
     m.part, m.out = part.data_ptr(), out.data_ptr()
+    if p.lead:
+        m.offs_stride = n_entries
+        m.part_stride, m.out_stride = math.prod(part.shape[1:]), math.prod(out.shape[1:])
     p.n_welch = j + 1
     return part, out, operands

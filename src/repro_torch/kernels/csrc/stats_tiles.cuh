@@ -48,8 +48,21 @@
 // partials in a fixed order: no float atomics, so the same inputs give
 // bit-identical outputs from one run to the next.
 //
-// Limits: rows * d < 2^31, at most RT_MAX_WINDOWS moment windows and
-// RT_MAX_WELCH Welch members per launch (the Python wrappers raise past
+// Batches: a launch may serve `batch` independent problems of one shape
+// (the tenants of a multi-tenant session).  Tenant t's inputs, partials
+// and outputs lie t times their `*_stride` elements after tenant 0's (64-bit
+// offsets: tenant x rows x d passes 2^31 at a session's shape), and the grid
+// is tenant-major: blockIdx.x = t * tenant_ctas + the CTA's index among its
+// tenant's role CTAs, so no grid dimension limits the tenant count.  Each
+// role offsets its pointers by its tenant and then runs exactly as for one
+// problem; reduce_families sums each tenant's partials in the same fixed
+// order.  Roles and kernels come in two instantiations: BATCHED true for a
+// batch above 1, and false, the one-problem code as it was before batches
+// (the offsets fold away), which a launch of batch 1 runs: bit for bit and
+// time for time the one-problem launch.
+//
+// Limits: rows * d < 2^31 per tenant, at most RT_MAX_WINDOWS moment windows
+// and RT_MAX_WELCH Welch members per launch (the Python wrappers raise past
 // them).  Lags, windows and segment lengths have no other bound.
 #pragma once
 
@@ -103,6 +116,7 @@ struct WelchMember {
   int fft;             // 1: the FFT path
   int chan;            // FFT path: channels per CTA (a power of two, L * chan <= RT_FFT_FLOATS)
   int chan_tiles;
+  long long offs_stride, part_stride, out_stride;  // per tenant (elements)
 };
 
 struct PlanParams {
@@ -126,7 +140,22 @@ struct PlanParams {
   int n_welch;
   WelchMember welch[RT_MAX_WELCH];
   int detrend;
+  // batch of `batch` tenants, `tenant_ctas` role CTAs each (set by the C
+  // entry); per-tenant strides in elements (0 at batch 1)
+  int batch, tenant_ctas;
+  long long y_stride, a_stride, m_stride, prefix_stride;
+  long long lag_part_stride, lag_out_stride, mom_part_stride, mom_out_stride;
 };
+
+// Tenant tn's copy of a per-problem pointer: base + tn * stride, in 64 bits.
+// The one-problem instantiation reads the base as it lies.  The roles apply
+// it where they read a pointer, not once into a local, so that their
+// one-problem instantiation is the one-problem code (a local kept the
+// pointers in registers and slowed kernels 1 and 2 by 1-2%; PERF.md).
+template <bool BATCHED, typename T>
+__device__ __forceinline__ T* at_tenant(T* base, long long stride, int tn) {
+  return BATCHED ? base + (long long)tn * stride : base;
+}
 
 // ------------------------------------------------------------ async copies
 // cp.async copies global -> shared; zero-filled when !full (the source
@@ -211,26 +240,30 @@ __device__ __forceinline__ void lag_step(const float* As, const float* Bs, int t
 }
 
 // Lags h0 .. h0+NG-1 of the tile (i0, j0) over the starts of one slab.
-template <int NG>
-__device__ void lag_group(const PlanParams& p, int h0, int i0, int j0, int slab,
+template <int NG, bool BATCHED>
+__device__ void lag_group(const PlanParams& p, int h0, int i0, int j0, int slab, int tn,
                           float* smem) {
   const int t_begin = slab * p.lag_slab;
   const int t_end = min(t_begin + p.lag_slab, p.n);
   const int b_end = t_end + h0 + NG - 1;  // this group reads y rows [t_begin + h0, b_end)
   const int steps = (t_end - t_begin + RT_KC - 1) / RT_KC;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* A = p.a != nullptr ? p.a : p.y;
-  const bool vec = p.d % 4 == 0 && aligned16(A) && aligned16(p.y);
+  const float* A = p.a != nullptr ? at_tenant<BATCHED>(p.a, p.a_stride, tn)
+                                  : at_tenant<BATCHED>(p.y, p.y_stride, tn);
+  const bool vec =
+      p.d % 4 == 0 && aligned16(A) && aligned16(at_tenant<BATCHED>(p.y, p.y_stride, tn));
 
   auto issue = [&](int s) {
     float* As = smem + (s % RT_LAG_STAGES) * (RT_LAG_A + RT_LAG_B);
     const int t0 = t_begin + s * RT_KC;
     stage_rows(As, A, p.d, i0, RT_TILE, RT_KC, vec, [&](int r) -> long long {
       const int t = t0 + r;
-      const bool live = t < t_end && (p.a != nullptr || p.m == nullptr || p.m[t] != 0.f);
+      const bool live = t < t_end && (p.a != nullptr || p.m == nullptr ||
+                                      at_tenant<BATCHED>(p.m, p.m_stride, tn)[t] != 0.f);
       return live ? t : -1;
     });
-    stage_rows(As + RT_LAG_A, p.y, p.d, j0, RT_TILE, RT_KC + NG - 1, vec,
+    stage_rows(As + RT_LAG_A, at_tenant<BATCHED>(p.y, p.y_stride, tn), p.d, j0, RT_TILE,
+               RT_KC + NG - 1, vec,
                [&](int r) -> long long {
                  const int t = t0 + h0 + r;
                  return t < b_end ? t : -1;
@@ -262,7 +295,8 @@ __device__ void lag_group(const PlanParams& p, int h0, int i0, int j0, int slab,
 
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
-    float* out = p.lag_part + ((size_t)slab * (p.H + 1) + h0 + g) * p.d * p.d;
+    float* out = at_tenant<BATCHED>(p.lag_part, p.lag_part_stride, tn) +
+                 ((size_t)slab * (p.H + 1) + h0 + g) * p.d * p.d;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = i0 + ty * 4 + r;
@@ -280,7 +314,9 @@ __device__ void lag_group(const PlanParams& p, int h0, int i0, int j0, int slab,
 // split into lag_groups runs of consecutive lags; the first (H+1) %
 // lag_groups runs hold one lag more (tests/test_torch_fft_plan.py: lag_cta
 // models it).  _launch.add_lag keeps every run at most RT_LAG_GROUP long.
-static __device__ void lag_role(const PlanParams& p, int cta, float* smem) {
+// `tn`: the CTA's tenant.
+template <bool BATCHED>
+static __device__ void lag_role(const PlanParams& p, int cta, int tn, float* smem) {
   const int tiles2 = p.d_tiles * p.d_tiles;
   const int tile = cta % tiles2;
   const int rest = cta / tiles2;
@@ -293,15 +329,16 @@ static __device__ void lag_role(const PlanParams& p, int cta, float* smem) {
   const int j0 = (tile % p.d_tiles) * RT_TILE;
   static_assert(RT_LAG_GROUP == 3, "lag_role instantiates lag_group<1..3>");
   switch (ng) {
-    case 1: lag_group<1>(p, h0, i0, j0, slab, smem); break;
-    case 2: lag_group<2>(p, h0, i0, j0, slab, smem); break;
-    case 3: lag_group<3>(p, h0, i0, j0, slab, smem); break;
+    case 1: lag_group<1, BATCHED>(p, h0, i0, j0, slab, tn, smem); break;
+    case 2: lag_group<2, BATCHED>(p, h0, i0, j0, slab, tn, smem); break;
+    case 3: lag_group<3, BATCHED>(p, h0, i0, j0, slab, tn, smem); break;
     default: __trap();  // a run longer than RT_LAG_GROUP: the launch fails
   }
 }
 
 // ------------------------------------------------------- windowed moments
-static __device__ void moment_role(const PlanParams& p, int cta, float* smem) {
+template <bool BATCHED>
+static __device__ void moment_role(const PlanParams& p, int cta, int tn, float* smem) {
   const int cg = cta % p.c_groups;
   const int slab = cta / p.c_groups;
   const int tx = threadIdx.x % 32, lane = threadIdx.x / 32;
@@ -317,14 +354,15 @@ static __device__ void moment_role(const PlanParams& p, int cta, float* smem) {
     // unrolled so that several rows' loads are in flight at once
 #pragma unroll 4
     for (int t = r_begin + lane; t < r_end; t += RT_LANES) {
-      const float v = p.y[(size_t)t * p.d + c];
+      const float v = at_tenant<BATCHED>(p.y, p.y_stride, tn)[(size_t)t * p.d + c];
       const float v2 = v * v;
-      const int hi = p.prefix[min(t + 1, p.n)];
+      const int hi = at_tenant<BATCHED>(p.prefix, p.prefix_stride, tn)[min(t + 1, p.n)];
 #pragma unroll
       for (int k = 0; k < RT_MAX_WINDOWS; ++k) {
         if (k < p.K) {
           const int lo = min(max(t + 1 - p.windows[k], 0), p.n);
-          const float wgt = (float)(hi - p.prefix[lo]);  // exact below 2^24
+          // exact below 2^24
+          const float wgt = (float)(hi - at_tenant<BATCHED>(p.prefix, p.prefix_stride, tn)[lo]);
           s1[k] = fmaf(wgt, v, s1[k]);
           s2[k] = fmaf(wgt, v2, s2[k]);
         }
@@ -347,7 +385,8 @@ static __device__ void moment_role(const PlanParams& p, int cta, float* smem) {
         a1 += red[(l * 2 * RT_MAX_WINDOWS + 2 * k) * 32 + tx];
         a2 += red[(l * 2 * RT_MAX_WINDOWS + 2 * k + 1) * 32 + tx];
       }
-      float* out = p.mom_part + ((size_t)slab * p.K + k) * 2 * p.d;
+      float* out = at_tenant<BATCHED>(p.mom_part, p.mom_part_stride, tn) +
+                   ((size_t)slab * p.K + k) * 2 * p.d;
       out[c] = a1;
       out[p.d + c] = a2;
     }
@@ -526,8 +565,9 @@ __device__ __forceinline__ void store_power(float* out, int L, int lp, int d, in
 // CTA -> (channel tile, group of entries), the tile fastest.  The group's
 // valid segments come through two shared buffers: the next one's copy is in
 // flight while this one is transformed.
+template <bool BATCHED>
 static __device__ void welch_fft_role(const PlanParams& p, const WelchMember& w, int cta,
-                                      float* smem) {
+                                      int tn, float* smem) {
   const int ct = cta % w.chan_tiles;
   const int g = cta / w.chan_tiles;
   const int L = w.L, C = w.chan, lp = __ffs(C / 2) - 1;
@@ -535,7 +575,8 @@ static __device__ void welch_fft_role(const PlanParams& p, const WelchMember& w,
   float* buf[2] = {smem, smem + L * C};
   float* red = smem + 2 * L * C;  // [RT_THREADS]
   float* mu = red + RT_THREADS;   // [RT_FFT_MAX_CHAN]
-  const bool vec = p.d % 4 == 0 && C % 4 == 0 && aligned16(p.y);
+  const bool vec =
+      p.d % 4 == 0 && C % 4 == 0 && aligned16(at_tenant<BATCHED>(p.y, p.y_stride, tn));
   const float2* roots = reinterpret_cast<const float2*>(w.roots);
 
   float acc[RT_FFT_OUT][2];
@@ -545,7 +586,8 @@ static __device__ void welch_fft_role(const PlanParams& p, const WelchMember& w,
   const int e_end = min((g + 1) * w.group, w.n_entries);
   auto row_of = [&](int e) -> long long {  // first series row of entry e, -1 if invalid
     if (w.offs == nullptr) return (long long)e * L;
-    const int off = w.offs[e];  // the same entry for every thread: no divergence
+    // the same entry for every thread: no divergence
+    const int off = at_tenant<BATCHED>(w.offs, w.offs_stride, tn)[e];
     return off < 0 ? -1 : (long long)(e / w.n_cand) * w.tile + off;
   };
   auto next_valid = [&](int e) {
@@ -553,7 +595,8 @@ static __device__ void welch_fft_role(const PlanParams& p, const WelchMember& w,
     return e;
   };
   auto issue = [&](float* dst, long long row0) {
-    stage_rows(dst, p.y, p.d, j0, C, L, vec, [&](int r) -> long long { return row0 + r; });
+    stage_rows(dst, at_tenant<BATCHED>(p.y, p.y_stride, tn), p.d, j0, C, L, vec,
+               [&](int r) -> long long { return row0 + r; });
   };
 
   int e = next_valid(g * w.group), cur = 0;
@@ -579,7 +622,9 @@ static __device__ void welch_fft_role(const PlanParams& p, const WelchMember& w,
     e = e_next;
   }
   cp_async_wait<0>();
-  if (w.offs != nullptr) store_power(w.part + (size_t)g * w.F * p.d, L, lp, p.d, j0, acc);
+  if (w.offs != nullptr)
+    store_power(at_tenant<BATCHED>(w.part, w.part_stride, tn) + (size_t)g * w.F * p.d, L, lp,
+                p.d, j0, acc);
 }
 
 // ------------------------------------------------------ segment DFT
@@ -665,8 +710,9 @@ static __device__ void seg_power_tile(const float* seg, int L, int d,
     for (int c = 0; c < 4; ++c) psd[r][c] += re[r][c] * re[r][c] + im[r][c] * im[r][c];
 }
 
+template <bool BATCHED>
 static __device__ void welch_role(const PlanParams& p, const WelchMember& w,
-                                  int cta, float* smem) {
+                                  int cta, int tn, float* smem) {
   const int dt = cta % p.d_tiles;
   const int rest = cta / p.d_tiles;
   const int ft = rest % w.f_tiles;
@@ -686,15 +732,16 @@ static __device__ void welch_role(const PlanParams& p, const WelchMember& w,
     if (w.offs == nullptr) {
       row = (long long)e * w.L;
     } else {
-      const int off = w.offs[e];
+      const int off = at_tenant<BATCHED>(w.offs, w.offs_stride, tn)[e];
       if (off < 0) continue;  // the same entry for every thread: no divergence
       row = (long long)(e / w.n_cand) * w.tile + off;
     }
-    seg_power_tile(p.y + row * p.d, w.L, p.d, w.cos, w.sin, w.F, f0, j0,
+    seg_power_tile(at_tenant<BATCHED>(p.y, p.y_stride, tn) + row * p.d, w.L, p.d, w.cos, w.sin,
+                   w.F, f0, j0,
                    p.detrend, psd, smem);
   }
 
-  float* out = w.part + (size_t)g * w.F * p.d;
+  float* out = at_tenant<BATCHED>(w.part, w.part_stride, tn) + (size_t)g * w.F * p.d;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int f = f0 + ty * 2 + r;
@@ -708,12 +755,13 @@ static __device__ void welch_role(const PlanParams& p, const WelchMember& w,
 }
 
 // One Welch member's CTA, on the member's path.
+template <bool BATCHED>
 static __device__ void welch_member_role(const PlanParams& p, const WelchMember& w, int cta,
-                                         float* smem) {
+                                         int tn, float* smem) {
   if (w.fft) {
-    welch_fft_role(p, w, cta, smem);
+    welch_fft_role<BATCHED>(p, w, cta, tn, smem);
   } else {
-    welch_role(p, w, cta, smem);
+    welch_role<BATCHED>(p, w, cta, tn, smem);
   }
 }
 
@@ -732,6 +780,13 @@ static int plan_smem_bytes(const PlanParams& p, bool lag, bool mom, bool welch) 
   return floats * (int)sizeof(float);
 }
 
+// The grid of a batched launch: `batch` tenants of `tenant_ctas` role CTAs
+// each, tenant-major in blockIdx.x; 0 if it does not fit a grid dimension.
+static unsigned plan_grid(const PlanParams& p, int tenant_ctas) {
+  const long long ctas = (long long)p.batch * tenant_ctas;
+  return (p.batch >= 1 && ctas <= 0x7fffffffLL) ? (unsigned)ctas : 0u;
+}
+
 // Lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB
 // default only on request).
 template <typename Kernel>
@@ -742,9 +797,10 @@ static cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 // --------------------------------------------------- fixed-order reduction
 struct ReduceSection {
-  const float* part;  // (n_parts, count)
-  float* out;         // (count,)
-  int n_parts, count;
+  const float* part;  // per tenant: (n_parts, count), tenants part_stride apart
+  float* out;         // per tenant: (count,), tenants out_stride apart
+  int n_parts, count, batch;
+  long long part_stride, out_stride;
 };
 
 struct ReduceParams {
@@ -752,14 +808,33 @@ struct ReduceParams {
   int n;
 };
 
+// Each output sums its partials in the order q = 0, 1, ...  One problem:
+// the 32-bit loop of the one-problem reduction (a 64-bit index made it 2.5-4
+// times slower at the main path's shapes; PERF.md).  A batch: entry
+// e of the section's batch * count outputs is tenant e / count, entry e %
+// count, in 64 bits.
+template <bool BATCHED>
 static __global__ void __launch_bounds__(RT_THREADS)
 reduce_parts_kernel(ReduceParams r) {
   const ReduceSection s = r.s[blockIdx.y];
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < s.count;
-       e += gridDim.x * blockDim.x) {
+  if (!BATCHED) {
+    for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < s.count;
+         e += gridDim.x * blockDim.x) {
+      float acc = 0.f;
+      for (int q = 0; q < s.n_parts; ++q) acc += s.part[(size_t)q * s.count + e];
+      s.out[e] = acc;
+    }
+    return;
+  }
+  const long long total = (long long)s.batch * s.count;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long tn = e / s.count;
+    const int i = (int)(e - tn * s.count);
+    const float* part = s.part + tn * s.part_stride + i;
     float acc = 0.f;
-    for (int q = 0; q < s.n_parts; ++q) acc += s.part[(size_t)q * s.count + e];
-    s.out[e] = acc;
+    for (int q = 0; q < s.n_parts; ++q) acc += part[(size_t)q * s.count];
+    s.out[tn * s.out_stride + i] = acc;
   }
 }
 
@@ -768,22 +843,34 @@ static cudaError_t reduce_families(const PlanParams& p, bool lag, bool mom,
                                    cudaStream_t stream) {
   ReduceParams r;
   r.n = 0;
-  int most = 1;
-  auto add = [&](const float* part, float* out, int n_parts, int count) {
+  long long most = 1;
+  auto add = [&](const float* part, float* out, int n_parts, int count,
+                 long long part_stride, long long out_stride) {
     r.s[r.n].part = part;
     r.s[r.n].out = out;
     r.s[r.n].n_parts = n_parts;
     r.s[r.n].count = count;
+    r.s[r.n].batch = p.batch;
+    r.s[r.n].part_stride = part_stride;
+    r.s[r.n].out_stride = out_stride;
     ++r.n;
-    most = count > most ? count : most;
+    const long long total = (long long)p.batch * count;
+    most = total > most ? total : most;
   };
-  if (lag) add(p.lag_part, p.lag_out, p.lag_slabs, (p.H + 1) * p.d * p.d);
-  if (mom && p.K > 0) add(p.mom_part, p.mom_out, p.mom_slabs, p.K * 2 * p.d);
-  for (int j = 0; j < p.n_welch; ++j)
-    add(p.welch[j].part, p.welch[j].out, p.welch[j].n_groups, p.welch[j].F * p.d);
+  if (lag)
+    add(p.lag_part, p.lag_out, p.lag_slabs, (p.H + 1) * p.d * p.d, p.lag_part_stride,
+        p.lag_out_stride);
+  if (mom && p.K > 0)
+    add(p.mom_part, p.mom_out, p.mom_slabs, p.K * 2 * p.d, p.mom_part_stride,
+        p.mom_out_stride);
+  for (int j = 0; j < p.n_welch; ++j) {
+    const WelchMember& w = p.welch[j];
+    add(w.part, w.out, w.n_groups, w.F * p.d, w.part_stride, w.out_stride);
+  }
   if (r.n == 0) return cudaSuccess;
-  int blocks = (most + RT_THREADS - 1) / RT_THREADS;
+  long long blocks = (most + RT_THREADS - 1) / RT_THREADS;
   blocks = blocks > 1024 ? 1024 : blocks;
-  reduce_parts_kernel<<<dim3(blocks, r.n), RT_THREADS, 0, stream>>>(r);
+  auto kernel = p.batch > 1 ? reduce_parts_kernel<true> : reduce_parts_kernel<false>;
+  kernel<<<dim3((unsigned)blocks, r.n), RT_THREADS, 0, stream>>>(r);
   return cudaGetLastError();
 }

@@ -22,24 +22,36 @@
 // chunk, the FFT role's), and a register cap of 128 (two CTAs per SM).
 // Each CTA writes a partial; one reduce launch sums them in a fixed order,
 // so repeated runs are bit-identical.
+//
+// Batched (the multi-tenant session's ingest): one launch serves every
+// tenant of an arrival batch, as the reference's vmap gives its pallas_call
+// a leading grid axis.  The grid is tenant-major (stats_tiles.cuh): CTA b
+// serves tenant b / tenant_ctas in the role b % tenant_ctas, with pointers
+// offset by 64-bit per-tenant strides, and the reduce launch sums each
+// tenant's partials in the same fixed order.  At a session's widths (d =
+// 16, a 256-row chunk) each tenant's lag sums run on one slab, so a tenant
+// costs lag_groups lag CTAs, one moment CTA and its Welch groups; the 64 x
+// 64 lag tile is three-quarters padding at d = 16 (PERF.md has the share).
 #include "stats_tiles.cuh"
 
+template <bool BATCHED>
 static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) fused_plan_kernel(PlanParams p) {
   extern __shared__ __align__(16) float smem[];
-  int b = blockIdx.x;
+  const int tn = BATCHED ? blockIdx.x / p.tenant_ctas : 0;
+  int b = blockIdx.x - tn * p.tenant_ctas;
   if (b < p.lag_ctas) {
-    lag_role(p, b, smem);
+    lag_role<BATCHED>(p, b, tn, smem);
     return;
   }
   b -= p.lag_ctas;
   if (b < p.mom_ctas) {
-    moment_role(p, b, smem);
+    moment_role<BATCHED>(p, b, tn, smem);
     return;
   }
   b -= p.mom_ctas;
   for (int j = 0; j < p.n_welch; ++j) {
     if (b < p.welch[j].ctas) {
-      welch_member_role(p, p.welch[j], b, smem);
+      welch_member_role<BATCHED>(p, p.welch[j], b, tn, smem);
       return;
     }
     b -= p.welch[j].ctas;
@@ -48,15 +60,19 @@ static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) fused_plan_ker
 
 extern "C" int rt_fused_plan(const PlanParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int ctas = p->lag_ctas + p->mom_ctas;
-  for (int j = 0; j < p->n_welch; ++j) ctas += p->welch[j].ctas;
-  const int smem = plan_smem_bytes(*p, true, true, true);
-  cudaError_t err = allow_smem(fused_plan_kernel, smem);
+  PlanParams q = *p;
+  q.tenant_ctas = q.lag_ctas + q.mom_ctas;
+  for (int j = 0; j < q.n_welch; ++j) q.tenant_ctas += q.welch[j].ctas;
+  const unsigned grid = plan_grid(q, q.tenant_ctas);
+  if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+  const int smem = plan_smem_bytes(q, true, true, true);
+  auto kernel = q.batch > 1 ? fused_plan_kernel<true> : fused_plan_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_plan_kernel<<<ctas, RT_THREADS, smem, st>>>(*p);
+  kernel<<<grid, RT_THREADS, smem, st>>>(q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)reduce_families(*p, true, true, st);
+  return (int)reduce_families(q, true, true, st);
 }
 
 // Struct sizes, checked against the ctypes mirrors when the library loads.

@@ -38,12 +38,12 @@
 static __global__ void __launch_bounds__(RT_THREADS, RT_FFT_MIN_CTAS)
 segment_power_fft_kernel(PlanParams p) {
   extern __shared__ __align__(16) float smem[];
-  welch_fft_role(p, p.welch[0], blockIdx.x, smem);
+  welch_fft_role<false>(p, p.welch[0], blockIdx.x, 0, smem);
 }
 
 static __global__ void __launch_bounds__(RT_THREADS) segment_power_kernel(PlanParams p) {
   extern __shared__ __align__(16) float smem[];
-  welch_role(p, p.welch[0], blockIdx.x, smem);
+  welch_role<false>(p, p.welch[0], blockIdx.x, 0, smem);
 }
 
 #define CSD_PLANE (RT_FT * RT_TILE)

@@ -92,40 +92,59 @@ struct MomentParams {
   int ctas;        // ceil(ceil(n_out / chain) * d / RT_THREADS)
 };
 
+// Both PlanParams kernels take a batch of tenants on a tenant-major grid
+// (stats_tiles.cuh); at batch 1 they are the one-problem launches.  Kernel 3
+// at a batch above 1 runs here at H = 0 too (lag_moments_sym_kernel below
+// is built for one large problem).
+template <bool BATCHED>
 static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) cross_lag_kernel(PlanParams p) {
   extern __shared__ __align__(16) float smem[];
-  lag_role(p, blockIdx.x, smem);
+  const int tn = BATCHED ? blockIdx.x / p.tenant_ctas : 0;
+  lag_role<BATCHED>(p, blockIdx.x - tn * p.tenant_ctas, tn, smem);
 }
 
+template <bool BATCHED>
 static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) fused_lag_moments_kernel(PlanParams p) {
   extern __shared__ __align__(16) float smem[];
-  if ((int)blockIdx.x < p.lag_ctas) {
-    lag_role(p, blockIdx.x, smem);
+  const int tn = BATCHED ? blockIdx.x / p.tenant_ctas : 0;
+  const int b = blockIdx.x - tn * p.tenant_ctas;
+  if (b < p.lag_ctas) {
+    lag_role<BATCHED>(p, b, tn, smem);
   } else {
-    moment_role(p, blockIdx.x - p.lag_ctas, smem);
+    moment_role<BATCHED>(p, b - p.lag_ctas, tn, smem);
   }
 }
 
 extern "C" int rt_cross_lag_sums(const PlanParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = plan_smem_bytes(*p, true, false, false);
-  cudaError_t err = allow_smem(cross_lag_kernel, smem);
+  PlanParams q = *p;
+  q.tenant_ctas = q.lag_ctas;
+  const unsigned grid = plan_grid(q, q.tenant_ctas);
+  if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+  const int smem = plan_smem_bytes(q, true, false, false);
+  auto kernel = q.batch > 1 ? cross_lag_kernel<true> : cross_lag_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cross_lag_kernel<<<p->lag_ctas, RT_THREADS, smem, st>>>(*p);
+  kernel<<<grid, RT_THREADS, smem, st>>>(q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)reduce_families(*p, true, false, st);
+  return (int)reduce_families(q, true, false, st);
 }
 
 extern "C" int rt_fused_lag_moments(const PlanParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = plan_smem_bytes(*p, true, true, false);
-  cudaError_t err = allow_smem(fused_lag_moments_kernel, smem);
+  PlanParams q = *p;
+  q.tenant_ctas = q.lag_ctas + q.mom_ctas;
+  const unsigned grid = plan_grid(q, q.tenant_ctas);
+  if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+  const int smem = plan_smem_bytes(q, true, true, false);
+  auto kernel = q.batch > 1 ? fused_lag_moments_kernel<true> : fused_lag_moments_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_lag_moments_kernel<<<p->lag_ctas + p->mom_ctas, RT_THREADS, smem, st>>>(*p);
+  kernel<<<grid, RT_THREADS, smem, st>>>(q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)reduce_families(*p, true, true, st);
+  return (int)reduce_families(q, true, true, st);
 }
 
 // ------------------------------------------------ kernel 3 at H = 0

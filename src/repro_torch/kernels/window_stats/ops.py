@@ -14,6 +14,12 @@ Kernels (``csrc/window_stats.cu``):
     symmetric path (``lag_moments_sym_kernel``, grid :func:`sym_shape`);
   * ``window_moments`` -- rolling [sum x, sum x^2] per window start; serves
     ``windowed_moments``.
+
+``masked_lagged_sums`` and ``fused_lagged_moments`` also take a leading
+tenant axis (y (B, rows, d), mask (B, L)): one launch serves every tenant of
+a multi-tenant session's batched finalize.  Batched kernel 3 runs the
+two-role kernel at every lag (the symmetric path is built for one large
+problem), except at B = 1, where it is the one-problem launch.
 """
 from __future__ import annotations
 
@@ -39,15 +45,19 @@ FUSED_LAG_MOMENTS = register(Kernel("fused_lag_moments", "rt_fused_lag_moments")
 WINDOW_MOMENTS = register(Kernel("window_moments", "rt_window_moments"))
 
 
-def prepare_cross_lagged_sums(a: torch.Tensor, b: torch.Tensor, max_lag: int) -> Prepared:
+def prepare_cross_lagged_sums(a: torch.Tensor, b: torch.Tensor, max_lag: int,
+                              sms: "int | None" = None) -> Prepared:
     """S(h) = sum_{t<n} a_t b_{t+h}^T with a (n, d) and b (n + max_lag, d),
-    both contiguous float32 on one device; ``.launch()`` returns S."""
-    n, d = a.shape
-    require(a, "a", (n, d))
-    require(b, "b", (n + max_lag, d))
+    both contiguous float32 on one device -- or (B, n, d) and (B, n +
+    max_lag, d), one problem per tenant in one launch; ``.launch()``
+    returns S ((B, max_lag+1, d, d) batched).  ``sms``: as in
+    ``fused_plan.ops.prepare_fused_plan``."""
+    lead, (n, d) = tuple(a.shape[:-2]), a.shape[-2:]
+    require(a, "a", (n, d), lead=lead)
+    require(b, "b", (n + max_lag, d), lead=lead)
     p = new_params(b, n)
-    p.a = a.data_ptr()
-    part, out = add_lag(p, max_lag, sm_count(b.device), b.device)
+    p.a, p.a_stride = a.data_ptr(), (n * d if lead else 0)
+    part, out = add_lag(p, max_lag, sms or sm_count(b.device), b.device)
     return Prepared(CROSS_WINDOW_STATS, p, b.device, out, (a, b, part))
 
 
@@ -131,24 +141,32 @@ def _prepare_lag_moments_sym(y: torch.Tensor, start_mask: torch.Tensor, windows:
 
 
 def prepare_fused_lag_moments(y: torch.Tensor, start_mask: torch.Tensor, max_lag: int,
-                              windows: tuple) -> Prepared:
+                              windows: tuple, sms: "int | None" = None) -> Prepared:
     """Masked lag sums and K-window moment sums.  ``y`` is (L + reach, d)
     contiguous float32, reach = max(max_lag, max(windows) - 1);
-    ``start_mask`` is (L,) bool.  ``.launch()`` returns (lag, mom (K, 2, d)).
-    At max_lag = 0 the launch is the symmetric path's (S(0) exactly
-    symmetric), else the lag groups' with its reduction."""
-    L = start_mask.shape[0]
+    ``start_mask`` is (L,) bool; or (B, L + reach, d) and (B, L), one
+    problem per tenant.  ``.launch()`` returns (lag, mom (K, 2, d)), with a
+    leading tenant axis when batched.  At max_lag = 0 and one problem the
+    launch is the symmetric path's (S(0) exactly symmetric), else the two
+    roles' (lag groups and moment slabs) with its reduction.  ``sms``: as in
+    ``fused_plan.ops.prepare_fused_plan`` (the two-role launch only)."""
+    lead, L = tuple(y.shape[:-2]), start_mask.shape[-1]
     reach = max(max_lag, max(windows) - 1)
-    require(y, "y", (L + reach, y.shape[1]))
-    require(start_mask, "start_mask", (L,), torch.bool)
+    require(y, "y", (L + reach, y.shape[-1]), lead=lead)
+    require(start_mask, "start_mask", (L,), torch.bool, lead)
     check_window_count(windows)
-    if max_lag == 0:
-        return _prepare_lag_moments_sym(y, start_mask, windows, L + max(windows) - 1)
+    if max_lag == 0 and lead in ((), (1,)):
+        prep = _prepare_lag_moments_sym(y[0] if lead else y,
+                                        start_mask[0] if lead else start_mask,
+                                        windows, L + max(windows) - 1)
+        if lead:
+            prep.out = tuple(t[None] for t in prep.out)
+        return prep
     m = start_mask.float()
-    prefix = torch.nn.functional.pad(torch.cumsum(start_mask, 0, dtype=torch.int32), (1, 0))
+    prefix = torch.nn.functional.pad(torch.cumsum(start_mask, -1, dtype=torch.int32), (1, 0))
     p = new_params(y, L)
-    p.m = m.data_ptr()
-    sms = sm_count(y.device)
+    p.m, p.m_stride = m.data_ptr(), (L if lead else 0)
+    sms = sms or sm_count(y.device)
     lag_part, lag = add_lag(p, max_lag, sms, y.device)
     mom_part, mom = add_moments(p, windows, prefix, L + max(windows) - 1, sms, y.device)
     return Prepared(FUSED_LAG_MOMENTS, p, y.device, (lag, mom),
@@ -216,10 +234,11 @@ def masked_lagged_sums(y_padded: torch.Tensor, start_mask: torch.Tensor,
                        max_lag: int) -> torch.Tensor:
     """sum_{s: start_mask[s]} y_s y_{s+h}^T -- the streaming chunk-kernel
     form: a cross-lagged sum of the mask-zeroed head rows against the
-    zero-extended series."""
-    L = start_mask.shape[0]
-    y = extend_rows(as_2d(y_padded).float(), L + max_lag)[: L + max_lag]
-    head = torch.where(start_mask[:, None], y[:L], 0.0)
+    zero-extended series.  A leading tenant axis (y (B, rows, d), mask (B,
+    L)) is one launch for every tenant."""
+    L = start_mask.shape[-1]
+    y = extend_rows(as_2d(y_padded).float(), L + max_lag)[..., : L + max_lag, :]
+    head = torch.where(start_mask[..., None], y[..., :L, :], 0.0)
     if not on_cuda(y, start_mask):
         return cross_lagged_sums_ref(head, y, max_lag)
     return prepare_cross_lagged_sums(head.contiguous(), y.contiguous(), max_lag).launch()
@@ -230,14 +249,15 @@ def fused_lagged_moments(y_padded: torch.Tensor, start_mask: torch.Tensor,
     """Masked lagged sums AND masked windowed-moment sums from one launch.
 
     Returns lag (max_lag+1, d, d) and mom: (2, d) for an int window,
-    (K, 2, d) for a tuple of distinct windows.
+    (K, 2, d) for a tuple of distinct windows; each with a leading tenant
+    axis for y (B, rows, d) and mask (B, L).
     """
     windows, single = normalize_windows(window)
-    L = start_mask.shape[0]
+    L = start_mask.shape[-1]
     reach = max(max_lag, max(windows) - 1)
-    y = extend_rows(as_2d(y_padded).float(), L + reach)[: L + reach]
+    y = extend_rows(as_2d(y_padded).float(), L + reach)[..., : L + reach, :]
     if not on_cuda(y, start_mask):
         return fused_lag_moments_ref(y, start_mask, max_lag, window)
     lag, mom = prepare_fused_lag_moments(y.contiguous(), start_mask.contiguous(),
                                          max_lag, windows).launch()
-    return lag, (mom[0] if single else mom)
+    return lag, (mom[..., 0, :, :] if single else mom)

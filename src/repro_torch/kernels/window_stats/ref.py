@@ -4,7 +4,9 @@ Port of `repro.kernels.window_stats.ref` and of the `JnpBackend` formulas
 for the same primitives: one einsum per lag for the lagged sums, one
 cumulative sum shared by every moment window.  The kernel wrappers in
 ``ops.py`` use these for CPU tensors; the ``"torch"`` backend uses them on
-any device.
+any device.  Every function but ``window_moments_ref`` takes leading batch
+axes (a multi-tenant session's tenants: series (B, rows, d), masks (B, L)),
+broadcast as the reference's ``vmap`` would.
 """
 from __future__ import annotations
 
@@ -38,19 +40,19 @@ def as_2d(x: torch.Tensor) -> torch.Tensor:
 
 
 def extend_rows(y: torch.Tensor, rows: int) -> torch.Tensor:
-    """Zero-extend (n, d) to at least ``rows`` rows."""
-    if y.shape[0] >= rows:
+    """Zero-extend (..., n, d) to at least ``rows`` rows."""
+    if y.shape[-2] >= rows:
         return y
-    return torch.nn.functional.pad(y, (0, 0, 0, rows - y.shape[0]))
+    return torch.nn.functional.pad(y, (0, 0, 0, rows - y.shape[-2]))
 
 
 def cross_lagged_sums_ref(a: torch.Tensor, b: torch.Tensor, max_lag: int) -> torch.Tensor:
     """S(h) = sum_{t<n} a_t b_{t+h}^T for h = 0..max_lag; ``b`` holds at
-    least n + max_lag rows.  Returns (max_lag+1, d, d) float32."""
-    n = a.shape[0]
+    least n + max_lag rows.  Returns (..., max_lag+1, d, d) float32."""
+    n = a.shape[-2]
     return torch.stack(
-        [torch.einsum("ti,tj->ij", a, b[h: h + n]) for h in range(max_lag + 1)]
-    )
+        [torch.einsum("...ti,...tj->...ij", a, b[..., h: h + n, :])
+         for h in range(max_lag + 1)], -3)
 
 
 def lagged_sums_ref(x: torch.Tensor, max_lag: int) -> torch.Tensor:
@@ -62,9 +64,9 @@ def lagged_sums_ref(x: torch.Tensor, max_lag: int) -> torch.Tensor:
 def masked_lagged_sums_ref(y_padded: torch.Tensor, start_mask: torch.Tensor,
                            max_lag: int) -> torch.Tensor:
     """sum_{s: start_mask[s]} y_s y_{s+h}^T, zero-extending ``y_padded``."""
-    L = start_mask.shape[0]
+    L = start_mask.shape[-1]
     y = extend_rows(as_2d(y_padded).float(), L + max_lag)
-    head = torch.where(start_mask[:, None], y[:L], 0.0)
+    head = torch.where(start_mask[..., None], y[..., :L, :], 0.0)
     return cross_lagged_sums_ref(head, y, max_lag)
 
 
@@ -74,22 +76,22 @@ def fused_lag_moments_ref(y_padded: torch.Tensor, start_mask: torch.Tensor,
     [y_{s+j}, y_{s+j}^2]: (2, d) for an int window, (K, 2, d) for a tuple.
     One cumulative sum is shared by every window (`JnpBackend` formula)."""
     windows, single = normalize_windows(window)
-    L = start_mask.shape[0]
+    L = start_mask.shape[-1]
     w_max = max(windows)
     y = extend_rows(as_2d(y_padded).float(), L + max(max_lag, w_max - 1))
     lag = masked_lagged_sums_ref(y, start_mask, max_lag)
-    zero = y.new_zeros((1, y.shape[1]))
-    rows = y[: L + w_max - 1]
-    cs = torch.cat([zero, torch.cumsum(rows, 0)])
-    cs2 = torch.cat([zero, torch.cumsum(rows * rows, 0)])
-    m = start_mask.float()[:, None]
+    zero = y.new_zeros(y.shape[:-2] + (1, y.shape[-1]))
+    rows = y[..., : L + w_max - 1, :]
+    cs = torch.cat([zero, torch.cumsum(rows, -2)], -2)
+    cs2 = torch.cat([zero, torch.cumsum(rows * rows, -2)], -2)
+    m = start_mask.float()[..., None]
     moms = []
     for w in windows:
-        s1 = cs[w: L + w] - cs[:L]
-        s2 = cs2[w: L + w] - cs2[:L]
-        moms.append(torch.stack([(m * s1).sum(0), (m * s2).sum(0)]))
-    mom = torch.stack(moms)
-    return lag, (mom[0] if single else mom)
+        s1 = cs[..., w: L + w, :] - cs[..., :L, :]
+        s2 = cs2[..., w: L + w, :] - cs2[..., :L, :]
+        moms.append(torch.stack([(m * s1).sum(-2), (m * s2).sum(-2)], -2))
+    mom = torch.stack(moms, -3)
+    return lag, (mom[..., 0, :, :] if single else mom)
 
 
 def window_moments_ref(x: torch.Tensor, window: int, dtype=torch.float64) -> torch.Tensor:

@@ -530,3 +530,126 @@ def test_reduced_generate_kernel_path_matches_plain_path(dev, dtype):
     assert err <= (1e-4 if dtype == torch.float32 else 3e-2)
     if dtype == torch.float32:
         np.testing.assert_array_equal(served.tokens, want.argmax(-1).cpu().numpy())
+
+
+# ------------------------------- batched kernels 1-4 (the tenant axis)
+def _tenants(dev, B, n, d, reach, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    y = torch.randn((B, n + reach, d), generator=g, device=dev)
+    mask = torch.rand((B, n), generator=g, device=dev) < 0.8
+    z0 = torch.randint(0, 1000, (B,), generator=g, device=dev, dtype=torch.int32)
+    return y, mask, z0
+
+
+def _unbatched_bitwise(batched_out, one_out):
+    flat = lambda t: [x for v in t for x in (v if isinstance(v, tuple) else (v,))]
+    return all(torch.equal(a[0], b) for a, b in zip(flat(batched_out), flat(one_out)))
+
+
+@pytest.mark.parametrize("B,n,d,H", [(1, 600, 70, 9), (5, 600, 70, 9), (37, 256, 16, 16)])
+def test_batched_megakernel_matches_plain(dev, B, n, d, H):
+    """One launch for B tenants against the plain batched version; at B = 1
+    bitwise the one-problem launch; repeated, bitwise the same."""
+    taper = torch.hann_window(64, periodic=True, device=dev)
+    y, mask, z0 = _tenants(dev, B, n, d, 127)
+    args = (y, mask, z0, H, (32, 128), (64,), (32,), (taper,))
+    reset_launch_counts()
+    got = fp.fused_plan_update(*args)
+    assert launch_counts()["fused_plan_megakernel"] == 1
+    want = fpr.fused_plan_update_ref(*args)
+    for b in range(B):
+        _close((got[0][b], got[1][b], got[2][0][b]), (want[0][b], want[1][b], want[2][0][b]),
+               1e-4)
+    assert torch.equal(got[3][0], want[3][0])
+    again = fp.fused_plan_update(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again[:2] + again[2], got[:2] + got[2]))
+    if B == 1:
+        one = fp.fused_plan_update(y[0], mask[0], z0[0], *args[3:])
+        assert _unbatched_bitwise(got[:3], one[:3])
+
+
+@pytest.mark.parametrize("B,max_lag", [(1, 0), (1, 3), (6, 0), (6, 3), (300, 16)])
+def test_batched_lag_and_moment_kernels_match_plain(dev, B, max_lag):
+    """Kernels 2 and 3 over a tenant axis (kernel 3 through the two-role
+    kernel for B > 1) against their plain batched versions; at B = 1
+    bitwise the one-problem launches."""
+    y, mask, _ = _tenants(dev, B, 127, 16, max(max_lag, 63), seed=1)
+    reset_launch_counts()
+    lag = ws.masked_lagged_sums(y, mask, max_lag)
+    mom = ws.fused_lagged_moments(y, mask, max_lag, (32, 64))
+    counts = launch_counts()
+    assert counts["cross_window_stats"] == 1 and counts["fused_lag_moments"] == 1
+    want_lag = wsr.masked_lagged_sums_ref(y, mask, max_lag)
+    want_mom = wsr.fused_lag_moments_ref(y, mask, max_lag, (32, 64))
+    for b in range(B):
+        _close(lag[b], want_lag[b], 1e-4)
+        _close((mom[0][b], mom[1][b]), (want_mom[0][b], want_mom[1][b]), 1e-4)
+    if B == 1:
+        assert torch.equal(lag[0], ws.masked_lagged_sums(y[0], mask[0], max_lag))
+        one = ws.fused_lagged_moments(y[0], mask[0], max_lag, (32, 64))
+        assert torch.equal(mom[0][0], one[0]) and torch.equal(mom[1][0], one[1])
+
+
+def test_batched_launch_takes_more_than_65535_tenants(dev):
+    """70,000 tenants in one launch of kernels 1 and 2 (the tenant folds into
+    blockIdx.x; no grid dimension limits it), every tenant against the plain
+    version."""
+    B = 70000
+    taper = torch.hann_window(8, periodic=True, device=dev)
+    y, mask, z0 = _tenants(dev, B, 24, 3, 7, seed=2)
+    args = (y, mask, z0, 2, (4, 8), (8,), (4,), (taper,))
+    reset_launch_counts()
+    got = fp.fused_plan_update(*args)
+    lag = ws.masked_lagged_sums(y, mask, 2)
+    counts = launch_counts()
+    assert counts["fused_plan_megakernel"] == 1 and counts["cross_window_stats"] == 1
+    want = fpr.fused_plan_update_ref(*args)
+    for a, b in ((got[0], want[0]), (got[1], want[1]), (got[2][0], want[2][0]),
+                 (lag, want[0])):
+        scale = b.abs().flatten(1).amax(1).clamp_min(1e-30)
+        assert bool(((a - b).abs().flatten(1).amax(1) <= 1e-4 * scale).all())
+
+
+def test_session_on_the_card_matches_the_cpu_session(dev):
+    """A FrameSession on the card (growing and eviction mode) against the
+    same session on the CPU (plain versions): query and query_batch; each
+    ingest two megakernel launches, each batched query one launch of kernel
+    2 per lag member, one of kernel 3 and one of kernel 4."""
+    from repro_torch import FrameSession
+
+    def session(device, **kw):
+        sess = FrameSession(d=4, num_users=9, device=device, **kw)
+        sess.autocovariance(6)
+        sess.yule_walker(3)
+        sess.moments(16)
+        sess.moments(64)
+        sess.welch(nperseg=32, overlap=16)
+        return sess
+
+    g = np.random.default_rng(0)
+    for kw in ({}, {"window": 256, "num_buckets": 4}):
+        card, cpu = session(dev, **kw), session("cpu", **kw)
+        for tick in range(6):
+            ids = g.permutation(9)[:7]
+            chunk = g.standard_normal((7, 64, 4)).astype(np.float32)
+            reset_launch_counts()
+            card.ingest(ids, chunk)
+            assert launch_counts()["fused_plan_megakernel"] == 2
+            cpu.ingest(ids, chunk)
+        reset_launch_counts()
+        got = card.query_batch(np.arange(9))
+        counts = launch_counts()
+        assert counts["cross_window_stats"] == 2 and counts["segment_dft_power"] == 1
+        assert counts["fused_lag_moments"] == 1
+        want = cpu.query_batch(np.arange(9))
+        np.testing.assert_allclose(got["autocovariance"].cpu(), want["autocovariance"],
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got["welch"][1].cpu(), want["welch"][1], rtol=1e-4,
+                                   atol=1e-4)
+        for key in ("mean", "var", "count"):
+            np.testing.assert_allclose(got["moments"][key].cpu(), want["moments"][key],
+                                       rtol=1e-5, atol=1e-5)
+        one = card.query(3)
+        np.testing.assert_allclose(one["yule_walker"][0].cpu(), want["yule_walker"][0][3],
+                                   rtol=1e-3, atol=1e-4)

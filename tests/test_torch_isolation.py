@@ -44,6 +44,37 @@ def test_imports_and_runs_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_session_runs_without_jax():
+    """The multi-tenant session, its service and the integrity checks with
+    JAX and the reference package unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import numpy as np, torch, repro_torch\n"
+        "from repro_torch.core import integrity\n"
+        "from repro_torch.serving import rolling\n"
+        "s = repro_torch.FrameSession(d=2, num_users=3, window=64, num_buckets=4, device='cpu')\n"
+        "s.autocovariance(3); s.moments(8); s.welch(16, 8)\n"
+        "x = np.random.default_rng(0).standard_normal((3, 16, 2)).astype('float32')\n"
+        "verdict, clean = integrity.sentinel_scan(torch.from_numpy(x))\n"
+        "s.ingest(np.arange(3), clean); s.ingest([2, 0], x[:2])\n"
+        "out = s.query_batch([0, 2])\n"
+        "assert out['autocovariance'].shape == (2, 4, 2, 2) and verdict.all()\n"
+        "t = repro_torch.FrameSession(d=2, num_users=3, window=64, num_buckets=4, device='cpu')\n"
+        "t.autocovariance(3); t.moments(8); t.welch(16, 8)\n"
+        "t.import_state(repro_torch.session_state_from_numpy("
+        "repro_torch.session_state_to_numpy(s.export_state())))\n"
+        "assert (t.query(2)['welch'][1] == s.query(2)['welch'][1]).all() and t.audit().all()\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_no_source_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
@@ -58,7 +89,8 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a GPU is present: the default device is usable here")
     import numpy as np
 
-    from repro_torch import BandedARModel, ServeEngine, SeriesFrame, StatPlan, analyze, get_arch
+    from repro_torch import (BandedARModel, FrameSession, ServeEngine, SeriesFrame, StatPlan,
+                             analyze, get_arch)
     from repro_torch.core.backend import get_backend
     from repro_torch.core.estimators.spectral import hann_window, welch_chunk_kernel
     from repro_torch.core.plan import autocovariance_request
@@ -70,6 +102,7 @@ def test_entry_points_default_to_the_card():
     cpu_model = init_params(cfg, device="cpu")
     tree = params_to_numpy(cpu_model)
     for call in (lambda: SeriesFrame.from_array(x), lambda: SeriesFrame.from_chunks([x]),
+                 lambda: FrameSession(d=2, num_users=4),
                  lambda: StatPlan([autocovariance_request(2)], d=2),
                  lambda: analyze(x, [autocovariance_request(2)]), lambda: get_backend(),
                  lambda: BandedARModel.from_numpy(np.zeros((4, 3))), lambda: hann_window(8),

@@ -245,9 +245,12 @@ def test_struct_mirrors_have_the_c_layout():
     built library at load time on the card)."""
     import ctypes
 
-    assert ctypes.sizeof(_build.WelchMember) == 7 * 8 + 12 * 4
+    # seven pointers, twelve ints, then the three 64-bit per-tenant strides
+    assert ctypes.sizeof(_build.WelchMember) == 7 * 8 + 12 * 4 + 3 * 8
     assert _build.PlanParams.welch.offset % 8 == 0
-    assert ctypes.sizeof(_build.PlanParams) == _build.PlanParams.detrend.offset + 8
+    # detrend, batch and tenant_ctas, padded to 8 bytes, then eight strides
+    assert _build.PlanParams.y_stride.offset == _build.PlanParams.detrend.offset + 16
+    assert ctypes.sizeof(_build.PlanParams) == _build.PlanParams.y_stride.offset + 8 * 8
 
 
 def test_python_constants_match_the_c_defines():

@@ -4,6 +4,7 @@ against the port's plain version.
     python3 tools/kernel_variants/variants_bench.py [moments|all]
     python3 tools/kernel_variants/variants_bench.py banded [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py stats BASELINE_KERNELS_DIR
+    python3 tools/kernel_variants/variants_bench.py turns BASELINE_KERNELS_DIR
     python3 tools/kernel_variants/variants_bench.py lagmom [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py split [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py swa
@@ -46,6 +47,10 @@ the median of 5 samples of a CUDA graph of 8 prepared launches (kernels
 1-4, on 8 distinct chunks: a cold 134 MB) or of one launch (kernels 5-8),
 replayed 10 times.  Writes every sample to
 build/kernel_variants/variants_stats.json (``swa``: variants_swa.json).
+
+turns: the first part of ``stats`` alone (every kernel against the
+baseline's in turns, with their bitwise equality), about a minute of
+command time; samples go to build/kernel_variants/variants_turns.json.
 
 lagmom: kernel 3's symmetric path (H = 0) at the main path's chunk (y (66,559,
 64), 65,536 starts, windows (64, 1,024)), the moments finalize's tail (y
@@ -758,7 +763,7 @@ def split(new, old, series, dev) -> dict:
     return record
 
 
-def stats(baseline_dir: str, gen, dev) -> None:
+def stats(baseline_dir: str, gen, dev, turns_only: bool = False) -> None:
     from repro_torch.core.estimators.spectral import hann_window
     from repro_torch.kernels.fused_plan.ref import welch_candidates
     from repro_torch.kernels.segment_dft.ref import dft_power_matrices
@@ -861,6 +866,11 @@ def stats(baseline_dir: str, gen, dev) -> None:
               f"{rep['this']['wins_over_first']} of {2 * STATS_ROUNDS} paired turns, "
               f"max rel diff {err:.2e}, bitwise equal {same}", flush=True)
     del g7
+    if turns_only:
+        os.makedirs(OUT, exist_ok=True)
+        with open(os.path.join(OUT, "variants_turns.json"), "w") as f:
+            json.dump(record, f, indent=1)
+        return
     record["lagmom"] = lagmom(new, old, series, gen, dev)
     record["split"] = split(new, old, series, dev)
 
@@ -1154,10 +1164,10 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip() or torch.cuda.get_device_name(0), flush=True)
-    if which == "stats":
+    if which in ("stats", "turns"):
         if len(sys.argv) < 3:
-            sys.exit("stats needs the baseline kernels directory")
-        stats(sys.argv[2], gen, dev)
+            sys.exit(f"{which} needs the baseline kernels directory")
+        stats(sys.argv[2], gen, dev, turns_only=which == "turns")
         return
     if which in ("lagmom", "split"):
         new = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
