@@ -7,14 +7,16 @@ statistics plan end to end at full width through ``SeriesFrame``, runs the
 single-family plans, then the three further statistics paths -- the §6
 banded spatial AR fit, rolling moments and cross-spectra -- times kernels
 1-7 and 7b (the gradient of kernel 7's diagonals; kernel 3 also at the
-moments finalize's tail), drives the multi-tenant session (FrameSession
-over RollingStatsService: kernels 1-4 launched once per arrival batch and
-per batched query for every tenant), then checks and times
-kernel 8 (sliding-window attention) and serves
-h2o-danube-1.8b at full width and depth through ``ServeEngine.generate``,
-printing one JSON line per phase.  The second-to-last line lists the
-kernels; the last line names the device and is printed only when every
-phase passed.
+moments finalize's tail), drives the overlapping block store
+(``SeriesFrame.from_sharded`` over ``TimeSeriesStore``: kernel 1 launched
+once per collect for every block, kernel 2 once per
+``autocovariance_blocked``), the multi-tenant session (FrameSession over
+RollingStatsService: kernels 1-4 launched once per arrival batch and per
+batched query for every tenant), then checks and times kernel 8
+(sliding-window attention) and serves h2o-danube-1.8b at full width and
+depth through ``ServeEngine.generate``, printing one JSON line per phase.
+The second-to-last line lists the kernels; the last line names the device
+and is printed only when every phase passed.
 
     python3 chip_smoke.py [--seed 0] [--chunks 64]
 
@@ -24,9 +26,10 @@ yule_walker(8), arma(2, 1), moments(64), moments(1024), welch(256, 128).
 Rolling moments (w = 64, 1024) run over the same series, cross-spectra over
 its first 131,072 rows (nperseg 256, overlap 128), and the spatial fit over
 a banded AR(1) of d = 131,072, b = 4, simulated for 2,048 steps.  The
-session: 65,536 tenants of d = 16, 8 ticks of 256 rows each, plan
-autocovariance(16), yule_walker(8), moments(32), moments(128), welch(64,
-32), then an eviction
+store holds the same series in 512 blocks of 8,192 rows plus the plan's
+1,023-row halo; one 65,536-row append doubles it.  The session: 65,536
+tenants of d = 16, 8 ticks of 256 rows each, plan autocovariance(16),
+yule_walker(8), moments(32), moments(128), welch(64, 32), then an eviction
 session of 16,384 tenants over a 2,048-sample ring of 8 buckets.  Serving:
 h2o-danube-1.8b (24 layers, d_model 2560, 32 query / 8 KV heads of 80,
 window 4096) in bf16 with random weights from ``--seed``, 4 prompts of
@@ -176,6 +179,18 @@ SESSION_LAGS, SESSION_YW, SESSION_WINDOWS, SESSION_WELCH = 16, 8, (32, 128), (64
 SESSION_TOL = {"autocovariance": (1e-4, 1e-4), "yule_walker": (1e-3, 1e-4),
                "moments": (1e-5, 1e-5), "welch": (1e-4, 1e-4)}
 
+# The overlapping block store (TimeSeriesStore, SeriesFrame.from_sharded) on
+# the fused plan phase's series and plan: blocks of STORE_BLOCK rows (the
+# reference's default), the plan's halo h_right = CARRY = 1,023 (width
+# 9,215), so 2^22 samples are 512 blocks (1.21 GB; replication overhead
+# 0.1248).  A collect launches kernel 1 once for every block, then the
+# finalize tails (kernel 2 three times, 3 and 4 once).  The planted fault:
+# the first halo row of the middle block (255 of 512) zeroed in a copy of the
+# store.
+STORE_BLOCK = 8192
+STORE_COLLECT_LAUNCHES = {"fused_plan_megakernel": 1, "cross_window_stats": 3,
+                          "fused_lag_moments": 1, "segment_dft_power": 1}
+
 KERNEL_INFO = {
     "fused_plan_megakernel": ("src/repro_torch/kernels/fused_plan/csrc/fused_plan.cu",
                               "src/repro/kernels/fused_plan/kernel.py:145"),
@@ -197,6 +212,22 @@ KERNEL_INFO = {
     "swa_attention": ("src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
                       "src/repro/kernels/swa_attention/kernel.py:90"),
 }
+
+
+# The fused plan of the main path and the store, and each member's tolerance.
+MEMBER_TOL = {"autocovariance": TOL["lag"], "yule_walker": TOL["fit"], "arma": TOL["fit"],
+              "moments": TOL["moments"], "moments_2": TOL["moments"], "welch": TOL["psd"]}
+
+
+def declare_plan(frame):
+    """The main path's six requests on ``frame``."""
+    frame.autocovariance(H)
+    frame.yule_walker(P_YW)
+    frame.arma(2, 1)
+    frame.moments(WINDOWS[0])
+    frame.moments(WINDOWS[1])
+    frame.welch(nperseg=NPERSEG, overlap=OVERLAP)
+    return frame
 
 
 def emit(obj) -> None:
@@ -1086,13 +1117,8 @@ def stats_paths(args, dev, lagmom_fault) -> dict:
     chunks = list(series.split(CHUNK))
 
     def run_plan(backend, chunk_list):
-        frame = SeriesFrame.from_chunks(chunk_list[:-1], backend=backend, device=dev)
-        frame.autocovariance(H)
-        frame.yule_walker(P_YW)
-        frame.arma(2, 1)
-        frame.moments(WINDOWS[0])
-        frame.moments(WINDOWS[1])
-        frame.welch(nperseg=NPERSEG, overlap=OVERLAP)
+        frame = declare_plan(SeriesFrame.from_chunks(chunk_list[:-1], backend=backend,
+                                                     device=dev))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         first = frame.collect()
@@ -1120,12 +1146,9 @@ def stats_paths(args, dev, lagmom_fault) -> dict:
     # its wall time (the run includes frame set-up, collect, append, collect)
     busy_by_kernel, busy_ms, wall_ms = device_split(lambda: run_plan("cuda", chunks), calls=1)
 
-    member_tol = {"autocovariance": TOL["lag"], "yule_walker": TOL["fit"],
-                  "arma": TOL["fit"], "moments": TOL["moments"],
-                  "moments_2": TOL["moments"], "welch": TOL["psd"]}
     members = {}
     for tag, got, want in (("collect", first, plain_first), ("append", second, plain_second)):
-        for name, tol in member_tol.items():
+        for name, tol in MEMBER_TOL.items():
             members[f"{tag}/{name}"] = compare(got[name], want[name], tol)
         members[f"{tag}/welch_per_bin"] = power_bin_error(got["welch"][1], want["welch"][1],
                                                           False)
@@ -1705,6 +1728,292 @@ def stats_paths(args, dev, lagmom_fault) -> dict:
                 "window_moments": rolling_launches, "segment_csd": csd_launches}
     return {"parity": parity, "timing": timing, "bounds": bounds, "launches": launches}
 
+
+
+# ------------------------------------------------------------- the store
+def lag_library_stacked(a, b):
+    """Kernel 2's S(h) for h = 0..H over a leading block axis as one fp32
+    GEMM over an unfolded view, the lags stacked into the rows: (P, (H+1) d,
+    n) @ (P, n, d) (PyTorch copies the overlapping view, H+1 times the
+    blocks, before the GEMM); returns (P, H+1, d, d)."""
+    P, n, d = a.shape
+    rows = b.unfold(1, n, 1).reshape(P, -1, n)
+    return torch.matmul(rows, a).view(P, -1, d, d).transpose(-1, -2)
+
+
+def store_phase(args, dev) -> dict:
+    """The overlapping block store at full width: the fused plan over
+    ``SeriesFrame.from_sharded`` (one launch of kernel 1 for every block)
+    against the chunk path's collect in the same call; a repeat bitwise;
+    ``autocovariance_blocked`` (one launch of kernel 2) and
+    ``StreamingEstimator.from_store``; an append (the store grows in place,
+    bitwise a fresh placement; the collect after it walks the chunk only) and
+    a replan over the grown store; a planted halo fault caught.  Times the
+    collects (wall, device busy share), the batched launches of kernels 1
+    and 2 over the blocks beside their plain and library versions and their
+    bounds, and ``append_rows``.  Returns {"launches": the collect's launch
+    counts, "kernels": the batched rows}."""
+    from repro_torch import SeriesFrame, StreamingEstimator, TimeSeriesStore
+    from repro_torch.core.estimators.spectral import hann_window
+    from repro_torch.core.estimators.stats import (autocovariance_blocked, lag_sum_engine,
+                                                   streaming_autocovariance)
+    from repro_torch.core.overlap import OverlapSpec, make_overlapping_blocks
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.fused_plan import ops as fp, ref as fpr
+    from repro_torch.kernels.window_stats import ops as ws, ref as wsr
+
+    started = time.perf_counter()
+    n = args.chunks * CHUNK
+    x = make_series(n, D, args.seed, dev)
+    chunks = list(x.split(CHUNK))
+    bad = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def collect_store(data):
+        return declare_plan(SeriesFrame.from_sharded(data, block_size=STORE_BLOCK,
+                                                     device=dev)).collect()
+
+    def collect_chunks(chunk_list, extra=()):
+        frame = declare_plan(SeriesFrame.from_chunks(chunk_list, device=dev))
+        for window in extra:
+            frame.moments(window)
+        return frame.collect()
+
+    def members_vs(got, want, tols=MEMBER_TOL):
+        out = {name: compare(got[name], want[name], tol) for name, tol in tols.items()}
+        out["welch_per_bin"] = power_bin_error(got["welch"][1], want["welch"][1], False)
+        return out
+
+    def others_zero(counts, allowed):
+        return all(v == allowed.get(k, 0) for k, v in counts.items())
+
+    # ---- the collect: the chunk path first (its yardstick), then the store
+    collect_chunks(chunks[:2])  # warm-up of the chunk path's handles
+    want, chunk_ms = timed(lambda: collect_chunks(chunks))
+    frame = declare_plan(SeriesFrame.from_sharded(x, block_size=STORE_BLOCK, device=dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    got, store_ms = timed(frame.collect)
+    counts = launch_counts()
+    collect_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    counts_ok = others_zero(counts, STORE_COLLECT_LAUNCHES)
+    members = members_vs(got, want)
+    shapes_ok = (tuple(got["autocovariance"].shape) == (H + 1, D, D)
+                 and int(got["moments"]["count"].item()) == n - WINDOWS[0] + 1
+                 and int(got["moments_2"]["count"].item()) == n - WINDOWS[1] + 1)
+    if not counts_ok:
+        bad.append("collect launches")
+    if not shapes_ok or not all(r["ok"] for r in members.values()):
+        bad.append("collect members")
+
+    # ---- a caller's store: geometry, repeats, busy share, device kernels
+    store, placement_ms = timed(lambda: TimeSeriesStore.from_series(x, STORE_BLOCK, 0, CARRY,
+                                                                    device=dev))
+    spec = store.spec
+    geometry = {"blocks": spec.num_blocks, "block_size": spec.block_size,
+                "h_right": spec.h_right, "width": spec.padded_width,
+                "replication_overhead": store.replication_overhead,
+                "store_gbytes": store.blocks.numel() * 4 / 1e9,
+                "lag_partials_gbytes": spec.num_blocks * (H + 1) * D * D * 4 / 1e9}
+    again = collect_store(store)
+    repeat, traverse_ms = timed(lambda: collect_store(store))
+    repeat_ok = bitwise_equal(again, repeat) and bitwise_equal(again, got)
+    if not repeat_ok:
+        bad.append("repeat not bitwise")
+    store_split, store_busy, store_wall = device_split(lambda: collect_store(store), calls=1)
+    chunk_split, chunk_busy, chunk_wall = device_split(lambda: collect_chunks(chunks), calls=1)
+    device_kernels = kernels_per_call(lambda: collect_store(store), 1)
+    mega_device = {k: v for k, v in device_kernels.items() if "fused_plan_kernel" in k}
+    if mega_device and list(mega_device.values()) != [1.0]:  # empty: no profiler activity
+        bad.append("device launches of kernel 1 per collect")
+    del again, repeat
+
+    # ---- kernel 2 over the blocks: autocovariance_blocked, the streaming estimator
+    reset_launch_counts()
+    blocked = autocovariance_blocked(x, H, STORE_BLOCK)
+    torch.cuda.synchronize()
+    blocked_counts = launch_counts()
+    streamed = StreamingEstimator.from_store(lag_sum_engine(H, D, device=dev), store,
+                                             CHUNK).finalize(streaming_autocovariance)
+    lag_checks = {"blocked_vs_collect": compare(blocked, got["autocovariance"], TOL["lag"]),
+                  "streamed_vs_collect": compare(streamed, got["autocovariance"], TOL["lag"]),
+                  "streamed_vs_blocked": compare(streamed, blocked, TOL["lag"])}
+    blocked_ok = others_zero(blocked_counts, {"cross_window_stats": 1})
+    if not blocked_ok:
+        bad.append("autocovariance_blocked launches")
+    if not all(r["ok"] for r in lag_checks.values()):
+        bad.append("blocked / streamed autocovariance")
+    del blocked, streamed
+
+    # ---- batched kernel 1 over the blocks, with the planted halo fault
+    P, B, K, F = spec.num_blocks, STORE_BLOCK, len(WINDOWS), NPERSEG // 2 + 1
+    taper = hann_window(NPERSEG, dev)
+    blocks = store.padded_blocks_single_host()
+    bid = torch.arange(P, dtype=torch.int32, device=dev)
+    mask = bid.long()[:, None] * B + torch.arange(B, device=dev) + CARRY + 1 <= n
+    mega = (blocks, mask, bid * B, H, WINDOWS, (NPERSEG,), (STEP,), (taper,))
+    prep = fp.prepare_fused_plan(*mega)
+    got1 = prep.launch()
+    want1 = fpr.fused_plan_update_ref(*mega)
+    abs_mom = wsr.fused_lag_moments_ref(blocks.abs(), mask, 0, WINDOWS)[1]
+
+    def mega_leaves(g1):
+        return {"lag": (g1[0], want1[0], TOL["lag"], None),
+                **moment_leaves("mom", g1[1], want1[1], abs_mom, TOL["moments"]),
+                **power_leaves("psd", g1[2][0], want1[2][0], P),
+                "n_seg": (g1[3][0], want1[3][0], None, None)}
+    torch.cuda.synchronize()
+    parity1 = tenant_parity(mega_leaves(got1))
+    k = P // 2 - 1
+    faulty = blocks.clone()
+    faulty[k, B] = 0.0  # block k's first halo row: block k+1's first core row
+    fault1 = tenant_parity(mega_leaves(fp.fused_plan_update(faulty, *mega[1:])))
+    fault_store = TimeSeriesStore(blocks=faulty, spec=spec)
+    faulted = collect_store(fault_store)
+    clean = collect_store(store)
+    fault = {"block": k, "row": B, "lag_per_block": fault1["lag"],
+             "caught": not fault1["lag"]["ok"] and fault1["lag"]["tenant"] == k,
+             "collect_vs_clean_max_abs": (faulted["autocovariance"]
+                                          - clean["autocovariance"]).abs().max().item(),
+             "collect_vs_chunk_path": compare(faulted["autocovariance"], want["autocovariance"],
+                                              TOL["lag"])}
+    del faulty, fault_store, faulted, clean
+    if not all(r["ok"] for r in parity1.values()):
+        bad.append("batched kernel 1 parity")
+    if not fault["caught"]:
+        bad.append("planted halo fault not caught")
+    n_valid = int(mask.sum().item())
+    n_seg = int(got1[3][0].sum().item())
+    mrows = B + CARRY
+    nbytes = (P * mrows * D * 4 + P * B + NPERSEG * 4
+              + P * ((H + 1) * D * D + K * 2 * D + F * D) * 4)
+    flops = (n_valid * (H + 1) * D * D * 2 + P * mrows * D * (1 + 4 * K)
+             + n_seg * D * fft_flops(NPERSEG))
+    del got1, abs_mom
+    samples = graph_ms([prep.launch], replays=3, repeats=3)
+    plain = event_ms(lambda: fpr.fused_plan_update_ref(*mega))
+    del want1, prep
+    rows = {}
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = samples[len(samples) // 2]
+    rows["fused_plan_megakernel"] = {
+        "ms": ms, "ms_samples": samples, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+        "bytes": nbytes, "flops": flops, "plain_ms": plain[len(plain) // 2],
+        "plain_ms_samples": plain, "library_ms": None, "parity": parity1,
+        "shape": f"y ({P}, {mrows}, {D}), {n_valid} valid starts, H={H}, windows={WINDOWS}, "
+                 f"welch {NPERSEG}/{OVERLAP}, {n_seg} segments"}
+
+    # ---- batched kernel 2: the launch of autocovariance_blocked
+    blocks16, _ = make_overlapping_blocks(x, OverlapSpec(n, B, 0, H))
+    head = blocks16[:, :B].contiguous()  # the wrapper's masked head rows (all starts valid)
+    prep2 = ws.prepare_cross_lagged_sums(head, blocks16, H)
+    ones = torch.ones((P, B), dtype=torch.bool, device=dev)
+    got2 = prep2.launch()
+    want2 = wsr.masked_lagged_sums_ref(blocks16, ones, H)
+    torch.cuda.synchronize()
+    parity2 = tenant_parity({"lag": (got2, want2, TOL["lag"], None)})
+    lib_parity2 = tenant_parity({"lag": (lag_library_stacked(head, blocks16), want2,
+                                         TOL["lag"], None)})
+    if not all(r["ok"] for r in parity2.values()):
+        bad.append("batched kernel 2 parity")
+    if not all(r["ok"] for r in lib_parity2.values()):
+        bad.append("kernel 2 library yardstick")
+    del got2, want2
+    samples2 = graph_ms([prep2.launch], replays=5, repeats=3)
+    plain2 = event_ms(lambda: wsr.masked_lagged_sums_ref(blocks16, ones, H))
+    lib2 = event_ms(lambda: lag_library_stacked(head, blocks16))
+    nbytes2 = P * (B + H) * D * 4 + P * (H + 1) * D * D * 4
+    flops2 = P * B * (H + 1) * D * D * 2
+    b2, by2 = bound_ms(nbytes2, flops2)
+    ms2 = samples2[len(samples2) // 2]
+    rows["cross_window_stats"] = {
+        "ms": ms2, "ms_samples": samples2, "bound_ms": b2, "bound_by": by2, "share": b2 / ms2,
+        "bytes": nbytes2, "flops": flops2, "plain_ms": plain2[len(plain2) // 2],
+        "plain_ms_samples": plain2, "library_ms": lib2[len(lib2) // 2],
+        "library_ms_samples": lib2, "parity": parity2, "library_parity": lib_parity2,
+        "shape": f"blocks ({P}, {B + H}, {D}), H={H}, every start valid"}
+    del blocks16, head, prep2, ones, blocks, mask, mega
+
+    # ---- append: the store grows in place; the collect after it walks the chunk
+    new = make_series(CHUNK, D, args.seed + 5, dev)
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    _, append_ms = timed(lambda: frame.append(new))
+    append_counts = launch_counts()
+    append_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    reset_launch_counts()
+    after, after_ms = timed(frame.collect)
+    after_counts = launch_counts()
+    want_after = collect_chunks(chunks + [new])
+    after_members = members_vs(after, want_after)
+    _, rows_ms = timed(lambda: store.append_rows(new))  # a caller's store: grows
+    capacity = store.blocks.shape[0]
+    fresh = TimeSeriesStore.from_series(torch.cat([x, new]), B, 0, CARRY, device=dev)
+    store_bitwise = (store.spec == fresh.spec
+                     and torch.equal(store.padded_blocks_single_host(), fresh.blocks))
+    del fresh
+    _, steady_ms = timed(lambda: store.append_rows(new))  # in place, no growth
+    reset_launch_counts()
+    frame.moments(16)
+    replan, replan_ms = timed(frame.collect)
+    replan_counts = launch_counts()
+    tols = {**MEMBER_TOL, "moments_3": TOL["moments"]}
+    replan_members = members_vs(replan, collect_chunks(chunks + [new], extra=(16,)), tols)
+    append_ok = (others_zero(append_counts, {"fused_plan_megakernel": 2})
+                 and others_zero(after_counts, {k: v for k, v in STORE_COLLECT_LAUNCHES.items()
+                                                if k != "fused_plan_megakernel"})
+                 and all(r["ok"] for r in after_members.values()))
+    replan_ok = (replan_counts["fused_plan_megakernel"] == 1
+                 and all(r["ok"] for r in replan_members.values()))
+    if not append_ok:
+        bad.append("append")
+    if not store_bitwise or capacity < 2 * P:
+        bad.append("append_rows")
+    if not replan_ok:
+        bad.append("replan")
+
+    report = {
+        "phase": "store", "samples_per_channel": n, "channels": D, "geometry": geometry,
+        "launches": counts, "launches_ok": counts_ok,
+        "device_kernels_per_collect": mega_device,
+        "collect_ms": store_ms, "placement_ms": placement_ms, "traverse_ms": traverse_ms,
+        "chunk_collect_ms": chunk_ms,
+        "collect_peak_gbytes": collect_peak_gb,
+        "samples_per_s": n * D / (store_ms / 1e3),
+        "profiled_collect": {"wall_ms": store_wall, "device_busy_ms": store_busy,
+                             "busy_share": store_busy / store_wall if store_wall else None,
+                             "device_ms_by_kernel": store_split},
+        "profiled_chunk_collect": {"wall_ms": chunk_wall, "device_busy_ms": chunk_busy,
+                                   "busy_share": chunk_busy / chunk_wall if chunk_wall
+                                   else None, "device_ms_by_kernel": chunk_split},
+        "members": members, "shapes_ok": shapes_ok, "repeat_bitwise": repeat_ok,
+        "autocovariance_blocked_launches": blocked_counts, "lag_checks": lag_checks,
+        "planted_fault": fault,
+        "append": {"ms": append_ms, "launches": append_counts, "collect_after_ms": after_ms,
+                   "collect_after_launches": after_counts, "members": after_members,
+                   "allocated_before_gbytes": before_gb, "peak_gbytes": append_peak_gb,
+                   "append_rows_growth_ms": rows_ms, "append_rows_in_place_ms": steady_ms,
+                   "capacity_blocks": capacity, "store_bitwise_fresh_placement": store_bitwise,
+                   "ok": append_ok},
+        "replan": {"ms": replan_ms, "launches": replan_counts, "members": replan_members,
+                   "ok": replan_ok},
+        "batched_kernels": rows,
+        "tolerance": "members as main_path (vs the chunk path's collect); batched launches "
+                     "block by block against the batched plain version (one-problem "
+                     "tolerances); the planted fault must fail its block's lag check",
+        "seconds": time.perf_counter() - started, "bad": bad}
+    emit(report)
+    if bad:
+        fail("store phase", bad=bad)
+    return {"launches": counts, "kernels": rows}
 
 
 # ---------------------------------------------------------- the session
@@ -2565,6 +2874,10 @@ def main() -> None:
     stats = stats_paths(args, dev, lagmom_fault)
     gc.collect()
     torch.cuda.empty_cache()
+    # the overlapping block store: kernels 1 and 2 batched over its blocks
+    store = store_phase(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the multi-tenant session: kernels 1-4 batched over tenants
     session_phase(args, dev)
     gc.collect()
@@ -2589,6 +2902,7 @@ def main() -> None:
             "max_abs_err": max(r["max_abs_err"] for r in parity[name].values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": t["library_ms"],
+            "store_launches": store["launches"].get(name, 0),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

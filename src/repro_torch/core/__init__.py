@@ -1,12 +1,19 @@
-"""Core of the port: backends, the streaming monoid, fused plans, frames and
-the multi-tenant session."""
+"""Core of the port: overlapping blocks, the map-reduce engine, backends,
+the streaming monoid, fused plans, frames and the multi-tenant session."""
 from .backend import (CudaBackend, TorchBackend, get_backend, list_backends,  # noqa: F401
                       register_backend, resolve_device)
 from .frame import (Deferred, FrameSession, SeriesFrame, session_state_from_numpy,  # noqa: F401
                     session_state_to_numpy)
 from .integrity import lane_health, sentinel_scan  # noqa: F401
+from .mapreduce import (block_partials, block_window_map_reduce,  # noqa: F401
+                        scan_window_map_reduce, serial_window_map_reduce,
+                        sharded_window_map_reduce, tree_sum)
+from .overlap import (OverlapSpec, block_core, core_mask, make_overlapping_blocks,  # noqa: F401
+                      reconstruct, replication_overhead)
 from .plan import (StatPlan, analyze, arma_request, autocovariance_request,  # noqa: F401
                    fused_engine, kernel_request, moments_request, welch_request,
                    yule_walker_request)
 from .streaming import (PartialState, StreamingEngine, resolved_stat,  # noqa: F401
                         state_from_numpy, state_to_numpy)
+from . import estimators  # noqa: F401
+from .estimators import *  # noqa: F401,F403  (the estimator API, as the reference)

@@ -8,7 +8,21 @@ import torch
 
 from .innovation import innovation_algorithm
 
-__all__ = ["solve_arma_from_psi", "fit_arma"]
+__all__ = ["arma_psi_weights", "solve_arma_from_psi", "fit_arma", "fit_arma_streaming"]
+
+
+def arma_psi_weights(A: torch.Tensor, B: torch.Tensor, n_weights: int) -> torch.Tensor:
+    """Psi_0..Psi_{n_weights-1} (n_weights, d, d) of the ARMA model A (p, d,
+    d), B (q, d, d) by the forward recursion Psi_j = B_j + sum_i A_i
+    Psi_{j-i}, Psi_0 = I."""
+    p, d, q = A.shape[0], A.shape[1], B.shape[0]
+    psis = [torch.eye(d, dtype=A.dtype, device=A.device)]
+    for j in range(1, n_weights):
+        acc = B[j - 1] if j <= q else A.new_zeros((d, d))
+        for i in range(1, min(j, p) + 1):
+            acc = acc + A[i - 1] @ psis[j - i]
+        psis.append(acc)
+    return torch.stack(psis)
 
 
 def solve_arma_from_psi(psi: torch.Tensor, p: int, q: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,3 +68,17 @@ def fit_arma(gamma: torch.Tensor, p: int, q: int, m: int | None = None, backend=
                                        for j in range(1, p + q + 1)], -3)], -3)
     A, B = solve_arma_from_psi(psi, p, q)
     return A, B, V[..., m, :, :]
+
+
+def fit_arma_streaming(engine, state, p: int, q: int, m: int | None = None,
+                       normalization: str = "standard") -> Tuple[torch.Tensor, torch.Tensor,
+                                                                 torch.Tensor]:
+    """ARMA(p, q) fit from a lag-sum state (`stats.lag_sum_engine`) whose
+    ``h_right`` covers the recursion depth (>= m, default p+q)."""
+    m_eff = max(m if m is not None else p + q, p + q)
+    if engine.h_right < m_eff:
+        raise ValueError(f"state tracks lags 0..{engine.h_right}, innovation recursion "
+                         f"needs {m_eff}")
+    from .stats import streaming_autocovariance
+
+    return fit_arma(streaming_autocovariance(engine, state, normalization), p, q, m_eff)

@@ -1,5 +1,12 @@
-"""Welch spectral estimation: PSD and cross-spectral matrix (port of the
-batch part of `repro.core.estimators.spectral`)."""
+"""Welch spectral estimation: PSD, cross-spectral matrix and the streaming
+engine (port of `repro.core.estimators.spectral`).
+
+A Welch estimate is an order-(nperseg - 1) weak-memory map-reduce with
+windows starting at global multiples of ``step = nperseg - overlap``:
+:func:`welch_engine` streams it (the chunk kernel gathers only the aligned
+candidate segments, through the backend's ``segment_fft_power``, kernel 4
+on the card) and :func:`streaming_welch` finalizes its state.
+"""
 from __future__ import annotations
 
 import math
@@ -9,8 +16,10 @@ import torch
 
 from ...kernels.fused_plan.ref import welch_candidates
 from ..backend import BackendSpec, get_backend, resolve_device
+from ..streaming import PartialState, StreamingEngine, resolved_stat
 
-__all__ = ["hann_window", "welch_psd", "welch_csd", "welch_chunk_kernel"]
+__all__ = ["hann_window", "welch_psd", "welch_csd", "ar1_theoretical_psd", "welch_chunk_kernel",
+           "welch_engine", "streaming_welch"]
 
 
 def hann_window(n: int, device="cuda") -> torch.Tensor:
@@ -88,3 +97,50 @@ def welch_chunk_kernel(nperseg: int, step: int, scale, be, device="cuda"):
         return {"psd": psd, "n_seg": valid.float().sum(-1)}
 
     return chunk_kernel
+
+
+def welch_engine(nperseg: int = 256, overlap: Optional[int] = None, d: int = 1,
+                 fs: float = 1.0, backend: BackendSpec = None,
+                 device="cuda") -> StreamingEngine:
+    """Streaming engine of Welch segment-PSD partials: windows of
+    ``nperseg`` rows at global multiples of ``step = nperseg - overlap``
+    (``stride=step``), so the stream equals :func:`welch_psd` of the
+    concatenated series.  ``state.stat`` = {"psd": (nperseg//2+1, d) summed
+    segment powers, "n_seg": () segments}.  Finalize with
+    :func:`streaming_welch`."""
+    overlap = nperseg // 2 if overlap is None else overlap
+    if not 0 <= overlap < nperseg:
+        raise ValueError(f"need 0 <= overlap < nperseg, got {overlap}/{nperseg}")
+    step = nperseg - overlap
+    be = get_backend(backend, device)
+    w = hann_window(nperseg, device)
+    ck = welch_chunk_kernel(nperseg, step, 1.0 / (fs * torch.sum(w**2)), be, device)
+    F = nperseg // 2 + 1
+    engine = StreamingEngine(
+        d=d, h_left=0, h_right=nperseg - 1, chunk_kernel=ck, stride=step, backend=be,
+        kernel_takes_offset=True,
+        stat_zeros=lambda dev: {"n_seg": torch.zeros((), device=dev),
+                                "psd": torch.zeros((F, d), device=dev)},
+        device=device)
+    engine.welch_fs = fs  # the frequency grid and the density scale share fs
+    return engine
+
+
+def streaming_welch(engine: StreamingEngine, state: PartialState) -> Tuple[torch.Tensor,
+                                                                            torch.Tensor]:
+    """A Welch state as (freqs, one-sided psd (nperseg//2+1, d)); NaN while
+    no segment is complete (``state.stat["n_seg"] == 0``)."""
+    stat = resolved_stat(state)
+    return _one_sided(stat["psd"] / stat["n_seg"][..., None, None], engine.window,
+                      engine.welch_fs)
+
+
+def ar1_theoretical_psd(phi: float, sigma2: float, freqs: torch.Tensor) -> torch.Tensor:
+    """One-sided theoretical PSD of an AR(1): sigma2 / |1 - phi e^{-i w}|^2
+    (fs = 1), the Nyquist bin not doubled."""
+    two_sided = sigma2 / (1 + phi**2 - 2 * phi * torch.cos(2 * math.pi * freqs))
+    mult = torch.ones_like(freqs)
+    mult[1:] = 2.0
+    if freqs.shape[0] > 1 and float(freqs[-1]) == 0.5:
+        mult[-1] = 1.0
+    return two_sided * mult

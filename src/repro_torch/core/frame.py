@@ -1,15 +1,30 @@
 """SeriesFrame and FrameSession -- the lazy front doors to every read path
-(port of the array and chunk placements and of the multi-tenant session of
-`repro.core.frame`).
+(port of `repro.core.frame`: the array, chunk and sharded placements, the
+engine mode and the multi-tenant session).
 
-A :class:`SeriesFrame` holds a data placement (a materialized array, or a
-stream of chunks) plus deferred estimator requests.  ``.autocovariance``,
+A :class:`SeriesFrame` holds a data placement (a materialized array, a
+stream of chunks, or the overlapping blocks of a `TimeSeriesStore`) plus
+deferred estimator requests.  ``.autocovariance``,
 ``.yule_walker``, ``.arma``, ``.moments``, ``.welch`` and ``.map_reduce``
 each return a :class:`Deferred` handle and read nothing; ``.collect()``
 compiles everything pending into ONE fused `StatPlan` and walks the data
 once; ``.append(chunk)`` folds new samples into the carried state, so a
 re-collect costs one walk of the new samples only.  Results are memoized
 until the next append.
+
+The sharded placement is the paper's overlapping block store on one
+device.  Built from a raw series, the store is placed at the first
+``collect()``, when the plan knows its widest window, so the halo is
+exactly ``W_fused - 1``.  A collect then runs each plan group's chunk
+kernel ONCE on the whole (P, B + carry, d) block stack (one megakernel
+launch for every block on the card), with a (P, B) start mask and each
+block's global start as a (P,) offset, and sums the per-block partials over
+the block axis in a fixed order (``torch.sum``, no atomics).  Appends
+scatter into the store in place and fold into the carried state.
+
+The engine mode (:meth:`SeriesFrame.from_engine`) carries one
+`StreamingEngine`'s state: the core that `repro_torch.timeseries.
+StreamingEstimator` is a shim over.
 
 A :class:`FrameSession` serves the same requests for many users at once:
 one plan compiled at the first ingest, one stacked per-user state in a
@@ -29,7 +44,8 @@ import torch
 from .backend import BackendSpec, get_backend, resolve_device
 from .plan import (StatPlan, StatRequest, arma_request, autocovariance_request,
                    kernel_request, moments_request, welch_request, yule_walker_request)
-from .streaming import _FIELDS, state_from_numpy, state_to_numpy
+from .mapreduce import tree_map
+from .streaming import _FIELDS, PartialState, StreamingEngine, state_from_numpy, state_to_numpy
 
 __all__ = ["SeriesFrame", "FrameSession", "Deferred", "as_series", "session_state_from_numpy",
            "session_state_to_numpy"]
@@ -100,7 +116,8 @@ class _DeferredRequests:
 class SeriesFrame(_DeferredRequests):
     """Lazy session over one series: defer, collect, append.
 
-    Build with :meth:`from_array` or :meth:`from_chunks`.
+    Build with :meth:`from_array`, :meth:`from_chunks`, :meth:`from_sharded`
+    (or :meth:`from_engine` for the raw-engine mode).
     """
 
     def __init__(self, placement: str, d: Optional[int], backend: BackendSpec, device):
@@ -116,8 +133,12 @@ class SeriesFrame(_DeferredRequests):
         self._results: Optional[dict] = None
         self._x: Optional[torch.Tensor] = None  # array placement
         self._appended: list = []               # array appends (concatenated lazily)
-        self._chunk_source = None               # chunks: undrained source
+        self._chunk_source = None               # chunks: (undrained source, chunk_size)
         self._chunk_list: Optional[list] = None  # chunks: drained, not yet folded
+        self._store = None                      # sharded: TimeSeriesStore
+        self._block_size = 8192
+        self._store_owned = False               # the frame built the store
+        self._pending: list = []                # sharded appends kept for replans
         self._replayable = True
         self._n = 0
 
@@ -134,16 +155,76 @@ class SeriesFrame(_DeferredRequests):
         return frame
 
     @classmethod
-    def from_chunks(cls, chunks, backend: BackendSpec = None, device="cuda") -> "SeriesFrame":
-        """Frame over an iterable of time-ordered (c, d) chunks.  Nothing is
-        read until ``collect()``, which folds the chunks one update each and
-        then drops them (weak memory): declare every request up front."""
+    def from_chunks(cls, chunks, backend: BackendSpec = None, chunk_size: int = 4096,
+                    device="cuda") -> "SeriesFrame":
+        """Frame over an iterable of time-ordered (c, d) chunks, or a
+        `TimeSeriesStore` streamed through ``iter_chunks(chunk_size)``.
+        Nothing is read until ``collect()``, which folds the chunks one
+        update each and then drops them (weak memory): declare every request
+        up front."""
         frame = cls("chunks", None, backend, device)
-        frame._chunk_source = chunks
+        frame._chunk_source = (chunks, chunk_size)
+        return frame
+
+    @classmethod
+    def from_sharded(cls, data, mesh=None, axis: str = "data", block_size: int = 8192,
+                     backend: BackendSpec = None, device="cuda") -> "SeriesFrame":
+        """Frame over the overlapping blocks of a series (paper §10).
+
+        ``data`` is a raw series -- placed at the first ``collect()`` with
+        blocks of ``block_size`` rows and the plan's exact halo -- or a
+        `TimeSeriesStore` on ``device`` (``h_left`` 0, ``h_right`` covering
+        the plan's widest window).  A collect is one chunk-kernel call per
+        plan group over every block at once, and one sum over the blocks.
+        """
+        from ..timeseries.dataset import _MESH
+
+        if mesh is not None:
+            raise NotImplementedError(_MESH)
+        frame = cls("sharded", None, backend, device)
+        if hasattr(data, "spec") and hasattr(data, "blocks"):  # TimeSeriesStore
+            if data.mesh is not None:
+                raise NotImplementedError(_MESH)
+            if data.blocks.device != frame._device:
+                raise ValueError(f"the store lies on {data.blocks.device}, the frame computes "
+                                 f"on {frame._device}; pass device={str(data.blocks.device)!r}")
+            frame._store = data
+            frame._d = data.blocks.shape[-1]
+            frame._n = data.spec.n
+        else:
+            x = as_series(data, device)
+            frame._x = x
+            frame._d = x.shape[1]
+            frame._n = x.shape[0]
+            frame._block_size = block_size
+        return frame
+
+    @classmethod
+    def from_engine(cls, engine: StreamingEngine, batch: Optional[int] = None,
+                    t0=0) -> "SeriesFrame":
+        """Raw-engine mode: the frame carries ONE engine's `PartialState`
+        (``batch`` independent series with a leading axis on every leaf when
+        given) and offers update (``append``), ``consume``, ``merge_state``
+        and :meth:`finalize_with`."""
+        frame = cls("engine", engine.d, engine.backend, engine.device)
+        frame._engine = engine
+        frame._batch = batch
+        if batch is None:
+            frame._e_state = engine.init(t0)
+            frame._e_update, frame._e_merge = engine.update, engine.merge
+            frame._e_consume = engine.consume
+        else:
+            frame._e_state = engine.init_batch(batch, t0)
+            frame._e_update, frame._e_merge = engine.update_batch, engine.merge_batch
+            frame._e_consume = engine.consume_batch
         return frame
 
     # ------------------------------------------------------- request intake
     def _defer(self, req: StatRequest) -> Deferred:
+        if self._placement == "engine":
+            raise ValueError("engine-mode frames carry a raw StreamingEngine state; deferred "
+                             "requests need a data placement (from_array / from_chunks / "
+                             "from_sharded)")
         if not isinstance(req, StatRequest):
             raise TypeError(f"requests must be StatRequest (see the *_request "
                             f"factories), got {type(req).__name__}")
@@ -155,6 +236,8 @@ class SeriesFrame(_DeferredRequests):
     # -------------------------------------------------------------- collect
     def collect(self) -> dict:
         """Run (or read back) every deferred request: ``{name: result}``."""
+        if self._placement == "engine":
+            raise ValueError("engine-mode frames finalize with finalize_with()")
         if not self._recorded:
             raise ValueError("nothing to collect -- defer at least one request first "
                              "(.autocovariance / .yule_walker / .arma / .moments / "
@@ -175,32 +258,114 @@ class SeriesFrame(_DeferredRequests):
         self._results = plan.finalize(self._states)
         return dict(self._results)
 
+    @property
+    def num_traversals(self) -> int:
+        """Traversal groups one evaluation costs (1 unless non-offset-aware
+        strided generic kernels force grouped sub-plans)."""
+        if self._plan is None:
+            return StatPlan(list(self._recorded), d=self._require_d(), backend=self._backend,
+                            device=self._device).num_traversals
+        return self._plan.num_traversals
+
     # --------------------------------------------------------------- append
     def append(self, chunk) -> "SeriesFrame":
         """Absorb new samples at the end of the series.  With a compiled
         plan the chunk folds into the carried state (history is never
-        re-read); the memoized results are invalidated."""
+        re-read); the memoized results are invalidated.  A frame-built
+        store takes the rows in place (`TimeSeriesStore.append_rows`), so
+        a replan re-reads the whole series; other sharded frames keep the
+        chunk for replans.  Engine mode: one engine update."""
+        if self._placement == "engine":
+            chunk = torch.as_tensor(chunk, dtype=torch.float32, device=self._device)
+            self._e_state = self._e_update(self._e_state, chunk)
+            return self
         chunk = as_series(chunk, self._device)
         if self._d is not None and chunk.shape[1] != self._d:
             raise ValueError(f"chunk has d={chunk.shape[1]}, frame has d={self._d}")
         self._results = None
         if self._placement == "array":
             self._appended.append(chunk)
-        elif self._plan is None:
-            self._tail_chunks().append(chunk)
+        elif self._placement == "chunks":
+            if self._plan is None:
+                self._tail_chunks().append(chunk)
+        elif self._can_scatter_append():
+            self._store.append_rows(chunk)
+        else:  # sharded before the first collect, or a caller's store
+            self._pending.append(chunk)
         if self._plan is not None:
             self._states = self._plan.update_donated(self._states, chunk)
         self._n += chunk.shape[0]
         return self
 
+    def _can_scatter_append(self) -> bool:
+        """Sharded appends scatter into the store when the frame built it
+        (replicate mode, causal halos: the `append_rows` contract); a
+        caller's store is not mutated."""
+        return (self._store is not None and self._store_owned
+                and self._store.halo_mode == "replicate" and self._store.spec.h_left == 0)
+
     @property
-    def length(self) -> int:
-        """Samples ingested so far."""
+    def length(self):
+        """Samples ingested so far (engine mode: the carried state's
+        length, per series when batched)."""
+        if self._placement == "engine":
+            return self._e_state.length
         return self._n
 
     @property
     def backend(self):
         return self._backend
+
+    # ----------------------------------------------------- engine-mode API
+    @property
+    def state(self) -> PartialState:
+        """The carried PartialState (engine mode)."""
+        self._require_engine()
+        return self._e_state
+
+    @state.setter
+    def state(self, value: PartialState) -> None:
+        self._require_engine()
+        self._e_state = value
+
+    def consume(self, chunk_stack) -> "SeriesFrame":
+        """Fold a (k, c, d) stack of chunks -- (k, batch, c, d) when batched
+        -- one update each (engine mode)."""
+        self._require_engine()
+        stack = torch.as_tensor(chunk_stack, dtype=torch.float32, device=self._device)
+        self._e_state = self._e_consume(self._e_state, stack)
+        return self
+
+    def merge_state(self, other: PartialState) -> "SeriesFrame":
+        """Merge a peer's PartialState into this frame's (engine mode)."""
+        self._require_engine()
+        self._e_state = self._e_merge(self._e_state, other)
+        return self
+
+    def finalize_with(self, finalizer: Callable, *args, **kwargs) -> Any:
+        """``finalizer(engine, state, *args, **kwargs)`` on the carried state
+        (engine mode).  Batched frames map it over the series axis: one
+        ``torch.func.vmap`` where the finalizer allows it, else one call per
+        series (a kernel launch, for one, needs real storage), the results
+        stacked."""
+        self._require_engine()
+        engine, state = self._engine, self._e_state
+        if self._batch is None:
+            return finalizer(engine, state, *args, **kwargs)
+        leaves = state.flatten()
+
+        def one(*series_leaves):
+            return finalizer(engine, state.unflatten(series_leaves), *args, **kwargs)
+
+        try:
+            return torch.func.vmap(one)(*leaves)
+        except (RuntimeError, ValueError):
+            outs = [one(*(leaf[i] for leaf in leaves)) for i in range(self._batch)]
+            return tree_map(lambda *xs: torch.stack(xs), outs[0], *outs[1:])
+
+    def _require_engine(self):
+        if self._placement != "engine":
+            raise ValueError("this frame is not in engine mode (from_engine)")
 
     # ------------------------------------------------------------ internals
     def _require_d(self) -> int:
@@ -219,7 +384,10 @@ class SeriesFrame(_DeferredRequests):
     def _drain_chunks(self) -> list:
         """Materialize the chunk source exactly once."""
         if self._chunk_source is not None:
-            drained = [as_series(c, self._device) for c in self._chunk_source]
+            source, chunk_size = self._chunk_source
+            if hasattr(source, "iter_chunks"):  # TimeSeriesStore
+                source = source.iter_chunks(chunk_size)
+            drained = [as_series(c, self._device) for c in source]
             self._chunk_list = drained + (self._chunk_list or [])
             self._chunk_source = None
             self._n += sum(c.shape[0] for c in drained)
@@ -233,11 +401,113 @@ class SeriesFrame(_DeferredRequests):
                 self._x = torch.cat([self._x] + self._appended)
                 self._appended = []
             return plan.from_chunk(self._x)
+        if self._placement == "sharded":
+            return self._traverse_sharded(plan)
         chunks = [c for c in self._drain_chunks() if c.shape[0] > 0]
         states = plan.consume(plan.init(), chunks)
         self._chunk_list = []  # weak memory: the raw chunks are gone once folded
         self._replayable = False
         return states
+
+    # -- sharded placement -------------------------------------------------
+    def _ensure_store(self, plan: StatPlan):
+        from ..timeseries.dataset import TimeSeriesStore
+
+        carry_max = max(g.engine.carry for g in plan.groups)
+        if self._store is not None:
+            spec = self._store.spec
+            if spec.h_left != 0 or spec.h_right < carry_max:
+                if not self._store_owned:
+                    raise ValueError(
+                        f"the supplied store's halo (h_left={spec.h_left}, "
+                        f"h_right={spec.h_right}) cannot serve the plan's widest window "
+                        f"({carry_max + 1}); rebuild it with h_left=0, h_right>={carry_max}")
+                # a frame-built store of an earlier, narrower plan: re-place it
+                # with the exact halo (a replan is a full traversal anyway)
+                self._x = self._store.to_series()
+                self._store = None
+        if self._store is None:
+            self._store = TimeSeriesStore.from_series(
+                self._x, block_size=min(self._block_size, max(self._x.shape[0], 1)),
+                h_left=0, h_right=carry_max, device=self._device)
+            self._store_owned = True
+            self._x = None  # the store owns the data now
+        return self._store
+
+    def _traverse_sharded(self, plan: StatPlan) -> tuple:
+        """Every plan group's chunk kernel ONCE over the whole block stack:
+        y (P, B + carry, d) -- the blocks themselves when the group's carry
+        is the store's halo, else a narrower slice (a copy) --, the (P, B)
+        mask of the starts whose full group window lies in the series (and
+        on the group's stride), and z0 = block id * B as a (P,) int32
+        tensor; the per-block partials are then summed over the block axis
+        in a fixed order.  The carried head and tail come from the block
+        cores; appends kept before the store existed fold in afterwards."""
+        store = self._ensure_store(plan)
+        spec = store.spec
+        B, n, P = spec.block_size, spec.n, spec.num_blocks
+        blocks = store.padded_blocks_single_host()
+        dev = blocks.device
+        bid = torch.arange(P, device=dev, dtype=torch.int32)
+        starts = bid.long()[:, None] * B + torch.arange(B, device=dev)
+        z0 = bid * B
+        stats = []
+        for g in plan.groups:
+            mask = starts + g.engine.window <= n
+            if g.stride > 1:
+                mask = mask & (torch.remainder(starts, g.stride) == 0)
+            carry = g.engine.carry
+            y = blocks if carry == spec.h_right else blocks[:, : B + carry].contiguous()
+            partials = g.engine._call_kernel(y, mask, z0)
+            stats.append(tree_map(lambda leaf: leaf.sum(0), partials))
+        # slots past the series end hold zeros, but only the last block's
+        # valid core rows are summed there
+        sample_sum = blocks[: P - 1, :B].sum(1).sum(0) + blocks[P - 1, : n - (P - 1) * B].sum(0)
+
+        carry_max = max(g.engine.carry for g in plan.groups)
+        head_full, tail_full = self._series_edges(store, carry_max)
+        # each group's state owns its buffers (an in-place update of one
+        # group must not reach another's)
+        own = (lambda t: t) if len(plan.groups) == 1 else torch.clone
+        states = []
+        for g, stat in zip(plan.groups, stats):
+            c = g.engine.carry
+            states.append(PartialState(
+                stat=stat, sample_sum=own(sample_sum), head=own(head_full[:c]),
+                tail=own(tail_full[carry_max - c:]),
+                length=torch.tensor(n, dtype=torch.int32, device=dev),
+                t0=torch.zeros((), dtype=torch.int32, device=dev),
+                stat_err=(tree_map(torch.zeros_like, stat) if g.engine.compensated else None)))
+        states = tuple(states)
+        for chunk in self._pending:
+            states = plan.update(states, chunk)
+        if self._pending and self._can_scatter_append():
+            # appends kept before the store existed move into it now
+            for chunk in self._pending:
+                self._store.append_rows(chunk)
+            self._pending = []
+        return states
+
+    def _series_edges(self, store, carry_max: int) -> tuple:
+        """The first and last ``carry_max`` samples of the stored series,
+        gathered from the block cores (indices from the host): head
+        left-aligned, tail right-aligned, zero where off the series -- the
+        `PartialState` halo contract."""
+        spec = store.spec
+        n, B = spec.n, spec.block_size
+        d, dev = store.blocks.shape[-1], store.blocks.device
+        rows = np.arange(carry_max)
+
+        def gather(idx):
+            ok = (idx >= 0) & (idx < n)
+            i = np.clip(idx, 0, n - 1)
+            got = store.blocks[torch.from_numpy(i // B).to(dev), torch.from_numpy(i % B).to(dev)]
+            return torch.where(torch.from_numpy(ok).to(dev)[:, None], got, 0.0)
+
+        if carry_max == 0:
+            empty = torch.zeros((0, d), device=dev)
+            return empty, empty
+        return gather(rows), gather(n - carry_max + rows)
 
 
 class FrameSession(_DeferredRequests):
@@ -454,7 +724,7 @@ class FrameSession(_DeferredRequests):
         return self._services[0].retained_lengths()
 
 
-def session_state_from_numpy(snapshot: dict, device="cpu") -> dict:
+def session_state_from_numpy(snapshot: dict, device="cuda") -> dict:
     """A session snapshot of numpy leaves as the port's snapshot, on
     ``device``.  Takes the reference's ``FrameSession.export_state()`` after
     ``jax.device_get`` ({"group_i": {"lanes": PartialState of numpy arrays,

@@ -33,7 +33,7 @@ import torch
 
 from .backend import BackendSpec, get_backend, resolve_device
 from .integrity import tree_neumaier_add, tree_neumaier_merge
-from .mapreduce import tree_leaves, tree_map, tree_sum, tree_zeros_like
+from .mapreduce import _window_reduce, _windows, tree_leaves, tree_map, tree_sum, tree_zeros_like
 
 __all__ = ["PartialState", "StreamingEngine", "resolved_stat", "state_from_numpy",
            "state_to_numpy"]
@@ -117,6 +117,10 @@ class StreamingEngine:
     Args:
       d: series dimension.
       h_left, h_right: window half-widths (W = h_left + 1 + h_right).
+      kernel: per-window kernel ``(W, d) window -> stat``; optional when
+        ``chunk_kernel`` is given.  The engine then builds its chunk kernel
+        from an ``unfold`` of the padded chunk and a ``torch.func.vmap`` of
+        ``kernel``, masked by the start mask.
       chunk_kernel: ``(y_padded (L+W-1, d), start_mask (L,)[, z0]) -> stat``,
         the masked sum of the window contributions over valid starts.
       stride: windows start only at global indices = 0 (mod stride).
@@ -130,12 +134,13 @@ class StreamingEngine:
     """
 
     def __init__(self, d: int, h_left: int = 0, h_right: int = 0,
+                 kernel: Optional[Callable] = None,
                  chunk_kernel: Optional[Callable] = None, stride: int = 1,
                  backend: BackendSpec = None, kernel_takes_offset: bool = False,
                  compensated: bool = False, stat_zeros: Optional[Callable] = None,
                  device="cuda"):
-        if chunk_kernel is None:
-            raise ValueError("need a chunk_kernel")
+        if kernel is None and chunk_kernel is None:
+            raise ValueError("need a per-window kernel or a chunk_kernel")
         if h_left < 0 or h_right < 0:
             raise ValueError("halo widths must be non-negative")
         if stride < 1:
@@ -150,6 +155,10 @@ class StreamingEngine:
         self.carry = self.window - 1
         self.kernel_takes_offset = kernel_takes_offset
         self.compensated = compensated
+        if chunk_kernel is None:
+            if kernel_takes_offset:
+                raise ValueError("kernel_takes_offset requires a chunk_kernel")
+            chunk_kernel = self._vmapped_chunk_kernel(kernel)
         self.chunk_kernel = chunk_kernel
         if stat_zeros is None:
             probe = self._call_kernel(
@@ -159,6 +168,20 @@ class StreamingEngine:
             )
             stat_zeros = lambda dev: tree_zeros_like(probe)
         self._stat_zeros = stat_zeros
+
+    def _vmapped_chunk_kernel(self, kernel: Callable) -> Callable:
+        """A chunk kernel from a per-window kernel: the windows at every
+        start of y_padded (..., L + W - 1, d) as an ``unfold`` view, the
+        kernel vmapped over them, the contributions of the starts where
+        start_mask (..., L) is False zeroed, then summed over the starts."""
+        w = self.window
+
+        def ck(y_padded: torch.Tensor, start_mask: torch.Tensor):
+            L = start_mask.shape[-1]
+            wins = _windows(y_padded[..., : L + w - 1, :], 0, w - 1)
+            return _window_reduce(kernel, wins, start_mask, start_mask.ndim - 1)
+
+        return ck
 
     def _scalar(self, v) -> torch.Tensor:
         return torch.as_tensor(v, device=self.device).to(torch.int32)

@@ -653,3 +653,144 @@ def test_session_on_the_card_matches_the_cpu_session(dev):
         one = card.query(3)
         np.testing.assert_allclose(one["yule_walker"][0].cpu(), want["yule_walker"][0][3],
                                    rtol=1e-3, atol=1e-4)
+
+
+# ------------------------------------------------ the overlapping block store
+def _store_plan(frame):
+    frame.autocovariance(6)
+    frame.yule_walker(3)
+    frame.moments(8)
+    frame.moments(64)
+    frame.welch(nperseg=32, overlap=16)
+    return frame
+
+
+def _results_close(got, want, tol=1e-4):
+    for name in want:
+        g, w = got[name], want[name]
+        pairs = ([(g[k], w[k]) for k in sorted(w)] if isinstance(w, dict)
+                 else list(zip(g, w)) if isinstance(w, tuple) else [(g, w)])
+        for a, b in pairs:
+            a, b = a.double().cpu(), b.double().cpu()
+            assert (a - b).abs().max() <= tol * b.abs().max().clamp_min(1e-30), name
+
+
+@pytest.mark.parametrize("P", [1, 7, 512])
+def test_store_collect_launches_the_megakernel_once(dev, P):
+    """A sharded collect over P blocks is ONE megakernel launch for every
+    block (plus the finalize tails: kernel 2 per lag member, 3 for the
+    moment window inside the carry, 4 for Welch), equal to the chunk path
+    and to the same plan on the CPU; a repeat is bitwise."""
+    from repro_torch import SeriesFrame
+
+    B, d = 128, 4
+    g = torch.Generator(device=dev)
+    g.manual_seed(P)
+    x = torch.randn((P * B - 5 if P > 1 else 100, d), generator=g, device=dev)
+    reset_launch_counts()
+    frame = _store_plan(SeriesFrame.from_sharded(x, block_size=B, device=dev))
+    got = frame.collect()
+    counts = launch_counts()
+    assert counts["fused_plan_megakernel"] == 1
+    assert counts["cross_window_stats"] == 2 and counts["fused_lag_moments"] == 1
+    assert counts["segment_dft_power"] == 1
+    chunks = _store_plan(SeriesFrame.from_chunks(list(x.split(100)), device=dev)).collect()
+    _results_close(got, chunks)
+    cpu = _store_plan(SeriesFrame.from_sharded(x.cpu(), block_size=B, device="cpu")).collect()
+    _results_close(got, cpu)
+    again = _store_plan(SeriesFrame.from_sharded(x, block_size=B, device=dev)).collect()
+    assert all(torch.equal(a, b) for a, b in zip(
+        (got["autocovariance"], got["welch"][1], got["moments"]["var"]),
+        (again["autocovariance"], again["welch"][1], again["moments"]["var"])))
+
+
+def test_batched_lag_sums_over_blocks_equal_per_block_calls(dev):
+    """block_lag_sums: one launch of kernel 2 for every block, each block's
+    partial against its own launch and its plain version."""
+    from repro_torch.core.estimators import stats
+    from repro_torch.core.overlap import OverlapSpec, make_overlapping_blocks
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = torch.randn((3000, 70), generator=g, device=dev)
+    spec = OverlapSpec(3000, 256, 0, 9)
+    blocks, _ = make_overlapping_blocks(x, spec)
+    reset_launch_counts()
+    got = stats.block_lag_sums(blocks, spec, 9)
+    assert launch_counts()["cross_window_stats"] == 1
+    ones = torch.ones(256, dtype=torch.bool, device=dev)
+    for b in range(spec.num_blocks):
+        _close(got[b], ws.masked_lagged_sums(blocks[b], ones, 9), 1e-4)
+        _close(got[b], wsr.masked_lagged_sums_ref(blocks[b], ones, 9), 1e-4)
+    reset_launch_counts()
+    gamma = stats.autocovariance_blocked(x, 9, 256)
+    assert launch_counts()["cross_window_stats"] == 1
+    _close(gamma, stats.autocovariance(x, 9, backend="torch"), 1e-4)
+
+
+def test_append_rows_on_the_card_is_bitwise_replacement(dev):
+    from repro_torch import TimeSeriesStore
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    x, extra = (torch.randn((n, 3), generator=g, device=dev) for n in (333, 415))
+    for B, hr in [(64, 7), (32, 50), (128, 0)]:
+        store = TimeSeriesStore.from_series(x, B, 0, hr, device=dev)
+        for lo in range(0, 415, 111):
+            store.append_rows(extra[lo: lo + 111])
+        fresh = TimeSeriesStore.from_series(torch.cat([x, extra]), B, 0, hr, device=dev)
+        assert store.spec == fresh.spec
+        assert torch.equal(store.padded_blocks_single_host(), fresh.blocks)
+
+
+def test_store_path_never_reaches_the_plain_versions(dev, monkeypatch):
+    """On CUDA tensors the store's collect, append, replan, block lag sums
+    and streaming estimator launch kernels: every plain version the kernel
+    wrappers hold raises if called."""
+    from repro_torch import SeriesFrame, StreamingEstimator, TimeSeriesStore
+    from repro_torch.core.estimators import stats
+    from repro_torch.kernels.segment_dft import ops as sdo
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for module, names in ((fp, ("fused_plan_update_ref",)),
+                          (ws, ("cross_lagged_sums_ref", "fused_lag_moments_ref",
+                                "window_moments_ref")),
+                          (sdo, ("segment_dft_power_ref", "segment_csd_ref"))):
+        for name in names:
+            monkeypatch.setattr(module, name, refuse)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    x = torch.randn((2000, 4), generator=g, device=dev)
+    frame = _store_plan(SeriesFrame.from_sharded(x, block_size=128, device=dev))
+    frame.collect()
+    frame.append(x[:300])
+    frame.collect()
+    frame.moments(16)
+    frame.collect()
+    stats.autocovariance_blocked(x, 5, 128)
+    store = TimeSeriesStore.from_series(x, 128, 0, 5, device=dev)
+    StreamingEstimator.from_store(stats.lag_sum_engine(5, 4, device=dev), store, 333).finalize(
+        stats.streaming_autocovariance)
+
+
+def test_batched_estimator_finalize_on_the_card(dev):
+    """A batched StreamingEstimator on the card: its finalize cannot vmap a
+    kernel launch, so it calls the finalizer once per series; each series
+    equals the same estimator on the CPU."""
+    from repro_torch import StreamingEstimator
+    from repro_torch.core.estimators import spectral, stats
+
+    xb = np.random.default_rng(6).standard_normal((5, 400, 3)).astype(np.float32)
+    for make, fin, idx in ((lambda d: stats.lag_sum_engine(4, 3, device=d),
+                            stats.streaming_autocovariance, None),
+                           (lambda d: spectral.welch_engine(32, 16, d=3, device=d),
+                            spectral.streaming_welch, 1)):
+        card = StreamingEstimator(make(dev), batch=5).ingest(xb[:, :150]).ingest(xb[:, 150:])
+        cpu = StreamingEstimator(make("cpu"), batch=5).ingest(xb[:, :150]).ingest(xb[:, 150:])
+        got, want = card.finalize(fin), cpu.finalize(fin)
+        got, want = (got, want) if idx is None else (got[idx], want[idx])
+        assert got.shape[0] == 5
+        for b in range(5):
+            _close(got[b].cpu(), want[b], 1e-4)

@@ -63,7 +63,7 @@ def test_session_runs_without_jax():
         "t = repro_torch.FrameSession(d=2, num_users=3, window=64, num_buckets=4, device='cpu')\n"
         "t.autocovariance(3); t.moments(8); t.welch(16, 8)\n"
         "t.import_state(repro_torch.session_state_from_numpy("
-        "repro_torch.session_state_to_numpy(s.export_state())))\n"
+        "repro_torch.session_state_to_numpy(s.export_state()), device='cpu'))\n"
         "assert (t.query(2)['welch'][1] == s.query(2)['welch'][1]).all() and t.audit().all()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
@@ -113,3 +113,71 @@ def test_entry_points_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert get_backend(device="cpu").name == "cuda"  # the kernels' plain versions on the CPU
+
+
+def test_store_and_streaming_estimators_run_without_jax():
+    """The overlapping block store, the sharded frame, the map-reduce paths,
+    the streaming front-ends, prediction and the generator with JAX and the
+    reference package unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import numpy as np, torch\n"
+        "from repro_torch import SeriesFrame, StreamingEstimator, TimeSeriesStore\n"
+        "from repro_torch.core import OverlapSpec, block_window_map_reduce, "
+        "scan_window_map_reduce, serial_window_map_reduce\n"
+        "from repro_torch.core.estimators import (arma_forecast, block_levinson, "
+        "lag_sum_engine, streaming_autocovariance, streaming_welch, welch_engine)\n"
+        "from repro_torch.timeseries import random_stable_var, regularize, simulate_var\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "A = random_stable_var(g, 2, 2, device='cpu')\n"
+        "x = simulate_var(g, A, 600, device='cpu')\n"
+        "f = SeriesFrame.from_sharded(x, block_size=128, device='cpu')\n"
+        "f.autocovariance(3); f.moments(8); f.welch(16, 8)\n"
+        "g = f.collect()['autocovariance']; f.append(x[:50]); f.collect()\n"
+        "store = TimeSeriesStore.from_series(x, 100, 0, 3, device='cpu')\n"
+        "est = StreamingEstimator.from_store(lag_sum_engine(3, 2, device='cpu'), store, 77)\n"
+        "assert torch.allclose(est.finalize(streaming_autocovariance), g, rtol=1e-5, atol=1e-5)\n"
+        "w = StreamingEstimator(welch_engine(16, 8, d=2, device='cpu')).ingest(x)\n"
+        "assert w.finalize(streaming_welch)[1].shape == (9, 2)\n"
+        "spec = OverlapSpec(600, 64, 1, 1)\n"
+        "k = lambda v: v[0] * v[-1]\n"
+        "s = serial_window_map_reduce(k, x, 1, 1)\n"
+        "assert torch.allclose(block_window_map_reduce(k, x, spec), s, atol=1e-4)\n"
+        "assert torch.allclose(scan_window_map_reduce(k, x, spec), s, atol=1e-4)\n"
+        "Ah, _, _ = block_levinson(g, 2)\n"
+        "assert arma_forecast(Ah, torch.zeros(0, 2, 2), x, 4).shape == (4, 2)\n"
+        "t = torch.arange(10.0); assert regularize(t, x[:10], t + 0.5)[:9].shape == (9, 2)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_store_and_estimator_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    import numpy as np
+
+    from repro_torch import SeriesFrame, TimeSeriesStore, session_state_from_numpy
+    from repro_torch.core.estimators import lag_sum_engine, moment_engine, welch_engine
+    from repro_torch.timeseries import (random_invertible_ma, random_stable_var, simulate_var,
+                                        simulate_varma, simulate_vma)
+
+    x = np.zeros((64, 2), np.float32)
+    A = np.zeros((1, 2, 2), np.float32)
+    snapshot = {"group_0": {"lanes": {"length": np.zeros(1, np.int32)},
+                            "counts": np.zeros(1)}}
+    for call in (lambda: SeriesFrame.from_sharded(x), lambda: SeriesFrame.from_chunks([x]),
+                 lambda: TimeSeriesStore.from_series(x, 16, 0, 2),
+                 lambda: lag_sum_engine(2, 2), lambda: moment_engine(4, 2),
+                 lambda: welch_engine(8, 4, d=2), lambda: random_stable_var(None, 1, 2),
+                 lambda: random_invertible_ma(None, 1, 2), lambda: simulate_var(None, A, 8),
+                 lambda: simulate_vma(None, A, 8), lambda: simulate_varma(None, A, A, 8),
+                 lambda: session_state_from_numpy(snapshot)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

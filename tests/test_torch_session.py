@@ -175,7 +175,8 @@ def _leaves_equal(a, b):
 def test_reference_snapshot_carried_in_answers_as_the_reference():
     port, ref = _pair(num_users=3)
     _ingest_some(ref)
-    port.import_state(session_state_from_numpy(jax.device_get(ref.export_state())))
+    port.import_state(session_state_from_numpy(jax.device_get(ref.export_state()),
+                                               device="cpu"))
     got_b, want_b = port.query_batch([0, 1, 2]), ref.query_batch(jnp.arange(3))
     for u in range(3):
         _assert_results(port.query(u), ref.query(u))

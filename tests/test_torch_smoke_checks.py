@@ -318,3 +318,39 @@ def test_planted_bin_error_lands_in_a_faint_high_bin_and_is_caught(per_segment):
     assert res["channel"] >= 3  # one of the high-phi channels
     assert 1.5 * smoke.TOL_NEW["psd"] < res["per_bin_rel"] < 2.5 * smoke.TOL_NEW["psd"]
     assert res["normwise_rel"] < smoke.TOL["psd"] and res["bin_share_of_max"] < 1e-2
+
+
+@pytest.mark.parametrize("P,n,d,H", [(1, 40, 3, 0), (5, 64, 4, 6), (3, 33, 2, 9)])
+def test_store_kernel2_library_yardstick_is_the_same_function(P, n, d, H):
+    """The store phase's kernel-2 yardstick (one GEMM over the unfolded
+    blocks, lags stacked into the rows) computes the per-block lag sums of
+    the plain version."""
+    from repro_torch.kernels.window_stats import ref as wsr
+
+    g = torch.Generator().manual_seed(P * n)
+    blocks = torch.randn((P, n + H, d), generator=g)
+    want = wsr.masked_lagged_sums_ref(blocks, torch.ones((P, n), dtype=torch.bool), H)
+    got = smoke.lag_library_stacked(blocks[:, :n].contiguous(), blocks)
+    assert got.shape == want.shape == (P, H + 1, d, d)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_store_fault_is_visible_per_block_not_in_the_total():
+    """A zeroed halo row moves its own block's lag partial by far more than
+    TOL["lag"], while the sum over many blocks moves by far less: the store
+    phase holds the fault block by block."""
+    from repro_torch.core.overlap import OverlapSpec, make_overlapping_blocks
+    from repro_torch.kernels.window_stats import ref as wsr
+
+    P, B, H, d = 64, 256, 4, 8
+    x = smoke.make_series(P * B, d, 0, torch.device("cpu"))
+    blocks, _ = make_overlapping_blocks(x, OverlapSpec(P * B, B, 0, H))
+    ones = torch.ones((P, B), dtype=torch.bool)
+    clean = wsr.masked_lagged_sums_ref(blocks, ones, H)
+    faulty = blocks.clone()
+    faulty[P // 2 - 1, B] = 0.0
+    bad = wsr.masked_lagged_sums_ref(faulty, ones, H)
+    rel, at, _ = smoke.tenant_rel(bad, clean)
+    assert at == P // 2 - 1 and rel > smoke.TOL["lag"]
+    total = smoke.compare(bad.sum(0), clean.sum(0), smoke.TOL["lag"])
+    assert total["max_rel_err"] < rel / 10
