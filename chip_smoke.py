@@ -12,7 +12,10 @@ moments finalize's tail), drives the overlapping block store
 once per collect for every block, kernel 2 once per
 ``autocovariance_blocked``), the multi-tenant session (FrameSession over
 RollingStatsService: kernels 1-4 launched once per arrival batch and per
-batched query for every tenant), then checks and times kernel 8
+batched query for every tenant), the serving gateway (StatsGateway over a
+session with forecasts and anomaly scores: per-tick coalescing, crc32
+checkpoints, kill and restart past a torn generation, a chaos-poisoned
+tenant quarantined and rebuilt), then checks and times kernel 8
 (sliding-window attention) and serves h2o-danube-1.8b at full width and
 depth through ``ServeEngine.generate``, printing one JSON line per phase.
 The second-to-last line lists the kernels; the last line names the device
@@ -30,8 +33,15 @@ store holds the same series in 512 blocks of 8,192 rows plus the plan's
 1,023-row halo; one 65,536-row append doubles it.  The session: 65,536
 tenants of d = 16, 8 ticks of 256 rows each, plan autocovariance(16),
 yule_walker(8), moments(32), moments(128), welch(64, 32), then an eviction
-session of 16,384 tenants over a 2,048-sample ring of 8 buckets.  Serving:
-h2o-danube-1.8b (24 layers, d_model 2560, 32 query / 8 KV heads of 80,
+session of 16,384 tenants over a 2,048-sample ring of 8 buckets.  The
+gateway: the session's width and plan plus forecast(16, "ar", p=8),
+forecast(16, "auto", p=4, max_period=16) and anomaly_scores("arma", p=2,
+q=1); each tick all 65,536 tenants submit a (256, 16) host chunk and 4,096
+a query; snapshots every 4 ticks; tenant i's sinusoid at bin k_i in [4, 12]
+of the 64-point segment plants the period round(64 / k_i); the chaos
+check at 4,096 tenants (cut: it needs a fault-free twin run).  The store's
+replan adds forecast(32, "ar", p=8) and anomaly_scores("arma", p=2, q=1).
+Serving: h2o-danube-1.8b (24 layers, d_model 2560, 32 query / 8 KV heads of 80,
 window 4096) in bf16 with random weights from ``--seed``, 4 prompts of
 8,000 tokens, 32 greedy new tokens each.
 Exits non-zero, printing no result, without a GPU or when a phase fails.
@@ -50,6 +60,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -179,6 +190,25 @@ SESSION_LAGS, SESSION_YW, SESSION_WINDOWS, SESSION_WELCH = 16, 8, (32, 128), (64
 SESSION_TOL = {"autocovariance": (1e-4, 1e-4), "yule_walker": (1e-3, 1e-4),
                "moments": (1e-5, 1e-5), "welch": (1e-4, 1e-4)}
 
+# The gateway (StatsGateway over FrameSession): the session phase's width
+# (65,536 tenants of d = 16, 8 ticks of 256 rows) and plan, plus
+# forecast(16, "ar", p=8), forecast(16, "auto", p=4, max_period=16) and
+# anomaly_scores("arma", p=2, q=1): H stays 16 and the carry 127 rows.  Every
+# tick each tenant submits a host chunk and GATEWAY_QUERY tenants a query; a
+# query runs kernel 2 for each of the 5 lag-family members, kernel 3 for
+# moments(32)'s tail and kernel 4 twice (the Welch tail and the auto
+# member's read).  Tenant i's sinusoid sits at bin k_i in [4, 12] of the
+# 64-point Welch segment, so its planted period is round(64 / k_i); its
+# amplitude is 2, twice the session phase's: at 1 the AR(1) channels' power
+# near DC outweighed it in 190 of 4,096 tenants on the H100, and the
+# detector (the reference's) takes the largest non-DC bin.  The
+# chaos check runs at CHAOS_USERS tenants (cut from 65,536: it needs a
+# fault-free twin run beside the faulty one).
+GATEWAY_NPERSEG, GATEWAY_BINS, GATEWAY_AMPLITUDE = SESSION_WELCH[0], (4, 12), 2.0
+GATEWAY_HORIZON, GATEWAY_MAX_PERIOD = 16, 16
+GATEWAY_QUERY, GATEWAY_SAMPLED, GATEWAY_SNAPSHOT_EVERY, GATEWAY_PROFILED_TICK = 4096, 64, 4, 5
+CHAOS_USERS, CHAOS_TICKS, CHAOS_REBUILD_AT, CHAOS_QUERY = 4096, 6, 4, 256
+
 # The overlapping block store (TimeSeriesStore, SeriesFrame.from_sharded) on
 # the fused plan phase's series and plan: blocks of STORE_BLOCK rows (the
 # reference's default), the plan's halo h_right = CARRY = 1,023 (width
@@ -188,6 +218,20 @@ SESSION_TOL = {"autocovariance": (1e-4, 1e-4), "yule_walker": (1e-3, 1e-4),
 # the first halo row of the middle block (255 of 512) zeroed in a copy of the
 # store.
 STORE_BLOCK = 8192
+# The replan over the grown store adds moments(16) and, at d = 64, a forecast
+# of STORE_HORIZON steps (AR(8)) and ARMA(2, 1) anomaly scores over the
+# plan's 1,023-row tail, held against the chunk path's collect of the same
+# members at TOL["fit"] (normwise; non-finite entries exactly).
+STORE_HORIZON = 32
+
+
+def declare_replan(frame):
+    frame.moments(16)
+    frame.forecast(STORE_HORIZON, "ar", p=P_YW)
+    frame.anomaly_scores("arma", p=2, q=1)
+    return frame
+
+
 STORE_COLLECT_LAUNCHES = {"fused_plan_megakernel": 1, "cross_window_stats": 3,
                           "fused_lag_moments": 1, "segment_dft_power": 1}
 
@@ -267,11 +311,15 @@ def leaf_error(a, b, scale=None) -> tuple:
     return err, ratio.max().item(), finite
 
 
-def compare(got, want, tol: float, scales: dict = None) -> dict:
+def compare(got, want, tol: float, scales: dict = None, same_nonfinite: bool = False) -> dict:
     """Every leaf of ``got`` against the same leaf of ``want``, each against
     its own scale.  ``scales`` maps a leaf path to a componentwise scale.  A
     moments result {"mean", "var", "count"} holds its count exactly and its
-    mean per channel against sqrt(var).  Reports the worst leaf."""
+    mean per channel against sqrt(var).  ``same_nonfinite`` (forecasts and
+    anomaly scores, whose innovations filter overflows under a
+    non-invertible fitted MA part on both paths) holds every non-finite
+    entry of ``want`` exactly (the same inf, or NaN) and the finite entries
+    against their own max.  Reports the worst leaf."""
     g, w = leaves(got), leaves(want)
     if [p for p, _ in g] != [p for p, _ in w]:
         fail("structure mismatch", got=[p for p, _ in g], want=[p for p, _ in w])
@@ -281,8 +329,15 @@ def compare(got, want, tol: float, scales: dict = None) -> dict:
             var = dict(w)[path[: -len("mean")] + "var"]
             scales.setdefault(path, var.double().sqrt().clamp_min(1e-30))
     res = {"max_abs_err": 0.0, "max_rel_err": 0.0, "worst": None, "tol": tol, "bad": []}
+    res["nonfinite"] = 0
     for (path, a), (_, b) in zip(g, w):
-        err, rel, finite = leaf_error(a, b, scales.get(path))
+        if same_nonfinite and b.is_floating_point():
+            a, b, same = split_nonfinite(a, b)
+            res["nonfinite"] += same[1]
+            err, rel, finite = leaf_error(a, b, scales.get(path))
+            finite = finite and same[0]
+        else:
+            err, rel, finite = leaf_error(a, b, scales.get(path))
         exact = path.endswith("/count") or not b.is_floating_point()
         if (not finite) or (err != 0 if exact else rel > tol):
             res["bad"].append(path)
@@ -291,6 +346,40 @@ def compare(got, want, tol: float, scales: dict = None) -> dict:
             res["max_rel_err"], res["worst"] = rel, path
     res["ok"] = not res["bad"]
     return res
+
+
+def ma_radius(frame, name: str) -> float:
+    """Spectral radius of the MA part that member ``name`` of a collected
+    ``frame`` fits (0 without one).  Below 1 the innovations filter that
+    seeds an arma forecast and scores an anomaly member is stable; above 1
+    it diverges geometrically on every path (the reference's too), the
+    rounding difference of two paths growing with it, so no tolerance holds
+    its residuals."""
+    from repro_torch.core import forecast as tf
+
+    req = next(r for r in frame._recorded if r.name == name)
+    model, p, q, m, max_period = req.params[-5:]
+    spec = tf.resolve_model_spec(model, p, q, m, max_period)
+    _, theta, _, _ = tf._fitted_model(frame._plan.groups[0], frame._states[0], spec)
+    q, d = theta.shape[-3], theta.shape[-1]
+    if q == 0:
+        return 0.0
+    comp = torch.zeros((q * d, q * d), dtype=torch.float64, device=theta.device)
+    comp[:d] = torch.cat(list(theta.double()), -1)
+    comp[d:, : (q - 1) * d] = torch.eye((q - 1) * d, dtype=torch.float64, device=theta.device)
+    return torch.linalg.eigvals(comp).abs().max().item()
+
+
+def split_nonfinite(a, b) -> tuple:
+    """(a, b) with the entries where ``b`` is not finite set to 0 on both
+    sides, and (whether ``a`` holds exactly ``b``'s non-finite entries --
+    the same infs, NaN where ``b`` has NaN -- , how many there are)."""
+    fin = torch.isfinite(b)
+    off = ~fin
+    same = (torch.equal(torch.isfinite(a), fin) and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a[torch.isinf(b)], b[torch.isinf(b)]))
+    return (torch.where(fin, a, torch.zeros_like(a)), torch.where(fin, b, torch.zeros_like(b)),
+            (same, int(off.sum().item())))
 
 
 def moment_sums_split(mom, abs_mom) -> tuple:
@@ -1779,14 +1868,16 @@ def store_phase(args, dev) -> dict:
         return declare_plan(SeriesFrame.from_sharded(data, block_size=STORE_BLOCK,
                                                      device=dev)).collect()
 
-    def collect_chunks(chunk_list, extra=()):
+    def collect_chunks(chunk_list, extra=None):
         frame = declare_plan(SeriesFrame.from_chunks(chunk_list, device=dev))
-        for window in extra:
-            frame.moments(window)
+        if extra is not None:
+            extra(frame)
         return frame.collect()
 
     def members_vs(got, want, tols=MEMBER_TOL):
-        out = {name: compare(got[name], want[name], tol) for name, tol in tols.items()}
+        out = {name: compare(got[name], want[name], tol,
+                             same_nonfinite=name.startswith(("forecast", "anomaly")))
+               for name, tol in tols.items()}
         out["welch_per_bin"] = power_bin_error(got["welch"][1], want["welch"][1], False)
         return out
 
@@ -1962,17 +2053,34 @@ def store_phase(args, dev) -> dict:
     del fresh
     _, steady_ms = timed(lambda: store.append_rows(new))  # in place, no growth
     reset_launch_counts()
-    frame.moments(16)
+    declare_replan(frame)
     replan, replan_ms = timed(frame.collect)
     replan_counts = launch_counts()
-    tols = {**MEMBER_TOL, "moments_3": TOL["moments"]}
-    replan_members = members_vs(replan, collect_chunks(chunks + [new], extra=(16,)), tols)
+    tols = {**MEMBER_TOL, "moments_3": TOL["moments"], "forecast": TOL["fit"],
+            "anomaly": TOL["fit"]}
+    chunk_frame = declare_replan(declare_plan(SeriesFrame.from_chunks(chunks + [new],
+                                                                      device=dev)))
+    want_replan = chunk_frame.collect()
+    radius = ma_radius(chunk_frame, "anomaly")
+    del chunk_frame
+    if radius >= 1.0:  # a diverging filter: its residuals are held by their fit only
+        unheld = {k: replan["anomaly"].pop(k) for k in ("z", "score")}
+        unheld_want = {k: want_replan["anomaly"].pop(k) for k in ("z", "score")}
+    replan_members = members_vs(replan, want_replan, tols)
+    replan_members["anomaly"]["ma_radius"] = radius
+    if radius >= 1.0:
+        replan_members["anomaly"]["residuals_unheld"] = compare(unheld, unheld_want, TOL["fit"],
+                                                                same_nonfinite=True)
+        replan["anomaly"].update(unheld)
     append_ok = (others_zero(append_counts, {"fused_plan_megakernel": 2})
                  and others_zero(after_counts, {k: v for k, v in STORE_COLLECT_LAUNCHES.items()
                                                 if k != "fused_plan_megakernel"})
                  and all(r["ok"] for r in after_members.values()))
     replan_ok = (replan_counts["fused_plan_megakernel"] == 1
-                 and all(r["ok"] for r in replan_members.values()))
+                 and all(r["ok"] for r in replan_members.values())
+                 and tuple(replan["forecast"]["pred"].shape) == (STORE_HORIZON, D)
+                 and tuple(replan["anomaly"]["z"].shape) == (CARRY, D))
+    del want_replan
     if not append_ok:
         bad.append("append")
     if not store_bitwise or capacity < 2 * P:
@@ -2021,13 +2129,15 @@ class SessionSource:
     """Arrival batches of a session, tick by tick, made on the card from a
     seed: per tenant and channel a stable AR(1) (phi from 0.3 to 0.9), a
     period-50 sinusoid with a random phase and white noise; the AR state
-    carries from one tick to the next.  Two sources of one seed give the
-    same ticks."""
+    carries from one tick to the next.  With ``bins`` ((users,) ints) tenant
+    i's sinusoid sits at bin bins[i] of a GATEWAY_NPERSEG-point segment
+    instead.  Two sources of one seed give the same ticks."""
 
-    def __init__(self, users: int, seed: int, dev):
+    def __init__(self, users: int, seed: int, dev, bins=None):
         self.g = torch.Generator(device=dev)
         self.g.manual_seed(seed)
         self.users, self.dev, self.t = users, dev, 0
+        self.bins = bins
         shape = (users, 1, SESSION_D)
         self.phi = 0.3 + 0.6 * torch.rand(shape, generator=self.g, device=dev)
         self.phase = torch.rand(shape, generator=self.g, device=dev) * (2 * math.pi)
@@ -2043,8 +2153,14 @@ class SessionSource:
         steps = torch.arange(1, rows + 1, device=self.dev, dtype=torch.float32)[None, :, None]
         x = x + self.phi ** steps * self.state
         self.state = x[:, -1:]
-        t = torch.arange(self.t, self.t + rows, device=self.dev).remainder(50).float()
-        x = x + torch.sin(t[None, :, None] * (2 * math.pi / 50) + self.phase)
+        if self.bins is None:
+            t = torch.arange(self.t, self.t + rows, device=self.dev).remainder(50).float()
+            x = x + torch.sin(t[None, :, None] * (2 * math.pi / 50) + self.phase)
+        else:
+            t = torch.arange(self.t, self.t + rows, device=self.dev).remainder(GATEWAY_NPERSEG)
+            angle = (self.bins[:, None] * t[None, :]).remainder(GATEWAY_NPERSEG).float()
+            wave = torch.sin(angle[:, :, None] * (2 * math.pi / GATEWAY_NPERSEG) + self.phase)
+            x = x + GATEWAY_AMPLITUDE * wave
         x = x + 0.5 * torch.randn(x.shape, generator=self.g, device=self.dev)
         self.t += rows
         return x.contiguous()
@@ -2554,6 +2670,401 @@ def session_phase(args, dev) -> dict:
     return {"kernels": kernels, "metrics": metrics}
 
 
+# ---------------------------------------------------------- the gateway
+def new_gateway_session(dev, users: int, **kw):
+    """The session phase's plan plus the gateway's forecast and anomaly
+    members (GATEWAY_* below)."""
+    sess = new_session(dev, users, **kw)
+    sess.forecast(GATEWAY_HORIZON, "ar", p=P_YW)
+    sess.forecast(GATEWAY_HORIZON, "auto", p=4, max_period=GATEWAY_MAX_PERIOD)
+    sess.anomaly_scores("arma", p=2, q=1)
+    return sess
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two host arrays (NaN included)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a.view(np.uint8),
+                                                                        b.view(np.uint8))
+
+
+def stacked_answers(answers: list) -> dict:
+    """{leaf path: the waiters' leaves stacked} of a list of per-tenant
+    answers (host numpy trees)."""
+    per = [dict(leaves(a)) for a in answers]
+    return {p: np.stack([d[p] for d in per]) for p in per[0]}
+
+
+def answers_equal(answers: list, want) -> bool:
+    """The waiters' answers bitwise ``want``: a batched host result, its
+    tenants in the waiters' order, or another list of answers."""
+    got = stacked_answers(answers)
+    ref = stacked_answers(want) if isinstance(want, list) else dict(leaves(want))
+    return set(got) == set(ref) and all(same_bits(got[p], ref[p]) for p in ref)
+
+
+def tree_to(tree, fn):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to(v, fn) for v in tree)
+    return fn(tree)
+
+
+def forecast_leaf_error(got, want) -> tuple:
+    """(normwise error over the entries where ``want`` is finite, whether
+    the non-finite entries match exactly, how many there are) of two host
+    arrays."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(w)
+    same = (np.array_equal(np.isfinite(g), fin) and np.array_equal(np.isnan(g), np.isnan(w))
+            and np.array_equal(g[np.isinf(w)], w[np.isinf(w)]))
+    if not fin.any():
+        return 0.0, same, int((~fin).sum())
+    g, w = np.where(fin, g, 0.0), np.where(fin, w, 0.0)
+    diff, ref = np.abs(g - w).max(), np.abs(w).max()
+    return (diff / ref if ref > 0 else diff), same, int((~fin).sum())
+
+
+def gateway_compare(got: dict, want: dict, diverging=()) -> dict:
+    """One tenant's gateway answer (host numpy) against its per-tenant frame
+    (tensors): statistics as ``session_compare`` (the reference tests'
+    tolerances); forecast and anomaly leaves normwise at TOL["fit"] with
+    their non-finite entries held exactly, ``period`` and ``valid``
+    exactly.  The residuals (``z``, ``score``) of a member in ``diverging``
+    (its fitted MA part not invertible: see ``ma_radius``) are reported,
+    not held."""
+    out = {}
+    for name, w in want.items():
+        if not name.startswith(("forecast", "anomaly")):
+            g = tree_to(got[name], lambda v: torch.from_numpy(np.asarray(v)))
+            rep = session_compare({name: g}, {name: tree_to(w, lambda v: v.cpu())})
+            out[name] = rep[name]
+            continue
+        worst, ok, nonfinite, unheld = 0.0, True, 0, 0.0
+        for key, wv in w.items():
+            wv = wv.cpu().numpy()
+            if key in ("period", "valid"):
+                ok &= same_bits(np.asarray(got[name][key]), wv)
+                continue
+            err, same, off = forecast_leaf_error(got[name][key], wv)
+            nonfinite += off
+            if name in diverging and key in ("z", "score"):
+                unheld = max(unheld, err)
+                continue
+            worst = max(worst, err)
+            ok &= same and err <= TOL["fit"]
+        out[name] = {"worst": worst, "nonfinite": nonfinite, "ok": bool(ok),
+                     "diverging": int(name in diverging), "unheld_worst": unheld}
+    return out
+
+
+def gateway_phase(args, dev) -> dict:
+    """StatsGateway over the session phase's 65,536 tenants with forecast and
+    anomaly members: every tenant submits a host chunk and 4,096 a query
+    each tick.  Checks: launches a tick and a query (independent of the
+    query's size), answers bitwise a twin session fed the same batches,
+    sampled tenants against per-tenant frames on the plain backend, every
+    planted period detected, kill and restart past a torn generation, and
+    (at 4,096 tenants) a chaos-poisoned tenant quarantined, the others
+    bitwise a fault-free run, the tenant rebuilt.  Times the tick by stage,
+    a profiled tick's device time, the query with and without the forecast
+    members, snapshots and the restore."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from repro_torch import SeriesFrame
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import chaos
+    from repro_torch.serving.gateway import GatewayConfig, StatsGateway, _to_host
+
+    torch.cuda.reset_peak_memory_stats()
+    started = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 20)
+    users, rows = SESSION_USERS, SESSION_ROWS
+    ids = np.arange(users)
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 20)
+    bins = torch.randint(GATEWAY_BINS[0], GATEWAY_BINS[1] + 1, (users,), generator=g,
+                         device=dev)
+    planted = np.round(GATEWAY_NPERSEG / bins.cpu().numpy()).astype(np.int32)
+    query_ids = np.sort(rng.choice(users, GATEWAY_QUERY, replace=False))
+    sample_pos = np.sort(rng.choice(GATEWAY_QUERY, GATEWAY_SAMPLED, replace=False))
+    sample = query_ids[sample_pos]
+    sample_t = torch.as_tensor(sample, device=dev)
+    loop = asyncio.new_event_loop()
+    asyncio.set_event_loop(loop)
+    run = loop.run_until_complete
+    ckdir = tempfile.mkdtemp(prefix="gateway_ckpt_")
+    checks, metrics, bad = {}, {}, []
+    try:
+        cfg = GatewayConfig(max_pending_ingest=users, sentinel=True,
+                            snapshot_every=GATEWAY_SNAPSHOT_EVERY, checkpoint_dir=ckdir)
+        gw = StatsGateway(new_gateway_session(dev, users), cfg)
+        twin = new_gateway_session(dev, users)
+        base = new_session(dev, users)  # the same statistics without forecast members
+        src = SessionSource(users, args.seed + 20, dev, bins=bins)
+        per_query = {"cross_window_stats": 5, "fused_lag_moments": 1, "segment_dft_power": 2}
+        per_tick = {**per_query, "fused_plan_megakernel": 2}
+        kept, ticks, twin_equal, launches_ok = [], [], [], []
+        snapshot_answers = last_answers = None
+        torn = chaos.FaultInjector(seed=args.seed).corrupt("checkpoint.payload", calls={0})
+        for tick in range(SESSION_TICKS):
+            x = src.next()
+            host = x.cpu().numpy()  # the clients' payloads
+            kept.append(x[sample_t])
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            futs = [gw.submit_ingest(u, host[u]) for u in range(users)]
+            qfuts = [gw.submit_query(int(u)) for u in query_ids]
+            t1 = time.perf_counter()
+            if tick == SESSION_TICKS - 1:
+                chaos.install(torn)  # the tick's snapshot is torn on disk
+            if tick == GATEWAY_PROFILED_TICK:
+                held = []
+                busy, wall, top = profile_once(lambda: held.append(run(gw.tick())))
+                stats = held[0]
+                metrics["profiled_tick"] = {"device_busy_ms": busy, "wall_ms": wall,
+                                            "busy_share": busy / wall, "by_kernel": top}
+            else:
+                stats = run(gw.tick())
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            counts = launch_counts()
+            write_ms = None
+            if (tick + 1) % GATEWAY_SNAPSHOT_EVERY == 0:
+                gw._loop_rt.manager.flush()  # the writer thread: crc32 and the write
+                write_ms = (time.perf_counter() - t2) * 1e3
+                chaos.clear()
+            ok_fut = all(f.done() and f.exception() is None for f in futs)
+            answers = [f.result() for f in qfuts]
+            t3 = time.perf_counter()
+            twin.ingest(ids, x)
+            want = _to_host(twin.query_batch(query_ids))
+            base.ingest(ids, x)
+            twin_equal.append(ok_fut and answers_equal(answers, want))
+            launches_ok.append(all(v == per_tick.get(k, 0) for k, v in counts.items()))
+            if tick == GATEWAY_SNAPSHOT_EVERY - 1:
+                snapshot_answers = want
+            last_answers = answers
+            ticks.append({"admission_ms": (t1 - t0) * 1e3, "tick_ms": (t2 - t1) * 1e3,
+                          "split_ms": {k: v * 1e3 for k, v in stats["split"].items()},
+                          "snapshot_write_ms": write_ms, "launches": counts,
+                          "twin_check_ms": (time.perf_counter() - t3) * 1e3})
+            del host, futs, qfuts, answers, want
+        metrics["ticks"] = ticks
+        steady = sorted(t["tick_ms"] + t["admission_ms"] for t in ticks[1:])
+        metrics["tick_ms_median"] = steady[len(steady) // 2]
+        metrics["gateway_metrics"] = {k: gw.metrics()[k] for k in ("ingest", "query",
+                                                                   "batch_occupancy")}
+        checks["launches_per_tick"] = {"want": per_tick, "ok": all(launches_ok)}
+        checks["twin_bitwise"] = {"ticks": twin_equal, "ok": all(twin_equal)}
+
+        # ---- query-only ticks of 1 and 4,096 tenants: the same launches
+        per_size = {}
+        for label, q in (("one", query_ids[:1]), ("batch", query_ids)):
+            reset_launch_counts()
+            futs = [gw.submit_query(int(u)) for u in q]
+            run(gw.tick())
+            torch.cuda.synchronize()
+            per_size[label] = launch_counts()
+        checks["launches_per_query"] = {
+            **per_size, "ok": per_size["one"] == per_size["batch"]
+            and all(v == per_query.get(k, 0) for k, v in per_size["batch"].items())}
+
+        # ---- sampled tenants against per-tenant frames on the plain backend
+        final = stacked_answers(last_answers)
+        parity = {}
+        for i, u in enumerate(sample):
+            series = torch.cat([k[i] for k in kept], 0)
+            frame = SeriesFrame.from_array(series, backend="torch", device=dev)
+            frame.autocovariance(SESSION_LAGS)
+            frame.yule_walker(SESSION_YW)
+            for w in SESSION_WINDOWS:
+                frame.moments(w)
+            frame.welch(nperseg=SESSION_WELCH[0], overlap=SESSION_WELCH[1])
+            frame.forecast(GATEWAY_HORIZON, "ar", p=P_YW)
+            frame.forecast(GATEWAY_HORIZON, "auto", p=4, max_period=GATEWAY_MAX_PERIOD)
+            frame.anomaly_scores("arma", p=2, q=1)
+            want = frame.collect()
+            diverging = {"anomaly"} if ma_radius(frame, "anomaly") >= 1.0 else set()
+            for name, r in gateway_compare(last_answers[sample_pos[i]], want, diverging).items():
+                cur = parity.setdefault(name, {"worst": 0.0, "nonfinite": 0, "diverging": 0,
+                                               "unheld_worst": 0.0, "ok": True})
+                cur["worst"] = max(cur["worst"], r["worst"])
+                cur["unheld_worst"] = max(cur["unheld_worst"], r.get("unheld_worst", 0.0))
+                cur["nonfinite"] += r.get("nonfinite", 0)
+                cur["diverging"] += r.get("diverging", 0)
+                cur["ok"] &= r["ok"]
+        checks["plain_parity"] = {"members": parity, "tenants": len(sample),
+                                  "ok": all(v["ok"] for v in parity.values())}
+        periods = final[("/forecast_2/period")]
+        checks["periods"] = {"detected_right": int((periods == planted[query_ids]).sum()),
+                             "tenants": GATEWAY_QUERY,
+                             "ok": bool((periods == planted[query_ids]).all())}
+        anomaly_finite = np.isfinite(final["/anomaly/score"]).all(1)
+        metrics["anomaly_finite_tenants"] = int(anomaly_finite.sum())
+        del kept, final, last_answers
+
+        # ---- query cost with and without the forecast members
+        metrics["query_batch_ms"] = cuda_ms(lambda: twin.query_batch(query_ids), 3, warmup=1)
+        metrics["query_batch_ms_without_forecasts"] = cuda_ms(
+            lambda: base.query_batch(query_ids), 3, warmup=1)
+        merged = twin.partials_batch(query_ids)[0]
+        group = twin.plan.groups[0]
+        metrics["finalize_ms_by_member"] = {
+            m.name: cuda_ms(lambda m=m: m.finalize(merged), 2, warmup=1) for m in group.members}
+        del merged, base
+        gc.collect()
+
+        # ---- snapshot costs, then kill and restart past the torn generation
+        export_t0 = time.perf_counter()
+        snap = twin.export_state()
+        export_ms = (time.perf_counter() - export_t0) * 1e3
+        flat = ckpt._flatten(snap)
+        crc_t0 = time.perf_counter()
+        for leaf in flat.values():
+            ckpt._checksum(leaf)
+        crc_ms = (time.perf_counter() - crc_t0) * 1e3
+        snap_bytes = sum(v.nbytes for v in flat.values())
+        del snap, flat
+        gw._loop_rt.manager.flush()
+        run(gw.stop(final_snapshot=False))
+        del gw
+        gc.collect()
+        steps = ckpt.list_steps(ckdir)
+        restore_t0 = time.perf_counter()
+        gw2 = StatsGateway(new_gateway_session(dev, users), cfg)
+        restore_ms = (time.perf_counter() - restore_t0) * 1e3
+        futs = [gw2.submit_query(int(u)) for u in query_ids]
+        run(gw2.tick())
+        restarted = [f.result() for f in futs]
+        disk = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ckdir)
+                   for f in fs)
+        checks["restart"] = {
+            "generations": steps, "restored_tick": gw2._tick - 2,
+            "skipped": gw2._loop_rt.last_restore_skipped,
+            "ok": gw2.counters["restored_from_snapshot"] == 1
+            and gw2._loop_rt.last_restore_skipped == [SESSION_TICKS - 1]
+            and gw2._tick == GATEWAY_SNAPSHOT_EVERY + 1
+            and gw2.counters["programs_ingest"] == 0
+            and answers_equal(restarted, snapshot_answers)}
+        metrics["snapshot"] = {"export_ms": export_ms, "crc32_ms": crc_ms, "bytes": snap_bytes,
+                               "tick_export_ms": ticks[GATEWAY_SNAPSHOT_EVERY - 1]["split_ms"]
+                               ["snapshot"],
+                               "write_ms": ticks[GATEWAY_SNAPSHOT_EVERY - 1]["snapshot_write_ms"],
+                               "disk_bytes": disk, "restore_ms": restore_ms}
+        run(gw2.stop(final_snapshot=False))
+        del gw2, restarted, snapshot_answers, twin
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- chaos at CHAOS_USERS tenants: one tenant poisoned and rebuilt
+        checks["chaos"] = gateway_chaos(args, dev, bins[:CHAOS_USERS], run, ckdir)
+    finally:
+        chaos.clear()
+        loop.close()
+        asyncio.set_event_loop(None)
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    metrics["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    metrics["phase_seconds"] = time.perf_counter() - started
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    emit({"phase": "gateway", "device": torch.cuda.get_device_name(0),
+          "tenants": users, "d": SESSION_D, "rows_per_tick": rows, "ticks": SESSION_TICKS,
+          "queried": GATEWAY_QUERY, "sampled": GATEWAY_SAMPLED,
+          "chaos_tenants": CHAOS_USERS, "metrics": metrics, "checks": checks})
+    if bad:
+        fail("gateway checks failed", failed=bad)
+    return {"launches_per_tick": per_tick, "launches_per_query": per_query}
+
+
+def gateway_chaos(args, dev, bins, run, ckdir) -> dict:
+    """Check 6 at CHAOS_USERS tenants (a fault-free twin run is needed):
+    ``ingest.payload`` NaN-poisons the victim's chunk at tick 2 under the
+    ``quarantine`` policy; every other tenant's answers (CHAOS_QUERY each
+    tick, then all of them) bitwise a fault-free run's; ``rebuild_tenant``
+    restores the victim from the newest intact generation, bitwise a
+    gateway that ingested only what that generation held (ticks 0 and 1)."""
+    from repro_torch.runtime import chaos
+    from repro_torch.serving.gateway import GatewayConfig, PoisonedChunk, StatsGateway
+
+    users = CHAOS_USERS
+    rng = np.random.default_rng(args.seed + 21)
+    victim = int(rng.integers(users))
+    others = np.setdiff1d(np.arange(users), [victim])
+    qset = np.sort(rng.choice(others, CHAOS_QUERY, replace=False))
+
+    def drive(faulty: bool, ticks: int):
+        kw = dict(max_pending_ingest=users, sentinel=True, sentinel_policy="quarantine")
+        if faulty:
+            kw.update(snapshot_every=2, checkpoint_dir=os.path.join(ckdir, "chaos"))
+        gw = StatsGateway(new_gateway_session(dev, users), GatewayConfig(**kw))
+        src = SessionSource(users, args.seed + 21, dev, bins=bins)
+        inj = chaos.FaultInjector(seed=args.seed).corrupt("ingest.payload",
+                                                          calls={2 * users + victim})
+        answers, rebuilt, victim_answer = [], None, None
+        if faulty:
+            chaos.install(inj)
+        for t in range(ticks):
+            host = src.next().cpu().numpy()
+            if faulty and t == CHAOS_REBUILD_AT:
+                rebuilt = gw.rebuild_tenant(victim)
+                qf = gw.submit_query(victim)
+                run(gw.tick())
+                victim_answer = qf.result()
+            futs = []
+            for u in range(users):
+                try:
+                    futs.append(gw.submit_ingest(u, host[u]))
+                except PoisonedChunk:
+                    pass
+            qfuts = [gw.submit_query(int(u)) for u in qset]
+            run(gw.tick())
+            rejected = [f for f in futs if f.exception() is not None]
+            if rejected and not faulty:
+                raise RuntimeError("a fault-free run rejected an ingest")
+            answers.append([f.result() for f in qfuts])
+        futs = [gw.submit_query(int(u)) for u in others]
+        run(gw.tick())
+        everyone = [f.result() for f in futs]
+        chaos.clear()
+        report = {"log": list(inj.log), "health": gw.health()["integrity"],
+                  "rebuilt": rebuilt}
+        run(gw.stop(final_snapshot=False))
+        return answers, everyone, victim_answer, report
+
+    faulty = drive(True, CHAOS_TICKS)
+    clean = drive(False, CHAOS_TICKS)
+    ticks_equal = [answers_equal(a, b) for a, b in zip(faulty[0], clean[0])]
+    everyone_equal = answers_equal(faulty[1], clean[1])
+    # what the rebuilt generation held: the victim's ticks 0 and 1
+    gw = StatsGateway(new_gateway_session(dev, users),
+                      GatewayConfig(max_pending_ingest=users, sentinel=True))
+    src = SessionSource(users, args.seed + 21, dev, bins=bins)
+    for _ in range(2):
+        host = src.next().cpu().numpy()
+        for u in range(users):
+            gw.submit_ingest(u, host[u])
+        run(gw.tick())
+    qf = gw.submit_query(victim)
+    run(gw.tick())
+    want_victim = qf.result()
+    run(gw.stop(final_snapshot=False))
+    rep, rebuilt = faulty[3], faulty[3]["rebuilt"]
+    victim_ok = faulty[2] is not None and answers_equal([faulty[2]], [want_victim])
+    return {"victim": victim, "log": rep["log"], "health": rep["health"],
+            "rebuilt": rebuilt, "ticks_bitwise": ticks_equal, "everyone_bitwise": everyone_equal,
+            "victim_bitwise_generation": victim_ok,
+            "ok": rep["log"] == [("ingest.payload", 2 * users + victim, "corrupt")]
+            and rebuilt is not None and rebuilt["released"] and rebuilt["step"] == 3
+            and rep["health"]["tenants_quarantined"] == 1 and rep["health"]["quarantined"] == []
+            and all(ticks_equal) and everyone_equal and victim_ok}
+
+
 def swa_kernel(args, dev) -> dict:
     """Phase 9: kernel 8 against the chunked plain version at the prefill's
     layer shape and over an edge grid (bf16 and f32), then timed at the
@@ -2882,6 +3393,10 @@ def main() -> None:
     session_phase(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # the gateway over a session with forecasts: checkpoints, restart, chaos
+    gateway = gateway_phase(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # phases 9-10: kernel 8 alone, then the LM serving path through it
     swa = swa_kernel(args, dev)
     serve_launches = lm_serve(args, dev)
@@ -2903,6 +3418,8 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": t["library_ms"],
             "store_launches": store["launches"].get(name, 0),
+            "gateway_launches_per_tick": gateway["launches_per_tick"].get(name, 0),
+            "gateway_launches_per_query": gateway["launches_per_query"].get(name, 0),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
 The JAX package `repro` is the reference; this package re-creates its fused
 statistics plan with its overlapping block store, its streaming
 estimators, its rolling moments and cross-spectra, its §6 banded
-spatial AR fit and its dense-family LM serving path on PyTorch, with each
+spatial AR fit, its forecasts and anomaly scores, its serving gateway
+with verified checkpoints, and its dense-family LM serving path on
+PyTorch, with each
 Pallas kernel on those paths rewritten as a hand-written CUDA kernel for
 Hopper (sm_90a).  It imports nothing from `repro` and no JAX.
 
@@ -16,6 +18,9 @@ wrapper runs its plain PyTorch version:
   StreamingEstimator(engine).ingest(chunk).finalize(...)   lag_sum_engine, welch_engine, ...
   FrameSession(d, num_users, ...) -> .autocovariance(...) ... .ingest(ids, chunks)
       -> .query(user) / .query_batch(users)     many users, one plan
+  frame.forecast(horizon, model="ar"|"arma"|"auto") / frame.anomaly_scores(model=...)
+  StatsGateway(session, GatewayConfig(...))  await .ingest(t, chunk) / .query(t), per-tick
+      coalescing, snapshots through CheckpointManager, kill-and-restart
   analyze(series, requests, device=...)
   StatPlan(requests, d, device=...)
   windowed_moments(x, window)               rolling mean and variance
@@ -32,7 +37,8 @@ from .core.frame import (Deferred, FrameSession, SeriesFrame, session_state_from
 from .core.plan import StatPlan, analyze
 from .configs import get_arch
 from .models import init_params
-from .serving import RollingStatsService, ServeEngine
+from .checkpoint import CheckpointManager
+from .serving import GatewayConfig, RollingStatsService, ServeEngine, StatsGateway
 from .timeseries import StreamingEstimator, TimeSeriesStore
 
 # The plain versions on the card are full fp32, like the kernels: no TF32.
@@ -42,6 +48,7 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 __all__ = ["SeriesFrame", "Deferred", "FrameSession", "RollingStatsService", "TimeSeriesStore",
+           "StatsGateway", "GatewayConfig", "CheckpointManager",
            "StreamingEstimator",
            "session_state_from_numpy", "session_state_to_numpy", "StatPlan", "analyze",
            "windowed_moments", "welch_csd",

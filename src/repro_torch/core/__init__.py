@@ -1,5 +1,6 @@
 """Core of the port: overlapping blocks, the map-reduce engine, backends,
-the streaming monoid, fused plans, frames and the multi-tenant session."""
+the streaming monoid, fused plans, forecasts, frames and the multi-tenant
+session."""
 from .backend import (CudaBackend, TorchBackend, get_backend, list_backends,  # noqa: F401
                       register_backend, resolve_device)
 from .frame import (Deferred, FrameSession, SeriesFrame, session_state_from_numpy,  # noqa: F401
@@ -10,9 +11,9 @@ from .mapreduce import (block_partials, block_window_map_reduce,  # noqa: F401
                         sharded_window_map_reduce, tree_sum)
 from .overlap import (OverlapSpec, block_core, core_mask, make_overlapping_blocks,  # noqa: F401
                       reconstruct, replication_overhead)
-from .plan import (StatPlan, analyze, arma_request, autocovariance_request,  # noqa: F401
-                   fused_engine, kernel_request, moments_request, welch_request,
-                   yule_walker_request)
+from .plan import (StatPlan, analyze, anomaly_request, arma_request,  # noqa: F401
+                   autocovariance_request, forecast_request, fused_engine, kernel_request,
+                   moments_request, welch_request, yule_walker_request)
 from .streaming import (PartialState, StreamingEngine, resolved_stat,  # noqa: F401
                         state_from_numpy, state_to_numpy)
 from . import estimators  # noqa: F401

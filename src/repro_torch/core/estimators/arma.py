@@ -35,7 +35,7 @@ def solve_arma_from_psi(psi: torch.Tensor, p: int, q: int) -> Tuple[torch.Tensor
     M = torch.cat([torch.cat([T(P(q + r - i)) for i in range(1, p + 1)], -1)
                    for r in range(1, p + 1)], -2)
     R = torch.cat([T(P(q + r)) for r in range(1, p + 1)], -2)
-    sol = torch.linalg.solve(M, R)
+    sol = torch.linalg.solve_ex(M, R)[0]  # unchecked, as yule_walker's solve
     A = torch.stack([T(sol[..., i * d: (i + 1) * d, :]) for i in range(p)], -3)
     Bs = []
     for j in range(1, q + 1):

@@ -36,7 +36,7 @@ def innovation_algorithm(gamma: torch.Tensor, m_max: int,
             acc = G(m - k)
             for j in range(k):
                 acc = acc - theta[m][m - j] @ V[j] @ T(theta[k][k - j])
-            theta[m][m - k] = T(torch.linalg.solve(T(V[k] + reg), T(acc)))
+            theta[m][m - k] = T(torch.linalg.solve_ex(T(V[k] + reg), T(acc))[0])
         Vm = G(0)
         for j in range(m):
             Vm = Vm - theta[m][m - j] @ V[j] @ T(theta[m][m - j])

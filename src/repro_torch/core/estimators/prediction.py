@@ -48,25 +48,31 @@ def arma_innovations_filter(A: torch.Tensor, B: torch.Tensor,
     the steady-state recursion X_{t+1} = sum_i A_i X_{t+1-i} + sum_j B_j
     e_{t+1-j}, e_s = X_s - X_s^, from zero initial lags.
 
-    Returns (preds (T, d), innovations (T, d))."""
-    p, d, q = A.shape[0], A.shape[1], B.shape[0]
-    xlag = x.new_zeros((p, d))  # newest first
-    elag = x.new_zeros((q, d))
+    Leading batch axes ride along: A (..., p, d, d), B (..., q, d, d), x
+    (..., T, d) filter every series at once, one step of batched
+    operations a row whatever the batch.
+
+    Returns (preds (..., T, d), innovations (..., T, d))."""
+    p, d, q = A.shape[-3], A.shape[-2], B.shape[-3]
+    lead = torch.broadcast_shapes(A.shape[:-3], B.shape[:-3], x.shape[:-2])
+    xlag = x.new_zeros(lead + (p, d))  # newest first
+    elag = x.new_zeros(lead + (q, d))
     preds, innovs = [], []
-    for x_t in x:
-        pred = torch.einsum("pij,pj->i", A, xlag)
+    for t in range(x.shape[-2]):
+        x_t = x[..., t, :]
+        pred = torch.einsum("...pij,...pj->...i", A, xlag)
         if q > 0:
-            pred = pred + torch.einsum("qij,qj->i", B, elag)
+            pred = pred + torch.einsum("...qij,...qj->...i", B, elag)
         innov = x_t - pred
         if p > 0:
-            xlag = torch.cat([x_t[None], xlag[:-1]])
+            xlag = torch.cat([x_t[..., None, :], xlag[..., :-1, :]], -2)
         if q > 0:
-            elag = torch.cat([innov[None], elag[:-1]])
+            elag = torch.cat([innov[..., None, :], elag[..., :-1, :]], -2)
         preds.append(pred)
         innovs.append(innov)
     if not preds:
-        return x.new_zeros((0, d)), x.new_zeros((0, d))
-    return torch.stack(preds), torch.stack(innovs)
+        return x.new_zeros(lead + (0, d)), x.new_zeros(lead + (0, d))
+    return torch.stack(preds, -2), torch.stack(innovs, -2)
 
 
 def arma_forecast(A: torch.Tensor, B: torch.Tensor, history: torch.Tensor,

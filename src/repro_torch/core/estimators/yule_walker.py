@@ -48,7 +48,11 @@ def yule_walker(gamma: torch.Tensor, p: int, backend=None,
     if gamma.shape[-3] < p + 1:
         raise ValueError(f"need gamma up to lag {p}, got {gamma.shape[-3] - 1}")
     d = gamma.shape[-1]
-    sol = torch.linalg.solve(_block_toeplitz(gamma, p), _stack_rhs(gamma, p))
+    # solve_ex: no error check, so no device-to-host sync; a singular system
+    # (a series with constant or no samples) gives that series non-finite
+    # results, as the reference's jnp.linalg.solve does, instead of raising
+    # for the whole batch
+    sol = torch.linalg.solve_ex(_block_toeplitz(gamma, p), _stack_rhs(gamma, p))[0]
     A = torch.stack([sol[..., i * d: (i + 1) * d, :].transpose(-1, -2) for i in range(p)], -3)
     sigma = gamma[..., 0, :, :] - sum(A[..., i, :, :] @ gamma[..., i + 1, :, :]
                                       for i in range(p))

@@ -4,12 +4,12 @@ engine mode and the multi-tenant session).
 
 A :class:`SeriesFrame` holds a data placement (a materialized array, a
 stream of chunks, or the overlapping blocks of a `TimeSeriesStore`) plus
-deferred estimator requests.  ``.autocovariance``,
-``.yule_walker``, ``.arma``, ``.moments``, ``.welch`` and ``.map_reduce``
-each return a :class:`Deferred` handle and read nothing; ``.collect()``
-compiles everything pending into ONE fused `StatPlan` and walks the data
-once; ``.append(chunk)`` folds new samples into the carried state, so a
-re-collect costs one walk of the new samples only.  Results are memoized
+deferred estimator requests.  ``.autocovariance``, ``.yule_walker``,
+``.arma``, ``.moments``, ``.welch``, ``.forecast``, ``.anomaly_scores`` and
+``.map_reduce`` each return a :class:`Deferred` handle and read nothing;
+``.collect()`` compiles everything pending into ONE fused `StatPlan` and
+walks the data once; ``.append(chunk)`` folds new samples into the carried
+state, so a re-collect costs one walk of the new samples only.  Results are memoized
 until the next append.
 
 The sharded placement is the paper's overlapping block store on one
@@ -42,8 +42,9 @@ import numpy as np
 import torch
 
 from .backend import BackendSpec, get_backend, resolve_device
-from .plan import (StatPlan, StatRequest, arma_request, autocovariance_request,
-                   kernel_request, moments_request, welch_request, yule_walker_request)
+from .plan import (StatPlan, StatRequest, anomaly_request, arma_request,
+                   autocovariance_request, forecast_request, kernel_request, moments_request,
+                   welch_request, yule_walker_request)
 from .mapreduce import tree_map
 from .streaming import _FIELDS, PartialState, StreamingEngine, state_from_numpy, state_to_numpy
 
@@ -104,6 +105,23 @@ class _DeferredRequests:
               name: Optional[str] = None):
         """Defer a Welch PSD (freqs, psd)."""
         return self._defer(welch_request(nperseg, overlap, fs, name))
+
+    def forecast(self, horizon: int, model: str = "ar", p: int = 4, q: int = 1,
+                 m: Optional[int] = None, max_period: Optional[int] = None,
+                 name: Optional[str] = None):
+        """Defer a multi-horizon forecast from the plan's carried lag state:
+        ``{"pred": (horizon, d), "sigma": (d, d)}`` (plus ``"period"`` for
+        ``model="auto"``, which also needs a deferred ``.welch(...)``).  See
+        `repro_torch.core.forecast.forecast_request`."""
+        return self._defer(forecast_request(horizon, model, p, q, m, max_period, name))
+
+    def anomaly_scores(self, model: str = "ar", p: int = 4, q: int = 1,
+                       m: Optional[int] = None, max_period: Optional[int] = None,
+                       name: Optional[str] = None):
+        """Defer standardized innovation residuals over the carried tail
+        (per-channel ``z``, a Mahalanobis ``score``, a ``valid`` mask).  See
+        `repro_torch.core.forecast.anomaly_request`."""
+        return self._defer(anomaly_request(model, p, q, m, max_period, name))
 
     def map_reduce(self, chunk_kernel: Callable, h_right: int, h_left: int = 0,
                    stride: int = 1, takes_offset: bool = False,
@@ -241,7 +259,7 @@ class SeriesFrame(_DeferredRequests):
         if not self._recorded:
             raise ValueError("nothing to collect -- defer at least one request first "
                              "(.autocovariance / .yule_walker / .arma / .moments / "
-                             ".welch / .map_reduce)")
+                             ".welch / .forecast / .anomaly_scores / .map_reduce)")
         if self._plan is not None and not self._new_requests:
             if self._results is None:
                 self._results = self._plan.finalize(self._states)

@@ -17,7 +17,11 @@ import torch
 
 from .mapreduce import tree_leaves, tree_map
 
-__all__ = ["sentinel_scan", "lane_health", "tree_neumaier_merge", "tree_neumaier_add"]
+__all__ = ["SENTINEL_POLICIES", "sentinel_scan", "lane_health", "tree_neumaier_merge",
+           "tree_neumaier_add"]
+
+# What the serving gateway does with a chunk the sentinel finds non-finite.
+SENTINEL_POLICIES = ("reject", "sanitize", "quarantine")
 
 
 def sentinel_scan(batch: torch.Tensor) -> Tuple[np.ndarray, torch.Tensor]:

@@ -11,8 +11,9 @@ tail at finalize (lag, moments and Welch tail recovery below).
 Whenever two or more primitive families (lag sums, moment windows, Welch
 segments) are members, each chunk-kernel call is ONE ``fused_plan_update``
 -- on the "cuda" backend one launch of the megakernel.  Single-family plans
-keep the narrower primitives.  ``forecast`` and ``anomaly`` requests arrive
-with the port's forecast slice.
+keep the narrower primitives.  ``forecast`` and ``anomaly`` requests
+(`repro_torch.core.forecast`) are lag-family members: they read the shared
+lagged entry and the carried tail.
 
 Batches of series (a multi-tenant session's tenants; the reference's
 ``jax.vmap``) ride the same code: ``init_batch`` / ``update_batch`` /
@@ -32,6 +33,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from .backend import BackendSpec, get_backend, resolve_device
+from .forecast import (anomaly_request, forecast_request, make_anomaly_finalizer,
+                       make_forecast_finalizer, resolve_model_spec)
 from .mapreduce import tree_map, tree_sum
 from .streaming import PartialState, StreamingEngine
 
@@ -93,14 +96,6 @@ def kernel_request(name: str, chunk_kernel: Callable, h_right: int, h_left: int 
                        (chunk_kernel, h_right, h_left, stride, takes_offset, finalizer))
 
 
-def forecast_request(*args, **kwargs) -> StatRequest:
-    raise NotImplementedError("forecast members are not ported yet (ROADMAP Queue A item 4)")
-
-
-def anomaly_request(*args, **kwargs) -> StatRequest:
-    raise NotImplementedError("anomaly members are not ported yet (ROADMAP Queue A item 4)")
-
-
 # ---------------------------------------------------------------- members
 @dataclasses.dataclass
 class _Member:
@@ -137,6 +132,7 @@ class _PlanGroup:
 
         moment_windows = {}
         traverse_extra = []
+        auto_members = []  # forecast / anomaly model="auto": need a welch member
         max_lag = 0
         windows = [1]
         for req, name in zip(requests, names):
@@ -158,6 +154,16 @@ class _PlanGroup:
                 max_lag = max(max_lag, m)
                 windows.append(m + 1)
                 self.members.append(_Member(name, m + 1, 1, None, self._arma_finalizer(p, q, m)))
+            elif req.kind in ("forecast", "anomaly"):
+                # params: (horizon,) for a forecast, then model, p, q, m, max_period
+                spec = resolve_model_spec(*req.params[-5:])
+                max_lag = max(max_lag, spec.lag_span)
+                windows.append(spec.lag_span + 1)
+                fin = (make_forecast_finalizer(self, req.params[0], spec)
+                       if req.kind == "forecast" else make_anomaly_finalizer(self, spec))
+                self.members.append(_Member(name, spec.lag_span + 1, 1, None, fin))
+                if spec.needs_welch:
+                    auto_members.append(name)
             elif req.kind == "moments":
                 (w,) = req.params
                 moment_windows.setdefault(w, f"w{w}")
@@ -184,8 +190,12 @@ class _PlanGroup:
 
         self.window = max(windows)
         self.max_lag = max_lag
-        self.has_lagged = any(r.kind in ("autocovariance", "yule_walker", "arma")
-                              for r in requests)
+        self.has_lagged = any(r.kind in ("autocovariance", "yule_walker", "arma", "forecast",
+                                         "anomaly") for r in requests)
+        if auto_members and not self._welch_info:
+            raise ValueError(f"model='auto' members {auto_members} seed their seasonal lag from "
+                             f"the plan's Welch spectrum; add a welch member (welch_request / "
+                             f".welch(...)) to the same plan")
         self.moment_windows = dict(sorted(moment_windows.items()))
         self._traverse_extra = traverse_extra
         welch_names = {info.name for info in self._welch_info}

@@ -794,3 +794,112 @@ def test_batched_estimator_finalize_on_the_card(dev):
         assert got.shape[0] == 5
         for b in range(5):
             _close(got[b].cpu(), want[b], 1e-4)
+
+
+# ------------------------------------------- forecasts and the gateway
+def _forecast_session(device, users, **kw):
+    from repro_torch import FrameSession
+
+    sess = FrameSession(d=4, num_users=users, device=device, **kw)
+    sess.autocovariance(6)
+    sess.moments(8)
+    sess.moments(40)
+    sess.welch(nperseg=32, overlap=16)
+    sess.forecast(5, "ar", p=3)
+    sess.forecast(4, "auto", p=2, max_period=12)
+    sess.anomaly_scores("arma", p=1, q=1)
+    return sess
+
+
+def _seasonal_chunks(g, users, rows, t0=0):
+    """Per user a stable AR(1) plus a sinusoid of period 5 + (user % 6)."""
+    e = 0.3 * g.standard_normal((users, rows, 4)).astype(np.float32)
+    x = np.zeros_like(e)
+    for t in range(1, rows):
+        x[:, t] = 0.5 * x[:, t - 1] + e[:, t]
+    period = 5 + (np.arange(users) % 6)
+    t = np.arange(t0, t0 + rows)
+    return (x + np.sin(2 * np.pi * t[None, :] / period[:, None])[..., None]).astype(np.float32)
+
+
+def _bits(a):
+    return np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+
+
+def test_forecast_query_on_the_card_matches_the_cpu(dev):
+    """Forecasts and anomaly scores of a session on the card against the
+    CPU session (plain versions), and the gateway phase's launch counts: a
+    batched query launches kernel 2 once per lag-family member (4 here),
+    kernel 3 once and kernel 4 twice, for 1 tenant as for 37."""
+    g = np.random.default_rng(3)
+    card, cpu = _forecast_session(dev, 37), _forecast_session("cpu", 37)
+    for tick in range(4):
+        chunk = _seasonal_chunks(g, 37, 64, 64 * tick)
+        card.ingest(np.arange(37), chunk)
+        cpu.ingest(np.arange(37), chunk)
+    per_size = {}
+    for users in (1, 37):
+        reset_launch_counts()
+        got = card.query_batch(np.arange(users))
+        torch.cuda.synchronize()
+        per_size[users] = launch_counts()
+    assert per_size[1] == per_size[37]
+    assert per_size[37]["cross_window_stats"] == 4 and per_size[37]["segment_dft_power"] == 2
+    assert per_size[37]["fused_lag_moments"] == 1
+    want = cpu.query_batch(np.arange(37))
+    for name, keys in (("forecast", ("pred", "sigma")), ("forecast_2", ("pred", "sigma")),
+                       ("anomaly", ("z", "score", "sigma"))):
+        for key in keys:
+            np.testing.assert_allclose(got[name][key].cpu(), want[name][key], rtol=1e-4,
+                                       atol=1e-5)
+    assert torch.equal(got["forecast_2"]["period"].cpu(), want["forecast_2"]["period"])
+    assert torch.equal(got["anomaly"]["valid"].cpu(), want["anomaly"]["valid"])
+
+
+def test_gateway_on_the_card_is_bitwise_its_twin_and_restarts(dev, tmp_path):
+    """The gateway on the card: its answers bitwise a twin session fed the
+    same batches, kernel 1 twice a tick, and a restarted gateway bitwise
+    the answers of its snapshot's tick."""
+    import asyncio
+
+    from repro_torch.serving.gateway import GatewayConfig, StatsGateway, _to_host
+
+    users, g = 96, np.random.default_rng(4)
+    cfg = GatewayConfig(sentinel=True, snapshot_every=2, checkpoint_dir=str(tmp_path))
+    gw = StatsGateway(_forecast_session(dev, users), cfg)
+    twin = _forecast_session(dev, users)
+    loop = asyncio.new_event_loop()
+    snap_answers = None
+    try:
+        for tick in range(4):
+            chunk = _seasonal_chunks(g, users, 64, 64 * tick)
+            reset_launch_counts()
+            for u in range(users):
+                gw.submit_ingest(u, chunk[u])
+            futs = [gw.submit_query(u) for u in range(0, users, 3)]
+            loop.run_until_complete(gw.tick())
+            assert launch_counts()["fused_plan_megakernel"] == 2
+            twin.ingest(np.arange(users), chunk)
+            want = _to_host(twin.query_batch(np.arange(0, users, 3)))
+            for i, f in enumerate(futs):
+                got = f.result()
+                for name in ("autocovariance", "forecast", "forecast_2", "anomaly"):
+                    w = want[name]
+                    pairs = ([(got[name][k], w[k][i]) for k in w] if isinstance(w, dict)
+                             else [(got[name], w[i])])
+                    for a, b in pairs:
+                        assert np.array_equal(_bits(a), _bits(b)), name
+            if tick == 3:  # the newest generation: snapshot_every=2
+                snap_answers = [f.result() for f in futs]
+        gw._loop_rt.manager.flush()
+        gw2 = StatsGateway(_forecast_session(dev, users), cfg)
+        assert gw2._tick == 4 and gw2.session.plan.device == dev
+        futs = [gw2.submit_query(u) for u in range(0, users, 3)]
+        loop.run_until_complete(gw2.tick())
+        for f, want_u in zip(futs, snap_answers):
+            got = f.result()
+            for name in ("forecast", "anomaly"):
+                for key in want_u[name]:
+                    assert np.array_equal(_bits(got[name][key]), _bits(want_u[name][key]))
+    finally:
+        loop.close()

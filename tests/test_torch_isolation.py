@@ -96,6 +96,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.plan import autocovariance_request
     from repro_torch.launch import serve
     from repro_torch.models import init_params, params_from_numpy, params_to_numpy
+    from repro_torch.serving import StatsGateway
 
     x = np.zeros((64, 2), np.float32)
     cfg = get_arch("danube").reduced()
@@ -107,6 +108,7 @@ def test_entry_points_default_to_the_card():
                  lambda: analyze(x, [autocovariance_request(2)]), lambda: get_backend(),
                  lambda: BandedARModel.from_numpy(np.zeros((4, 3))), lambda: hann_window(8),
                  lambda: welch_chunk_kernel(8, 4, 1.0, get_backend(device="cpu")),
+                 lambda: StatsGateway(FrameSession(d=2, num_users=2)),
                  lambda: init_params(cfg), lambda: params_from_numpy(tree, cfg),
                  lambda: ServeEngine(cfg, cpu_model, max_len=8),
                  lambda: serve.main(["--arch", "danube", "--reduced"])):
@@ -181,3 +183,49 @@ def test_store_and_estimator_entry_points_default_to_the_card():
                  lambda: session_state_from_numpy(snapshot)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_forecast_checkpoint_and_gateway_run_without_jax():
+    """Forecasts, checkpoints, chaos, the fault runtime and the gateway with
+    JAX and the reference package unimportable: a gateway serves forecasts,
+    snapshots, and a restarted one restores them."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import asyncio, tempfile, numpy as np\n"
+        "from repro_torch.core import forecast\n"
+        "from repro_torch.checkpoint import manager\n"
+        "from repro_torch.runtime import chaos, fault\n"
+        "from repro_torch.serving import gateway\n"
+        "from repro_torch import FrameSession\n"
+        "def sess():\n"
+        "    s = FrameSession(d=2, num_users=3, device='cpu')\n"
+        "    s.welch(16, 8); s.forecast(3, model='auto', p=2, max_period=8)\n"
+        "    s.anomaly_scores(model='ar', p=2)\n"
+        "    return s\n"
+        "d = tempfile.mkdtemp()\n"
+        "cfg = gateway.GatewayConfig(checkpoint_dir=d, snapshot_every=1, sentinel=True)\n"
+        "x = np.random.default_rng(0).standard_normal((3, 40, 2)).astype('float32')\n"
+        "async def first():\n"
+        "    gw = gateway.StatsGateway(sess(), cfg)\n"
+        "    futs = [gw.submit_ingest(u, x[u]) for u in range(3)]\n"
+        "    await gw.tick(); await asyncio.gather(*futs)\n"
+        "    q = gw.submit_query(1); await gw.tick(); out = await q\n"
+        "    await gw.stop(); return out\n"
+        "async def second():\n"
+        "    gw = gateway.StatsGateway(sess(), cfg)\n"
+        "    q = gw.submit_query(1); await gw.tick(); out = await q\n"
+        "    await gw.stop(); return out\n"
+        "a = asyncio.run(first()); b = asyncio.run(second())\n"
+        "assert a['forecast']['pred'].shape == (3, 2) and a['forecast']['period'].dtype == np.int32\n"
+        "assert (a['forecast']['pred'] == b['forecast']['pred']).all()\n"
+        "assert fault.plan_remesh(8).world == 8 and chaos.installed() is None\n"
+        "assert manager.latest_step(d) is not None\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -141,13 +141,6 @@ def test_three_family_chunk_kernel_is_one_fused_call():
     assert "fused_plan_update" not in be.calls  # finalize recovers tails with the others
 
 
-def test_forecast_members_wait_for_their_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplan.forecast_request(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplan.anomaly_request()
-
-
 def test_generic_member_through_map_reduce():
     def window_sums(y, mask):
         return (mask[:, None].float() * y[: mask.shape[0]]).sum(0)

@@ -354,3 +354,88 @@ def test_store_fault_is_visible_per_block_not_in_the_total():
     assert at == P // 2 - 1 and rel > smoke.TOL["lag"]
     total = smoke.compare(bad.sum(0), clean.sum(0), smoke.TOL["lag"])
     assert total["max_rel_err"] < rel / 10
+
+
+# ---------------------------------------------------- the gateway's checks
+@pytest.mark.parametrize("plant", ["finite", "inf", "nan"])
+def test_nonfinite_entries_are_held_exactly(plant):
+    """``compare(same_nonfinite=True)`` (forecasts, anomaly scores): the
+    finite entries against their own max, each non-finite one exactly; a
+    non-finite entry moved, flipped or turned finite fails, as does a finite
+    error above the tolerance."""
+    want = {"z": torch.tensor([[1.0, float("inf")], [2.0, float("nan")]])}
+    ok = {"z": want["z"] * torch.tensor([[1 + 1e-6, 1.0], [1.0, 1.0]])}
+    res = smoke.compare(ok, want, 1e-4, same_nonfinite=True)
+    assert res["ok"] and res["nonfinite"] == 2, res
+    bad = want["z"].clone()
+    if plant == "finite":
+        bad[0, 0] = 1.01
+    elif plant == "inf":
+        bad[0, 1] = -float("inf")
+    else:
+        bad[1, 1] = 3.0
+    assert not smoke.compare({"z": bad}, want, 1e-4, same_nonfinite=True)["ok"]
+    assert not smoke.compare(ok, want, 1e-4)["ok"]  # without the flag: non-finite fails
+
+
+def test_forecast_leaf_error_and_same_bits():
+    import numpy as np
+
+    w = np.array([1.0, np.inf, np.nan, -2.0], np.float32)
+    err, same, off = smoke.forecast_leaf_error(w * np.float32(1 + 1e-5), w)
+    assert same and off == 2 and err < 2e-5
+    assert not smoke.forecast_leaf_error(np.array([1.0, 1e30, np.nan, -2.0]), w)[1]
+    assert smoke.same_bits(w, w.copy()) and not smoke.same_bits(w, w.astype(np.float64))
+    assert not smoke.same_bits(np.float32(0.0), np.float32(-0.0))
+
+
+def test_answers_are_stacked_and_compared_bitwise():
+    import numpy as np
+
+    a = [{"f": {"pred": np.full((2, 3), i, np.float32), "period": np.int32(i)}} for i in range(3)]
+    stacked = smoke.stacked_answers(a)
+    assert stacked["/f/pred"].shape == (3, 2, 3) and stacked["/f/period"].tolist() == [0, 1, 2]
+    want = {"f": {"pred": stacked["/f/pred"].copy(), "period": stacked["/f/period"].copy()}}
+    assert smoke.answers_equal(a, want) and smoke.answers_equal(a, [dict(x) for x in a])
+    want["f"]["period"][1] = 7
+    assert not smoke.answers_equal(a, want)
+
+
+def test_gateway_compare_holds_diverging_residuals_by_their_fit():
+    """A tenant's gateway answer against its frame: statistics by the
+    session tolerances, forecasts normwise at TOL["fit"], period and valid
+    exactly; a diverging member's residuals are reported, not held."""
+    import numpy as np
+
+    want = {"autocovariance": torch.ones(3, 2, 2),
+            "anomaly": {"z": torch.tensor([[1.0, 2.0], [1e30, float("inf")]]),
+                        "score": torch.tensor([1.0, float("inf")]),
+                        "sigma": torch.eye(2), "valid": torch.tensor([True, True])}}
+    got = {"autocovariance": np.ones((3, 2, 2), np.float32),
+           "anomaly": {"z": np.array([[1.0, 2.0], [2e30, np.inf]], np.float32),
+                       "score": np.array([1.0, np.inf], np.float32),
+                       "sigma": np.eye(2, dtype=np.float32), "valid": np.array([True, True])}}
+    assert not smoke.gateway_compare(got, want)["anomaly"]["ok"]
+    rep = smoke.gateway_compare(got, want, diverging={"anomaly"})
+    assert rep["anomaly"]["ok"] and rep["anomaly"]["unheld_worst"] > 0.4
+    assert rep["autocovariance"]["ok"]
+    got["anomaly"]["valid"] = np.array([False, True])
+    assert not smoke.gateway_compare(got, want, diverging={"anomaly"})["anomaly"]["ok"]
+
+
+def test_ma_radius_of_a_fitted_member():
+    """The MA part's spectral radius from a collected frame: below 1 for an
+    invertible ARMA(1, 1) process, 0 for an AR member."""
+    from repro_torch import SeriesFrame
+
+    g = torch.Generator().manual_seed(0)
+    e = torch.randn(20000, 2, generator=g)
+    x = torch.zeros_like(e)
+    for t in range(1, x.shape[0]):
+        x[t] = 0.5 * x[t - 1] + e[t] + 0.4 * e[t - 1]
+    frame = SeriesFrame.from_array(x, device="cpu")
+    frame.anomaly_scores("arma", p=1, q=1, m=12)
+    frame.forecast(4, "ar", p=2)
+    frame.collect()
+    assert 0.2 < smoke.ma_radius(frame, "anomaly") < 0.7
+    assert smoke.ma_radius(frame, "forecast") == 0.0
