@@ -2314,8 +2314,9 @@ def batched_kernel_times(dev, sess, last_chunk, query_ids) -> dict:
     2, 3 and 4 at a batched query's tail corrections.  Each launch is held
     tenant by tenant against the batched plain version on the same inputs
     (the one-problem rows' tolerances), and must reject two planted faults
-    in a middle tenant: its largest lag partial left out of its sum, and
-    its result read from its neighbour's slot.  ms: median of a CUDA graph
+    in a middle tenant: its largest lag partial left out of its sum (where
+    the lag CTAs write a tenant's sums directly, one slab a tenant: its
+    largest lag left out), and its result read from its neighbour's slot.  ms: median of a CUDA graph
     of the prepared launch (with its reduction) replayed; bound from this
     run's inputs (each input read once, each output written once; valid
     starts and segments only); plain_ms and library_ms (a one-call PyTorch
@@ -2343,7 +2344,14 @@ def batched_kernel_times(dev, sess, last_chunk, query_ids) -> dict:
         m = tenants // 2
         planted = {}
         p = prep.params
-        if p.lag_ctas:  # the launch sums lag partials
+        if p.lag_ctas and p.lag_part == p.lag_out:
+            # the lag CTAs wrote each tenant's sums (one slab a tenant):
+            # the tenant's largest lag left out
+            j = int(first[m].flatten(1).abs().amax(1).argmax())
+            bad = first.clone()
+            bad[m, j] = 0.0
+            planted["lag_left_out"] = bad
+        elif p.lag_ctas:  # the launch sums lag partials
             part = next(t for t in prep.keep if tuple(t.shape) == (
                 tenants, p.lag_slabs, p.H + 1, p.d, p.d))
             j = int(part[m].flatten(1).abs().amax(1).argmax())

@@ -35,7 +35,8 @@ __all__ = ["PlanParams", "WelchMember", "MomentParams", "LagMomParams", "BandPar
            "SwaParams", "library",
            "build",
            "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "LAG_GROUP",
-           "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "LM_ROWS", "LM_STAGES",
+           "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "SMALL_TILE", "MID_TILE", "SMALL_LAGS",
+           "LM_ROWS", "LM_STAGES",
            "LM_MAX_CLUSTER", "LM_MAX_SLAB", "LM_BLK", "LM_PART_FLOATS", "BAND_COLS", "BAND_PASS",
            "BAND_MAX_SLABS", "BAND_OFFSETS",
            "SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS", "SWA_PANEL", "SWA_MAX_D",
@@ -58,6 +59,11 @@ FFT_MAX_L = 4096
 FFT_FLOATS = 8192
 FFT_MAX_CHAN = 64
 THREADS = 256
+# The small-width lag role of kernels 1 and 2 (d <= MID_TILE): its tiles
+# and most lags a CTA.
+SMALL_TILE = 16
+MID_TILE = 32
+SMALL_LAGS = 17
 # Compile-time constants of window_stats/csrc/window_stats.cu, kernel 3 at
 # H = 0: rows per ring step, ring steps, most CTAs per cluster, most rows
 # per CTA, the register tile's side; and the floats of one CTA's partial.
@@ -260,7 +266,8 @@ STATS_CONSTANTS = {"MAX_WINDOWS": "RT_MAX_WINDOWS", "MAX_WELCH": "RT_MAX_WELCH",
                    "TILE": "RT_TILE", "FREQ_TILE": "RT_FT", "KC": "RT_KC",
                    "LAG_GROUP": "RT_LAG_GROUP", "FFT_MAX_L": "RT_FFT_MAX_L",
                    "FFT_FLOATS": "RT_FFT_FLOATS", "FFT_MAX_CHAN": "RT_FFT_MAX_CHAN",
-                   "THREADS": "RT_THREADS"}
+                   "THREADS": "RT_THREADS", "SMALL_TILE": "RT_SMALL_TILE",
+                   "MID_TILE": "RT_MID_TILE", "SMALL_LAGS": "RT_SMALL_LAGS"}
 # Those that mirror window_stats.cu, in the order rt_lagmom_constants writes them.
 LAGMOM_CONSTANTS = {name: name for name in ("LM_ROWS", "LM_STAGES", "LM_MAX_CLUSTER",
                                             "LM_MAX_SLAB", "LM_BLK")}

@@ -24,10 +24,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from ._build import (FFT_FLOATS, FFT_MAX_CHAN, FFT_MAX_L, FREQ_TILE, KC, LAG_GROUP, MAX_WELCH,
-                     MAX_WINDOWS, TILE, PlanParams, check, library)
+                     MAX_WINDOWS, MID_TILE, SMALL_LAGS, SMALL_TILE, TILE, PlanParams, check,
+                     library)
 
-__all__ = ["Kernel", "KERNELS", "Prepared", "on_cuda", "require", "new_params", "add_lag",
-           "add_moments", "add_welch", "welch_path", "fft_channels",
+__all__ = ["Kernel", "KERNELS", "Prepared", "on_cuda", "require", "new_params", "lag_tile",
+           "add_lag", "add_moments", "add_welch", "welch_path", "fft_channels",
            "check_window_count", "sm_count", "register"]
 
 # Grid shapes, chosen by timing their variants on the H100
@@ -170,22 +171,41 @@ def _slab(count: int, pieces: int, align: int) -> tuple:
     return slab, _ceil_div(count, slab)
 
 
-def add_lag(p: PlanParams, max_lag: int, sms: int, device: torch.device) -> tuple:
+def lag_tile(d: int) -> int:
+    """The lag role's channel tile that kernels 1 and 2 take at width ``d``
+    (stats_tiles.cuh's ``lag_tile``, chosen by d at the C entry): SMALL_TILE
+    up to SMALL_TILE channels, MID_TILE up to MID_TILE, else TILE."""
+    return SMALL_TILE if d <= SMALL_TILE else MID_TILE if d <= MID_TILE else TILE
+
+
+def add_lag(p: PlanParams, max_lag: int, sms: int, device: torch.device,
+            tile: Optional[int] = None) -> tuple:
     """Enable the lag family: S(h) = sum_{t<n} a_t y_{t+h}^T, h <= max_lag.
-    ``y`` must hold n + max_lag rows.  The lags split into runs of at most
-    LAG_GROUP (one CTA stages a slab's rows once for its run; the CTA's
-    decomposition is ``lag_role``'s in csrc/stats_tiles.cuh), and the starts
-    into slabs for about LAG_CTAS_PER_SM CTAs per SM over the whole batch (so
-    one slab a tenant once the batch fills the card).  Returns (partials,
-    output), with the leading axes ``p.lead``."""
+    ``y`` must hold n + max_lag rows.  ``tile``: the lag role's channel tile,
+    by default :func:`lag_tile` (kernels 1 and 2; kernel 3 passes TILE).  The
+    lags split into runs of at most LAG_GROUP (the 64-channel tile,
+    ``lag_role``) or SMALL_LAGS (a smaller tile, ``small_lag_role``: one
+    channel tile), one CTA staging a slab's rows once for its run (the CTA's
+    decomposition is the role's in csrc/stats_tiles.cuh), and the starts into
+    slabs for about LAG_CTAS_PER_SM CTAs per SM over the whole batch (so one
+    slab a tenant once the batch fills the card).  On a smaller tile with
+    one slab the CTAs write the output directly: the partials are the output
+    (``p.lag_part == p.lag_out``), and the reduction skips them.  Returns
+    (partials, output), with the leading axes ``p.lead``; ``p.lag_tile``
+    (Python side only) records the tile."""
     p.H = max_lag
-    p.lag_groups = _ceil_div(max_lag + 1, LAG_GROUP)
-    per_slab = p.lag_groups * p.d_tiles * p.d_tiles
+    p.lag_tile = tile or lag_tile(p.d)
+    p.lag_groups = _ceil_div(max_lag + 1, LAG_GROUP if p.lag_tile == TILE else SMALL_LAGS)
+    tiles = _ceil_div(p.d, p.lag_tile)
+    per_slab = p.lag_groups * tiles * tiles
     pieces = max(1, LAG_CTAS_PER_SM * sms // (per_slab * p.batch))
     p.lag_slab, p.lag_slabs = _slab(p.n, pieces, KC)
     p.lag_ctas = p.lag_slabs * per_slab
-    part = torch.empty(p.lead + (p.lag_slabs, p.H + 1, p.d, p.d), device=device)
     out = torch.empty(p.lead + (p.H + 1, p.d, p.d), device=device)
+    if p.lag_tile != TILE and p.lag_slabs == 1:
+        part = out
+    else:
+        part = torch.empty(p.lead + (p.lag_slabs, p.H + 1, p.d, p.d), device=device)
     p.lag_part, p.lag_out = part.data_ptr(), out.data_ptr()
     if p.lead:
         p.lag_part_stride, p.lag_out_stride = part[0].numel(), out[0].numel()

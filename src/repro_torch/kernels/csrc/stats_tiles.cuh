@@ -4,21 +4,34 @@
 //
 //   lag_role       one CTA: S(h) tiles = sum_{t in slab} a_t y_{t+h}^T for a
 //                  group of up to RT_LAG_GROUP consecutive lags, one 64 x 64
-//                  channel tile, one slab of window starts.  Bound on the
-//                  H100: fp32 FMAs.  The rows of a and y are staged once per
-//                  step for the whole lag group (lag h reads the y buffer h
-//                  rows down), by 16-byte cp.async copies into a ring of
-//                  RT_LAG_STAGES steps, so the copies of step k+1 overlap the
-//                  FMAs of step k; the row mask decides the zero-fill of a
-//                  row's copies.  Each thread keeps a 4 x 4 tile per lag and
-//                  a sliding window of the y fragments its lags need: per
-//                  row it loads one float4 of a and one new float4 of y
-//                  (32 bytes of shared memory) for 16 FMAs per lag, 0.67
-//                  byte per FMA with 3 lags, against the SM's 1 byte per
-//                  FMA, so the FMAs, not the shared-memory loads, set the
-//                  pace.  At 3 lags a thread needs no more than the 128
-//                  registers of two CTAs per SM (4 lags spilled and ran
-//                  slower on the H100).
+//                  channel tile, one slab of window starts: the role of
+//                  kernel 3 at every width and of kernels 1 and 2 above 32
+//                  channels.  Bound on the H100: fp32 FMAs.  The rows of a
+//                  and y are staged once per step for the whole lag group
+//                  (lag h reads the y buffer h rows down), by 16-byte
+//                  cp.async copies into a ring of RT_LAG_STAGES steps, so the
+//                  copies of step k+1 overlap the FMAs of step k; the row
+//                  mask decides the zero-fill of a row's copies.  Each thread
+//                  keeps a 4 x 4 tile per lag and a sliding window of the y
+//                  fragments its lags need: per row it loads one float4 of a
+//                  and one new float4 of y (32 bytes of shared memory) for 16
+//                  FMAs per lag, 0.67 byte per FMA with 3 lags, so the FMAs,
+//                  not the shared-memory loads, set the pace.  At 3 lags a
+//                  thread needs no more than the 128 registers of two CTAs
+//                  per SM (4 lags spilled and ran slower on the H100).  Below
+//                  33 channels the tile is padding (15/16 of it at d = 16),
+//                  so kernels 1 and 2 take small_lag_role there instead;
+//   small_lag_role one CTA: the same sums for d <= RT_MID_TILE, with a tile
+//                  sized by d (lag_tile: RT_SMALL_TILE = 16 channels up to 16,
+//                  RT_MID_TILE = 32 up to 32) for a run of up to RT_SMALL_LAGS
+//                  consecutive lags, so H = 16 is one CTA a tenant.  Each
+//                  thread owns column j and RB = TW^2 / RT_THREADS rows (1 at
+//                  TW = 16, 4 at 32) at every lag of the run: per row one
+//                  broadcast load of a_t (RB floats) and one new y_{t+h}[j]
+//                  into a sliding window of the run's length, so 2 shared
+//                  loads feed RB x NG FMAs and no thread computes a padding
+//                  column past TW.  The slab's rows come once for the run
+//                  through the same cp.async ring (RT_LAG_STAGES steps);
 //   moment_role    one CTA: the K-window moment sums of one slab of rows.
 //                  sum_s m_s sum_{j<w} y_{s+j} = sum_t c_w(t) y_t, where
 //                  c_w(t) counts the valid starts of windows covering row t
@@ -85,6 +98,14 @@
 #define RT_LAG_STAGES 2    // cp.async ring of the lag contraction
 #define RT_MIN_CTAS 2      // CTAs per SM the plan kernels are built for (128 registers)
 #define RT_FFT_MIN_CTAS 2  // the same, for the standalone FFT power kernel
+// The small-width lag role (mirrored by _build.py's SMALL_TILE, MID_TILE
+// and SMALL_LAGS, checked at load): its two tiles and most lags a CTA (17:
+// H = 16 in one run).  At the 32-channel tile a thread holds 4 rows of each
+// lag and the batched instantiations spill a little; runs of at most 9
+// there did not spill but ran 7-14% slower on the H100 (PERF.md).
+#define RT_SMALL_TILE 16
+#define RT_MID_TILE 32
+#define RT_SMALL_LAGS 17
 #define RT_LAG_A (RT_KC * RT_TILE)
 #define RT_LAG_B ((RT_KC + RT_LAG_GROUP - 1) * RT_TILE)
 #define RT_LAG_SMEM_FLOATS (RT_LAG_STAGES * (RT_LAG_A + RT_LAG_B))
@@ -333,6 +354,157 @@ static __device__ void lag_role(const PlanParams& p, int cta, int tn, float* sme
     case 2: lag_group<2, BATCHED>(p, h0, i0, j0, slab, tn, smem); break;
     case 3: lag_group<3, BATCHED>(p, h0, i0, j0, slab, tn, smem); break;
     default: __trap();  // a run longer than RT_LAG_GROUP: the launch fails
+  }
+}
+
+// ------------------------------------------------- lag sums at small widths
+// The channel tile of kernels 1 and 2's lag role at width d: RT_SMALL_TILE
+// up to RT_SMALL_TILE channels, RT_MID_TILE up to RT_MID_TILE, else RT_TILE
+// (lag_role).  The C entries choose it by d, never by the batch
+// (_launch.lag_tile mirrors it).
+__host__ __device__ constexpr int lag_tile(int d) {
+  return d <= RT_SMALL_TILE ? RT_SMALL_TILE : d <= RT_MID_TILE ? RT_MID_TILE : RT_TILE;
+}
+
+// Floats of one ring step of small_lag_role at tile TW: RT_KC rows of a, and
+// RT_KC + RT_SMALL_LAGS - 1 rows of y (a run of NG lags reads NG - 1 more).
+__host__ __device__ constexpr int small_lag_slot(int tw) {
+  return (2 * RT_KC + RT_SMALL_LAGS - 1) * tw;
+}
+
+// One staged step: acc[g][r] += sum_k A[k][i0 + r] B[k + g][j] over the
+// RT_KC rows of the step, k ascending.  b holds the NG values of column j
+// in rows k .. k+NG-1 (slot (k+g) % NG), so each row loads one new value.
+template <int TW, int NG>
+__device__ __forceinline__ void small_lag_step(const float* As, const float* Bs, int i0, int j,
+                                               float acc[NG][TW * TW / RT_THREADS]) {
+  constexpr int RB = TW * TW / RT_THREADS;
+  static_assert(RB == 1 || RB == 4, "a thread owns 1 or 4 rows of the tile");
+  float b[NG];
+#pragma unroll
+  for (int g = 0; g + 1 < NG; ++g) b[g] = Bs[g * TW + j];
+#pragma unroll
+  for (int k = 0; k < RT_KC; ++k) {
+    b[(k + NG - 1) % NG] = Bs[(k + NG - 1) * TW + j];
+    float a[RB];
+    if constexpr (RB == 4) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[k * TW + i0]);
+      a[0] = av.x;
+      a[1] = av.y;
+      a[2] = av.z;
+      a[3] = av.w;
+    } else {
+      a[0] = As[k * TW + i0];
+    }
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int r = 0; r < RB; ++r) acc[g][r] = fmaf(a[r], b[(k + g) % NG], acc[g][r]);
+  }
+}
+
+// Lags h0 .. h0+NG-1 of the whole TW x TW tile over the starts of one slab.
+// Masked starts still multiply: their a rows are zero-filled, and 0 times a
+// non-finite y is NaN, as the reference's where-then-einsum gives.
+template <int TW, int NG, bool BATCHED>
+__device__ void small_lag_group(const PlanParams& p, int h0, int slab, int tn, float* smem) {
+  constexpr int RB = TW * TW / RT_THREADS;
+  constexpr int SLOT = small_lag_slot(TW);
+  const int t_begin = slab * p.lag_slab;
+  const int t_end = min(t_begin + p.lag_slab, p.n);
+  const int b_end = t_end + h0 + NG - 1;  // this run reads y rows [t_begin + h0, b_end)
+  const int steps = (t_end - t_begin + RT_KC - 1) / RT_KC;
+  const int j = threadIdx.x % TW, i0 = (threadIdx.x / TW) * RB;
+  const float* A = p.a != nullptr ? at_tenant<BATCHED>(p.a, p.a_stride, tn)
+                                  : at_tenant<BATCHED>(p.y, p.y_stride, tn);
+  const bool vec =
+      p.d % 4 == 0 && aligned16(A) && aligned16(at_tenant<BATCHED>(p.y, p.y_stride, tn));
+
+  auto issue = [&](int s) {
+    float* As = smem + (s % RT_LAG_STAGES) * SLOT;
+    const int t0 = t_begin + s * RT_KC;
+    stage_rows(As, A, p.d, 0, TW, RT_KC, vec, [&](int r) -> long long {
+      const int t = t0 + r;
+      const bool live = t < t_end && (p.a != nullptr || p.m == nullptr ||
+                                      at_tenant<BATCHED>(p.m, p.m_stride, tn)[t] != 0.f);
+      return live ? t : -1;
+    });
+    stage_rows(As + RT_KC * TW, at_tenant<BATCHED>(p.y, p.y_stride, tn), p.d, 0, TW,
+               RT_KC + NG - 1, vec, [&](int r) -> long long {
+                 const int t = t0 + h0 + r;
+                 return t < b_end ? t : -1;
+               });
+  };
+
+  float acc[NG][RB];
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[g][r] = 0.f;
+
+  for (int s = 0; s < RT_LAG_STAGES - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<RT_LAG_STAGES - 2>();  // step s has landed
+    __syncthreads();                     // ... for every thread; step s-1's slot is free
+    if (s + RT_LAG_STAGES - 1 < steps) issue(s + RT_LAG_STAGES - 1);
+    cp_async_commit();
+    const float* As = smem + (s % RT_LAG_STAGES) * SLOT;
+    small_lag_step<TW, NG>(As, As + RT_KC * TW, i0, j, acc);
+  }
+  cp_async_wait<0>();
+
+  if (j >= p.d) return;
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    float* out = at_tenant<BATCHED>(p.lag_part, p.lag_part_stride, tn) +
+                 ((size_t)slab * (p.H + 1) + h0 + g) * p.d * p.d;
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      if (i0 + r < p.d) out[(size_t)(i0 + r) * p.d + j] = acc[g][r];
+  }
+}
+
+// small_lag_group<TW, ng>: the run length is a template argument (the
+// sliding window lives in registers), instantiated for 1 .. RT_SMALL_LAGS.
+template <int TW, bool BATCHED, int NG = 1>
+__device__ __forceinline__ void small_lag_run(const PlanParams& p, int ng, int h0, int slab,
+                                              int tn, float* smem) {
+  if constexpr (NG > RT_SMALL_LAGS) {
+    __trap();  // a run longer than RT_SMALL_LAGS: the launch fails
+  } else if (ng == NG) {
+    small_lag_group<TW, NG, BATCHED>(p, h0, slab, tn, smem);
+  } else {
+    small_lag_run<TW, BATCHED, NG + 1>(p, ng, h0, slab, tn, smem);
+  }
+}
+
+// CTA -> (lag run, slab), the run fastest: lag_role's decomposition with
+// one channel tile.  The H+1 lags split into lag_groups runs, the first
+// (H+1) % lag_groups one lag longer; _launch.add_lag keeps every run at most
+// RT_SMALL_LAGS long (tests/test_torch_fft_plan.py models it).  Where a
+// tenant has one slab, lag_part is lag_out: the CTA writes the sums, and
+// reduce_families leaves them be.
+template <int TW, bool BATCHED>
+static __device__ void small_lag_role(const PlanParams& p, int cta, int tn, float* smem) {
+  const int grp = cta % p.lag_groups;
+  const int slab = cta / p.lag_groups;
+  const int base = (p.H + 1) / p.lag_groups, extra = (p.H + 1) % p.lag_groups;
+  const int ng = base + (grp < extra ? 1 : 0);
+  const int h0 = grp * base + min(grp, extra);
+  small_lag_run<TW, BATCHED>(p, ng, h0, slab, tn, smem);
+}
+
+// The lag role of kernels 1 and 2 at tile TW (lag_tile(d)).
+template <int TW, bool BATCHED>
+static __device__ __forceinline__ void lag_tile_role(const PlanParams& p, int cta, int tn,
+                                                     float* smem) {
+  if constexpr (TW == RT_TILE) {
+    lag_role<BATCHED>(p, cta, tn, smem);
+  } else {
+    small_lag_role<TW, BATCHED>(p, cta, tn, smem);
   }
 }
 
@@ -767,9 +939,12 @@ static __device__ void welch_member_role(const PlanParams& p, const WelchMember&
 
 // ----------------------------------------------------- launch configuration
 // Dynamic shared memory of a launch: the most that any of its roles needs.
-static int plan_smem_bytes(const PlanParams& p, bool lag, bool mom, bool welch) {
+// `tile`: the lag role's channel tile (RT_TILE: lag_role).
+static int plan_smem_bytes(const PlanParams& p, int tile, bool lag, bool mom, bool welch) {
   int floats = 0;
-  if (lag && p.lag_ctas > 0) floats = max(floats, RT_LAG_SMEM_FLOATS);
+  if (lag && p.lag_ctas > 0)
+    floats = max(floats, tile == RT_TILE ? RT_LAG_SMEM_FLOATS
+                                         : RT_LAG_STAGES * small_lag_slot(tile));
   if (mom && p.mom_ctas > 0) floats = max(floats, RT_MOM_SMEM_FLOATS);
   if (welch)
     for (int j = 0; j < p.n_welch; ++j) {
@@ -786,6 +961,15 @@ static unsigned plan_grid(const PlanParams& p, int tenant_ctas) {
   const long long ctas = (long long)p.batch * tenant_ctas;
   return (p.batch >= 1 && ctas <= 0x7fffffffLL) ? (unsigned)ctas : 0u;
 }
+
+// The instantiation of a kernel template <bool BATCHED, int TW> for a
+// launch: batched for a batch above 1, the lag tile by d (lag_tile).
+#define RT_PICK_KERNEL(K, q)                                                          \
+  ((q).batch > 1                                                                     \
+       ? (lag_tile((q).d) == RT_SMALL_TILE ? K<true, RT_SMALL_TILE>                  \
+          : lag_tile((q).d) == RT_MID_TILE ? K<true, RT_MID_TILE> : K<true, RT_TILE>) \
+       : (lag_tile((q).d) == RT_SMALL_TILE ? K<false, RT_SMALL_TILE>                 \
+          : lag_tile((q).d) == RT_MID_TILE ? K<false, RT_MID_TILE> : K<false, RT_TILE>))
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above the 48 KB
 // default only on request).
@@ -857,7 +1041,7 @@ static cudaError_t reduce_families(const PlanParams& p, bool lag, bool mom,
     const long long total = (long long)p.batch * count;
     most = total > most ? total : most;
   };
-  if (lag)
+  if (lag && p.lag_part != p.lag_out)  // else the lag CTAs wrote the sums
     add(p.lag_part, p.lag_out, p.lag_slabs, (p.H + 1) * p.d * p.d, p.lag_part_stride,
         p.lag_out_stride);
   if (mom && p.K > 0)

@@ -15,7 +15,7 @@
 // families overlap on the SMs and every role reads the chunk through L2.
 // A lag CTA stages each slab's rows once for a group of up to three lags,
 // through a cp.async ring, and keeps 4 x 4 outputs per lag in registers
-// (0.67 byte of shared memory per FMA).  A Welch member whose segment length
+// (0.67 byte of shared memory per FMA); at d <= 32, see below.  A Welch member whose segment length
 // is a power of two up to RT_FFT_MAX_L takes the shared-memory FFT, any
 // other the twiddle contraction.  The roles share one dynamic shared-memory
 // size, the most any role of the launch needs (67 KB at the full-width
@@ -29,18 +29,20 @@
 // serves tenant b / tenant_ctas in the role b % tenant_ctas, with pointers
 // offset by 64-bit per-tenant strides, and the reduce launch sums each
 // tenant's partials in the same fixed order.  At a session's widths (d =
-// 16, a 256-row chunk) each tenant's lag sums run on one slab, so a tenant
-// costs lag_groups lag CTAs, one moment CTA and its Welch groups; the 64 x
-// 64 lag tile is three-quarters padding at d = 16 (PERF.md has the share).
+// 16, a 256-row chunk) each tenant's lag sums run on one slab.  The 64 x 64
+// lag tile would be 15/16 padding there, so the lag role takes a tile sized
+// by d (small_lag_role, chosen by d at the entry: TW = 16 up to 16 channels,
+// 32 up to 32): a tenant costs one lag CTA for H = 16 (writing its sums
+// directly, no partial), one moment CTA and its Welch groups.
 #include "stats_tiles.cuh"
 
-template <bool BATCHED>
+template <bool BATCHED, int TW>
 static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) fused_plan_kernel(PlanParams p) {
   extern __shared__ __align__(16) float smem[];
   const int tn = BATCHED ? blockIdx.x / p.tenant_ctas : 0;
   int b = blockIdx.x - tn * p.tenant_ctas;
   if (b < p.lag_ctas) {
-    lag_role<BATCHED>(p, b, tn, smem);
+    lag_tile_role<TW, BATCHED>(p, b, tn, smem);
     return;
   }
   b -= p.lag_ctas;
@@ -65,8 +67,8 @@ extern "C" int rt_fused_plan(const PlanParams* p, void* stream) {
   for (int j = 0; j < q.n_welch; ++j) q.tenant_ctas += q.welch[j].ctas;
   const unsigned grid = plan_grid(q, q.tenant_ctas);
   if (grid == 0) return (int)cudaErrorInvalidConfiguration;
-  const int smem = plan_smem_bytes(q, true, true, true);
-  auto kernel = q.batch > 1 ? fused_plan_kernel<true> : fused_plan_kernel<false>;
+  const int smem = plan_smem_bytes(q, lag_tile(q.d), true, true, true);
+  auto kernel = RT_PICK_KERNEL(fused_plan_kernel, q);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, RT_THREADS, smem, st>>>(q);
@@ -83,6 +85,7 @@ extern "C" int rt_welch_member_size() { return (int)sizeof(WelchMember); }
 // order), checked when the library loads.
 extern "C" void rt_stats_constants(int* out) {
   const int c[] = {RT_MAX_WINDOWS, RT_MAX_WELCH, RT_TILE, RT_FT, RT_KC,
-                   RT_LAG_GROUP, RT_FFT_MAX_L, RT_FFT_FLOATS, RT_FFT_MAX_CHAN, RT_THREADS};
+                   RT_LAG_GROUP, RT_FFT_MAX_L, RT_FFT_FLOATS, RT_FFT_MAX_CHAN, RT_THREADS,
+                   RT_SMALL_TILE, RT_MID_TILE, RT_SMALL_LAGS};
   for (int i = 0; i < (int)(sizeof(c) / sizeof(c[0])); ++i) out[i] = c[i];
 }

@@ -110,7 +110,7 @@ static __global__ void __launch_bounds__(RT_THREADS) segment_csd_kernel(PlanPara
 
 extern "C" int rt_segment_power(const PlanParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = plan_smem_bytes(*p, false, false, true);
+  const int smem = plan_smem_bytes(*p, RT_TILE, false, false, true);
   if (p->welch[0].fft) {
     const cudaError_t err = allow_smem(segment_power_fft_kernel, smem);
     if (err != cudaSuccess) return (int)err;

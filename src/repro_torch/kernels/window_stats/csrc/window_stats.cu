@@ -15,7 +15,10 @@
 // consecutive lags, slab of starts).  A CTA stages each step's rows once
 // for its whole lag group through a cp.async ring and keeps a 4 x 4 register
 // tile per lag, with a sliding window of the shifted rows (lag_role in
-// stats_tiles.cuh).  Per-slab partials are summed in a fixed order by
+// stats_tiles.cuh).  At d <= 32 (the session's d = 16) the 64 x 64 tile is
+// mostly padding, so cross_lag_kernel takes a tile sized by d there
+// (small_lag_role: the whole tile and up to 17 lags in one CTA, one output
+// column a thread).  Per-slab partials are summed in a fixed order by
 // reduce_parts_kernel (no float atomics: runs are bit-identical).  The
 // moment sums cost O(K) per row through exact window counts (see
 // stats_tiles.cuh) and are bound by the one read of the rows.
@@ -96,11 +99,14 @@ struct MomentParams {
 // (stats_tiles.cuh); at batch 1 they are the one-problem launches.  Kernel 3
 // at a batch above 1 runs here at H = 0 too (lag_moments_sym_kernel below
 // is built for one large problem).
-template <bool BATCHED>
+// cross_lag_kernel takes its lag role's tile by d (lag_tile: small_lag_role
+// at d <= 32, where a 64 x 64 tile is mostly padding); kernel 3's two-role
+// kernel keeps lag_role at every width.
+template <bool BATCHED, int TW>
 static __global__ void __launch_bounds__(RT_THREADS, RT_MIN_CTAS) cross_lag_kernel(PlanParams p) {
   extern __shared__ __align__(16) float smem[];
   const int tn = BATCHED ? blockIdx.x / p.tenant_ctas : 0;
-  lag_role<BATCHED>(p, blockIdx.x - tn * p.tenant_ctas, tn, smem);
+  lag_tile_role<TW, BATCHED>(p, blockIdx.x - tn * p.tenant_ctas, tn, smem);
 }
 
 template <bool BATCHED>
@@ -121,8 +127,8 @@ extern "C" int rt_cross_lag_sums(const PlanParams* p, void* stream) {
   q.tenant_ctas = q.lag_ctas;
   const unsigned grid = plan_grid(q, q.tenant_ctas);
   if (grid == 0) return (int)cudaErrorInvalidConfiguration;
-  const int smem = plan_smem_bytes(q, true, false, false);
-  auto kernel = q.batch > 1 ? cross_lag_kernel<true> : cross_lag_kernel<false>;
+  const int smem = plan_smem_bytes(q, lag_tile(q.d), true, false, false);
+  auto kernel = RT_PICK_KERNEL(cross_lag_kernel, q);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, RT_THREADS, smem, st>>>(q);
@@ -137,7 +143,7 @@ extern "C" int rt_fused_lag_moments(const PlanParams* p, void* stream) {
   q.tenant_ctas = q.lag_ctas + q.mom_ctas;
   const unsigned grid = plan_grid(q, q.tenant_ctas);
   if (grid == 0) return (int)cudaErrorInvalidConfiguration;
-  const int smem = plan_smem_bytes(q, true, true, false);
+  const int smem = plan_smem_bytes(q, RT_TILE, true, true, false);
   auto kernel = q.batch > 1 ? fused_lag_moments_kernel<true> : fused_lag_moments_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -167,7 +167,7 @@ def prepare_fused_lag_moments(y: torch.Tensor, start_mask: torch.Tensor, max_lag
     p = new_params(y, L)
     p.m, p.m_stride = m.data_ptr(), (L if lead else 0)
     sms = sms or sm_count(y.device)
-    lag_part, lag = add_lag(p, max_lag, sms, y.device)
+    lag_part, lag = add_lag(p, max_lag, sms, y.device, tile=TILE)
     mom_part, mom = add_moments(p, windows, prefix, L + max(windows) - 1, sms, y.device)
     return Prepared(FUSED_LAG_MOMENTS, p, y.device, (lag, mom),
                     (y, m, prefix, lag_part, mom_part))

@@ -10,7 +10,10 @@ SM count fill the params on any device): the tenant folded into blockIdx.x
 offset by its tenant's 64-bit strides, every partial written once, the
 fixed-order reduction of each tenant's partials (stats_tiles.cuh's
 ``reduce_parts_kernel``) writing every output once, the launch at B =
-65,536 on one 1-D grid, and batch 1 the one-problem decomposition.  The
+65,536 on one 1-D grid, and batch 1 the one-problem decomposition.  At
+d <= 32 kernels 1 and 2 take the lag tile sized by d (``small_lag_role``:
+one tile, runs of up to SMALL_LAGS lags), whose CTAs write a tenant's sums
+directly where it has one slab (the reduction skips them).  The
 walk's sums are held against the plain versions and the reference's
 ``JnpBackend`` per tenant (rtol 1e-5, atol 1e-4: tests/test_backend.py's
 f32 tolerances).
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 from repro.core.backend import JnpBackend
+from repro.kernels.window_stats import ops as ref_ws
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_plan import ops as fp, ref as fpr
 from repro_torch.kernels.segment_dft.ref import segment_dft_power_ref
@@ -76,13 +80,35 @@ def roles(p, ctas_of_tenant):
 
 
 def lag_cta(p, cta):
-    """(slab, first lag, lag count, i0, j0): lag_role's decomposition."""
-    tiles2 = p.d_tiles * p.d_tiles
-    tile, rest = cta % tiles2, cta // tiles2
+    """(slab, first lag, lag count, i0, j0): the lag role's decomposition on
+    tiles of p.lag_tile channels (lag_role at TILE, small_lag_role's one
+    tile below)."""
+    tiles = -(-p.d // p.lag_tile)
+    tile, rest = cta % tiles**2, cta // tiles**2
     grp, slab = rest % p.lag_groups, rest // p.lag_groups
     base, extra = divmod(p.H + 1, p.lag_groups)
     return (slab, grp * base + min(grp, extra), base + (grp < extra),
-            (tile // p.d_tiles) * TILE, (tile % p.d_tiles) * TILE)
+            (tile // tiles) * p.lag_tile, (tile % tiles) * p.lag_tile)
+
+
+def lag_direct(prep):
+    """True if the launch's lag CTAs write the output itself (one slab a
+    tenant on the small tile): its lag partials are its lag output."""
+    p = prep.params
+    return p.lag_tile != TILE and p.lag_slabs == 1 and prep.keep[2] is (
+        prep.out[0] if isinstance(prep.out, tuple) else prep.out)
+
+
+def lag_sums(p, lag_part, direct):
+    """The lag output of a walked launch: the partials themselves where the
+    CTAs wrote the output, else reduce_section's sums (checked to write
+    every output once and read in range)."""
+    if direct:
+        return lag_part.astype(F32)
+    lag, hits, ok = reduce_section(lag_part, p.batch, p.lag_slabs, (p.H + 1) * p.d * p.d,
+                                   p.lag_part_stride, p.lag_out_stride)
+    assert ok and (hits == 1).all()
+    return lag
 
 
 def walk(p, y, mask, offs, taper_of=None, a=None):
@@ -107,8 +133,8 @@ def walk(p, y, mask, offs, taper_of=None, a=None):
             ts = np.arange(slab * p.lag_slab, min(slab * p.lag_slab + p.lag_slab, n))
             if a is None:
                 ts = ts[m[tn, ts]]
-            ii = np.arange(i0, min(i0 + TILE, d))
-            jj = np.arange(j0, min(j0 + TILE, d))
+            ii = np.arange(i0, min(i0 + p.lag_tile, d))
+            jj = np.arange(j0, min(j0 + p.lag_tile, d))
             for h in range(h0, h0 + ng):
                 s = left[tn, ts][:, ii].T @ y[tn, ts + h][:, jj]
                 addr = (tn * p.lag_part_stride + (slab * (H + 1) + h) * d * d
@@ -200,9 +226,7 @@ def test_megakernel_walk_writes_every_partial_and_output_once_and_matches():
     assert (lag_hits == 1).all() and (mom_hits == 1).all()
     assert all((hits == 1).all() for _, hits in welch)
     d, H, B = p.d, p.H, p.batch
-    lag, lag_out_hits, ok = reduce_section(lag_part, B, p.lag_slabs, (H + 1) * d * d,
-                                           p.lag_part_stride, p.lag_out_stride)
-    assert ok and (lag_out_hits == 1).all()
+    lag = lag_sums(p, lag_part, lag_direct(prep))
     mom, mom_out_hits, ok = reduce_section(mom_part, B, p.mom_slabs, p.K * 2 * d,
                                            p.mom_part_stride, p.mom_out_stride)
     assert ok and (mom_out_hits == 1).all()
@@ -260,7 +284,8 @@ def _one_lag_cta(p, y, mask, tn, r):
     y64, m = y.numpy().astype(np.float64), mask.numpy()
     ts = np.arange(slab * p.lag_slab, min(slab * p.lag_slab + p.lag_slab, p.n))
     ts = ts[m[tn, ts]]
-    ii, jj = np.arange(i0, min(i0 + TILE, p.d)), np.arange(j0, min(j0 + TILE, p.d))
+    ii, jj = (np.arange(i0, min(i0 + p.lag_tile, p.d)),
+              np.arange(j0, min(j0 + p.lag_tile, p.d)))
     addrs, vals = [], []
     for h in range(h0, h0 + ng):
         addrs.append((tn * p.lag_part_stride + (slab * (p.H + 1) + h) * p.d * p.d
@@ -306,9 +331,14 @@ def test_session_shape_launches_65536_tenants_on_one_grid():
     y = torch.empty((B, L + 127, d), device=meta)
     mask = torch.empty((B, L), dtype=torch.bool, device=meta)
     z0 = torch.empty((B,), dtype=torch.int32, device=meta)
-    p = fp.prepare_fused_plan(y, mask, z0, 16, (32, 128), (64,), (32,), (_hann(64),),
-                              sms=SMS).params
+    prep = fp.prepare_fused_plan(y, mask, z0, 16, (32, 128), (64,), (32,), (_hann(64),),
+                                 sms=SMS)
+    p = prep.params
     assert p.lag_slabs == 1 and p.mom_slabs == 1 and p.batch == B
+    # the tile sized by d: one lag CTA a tenant (17 lags in one run), which
+    # writes the tenant's sums itself (no partials, no reduction of them)
+    assert p.lag_tile == 16 and p.lag_groups == 1 and p.lag_ctas == 1
+    assert lag_direct(prep) and prep.keep[2] is prep.out[0]
     grid = p.batch * tenant_ctas(p)
     assert 65535 < grid <= INT32_MAX
     assert (B - 1) * p.lag_part_stride + p.lag_part_stride == B * 17 * d * d
@@ -337,8 +367,8 @@ def test_two_role_kernel_walk_serves_batched_kernel_3(max_lag):
     assert prep.entry is None and p.batch == B  # not the symmetric path
     (lag_part, lag_hits), (mom_part, mom_hits), _ = walk(p, y, mask, [])
     assert (lag_hits == 1).all() and (mom_hits == 1).all()
-    lag, _, _ = reduce_section(lag_part, B, p.lag_slabs, (max_lag + 1) * d * d,
-                               p.lag_part_stride, p.lag_out_stride)
+    assert p.lag_tile == TILE and not lag_direct(prep)  # kernel 3 keeps lag_role
+    lag = lag_sums(p, lag_part, False)
     mom, _, _ = reduce_section(mom_part, B, p.mom_slabs, p.K * 2 * d, p.mom_part_stride,
                                p.mom_out_stride)
     want_lag, want_mom = wsr.fused_lag_moments_ref(y, mask, max_lag, windows)
@@ -346,23 +376,93 @@ def test_two_role_kernel_walk_serves_batched_kernel_3(max_lag):
     np.testing.assert_allclose(mom.reshape(want_mom.shape), want_mom.numpy(), **TOL)
 
 
-def test_cross_lag_walk_serves_batched_kernel_2():
+@pytest.mark.parametrize("d,H", [(3, 8), (16, 16), (17, 40), (32, 2), (33, 16)])
+def test_cross_lag_walk_serves_batched_kernel_2(d, H):
     """Batched kernel 2 (the lag tails of a batched finalize): the left
-    factor is the mask-zeroed head, offset by its own stride (a_stride)."""
-    B, L, d, H = 4, 127, 3, 8
+    factor is the mask-zeroed head, offset by its own stride (a_stride); at
+    d <= 32 the tile sized by d, each tenant's sums written once by its one
+    lag CTA of one slab, or summed from its slabs' partials."""
+    B, L = 4, 127
     y, mask, _ = _operands(B, L, d, H, seed=6)
     head = torch.where(mask[..., None], y[:, :L], 0.0).contiguous()
     prep = ws.prepare_cross_lagged_sums(head, y, H, sms=SMS)
     p = prep.params
     assert p.a_stride == L * d and p.y_stride == (L + H) * d and p.lag_slabs == 1
+    assert p.lag_tile == (16 if d <= 16 else 32 if d <= 32 else TILE)
+    assert lag_direct(prep) == (d <= 32)
     (lag_part, hits), _, _ = walk(p, y, mask, [], a=head)
     assert (hits == 1).all()
-    lag, out_hits, ok = reduce_section(lag_part, B, p.lag_slabs, (H + 1) * d * d,
-                                       p.lag_part_stride, p.lag_out_stride)
-    assert ok and (out_hits == 1).all()
-    lag = lag.reshape(B, H + 1, d, d)
+    lag = lag_sums(p, lag_part, lag_direct(prep)).reshape(B, H + 1, d, d)
     np.testing.assert_allclose(lag, ws.masked_lagged_sums(y, mask, H).numpy(), **TOL)
     for tn in range(B):
         want = JnpBackend().masked_lagged_sums(jnp.asarray(y[tn].numpy()),
                                                jnp.asarray(mask[tn].numpy()), H)
         np.testing.assert_allclose(lag[tn], np.asarray(want), **TOL)
+    # the reference's cross-lag kernel (Pallas, interpret mode) on one tenant
+    cross = ref_ws.cross_lagged_sums(jnp.asarray(head[1].numpy()), jnp.asarray(y[1].numpy()), H,
+                                     block_t=64, interpret=True)
+    np.testing.assert_allclose(lag[1], np.asarray(cross), **TOL)
+
+
+@pytest.mark.parametrize("d,H,L,sms", [(5, 4, 203, SMS), (16, 16, 203, SMS),
+                                       (16, 40, 203, SMS), (29, 17, 203, SMS),
+                                       (16, 16, 700, 4096)])
+def test_small_width_megakernel_walk_writes_each_lag_output_once(d, H, L, sms):
+    """Kernel 1 at d <= 32: the one lag tile sized by d, runs of at most
+    SMALL_LAGS lags, every (tenant, lag, i, j) output written exactly once
+    (directly at one slab a tenant; through the partials and the reduction
+    with several, here by more SMs than the batch fills), against the plain
+    version and the reference per tenant."""
+    B, windows = 3, (4, 9)
+    reach = max(H, max(windows) - 1, 7)
+    y, mask, z0 = _operands(B, L, d, reach, seed=d + H)
+    prep = fp.prepare_fused_plan(y, mask, z0, H, windows, (8,), (4,), (_hann(8),), sms=sms)
+    p = prep.params
+    assert p.lag_tile == (16 if d <= 16 else 32)
+    assert p.lag_groups == -(-(H + 1) // _build.SMALL_LAGS)
+    assert p.lag_ctas == p.lag_slabs * p.lag_groups
+    assert lag_direct(prep) == (p.lag_slabs == 1) and (sms != SMS) == (p.lag_slabs > 1)
+    offs = fp.candidate_offsets(z0, L, p.welch[0].n_entries // p.welch[0].n_cand,
+                                p.welch[0].tile, 4, mask).reshape(B, -1).numpy()
+    (lag_part, hits), _, _ = walk(p, y, mask, [offs], _hann)
+    assert (hits == 1).all()
+    lag = lag_sums(p, lag_part, lag_direct(prep)).reshape(B, H + 1, d, d)
+    want = fpr.fused_plan_update_ref(y, mask, z0, H, windows, (8,), (4,), (_hann(8),))[0]
+    np.testing.assert_allclose(lag, want.numpy(), **TOL)
+    for tn in range(B):
+        ref = JnpBackend().masked_lagged_sums(jnp.asarray(y[tn].numpy()),
+                                              jnp.asarray(mask[tn].numpy()), H)
+        np.testing.assert_allclose(lag[tn], np.asarray(ref), **TOL)
+
+
+def test_small_role_constants_mirror_the_source():
+    """The small-width role's #defines equal _build.py's mirrors, in the
+    order rt_stats_constants writes them (the library checks them at load)."""
+    src = (_build.KERNELS_DIR / "csrc" / "stats_tiles.cuh").read_text()
+    defines = dict(re.findall(r"^#define (RT_\w+) (\d+)", src, re.M))
+    for name, macro in _build.STATS_CONSTANTS.items():
+        if macro in defines:
+            assert int(defines[macro]) == getattr(_build, name), name
+    assert {"RT_SMALL_TILE", "RT_MID_TILE", "RT_SMALL_LAGS"} <= set(defines)
+    entry = (_build.KERNELS_DIR / "fused_plan" / "csrc" / "fused_plan.cu").read_text()
+    listed = re.search(r"const int c\[\] = \{([^}]*)\}", entry).group(1)
+    assert [m.strip() for m in listed.split(",")] == list(_build.STATS_CONSTANTS.values())
+
+
+def test_session_ablations_wrap_each_role_call_once():
+    """variants_bench.py's role split of kernel 1 compiles each role out of a
+    copy of fused_plan.cu: each role's call in fused_plan_kernel is found
+    once and wrapped in its #ifndef."""
+    import importlib.util
+
+    path = _build.REPO_ROOT / "tools" / "kernel_variants" / "variants_bench.py"
+    spec = importlib.util.spec_from_file_location("variants_bench", path)
+    vb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vb)
+    src = (_build.KERNELS_DIR / "fused_plan" / "csrc" / "fused_plan.cu").read_text()
+    text = vb.session_ablation_source(src)
+    for flag in ("NO_LAG", "NO_MOM", "NO_WELCH"):
+        assert text.count(f"#ifndef ABL_{flag}\n") == 1
+    assert "#ifndef ABL_NO_LAG\n    lag_tile_role<TW, BATCHED>(p, b, tn, smem);\n#endif\n" in text
+    assert {f for flags in vb.SESSION_ABLATIONS.values() for f in flags} == {
+        "NO_LAG", "NO_MOM", "NO_WELCH"}

@@ -591,6 +591,122 @@ def test_batched_lag_and_moment_kernels_match_plain(dev, B, max_lag):
         assert torch.equal(mom[0][0], one[0]) and torch.equal(mom[1][0], one[1])
 
 
+# ---------------- kernels 1 and 2 at small widths: the lag tile sized by d
+SMALL_DIMS = [1, 3, 15, 16, 17, 31, 32, 33]  # both small tiles, their edges, and 64 above
+SMALL_LAGS = [0, 1, 2, 16, 17, 40]  # one run, a run of SMALL_LAGS and one past it, H > 17
+
+
+def _gapped(dev, B, n, d, reach, seed):
+    """_tenants with a gap of 20 masked starts in every tenant."""
+    y, mask, z0 = _tenants(dev, B, n, d, reach, seed)
+    mask[:, n // 4: n // 4 + 20] = False
+    return y, mask, z0
+
+
+def _per_tenant_close(got, want, tol=1e-4):
+    for a, b in zip(got, want):
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("d", SMALL_DIMS)
+@pytest.mark.parametrize("H", SMALL_LAGS)
+def test_cross_lag_kernel_small_widths(dev, H, d):
+    """Kernel 2 at small widths, batched (37 tenants of 203 starts: not a
+    multiple of 32, a gap in the mask) and one problem (the first tenant, and
+    5,003 starts: several slabs, summed by the reduction), 1e-4 of each
+    tenant's max|plain|; two launches bitwise equal; one launch a call."""
+    y, mask, _ = _gapped(dev, 37, 203, d, H, seed=100 * d + H)
+    reset_launch_counts()
+    got, again = ws.masked_lagged_sums(y, mask, H), ws.masked_lagged_sums(y, mask, H)
+    assert launch_counts()["cross_window_stats"] == 2
+    _per_tenant_close(got, wsr.masked_lagged_sums_ref(y, mask, H))
+    assert torch.equal(got, again)
+    _close(ws.masked_lagged_sums(y[0], mask[0], H), wsr.masked_lagged_sums_ref(y[0], mask[0], H),
+           1e-4)
+    long = _series(dev, 5003 + H, d)
+    lmask = torch.ones(5003, dtype=torch.bool, device=dev)
+    lmask[1000:1500] = False
+    got = ws.masked_lagged_sums(long, lmask, H)
+    _close(got, wsr.masked_lagged_sums_ref(long, lmask, H), 1e-4)
+    assert torch.equal(got, ws.masked_lagged_sums(long, lmask, H))
+
+
+@pytest.mark.parametrize("d", SMALL_DIMS)
+@pytest.mark.parametrize("H", SMALL_LAGS)
+def test_megakernel_small_widths(dev, H, d):
+    """Kernel 1 at small widths, batched (37 tenants of 203 starts with a
+    gap) and one problem (the first tenant): lag and moments 1e-4, Welch
+    1e-3 of each tenant's max|plain|, segment counts exact; two launches
+    bitwise equal."""
+    taper = torch.hann_window(16, periodic=True, device=dev)
+    reach = max(H, 11, 15)
+    y, mask, z0 = _gapped(dev, 37, 203, d, reach, seed=100 * d + H + 7)
+    args = (y, mask, z0, H, (5, 12), (16,), (8,), (taper,))
+    got, again = fp.fused_plan_update(*args), fp.fused_plan_update(*args)
+    want = fpr.fused_plan_update_ref(*args)
+    _per_tenant_close(got[0], want[0])
+    _per_tenant_close(got[1], want[1])
+    _per_tenant_close(got[2][0], want[2][0], 1e-3)
+    assert torch.equal(got[3][0], want[3][0])
+    assert all(torch.equal(a, b) for a, b in zip(again[:2] + again[2], got[:2] + got[2]))
+    one_args = (y[0], mask[0], z0[0]) + args[3:]
+    one, one_want = fp.fused_plan_update(*one_args), fpr.fused_plan_update_ref(*one_args)
+    _close(one[:2] + one[2], one_want[:2] + one_want[2], 1e-3)
+    _close(one[0], one_want[0], 1e-4)
+
+
+@pytest.mark.parametrize("B", [2, 37, 4096])
+def test_small_width_batches_at_the_session_shape(dev, B):
+    """Kernels 1 and 2 at the session's d = 16 and H = 16 for B tenants: the
+    chunk (256 starts, 129 valid, windows (32, 128), Welch 64/32) and a
+    query's lag tail (127 starts), every tenant against the plain version."""
+    taper = torch.hann_window(64, periodic=True, device=dev)
+    y, mask, z0 = _tenants(dev, B, 256, 16, 127, seed=B)
+    mask[:, 129:] = False
+    args = (y, mask, z0, 16, (32, 128), (64,), (32,), (taper,))
+    got, want = fp.fused_plan_update(*args), fpr.fused_plan_update_ref(*args)
+    _per_tenant_close(got[0], want[0])
+    _per_tenant_close(got[1], want[1])
+    _per_tenant_close(got[2][0], want[2][0], 1e-3)
+    tail = y[:, :127].contiguous()
+    ones = torch.ones((B, 127), dtype=torch.bool, device=dev)
+    _per_tenant_close(ws.masked_lagged_sums(tail, ones, 16),
+                      wsr.masked_lagged_sums_ref(tail, ones, 16))
+
+
+def test_small_width_tenant_bits_do_not_depend_on_the_batch(dev):
+    """A tenant's outputs of kernels 1 and 2 at d = 16 are the same bits in a
+    batch of 4,095 tenants as in one of 4,096."""
+    taper = torch.hann_window(64, periodic=True, device=dev)
+    y, mask, z0 = _tenants(dev, 4096, 256, 16, 127, seed=11)
+    members = (16, (32, 128), (64,), (32,), (taper,))
+    full = fp.fused_plan_update(y, mask, z0, *members)
+    part = fp.fused_plan_update(y[:4095], mask[:4095], z0[:4095], *members)
+    assert all(torch.equal(a[:4095], b) for a, b in zip(full[:2] + full[2], part[:2] + part[2]))
+    lag = ws.masked_lagged_sums(y[:, :143], mask[:, :127], 16)
+    assert torch.equal(lag[:4095], ws.masked_lagged_sums(y[:4095, :143], mask[:4095, :127], 16))
+
+
+@pytest.mark.parametrize("d", [3, 16, 32, 64])
+def test_nan_in_a_masked_starts_reach_reaches_the_lag_sums(dev, d):
+    """A NaN at row 40 of channel 2, where only masked starts (24-40) reach
+    it within H = 16: the reference zeroes masked rows and then multiplies,
+    so 0 * NaN reaches S(h); kernels 1 and 2 give the plain version's
+    non-finite entries, and equal finite ones within 1e-4."""
+    taper = torch.hann_window(16, periodic=True, device=dev)
+    y, mask, z0 = _tenants(dev, 3, 203, d, 16, seed=d)
+    mask[:, 20:60] = False
+    y[:, 40, min(2, d - 1)] = float("nan")
+    got = (ws.masked_lagged_sums(y, mask, 16),
+           fp.fused_plan_update(y, mask, z0, 16, (5,), (16,), (8,), (taper,))[0])
+    want = wsr.masked_lagged_sums_ref(y, mask, 16)
+    assert not bool(torch.isfinite(want).all())
+    for g in got:
+        assert torch.equal(torch.isfinite(g), torch.isfinite(want))
+        fin = torch.isfinite(want)
+        assert (g[fin] - want[fin]).abs().max() <= 1e-4 * want[fin].abs().max()
+
+
 def test_batched_launch_takes_more_than_65535_tenants(dev):
     """70,000 tenants in one launch of kernels 1 and 2 (the tenant folds into
     blockIdx.x; no grid dimension limits it), every tenant against the plain

@@ -7,9 +7,12 @@ plain results: the FFT path of the Welch power (``welch_fft_role`` in
 Stockham stages in place over two-channel complex sequences, roots from the
 host's (L/2)-entry table, the two-for-one split) against ``numpy.fft.rfft``
 for every power of two up to ``FFT_MAX_L``; the lag contraction's grid
-(``lag_role``: every (lag, channel tile, slab) exactly once) and its staged
-sliding window (``lag_group`` / ``lag_step``) against the plain lag sums;
-the host roots table against float64; and the path chosen for each length.
+(``lag_role`` on the 64-channel tile, ``small_lag_role`` on a tile sized by
+d at d <= 32: every (lag, channel tile, slab) exactly once) and its staged
+sliding window (``lag_group`` / ``lag_step``, ``small_lag_group`` /
+``small_lag_step``: staged rows in range, each output's starts in
+ascending order) against the plain lag sums; the host roots table against
+float64; and the path chosen for each length.
 """
 import numpy as np
 import pytest
@@ -170,39 +173,46 @@ def test_add_welch_twiddle_grid_and_fft_refusal():
         _welch_params(3, 24, 2, "fft")
 
 
-def _lag_params(n, d, H, sms=132):
+def _lag_params(n, d, H, sms=132, tile=None):
     y = torch.zeros((n + H, d))
     p = _launch.new_params(y, n)
-    _launch.add_lag(p, H, sms, y.device)
+    _launch.add_lag(p, H, sms, y.device, tile)
     return p
+
+
+def _run_limit(p):
+    """Most lags a CTA of the launch's lag role takes."""
+    return _build.LAG_GROUP if p.lag_tile == _build.TILE else _build.SMALL_LAGS
 
 
 def lag_cta(p, cta):
     """(slab, first lag, lag count, row tile i0, column tile j0) of lag CTA
-    ``cta``: lag_role's decomposition, the channel tile fastest, then the
-    lag group, then the slab; the first (H+1) % lag_groups groups hold one
-    lag more."""
-    tiles2 = p.d_tiles * p.d_tiles
-    tile, rest = cta % tiles2, cta // tiles2
+    ``cta``: the role's decomposition (``lag_role`` on 64-channel tiles,
+    ``small_lag_role`` on the one tile of p.lag_tile channels), the channel
+    tile fastest, then the lag run, then the slab; the first (H+1) %
+    lag_groups runs hold one lag more."""
+    tiles = -(-p.d // p.lag_tile)
+    tile, rest = cta % tiles**2, cta // tiles**2
     grp, slab = rest % p.lag_groups, rest // p.lag_groups
     base, extra = divmod(p.H + 1, p.lag_groups)
     return (slab, grp * base + min(grp, extra), base + (grp < extra),
-            (tile // p.d_tiles) * _build.TILE, (tile % p.d_tiles) * _build.TILE)
+            (tile // tiles) * p.lag_tile, (tile % tiles) * p.lag_tile)
 
 
-@pytest.mark.parametrize("d", [1, 64, 130])
+@pytest.mark.parametrize("d", [1, 16, 17, 32, 33, 64, 130])
 @pytest.mark.parametrize("H", [0, 16, 40])
 @pytest.mark.parametrize("n", [65536, 24])
 def test_lag_grid_covers_every_lag_tile_and_slab_once(n, H, d):
     p = _lag_params(n, d, H)
+    assert p.lag_tile == _launch.lag_tile(d) == (16 if d <= 16 else 32 if d <= 32 else 64)
     seen = {}
     for cta in range(p.lag_ctas):
         slab, h0, ng, i0, j0 = lag_cta(p, cta)
-        assert 1 <= ng <= _build.LAG_GROUP
+        assert 1 <= ng <= _run_limit(p)
         for h in range(h0, h0 + ng):
             key = (slab, h, i0, j0)
             seen[key] = seen.get(key, 0) + 1
-    tiles = [t * _build.TILE for t in range(p.d_tiles)]
+    tiles = [t * p.lag_tile for t in range(-(-d // p.lag_tile))]
     want = {(s, h, i, j) for s in range(p.lag_slabs) for h in range(H + 1)
             for i in tiles for j in tiles}
     assert set(seen) == want and set(seen.values()) == {1}
@@ -213,8 +223,21 @@ def test_lag_grid_covers_every_lag_tile_and_slab_once(n, H, d):
 
 def test_main_path_lag_grid_fills_two_ctas_per_sm():
     p = _lag_params(65536, 64, 16)
+    assert p.lag_tile == _build.TILE
     assert p.lag_groups == -(-17 // _build.LAG_GROUP)
     assert 2 * 132 - p.lag_groups <= p.lag_ctas <= 2 * 132
+
+
+@pytest.mark.parametrize("d", [3, 16, 17, 32])
+def test_small_widths_take_one_run_and_one_tile_for_h16(d):
+    """At d <= 32 H = 16 is one CTA a slab (17 lags in one run of
+    small_lag_role), and kernel 3's tile (passed as TILE) keeps lag_role's
+    runs of LAG_GROUP."""
+    p = _lag_params(65536, d, 16)
+    assert p.lag_groups == 1 and p.lag_ctas == p.lag_slabs
+    assert _lag_params(65536, d, 17).lag_groups == 2
+    k3 = _lag_params(65536, d, 16, tile=_build.TILE)
+    assert k3.lag_tile == _build.TILE and k3.lag_groups == -(-17 // _build.LAG_GROUP)
 
 
 def lag_group_model(y, a, m, n, H, h0, ng, i0, j0, slab, lag_slab):
@@ -253,10 +276,58 @@ def lag_group_model(y, a, m, n, H, h0, ng, i0, j0, slab, lag_slab):
     return acc
 
 
+def small_lag_model(y, a, m, n, H, h0, ng, slab, lag_slab, TW):
+    """small_lag_group on the CPU: the ring's steps of RT_KC rows, a's rows
+    zero-filled by the mask (masked starts still multiply), y rows past
+    b_end zero, columns past d zero, and thread (i, j)'s sliding window of
+    ng values of column j (row k + g of the staged y for lag h0 + g).
+    Returns acc (ng, TW, TW), the starts each lag summed in order, and the
+    source rows staged of a and of y."""
+    KC = _build.KC
+    d = y.shape[1]
+    t_begin = slab * lag_slab
+    t_end = min(t_begin + lag_slab, n)
+    b_end = t_end + h0 + ng - 1
+    steps = -(-(t_end - t_begin) // KC)
+    A = a if a is not None else y
+    acc = np.zeros((ng, TW, TW))
+    order = [[] for _ in range(ng)]
+    staged = {"a": [], "y": []}
+
+    def rows(src, first, count, live, tag):
+        out = np.zeros((count, TW))
+        for r in range(count):
+            t = first + r
+            if live(t):
+                staged[tag].append(t)
+                out[r, :min(TW, d)] = src[t, :min(TW, d)]
+        return out
+
+    for s in range(steps):
+        t0 = t_begin + s * KC
+        As = rows(A, t0, KC, lambda t: t < t_end and (a is not None or m is None or m[t] != 0),
+                  "a")
+        Bs = rows(y, t0 + h0, KC + ng - 1, lambda t: t < b_end, "y")
+        window = [Bs[g] for g in range(ng - 1)] + [None]
+        for k in range(KC):
+            window[(k + ng - 1) % ng] = Bs[k + ng - 1]
+            for g in range(ng):
+                acc[g] += np.outer(As[k], window[(k + g) % ng])
+                if t0 + k < t_end:
+                    order[g].append(t0 + k)
+    return acc, order, staged
+
+
 @pytest.mark.parametrize("n,d,H,masked", [(100, 3, 5, True), (24, 2, 9, False),
                                           (300, 70, 16, True), (70, 1, 0, True),
-                                          (1000, 2, 7, True)])  # several slabs
+                                          (1000, 2, 7, True),  # several slabs
+                                          (203, 16, 16, True), (203, 17, 40, True),
+                                          (300, 33, 3, True), (700, 32, 17, True)])
 def test_lag_staging_model_matches_plain_lag_sums(n, d, H, masked):
+    """Each lag CTA's model (lag_group_model on the 64-channel tile,
+    small_lag_model on a tile sized by d) writes its outputs once; the
+    small role's staged rows lie in range and each output sums its starts
+    in ascending order; the sums match the plain lag sums."""
     rng = np.random.default_rng(n + H)
     y = rng.standard_normal((n + H, d))
     mask = np.ones(n, dtype=bool)
@@ -264,15 +335,42 @@ def test_lag_staging_model_matches_plain_lag_sums(n, d, H, masked):
         mask[n // 3:: 5] = False
     p = _lag_params(n, d, H, sms=4)  # few SMs: slabs of a few hundred starts
     got = np.zeros((p.lag_slabs, H + 1, d, d))
+    hits = np.zeros(got.shape, int)
     for cta in range(p.lag_ctas):
         slab, h0, ng, i0, j0 = lag_cta(p, cta)
-        acc = lag_group_model(y, None, mask.astype(np.float64), n, H, h0, ng, i0, j0, slab,
-                              p.lag_slab)
-        ni, nj = min(64, d - i0), min(64, d - j0)
+        if p.lag_tile == _build.TILE:
+            acc = lag_group_model(y, None, mask.astype(np.float64), n, H, h0, ng, i0, j0, slab,
+                                  p.lag_slab)
+        else:
+            acc, order, staged = small_lag_model(y, None, mask.astype(np.float64), n, H, h0, ng,
+                                                 slab, p.lag_slab, p.lag_tile)
+            starts = list(range(slab * p.lag_slab, min((slab + 1) * p.lag_slab, n)))
+            assert all(o == starts for o in order)  # every start, ascending
+            assert all(0 <= t < n for t in staged["a"])
+            assert all(0 <= t < n + H for t in staged["y"])
+        ni, nj = min(p.lag_tile, d - i0), min(p.lag_tile, d - j0)
         got[slab, h0: h0 + ng, i0: i0 + ni, j0: j0 + nj] = acc[:, :ni, :nj]
+        hits[slab, h0: h0 + ng, i0: i0 + ni, j0: j0 + nj] += 1
+    assert (hits == 1).all()
     head = np.where(mask[:, None], y[:n], 0.0)
     want = np.stack([head.T @ y[h: h + n] for h in range(H + 1)])
     np.testing.assert_allclose(got.sum(0), want, rtol=1e-10, atol=1e-10)
     # and the port's plain version, in its float32
     plain = masked_lagged_sums_ref(torch.from_numpy(y), torch.from_numpy(mask), H).numpy()
     np.testing.assert_allclose(got.sum(0), plain, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_small_lag_model_keeps_a_nan_in_a_masked_starts_reach():
+    """A masked start's a row is zero-filled and still multiplies: a NaN in
+    y at a row only masked starts reach gives NaN in S(h), as the plain
+    version's where-then-einsum does."""
+    n, d, H = 100, 16, 16
+    y = np.random.default_rng(0).standard_normal((n + H, d))
+    mask = np.ones(n)
+    mask[20:60] = 0
+    y[40, 2] = np.nan
+    p = _lag_params(n, d, H, sms=4)
+    acc, _, _ = small_lag_model(y, None, mask, n, H, 0, H + 1, 0, p.lag_slab, p.lag_tile)
+    plain = masked_lagged_sums_ref(torch.from_numpy(y), torch.from_numpy(mask > 0), H).numpy()
+    np.testing.assert_array_equal(np.isfinite(acc[:, :d, :d]), np.isfinite(plain))
+    assert not np.isfinite(plain).all()

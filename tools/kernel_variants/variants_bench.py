@@ -7,6 +7,7 @@ against the port's plain version.
     python3 tools/kernel_variants/variants_bench.py turns BASELINE_KERNELS_DIR
     python3 tools/kernel_variants/variants_bench.py lagmom [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py split [BASELINE_KERNELS_DIR]
+    python3 tools/kernel_variants/variants_bench.py session [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py swa
 
 moments: builds the variant file with nvcc into build/kernel_variants/ and,
@@ -62,6 +63,19 @@ to the plain version, then every point with the shipped one in turns,
 LAGMOM_ROUNDS times; with BASELINE_KERNELS_DIR, the shipped point against
 the baseline's kernel 3 in turns at the chunk and the tail.  Samples go to
 build/kernel_variants/variants_lagmom.json.
+
+session: kernels 1 and 2 at the multi-tenant session's shapes (65,536
+tenants of d = 16; a query's lag tail at 4,096 tenants): the role split of
+batched kernel 1 at the chunk and the merge boundary (copies of
+fused_plan.cu with roles compiled out, SESSION_ABLATIONS), Welch candidates
+per CTA swept at the chunk, and with BASELINE_KERNELS_DIR old against new in
+turns (baseline, this, this, baseline, SESSION_ROUNDS times: 2 SESSION_ROUNDS
+paired turns) at the chunk and the merge boundary (with the plain version),
+the lag tail (with the torch.matmul yardstick), the main path's chunk and
+the store's autocovariance_blocked (d = 64), and the chunk and the lag tail
+at d = 32 (the 32-channel tile), each pair's outputs checked for bitwise
+equality.  ``stats`` runs it too.  Samples go to
+build/kernel_variants/variants_session.json.
 
 split: kernel 3's device kernels per call, by name, with their device ms
 per call (torch.profiler over 8 rotating prepared launches, after one warm
@@ -763,6 +777,205 @@ def split(new, old, series, dev) -> dict:
     return record
 
 
+# Kernels 1 and 2 at the multi-tenant session's shapes (chip_smoke.py's
+# session phase: 65,536 tenants of d = 16, 256-row chunks, a 127-row carry,
+# H = 16, windows (32, 128), Welch 64/32; a query's lag tail at 4,096
+# tenants), at the d = 64 shapes the same code serves (the main path's
+# chunk, the store's autocovariance_blocked), and at d = 32 (the small lag
+# role's 32-channel tile).
+SESSION_USERS, SESSION_D, SESSION_ROWS, SESSION_CARRY = 65536, 16, 256, 127
+SESSION_H, SESSION_WINDOWS, SESSION_WELCH, SESSION_QUERY = 16, (32, 128), (64, 32), 4096
+SESSION_ROUNDS = 5  # 2 SESSION_ROUNDS paired turns
+# Ablations of batched kernel 1: roles compiled out of a copy of
+# fused_plan.cu (the role's call in fused_plan_kernel under an #ifndef), so
+# that each launch's time splits by role.  Results are garbage; only the
+# times count.
+SESSION_ABLATIONS = {"no_lag": ("NO_LAG",), "no_mom": ("NO_MOM",), "no_welch": ("NO_WELCH",),
+                     "lag_only": ("NO_MOM", "NO_WELCH"), "mom_only": ("NO_LAG", "NO_WELCH"),
+                     "welch_only": ("NO_LAG", "NO_MOM"),
+                     "reduce_only": ("NO_LAG", "NO_MOM", "NO_WELCH")}
+# (flag, the role's call in fused_plan_kernel): the one line that matches
+# is wrapped in #ifndef ABL_<flag>.
+_SESSION_ROLE_CALLS = [("NO_LAG", r"^ *lag\w*<[^;]*>\(p, b, tn, smem\);\n"),
+                       ("NO_MOM", r"^ *moment_role<[^;]*>\(p, b, tn, smem\);\n"),
+                       ("NO_WELCH", r"^ *welch_member_role<[^;]*>\(p, p\.welch\[j\], b, tn, "
+                                    r"smem\);\n")]
+
+
+def session_ablation_source(text: str) -> str:
+    """fused_plan.cu's text with each role's call in fused_plan_kernel under
+    an #ifndef ABL_NO_<role>."""
+    for flag, pattern in _SESSION_ROLE_CALLS:
+        found = re.findall(pattern, text, re.M)
+        if len(found) != 1:
+            raise RuntimeError(f"session ablation {flag}: role call not found once")
+        text = text.replace(found[0], f"#ifndef ABL_{flag}\n{found[0]}#endif\n")
+    return text
+
+
+def session_operands(gen, dev) -> dict:
+    """Operand sets at the session's shapes, made on the card: kernel 1's
+    chunk (y (65,536, 383, 16), 129 valid starts a tenant) and merge boundary
+    (y (65,536, 254, 16), 127 starts), kernel 2's lag tail ((4,096, 127, 16)
+    against the tail extended by H zero rows), and the d = 64 shapes: the
+    main path's chunk (y (66,559, 64), 65,536 starts) and the store's
+    autocovariance_blocked (512 blocks of (8,208, 64), 8,192 starts); and
+    the 32-channel tile's: the chunk at d = 32 for 16,384 tenants and the
+    lag tail at d = 32."""
+    from repro_torch.core.estimators.spectral import hann_window
+
+    users, d, rows, carry, H = SESSION_USERS, SESSION_D, SESSION_ROWS, SESSION_CARRY, SESSION_H
+    y = torch.randn((users, rows + carry, d), generator=gen, device=dev)
+    y[:, rows:] = 0.0  # the chunk's zero extension
+    z0 = torch.full((users,), 7 * rows, dtype=torch.int32, device=dev)
+    starts = torch.arange(rows, device=dev)
+    chunk_mask = (starts <= rows - carry - 1).expand(users, rows).contiguous()
+    boundary = y[:, rows - carry: rows + carry].contiguous()
+    boundary_mask = torch.ones((users, carry), dtype=torch.bool, device=dev)
+    tail = torch.randn((SESSION_QUERY, carry, d), generator=gen, device=dev)
+    ext = torch.nn.functional.pad(tail, (0, 0, 0, H)).contiguous()
+    main = torch.randn((65536 + 1023, 64), generator=gen, device=dev)
+    blocks = torch.randn((512, 8192 + H, 64), generator=gen, device=dev)
+    wide = torch.randn((SESSION_USERS // 4, rows + carry, 32), generator=gen, device=dev)
+    wide_tail = torch.randn((SESSION_QUERY, carry, 32), generator=gen, device=dev)
+    L, step = SESSION_WELCH[0], SESSION_WELCH[0] - SESSION_WELCH[1]
+    members = (H, SESSION_WINDOWS, (L,), (step,), (hann_window(L, dev),))
+    main_members = (H, (64, 1024), (256,), (128,), (hann_window(256, dev),))
+    return {"chunk": (y, chunk_mask, z0, members),
+            "boundary": (boundary, boundary_mask, z0 + rows - carry, members),
+            "lag_tail": (tail.contiguous(), ext),
+            "main_chunk": (main, torch.arange(65536, device=dev) <= 65536 - 1023 - 1,
+                           torch.zeros((), dtype=torch.int32, device=dev), main_members),
+            "blocked": (blocks[:, :8192].contiguous(), blocks),
+            "chunk_d32": (wide, chunk_mask[: wide.shape[0]], z0[: wide.shape[0]], members),
+            "lag_tail_d32": (wide_tail, torch.nn.functional.pad(wide_tail, (0, 0, 0, H))
+                             .contiguous())}
+
+
+def session_prepare(m, which: str, ops: dict):
+    """Package ``m``'s prepared launch of ``which`` on the operands of
+    :func:`session_operands`."""
+    if which in ("lag_tail", "blocked", "lag_tail_d32"):
+        a, b = ops[which]
+        return m["window_stats.ops"].prepare_cross_lagged_sums(a, b, SESSION_H)
+    y, mask, z0, members = ops[which]
+    return m["fused_plan.ops"].prepare_fused_plan(y, mask, z0, *members)
+
+
+def session(new, old, gen, dev) -> dict:
+    """Kernels 1 and 2 at the session's shapes: the role split of batched
+    kernel 1 (chunk and merge boundary; SESSION_ABLATIONS built from this
+    checkout's fused_plan.cu), a sweep of Welch candidates per CTA at the
+    chunk, and with ``old`` (a baseline package) old against new in turns
+    (baseline, this, this, baseline, SESSION_ROUNDS times) at the chunk, the
+    merge boundary and the lag tail (with the torch.matmul yardstick in the
+    same turns), at the d = 64 shapes (the main path's chunk, the store's
+    autocovariance_blocked) and at d = 32 (the chunk at 16,384 tenants, the
+    lag tail), each pair checked for bitwise equal outputs.
+    Samples go to build/kernel_variants/variants_session.json."""
+    kdir = os.path.dirname(new["_build"].__file__)
+    os.makedirs(OUT, exist_ok=True)
+    ablated = os.path.join(OUT, "session_ablated.cu")
+    with open(ablated, "w") as f:
+        f.write(session_ablation_source(
+            open(os.path.join(kdir, "fused_plan", "csrc", "fused_plan.cu")).read()))
+    procs = {name: subprocess.Popen(
+        ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", os.path.join(kdir, "csrc"),
+         "-o", os.path.join(OUT, f"session_{name}.so"), ablated] + [f"-DABL_{f}" for f in flags],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, flags in SESSION_ABLATIONS.items()}
+    entries = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"session ablation {name}: build failed\n{log[-2000:]}")
+        lib = ctypes.CDLL(os.path.join(OUT, f"session_{name}.so"))
+        size = lib.rt_plan_params_size
+        size.restype = ctypes.c_int
+        if size() != ctypes.sizeof(new["_build"].PlanParams):
+            raise RuntimeError(f"session ablation {name}: PlanParams differs from _build.py's")
+        entry = lib.rt_fused_plan
+        entry.argtypes, entry.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+        entries[name] = entry
+        for kernel in ("ILb0ELi16E", "ILb1ELi16E", "ILb0ELi32E", "ILb1ELi32E", "ILb0ELi64E",
+                       "ILb1ELi64E"):
+            print(f"session ablation {name} fused_plan_kernel<{kernel[3]}, {kernel[7:9]}>: "
+                  f"ptxas {_ptxas_of(log, 'fused_plan_kernel' + kernel)}", flush=True)
+    ops = session_operands(gen, dev)
+    record = {"device": torch.cuda.get_device_name(0), "split": {}, "sweeps": {}, "turns": {}}
+    for shape in ("chunk", "boundary"):
+        prep = session_prepare(new, shape, ops)
+        launchers = {"shipped": prep.launch}
+        for name, entry in entries.items():
+            def launch(entry=entry, prep=prep):
+                if entry(ctypes.byref(prep.params), torch.cuda.current_stream(dev).cuda_stream):
+                    raise RuntimeError("launch failed")
+            launchers[name] = launch
+        for name, launch in launchers.items():
+            samples = graph_samples([launch], replays=3, repeats=5)
+            record["split"][f"{shape}/{name}"] = samples
+            print(f"session split {shape} {name}: ms {samples[2]:.4f} (min {samples[0]:.4f} "
+                  f"max {samples[-1]:.4f})", flush=True)
+        p = prep.params
+        record["split"][f"{shape}/grid"] = {
+            "tenant_ctas": p.lag_ctas + p.mom_ctas + sum(p.welch[j].ctas
+                                                         for j in range(p.n_welch)),
+            "lag_ctas": p.lag_ctas, "mom_ctas": p.mom_ctas,
+            "welch_ctas": [p.welch[j].ctas for j in range(p.n_welch)]}
+        print(f"session grid {shape}: {record['split'][f'{shape}/grid']}", flush=True)
+        del prep, launchers
+        torch.cuda.empty_cache()
+    fpm = new["fused_plan.ops"]
+    shipped = fpm.WELCH_GROUP
+    for group in (1, 2, 4, 8, 16):
+        fpm.WELCH_GROUP = group
+        samples = graph_samples([session_prepare(new, "chunk", ops).launch], replays=3)
+        record["sweeps"][f"chunk/welch_group={group}"] = samples
+        print(f"session sweep chunk welch_group={group}: ms {samples[2]:.4f} (min "
+              f"{samples[0]:.4f} max {samples[-1]:.4f})", flush=True)
+    fpm.WELCH_GROUP = shipped
+    if old is None:
+        with open(os.path.join(OUT, "variants_session.json"), "w") as f:
+            json.dump(record, f, indent=1)
+        return record
+    tail, ext = ops["lag_tail"]
+    for shape in ("chunk", "boundary", "lag_tail", "main_chunk", "blocked", "chunk_d32",
+                  "lag_tail_d32"):
+        base, this = session_prepare(old, shape, ops), session_prepare(new, shape, ops)
+        got, want = this.launch(), base.launch()
+        got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+        flat = lambda r: [x for t in r if t is not None
+                          for x in (t if isinstance(t, tuple) else (t,))]
+        same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+        del got, want
+        replays = 3 if shape in ("chunk", "boundary", "chunk_d32") else 10
+        launchers = {"baseline": lambda: graph_samples([base.launch], replays=replays),
+                     "this": lambda: graph_samples([this.launch], replays=replays)}
+        if shape == "lag_tail":
+            lib = torch.matmul(ext.unfold(1, tail.shape[1], 1), tail[:, None]).transpose(-1, -2)
+            err = ((lib - this.launch()).abs().max() / lib.abs().max()).item()
+            print(f"session lag_tail library against this: max rel diff {err:.2e}", flush=True)
+            del lib
+            launchers["library"] = lambda: _events_samples(
+                lambda: torch.matmul(ext.unfold(1, tail.shape[1], 1), tail[:, None]))
+        if shape in ("chunk", "boundary"):  # the plain version, in the same turns
+            from repro_torch.kernels.fused_plan.ref import fused_plan_update_ref
+
+            args = ops[shape][:3] + ops[shape][3]
+            launchers["plain"] = lambda: _events_samples(
+                lambda: fused_plan_update_ref(*args), calls=1)
+        rec = _lagmom_turns(f"session {shape} (bitwise equal: {same})", launchers,
+                            SESSION_ROUNDS)
+        rec["bitwise_equal"] = same
+        record["turns"][shape] = rec
+        del base, this, launchers
+        torch.cuda.empty_cache()
+    with open(os.path.join(OUT, "variants_session.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    return record
+
+
 def stats(baseline_dir: str, gen, dev, turns_only: bool = False) -> None:
     from repro_torch.core.estimators.spectral import hann_window
     from repro_torch.kernels.fused_plan.ref import welch_candidates
@@ -873,6 +1086,8 @@ def stats(baseline_dir: str, gen, dev, turns_only: bool = False) -> None:
         return
     record["lagmom"] = lagmom(new, old, series, gen, dev)
     record["split"] = split(new, old, series, dev)
+    del series
+    record["session"] = session(new, old, gen, dev)
 
     # launch-shape sweeps of this package
     lch, fpm = new["_launch"], new["fused_plan.ops"]
@@ -1168,6 +1383,12 @@ def main() -> None:
         if len(sys.argv) < 3:
             sys.exit(f"{which} needs the baseline kernels directory")
         stats(sys.argv[2], gen, dev, turns_only=which == "turns")
+        return
+    if which == "session":
+        new = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
+        old = (load_kernels("baseline_kernels", os.path.abspath(sys.argv[2]))
+               if len(sys.argv) > 2 else None)
+        session(new, old, gen, dev)
         return
     if which in ("lagmom", "split"):
         new = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
