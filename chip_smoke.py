@@ -17,7 +17,13 @@ session with forecasts and anomaly scores: per-tick coalescing, crc32
 checkpoints, kill and restart past a torn generation, a chaos-poisoned
 tenant quarantined and rebuilt), then checks and times kernel 8
 (sliding-window attention) and serves h2o-danube-1.8b at full width and
-depth through ``ServeEngine.generate``, printing one JSON line per phase.
+depth through ``ServeEngine.generate``; last, the backend policy layer:
+the calibration measured on the card (``repro_torch.core.calibrate``),
+the ``"auto"`` backend with that table over the main path's plan and a
+session tick (every call held against ``"cuda"``), and the counted
+circuit breaker through the gateway under a chaos schedule; printing one
+JSON line per phase.  Every phase before the calibration runs on the
+built-in tile blocks, whatever table a machine has cached.
 The second-to-last line lists the kernels; the last line names the device
 and is printed only when every phase passed.
 
@@ -43,7 +49,13 @@ check at 4,096 tenants (cut: it needs a fault-free twin run).  The store's
 replan adds forecast(32, "ar", p=8) and anomaly_scores("arma", p=2, q=1).
 Serving: h2o-danube-1.8b (24 layers, d_model 2560, 32 query / 8 KV heads of 80,
 window 4096) in bf16 with random weights from ``--seed``, 4 prompts of
-8,000 tokens, 32 greedy new tokens each.
+8,000 tokens, 32 greedy new tokens each.  The calibration: the reference's
+default grid (512 to 32,768 rows, d = 8), its table written to
+``build/repro_torch/calibration_cuda.json``.  "auto": the main path's plan
+over 8 chunks (cut from 64, for time) and one tick of the session's
+65,536 tenants.  The breaker: tests/test_chaos.py:602's schedule at 4,096
+tenants (cut from 65,536: it needs a fault-free twin run) of the gateway's
+width and plan.
 Exits non-zero, printing no result, without a GPU or when a phase fails.
 """
 from __future__ import annotations
@@ -256,6 +268,33 @@ KERNEL_INFO = {
     "swa_attention": ("src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
                       "src/repro/kernels/swa_attention/kernel.py:90"),
 }
+
+
+# The backend policy layer (phases 11-13).  The calibration runs at the
+# reference's default grid (512-32,768 rows, d = 8) and writes its table
+# under build/, never to the user's cache.  The "auto" phase drives the main
+# path's plan over AUTO_CHUNKS chunks (cut from 64 for time) and one session
+# tick of the session phase's 65,536 tenants with the measured table
+# installed; every call is also run on the "cuda" backend on the same
+# inputs: bitwise, with the same launches, where "auto" took "cuda", within
+# PRIMITIVE_TOL where it took "torch".  The breaker phase is the scenario of
+# tests/test_chaos.py:602 at CHAOS_USERS tenants (cut from 65,536: it needs a
+# fault-free twin run) of the gateway phase's width and plan.
+CALIB_PATH = os.path.join(ROOT, "build", "repro_torch", "calibration_cuda.json")
+AUTO_CHUNKS = 8
+PRIMITIVE_KERNEL = {"lagged_sums": "cross_window_stats",
+                    "masked_lagged_sums": "cross_window_stats",
+                    "windowed_moments": "window_moments", "segment_fft_power": "segment_dft_power",
+                    "segment_csd": "segment_csd", "banded_matvec": "banded_matvec",
+                    "fused_lagged_moments": "fused_lag_moments",
+                    "fused_plan_update": "fused_plan_megakernel"}
+# per output part: fused_plan_update's (lag, mom, psds, n_segs), the others' one
+PRIMITIVE_TOL = {"fused_plan_update": (TOL["lag"], TOL["moments"], TOL["psd"], 0.0),
+                 "fused_lagged_moments": (TOL["lag"], TOL["moments"]),
+                 "segment_fft_power": (TOL["psd"],), "segment_csd": (TOL_NEW["csd"],),
+                 "windowed_moments": (TOL_NEW["window"],), "banded_matvec": (TOL_NEW["band"],),
+                 "lagged_sums": (TOL["lag"],), "masked_lagged_sums": (TOL["lag"],)}
+BREAKER_STALL_TICK = 2  # tests/test_chaos.py:602: gateway.tick stalls at tick 2
 
 
 # The fused plan of the main path and the store, and each member's tolerance.
@@ -2870,6 +2909,8 @@ def gateway_phase(args, dev) -> dict:
                                                                    "batch_occupancy")}
         checks["launches_per_tick"] = {"want": per_tick, "ok": all(launches_ok)}
         checks["twin_bitwise"] = {"ticks": twin_equal, "ok": all(twin_equal)}
+        # the default path wraps no circuit breaker: health() reports none
+        checks["no_breaker"] = {"ok": "breaker" not in gw.health()}
 
         # ---- query-only ticks of 1 and 4,096 tenants: the same launches
         per_size = {}
@@ -3358,6 +3399,498 @@ def lm_serve(args, dev) -> int:
     return launches["generate"]
 
 
+# ------------------------------------------------- the backend policy layer
+def calibration_phase(args, dev):
+    """Phase 11: `repro_torch.core.calibrate.calibrate` at the reference's
+    default grid with the block search, written to CALIB_PATH.  Prints the
+    medians of "torch" and "cuda" per primitive and size, the crossovers,
+    each block_t candidate's median; checks the table round trip and that
+    ``python -m repro_torch.core.calibrate --show`` reads the same
+    crossovers from the file."""
+    from repro_torch.core import calibrate as cal
+
+    started = time.perf_counter()
+    table = cal.calibrate(tune_blocks=True, save=True, path=CALIB_PATH)
+    calibrate_seconds = time.perf_counter() - started
+    medians = {prim: {str(n): {be: t * 1e3 for be, t in m.items()} for n, m in sizes.items()}
+               for prim, sizes in table.timings["crossover"].items()}
+    candidates = {prim: {param: {str(c): (t if isinstance(t, str) else t * 1e3)
+                                 for c, t in cands.items()} for param, cands in params.items()}
+                  for prim, params in table.timings["blocks"].items()}
+    checks = {}
+    previous = os.environ.get("REPRO_TORCH_CALIB_CACHE")
+    os.environ["REPRO_TORCH_CALIB_CACHE"] = CALIB_PATH
+    try:
+        loaded = cal.load_table()
+    finally:
+        if previous is None:
+            del os.environ["REPRO_TORCH_CALIB_CACHE"]
+        else:
+            os.environ["REPRO_TORCH_CALIB_CACHE"] = previous
+    checks["round_trip"] = {"ok": loaded is not None and loaded.thresholds == table.thresholds
+                            and loaded.blocks == table.blocks and loaded.device == table.device
+                            and loaded.platform == table.platform}
+    env = {**os.environ, "REPRO_TORCH_CALIB_CACHE": CALIB_PATH,
+           "PYTHONPATH": os.path.join(ROOT, "src")}
+    show = subprocess.run([sys.executable, "-m", "repro_torch.core.calibrate", "--show"],
+                          capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    want_lines = [f"  {prim:<22s} {table.crossover(prim)!r:>10}" for prim in cal.PRIMITIVES]
+    lines = show.stdout.splitlines()
+    checks["cli_show"] = {"rc": show.returncode, "stderr": show.stderr[-400:],
+                          "ok": show.returncode == 0 and "source: cache" in show.stdout
+                          and all(w in lines for w in want_lines)}
+    finite = all(math.isfinite(t) and t > 0 for sizes in medians.values()
+                 for m in sizes.values() for t in m.values())
+    checks["medians"] = {"ok": finite and set(medians) == set(cal.PRIMITIVES)
+                         and all(len(v) == 4 for v in medians.values())}
+    emit({"phase": "calibration", "device": torch.cuda.get_device_name(0), "table": CALIB_PATH,
+          "grid": {"sizes": [512, 2048, 8192, 32768], "d": 8, "max_lag": 8, "window": 64,
+                   "nperseg": 256, "bandwidth": 8, "iters": 3, "warmup": 1},
+          "median_ms": medians,
+          "crossover": {p: (None if math.isinf(v) else v) for p, v in table.thresholds.items()},
+          "blocks": table.blocks, "block_candidate_ms": candidates,
+          "calibrate_seconds": calibrate_seconds,
+          "phase_seconds": time.perf_counter() - started, "checks": checks})
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        fail("calibration checks failed", failed=bad)
+    return table
+
+
+class CheckedAuto:
+    """The "auto" backend with every call held against the "cuda" backend
+    on the same inputs: where "auto" routed to "cuda", bitwise and with the
+    same kernel launches; where it routed to "torch", within PRIMITIVE_TOL
+    and with no launch.  ``calls`` collects (primitive, route, size, the
+    size of one problem on the trailing axes (mask rows, or segments x
+    segment length; None for the rest), problems on the leading axes, ok,
+    worst error)."""
+
+    def __init__(self, auto):
+        from repro_torch.core.backend import CudaBackend
+
+        self.auto, self.cuda, self.calls = auto, CudaBackend(), []
+        self.name = "auto_checked"
+
+    def __getattr__(self, prim):
+        if prim not in PRIMITIVE_KERNEL:
+            raise AttributeError(prim)
+        from repro_torch.kernels import launch_counts
+
+        def call(*a, **kw):
+            before = dict(self.auto.routes)
+            c0 = launch_counts()
+            got = getattr(self.auto, prim)(*a, **kw)
+            c1 = launch_counts()
+            want = getattr(self.cuda, prim)(*a, **kw)
+            c2 = launch_counts()
+            (key,) = [k for k, v in self.auto.routes.items() if v != before.get(k, 0)]
+            auto_l = {k: c1[k] - c0[k] for k in c0 if c1[k] != c0[k]}
+            cuda_l = {k: c2[k] - c1[k] for k in c1 if c2[k] != c1[k]}
+            if key[1] == "cuda":
+                ok, worst = bitwise_equal(got, want) and auto_l == cuda_l, 0.0
+            else:
+                parts = got if prim in ("fused_plan_update", "fused_lagged_moments") else (got,)
+                wparts = want if len(parts) > 1 else (want,)
+                reps = [compare(g, w, t) for g, w, t in zip(parts, wparts, PRIMITIVE_TOL[prim])
+                        if w is not None]
+                ok = not auto_l and all(r["ok"] for r in reps)
+                worst = max(r["max_rel_err"] for r in reps)
+            if prim.startswith("segment"):
+                one, problems = a[0].shape[-3] * a[0].shape[-2], math.prod(a[0].shape[:-3])
+            elif prim in ("masked_lagged_sums", "fused_lagged_moments", "fused_plan_update"):
+                one, problems = a[1].shape[-1], math.prod(a[1].shape[:-1])
+            else:
+                one, problems = None, 1
+            self.calls.append((prim, key[1], key[2], one, problems, ok, worst))
+            return got
+
+        return call
+
+
+def route_report(calls: list) -> dict:
+    """CheckedAuto's calls by (primitive, route): counts, sizes, problems,
+    whether every one was held, the worst error."""
+    out = {}
+    for prim, route, size, _, problems, ok, worst in calls:
+        r = out.setdefault(f"{prim}/{route}", {"calls": 0, "sizes": [], "problems": [],
+                                               "ok": True, "worst_err": 0.0})
+        r["calls"] += 1
+        r["ok"] &= ok
+        r["worst_err"] = max(r["worst_err"], worst)
+        if size not in r["sizes"]:
+            r["sizes"].append(size)
+        if problems not in r["problems"]:
+            r["problems"].append(problems)
+    return out
+
+
+def auto_phase(args, dev, table) -> None:
+    """Phase 12: "auto" with the measured table installed, over the main
+    path's plan (AUTO_CHUNKS chunks) and one session tick of 65,536 tenants
+    with a query of SESSION_QUERY.  Prints every (primitive, backend)
+    route with its call count and sizes; every call held against the "cuda"
+    backend (CheckedAuto); the end results against the "cuda" backend's
+    run: bitwise with equal launches (on the main path also equal device
+    kernels per run, kernels_per_call) when every route was "cuda", within
+    the members' tolerances otherwise.  The session's calls are sized by
+    one tenant's problem on the trailing axes (rows, or segments x segment
+    length), never by the tenants; a primitive whose "cuda" won at every
+    grid size is routed to "cuda" there.  Uninstalls the table on return."""
+    from repro_torch import SeriesFrame
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core.backend import AutoBackend
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    started = time.perf_counter()
+    cal.set_active_table(table)  # a tuned block_t changes kernel 1's Welch tiling
+    checks, out = {}, {}
+    series = make_series(AUTO_CHUNKS * CHUNK, D, args.seed, dev)
+    chunks = list(series.split(CHUNK))
+
+    def plan_run(backend):
+        frame = declare_plan(SeriesFrame.from_chunks(chunks, backend=backend, device=dev))
+        res = frame.collect()
+        torch.cuda.synchronize()
+        return res
+
+    # ---- the main path's plan
+    auto = AutoBackend(table=table)
+    plan_run(auto)  # warm-up
+    auto.routes.clear()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = plan_run(auto)
+    auto_ms = (time.perf_counter() - t0) * 1e3
+    auto_launches = launch_counts()
+    routes = {f"{p}/{r}/{n}": c for (p, r, n), c in sorted(auto.routes.items())}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    want = plan_run("cuda")
+    cuda_ms = (time.perf_counter() - t0) * 1e3
+    cuda_launches = launch_counts()
+    checked = CheckedAuto(AutoBackend(table=table))
+    plan_run(checked)
+    all_cuda = all(r == "cuda" for (_, r, _) in auto.routes)
+    if all_cuda:
+        kpc = {"auto": kernels_per_call(lambda: plan_run(auto), 1),
+               "cuda": kernels_per_call(lambda: plan_run("cuda"), 1)}
+        ends = {"bitwise": bitwise_equal(got, want), "launches_equal": auto_launches ==
+                cuda_launches, "kernels_per_call_equal": kpc["auto"] == kpc["cuda"]}
+        ends_ok = all(ends.values())
+    else:
+        kpc = None
+        members = {name: compare(got[name], want[name], tol) for name, tol in MEMBER_TOL.items()}
+        ends = {"members": members, "note": "some calls routed to torch: held at the members' "
+                "plain tolerances, not bitwise"}
+        ends_ok = all(r["ok"] for r in members.values())
+    calls = route_report(checked.calls)
+    checks["main_path"] = {"every_route_cuda": all_cuda, "end_results": ends,
+                           "calls": calls, "ok": ends_ok and all(v["ok"] for v in calls.values())}
+    out["main_path"] = {"chunks": AUTO_CHUNKS, "rows_per_chunk": CHUNK, "channels": D,
+                        "routes": routes, "auto_collect_ms": auto_ms,
+                        "cuda_collect_ms": cuda_ms, "launches": {"auto": auto_launches,
+                                                                 "cuda": cuda_launches},
+                        "kernels_per_call": kpc}
+    del series, chunks, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one session tick at 65,536 tenants, then a query of SESSION_QUERY
+    users = SESSION_USERS
+    ids = np.arange(users)
+    x = SessionSource(users, args.seed, dev).next()
+    sample = np.sort(np.random.default_rng(args.seed + 22).choice(users, SESSION_QUERY,
+                                                                   replace=False))
+    checked = CheckedAuto(AutoBackend(table=table))
+    sess_auto = new_session(dev, users, backend=checked)
+    sess_auto.ingest(ids, x)
+    torch.cuda.synchronize()
+    tick_calls, checked.calls = checked.calls, []
+    sess_auto.query_batch(sample)
+    torch.cuda.synchronize()
+    query_calls = checked.calls
+    sessions = {}
+    for label, backend in (("auto", AutoBackend(table=table)), ("cuda", "cuda")):
+        sess = new_session(dev, users, backend=backend)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.ingest(ids, x)
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t0) * 1e3
+        tick_launches = launch_counts()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        answer = sess.query_batch(sample)
+        torch.cuda.synchronize()
+        sessions[label] = {"session": sess, "tick_ms": tick_ms, "tick_launches": tick_launches,
+                           "query": answer, "query_ms": (time.perf_counter() - t0) * 1e3,
+                           "query_launches": launch_counts()}
+    session_routes = {f"{p}/{r}/{n}": c for (p, r, n), c in
+                      sorted(sessions["auto"]["session"]._backend.routes.items())}
+    every_cuda = all(c[1] == "cuda" for c in tick_calls + query_calls)
+    lanes = [s["session"].state_template()["group_0"]["lanes"].flatten()
+             for s in (sessions["auto"], sessions["cuda"])]
+    if every_cuda:
+        ends = {"bitwise_state": all(torch.equal(a, b) for a, b in zip(*lanes)),
+                "bitwise_query": bitwise_equal(sessions["auto"]["query"],
+                                               sessions["cuda"]["query"]),
+                "launches_equal": all(sessions["auto"][k] == sessions["cuda"][k]
+                                      for k in ("tick_launches", "query_launches"))}
+        ends_ok = all(ends.values())
+    else:
+        rep = session_compare(sessions["auto"]["query"], sessions["cuda"]["query"])
+        ends = {"members": rep, "tenants": len(sample), "note": "some calls routed to "
+                "torch: held at SESSION_TOL, not bitwise"}
+        ends_ok = session_ok(rep)
+    # sized per problem: every call's size is that of one tenant's problem
+    # on the trailing axes, with the tenants on a leading axis
+    sized = {"tick": all(one is None or size == one for _, _, size, one, _, _, _ in tick_calls)
+             and any(n == users for *_, n, _, _ in tick_calls),
+             "query": all(one is None or size == one
+                          for _, _, size, one, _, _, _ in query_calls)
+             and any(n == len(sample) for *_, n, _, _ in query_calls)}
+    # a primitive whose "cuda" won at every grid size goes to "cuda" at any size
+    won_everywhere = sorted(p for p, m in table.timings["crossover"].items()
+                            if all(v["cuda"] <= v["torch"] for v in m.values()))
+    routed_cuda = all(route == "cuda" for prim, route, *_ in tick_calls + query_calls
+                      if prim in won_everywhere)
+    tick_report, query_report = route_report(tick_calls), route_report(query_calls)
+    checks["session"] = {"every_route_cuda": every_cuda, "end_results": ends,
+                         "tick_calls": tick_report, "query_calls": query_report,
+                         "sized_per_tenant": sized, "won_everywhere": won_everywhere,
+                         "won_everywhere_routed_cuda": routed_cuda,
+                         "ok": ends_ok and all(sized.values()) and routed_cuda
+                         and all(v["ok"] for r in (tick_report, query_report)
+                                 for v in r.values())}
+    out["session"] = {"tenants": users, "d": SESSION_D, "rows": SESSION_ROWS,
+                      "queried": len(sample), "routes": session_routes,
+                      **{f"{label}_{k}": v[k] for label, v in sessions.items()
+                         for k in ("tick_ms", "query_ms", "tick_launches", "query_launches")}}
+    del sessions, sess_auto, lanes, x, checked
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - started
+    emit({"phase": "auto", "device": torch.cuda.get_device_name(0),
+          "crossover": {p: (None if math.isinf(v) else v) for p, v in table.thresholds.items()},
+          "blocks": table.blocks, **out, "phase_seconds": seconds, "checks": checks})
+    cal.set_active_table(None)
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        fail("auto checks failed", failed=bad)
+
+
+def tear(path: str) -> None:
+    """Overwrite bytes in the middle of a file (a torn write)."""
+    with open(path, "r+b") as f:
+        f.seek(max(os.path.getsize(path) // 2, 0))
+        f.write(b"\x00TORN\x00")
+
+
+def plan_call_args(dev, rows: int = 1000, d: int = 8) -> tuple:
+    """One ``fused_plan_update`` call's arguments on ``dev``: ``rows``
+    starts of a seeded (rows + 63, d) series, H = 8, moments(16), Welch
+    64 / 32."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(rows)
+    y = torch.randn((rows + 63, d), generator=g, device=dev)
+    mask = torch.ones((rows,), dtype=torch.bool, device=dev)
+    z0 = torch.zeros((), dtype=torch.int32, device=dev)
+    taper = torch.hann_window(64, periodic=False, device=dev)
+    return (y, mask, z0, 8, (16,), (64,), (32,), (taper,))
+
+
+def breaker_phase(args, dev) -> None:
+    """Phase 13: the scenario of tests/test_chaos.py:602 on the card through
+    StatsGateway at CHAOS_USERS tenants, the gateway phase's plan.  Run (a):
+    a (cuda, cuda) breaker, ``backend.fused_plan_update`` failing every
+    call, generation 1 torn, tick 2 stalled: every answer bitwise the
+    fault-free gateway's, one trip, the restart identical, and after
+    generation 3 is torn the restore walks back past [3, 1].  Run (b): a
+    (cuda, cuda) breaker whose first three firings fail: one trip, two
+    failed probes, one recovery, every answer bitwise the fault-free run's.
+    Run (c): the default (cuda, torch) breaker on the card's tensors: the
+    injected failure is re-raised, the open breaker refuses rather than
+    serve from the plain version, and the probe after the cooldown is
+    bitwise "cuda" and closes it."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import list_steps
+    from repro_torch.core.backend import CircuitBreakerBackend, CudaBackend
+    from repro_torch.runtime import chaos
+    from repro_torch.serving.gateway import Degraded, GatewayConfig, StatsGateway
+
+    started = time.perf_counter()
+    users = CHAOS_USERS
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 23)
+    bins = torch.randint(GATEWAY_BINS[0], GATEWAY_BINS[1] + 1, (users,), generator=g,
+                         device=dev)
+    src = SessionSource(users, args.seed + 23, dev, bins=bins)
+    rounds = [src.next().cpu().numpy() for _ in range(4)]
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    ckdir = tempfile.mkdtemp(prefix="breaker_ckpt_")
+    checks, metrics = {}, {}
+
+    async def drive(gw, do_rounds, tick_s=None):
+        answers = []
+        for host in do_rounds:
+            futs = [gw.submit_ingest(u, host[u]) for u in range(users)]
+            qfuts = [gw.submit_query(u) for u in range(users)]
+            t0 = time.perf_counter()
+            await gw.tick()
+            if tick_s is not None:
+                tick_s.append(time.perf_counter() - t0)
+            await asyncio.gather(*futs)
+            answers.append(list(await asyncio.gather(*qfuts)))
+        return answers
+
+    async def query_all(gw):
+        qfuts = [gw.submit_query(u) for u in range(users)]
+        await gw.tick()
+        return list(await asyncio.gather(*qfuts))
+
+    try:
+        base_cfg = dict(max_pending_ingest=users, max_pending_query=users)
+        free_gw = StatsGateway(new_gateway_session(dev, users), GatewayConfig(**base_cfg))
+        free_ticks = []
+        free = run(drive(free_gw, rounds, free_ticks))  # free[k]: after round k + 1
+        run(free_gw.stop(final_snapshot=False))
+        del free_gw
+        metrics["fault_free_tick_ms"] = [t * 1e3 for t in free_ticks]
+
+        # ---- run (a): (cuda, cuda), bitwise
+        # the watchdog's budget: three steady fault-free ticks (tick 0 pays
+        # the plan's first use), never below the reference's 0.05 s
+        deadline = max(3 * max(free_ticks[1:]), 0.05)
+        cfg = GatewayConfig(**base_cfg, checkpoint_dir=ckdir, snapshot_every=1,
+                            keep_checkpoints=3, tick_deadline=0.0, degraded_recovery=1)
+
+        def chaos_gateway():
+            br = CircuitBreakerBackend(primary=CudaBackend(), fallback=CudaBackend(),
+                                       trip_after=1, cooldown_calls=2)
+            return StatsGateway(new_gateway_session(dev, users, backend=br), cfg)
+
+        inj = chaos.FaultInjector(seed=args.seed)
+        inj.fail("backend.fused_plan_update", calls=range(10**6))
+        inj.corrupt("checkpoint.payload", calls={1})
+        inj.stall("gateway.tick", calls={BREAKER_STALL_TICK}, seconds=2 * deadline)
+        a = {}
+        gw = chaos_gateway()
+        chaos.install(inj)
+        got = run(drive(gw, rounds[:2]))
+        a["ticks_bitwise"] = [answers_equal(got[0], free[0]), answers_equal(got[1], free[1])]
+        gw.config.tick_deadline = deadline
+        got2 = run(drive(gw, rounds[2:3]))
+        a["ticks_bitwise"].append(answers_equal(got2[0], free[2]))
+        a["degraded"] = gw.health()["state"] == "degraded"
+        a["snapshots_deferred"] = gw.counters["snapshots_deferred"]
+        try:
+            gw.submit_query(0)
+            a["shed"] = False
+        except Degraded:
+            a["shed"] = True
+        run(gw.tick())  # tick 3: clean -> ok + snapshot
+        a["recovered"] = gw.health()["state"] == "ok"
+        a["ticks_bitwise"].append(answers_equal(run(query_all(gw)), free[2]))  # tick 4
+        bm = gw.health()["breaker"]
+        a["breaker"] = {k: bm[k] for k in ("trips", "recoveries", "fallback_calls", "open")}
+        a["fused_plan_update"] = {k: v for k, v in bm["primitives"]["fused_plan_update"].items()
+                                  if k != "last_error"}
+        gw._loop_rt.manager.flush()
+        gw.config.tick_deadline = 0.0
+        run(gw.stop(final_snapshot=False))
+        del gw
+        gw2 = chaos_gateway()
+        a["restart"] = {"restored": gw2.counters["restored_from_snapshot"],
+                        "skipped": gw2._loop_rt.last_restore_skipped,
+                        "bitwise": answers_equal(run(query_all(gw2)), free[2]),
+                        "programs_ingest": gw2.counters["programs_ingest"]}
+        run(gw2.stop(final_snapshot=False))
+        del gw2
+        a["generations"] = list_steps(ckdir)
+        tear(os.path.join(ckdir, "step_0000000003", "arrays.npz"))
+        gw3 = chaos_gateway()
+        a["walk_back"] = {"restored": gw3.counters["restored_from_snapshot"],
+                          "skipped": gw3._loop_rt.last_restore_skipped, "tick": gw3._tick,
+                          "bitwise": answers_equal(run(query_all(gw3)), free[0])}
+        run(gw3.stop(final_snapshot=False))
+        del gw3
+        chaos.clear()
+        a["log_has_first_fault"] = ("backend.fused_plan_update", 0, "fail") in inj.log
+        a["ok"] = (all(a["ticks_bitwise"]) and a["degraded"] and a["snapshots_deferred"] == 1
+                   and a["shed"] and a["recovered"] and a["breaker"]["trips"] == 1
+                   and a["breaker"]["fallback_calls"] > 0
+                   and a["fused_plan_update"]["primary_calls"] == 0
+                   and a["restart"] == {"restored": 1, "skipped": [], "bitwise": True,
+                                        "programs_ingest": 0}
+                   and a["generations"] == [0, 1, 3]
+                   and a["walk_back"] == {"restored": 1, "skipped": [3, 1], "tick": 1,
+                                          "bitwise": True}
+                   and a["log_has_first_fault"])
+        a["deadline_s"] = deadline
+        checks["run_a_cuda_cuda"] = a
+
+        # ---- run (b): (cuda, cuda), the first three firings fail
+        br = CircuitBreakerBackend(primary=CudaBackend(), fallback=CudaBackend(),
+                                   trip_after=1, cooldown_calls=2)
+        gw = StatsGateway(new_gateway_session(dev, users, backend=br), GatewayConfig(**base_cfg))
+        inj_b = chaos.FaultInjector(seed=args.seed).fail("backend.fused_plan_update",
+                                                           calls={0, 1, 2})
+        chaos.install(inj_b)
+        got = run(drive(gw, rounds))
+        chaos.clear()
+        bm = gw.health()["breaker"]
+        run(gw.stop(final_snapshot=False))
+        del gw
+        b = {"ticks_bitwise": [answers_equal(x, y) for x, y in zip(got, free)],
+             "breaker": {k: bm[k] for k in ("trips", "recoveries", "fallback_calls", "open")},
+             "fused_plan_update": {k: v for k, v in bm["primitives"]["fused_plan_update"].items()
+                                   if k != "last_error"},
+             "log": [list(e) for e in inj_b.log]}
+        b["ok"] = (all(b["ticks_bitwise"]) and bm["trips"] == 1 and bm["recoveries"] == 1
+                   and b["fused_plan_update"]["probes"] == 3 and bm["open"] == [])
+        checks["run_b_trip_and_recover"] = b
+        del got, free, rounds
+
+        # ---- run (c): a "torch" fallback never serves the card's tensors
+        c = {}
+        br = CircuitBreakerBackend(trip_after=1, cooldown_calls=2)  # (cuda, torch)
+        plan = plan_call_args(dev)
+        want = CudaBackend().fused_plan_update(*plan)
+        with chaos.scoped(chaos.FaultInjector().fail("backend.fused_plan_update", calls={0})):
+            for step in ("failure_reraised", "open_refuses"):
+                try:
+                    br.fused_plan_update(*plan)
+                    c[step] = False
+                except chaos.InjectedFault:
+                    c[step] = step == "failure_reraised"
+                except RuntimeError as e:
+                    c[step] = step == "open_refuses" and "CPU tensors only" in str(e)
+            c["probe_bitwise"] = bitwise_equal(br.fused_plan_update(*plan), want)
+        bm = br.breaker_metrics()
+        c["breaker"] = {k: bm[k] for k in ("trips", "recoveries", "fallback_calls", "open")}
+        c["ok"] = (c["failure_reraised"] and c["open_refuses"] and c["probe_bitwise"]
+                   and c["breaker"] == {"trips": 1, "recoveries": 1, "fallback_calls": 0,
+                                        "open": []})
+        checks["run_c_torch_fallback_refused"] = c
+    finally:
+        chaos.clear()
+        loop.close()
+        shutil.rmtree(ckdir, ignore_errors=True)
+    seconds = time.perf_counter() - started
+    emit({"phase": "breaker", "device": torch.cuda.get_device_name(0), "tenants": users,
+          "d": SESSION_D, "rows_per_tick": SESSION_ROWS, "metrics": metrics,
+          "phase_seconds": seconds, "checks": checks})
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        fail("breaker checks failed", failed=bad)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3408,8 +3941,15 @@ def main() -> None:
     # phases 9-10: kernel 8 alone, then the LM serving path through it
     swa = swa_kernel(args, dev)
     serve_launches = lm_serve(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------ 11. the kernels line
+    # phases 11-13: the backend policy layer -- the calibration measured on
+    # the card, "auto" with its table, the counted circuit breaker
+    auto_phase(args, dev, calibration_phase(args, dev))
+    breaker_phase(args, dev)
+
+    # ------------------------------------------------ 14. the kernels line
     # launches: each kernel's count from the run of its own path (kernel 8:
     # the lm_serve generate, one prefill)
     parity = {**stats["parity"], "swa_attention": swa["parity"]}

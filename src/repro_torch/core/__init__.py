@@ -1,8 +1,9 @@
-"""Core of the port: overlapping blocks, the map-reduce engine, backends,
-the streaming monoid, fused plans, forecasts, frames and the multi-tenant
-session."""
-from .backend import (CudaBackend, TorchBackend, get_backend, list_backends,  # noqa: F401
-                      register_backend, resolve_device)
+"""Core of the port: overlapping blocks, the map-reduce engine, backends
+and their calibration, the streaming monoid, fused plans, forecasts, frames
+and the multi-tenant session."""
+from .backend import (AutoBackend, CircuitBreakerBackend, CudaBackend,  # noqa: F401
+                      TorchBackend, get_backend, list_backends, register_backend,
+                      resolve_device, set_default_backend)
 from .frame import (Deferred, FrameSession, SeriesFrame, session_state_from_numpy,  # noqa: F401
                     session_state_to_numpy)
 from .integrity import lane_health, sentinel_scan  # noqa: F401
@@ -18,3 +19,14 @@ from .streaming import (PartialState, StreamingEngine, resolved_stat,  # noqa: F
                         state_from_numpy, state_to_numpy)
 from . import estimators  # noqa: F401
 from .estimators import *  # noqa: F401,F403  (the estimator API, as the reference)
+
+
+def __getattr__(name):
+    # ``calibrate`` (the module: calibrate.calibrate, its tables, its command
+    # line) loads on first access, so that ``python -m
+    # repro_torch.core.calibrate`` runs the module once, as __main__
+    if name == "calibrate":
+        import importlib
+
+        return importlib.import_module(".calibrate", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -84,15 +84,14 @@ def welch_csd(x: torch.Tensor, nperseg: int = 256, overlap: Optional[int] = None
 def welch_chunk_kernel(nperseg: int, step: int, scale, be, device="cuda"):
     """Offset-aware chunk kernel accumulating Welch segment-PSD partials:
     only the stride-aligned candidate starts are gathered and transformed.
-    Batched operands (y (B, rows, d), mask (B, L), z0 (B,)) stack every
-    tenant's candidates into ONE ``segment_fft_power`` call (B * K
-    segments), then sum each tenant's valid powers."""
+    Batched operands (y (B, rows, d), mask (B, L), z0 (B,)) pass every
+    tenant's candidates (B, K, nperseg, d) to ONE ``segment_fft_power``
+    call, B problems of K segments, then sum each tenant's valid powers."""
     w = hann_window(nperseg, device)
 
     def chunk_kernel(y_padded: torch.Tensor, start_mask: torch.Tensor, z0) -> dict:
         wins, valid = welch_candidates(y_padded, start_mask, z0, nperseg, step)
-        power = be.segment_fft_power(wins.reshape((-1,) + wins.shape[-2:]), w) * scale
-        power = power.reshape(wins.shape[:-2] + power.shape[-2:])
+        power = be.segment_fft_power(wins, w) * scale
         psd = torch.where(valid[..., None, None], power, 0.0).sum(-3)
         return {"psd": psd, "n_seg": valid.float().sum(-1)}
 

@@ -34,7 +34,8 @@ __all__ = ["PlanParams", "WelchMember", "MomentParams", "LagMomParams", "BandPar
            "BandGradParams",
            "SwaParams", "library",
            "build",
-           "check", "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "LAG_GROUP",
+           "check", "DeviceFault", "STICKY_ERRORS",
+           "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "LAG_GROUP",
            "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "SMALL_TILE", "MID_TILE", "SMALL_LAGS",
            "LM_ROWS", "LM_STAGES",
            "LM_MAX_CLUSTER", "LM_MAX_SLAB", "LM_BLK", "LM_PART_FLOATS", "BAND_COLS", "BAND_PASS",
@@ -370,6 +371,18 @@ def library() -> ctypes.CDLL:
     return load(path)
 
 
+# cudaError_t codes after which the CUDA context is unusable: illegal
+# address, device assert, hardware stack error, illegal instruction,
+# misaligned address, invalid address space, invalid pc, launch failure.
+STICKY_ERRORS = frozenset({700, 710, 714, 715, 716, 717, 718, 719})
+
+
+class DeviceFault(RuntimeError):
+    """A sticky CUDA error: every later call in the process fails too."""
+
+
 def check(code: int, name: str) -> None:
+    if code in STICKY_ERRORS:
+        raise DeviceFault(f"{name}: CUDA error {code} (sticky: the CUDA context is lost)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")

@@ -1,8 +1,8 @@
 """Shared tile plumbing (port of `repro.kernels.tiling`).
 
-``resolve_block`` here is an explicit override, else the built-in default:
-the calibrated per-platform table of the reference arrives with the port's
-calibration slice.
+``resolve_block`` resolves a kernel's tile size: an explicit override, else
+the tuned value of a calibration table installed in the process
+(`repro_torch.core.calibrate.set_active_table`), else the built-in default.
 """
 from __future__ import annotations
 
@@ -26,9 +26,17 @@ DEFAULT_BLOCKS: Dict[str, Dict[str, int]] = {
 
 
 def resolve_block(primitive: str, param: str, override: Optional[int] = None) -> int:
-    """``override`` if given, else the built-in default for ``primitive``."""
+    """``override`` if given, else the installed calibration table's tuned
+    value, else the built-in default for ``primitive``.  Never measures and
+    never reads a cache file (`repro_torch.core.calibrate.active_blocks`)."""
     if override is not None:
         return int(override)
+    # imported here so that the kernels layer stays below core at import time
+    from ..core.calibrate import active_blocks
+
+    tuned = active_blocks(primitive).get(param)
+    if tuned is not None:
+        return int(tuned)
     try:
         return DEFAULT_BLOCKS[primitive][param]
     except KeyError:

@@ -22,9 +22,12 @@ seeded schedule replays the same faults on either package:
                             per-tenant policies, tenant rebuild); call order
                             is submission order, so ``calls={k}`` targets
                             one (tick, tenant);
-  ``backend.<primitive>``   accepted in a schedule; no code of the port
-                            fires it until a circuit-breaking backend
-                            exists (ROADMAP Queue A item 6).
+  ``backend.<primitive>``   fired by `repro_torch.core.backend.
+                            CircuitBreakerBackend` before each call it
+                            tries on its primary backend (not during an
+                            open breaker's cooldown) -- a ``fail`` rule is
+                            a kernel fault: the breaker serves the call by
+                            its fallback and trips.
 
 Rules match explicit 0-based call indices of their site and/or a seeded
 per-site Bernoulli rate, so a chaos run replays bit for bit.  Install an

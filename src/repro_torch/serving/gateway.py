@@ -46,8 +46,9 @@ The tick does not synchronise with the device: an ingest future resolves
 when its kernels are queued, so ingest latencies are host latencies, as
 in the reference.  A query's device-to-host copy waits for everything
 queued before it.  ``tick()`` returns the host seconds of each stage of the
-tick under ``"split"``.  The port has no circuit-breaking backend yet, so
-:meth:`StatsGateway.health` reports no ``"breaker"`` entry.
+tick under ``"split"``.  When the session runs on a
+`repro_torch.core.backend.CircuitBreakerBackend`, :meth:`StatsGateway.health`
+reports its trips, recoveries and fallback calls under ``"breaker"``.
 """
 from __future__ import annotations
 
@@ -871,7 +872,9 @@ class StatsGateway:
 
     def health(self) -> dict:
         """Liveness surface: ``ok`` / ``degraded`` / ``draining``, the
-        deadline watchdog's tallies and the integrity counters."""
+        deadline watchdog's tallies, the integrity counters and -- when the
+        session's backend is a circuit breaker -- its per-primitive trip
+        state under ``"breaker"``."""
         state = ("draining" if (self._draining or self._closed)
                  else self._health)
         out = {
@@ -887,6 +890,9 @@ class StatsGateway:
                 "degraded_recoveries": self.counters["degraded_recoveries"],
             },
         }
+        breaker = getattr(self.session._backend, "breaker_metrics", None)
+        if callable(breaker):
+            out["breaker"] = breaker()
         out["integrity"] = {
             "sentinel": self.config.sentinel,
             "default_policy": self.config.sentinel_policy,

@@ -1019,3 +1019,101 @@ def test_gateway_on_the_card_is_bitwise_its_twin_and_restarts(dev, tmp_path):
                     assert np.array_equal(_bits(got[name][key]), _bits(want_u[name][key]))
     finally:
         loop.close()
+
+
+# ------------------------------------------------ the backend policy layer
+@pytest.fixture
+def fresh_table(monkeypatch, tmp_path):
+    from repro_torch.core import calibrate as cal
+
+    monkeypatch.setenv("REPRO_TORCH_CALIB_CACHE", str(tmp_path / "calib.json"))
+    yield cal
+    cal.set_active_table(None)
+
+
+def _plan_args(dev, L, B=None):
+    g = torch.Generator(device=dev)
+    g.manual_seed(L)
+    lead = () if B is None else (B,)
+    y = torch.randn(lead + (L + 63, 8), generator=g, device=dev)
+    mask = torch.ones(lead + (L,), dtype=torch.bool, device=dev)
+    z0 = torch.zeros(lead, dtype=torch.int32, device=dev)
+    taper = torch.hann_window(64, periodic=False, device=dev)
+    return (y, mask, z0, 8, (16,), (64,), (32,), (taper,))
+
+
+def test_calibrate_on_the_card_gives_finite_medians(dev, fresh_table, tmp_path):
+    cal = fresh_table
+    table = cal.calibrate(sizes=(512, 2048), iters=2, warmup=1, tune_blocks=True,
+                          path=str(tmp_path / "t.json"))
+    assert table.platform == "cuda" and table.device == torch.cuda.get_device_name()
+    for prim in cal.PRIMITIVES:
+        for n in (512, 2048):
+            m = table.timings["crossover"][prim][n]
+            assert set(m) == {"torch", "cuda"}
+            assert all(np.isfinite(t) and t > 0 for t in m.values()), (prim, n, m)
+    # a block is recorded only where it beats the built-in one beyond the spread
+    assert table.blocks.get("fused_plan_update", {}).get(
+        "block_t", cal.BLOCK_CANDIDATES["block_t"][0]) in cal.BLOCK_CANDIDATES["block_t"]
+    timed = table.timings["blocks"]["fused_plan_update"]["block_t"]
+    assert set(cal.BLOCK_CANDIDATES["block_t"]) <= set(timed)
+    saved = cal.CalibrationTable.from_json(
+        __import__("json").load(open(tmp_path / "t.json")))
+    assert saved.thresholds == table.thresholds and saved.device == table.device
+
+
+@pytest.mark.parametrize("B", [None, 37])
+def test_auto_at_its_threshold_launches_the_kernel_bitwise_cuda(dev, fresh_table, B):
+    from repro_torch.core.backend import AutoBackend, CudaBackend
+
+    cal = fresh_table
+    L = 384
+    auto = AutoBackend(table=cal.CalibrationTable(
+        "cuda", {p: float(L) for p in cal.PRIMITIVES}, "test",
+        device=torch.cuda.get_device_name()))
+    below = _plan_args(dev, L - 1, B)
+    reset_launch_counts()
+    auto.fused_plan_update(*below)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_plan_megakernel"] == 0
+    at = _plan_args(dev, L, B)
+    reset_launch_counts()
+    got = auto.fused_plan_update(*at)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_plan_megakernel"] == 1
+    want = CudaBackend().fused_plan_update(*at)
+    flat = lambda o: [t for x in o for t in (x if isinstance(x, tuple) else (x,))]  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+    assert [r for (_, r, _) in auto.routes] == ["torch", "cuda"]
+
+
+@pytest.mark.parametrize("fallback", ["torch", "cuda"])
+def test_breaker_on_the_card_under_an_injected_fault(dev, fallback):
+    """A (cuda, cuda) breaker serves a failing call bitwise; a (cuda,
+    torch) breaker serves nothing from the plain version on the card: the
+    failure is re-raised and the open breaker refuses.  Both recover at the
+    probe, bitwise "cuda"."""
+    from repro_torch.core.backend import CircuitBreakerBackend, CudaBackend, TorchBackend
+    from repro_torch.runtime import chaos
+
+    br = CircuitBreakerBackend(primary=CudaBackend(),
+                               fallback=TorchBackend() if fallback == "torch" else CudaBackend(),
+                               trip_after=1, cooldown_calls=2)
+    args = _plan_args(dev, 1000)
+    want = CudaBackend().fused_plan_update(*args)
+    flat = lambda o: [t for x in o for t in (x if isinstance(x, tuple) else (x,))]  # noqa: E731
+    inj = chaos.FaultInjector().fail("backend.fused_plan_update", calls={0})
+    with chaos.scoped(inj):
+        if fallback == "torch":
+            with pytest.raises(chaos.InjectedFault):
+                br.fused_plan_update(*args)  # the failure is re-raised
+            with pytest.raises(RuntimeError, match="CPU tensors only"):
+                br.fused_plan_update(*args)  # the open breaker refuses
+            outs = [br.fused_plan_update(*args) for _ in range(2)]  # the probe closes it
+        else:
+            outs = [br.fused_plan_update(*args) for _ in range(4)]
+    m = br.breaker_metrics()
+    served = 2 if fallback == "cuda" else 0
+    assert (m["trips"], m["recoveries"], m["fallback_calls"]) == (1, 1, served)
+    for out in outs:
+        assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(want)))

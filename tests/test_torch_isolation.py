@@ -229,3 +229,36 @@ def test_forecast_checkpoint_and_gateway_run_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_calibration_and_policy_run_without_jax(tmp_path):
+    """The calibration module, its "auto" backend and the circuit breaker
+    with JAX and the reference package unimportable: a measured table is
+    saved, read back and steers the dispatch."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import math, os, torch\n"
+        "from repro_torch.core import (AutoBackend, CircuitBreakerBackend, calibrate,\n"
+        "                              get_backend, set_default_backend)\n"
+        "from repro_torch.runtime import chaos\n"
+        f"os.environ['REPRO_TORCH_CALIB_CACHE'] = {str(tmp_path / 'c.json')!r}\n"
+        "t = calibrate.calibrate(sizes=(16, 32), d=2, iters=1, warmup=0, tune_blocks=True)\n"
+        "assert calibrate.load_table().thresholds == t.thresholds\n"
+        "auto = AutoBackend(table=calibrate.default_table('cpu'))\n"
+        "x = torch.randn(40, 2)\n"
+        "assert torch.equal(auto.lagged_sums(x, 3), get_backend('torch', 'cpu').lagged_sums(x, 3))\n"
+        "br = CircuitBreakerBackend(trip_after=1, cooldown_calls=2)\n"
+        "with chaos.scoped(chaos.FaultInjector().fail('backend.lagged_sums', calls={0})):\n"
+        "    br.lagged_sums(x, 3)\n"
+        "assert br.breaker_metrics()['trips'] == 1\n"
+        "set_default_backend('auto'); assert get_backend(None, 'cpu').name == 'auto'\n"
+        "assert calibrate.main(['--show']) == 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
