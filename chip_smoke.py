@@ -61,6 +61,7 @@ Exits non-zero, printing no result, without a GPU or when a phase fails.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -282,6 +283,7 @@ KERNEL_INFO = {
 # fault-free twin run) of the gateway phase's width and plan.
 CALIB_PATH = os.path.join(ROOT, "build", "repro_torch", "calibration_cuda.json")
 AUTO_CHUNKS = 8
+KPC_PAIRS = 3  # back-to-back (auto, cuda) profiles of the auto phase's plan, at most
 PRIMITIVE_KERNEL = {"lagged_sums": "cross_window_stats",
                     "masked_lagged_sums": "cross_window_stats",
                     "windowed_moments": "window_moments", "segment_fft_power": "segment_dft_power",
@@ -559,6 +561,31 @@ def kernels_per_call(fn, calls: int) -> dict:
         if us > 0:
             out[ev.key[:60]] = ev.count / calls
     return out
+
+
+def ops_per_call(fn) -> dict:
+    """{aten operator: calls} that one call of ``fn`` dispatches, counted
+    on the host by a dispatch mode after a warm-up call: the PyTorch work
+    beside the port's own launches, exact where the profiler's record of
+    device kernels is not (a profile's kernel counts can move by one or two
+    between runs of the same code)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    fn()
+    torch.cuda.synchronize()
+    with Count() as mode:
+        fn()
+        torch.cuda.synchronize()
+    return dict(sorted(mode.calls.items()))
 
 
 def lag_moments_work(rows: int, n: int, valid: int, d: int, windows: int) -> tuple:
@@ -2348,14 +2375,16 @@ def event_ms(fn, samples: int = 5) -> list:
 
 
 def batched_kernel_times(dev, sess, last_chunk, query_ids) -> dict:
-    """Kernels 1-4 in their batched launch form: kernel 1 at the session's
-    ingest shape (the chunk and the merge boundary, every tenant), kernels
-    2, 3 and 4 at a batched query's tail corrections.  Each launch is held
-    tenant by tenant against the batched plain version on the same inputs
-    (the one-problem rows' tolerances), and must reject two planted faults
-    in a middle tenant: its largest lag partial left out of its sum (where
-    the lag CTAs write a tenant's sums directly, one slab a tenant: its
-    largest lag left out), and its result read from its neighbour's slot.  ms: median of a CUDA graph
+    """Kernels 1-4 in their batched launch form: kernels 1 and 3 at the
+    session's ingest shape (the chunk and the merge boundary, every tenant;
+    kernel 3 as a moments-only plan's chunk kernel), kernels 2, 3 and 4 at a
+    batched query's tail corrections.  Each launch is held tenant by tenant
+    against the batched plain version on the same inputs (the one-problem
+    rows' tolerances), and must reject two planted faults in a middle
+    tenant: its largest lag partial left out of its sum (where the CTAs
+    write a tenant's sums directly -- kernel 3's batched path, one lag slab
+    a tenant -- its largest lag left out), and its result read from its
+    neighbour's slot.  ms: median of a CUDA graph
     of the prepared launch (with its reduction) replayed; bound from this
     run's inputs (each input read once, each output written once; valid
     starts and segments only); plain_ms and library_ms (a one-call PyTorch
@@ -2383,9 +2412,9 @@ def batched_kernel_times(dev, sess, last_chunk, query_ids) -> dict:
         m = tenants // 2
         planted = {}
         p = prep.params
-        if p.lag_ctas and p.lag_part == p.lag_out:
-            # the lag CTAs wrote each tenant's sums (one slab a tenant):
-            # the tenant's largest lag left out
+        if prep.path == "batched" or (p.lag_ctas and p.lag_part == p.lag_out):
+            # the CTAs wrote each tenant's sums (kernel 3's batched path, or
+            # one lag slab a tenant): the tenant's largest lag left out
             j = int(first[m].flatten(1).abs().amax(1).argmax())
             bad = first.clone()
             bad[m, j] = 0.0
@@ -2452,6 +2481,24 @@ def batched_kernel_times(dev, sess, last_chunk, query_ids) -> dict:
     for name, (yy, mask, zz) in cases.items():
         args = (yy, mask, zz, H, SESSION_WINDOWS, (L,), (step,), (taper,))
         abs_mom = wsr.fused_lag_moments_ref(yy.abs(), mask, 0, SESSION_WINDOWS)[1]
+        # kernel 3 at the same chunk (or merge boundary): a moments-only plan's
+        # chunk kernel, whose one family is kernel 3 at H = 0
+        mrows = mask.shape[1] + carry
+        valid = int(mask.sum().item())
+        lib = lag_moments_library_operands(yy, mask, SESSION_WINDOWS)
+        nbytes, flops, _ = lag_moments_work(mrows, mask.shape[1], 0, d, K)
+        record(name.replace("fused_plan_megakernel", "fused_lag_moments_chunk")
+               .replace("chunk_boundary", "boundary"),
+               ws.prepare_fused_lag_moments(yy, mask, 0, SESSION_WINDOWS),
+               lambda yy=yy, mask=mask: wsr.fused_lag_moments_ref(yy, mask, 0, SESSION_WINDOWS),
+               lambda got, want, abs_mom=abs_mom: {
+                   "lag": (got[0], want[0], TOL["lag"], None),
+                   **moment_leaves("mom", got[1], want[1], abs_mom, TOL["moments"])},
+               users, users * nbytes, users * flops + valid * d * (d + 1),
+               f"y ({users}, {mrows}, {d}), H=0, windows={SESSION_WINDOWS}, {valid} valid "
+               f"starts (a moments-only plan)", library=lambda lib=lib: lag_moments_library(*lib),
+               replays=3)
+        del lib
 
         def mega_leaves(got, want, abs_mom=abs_mom):
             return {"lag": (got[0], want[0], TOL["lag"], None),
@@ -2525,7 +2572,7 @@ def session_phase(args, dev) -> dict:
 
     from repro_torch import SeriesFrame
     from repro_torch.core.integrity import sentinel_scan
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, path_counts, reset_launch_counts
 
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
@@ -2593,14 +2640,16 @@ def session_phase(args, dev) -> dict:
                         "ok": all(session_ok(v) for v in parity.values())}
     del plain, plain_b, kept, got_b
 
-    # ---- a batched query of 4,096 tenants: launches as a one-tenant query's
+    # ---- a batched query of 4,096 tenants: launches as a one-tenant query's;
+    # kernel 3 on its batched path for the batch, its symmetric one for one
     query_ids = np.sort(rng.choice(users, SESSION_QUERY, replace=False))
-    per_query = {}
+    per_query, k3_paths = {}, {}
     for label, q in (("batch", query_ids), ("one", query_ids[:1])):
         reset_launch_counts()
         sess.query_batch(q)
         torch.cuda.synchronize()
         per_query[label] = launch_counts()
+        k3_paths[label] = path_counts()["fused_lag_moments"]
     metrics["query_batch_ms"] = cuda_ms(lambda: sess.query_batch(query_ids), 5, warmup=1)
     metrics["query_batch_tenants"] = SESSION_QUERY
     busy, wall, top = profile_once(lambda: sess.query_batch(query_ids))
@@ -2609,8 +2658,11 @@ def session_phase(args, dev) -> dict:
     want_q = {"cross_window_stats": 2, "fused_lag_moments": 1, "segment_dft_power": 1,
               "fused_plan_megakernel": 0}
     checks["launches_per_query"] = {
-        **per_query, "ok": per_query["batch"] == per_query["one"]
-        and all(per_query["batch"][k] == v for k, v in want_q.items())}
+        **per_query, "fused_lag_moments_paths": k3_paths,
+        "ok": per_query["batch"] == per_query["one"]
+        and all(per_query["batch"][k] == v for k, v in want_q.items())
+        and k3_paths == {"batch": {"sym": 0, "batched": 1, "two_role": 0},
+                         "one": {"sym": 1, "batched": 0, "two_role": 0}}}
 
     # ---- repeatability: the same ticks into a second session, bitwise
     again = new_session(dev, users)
@@ -2704,7 +2756,8 @@ def session_phase(args, dev) -> dict:
                        "ticks": EVICT_TICKS},
           "metrics": metrics, "checks": checks})
     emit({"phase": "session_kernels", "note": "kernels 1-4 in their batched launch form: "
-          "kernel 1 at an ingest tick of every tenant (chunk and merge boundary), kernels "
+          "kernel 1 at an ingest tick of every tenant (chunk and merge boundary), kernel 3 "
+          "also there as a moments-only plan's chunk kernel (its batched path), kernels "
           "2-4 at a batched query's tail corrections; each held tenant by tenant against "
           "the batched plain version (one-problem tolerances), with two planted faults "
           "caught; ms: median of a CUDA graph of the prepared launch and its reduction; "
@@ -3532,7 +3585,9 @@ def auto_phase(args, dev, table) -> None:
     route with its call count and sizes; every call held against the "cuda"
     backend (CheckedAuto); the end results against the "cuda" backend's
     run: bitwise with equal launches (on the main path also equal device
-    kernels per run, kernels_per_call) when every route was "cuda", within
+    kernels per run in one of KPC_PAIRS back-to-back profiles,
+    kernels_per_call, and equal aten operators, ops_per_call) when every
+    route was "cuda", within
     the members' tolerances otherwise.  The session's calls are sized by
     one tenant's problem on the trailing axes (rows, or segments x segment
     length), never by the tenants; a primitive whose "cuda" won at every
@@ -3573,11 +3628,27 @@ def auto_phase(args, dev, table) -> None:
     plan_run(checked)
     all_cuda = all(r == "cuda" for (_, r, _) in auto.routes)
     if all_cuda:
-        kpc = {"auto": kernels_per_call(lambda: plan_run(auto), 1),
-               "cuda": kernels_per_call(lambda: plan_run("cuda"), 1)}
+        # the device kernels of one run each, profiled back to back: a
+        # profile's counts of PyTorch's kernels can step by one or two
+        # between two runs of the same code (on the H100 1 of 8 auto phases
+        # saw 90 / 88 kernels of one arange kernel), so up to KPC_PAIRS
+        # pairs; a kernel that "auto" adds shows in every pair.  The aten
+        # operators each run dispatches are counted exactly.
+        pairs = []
+        while len(pairs) < KPC_PAIRS and (not pairs or pairs[-1]["auto"] != pairs[-1]["cuda"]):
+            pairs.append({"auto": kernels_per_call(lambda: plan_run(auto), 1),
+                          "cuda": kernels_per_call(lambda: plan_run("cuda"), 1)})
+        kpc = pairs[-1]
+        opc = {"auto": ops_per_call(lambda: plan_run(auto)),
+               "cuda": ops_per_call(lambda: plan_run("cuda"))}
         ends = {"bitwise": bitwise_equal(got, want), "launches_equal": auto_launches ==
-                cuda_launches, "kernels_per_call_equal": kpc["auto"] == kpc["cuda"]}
+                cuda_launches, "kernels_per_call_equal": kpc["auto"] == kpc["cuda"],
+                "ops_per_call_equal": opc["auto"] == opc["cuda"]}
         ends_ok = all(ends.values())
+        ends["profile_pairs"] = [{k: (p["auto"].get(k), p["cuda"].get(k))
+                                  for k in sorted(set(p["auto"]) | set(p["cuda"]))
+                                  if p["auto"].get(k) != p["cuda"].get(k)} for p in pairs]
+        ends["ops_per_call"] = sum(opc["cuda"].values())
     else:
         kpc = None
         members = {name: compare(got[name], want[name], tol) for name, tol in MEMBER_TOL.items()}

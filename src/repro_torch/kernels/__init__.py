@@ -9,7 +9,8 @@
 :data:`KERNELS` maps each kernel's name to its :class:`~._launch.Kernel`,
 whose ``launches`` attribute counts its launches; the two kernels with
 Welch members (segment_dft_power, fused_plan_megakernel) also count their
-launches per Welch path ("fft", "twiddle"), in ``path_launches``.
+launches per Welch path ("fft", "twiddle"), and fused_lag_moments per
+launch path ("sym", "batched", "two_role"), in ``path_launches``.
 """
 from ._launch import KERNELS
 from . import (banded_matvec, fused_plan, segment_dft, swa_attention,  # noqa: F401  (registers kernels)
@@ -24,7 +25,7 @@ def launch_counts() -> dict:
 
 
 def path_counts() -> dict:
-    """{kernel name: {Welch path: launches}} of the kernels with Welch paths."""
+    """{kernel name: {path: launches}} of the kernels that count paths."""
     return {name: dict(k.path_launches) for name, k in KERNELS.items() if k.path_launches}
 
 

@@ -9,8 +9,9 @@ carries a hash of the sources and flags, so an edited source never loads a
 stale build.
 
 The C entry points take a pointer to a parameter struct (mirrored below:
-:class:`PlanParams` from ``csrc/stats_tiles.cuh``, :class:`MomentParams`
-and :class:`LagMomParams` from ``window_stats/csrc/window_stats.cu``,
+:class:`PlanParams` from ``csrc/stats_tiles.cuh``, :class:`MomentParams`,
+:class:`LagMomParams` and :class:`LagMomBatchParams` from
+``window_stats/csrc/window_stats.cu``,
 :class:`BandParams` and :class:`BandGradParams` from
 ``banded_matvec/csrc/banded_matvec.cu``, :class:`SwaParams` from
 ``swa_attention/csrc/swa_attention.cu``) and the CUDA stream; each returns
@@ -30,7 +31,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["PlanParams", "WelchMember", "MomentParams", "LagMomParams", "BandParams",
+__all__ = ["PlanParams", "WelchMember", "MomentParams", "LagMomParams", "LagMomBatchParams",
+           "BandParams",
            "BandGradParams",
            "SwaParams", "library",
            "build",
@@ -38,7 +40,8 @@ __all__ = ["PlanParams", "WelchMember", "MomentParams", "LagMomParams", "BandPar
            "MAX_WINDOWS", "MAX_WELCH", "TILE", "FREQ_TILE", "KC", "LAG_GROUP",
            "FFT_MAX_L", "FFT_FLOATS", "FFT_MAX_CHAN", "SMALL_TILE", "MID_TILE", "SMALL_LAGS",
            "LM_ROWS", "LM_STAGES",
-           "LM_MAX_CLUSTER", "LM_MAX_SLAB", "LM_BLK", "LM_PART_FLOATS", "BAND_COLS", "BAND_PASS",
+           "LM_MAX_CLUSTER", "LM_MAX_SLAB", "LM_BLK", "LM_PART_FLOATS", "LM_BATCH_SLOT",
+           "LM_BATCH_BLK", "BAND_COLS", "BAND_PASS",
            "BAND_MAX_SLABS", "BAND_OFFSETS",
            "SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS", "SWA_PANEL", "SWA_MAX_D",
            "THREADS"]
@@ -74,6 +77,10 @@ LM_MAX_CLUSTER = 16
 LM_MAX_SLAB = 512
 LM_BLK = 8
 LM_PART_FLOATS = TILE * TILE + 2 * MAX_WINDOWS * TILE
+# Kernel 3's batched path at H = 0, d <= MID_TILE: the most floats of one
+# tenant's staged rows (rows x tile), the register tile's side.
+LM_BATCH_SLOT = 16384
+LM_BATCH_BLK = 4
 # Compile-time constants of banded_matvec/csrc/banded_matvec.cu: the generic
 # paths' columns per CTA and most rows staged per pass, the vector
 # gradient's most CTAs per cluster, the generic gradient's offsets per thread.
@@ -195,6 +202,24 @@ class LagMomParams(ctypes.Structure):
     ]
 
 
+class LagMomBatchParams(ctypes.Structure):
+    _fields_ = [
+        ("y", ctypes.c_void_p),
+        ("mask", ctypes.c_void_p),
+        ("lag_out", ctypes.c_void_p),
+        ("mom_out", ctypes.c_void_p),
+        ("batch", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("K", ctypes.c_int),
+        ("windows", ctypes.c_int * MAX_WINDOWS),
+        ("tenants", ctypes.c_int),
+        ("lanes", ctypes.c_int),
+        ("vec", ctypes.c_int),
+    ]
+
+
 class BandParams(ctypes.Structure):
     _fields_ = [
         ("diags", ctypes.c_void_p),
@@ -253,12 +278,14 @@ class SwaParams(ctypes.Structure):
 
 
 ENTRY_POINTS = ("rt_cross_lag_sums", "rt_fused_lag_moments", "rt_lag_moments_sym",
-                "rt_lag_moments_empty", "rt_lag_moments_occupancy", "rt_segment_power",
+                "rt_lag_moments_batched", "rt_lag_moments_empty", "rt_lag_moments_occupancy", "rt_segment_power",
                 "rt_fused_plan", "rt_window_moments", "rt_segment_csd", "rt_banded_matvec",
                 "rt_band_gradient", "rt_band_empty", "rt_swa_attention")
 STRUCT_SIZES = (("rt_plan_params_size", PlanParams), ("rt_welch_member_size", WelchMember),
                 ("rt_moment_params_size", MomentParams),
-                ("rt_lagmom_params_size", LagMomParams), ("rt_band_params_size", BandParams),
+                ("rt_lagmom_params_size", LagMomParams),
+                ("rt_lagmom_batch_params_size", LagMomBatchParams),
+                ("rt_band_params_size", BandParams),
                 ("rt_band_grad_params_size", BandGradParams),
                 ("rt_swa_params_size", SwaParams))
 # The constants above that mirror csrc/stats_tiles.cuh: Python name -> C
@@ -271,7 +298,8 @@ STATS_CONSTANTS = {"MAX_WINDOWS": "RT_MAX_WINDOWS", "MAX_WELCH": "RT_MAX_WELCH",
                    "MID_TILE": "RT_MID_TILE", "SMALL_LAGS": "RT_SMALL_LAGS"}
 # Those that mirror window_stats.cu, in the order rt_lagmom_constants writes them.
 LAGMOM_CONSTANTS = {name: name for name in ("LM_ROWS", "LM_STAGES", "LM_MAX_CLUSTER",
-                                            "LM_MAX_SLAB", "LM_BLK")}
+                                            "LM_MAX_SLAB", "LM_BLK", "LM_BATCH_SLOT",
+                                            "LM_BATCH_BLK")}
 # Those that mirror banded_matvec.cu, in the order rt_band_constants writes them.
 BAND_CONSTANTS = {"BAND_COLS": "BM_COLS", "BAND_PASS": "BM_PASS",
                   "BAND_MAX_SLABS": "BG_MAX_SLABS", "BAND_OFFSETS": "BG_OFFSETS"}

@@ -46,11 +46,12 @@ class Kernel:
 
     ``launches`` is a plain integer, incremented once per launch of the
     kernel (with its fixed-order reduction, where it has one).  A kernel
-    with more than one C entry (kernel 3: H = 0 and H > 0) is called with
-    the entry of its prepared launch, and counts them all.  A kernel
-    with Welch members also counts, in ``path_launches``, its launches per
-    Welch path ("fft", "twiddle"): once per launch for each path that one of
-    the launch's members took.
+    with more than one C entry (kernel 3: its symmetric, batched and
+    two-role launches) is called with the entry of its prepared launch,
+    counts them all, and counts each in ``path_launches`` under the path its
+    prepared launch names.  A kernel with Welch members also counts, in
+    ``path_launches``, its launches per Welch path ("fft", "twiddle"): once
+    per launch for each path that one of the launch's members took.
     """
 
     def __init__(self, name: str, entry: str, paths: tuple = ()):
@@ -59,13 +60,16 @@ class Kernel:
         self.launches = 0
         self.path_launches: Dict[str, int] = dict.fromkeys(paths, 0)
 
-    def __call__(self, params, device: torch.device, entry: Optional[str] = None) -> None:
+    def __call__(self, params, device: torch.device, entry: Optional[str] = None,
+                 path: Optional[str] = None) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
             code = getattr(library(), entry or self.entry)(ctypes.byref(params), stream)
         check(code, self.name)
         self.launches += 1
-        if self.path_launches:  # PlanParams with Welch members
+        if path is not None:
+            self.path_launches[path] += 1
+        elif self.path_launches:  # PlanParams with Welch members
             for path in {"fft" if params.welch[j].fft else "twiddle"
                          for j in range(params.n_welch)}:
                 self.path_launches[path] += 1
@@ -75,7 +79,8 @@ class Kernel:
 class Prepared:
     """One filled launch: the kernel, its params, and every buffer the
     params point into (``keep``), held alive as long as this object;
-    ``entry`` names the C entry when it is not the kernel's own."""
+    ``entry`` names the C entry when it is not the kernel's own, ``path``
+    the count of ``kernel.path_launches`` the launch adds to."""
 
     kernel: Kernel
     params: Any
@@ -83,10 +88,11 @@ class Prepared:
     out: Any
     keep: tuple
     entry: Optional[str] = None
+    path: Optional[str] = None
 
     def launch(self) -> Any:
         """Launch (again) and return the outputs."""
-        self.kernel(self.params, self.device, self.entry)
+        self.kernel(self.params, self.device, self.entry, self.path)
         return self.out
 
 

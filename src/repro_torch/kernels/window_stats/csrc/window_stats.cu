@@ -3,9 +3,11 @@
 //
 // cross_lag_kernel replaces src/repro/kernels/window_stats/kernel.py:
 // cross_window_stats_pallas (body _lag_kernel): S(h) = sum_k a_k b_{k+h}^T,
-// h = 0..H.  lag_moments_sym_kernel (H = 0) and fused_lag_moments_kernel
-// (H > 0) replace kernel.py: fused_lag_moments_pallas (body _fused_kernel):
-// the masked lag sums plus the masked K-window moment sums, from one launch.
+// h = 0..H.  lag_moments_sym_kernel (H = 0, one problem),
+// lag_moments_batched_kernel (H = 0, a batch of tenants of up to 32
+// channels) and fused_lag_moments_kernel (the rest) replace kernel.py:
+// fused_lag_moments_pallas (body _fused_kernel): the masked lag sums plus
+// the masked K-window moment sums, from one launch.
 //
 // Bound on the H100 of the lag sums at H > 0: operations.  At d = 64, H =
 // 16 they are (H+1) * n * d^2 * 2 = 9.1 GFLOP of fp32 FMAs per 65,536
@@ -97,8 +99,9 @@ struct MomentParams {
 
 // Both PlanParams kernels take a batch of tenants on a tenant-major grid
 // (stats_tiles.cuh); at batch 1 they are the one-problem launches.  Kernel 3
-// at a batch above 1 runs here at H = 0 too (lag_moments_sym_kernel below
-// is built for one large problem).
+// at a batch above 1 runs here at H > 0, and at H = 0 above 32 channels
+// (lag_moments_sym_kernel below is built for one large problem,
+// lag_moments_batched_kernel for many small ones of up to 32 channels).
 // cross_lag_kernel takes its lag role's tile by d (lag_tile: small_lag_role
 // at d <= 32, where a 64 x 64 tile is mostly padding); kernel 3's two-role
 // kernel keeps lag_role at every width.
@@ -318,7 +321,8 @@ __device__ __forceinline__ float lanes_sum(const float* x, int stride, int lanes
 
 // Window k of the launch (an unrolled select: a dynamic index into the
 // parameter struct would copy it to local memory).
-__device__ __forceinline__ int lm_window(const LagMomParams& p, int k) {
+template <typename Params>
+__device__ __forceinline__ int lm_window(const Params& p, int k) {
   int w = 0;
 #pragma unroll
   for (int q = 0; q < RT_MAX_WINDOWS; ++q)
@@ -662,12 +666,306 @@ extern "C" int rt_lag_moments_empty(const LagMomParams* p, void* stream) {
   return lm_launch(lag_moments_empty_kernel, p, stream);
 }
 
+// ------------------------------------- kernel 3 at H = 0, batched, d <= 32
+// A multi-tenant session asks kernel 3 for many small problems of one
+// shape: a query's moments tail (4,096 tenants of (158, 16)), a moments-only
+// plan's chunk and merge boundary (65,536 tenants of (383, 16) and (254,
+// 16)).  Bound on the H100: bytes (a tenant's rows are read once; S(0) needs
+// d (d + 1) operations a valid start).  lag_moments_batched_kernel serves
+// them in one launch, with no partials through device memory:
+//   * A CTA owns `tenants` consecutive tenants, whole.  It copies a tenant's
+//     rows [0, rows) once into shared memory (cp.async, 16-byte pieces when
+//     d % 4 == 0: a tenant's rows are contiguous), rows of TW floats, the
+//     channels past d zero, into one slot, which takes the next tenant's
+//     copy as soon as this one's rows are summed (a ring of two or three
+//     slots ran slower on the H100: fewer CTAs a SM).  A tenant's
+//     start mask (bools) comes through registers, loaded a tenant ahead, and
+//     is counted into the prefix count P in shared memory by a ballot a warp;
+//     the window counts c_w(t) = P[min(t + 1, n)] - P[clamp(t + 1 - w, 0,
+//     n)] (moment_role's arithmetic, exact integers) are converted once into
+//     floats.  Both are built during the previous tenant's phases, so a
+//     tenant takes three CTA barriers: its rows in; its row lanes in; the
+//     next tenant's prefix count in.
+//   * The tile is sized by d (lag_tile: TW = 16 channels up to 16, 32 up to
+//     32).  S(0)'s upper-triangular 4 x 4 blocks (10 at TW = 16, 36 at 32)
+//     go one to a thread, in `lanes` row lanes: lane l sums the valid starts
+//     t = l, l + lanes, ... in ascending order, two float4 loads for 16 FMAs
+//     a row; a masked start adds nothing (the symmetric path's rule: a
+//     non-finite value in a masked start's row stays out of a tenant's S(0)
+//     whether it is summed alone or in a batch).  The moment sums go
+//     one channel to a thread, in RT_THREADS / TW row lanes over every row.
+//   * The row lanes are summed in lane order in shared memory; each upper
+//     entry of S(0) is stored to (i, j) and (j, i), each moment sum once.  No
+//     float atomics, and nothing of a tenant's sums depends on the batch or
+//     on the CTA that holds it: tenant i's outputs are bitwise the same in
+//     any batch.
+// Design constants (mirrored by _build.LAGMOM_CONSTANTS, checked at load):
+#define LM_BATCH_SLOT 16384  // most floats of a tenant's staged rows (rows x TW)
+#define LM_BATCH_BLK 4       // register tile of S(0): LM_BATCH_BLK x LM_BATCH_BLK entries a thread
+#define LM_BATCH_MIN_CTAS 4  // CTAs per SM the kernel is built for (64 registers)
+
+struct LagMomBatchParams {
+  const float* y;             // (batch, rows, d) series
+  const unsigned char* mask;  // (batch, n) start mask (bool)
+  float* lag_out;             // (batch, d, d) S(0)
+  float* mom_out;             // (batch, K, 2, d)
+  int batch, n, d, rows, K;   // tenants, starts, channels, moment rows, windows
+  int windows[RT_MAX_WINDOWS];
+  int tenants;                // tenants per CTA (consecutive)
+  int lanes;                  // row lanes of S(0)
+  int vec;                    // 16-byte copies (d % 4 == 0, y 16-byte aligned)
+};
+
+// S(0)'s upper blocks at tile TW.
+__host__ __device__ constexpr int lb_blocks(int tw) {
+  return (tw / LM_BATCH_BLK) * (tw / LM_BATCH_BLK + 1) / 2;
+}
+
+// Dynamic shared memory, in floats: the slot of staged rows, the row
+// lanes of S(0) and of the moment sums, the window counts as floats (K x
+// rows), the prefix count (n + 1 ints), the valid starts of each warp in
+// each of the mask's four rounds, and the start mask (n bytes).
+__host__ __device__ __forceinline__ int lb_smem_floats(const LagMomBatchParams& p, int tw) {
+  return p.rows * tw + p.lanes * lb_blocks(tw) * 16 + RT_THREADS * 2 * p.K +
+         lm_round4(p.K * p.rows) + lm_round4(p.n + 1) + 4 * RT_THREADS / 32 +
+         lm_round4((p.n + 3) / 4);
+}
+
+// acc += a b^T for one staged row: a and b the thread's LM_BATCH_BLK channels
+// of S(0)'s block rows and columns.
+__device__ __forceinline__ void lb_row(float4 a4, float4 b4,
+                                       float acc[LM_BATCH_BLK][LM_BATCH_BLK]) {
+  const float a[LM_BATCH_BLK] = {a4.x, a4.y, a4.z, a4.w};
+  const float b[LM_BATCH_BLK] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+  for (int r = 0; r < LM_BATCH_BLK; ++r)
+#pragma unroll
+    for (int c = 0; c < LM_BATCH_BLK; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+}
+
+template <int TW>
+static __global__ void __launch_bounds__(RT_THREADS, LM_BATCH_MIN_CTAS)
+lag_moments_batched_kernel(LagMomBatchParams p) {
+  static_assert(RT_THREADS % TW == 0 && TW % LM_BATCH_BLK == 0, "tile layout");
+  constexpr int NB = lb_blocks(TW);
+  constexpr int ML = RT_THREADS / TW;  // row lanes of the moment sums
+  constexpr int WARPS = RT_THREADS / 32;
+  extern __shared__ __align__(16) float smem[];
+  const float* ys = smem;                         // [rows][TW] the staged tenant
+  float* red_s = smem + p.rows * TW;             // [lanes][LM_BATCH_BLK][NB][LM_BATCH_BLK]
+  float* red_m = red_s + p.lanes * NB * 16;      // [ML][2K][TW]
+  float* cnt = red_m + RT_THREADS * 2 * p.K;     // [K][rows] window counts c_w(t)
+  int* pre = reinterpret_cast<int*>(cnt + lm_round4(p.K * p.rows));  // [n + 1]
+  int* wsum = pre + lm_round4(p.n + 1);          // [4][WARPS] valid starts a warp
+  unsigned char* valid = reinterpret_cast<unsigned char*>(wsum + 4 * WARPS);  // [n]
+  const int tn0 = blockIdx.x * p.tenants;
+  const int count = min(p.tenants, p.batch - tn0);
+  const int d = p.d;
+  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+
+  // thread x holds mask bytes x + RT_THREADS j, j < E <= 4 (n <= rows <= 1024)
+  const int E = (p.n + RT_THREADS - 1) / RT_THREADS;
+  unsigned char mb[4];
+  int below[4];
+  auto load_mask = [&](int tn) {
+    const unsigned char* m = p.mask + (size_t)tn * p.n;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int idx = threadIdx.x + RT_THREADS * j;
+      mb[j] = j < E && idx < p.n ? m[idx] : 0;
+    }
+  };
+  // the prefix count, in two halves around a barrier: each round j's valid
+  // starts a warp (a ballot) and those below each thread within its warp;
+  // then pre[idx + 1], the valid starts up to byte idx, and the mask itself
+  auto count_warps = [&]() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned bits = __ballot_sync(0xffffffffu, mb[j] != 0);
+      below[j] = __popc(bits & ((1u << wl) - 1u));
+      if (j < E && wl == 0) wsum[j * WARPS + warp] = __popc(bits);
+    }
+  };
+  auto build_prefix = [&]() {
+    int run = 0;  // valid starts before byte threadIdx.x + RT_THREADS j
+    for (int q = 0; q < warp; ++q) run += wsum[q];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int idx = threadIdx.x + RT_THREADS * j;
+      if (j < E && idx < p.n) {
+        valid[idx] = mb[j] != 0;
+        pre[idx + 1] = run + below[j] + (mb[j] != 0);
+      }
+      if (j + 1 < E)  // the rest of round j, and round j + 1's earlier warps
+        for (int q = warp; q < WARPS + warp; ++q) run += wsum[j * WARPS + q];
+    }
+    if (threadIdx.x == 0) pre[0] = 0;
+  };
+  // the window counts c_w(t) = pre[min(t + 1, n)] - pre[clamp(t + 1 - w, 0, n)],
+  // as floats (exact below 2^24)
+  auto build_counts = [&]() {
+    for (int k = 0; k < p.K; ++k) {
+      const int w = lm_window(p, k);
+      for (int t = threadIdx.x; t < p.rows; t += RT_THREADS)
+        cnt[k * p.rows + t] = (float)(pre[min(t + 1, p.n)] - pre[min(max(t + 1 - w, 0), p.n)]);
+    }
+  };
+  auto issue = [&](int tn) {
+    float* dst = smem;
+    const float* src = p.y + (size_t)tn * p.rows * d;
+    if (p.vec && d == TW) {  // staged rows as they lie
+      for (int e = threadIdx.x; e < p.rows * (TW / 4); e += RT_THREADS)
+        cp_async16(dst + 4 * e, src + 4 * e, true);
+    } else if (p.vec) {
+      const int per_row = d / 4, total = p.rows * per_row;
+      for (int e = threadIdx.x; e < total; e += RT_THREADS) {
+        const int r = e / per_row;
+        cp_async16(dst + r * TW + 4 * (e - r * per_row), src + 4 * e, true);
+      }
+    } else {
+      for (int e = threadIdx.x; e < p.rows * d; e += RT_THREADS) {
+        const int r = e / d;
+        cp_async4(dst + r * TW + (e - r * d), src + e, true);
+      }
+    }
+  };
+
+  if (d < TW)  // the channels past d stay zero: no copy writes them
+    for (int e = threadIdx.x; e < p.rows * TW; e += RT_THREADS) smem[e] = 0.f;
+  load_mask(tn0);
+  issue(tn0);
+  cp_async_commit();
+  // the first tenant's prefix count and window counts; each later tenant's
+  // come in the phases of the one before
+  count_warps();
+  __syncthreads();
+  build_prefix();
+  __syncthreads();
+  build_counts();
+
+  int bi, bj;
+  upper_pair(threadIdx.x % NB, TW / LM_BATCH_BLK, bi, bj);
+  const int blk = threadIdx.x % NB, lane = threadIdx.x / NB;
+  const int col = threadIdx.x % TW, mlane = threadIdx.x / TW;
+  for (int i = 0; i < count; ++i) {
+    const int tn = tn0 + i;
+    if (i + 1 < count) load_mask(tn + 1);
+    cp_async_wait<0>();  // this tenant's rows have landed
+    __syncthreads();     // ... for every thread; its mask and window counts are in
+
+    // S(0): the thread's block over its row lane's valid starts, ascending,
+    // two rows' loads in flight
+    if (lane < p.lanes) {
+      float acc[LM_BATCH_BLK][LM_BATCH_BLK];
+#pragma unroll
+      for (int r = 0; r < LM_BATCH_BLK; ++r)
+#pragma unroll
+        for (int c = 0; c < LM_BATCH_BLK; ++c) acc[r][c] = 0.f;
+      const float* oa = ys + LM_BATCH_BLK * bi;
+      const float* ob = ys + LM_BATCH_BLK * bj;
+      for (int t = lane; t < p.n; t += 2 * p.lanes) {
+        const int u = t + p.lanes;
+        const bool vt = valid[t], vu = u < p.n && valid[u];  // a masked start adds nothing
+        const float4 at = *reinterpret_cast<const float4*>(oa + t * TW);
+        const float4 bt = *reinterpret_cast<const float4*>(ob + t * TW);
+        float4 au = at, bu = bt;
+        if (vu) {
+          au = *reinterpret_cast<const float4*>(oa + u * TW);
+          bu = *reinterpret_cast<const float4*>(ob + u * TW);
+        }
+        if (vt) lb_row(at, bt, acc);
+        if (vu) lb_row(au, bu, acc);
+      }
+#pragma unroll
+      for (int r = 0; r < LM_BATCH_BLK; ++r)  // row r of the blocks: consecutive threads, consecutive float4
+        reinterpret_cast<float4*>(red_s + (lane * LM_BATCH_BLK + r) * NB * LM_BATCH_BLK)[blk] =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    // the moment sums: channel col over its row lane's rows, ascending
+    {
+      float m1[RT_MAX_WINDOWS], m2[RT_MAX_WINDOWS];
+#pragma unroll
+      for (int k = 0; k < RT_MAX_WINDOWS; ++k) m1[k] = m2[k] = 0.f;
+#pragma unroll 4
+      for (int t = mlane; t < p.rows; t += ML) {
+        const float v = ys[t * TW + col], v2 = v * v;
+#pragma unroll
+        for (int k = 0; k < RT_MAX_WINDOWS; ++k) {
+          if (k < p.K) {
+            const float wgt = cnt[k * p.rows + t];
+            m1[k] = fmaf(wgt, v, m1[k]);
+            m2[k] = fmaf(wgt, v2, m2[k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < RT_MAX_WINDOWS; ++k) {
+        if (k < p.K) {
+          red_m[(mlane * 2 * p.K + 2 * k) * TW + col] = m1[k];
+          red_m[(mlane * 2 * p.K + 2 * k + 1) * TW + col] = m2[k];
+        }
+      }
+    }
+    if (i + 1 < count) count_warps();  // the next tenant's
+    __syncthreads();  // the row lanes are in; the slot is read out
+
+    if (i + 1 < count) issue(tn + 1);  // into the slot this one left
+    cp_async_commit();
+    // the row lanes in order: S(0)'s upper entries (entry e = (r NB + block)
+    // LM_BATCH_BLK + c of a lane) stored to (i, j) and (j, i); the moment sums
+    // ((2k + moment) d + channel) stored
+    float* lag = p.lag_out + (size_t)tn * d * d;
+    float* mom = p.mom_out + (size_t)tn * 2 * p.K * d;
+    for (int e = threadIdx.x; e < NB * 16 + 2 * p.K * d; e += RT_THREADS) {
+      if (e >= NB * 16) {
+        const int f = e - NB * 16;
+        mom[f] = lanes_sum(red_m + (f / d) * TW + f % d, 2 * p.K * TW, ML);
+        continue;
+      }
+      const int c = e % LM_BATCH_BLK, b = (e / LM_BATCH_BLK) % NB;
+      const int r = e / (LM_BATCH_BLK * NB);
+      int ei, ej;
+      upper_pair(b, TW / LM_BATCH_BLK, ei, ej);
+      const int row = LM_BATCH_BLK * ei + r, cl = LM_BATCH_BLK * ej + c;
+      if ((ei == ej && r > c) || row >= d || cl >= d) continue;
+      const float v = lanes_sum(red_s + e, NB * 16, p.lanes);
+      lag[row * d + cl] = v;
+      if (row != cl) lag[cl * d + row] = v;
+    }
+    if (i + 1 < count) {  // the next tenant's prefix count, then its window counts
+      build_prefix();
+      __syncthreads();
+      build_counts();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+extern "C" int rt_lag_moments_batched(const LagMomBatchParams* p, void* stream) {
+  const int tw = lag_tile(p->d);
+  if (p->d < 1 || tw == RT_TILE || p->batch < 1 || p->n < 0 || p->n > p->rows ||
+      p->rows * tw > LM_BATCH_SLOT || p->K < 1 || p->K > RT_MAX_WINDOWS || p->tenants < 1 ||
+      p->lanes < 1 ||
+      p->lanes * lb_blocks(tw) > RT_THREADS)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = tw == RT_SMALL_TILE ? lag_moments_batched_kernel<RT_SMALL_TILE>
+                                    : lag_moments_batched_kernel<RT_MID_TILE>;
+  const int smem = lb_smem_floats(*p, tw) * (int)sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((p->batch + p->tenants - 1) / p->tenants);
+  kernel<<<grid, RT_THREADS, smem, (cudaStream_t)stream>>>(*p);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int rt_lagmom_params_size() { return (int)sizeof(LagMomParams); }
+extern "C" int rt_lagmom_batch_params_size() { return (int)sizeof(LagMomBatchParams); }
 
 // The constants _build.LAGMOM_CONSTANTS mirrors, in its order (checked at load).
 extern "C" void rt_lagmom_constants(int* out) {
-  const int v[] = {LM_ROWS, LM_STAGES, LM_MAX_CLUSTER, LM_MAX_SLAB, LM_BLK};
-  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  const int v[] = {LM_ROWS, LM_STAGES, LM_MAX_CLUSTER, LM_MAX_SLAB, LM_BLK, LM_BATCH_SLOT,
+                   LM_BATCH_BLK};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 
 static __global__ void __launch_bounds__(RT_THREADS)

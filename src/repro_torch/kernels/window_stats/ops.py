@@ -17,9 +17,12 @@ Kernels (``csrc/window_stats.cu``):
 
 ``masked_lagged_sums`` and ``fused_lagged_moments`` also take a leading
 tenant axis (y (B, rows, d), mask (B, L)): one launch serves every tenant of
-a multi-tenant session's batched finalize.  Batched kernel 3 runs the
-two-role kernel at every lag (the symmetric path is built for one large
-problem), except at B = 1, where it is the one-problem launch.
+a multi-tenant session's batched finalize.  :func:`lag_moments_path` routes
+kernel 3: one problem at H = 0 to the symmetric path; two or more tenants at
+H = 0 and d <= MID_TILE, each tenant's rows fitting one staging slot, to
+the batched path (``lag_moments_batched_kernel``, grid
+:func:`batched_shape`: whole tenants a CTA, a tile sized by d, one launch);
+everything else (H > 0, d > MID_TILE) to the two-role kernel.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ import functools
 
 import torch
 
-from .._build import (LM_MAX_CLUSTER, LM_MAX_SLAB, LM_PART_FLOATS, THREADS, TILE, LagMomParams,
+from .._build import (LM_BATCH_BLK, LM_BATCH_SLOT, LM_MAX_CLUSTER, LM_MAX_SLAB, LM_PART_FLOATS,
+                      MID_TILE, THREADS, TILE, LagMomBatchParams, LagMomParams,
                       MomentParams, check, library)
-from .._launch import (Kernel, Prepared, add_lag, add_moments, check_window_count,
+from .._launch import (Kernel, Prepared, add_lag, add_moments, check_window_count, lag_tile,
                        new_params, on_cuda, register, require, sm_count)
 from .ref import (as_2d, cross_lagged_sums_ref, extend_rows, fused_lag_moments_ref,
                   normalize_windows, window_moments_ref)
@@ -38,10 +42,12 @@ from .ref import (as_2d, cross_lagged_sums_ref, extend_rows, fused_lag_moments_r
 __all__ = ["CROSS_WINDOW_STATS", "FUSED_LAG_MOMENTS", "WINDOW_MOMENTS", "cross_lagged_sums",
            "lagged_sums", "masked_lagged_sums", "fused_lagged_moments", "windowed_moments",
            "prepare_cross_lagged_sums", "prepare_fused_lag_moments",
-           "prepare_window_moments", "moment_chain", "sym_shape", "resident_clusters"]
+           "prepare_window_moments", "moment_chain", "sym_shape", "resident_clusters",
+           "lag_moments_path", "batched_shape"]
 
 CROSS_WINDOW_STATS = register(Kernel("cross_window_stats", "rt_cross_lag_sums"))
-FUSED_LAG_MOMENTS = register(Kernel("fused_lag_moments", "rt_fused_lag_moments"))
+FUSED_LAG_MOMENTS = register(Kernel("fused_lag_moments", "rt_fused_lag_moments",
+                                    paths=("sym", "batched", "two_role")))
 WINDOW_MOMENTS = register(Kernel("window_moments", "rt_window_moments"))
 
 
@@ -137,7 +143,62 @@ def _prepare_lag_moments_sym(y: torch.Tensor, start_mask: torch.Tensor, windows:
     p.y, p.prefix, p.arrive = y.data_ptr(), buf.data_ptr(), buf[L + 1:].data_ptr()
     p.part, p.lag_out, p.mom_out = part.data_ptr(), lag.data_ptr(), mom.data_ptr()
     return Prepared(FUSED_LAG_MOMENTS, p, y.device, (lag, mom), (y, buf, part),
-                    entry="rt_lag_moments_sym")
+                    entry="rt_lag_moments_sym", path="sym")
+
+
+# Launch shape of kernel 3's batched path (H = 0, d <= MID_TILE), chosen by
+# timing its variants on the H100 (tools/kernel_variants/variants_bench.py
+# session): LAGMOM_TENANTS consecutive tenants a CTA, at most LAGMOM_LANES
+# row lanes of S(0)'s blocks.
+LAGMOM_TENANTS = 4
+LAGMOM_LANES = 16
+
+
+def lag_moments_path(max_lag: int, lead: tuple, d: int, rows: int) -> str:
+    """The launch that serves kernel 3 for series of ``rows`` rows of ``d``
+    channels with tenant axes ``lead``: "sym" for one problem at max_lag =
+    0 (``lag_moments_sym_kernel``); "batched" for at least two tenants at
+    max_lag = 0 and d <= MID_TILE whose rows fit one staging slot (rows x
+    lag_tile(d) <= LM_BATCH_SLOT floats: ``lag_moments_batched_kernel``);
+    else "two_role" (``fused_lag_moments_kernel`` and its reduction)."""
+    if max_lag == 0 and lead in ((), (1,)):
+        return "sym"
+    if (max_lag == 0 and len(lead) == 1 and lead[0] >= 2 and d <= MID_TILE
+            and rows * lag_tile(d) <= LM_BATCH_SLOT):
+        return "batched"
+    return "two_role"
+
+
+def batched_shape(batch: int, d: int) -> dict:
+    """Grid of ``lag_moments_batched_kernel`` for ``batch`` tenants of d <=
+    MID_TILE channels: the tile lag_tile(d), S(0)'s upper blocks of
+    LM_BATCH_BLK x LM_BATCH_BLK on it, one a thread in ``lanes`` row lanes,
+    and ``tenants`` consecutive tenants a CTA."""
+    tile = lag_tile(d)
+    side = tile // LM_BATCH_BLK
+    blocks = side * (side + 1) // 2
+    return {"tile": tile, "blocks": blocks, "lanes": min(THREADS // blocks, LAGMOM_LANES),
+            "tenants": LAGMOM_TENANTS, "ctas": -(-batch // LAGMOM_TENANTS)}
+
+
+def _prepare_lag_moments_batched(y: torch.Tensor, start_mask: torch.Tensor,
+                                 windows: tuple) -> Prepared:
+    """The batched H = 0 launch: S(0) (B, 1, d, d) and the moment sums (B, K,
+    2, d), the start mask read as bools (no prefix count of its own)."""
+    (B, rows, d), L = y.shape, start_mask.shape[-1]
+    s = batched_shape(B, d)
+    p = LagMomBatchParams()
+    p.batch, p.n, p.d, p.rows, p.K = B, L, d, rows, len(windows)
+    for k, w in enumerate(windows):
+        p.windows[k] = int(w)
+    p.tenants, p.lanes = s["tenants"], s["lanes"]
+    p.vec = int(d % 4 == 0 and y.data_ptr() % 16 == 0)
+    lag = torch.empty((B, 1, d, d), device=y.device)
+    mom = torch.empty((B, len(windows), 2, d), device=y.device)
+    p.y, p.mask = y.data_ptr(), start_mask.data_ptr()
+    p.lag_out, p.mom_out = lag.data_ptr(), mom.data_ptr()
+    return Prepared(FUSED_LAG_MOMENTS, p, y.device, (lag, mom), (y, start_mask),
+                    entry="rt_lag_moments_batched", path="batched")
 
 
 def prepare_fused_lag_moments(y: torch.Tensor, start_mask: torch.Tensor, max_lag: int,
@@ -146,16 +207,20 @@ def prepare_fused_lag_moments(y: torch.Tensor, start_mask: torch.Tensor, max_lag
     contiguous float32, reach = max(max_lag, max(windows) - 1);
     ``start_mask`` is (L,) bool; or (B, L + reach, d) and (B, L), one
     problem per tenant.  ``.launch()`` returns (lag, mom (K, 2, d)), with a
-    leading tenant axis when batched.  At max_lag = 0 and one problem the
-    launch is the symmetric path's (S(0) exactly symmetric), else the two
-    roles' (lag groups and moment slabs) with its reduction.  ``sms``: as in
+    leading tenant axis when batched.  The launch is the one
+    :func:`lag_moments_path` names: the symmetric path's or the batched
+    path's (S(0) exactly symmetric, one launch), else the two roles' (lag
+    groups and moment slabs) with its reduction.  ``sms``: as in
     ``fused_plan.ops.prepare_fused_plan`` (the two-role launch only)."""
     lead, L = tuple(y.shape[:-2]), start_mask.shape[-1]
     reach = max(max_lag, max(windows) - 1)
     require(y, "y", (L + reach, y.shape[-1]), lead=lead)
     require(start_mask, "start_mask", (L,), torch.bool, lead)
     check_window_count(windows)
-    if max_lag == 0 and lead in ((), (1,)):
+    path = lag_moments_path(max_lag, lead, y.shape[-1], L + max(windows) - 1)
+    if path == "batched":
+        return _prepare_lag_moments_batched(y, start_mask, windows)
+    if path == "sym":
         prep = _prepare_lag_moments_sym(y[0] if lead else y,
                                         start_mask[0] if lead else start_mask,
                                         windows, L + max(windows) - 1)
@@ -170,7 +235,7 @@ def prepare_fused_lag_moments(y: torch.Tensor, start_mask: torch.Tensor, max_lag
     lag_part, lag = add_lag(p, max_lag, sms, y.device, tile=TILE)
     mom_part, mom = add_moments(p, windows, prefix, L + max(windows) - 1, sms, y.device)
     return Prepared(FUSED_LAG_MOMENTS, p, y.device, (lag, mom),
-                    (y, m, prefix, lag_part, mom_part))
+                    (y, m, prefix, lag_part, mom_part), path="two_role")
 
 
 def moment_chain(n_out: int, d: int, window: int, sms: int) -> int:

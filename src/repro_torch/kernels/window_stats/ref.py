@@ -71,27 +71,34 @@ def masked_lagged_sums_ref(y_padded: torch.Tensor, start_mask: torch.Tensor,
 
 
 def fused_lag_moments_ref(y_padded: torch.Tensor, start_mask: torch.Tensor,
-                          max_lag: int, window: "int | tuple") -> tuple:
+                          max_lag: int, window: "int | tuple",
+                          dtype: torch.dtype = torch.float32) -> tuple:
     """(lag (max_lag+1, d, d), mom) with mom = sum_{s: mask} sum_{j<w}
     [y_{s+j}, y_{s+j}^2]: (2, d) for an int window, (K, 2, d) for a tuple.
-    One cumulative sum is shared by every window (`JnpBackend` formula)."""
+    One cumulative sum is shared by every window (`JnpBackend` formula),
+    taken in ``dtype``, float32 out.  In float32 (the default) a window's sum
+    is a difference of cumulative sums over every row before it, so it keeps
+    about 1e-7 of their magnitude: against a tenant with few valid starts
+    that is far more than 1e-4 of the sum itself.  In float64 it is the
+    precise plain version."""
     windows, single = normalize_windows(window)
     L = start_mask.shape[-1]
     w_max = max(windows)
-    y = extend_rows(as_2d(y_padded).float(), L + max(max_lag, w_max - 1))
-    lag = masked_lagged_sums_ref(y, start_mask, max_lag)
+    y = extend_rows(as_2d(y_padded).to(dtype), L + max(max_lag, w_max - 1))
+    lag = cross_lagged_sums_ref(torch.where(start_mask[..., None], y[..., :L, :], 0.0), y,
+                                max_lag)
     zero = y.new_zeros(y.shape[:-2] + (1, y.shape[-1]))
     rows = y[..., : L + w_max - 1, :]
     cs = torch.cat([zero, torch.cumsum(rows, -2)], -2)
     cs2 = torch.cat([zero, torch.cumsum(rows * rows, -2)], -2)
-    m = start_mask.float()[..., None]
+    m = start_mask.to(dtype)[..., None]
     moms = []
     for w in windows:
         s1 = cs[..., w: L + w, :] - cs[..., :L, :]
         s2 = cs2[..., w: L + w, :] - cs2[..., :L, :]
         moms.append(torch.stack([(m * s1).sum(-2), (m * s2).sum(-2)], -2))
-    mom = torch.stack(moms, -3)
-    return lag, (mom[..., 0, :, :] if single else mom)
+    mom = torch.stack(moms, -3).float()
+    return lag.float(), (mom[..., 0, :, :] if single else mom)
 
 
 def window_moments_ref(x: torch.Tensor, window: int, dtype=torch.float64) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 A multi-tenant session's ingest launches kernel 1 (``fused_plan_kernel``)
 once for an arrival batch of B tenants, and its batched finalize launches
-kernels 2 (``cross_lag_kernel``) and 3 (``fused_lag_moments_kernel``) once
-for all queried tenants.  Those kernels run only on the card; this file
+kernels 2 (``cross_lag_kernel``) and 3 once for all queried tenants (at
+H > 0 or d > 32 ``fused_lag_moments_kernel``, walked here; its batched path
+at H = 0 is walked in tests/test_torch_lagmom_batched.py).  Those kernels run only on the card; this file
 walks their batched grid as the wrappers fill it (``prepare_*`` with a given
 SM count fill the params on any device): the tenant folded into blockIdx.x
 (tenant-major, ``tenant_ctas`` role CTAs a tenant), each role's pointers
@@ -358,13 +359,16 @@ def test_session_shape_launches_65536_tenants_on_one_grid():
 
 @pytest.mark.parametrize("max_lag", [0, 3])
 def test_two_role_kernel_walk_serves_batched_kernel_3(max_lag):
-    """Batched kernel 3 (B > 1) is the two-role kernel at every lag,
-    H = 0 included: walked and held against the plain batched version."""
-    B, L, d, windows = 3, 300, 5, (4, 9)
+    """Batched kernel 3 (B > 1) is the two-role kernel at every lag above
+    0, and at H = 0 above MID_TILE channels (up to it, the batched path:
+    tests/test_torch_lagmom_batched.py): walked and held against the plain
+    batched version."""
+    B, L, windows = 3, 300, (4, 9)
+    d = 5 if max_lag else _build.MID_TILE + 1
     y, mask, _ = _operands(B, L, d, max(max_lag, max(windows) - 1), seed=4)
     prep = ws.prepare_fused_lag_moments(y, mask, max_lag, windows, sms=SMS)
     p = prep.params
-    assert prep.entry is None and p.batch == B  # not the symmetric path
+    assert prep.entry is None and prep.path == "two_role" and p.batch == B
     (lag_part, lag_hits), (mom_part, mom_hits), _ = walk(p, y, mask, [])
     assert (lag_hits == 1).all() and (mom_hits == 1).all()
     assert p.lag_tile == TILE and not lag_direct(prep)  # kernel 3 keeps lag_role

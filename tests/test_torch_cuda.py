@@ -301,6 +301,71 @@ def test_lag_moments_slab_left_out_is_caught(dev, lagmom_fault, n, d, windows):
     _lagmom_close(prep.launch(), want, y, mask, windows)
 
 
+# ---------------------------------- kernel 3, its batched path (d <= 32)
+BATCHED_WINDOWS = [(1,), (32,), (32, 128), (1, 3, 8, 17, 32, 64, 100, 257)]  # 257 > L
+BATCHED_CASES = [(d, B) for d in (1, 3, 15, 16, 17, 31, 32, 33) for B in (2, 7)] + [
+    (16, 4095), (16, 4096)]
+
+
+def _batched_case(dev, B, d, windows, mask_kind, L=127, seed=0):
+    """y (B, L + max(windows) - 1, d) and a (B, L) mask: every start valid,
+    none, a random 70%, or the moments finalize's tail mask (starts from
+    carry - length to carry - w, length per tenant in [0, 2 L])."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + B + d + len(windows))
+    y = torch.randn((B, L + max(windows) - 1, d), generator=g, device=dev)
+    t = torch.arange(L, device=dev)
+    if mask_kind == "all":
+        mask = torch.ones((B, L), dtype=torch.bool, device=dev)
+    elif mask_kind == "none":
+        mask = torch.zeros((B, L), dtype=torch.bool, device=dev)
+    elif mask_kind == "random":
+        mask = torch.rand((B, L), generator=g, device=dev) < 0.7
+    else:
+        length = torch.randint(0, 2 * L, (B,), generator=g, device=dev)
+        mask = (t >= L - length[:, None]) & (t <= L - min(windows))
+    return y, mask.contiguous()
+
+
+@pytest.mark.parametrize("mask_kind", ["all", "none", "random", "tail"])
+@pytest.mark.parametrize("windows", BATCHED_WINDOWS)
+@pytest.mark.parametrize("d,B", BATCHED_CASES)
+def test_batched_lag_moments_match_plain(dev, d, B, windows, mask_kind):
+    """Batched kernel 3 at H = 0 against the plain version (TOL lag and
+    moments 1e-4): the batched path up to d = 32, the two-role kernel at 33;
+    one launch a call, two launches bitwise, S(0) exactly symmetric.  The
+    plain version runs in float64: in float32 its moment sums are
+    differences of cumulative sums over every row, which keep about 1e-7 of
+    their magnitude, far more than 1e-4 of the sum of a tenant with one or
+    two valid starts (the tail mask's)."""
+    y, mask = _batched_case(dev, B, d, windows, mask_kind)
+    prep = ws.prepare_fused_lag_moments(y, mask, 0, windows)
+    assert prep.entry == ("rt_lag_moments_batched" if d <= 32 else None)
+    reset_launch_counts()
+    got = tuple(t.clone() for t in prep.launch())
+    assert launch_counts()["fused_lag_moments"] == 1
+    again = prep.launch()
+    want = wsr.fused_lag_moments_ref(y, mask, 0, windows, dtype=torch.float64)
+    _lagmom_close(got, want, y, mask, windows)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    if d <= 32:
+        assert torch.equal(got[0], got[0].transpose(-1, -2))
+    if mask_kind == "none":
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("windows", [(32,), (32, 128)])
+def test_batched_lag_moments_tenant_is_bitwise_whatever_the_batch(dev, windows):
+    """Tenant i's S(0) and moment sums are bitwise the same in batches of 2,
+    4,095 and 4,096 (whatever CTA holds it), through the wrapper too."""
+    y, mask = _batched_case(dev, 4096, 16, windows, "tail")
+    full = ws.fused_lagged_moments(y, mask, 0, windows)
+    for B in (2, 4095):
+        part = ws.fused_lagged_moments(y[:B].contiguous(), mask[:B].contiguous(), 0, windows)
+        assert torch.equal(part[0], full[0][:B]) and torch.equal(part[1], full[1][:B])
+    assert torch.equal(full[0], full[0].transpose(-1, -2))
+
+
 # ------------------------------------------------------- kernels 5, 6 and 7
 @pytest.mark.parametrize("n,d,window", [(5000, 70, 64), (300, 3, 1), (257, 2, 257),
                                         (40, 1, 7), (3000, 5, 1024)])

@@ -270,21 +270,23 @@ def test_python_constants_match_the_c_defines():
 
 
 def test_new_struct_mirrors_have_the_c_layout():
-    """MomentParams and LagMomParams (window_stats.cu), BandParams and
-    BandGradParams (banded_matvec.cu) and SwaParams (swa_attention.cu): the
-    pointers first, then ints (and the float scale), padded to 8 bytes."""
+    """MomentParams, LagMomParams and LagMomBatchParams (window_stats.cu),
+    BandParams and BandGradParams (banded_matvec.cu) and SwaParams
+    (swa_attention.cu): the pointers first, then ints (and the float
+    scale), padded to 8 bytes."""
     import ctypes
 
     assert ctypes.sizeof(_build.MomentParams) == 2 * 8 + 6 * 4
     assert ctypes.sizeof(_build.LagMomParams) == 6 * 8 + (4 + _build.MAX_WINDOWS + 6) * 4
+    assert ctypes.sizeof(_build.LagMomBatchParams) == 4 * 8 + (5 + _build.MAX_WINDOWS + 3) * 4
     assert ctypes.sizeof(_build.BandParams) == 3 * 8 + 12 * 4
     assert ctypes.sizeof(_build.BandGradParams) == 3 * 8 + 11 * 4 + 4
     assert ctypes.sizeof(_build.SwaParams) == 4 * 8 + 8 * 4 + 4 + 4
     assert _build.SwaParams.scale.offset == 4 * 8 + 8 * 4
     names = {n for n, _ in _build.STRUCT_SIZES}
     assert names == {"rt_plan_params_size", "rt_welch_member_size", "rt_moment_params_size",
-                     "rt_lagmom_params_size", "rt_band_params_size", "rt_band_grad_params_size",
-                     "rt_swa_params_size"}
+                     "rt_lagmom_params_size", "rt_lagmom_batch_params_size",
+                     "rt_band_params_size", "rt_band_grad_params_size", "rt_swa_params_size"}
 
 
 def test_kernels_are_registered_with_counters():

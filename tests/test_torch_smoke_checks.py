@@ -439,3 +439,24 @@ def test_ma_radius_of_a_fitted_member():
     frame.collect()
     assert 0.2 < smoke.ma_radius(frame, "anomaly") < 0.7
     assert smoke.ma_radius(frame, "forecast") == 0.0
+
+
+@pytest.mark.parametrize("extra", [0, 1, 3])
+def test_ops_per_call_counts_each_dispatched_operator_exactly(monkeypatch, extra):
+    """The auto phase's exact count of the aten operators a run dispatches:
+    the same run twice gives the same counts, and each extra operator shows."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    x = torch.arange(12.0).reshape(3, 4)
+
+    def run(more):
+        y = (x * 2.0).sum(0)
+        for _ in range(more):
+            y = y + 1.0
+        return y
+
+    base = smoke.ops_per_call(lambda: run(0))
+    again = smoke.ops_per_call(lambda: run(0))
+    got = smoke.ops_per_call(lambda: run(extra))
+    assert base == again and base["aten.mul.Tensor"] == 1 and base["aten.sum.dim_IntList"] == 1
+    assert got.get("aten.add.Tensor", 0) - base.get("aten.add.Tensor", 0) == extra
+    assert (got == base) == (extra == 0)

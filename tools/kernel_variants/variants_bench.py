@@ -8,6 +8,7 @@ against the port's plain version.
     python3 tools/kernel_variants/variants_bench.py lagmom [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py split [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py session [BASELINE_KERNELS_DIR]
+    python3 tools/kernel_variants/variants_bench.py session_k3 [BASELINE_KERNELS_DIR]
     python3 tools/kernel_variants/variants_bench.py swa
 
 moments: builds the variant file with nvcc into build/kernel_variants/ and,
@@ -64,9 +65,17 @@ LAGMOM_ROUNDS times; with BASELINE_KERNELS_DIR, the shipped point against
 the baseline's kernel 3 in turns at the chunk and the tail.  Samples go to
 build/kernel_variants/variants_lagmom.json.
 
-session: kernels 1 and 2 at the multi-tenant session's shapes (65,536
-tenants of d = 16; a query's lag tail at 4,096 tenants): the role split of
-batched kernel 1 at the chunk and the merge boundary (copies of
+session: batched kernel 3 (H = 0) at the session's shapes first -- a
+query's moments(32) tail (4,096 tenants), a moments-only plan's chunk and
+merge boundary (65,536 tenants) -- each held to the plain version, with its
+bound, the plain version's and the library call's times, a clock64() probe
+of its phases, the design points of SESSION_K3_POINTS (tenants per CTA,
+row lanes, launch bounds) in turns, and with BASELINE_KERNELS_DIR old
+against new in turns beside the library call (samples in
+build/kernel_variants/variants_session_k3.json; ``session_k3`` runs only
+this part); then kernels 1 and 2 at the multi-tenant session's shapes
+(65,536 tenants of d = 16; a query's lag tail at 4,096 tenants): the role
+split of batched kernel 1 at the chunk and the merge boundary (copies of
 fused_plan.cu with roles compiled out, SESSION_ABLATIONS), Welch candidates
 per CTA swept at the chunk, and with BASELINE_KERNELS_DIR old against new in
 turns (baseline, this, this, baseline, SESSION_ROUNDS times: 2 SESSION_ROUNDS
@@ -852,6 +861,233 @@ def session_operands(gen, dev) -> dict:
                              .contiguous())}
 
 
+def _smoke():
+    """chip_smoke.py as a module: kernel 3's library yardstick and bound."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# Batched kernel 3 (H = 0) at the session's shapes: a query's moments(32)
+# tail (4,096 tenants of (158, 16), 96 of 127 starts valid: the finalize's
+# mask), a moments-only plan's chunk (65,536 tenants of (383, 16), 129 of
+# 256 starts, windows (32, 128)) and its merge boundary ((254, 16), 127
+# starts).  SESSION_K3_POINTS: (#defines patched into a copy of
+# window_stats.cu: launch bounds; launch-shape knobs of
+# this checkout's window_stats/ops.py: tenants per CTA, row lanes of S(0)),
+# each held to the plain version and timed in turns with the shipped point
+# (the first).
+SESSION_K3 = ("k3_tail", "k3_chunk", "k3_boundary")
+SESSION_K3_POINTS = [({}, {}), ({}, {"LAGMOM_TENANTS": 1}), ({}, {"LAGMOM_TENANTS": 2}),
+                     ({}, {"LAGMOM_TENANTS": 8}), ({}, {"LAGMOM_LANES": 12}),
+                     ({"LM_BATCH_MIN_CTAS": 3}, {})]
+
+
+# PROBE: the shipped batched kernel, thread 0 of every CTA summing clock64()
+# over the CTA's tenants per phase (the first three end at a CTA barrier, so
+# they read as the slowest warp's), written over its first tenant's S(0)
+# after the launch's last store: the session's garbage, only the cycles count.
+SESSION_K3_PHASES = ("wait_rows", "loops", "lane_sums_and_prefix", "counts")
+_SESSION_K3_PROBE_PATCHES = [
+    ("  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;\n",
+     "  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;\n"
+     "  long long ph[4] = {0, 0, 0, 0};\n  long long t_prev = clock64();\n"
+     "#define LB_PROBE(k) { const long long t_now = clock64(); ph[k] += t_now - t_prev; "
+     "t_prev = t_now; }\n"),
+    ("    __syncthreads();     // ... for every thread; its mask and window counts are in\n",
+     "    __syncthreads();     // ... for every thread; its mask and window counts are in\n"
+     "    LB_PROBE(0)\n"),
+    ("    __syncthreads();  // the row lanes are in; the slot is read out\n",
+     "    __syncthreads();  // the row lanes are in; the slot is read out\n    LB_PROBE(1)\n"),
+    ("      build_prefix();\n      __syncthreads();\n      build_counts();\n    }\n  }\n",
+     "      build_prefix();\n      __syncthreads();\n      LB_PROBE(2)\n      build_counts();\n"
+     "    }\n    LB_PROBE(3)\n  }\n  __syncthreads();\n  if (threadIdx.x == 0)\n"
+     "    for (int k = 0; k < 4; ++k)\n"
+     "      reinterpret_cast<int*>(p.lag_out + (size_t)tn0 * d * d)[k] = (int)ph[k];\n"),
+]
+
+
+def session_k3_operands(ops: dict, gen, dev) -> dict:
+    """(y, start mask, windows) of batched kernel 3 at SESSION_K3's shapes;
+    the chunk and the merge boundary are kernel 1's (session_operands)."""
+    carry, w = SESSION_CARRY, SESSION_WINDOWS[0]
+    tail = torch.randn((SESSION_QUERY, carry + w - 1, SESSION_D), generator=gen, device=dev)
+    tail[:, carry:] = 0.0  # the tail's zero extension
+    tail_mask = (torch.arange(carry, device=dev) <= carry - w).expand(
+        SESSION_QUERY, carry).contiguous()
+    return {"k3_tail": (tail, tail_mask, (w,)),
+            "k3_chunk": (ops["chunk"][0], ops["chunk"][1], SESSION_WINDOWS),
+            "k3_boundary": (ops["boundary"][0], ops["boundary"][1], SESSION_WINDOWS)}
+
+
+def k3_errors(ref, got, y, mask, windows) -> tuple:
+    """(S(0)'s worst error over its tenant's max|S(0)|, each moment sum's
+    worst error over the same sum of |y|): chip_smoke.py's kernel 3 check,
+    tenant by tenant."""
+    lag, mom = ref.fused_lag_moments_ref(y, mask, 0, windows)
+    scale = ref.fused_lag_moments_ref(y.abs(), mask, 0, windows)[1]
+    e_lag = ((got[0] - lag).abs().flatten(1).amax(1)
+             / lag.abs().flatten(1).amax(1).clamp_min(1e-30)).max().item()
+    err = (got[1] - mom).abs()
+    e_mom = torch.where(err == 0, torch.zeros_like(err), err / scale).max().item()
+    return e_lag, e_mom
+
+
+def _set_knobs(mod, knobs: dict) -> dict:
+    """Sets ``knobs`` on module ``mod``; returns the values they replaced."""
+    old = {k: getattr(mod, k) for k in knobs}
+    for k, v in knobs.items():
+        setattr(mod, k, v)
+    return old
+
+
+def session_k3(new, old, ops: dict, dev) -> dict:
+    """Batched kernel 3 at SESSION_K3's shapes: each launch held to the plain
+    version (S(0) exactly symmetric, two launches bitwise), its time (a CUDA
+    graph of the prepared launch), the plain version's, the library call's
+    (chip_smoke.lag_moments_library) and the bound (chip_smoke's
+    lag_moments_work and bound_ms on this run's inputs); the design points of
+    SESSION_K3_POINTS in turns with the shipped point; with ``old``, old
+    against new in turns with the library call, each side held to the plain
+    version (the summation order differs, so not bitwise)."""
+    smoke = _smoke()
+    nops, ref = new["window_stats.ops"], new["window_stats.ref"]
+    record = {"device": torch.cuda.get_device_name(0), "shapes": {}, "points": {}, "turns": {}}
+    points = [pt for pt in SESSION_K3_POINTS if all(hasattr(nops, k) for k in pt[1])]
+    kdir = os.path.dirname(new["_build"].__file__)
+    text = open(os.path.join(kdir, "window_stats", "csrc", "window_stats.cu")).read()
+    os.makedirs(OUT, exist_ok=True)
+    procs = {}
+    for defines, _ in points + [({"PROBE": 1}, {})]:
+        key = tuple(sorted(defines.items()))
+        if key and key not in procs:
+            path = os.path.join(OUT, f"k3_point_{len(procs)}.cu")
+            with open(path, "w") as f:
+                f.write(_patch(text, _SESSION_K3_PROBE_PATCHES, "session k3 probe")
+                        if "PROBE" in defines else _define_source(text, defines))
+            procs[key] = (path, subprocess.Popen(
+                ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
+                 os.path.join(kdir, "csrc"), "-o", path[:-3] + ".so", path],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries = {}
+    for key, (path, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"session k3 point {key}: build failed\n{log[-2000:]}")
+        lib = ctypes.CDLL(path[:-3] + ".so")
+        lib.rt_lagmom_batch_params_size.restype = ctypes.c_int
+        if lib.rt_lagmom_batch_params_size() != ctypes.sizeof(new["_build"].LagMomBatchParams):
+            raise RuntimeError(f"session k3 point {key}: LagMomBatchParams differs")
+        entries[key] = lib.rt_lag_moments_batched
+        entries[key].argtypes, entries[key].restype = [ctypes.c_void_p] * 2, ctypes.c_int
+        for tw in (16, 32):
+            print(f"session k3 point {dict(key)} lag_moments_batched_kernel<{tw}>: ptxas "
+                  f"{_ptxas_of(log, f'lag_moments_batched_kernelILi{tw}E')}", flush=True)
+    for shape in SESSION_K3:
+        y, mask, windows = ops[shape]
+        B, L = mask.shape
+        rows, d, K = L + max(windows) - 1, y.shape[-1], len(windows)
+        prep = nops.prepare_fused_lag_moments(y, mask, 0, windows)
+        got = tuple(t.clone() for t in prep.launch())
+        again = prep.launch()
+        e_lag, e_mom = k3_errors(ref, got, y, mask, windows)
+        ok = (e_lag <= LAGMOM_TOL and e_mom <= LAGMOM_TOL and torch.equal(got[0], again[0])
+              and torch.equal(got[1], again[1])
+              and torch.equal(got[0], got[0].transpose(-1, -2)))
+        lib_ops = smoke.lag_moments_library_operands(y, mask, windows)
+        lib_err = k3_errors(ref, smoke.lag_moments_library(*lib_ops), y, mask, windows)
+        del got, again
+        valid = int(mask.sum().item())
+        nbytes, flops, _ = smoke.lag_moments_work(rows, L, 0, d, K)
+        b_ms, b_by = smoke.bound_ms(B * nbytes, B * flops + valid * d * (d + 1))
+        replays = 3 if B > SESSION_QUERY else 10
+        ms = graph_samples([prep.launch], replays=replays)
+        plain = _events_samples(lambda: ref.fused_lag_moments_ref(y, mask, 0, windows), calls=1)
+        lib = _events_samples(lambda: smoke.lag_moments_library(*lib_ops))
+        rec = {"shape": f"y {tuple(y.shape)}, {valid // B} valid starts a tenant of {L}, "
+                        f"windows {windows}", "ms": ms[len(ms) // 2], "ms_samples": ms,
+               "plain_ms": plain[len(plain) // 2], "library_ms": lib[len(lib) // 2],
+               "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms[len(ms) // 2],
+               "lag_err": e_lag, "mom_err": e_mom, "library_err": list(lib_err), "ok": ok,
+               "entry": prep.entry}
+        record["shapes"][shape] = rec
+        print(f"session k3 {shape}: ms {rec['ms']:.5f} (min {ms[0]:.5f} max {ms[-1]:.5f}) "
+              f"bound {b_ms:.5f} ({b_by}, share {rec['share']:.3f}) plain {rec['plain_ms']:.4f} "
+              f"library {rec['library_ms']:.5f} err {e_lag:.2e} / {e_mom:.2e} (library "
+              f"{lib_err[0]:.2e} / {lib_err[1]:.2e}) entry {prep.entry} ok {ok}", flush=True)
+        if not ok:
+            print(f"session k3 {shape}: INVALID against the plain version", flush=True)
+        # the phases of each CTA (the probe build's launch on the same params)
+        probe = entries[(("PROBE", 1),)]
+        if probe(ctypes.byref(prep.params), torch.cuda.current_stream(dev).cuda_stream):
+            raise RuntimeError("session k3 probe: launch failed")
+        torch.cuda.synchronize()
+        tenants = prep.params.tenants
+        cyc = prep.out[0][::tenants].reshape(-1, d * d)[:, :4].contiguous().view(torch.int32)
+        cyc = cyc.double() / tenants
+        rec["phase_cycles_per_tenant"] = {k: [cyc[:, i].mean().item(), cyc[:, i].max().item()]
+                                          for i, k in enumerate(SESSION_K3_PHASES)}
+        print(f"session k3 {shape} probe, cycles a tenant (mean, max over CTAs): " + "; ".join(
+            f"{k} {m:.0f} {x:.0f}" for k, (m, x) in rec["phase_cycles_per_tenant"].items()),
+            flush=True)
+        del prep, lib_ops
+        torch.cuda.empty_cache()
+    for shape in SESSION_K3 if len(points) > 1 else ():
+        y, mask, windows = ops[shape]
+        launchers = {}
+        for defines, knobs in points:
+            saved = _set_knobs(nops, knobs)
+            prep = nops.prepare_fused_lag_moments(y, mask, 0, windows)
+            _set_knobs(nops, saved)
+            key = tuple(sorted(defines.items()))
+            if key:
+                def launch(prep=prep, entry=entries[key]):
+                    if entry(ctypes.byref(prep.params), torch.cuda.current_stream(dev).cuda_stream):
+                        raise RuntimeError("launch failed")
+                    return prep.out
+            else:
+                launch = prep.launch
+            got = tuple(t.clone() for t in launch())
+            again = launch()
+            e_lag, e_mom = k3_errors(ref, got, y, mask, windows)
+            name = ",".join(f"{k}={v}" for k, v in {**defines, **knobs}.items()) or "shipped"
+            if (max(e_lag, e_mom) > LAGMOM_TOL or not torch.equal(got[0], again[0])
+                    or not torch.equal(got[1], again[1])):
+                print(f"session k3 point {shape} {name}: INVALID ({e_lag:.2e} / {e_mom:.2e})",
+                      flush=True)
+                continue
+            replays = 3 if mask.shape[0] > SESSION_QUERY else 10
+            launchers[name] = lambda launch=launch, r=replays: graph_samples([launch], replays=r)
+        record["points"][shape] = _lagmom_turns(f"session k3 points {shape}", launchers,
+                                                SESSION_ROUNDS)
+        del launchers
+        torch.cuda.empty_cache()
+    if old is None:
+        return record
+    oops = old["window_stats.ops"]
+    for shape in SESSION_K3:
+        y, mask, windows = ops[shape]
+        base = oops.prepare_fused_lag_moments(y, mask, 0, windows)
+        this = nops.prepare_fused_lag_moments(y, mask, 0, windows)
+        errs = {"baseline": k3_errors(ref, base.launch(), y, mask, windows),
+                "this": k3_errors(ref, this.launch(), y, mask, windows)}
+        print(f"session k3 {shape} errors against the plain version: {errs}", flush=True)
+        lib_ops = smoke.lag_moments_library_operands(y, mask, windows)
+        replays = 3 if mask.shape[0] > SESSION_QUERY else 10
+        launchers = {"baseline": lambda: graph_samples([base.launch], replays=replays),
+                     "this": lambda: graph_samples([this.launch], replays=replays),
+                     "library": lambda: _events_samples(
+                         lambda: smoke.lag_moments_library(*lib_ops))}
+        rec = _lagmom_turns(f"session {shape}", launchers, SESSION_ROUNDS)
+        rec["errors"] = errs
+        record["turns"][shape] = rec
+        del base, this, lib_ops, launchers
+        torch.cuda.empty_cache()
+    return record
+
+
 def session_prepare(m, which: str, ops: dict):
     """Package ``m``'s prepared launch of ``which`` on the operands of
     :func:`session_operands`."""
@@ -862,8 +1098,9 @@ def session_prepare(m, which: str, ops: dict):
     return m["fused_plan.ops"].prepare_fused_plan(y, mask, z0, *members)
 
 
-def session(new, old, gen, dev) -> dict:
-    """Kernels 1 and 2 at the session's shapes: the role split of batched
+def session(new, old, gen, dev, k3_only: bool = False) -> dict:
+    """Batched kernel 3 at the session's shapes first (:func:`session_k3`;
+    ``k3_only``: nothing else), then kernels 1 and 2: the role split of batched
     kernel 1 (chunk and merge boundary; SESSION_ABLATIONS built from this
     checkout's fused_plan.cu), a sweep of Welch candidates per CTA at the
     chunk, and with ``old`` (a baseline package) old against new in turns
@@ -875,6 +1112,12 @@ def session(new, old, gen, dev) -> dict:
     Samples go to build/kernel_variants/variants_session.json."""
     kdir = os.path.dirname(new["_build"].__file__)
     os.makedirs(OUT, exist_ok=True)
+    ops = session_operands(gen, dev)
+    k3 = session_k3(new, old, {**ops, **session_k3_operands(ops, gen, dev)}, dev)
+    with open(os.path.join(OUT, "variants_session_k3.json"), "w") as f:
+        json.dump(k3, f, indent=1)
+    if k3_only:
+        return {"k3": k3}
     ablated = os.path.join(OUT, "session_ablated.cu")
     with open(ablated, "w") as f:
         f.write(session_ablation_source(
@@ -902,8 +1145,8 @@ def session(new, old, gen, dev) -> dict:
                        "ILb1ELi64E"):
             print(f"session ablation {name} fused_plan_kernel<{kernel[3]}, {kernel[7:9]}>: "
                   f"ptxas {_ptxas_of(log, 'fused_plan_kernel' + kernel)}", flush=True)
-    ops = session_operands(gen, dev)
-    record = {"device": torch.cuda.get_device_name(0), "split": {}, "sweeps": {}, "turns": {}}
+    record = {"device": torch.cuda.get_device_name(0), "split": {}, "sweeps": {}, "turns": {},
+              "k3": k3}
     for shape in ("chunk", "boundary"):
         prep = session_prepare(new, shape, ops)
         launchers = {"shipped": prep.launch}
@@ -1384,11 +1627,11 @@ def main() -> None:
             sys.exit(f"{which} needs the baseline kernels directory")
         stats(sys.argv[2], gen, dev, turns_only=which == "turns")
         return
-    if which == "session":
+    if which in ("session", "session_k3"):
         new = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))
         old = (load_kernels("baseline_kernels", os.path.abspath(sys.argv[2]))
                if len(sys.argv) > 2 else None)
-        session(new, old, gen, dev)
+        session(new, old, gen, dev, k3_only=which == "session_k3")
         return
     if which in ("lagmom", "split"):
         new = load_kernels("this_kernels", os.path.join(ROOT, "src", "repro_torch", "kernels"))

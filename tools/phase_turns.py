@@ -9,8 +9,9 @@ first, side by side; then each turn runs, in a fresh process in that
 checkout, ``session_phase`` and ``gateway_phase`` of its own
 ``chip_smoke.py`` as a user's process runs them (no calibration table
 installed), in the order OLD NEW NEW OLD OLD NEW ... (``--pairs`` pairs).
-Prints one JSON line per turn with ``session.metrics.ingest_ms_per_tick``
-and ``gateway.metrics.tick_ms_median``, then the medians per checkout.
+Prints one JSON line per turn with ``session.metrics.ingest_ms_per_tick``,
+``session.metrics.query_batch_ms`` and ``gateway.metrics.tick_ms_median``,
+then the medians per checkout.
 Needs an NVIDIA GPU.
 """
 import argparse
@@ -43,6 +44,7 @@ def turn(root: str) -> dict:
             continue
         if obj.get("phase") == "session":
             out["ingest_ms_per_tick"] = obj["metrics"]["ingest_ms_per_tick"]
+            out["query_batch_ms"] = obj["metrics"]["query_batch_ms"]
         elif obj.get("phase") == "gateway":
             out["gateway_tick_ms_median"] = obj["metrics"]["tick_ms_median"]
         elif obj.get("phase") == "failed":
@@ -76,7 +78,8 @@ def main() -> int:
         runs[label].append(res)
     summary = {label: {key: {"median": statistics.median(r[key] for r in rs),
                              "all": [r[key] for r in rs]}
-                       for key in ("ingest_ms_per_tick", "gateway_tick_ms_median")}
+                       for key in ("ingest_ms_per_tick", "query_batch_ms",
+                                   "gateway_tick_ms_median")}
                for label, rs in runs.items()}
     print(json.dumps({"summary": summary}))
     return 0
