@@ -10,7 +10,11 @@ banded spatial AR fit, rolling moments and cross-spectra -- times kernels
 moments finalize's tail), drives the overlapping block store
 (``SeriesFrame.from_sharded`` over ``TimeSeriesStore``: kernel 1 launched
 once per collect for every block, kernel 2 once per
-``autocovariance_blocked``), the multi-tenant session (FrameSession over
+``autocovariance_blocked``), the same store's path on a one-rank NCCL
+mesh (``from_sharded(mesh=)``, mesh stores in both halo modes,
+``autocovariance_sharded``, ``halo_exchange``, an elastic restore: the
+distribution layer, one ``psum_tree`` collective a collect), the
+multi-tenant session (FrameSession over
 RollingStatsService: kernels 1-4 launched once per arrival batch and per
 batched query for every tenant), the serving gateway (StatsGateway over a
 session with forecasts and anomaly scores: per-tick coalescing, crc32
@@ -36,7 +40,9 @@ Rolling moments (w = 64, 1024) run over the same series, cross-spectra over
 its first 131,072 rows (nperseg 256, overlap 128), and the spatial fit over
 a banded AR(1) of d = 131,072, b = 4, simulated for 2,048 steps.  The
 store holds the same series in 512 blocks of 8,192 rows plus the plan's
-1,023-row halo; one 65,536-row append doubles it.  The session: 65,536
+1,023-row halo; one 65,536-row append doubles it.  The mesh phase runs
+that store's series and plan at world 1 (cut: one card; NCCL in-process,
+a ``file://`` rendezvous in a temporary directory).  The session: 65,536
 tenants of d = 16, 8 ticks of 256 rows each, plan autocovariance(16),
 yule_walker(8), moments(32), moments(128), welch(64, 32), then an eviction
 session of 16,384 tenants over a 2,048-sample ring of 8 buckets.  The
@@ -2187,7 +2193,215 @@ def store_phase(args, dev) -> dict:
     emit(report)
     if bad:
         fail("store phase", bad=bad)
-    return {"launches": counts, "kernels": rows}
+    return {"launches": counts, "kernels": rows, "collect": got, "collect_ms": store_ms,
+            "after": after, "replan": replan}
+
+
+def results_bitwise(a, b) -> bool:
+    """Two results (nests of tensors) bitwise alike, NaN included."""
+    la, lb = leaves(a), leaves(b)
+    return ([p for p, _ in la] == [p for p, _ in lb]
+            and all(same_bits(x.cpu().numpy(), y.cpu().numpy())
+                    for (_, x), (_, y) in zip(la, lb)))
+
+
+def mesh_phase(args, dev, store) -> dict:
+    """The distribution layer on a one-rank NCCL mesh (cut: the machine
+    has one card), over the store phase's series and plan: (a)
+    ``SeriesFrame.from_sharded(x, mesh=)`` collects bitwise the store
+    phase's collect (kernel 1 once, ``psum_tree`` one collective), then an
+    append and a replan; (b) ``TimeSeriesStore.from_series(..., mesh=)`` in
+    both halo modes, ``map_reduce`` and ``sharded_window_map_reduce`` of a
+    chunk kernel (kernel 2), exchange bitwise replicate and the one-device
+    store; (c) ``autocovariance_sharded`` bitwise ``autocovariance_blocked``
+    (kernel 2 once); (d) ``halo_exchange`` returning the zero-padded shard;
+    (e) the store's DTensor blocks saved and restored with Shard(0)
+    shardings, bitwise.  Times the mesh collect beside the store phase's,
+    the exchange-mode stitch, ``psum_tree`` and the NCCL start.  Returns
+    {"launches": the mesh collect's launch counts}."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch import SeriesFrame, TimeSeriesStore
+    from repro_torch.checkpoint.manager import restore_pytree, save_pytree
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.estimators.stats import autocovariance_blocked, autocovariance_sharded
+    from repro_torch.core.halo import halo_exchange
+    from repro_torch.core.mapreduce import block_window_map_reduce, sharded_window_map_reduce
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import (collective_count, data_mesh, psum_tree,
+                                      reset_collective_count)
+
+    started = time.perf_counter()
+    n = args.chunks * CHUNK
+    x = make_series(n, D, args.seed, dev)  # the store phase's series
+    bad = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def counted(fn):
+        reset_launch_counts()
+        reset_collective_count()
+        out, ms = timed(fn)
+        return out, ms, {k: v for k, v in launch_counts().items() if v}, collective_count()
+
+    # no network on the card's machine: NCCL's bootstrap may find no
+    # interface but the loopback, which one rank on one host needs
+    ifname = os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mesh, mesh_ms = timed(lambda: data_mesh(1, 0, "file://" + os.path.join(tmp, "rdv")))
+        # NCCL builds its communicator at the first collective
+        _, first_ms = timed(lambda: psum_tree(torch.ones(1, device=dev), mesh))
+        init = {"backend": dist.get_backend(), "mesh_ms": mesh_ms,
+                "first_collective_ms": first_ms, "nccl_init_ms": mesh_ms + first_ms,
+                "NCCL_SOCKET_IFNAME": ifname}
+        if dist.get_backend() != "nccl":
+            bad.append("backend")
+
+        # ---- (a) the collect, an append, a replan
+        frame = declare_plan(SeriesFrame.from_sharded(x, mesh=mesh, block_size=STORE_BLOCK,
+                                                      device=dev))
+        got, collect_ms, collect_counts, collect_coll = counted(frame.collect)
+        collect_ok = (results_bitwise(got, store["collect"]) and collect_coll == 1
+                      and collect_counts.get("fused_plan_megakernel") == 1)
+        states = frame._states[0]
+        stat_tree = (states.stat, states.sample_sum, torch.cat([states.head, states.tail]))
+        psum_bytes = sum(t.numel() * t.element_size() for _, t in leaves(stat_tree))
+        psum_samples = sorted(timed(lambda: psum_tree(stat_tree, mesh))[1] for _ in range(20))
+        new = make_series(CHUNK, D, args.seed + 5, dev)  # the store phase's append
+        after, after_ms, after_counts, after_coll = counted(lambda: frame.append(new).collect())
+        # the append's two updates, then the collect's finalize tails
+        after_ok = (results_bitwise(after, store["after"]) and after_coll == 0
+                    and after_counts == {**STORE_COLLECT_LAUNCHES, "fused_plan_megakernel": 2})
+        declare_replan(frame)
+        replan, replan_ms, replan_counts, replan_coll = counted(frame.collect)
+        radius = ma_radius(frame, "anomaly")
+        want_replan = store["replan"]
+        tols = {**MEMBER_TOL, "moments_3": TOL["moments"], "forecast": TOL["fit"],
+                "anomaly": TOL["fit"]}
+        held = {k: v for k, v in replan.items()}
+        want_held = {k: v for k, v in want_replan.items()}
+        if radius >= 1.0:  # a diverging filter: its residuals are held by their fit only
+            held["anomaly"] = {k: v for k, v in replan["anomaly"].items()
+                               if k not in ("z", "score")}
+            want_held["anomaly"] = {k: v for k, v in want_replan["anomaly"].items()
+                                    if k not in ("z", "score")}
+        replan_members = {name: compare(held[name], want_held[name], tol,
+                                        same_nonfinite=name.startswith(("forecast", "anomaly")))
+                          for name, tol in tols.items()}
+        # the blocks once more, then the append kept since the first collect
+        replan_ok = (replan_coll == 1 and replan_counts.get("fused_plan_megakernel") == 3
+                     and all(r["ok"] for r in replan_members.values()))
+        for ok, name in ((collect_ok, "collect"), (after_ok, "append"), (replan_ok, "replan")):
+            if not ok:
+                bad.append(name)
+        del frame, got, after, replan, held, want_held
+
+        # ---- (b) mesh stores in both halo modes
+        kern = lambda w: w[0] * w[-1]  # the products at lag CARRY, per channel
+        be = get_backend(None, dev)
+        chunk_kernel = lambda y, m: be.masked_lagged_sums(y, m, H)
+        stores, sums = {}, {}
+        for mode in ("replicate", "exchange"):
+            stores[mode], place_ms = timed(lambda: TimeSeriesStore.from_series(
+                x, STORE_BLOCK, 0, CARRY, mesh=mesh, halo_mode=mode, device=dev))
+            sums[mode], ms, counts, coll = counted(lambda: stores[mode].map_reduce(kern))
+            sums[mode + "_ms"], sums[mode + "_collectives"] = ms, coll
+            sums[mode + "_placement_ms"] = place_ms
+        local = stores["exchange"].blocks.to_local()
+        stitched, stitch_ms = timed(lambda: stores["exchange"].padded_blocks_local(local))
+        stitch = {"ms": stitch_ms, "gbytes": stitched.numel() * stitched.element_size() / 1e9,
+                  "bitwise_replicate": torch.equal(stitched,
+                                                   stores["replicate"].blocks.to_local())}
+        del stitched, local
+        one_device = TimeSeriesStore.from_series(x, STORE_BLOCK, 0, CARRY, device=dev)
+        free_sum = one_device.map_reduce(kern)
+        blocks = stores["replicate"].blocks
+        swmr, swmr_ms, swmr_counts, swmr_coll = counted(lambda: sharded_window_map_reduce(
+            None, blocks, stores["replicate"].spec, mesh, chunk_kernel=chunk_kernel))
+        free_swmr = block_window_map_reduce(None, x, one_device.spec, chunk_kernel=chunk_kernel)
+        del one_device
+        store_ok = (torch.equal(sums["replicate"], sums["exchange"])
+                    and torch.equal(sums["replicate"], free_sum)
+                    and sums["replicate_collectives"] == sums["exchange_collectives"] == 1
+                    and stitch["bitwise_replicate"] and torch.equal(swmr, free_swmr)
+                    and swmr_coll == 1 and swmr_counts == {"cross_window_stats": 1}
+                    and isinstance(blocks, DTensor)
+                    and tuple(blocks.shape) == tuple(blocks.to_local().shape))
+        if not store_ok:
+            bad.append("mesh stores")
+
+        # ---- (c) autocovariance_sharded: kernel 2 once
+        st16 = TimeSeriesStore.from_series(x, STORE_BLOCK, 0, H, mesh=mesh, device=dev)
+        acov, acov_ms, acov_counts, acov_coll = counted(lambda: autocovariance_sharded(
+            st16.blocks, st16.spec, H, mesh))
+        blocked = autocovariance_blocked(x, H, STORE_BLOCK)
+        acov_ok = (torch.equal(acov, blocked) and acov_coll == 1
+                   and acov_counts == {"cross_window_stats": 1})
+        if not acov_ok:
+            bad.append("autocovariance_sharded")
+        del st16
+
+        # ---- (d) halo_exchange at world 1: the zero-padded shard
+        padded, halo_ms = timed(lambda: halo_exchange(x, 4, 5, mesh))
+        halo_ok = (torch.equal(padded[4: 4 + n], x) and not padded[:4].any()
+                   and not padded[4 + n:].any())
+        if not halo_ok:
+            bad.append("halo_exchange")
+        del padded
+
+        # ---- (e) elastic restore of the store's DTensor blocks
+        ckdir = os.path.join(tmp, "ckpt")
+        _, save_ms = timed(lambda: save_pytree({"blocks": blocks}, ckdir, 0))
+        back, restore_ms = timed(lambda: restore_pytree(
+            {"blocks": blocks}, ckdir, shardings={"blocks": (mesh, [Shard(0)])}))
+        restore_ok = (isinstance(back["blocks"], DTensor)
+                      and torch.equal(back["blocks"].to_local(), blocks.to_local()))
+        if not restore_ok:
+            bad.append("restore")
+        del back, blocks, stores
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    report = {
+        "phase": "mesh", "world": 1, "samples_per_channel": n, "channels": D, "init": init,
+        "collect": {"ms": collect_ms, "store_phase_ms": store["collect_ms"],
+                    "launches": collect_counts, "collectives": collect_coll,
+                    "bitwise_store_phase": collect_ok},
+        "psum_tree": {"bytes": psum_bytes, "ms_median": psum_samples[len(psum_samples) // 2],
+                      "ms_samples": psum_samples},
+        "append": {"ms": after_ms, "launches": after_counts, "collectives": after_coll,
+                   "ok": after_ok},
+        "replan": {"ms": replan_ms, "launches": replan_counts, "collectives": replan_coll,
+                   "members": replan_members, "ma_radius": radius, "ok": replan_ok},
+        "stores": {"map_reduce_ms": {m: sums[m + "_ms"] for m in ("replicate", "exchange")},
+                   "placement_ms": {m: sums[m + "_placement_ms"]
+                                    for m in ("replicate", "exchange")},
+                   "exchange_stitch": stitch, "chunk_kernel_ms": swmr_ms,
+                   "chunk_kernel_launches": swmr_counts, "ok": store_ok},
+        "autocovariance_sharded": {"ms": acov_ms, "launches": acov_counts,
+                                   "collectives": acov_coll, "bitwise_blocked": acov_ok},
+        "halo_exchange": {"ms": halo_ms, "ok": halo_ok},
+        "restore": {"save_ms": save_ms, "restore_ms": restore_ms, "bitwise": restore_ok},
+        "tolerance": "bitwise against the store phase's collect and append, the one-device "
+                     "store and autocovariance_blocked; the replan (the append replayed after "
+                     "the walk, where the store phase scattered it) as the store phase's",
+        "seconds": time.perf_counter() - started, "bad": bad}
+    emit(report)
+    if bad:
+        fail("mesh phase", bad=bad)
+    return {"launches": collect_counts}
 
 
 # ---------------------------------------------------------- the session
@@ -4001,6 +4215,11 @@ def main() -> None:
     store = store_phase(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # the distribution layer: the store's path on a one-rank NCCL mesh
+    mesh = mesh_phase(args, dev, store)
+    del store["collect"], store["after"], store["replan"]
+    gc.collect()
+    torch.cuda.empty_cache()
     # the multi-tenant session: kernels 1-4 batched over tenants
     session_phase(args, dev)
     gc.collect()
@@ -4037,6 +4256,7 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": t["library_ms"],
             "store_launches": store["launches"].get(name, 0),
+            "mesh_launches": mesh["launches"].get(name, 0),
             "gateway_launches_per_tick": gateway["launches_per_tick"].get(name, 0),
             "gateway_launches_per_query": gateway["launches_per_query"].get(name, 0),
         })

@@ -28,8 +28,15 @@ save converts every leaf to numpy in the caller's thread: device tensors
 are copied to the host there, so the writer thread never touches the
 device.  A restore puts each leaf where the template's leaf lies: a tensor
 leaf on its tensor's device and dtype, a numpy leaf (a session's int64
-cursor) on the host.  Mesh placements (the reference's ``shardings``) come
-with the port's distribution slice.
+cursor) on the host.
+
+On a mesh (`repro_torch.parallel`): a DTensor leaf is saved whole (every
+rank calls the save and gathers it; only rank 0 of the mesh writes, the
+others wait for it at a barrier), and :func:`restore_pytree`'s
+``shardings`` places leaves on the current mesh -- ``(mesh, [Shard(0)])``
+gives each rank its rows, ``(mesh, [Replicate()])`` the whole array -- so a
+generation written at one world size restores at another (elastic
+restore).
 
 Chaos hooks (`repro_torch.runtime.chaos`): ``checkpoint.write`` fires at the
 top of every :func:`save_pytree`; ``checkpoint.payload`` is checked after
@@ -55,10 +62,6 @@ __all__ = ["CheckpointCorrupt", "CheckpointManager", "path_key", "save_pytree",
            "sweep_tmp_dirs", "latest_step", "restore_pytree", "list_steps",
            "restore_latest_intact", "load_manifest", "restore_tenant_pytree",
            "restore_tenant_latest_intact"]
-
-_MESH = ("restoring onto a device mesh (shardings) comes with the port's distribution "
-         "slice (ROADMAP Queue A item 7)")
-
 
 class CheckpointCorrupt(RuntimeError):
     """A checkpoint failed content verification (torn write, bit rot)."""
@@ -105,9 +108,28 @@ def _map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
 
 
 def _to_host(leaf) -> np.ndarray:
+    if _mesh_of(leaf) is not None:
+        leaf = leaf.full_tensor()  # a collective: every rank of the mesh calls it
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _mesh_of(leaf):
+    """The DeviceMesh of a DTensor leaf, else None."""
+    return getattr(leaf, "device_mesh", None) if isinstance(leaf, torch.Tensor) else None
+
+
+def _writes(tree: Any):
+    """(this process writes, the group to wait on): a tree with DTensor
+    leaves is written by rank 0 of their mesh only."""
+    meshes = [m for m in (_mesh_of(leaf) for _, leaf in _items(tree)) if m is not None]
+    if not meshes:
+        return True, None
+    mesh = meshes[0]
+    if any(m is not mesh for m in meshes):
+        raise ValueError("the DTensor leaves of one checkpoint must share one mesh")
+    return mesh.get_local_rank() == 0, mesh.get_group()
 
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
@@ -129,15 +151,32 @@ def _checksum(arr: np.ndarray) -> int:
 
 def save_pytree(tree: Any, directory: str, step: int, meta: Optional[dict] = None) -> str:
     """Synchronous atomic save; returns the generation's path.  ``meta``
-    (JSON-serializable) is recorded verbatim in the manifest."""
+    (JSON-serializable) is recorded verbatim in the manifest.  A tree with
+    DTensor leaves is saved by every rank of their mesh together: each
+    leaf is gathered whole, rank 0 writes, and every rank returns once the
+    generation is in place."""
+    writer, group = _writes(tree)
+    if group is None:
+        _chaos().fire("checkpoint.write")  # injected transient IO failure point
+        return _write(_flatten(tree), tree, directory, step, meta)
+    flat = _flatten(tree)  # the gathers: every rank takes part
+    try:
+        if not writer:
+            return os.path.join(directory, f"step_{step:010d}")
+        _chaos().fire("checkpoint.write")
+        return _write(flat, tree, directory, step, meta)
+    finally:
+        torch.distributed.barrier(group=group)
+
+
+def _write(flat: Dict[str, np.ndarray], tree: Any, directory: str, step: int,
+           meta: Optional[dict]) -> str:
     chaos = _chaos()
-    chaos.fire("checkpoint.write")  # injected transient IO failure point
     os.makedirs(directory, exist_ok=True)
     # a unique tmp name: two writers of one step never collide, and a crash
     # mid-write leaves an identifiable orphan for sweep_tmp_dirs
     tmp = tempfile.mkdtemp(prefix=f"tmp.{step}.", dir=directory)
     final = os.path.join(directory, f"step_{step:010d}")
-    flat = _flatten(tree)
     payload = os.path.join(tmp, "arrays.npz")
     np.savez(payload, **flat)
     if chaos.should_corrupt("checkpoint.payload"):
@@ -281,13 +320,53 @@ def _like(arr: np.ndarray, leaf) -> Any:
     return np.asarray(arr, dtype=np.asarray(leaf).dtype)
 
 
+def _placed(arr: np.ndarray, leaf, sharding) -> Any:
+    """``arr`` (the whole leaf) on a mesh: ``sharding`` is (mesh,
+    placements), one placement, ``Shard(0)`` (this rank's rows) or
+    ``Replicate()`` (the whole array), as a DTensor of the template leaf's
+    dtype."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ..parallel.sharding import mesh_device
+
+    mesh, placements = sharding
+    (placement,) = placements
+    if isinstance(placement, Shard) and placement.dim == 0 and mesh.ndim == 1:
+        world, rank = mesh.size(), mesh.get_local_rank()
+        if arr.shape[0] % world:
+            raise ValueError(f"a leaf of {arr.shape[0]} rows cannot be sharded over {world} "
+                             f"ranks")
+        per = arr.shape[0] // world
+        arr = arr[rank * per: (rank + 1) * per]
+    elif not isinstance(placement, Replicate):
+        raise ValueError(f"restore places leaves by Shard(0) on a 1-D mesh or Replicate(), "
+                         f"got {placement}")
+    local = torch.from_numpy(np.ascontiguousarray(arr)).to(device=mesh_device(mesh),
+                                                           dtype=leaf.dtype)
+    return DTensor.from_local(local, mesh, [placement], run_check=False)
+
+
+def _sharding_at(shardings: Any, path: tuple):
+    """The entry of ``shardings`` (a tree shaped like the template, or None)
+    at a template leaf's path: None or a (mesh, placements) pair."""
+    for p in path:
+        if shardings is None:
+            return None
+        shardings = (getattr(shardings, p[1:]) if isinstance(p, str) and p.startswith(".")
+                     else shardings[p])
+    return shardings
+
+
 def restore_pytree(template: Any, directory: str, step: Optional[int] = None,
                    shardings: Any = None, verify: bool = True) -> Any:
     """Restore a generation (the newest by default) into the structure of
     ``template``, each leaf checked against the manifest's crc32 (unless
-    ``verify`` is off) and placed where the template's leaf lies."""
-    if shardings is not None:
-        raise NotImplementedError(_MESH)
+    ``verify`` is off) and placed where the template's leaf lies, or where
+    ``shardings`` says: a tree shaped like the template whose entries are
+    None (the template's placement) or a ``(DeviceMesh, placements)`` pair
+    (a DTensor of this rank's rows for ``[Shard(0)]``, of the whole array
+    for ``[Replicate()]``).  A generation written at any world size
+    restores at any other."""
     step = _resolve_step(directory, step)
     checksums = (_load_checksums(os.path.join(directory, f"step_{step:010d}"))
                  if verify else None)
@@ -296,7 +375,8 @@ def restore_pytree(template: Any, directory: str, step: Optional[int] = None,
     def leaf_of(path, leaf):
         arr = _verified_leaf(data, path_key(path), checksums, step, directory,
                              tuple(np.shape(leaf)))
-        return _like(arr, leaf)
+        sharding = _sharding_at(shardings, path)
+        return _like(arr, leaf) if sharding is None else _placed(arr, leaf, sharding)
 
     return _map_with_path(leaf_of, template)
 
@@ -455,8 +535,13 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:010d}"), ignore_errors=True)
 
     def save(self, tree: Any, step: int, meta: Optional[dict] = None) -> None:
+        """Queue a save of ``tree``.  DTensor leaves are gathered here (every
+        rank of their mesh calls ``save``) and only rank 0 of the mesh
+        queues the write."""
+        writer, _ = _writes(tree)
         host_tree = _map_with_path(lambda _, leaf: _to_host(leaf), tree)  # off the device now
-        self._q.put((host_tree, step, meta))
+        if writer:
+            self._q.put((host_tree, step, meta))
 
     def flush(self) -> None:
         self._q.join()

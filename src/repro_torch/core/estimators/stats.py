@@ -8,8 +8,9 @@ engines' chunk kernels.  :func:`lag_sum_engine` and :func:`moment_engine`
 build `StreamingEngine`s; :func:`streaming_autocovariance` and
 :func:`streaming_window_moments` finalize their states (the ragged
 end-of-series lag pairs recovered from the carried tail).  Finalizers take
-states with leading batch axes as well.  The mesh path
-(``autocovariance_sharded``) arrives with the port's distribution slice.
+states with leading batch axes as well.  :func:`autocovariance_sharded`
+is the mesh path: each rank's blocks in one batched launch, one
+`psum_tree` of the (max_lag+1, d, d) sums.
 """
 from __future__ import annotations
 
@@ -104,9 +105,19 @@ def autocovariance_blocked(x: torch.Tensor, max_lag: int, block_size: int,
     return s * gamma_normalizer(x.shape[0], max_lag, normalization).to(s.device)[:, None, None]
 
 
-def autocovariance_sharded(*args, **kwargs) -> torch.Tensor:
-    raise NotImplementedError("the mesh path arrives with the port's distribution slice "
-                              "(ROADMAP Queue A item 7)")
+def autocovariance_sharded(blocks, spec: OverlapSpec, max_lag: int, mesh, axis: str = "data",
+                           normalization: Normalization = "paper",
+                           backend: BackendSpec = None) -> torch.Tensor:
+    """Cluster path: the blocks (a ``Shard(0)`` DTensor, ``h_left`` 0 and
+    ``h_right >= max_lag``) sharded over ``axis``; each rank's lag sums in
+    one batched launch of kernel 2 on its local blocks, then ONE `psum_tree`
+    of the (max_lag+1, d, d) sums.  The data never moves between ranks:
+    only the sufficient statistic is reduced, the paper's scaling claim."""
+    from ...parallel.sharding import psum_tree
+
+    s = psum_tree(block_lag_sums(blocks.to_local(), spec, max_lag, backend=backend).sum(0),
+                  mesh, axis)
+    return s * gamma_normalizer(spec.n, max_lag, normalization).to(s.device)[:, None, None]
 
 
 def windowed_moments(x: torch.Tensor, window: int, backend: BackendSpec = None) -> dict:

@@ -12,15 +12,18 @@ walks the data once; ``.append(chunk)`` folds new samples into the carried
 state, so a re-collect costs one walk of the new samples only.  Results are memoized
 until the next append.
 
-The sharded placement is the paper's overlapping block store on one
-device.  Built from a raw series, the store is placed at the first
-``collect()``, when the plan knows its widest window, so the halo is
-exactly ``W_fused - 1``.  A collect then runs each plan group's chunk
-kernel ONCE on the whole (P, B + carry, d) block stack (one megakernel
-launch for every block on the card), with a (P, B) start mask and each
-block's global start as a (P,) offset, and sums the per-block partials over
-the block axis in a fixed order (``torch.sum``, no atomics).  Appends
-scatter into the store in place and fold into the carried state.
+The sharded placement is the paper's overlapping block store, on one
+device or on a mesh (`repro_torch.parallel`).  Built from a raw series, the
+store is placed at the first ``collect()``, when the plan knows its widest
+window, so the halo is exactly ``W_fused - 1``.  A collect then runs each
+plan group's chunk kernel ONCE on the whole (P, B + carry, d) block stack
+(one megakernel launch for every block on the card), with a (P, B) start
+mask and each block's global start as a (P,) offset, and sums the
+per-block partials over the block axis in a fixed order (``torch.sum``, no
+atomics).  On a mesh each rank does so over its own blocks, and the sums,
+the sample sum and the carried head and tail ride ONE `psum_tree`.  Appends
+scatter into a one-device store in place (a mesh frame keeps them for
+replans) and fold into the carried state.
 
 The engine mode (:meth:`SeriesFrame.from_engine`) carries one
 `StreamingEngine`'s state: the core that `repro_torch.timeseries.
@@ -154,6 +157,8 @@ class SeriesFrame(_DeferredRequests):
         self._chunk_source = None               # chunks: (undrained source, chunk_size)
         self._chunk_list: Optional[list] = None  # chunks: drained, not yet folded
         self._store = None                      # sharded: TimeSeriesStore
+        self._mesh = None                       # sharded: the DeviceMesh, or None
+        self._axis = "data"
         self._block_size = 8192
         self._store_owned = False               # the frame built the store
         self._pending: list = []                # sharded appends kept for replans
@@ -194,18 +199,31 @@ class SeriesFrame(_DeferredRequests):
         `TimeSeriesStore` on ``device`` (``h_left`` 0, ``h_right`` covering
         the plan's widest window).  A collect is one chunk-kernel call per
         plan group over every block at once, and one sum over the blocks.
+        With a ``mesh`` (a raw series: every rank passes the whole series
+        and the same appends) or a mesh store, each rank walks its own
+        blocks and the partials merge in one `psum_tree`; ``device`` must
+        name the mesh's device type.  A one-device store with a mesh, or a
+        store on another mesh, raises.
         """
-        from ..timeseries.dataset import _MESH
-
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         frame = cls("sharded", None, backend, device)
-        if hasattr(data, "spec") and hasattr(data, "blocks"):  # TimeSeriesStore
-            if data.mesh is not None:
-                raise NotImplementedError(_MESH)
-            if data.blocks.device != frame._device:
-                raise ValueError(f"the store lies on {data.blocks.device}, the frame computes "
-                                 f"on {frame._device}; pass device={str(data.blocks.device)!r}")
+        is_store = hasattr(data, "spec") and hasattr(data, "blocks")  # TimeSeriesStore
+        if is_store and mesh is not None and data.mesh is not mesh:
+            raise ValueError("the store is not placed on the frame's mesh; build it with "
+                             "TimeSeriesStore.from_series(..., mesh=mesh) or pass no mesh")
+        mesh = data.mesh if is_store else mesh
+        if mesh is not None:
+            from ..parallel.sharding import mesh_device
+
+            if frame._device.type != mesh.device_type:
+                raise ValueError(f"the mesh lies on {mesh.device_type}, the frame computes on "
+                                 f"{frame._device}; pass device={mesh.device_type!r}")
+            frame._device = mesh_device(mesh)
+            frame._mesh, frame._axis = mesh, data.axis if is_store else axis
+        if is_store:
+            blocks = data.blocks if mesh is None else data.blocks.to_local()
+            if blocks.device != frame._device:
+                raise ValueError(f"the store lies on {blocks.device}, the frame computes "
+                                 f"on {frame._device}; pass device={str(blocks.device)!r}")
             frame._store = data
             frame._d = data.blocks.shape[-1]
             frame._n = data.spec.n
@@ -316,10 +334,11 @@ class SeriesFrame(_DeferredRequests):
         return self
 
     def _can_scatter_append(self) -> bool:
-        """Sharded appends scatter into the store when the frame built it
-        (replicate mode, causal halos: the `append_rows` contract); a
-        caller's store is not mutated."""
-        return (self._store is not None and self._store_owned
+        """Sharded appends scatter into the store when the frame built it on
+        one device (replicate mode, causal halos: the `append_rows`
+        contract); a caller's store is not mutated, and a mesh store would
+        need a re-sharding per growth step."""
+        return (self._store is not None and self._store_owned and self._store.mesh is None
                 and self._store.halo_mode == "replicate" and self._store.spec.h_left == 0)
 
     @property
@@ -447,7 +466,8 @@ class SeriesFrame(_DeferredRequests):
         if self._store is None:
             self._store = TimeSeriesStore.from_series(
                 self._x, block_size=min(self._block_size, max(self._x.shape[0], 1)),
-                h_left=0, h_right=carry_max, device=self._device)
+                h_left=0, h_right=carry_max, mesh=self._mesh, axis=self._axis,
+                device=self._device)
             self._store_owned = True
             self._x = None  # the store owns the data now
         return self._store
@@ -459,14 +479,24 @@ class SeriesFrame(_DeferredRequests):
         mask of the starts whose full group window lies in the series (and
         on the group's stride), and z0 = block id * B as a (P,) int32
         tensor; the per-block partials are then summed over the block axis
-        in a fixed order.  The carried head and tail come from the block
-        cores; appends kept before the store existed fold in afterwards."""
+        in a fixed order.  On a mesh P is the rank's own blocks (global ids
+        from its offset), and the sums, the sample sum and the rank's rows of
+        the series' edges ride one `psum_tree`.  The carried head and tail
+        come from the block cores; appends kept before the store existed
+        (or, on a mesh, since) fold in afterwards."""
         store = self._ensure_store(plan)
         spec = store.spec
         B, n, P = spec.block_size, spec.n, spec.num_blocks
-        blocks = store.padded_blocks_single_host()
-        dev = blocks.device
-        bid = torch.arange(P, device=dev, dtype=torch.int32)
+        if store.mesh is None:
+            blocks, offset = store.padded_blocks_single_host(), 0
+        else:
+            from ..parallel.sharding import mesh_rank
+
+            local = store.blocks.to_local()
+            blocks = store.padded_blocks_local(local)
+            offset = mesh_rank(store.mesh, store.axis) * local.shape[0]
+        dev, p_local = blocks.device, blocks.shape[0]
+        bid = offset + torch.arange(p_local, device=dev, dtype=torch.int32)
         starts = bid.long()[:, None] * B + torch.arange(B, device=dev)
         z0 = bid * B
         stats = []
@@ -479,11 +509,37 @@ class SeriesFrame(_DeferredRequests):
             partials = g.engine._call_kernel(y, mask, z0)
             stats.append(tree_map(lambda leaf: leaf.sum(0), partials))
         # slots past the series end hold zeros, but only the last block's
-        # valid core rows are summed there
-        sample_sum = blocks[: P - 1, :B].sum(1).sum(0) + blocks[P - 1, : n - (P - 1) * B].sum(0)
+        # valid core rows are summed there (on the rank that owns it)
+        last = P - 1 - offset
+        if last < p_local:
+            sample_sum = blocks[:last, :B].sum(1).sum(0) + blocks[last, : n - (P - 1) * B].sum(0)
+        else:
+            sample_sum = blocks[:, :B].sum(1).sum(0)
 
         carry_max = max(g.engine.carry for g in plan.groups)
-        head_full, tail_full = self._series_edges(store, carry_max)
+        if store.mesh is None:
+            head_full, tail_full = self._series_edges(store, carry_max)
+        else:
+            from ..parallel.sharding import gather_tree, sum_ranks
+
+            # the edge rows: each rank gives the ones it owns (zeros
+            # elsewhere), and each is then picked from its owner's copy,
+            # never summed; an off-series row is rank 0's zeros
+            ids = np.concatenate([np.arange(carry_max), n - carry_max + np.arange(carry_max)])
+            valid = (ids >= 0) & (ids < n)
+            ids = np.where(valid, ids, 0)
+            owner = (ids // B) // p_local
+            mine = valid & (ids // B - offset >= 0) & (ids // B - offset < p_local)
+            mine_t = torch.from_numpy(mine).to(dev)
+            rows = local[torch.from_numpy(np.where(mine, ids // B - offset, 0)).to(dev),
+                         torch.from_numpy(ids % B).to(dev)]
+            edges = torch.where(mine_t[:, None], rows, 0.0)
+            stats, sample_sum, edges = gather_tree((stats, sample_sum, edges), store.mesh,
+                                                   store.axis)
+            stats = tree_map(sum_ranks, stats)
+            sample_sum = sum_ranks(sample_sum)
+            picked = edges[torch.from_numpy(owner).to(dev), torch.arange(len(ids), device=dev)]
+            head_full, tail_full = picked[:carry_max], picked[carry_max:]
         # each group's state owns its buffers (an in-place update of one
         # group must not reach another's)
         own = (lambda t: t) if len(plan.groups) == 1 else torch.clone

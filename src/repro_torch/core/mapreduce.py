@@ -18,15 +18,17 @@ and this module runs it three ways with the same result:
     block on the card;
   * :func:`scan_window_map_reduce` -- the same blocks folded one at a time
     with a running :func:`tree_sum`: P chunk-kernel calls, O(1) memory in
-    the block count.
+    the block count;
+  * :func:`sharded_window_map_reduce` -- the block axis sharded over a mesh
+    (`repro_torch.parallel`): each rank reduces its own blocks and the
+    partials merge in ONE `psum_tree`, the paper's cluster scheme.
 
 Gradients flow through the per-window paths (autograd through the vmap).
 
 A statistic is a tensor or a dict / tuple / list of statistics; the tree
 helpers walk that structure directly instead of through a pytree library.
 Dicts are walked in sorted key order, so two statistics built in different
-insertion orders flatten alike.  The mesh path (``sharded_window_map_reduce``)
-arrives with the port's distribution slice.
+insertion orders flatten alike.
 """
 from __future__ import annotations
 
@@ -178,6 +180,26 @@ def scan_window_map_reduce(kernel: Optional[KernelFn], x: torch.Tensor, spec: Ov
     return acc
 
 
-def sharded_window_map_reduce(*args, **kwargs) -> Any:
-    raise NotImplementedError("the mesh path arrives with the port's distribution slice "
-                              "(ROADMAP Queue A item 7)")
+def sharded_window_map_reduce(kernel: Optional[KernelFn], blocks, spec: OverlapSpec, mesh,
+                              axis: str = "data",
+                              chunk_kernel: Optional[Callable] = None) -> Any:
+    """Cluster path: the block axis sharded over the mesh dimension
+    ``axis``, one `psum_tree` at the end.
+
+    ``blocks`` is the halo-padded block array as a ``Shard(0)`` DTensor (a
+    replicate-mode `TimeSeriesStore`'s ``blocks``).  Each rank applies
+    ``kernel`` (or ``chunk_kernel``, on all its blocks at once) to its local
+    blocks with their global ids, sums them, and the only cross-rank traffic
+    is the reduction of the (tiny) sufficient statistics, never the data.
+    """
+    from ..parallel.sharding import mesh_axis_size, mesh_rank, psum_tree
+
+    world = mesh_axis_size(mesh, (axis,))
+    if spec.num_blocks % world != 0:
+        raise ValueError(f"num_blocks {spec.num_blocks} must divide evenly over mesh axis "
+                         f"{axis}={world}")
+    local = blocks.to_local()
+    partials = block_partials(kernel, local, spec,
+                              block_offset=mesh_rank(mesh, axis) * (spec.num_blocks // world),
+                              chunk_kernel=chunk_kernel)
+    return psum_tree(tree_map(lambda leaf: leaf.sum(0), partials), mesh, axis)

@@ -16,7 +16,7 @@ and moved to the device once; the gather and the zero fill are one
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,18 +83,23 @@ def replication_overhead(spec: OverlapSpec) -> float:
     return spec.num_blocks * spec.padded_width / spec.n - 1.0
 
 
-def make_overlapping_blocks(x: torch.Tensor, spec: OverlapSpec) -> Tuple[torch.Tensor,
-                                                                         torch.Tensor]:
+def make_overlapping_blocks(x: torch.Tensor, spec: OverlapSpec,
+                            block_range: Optional[Tuple[int, int]] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Build the overlapping blocks of a contiguous (n, d) (or (n,)) series.
 
     Returns blocks (P, padded_width, d), zero outside the series, and the
-    (P, padded_width) bool slot mask, both on ``x``'s device.
+    (P, padded_width) bool slot mask, both on ``x``'s device.  With
+    ``block_range`` (lo, hi) only blocks lo..hi-1 are built (a mesh rank's
+    shard of the block axis).
     """
     if x.ndim == 1:
         x = x[:, None]
     if x.shape[0] != spec.n:
         raise ValueError(f"series length {x.shape[0]} != spec.n {spec.n}")
     idx = spec.global_indices()
+    if block_range is not None:
+        idx = idx[block_range[0]: block_range[1]]
     mask = torch.from_numpy((idx >= 0) & (idx < spec.n)).to(x.device)
     flat = torch.from_numpy(np.clip(idx, 0, spec.n - 1).reshape(-1)).to(x.device)
     gathered = x.index_select(0, flat).view(idx.shape + (x.shape[1],))

@@ -9,8 +9,8 @@
     than ``threshold x`` the median.
   * plan_remesh -- given the surviving device count, the largest (data,
     model) grid the model's divisibility allows: pure arithmetic, the
-    decision an elastic restart makes (restoring onto the new mesh comes
-    with the port's distribution slice).
+    decision an elastic restart makes; `FaultTolerantLoop.restore_or`'s
+    ``shardings`` then places the restored state on the new mesh.
 """
 from __future__ import annotations
 
@@ -139,8 +139,9 @@ class FaultTolerantLoop:
         skipped are recorded in ``last_restore_skipped`` so the caller can
         surface the freshness loss.  When every retained generation is
         corrupt, resume-from-zero beats dying — the cold start is taken and
-        the skipped list says why.  ``shardings`` (a mesh placement) raises
-        ``NotImplementedError`` until the port's distribution slice.
+        the skipped list says why.  ``shardings`` places the restored
+        leaves on the current mesh (`restore_pytree`): a generation written
+        at another world size restores here.
         """
         from ..checkpoint.manager import CheckpointCorrupt, restore_latest_intact
 

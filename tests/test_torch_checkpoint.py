@@ -63,6 +63,19 @@ def _zeros_like(tree):
                                                else np.zeros_like(leaf)), tree)
 
 
+@pytest.fixture
+def mesh1(tmp_path):
+    """A one-rank gloo mesh in this process (the distribution layer at
+    world 1; tests/test_torch_mesh.py runs worlds 1-8 in rank processes)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import data_mesh
+
+    mesh = data_mesh(1, 0, "file://" + str(tmp_path / "rendezvous"), device="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
 def _assert_tree_equal(a, b):
     ia, ib = tm._items(a), tm._items(b)
     assert [p for p, _ in ia] == [p for p, _ in ib]
@@ -123,14 +136,36 @@ def test_restore_shape_mismatch_names_key_and_shapes(tmp_path):
     assert "layers/w" in msg and "(8, 4)" in msg and "(4, 4)" in msg
 
 
-def test_shardings_wait_for_the_distribution_slice(tmp_path):
-    save_pytree(_tree(), str(tmp_path), 0)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        restore_pytree(_tree(), str(tmp_path), shardings={"any": None})
-    loop = FaultTolerantLoop(str(tmp_path), every=0)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        loop.restore_or(_tree(), shardings={"any": None})
+def test_shardings_wait_for_the_distribution_slice(tmp_path, mesh1):
+    """Mesh placements at world 1: a DTensor leaf saves whole, ``shardings``
+    restores it as Shard(0) or Replicate() (None keeps the template's
+    placement) bitwise, a generation without DTensors restores onto the
+    mesh, and FaultTolerantLoop.restore_or passes ``shardings`` through."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    tree = _tree()
+    w = tree["layers"]["w"]
+    tree["layers"]["w"] = DTensor.from_local(w, mesh1, [Shard(0)], run_check=False)
+    ckdir = str(tmp_path / "ck")
+    save_pytree(tree, ckdir, 0)
+    plain = restore_pytree(_zeros_like(_tree()), ckdir)  # no shardings: plain tensors
+    _assert_tree_equal(plain, _tree())
+    shardings = tm._map_with_path(lambda path, leaf: None, _tree())
+    for placement in (Shard(0), Replicate()):
+        shardings["layers"]["w"] = (mesh1, [placement])
+        back = restore_pytree(_zeros_like(_tree()), ckdir, shardings=shardings)
+        got = back["layers"]["w"]
+        assert isinstance(got, DTensor) and got.placements == (placement,)
+        assert torch.equal(got.to_local(), w) and got.shape == w.shape
+        back["layers"]["w"] = got.to_local()
+        _assert_tree_equal(back, _tree())
+    loop = FaultTolerantLoop(ckdir, every=0)
+    state, start = loop.restore_or(_zeros_like(_tree()), shardings=shardings)
     loop.close()
+    assert start == 1 and torch.equal(state["layers"]["w"].full_tensor(), w)
+    with pytest.raises(ValueError, match="by Shard\\(0\\)"):
+        shardings["layers"]["w"] = (mesh1, [Shard(1)])
+        restore_pytree(_zeros_like(_tree()), ckdir, shardings=shardings)
 
 
 # --------------------------------------------------- atomicity and debris

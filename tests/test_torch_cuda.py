@@ -1182,3 +1182,104 @@ def test_breaker_on_the_card_under_an_injected_fault(dev, fallback):
     assert (m["trips"], m["recoveries"], m["fallback_calls"]) == (1, 1, served)
     for out in outs:
         assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(want)))
+
+
+# ------------------------------------------------------- the mesh on the card
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """A one-rank NCCL mesh on the card (the driver's machine has one)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import data_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # no network there
+    mesh = data_mesh(1, 0, "file://" + str(tmp_path / "rendezvous"))
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _mesh_series(dev, n=8 * 512, d=16):
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    return torch.randn((n, d), generator=g, device=dev)
+
+
+def _mesh_counted(fn):
+    from repro_torch.parallel import collective_count, reset_collective_count
+
+    reset_launch_counts()
+    reset_collective_count()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in launch_counts().items() if v}, collective_count()
+
+
+def test_mesh_collect_over_nccl_is_bitwise_the_one_device_collect(dev, nccl_mesh):
+    """(a) from_sharded(mesh=) at world 1: kernel 1 once and one collective
+    a collect, bitwise the one-device frame; an append and its collect
+    bitwise too; a replan walks the blocks and replays the append."""
+    from repro_torch import SeriesFrame
+    from repro_torch.core.mapreduce import tree_leaves
+
+    x, extra = _mesh_series(dev), _mesh_series(dev, 300)
+    mesh_frame = _store_plan(SeriesFrame.from_sharded(x, mesh=nccl_mesh, block_size=512,
+                                                      device=dev))
+    free = _store_plan(SeriesFrame.from_sharded(x, block_size=512, device=dev))
+    got, counts, coll = _mesh_counted(mesh_frame.collect)
+    assert counts["fused_plan_megakernel"] == 1 and coll == 1
+    want = free.collect()
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    got, counts, coll = _mesh_counted(lambda: mesh_frame.append(extra).collect())
+    assert counts["fused_plan_megakernel"] == 2 and coll == 0  # the chunk and its boundary
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(free.append(extra).collect())))
+    mesh_frame.moments(8)
+    free.moments(8)
+    got, counts, coll = _mesh_counted(mesh_frame.collect)
+    assert counts["fused_plan_megakernel"] == 3 and coll == 1
+    _results_close(got, free.collect())
+
+
+def test_mesh_stores_over_nccl_are_bitwise_the_one_device_store(dev, nccl_mesh):
+    """(b) mesh stores in both halo modes: map_reduce exchange bitwise
+    replicate bitwise the one-device store, one collective each;
+    sharded_window_map_reduce of a chunk kernel launches kernel 2 once;
+    halo_exchange at world 1 is the zero-padded shard."""
+    from repro_torch import TimeSeriesStore
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.halo import halo_exchange
+    from repro_torch.core.mapreduce import block_window_map_reduce, sharded_window_map_reduce
+
+    x = _mesh_series(dev)
+    kern = lambda w: torch.outer(w[0], w[-1])
+    free = TimeSeriesStore.from_series(x, 512, 0, 40, device=dev)
+    want = free.map_reduce(kern)
+    for mode in ("replicate", "exchange"):
+        st = TimeSeriesStore.from_series(x, 512, 0, 40, mesh=nccl_mesh, halo_mode=mode,
+                                         device=dev)
+        got, _, coll = _mesh_counted(lambda: st.map_reduce(kern))
+        assert torch.equal(got, want) and coll == 1
+    be = get_backend(None, dev)
+    ck = lambda y, m: be.masked_lagged_sums(y, m, 16)
+    st = TimeSeriesStore.from_series(x, 512, 0, 40, mesh=nccl_mesh, device=dev)
+    got, counts, coll = _mesh_counted(lambda: sharded_window_map_reduce(
+        None, st.blocks, st.spec, nccl_mesh, chunk_kernel=ck))
+    assert counts == {"cross_window_stats": 1} and coll == 1
+    assert torch.equal(got, block_window_map_reduce(None, x, free.spec, chunk_kernel=ck))
+    padded = halo_exchange(x, 4, 5, nccl_mesh)
+    assert torch.equal(padded[4:-5], x) and not padded[:4].any() and not padded[-5:].any()
+
+
+def test_autocovariance_sharded_over_nccl_is_bitwise_blocked(dev, nccl_mesh):
+    """(c) autocovariance_sharded at world 1: kernel 2 once, one collective,
+    bitwise autocovariance_blocked."""
+    from repro_torch import TimeSeriesStore
+    from repro_torch.core.estimators.stats import autocovariance_blocked, autocovariance_sharded
+
+    x = _mesh_series(dev)
+    st = TimeSeriesStore.from_series(x, 512, 0, 16, mesh=nccl_mesh, device=dev)
+    got, counts, coll = _mesh_counted(lambda: autocovariance_sharded(st.blocks, st.spec, 16,
+                                                                     nccl_mesh))
+    assert counts == {"cross_window_stats": 1} and coll == 1
+    assert torch.equal(got, autocovariance_blocked(x, 16, 512))

@@ -117,10 +117,11 @@ def test_entry_points_default_to_the_card():
     assert get_backend(device="cpu").name == "cuda"  # the kernels' plain versions on the CPU
 
 
-def test_store_and_streaming_estimators_run_without_jax():
+def test_store_and_streaming_estimators_run_without_jax(tmp_path):
     """The overlapping block store, the sharded frame, the map-reduce paths,
-    the streaming front-ends, prediction and the generator with JAX and the
-    reference package unimportable."""
+    the streaming front-ends, prediction, the generator and the distribution
+    layer (``psum_tree`` and ``halo_exchange`` on a one-rank gloo mesh) with
+    JAX and the reference package unimportable."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
@@ -150,6 +151,16 @@ def test_store_and_streaming_estimators_run_without_jax():
         "Ah, _, _ = block_levinson(g, 2)\n"
         "assert arma_forecast(Ah, torch.zeros(0, 2, 2), x, 4).shape == (4, 2)\n"
         "t = torch.arange(10.0); assert regularize(t, x[:10], t + 0.5)[:9].shape == (9, 2)\n"
+        "from repro_torch.core.halo import halo_exchange\n"
+        "from repro_torch.parallel import collective_count, data_mesh, psum_tree\n"
+        f"mesh = data_mesh(1, 0, 'file://{tmp_path / 'rendezvous'}', device='cpu')\n"
+        "tree = {'a': x[:3], 'n': torch.tensor([3])}\n"
+        "out = psum_tree(tree, mesh)\n"
+        "assert torch.equal(out['a'], x[:3]) and torch.equal(out['n'], tree['n'])\n"
+        "assert collective_count() == 2  # one per dtype\n"
+        "h = halo_exchange(x[:8], 2, 3, mesh)\n"
+        "assert torch.equal(h[2:10], x[:8]) and not h[:2].any() and not h[10:].any()\n"
+        "torch.distributed.destroy_process_group()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"

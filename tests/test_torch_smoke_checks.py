@@ -460,3 +460,14 @@ def test_ops_per_call_counts_each_dispatched_operator_exactly(monkeypatch, extra
     assert base == again and base["aten.mul.Tensor"] == 1 and base["aten.sum.dim_IntList"] == 1
     assert got.get("aten.add.Tensor", 0) - base.get("aten.add.Tensor", 0) == extra
     assert (got == base) == (extra == 0)
+
+
+def test_results_bitwise_holds_nan_and_structure():
+    """The mesh phase's bitwise check: NaN equal to NaN bit for bit, one
+    flipped bit or another nesting caught."""
+    a = {"x": torch.tensor([1.0, float("nan")]), "y": (torch.zeros(2), torch.ones(1))}
+    b = {"x": a["x"].clone(), "y": (torch.zeros(2), torch.ones(1))}
+    assert smoke.results_bitwise(a, b)
+    b["y"][0][1] = -0.0
+    assert not smoke.results_bitwise(a, b)
+    assert not smoke.results_bitwise(a, {"x": a["x"], "z": a["y"]})

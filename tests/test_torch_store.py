@@ -64,6 +64,19 @@ def _assert_results(got, want):
         _assert_tree(got[name], w, **TOL[re.sub(r"_\d+$", "", name)])
 
 
+@pytest.fixture
+def mesh1(tmp_path):
+    """A one-rank gloo mesh in this process (the distribution layer at
+    world 1; tests/test_torch_mesh.py runs worlds 1-8 in rank processes)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import data_mesh
+
+    mesh = data_mesh(1, 0, "file://" + str(tmp_path / "rendezvous"), device="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
 # ----------------------------------------------------------------- overlap
 GEOMETRIES = [(100, 10, 3, 5), (97, 16, 0, 7), (64, 64, 2, 2), (10, 3, 4, 4),
               (5, 8, 0, 2), (5, 64, 3, 3), (40, 4, 6, 9), (40, 4, 4, 4), (7, 11, 13, 17)]
@@ -229,9 +242,28 @@ def test_gradient_flows_through_blocked_path():
     np.testing.assert_allclose(g_block, want, rtol=1e-5, atol=1e-4)
 
 
-def test_sharded_map_reduce_waits_for_distribution():
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tmr.sharded_window_map_reduce(None, None, None, None)
+def test_sharded_map_reduce_waits_for_distribution(mesh1):
+    """The mesh path at world 1: a chunk kernel and a per-window kernel
+    over a mesh store's ``Shard(0)`` blocks, each one collective, bitwise
+    the one-device block path and within the map-reduce tolerance of the
+    reference's."""
+    from repro_torch.parallel import collective_count, reset_collective_count
+
+    x = _series(1000, 3, seed=21)
+    store = TimeSeriesStore.from_series(x, 128, 0, 3, mesh=mesh1, device="cpu")
+    spec = tov.OverlapSpec(1000, 128, 0, 3)
+    be = TorchBackend()
+    ck = lambda y, m: be.masked_lagged_sums(y, m, 3)
+    kern = lambda w: torch.outer(w[0], w[-1])
+    rkern = lambda w: jnp.outer(w[0], w[-1])
+    want = rmr.block_window_map_reduce(rkern, jnp.asarray(x), rov.OverlapSpec(1000, 128, 0, 3))
+    for k, c in ((None, ck), (kern, None)):
+        reset_collective_count()
+        got = tmr.sharded_window_map_reduce(k, store.blocks, store.spec, mesh1, chunk_kernel=c)
+        assert collective_count() == 1
+        assert torch.equal(got, tmr.block_window_map_reduce(k, torch.from_numpy(x), spec,
+                                                            chunk_kernel=c))
+    _assert_tree(got, want, rtol=2e-5, atol=2e-4)
 
 
 # ------------------------------------------------------------------- store
@@ -282,7 +314,7 @@ def test_append_rows_equals_replacement(B, hr):
     assert store.spec == fresh.spec
 
 
-def test_append_rows_contract():
+def test_append_rows_contract(mesh1):
     x = _series(100, seed=1)
     with pytest.raises(ValueError, match="replicate"):
         TimeSeriesStore.from_series(x, 16, 0, 3, halo_mode="exchange",
@@ -291,11 +323,12 @@ def test_append_rows_contract():
         TimeSeriesStore.from_series(x, 16, 2, 3, device="cpu").append_rows(x[:4])
     with pytest.raises(ValueError, match="d="):
         TimeSeriesStore.from_series(x, 16, 0, 3, device="cpu").append_rows(_series(4, 3))
-    with pytest.raises(NotImplementedError, match="distribution"):
-        TimeSeriesStore.from_series(x, 16, 0, 3, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="single-device"):
+        TimeSeriesStore.from_series(x, 16, 0, 3, mesh=mesh1, device="cpu").append_rows(x[:4])
+    with pytest.raises(ValueError, match="mesh lies on cpu"):
+        TimeSeriesStore.from_series(x, 16, 0, 3, mesh=mesh1, device="meta")
     store = TimeSeriesStore.from_series(x, 16, 0, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        store.padded_blocks_local(store.blocks)
+    assert store.padded_blocks_local(store.blocks) is store.blocks  # replicate: the halos are in
 
 
 # ---------------------------------------------------------- sharded frames
@@ -347,7 +380,7 @@ def test_store_collect_is_one_kernel_call_per_group():
     assert len(calls) == 2  # the chunk and its merge boundary
 
 
-def test_prebuilt_store_halo_validation_and_pending_appends():
+def test_prebuilt_store_halo_validation_and_pending_appends(mesh1):
     """A caller's store serves a plan whose window fits its halo, is never
     mutated by appends (they replay on replans), and a narrow one raises."""
     x, extra = _series(2000, seed=8), _series(64, seed=19)
@@ -369,8 +402,8 @@ def test_prebuilt_store_halo_validation_and_pending_appends():
     narrow.moments(32)
     with pytest.raises(ValueError, match="halo"):
         narrow.collect()
-    with pytest.raises(NotImplementedError, match="distribution"):
-        SeriesFrame.from_sharded(x, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="not placed on the frame's mesh"):
+        SeriesFrame.from_sharded(store, mesh=mesh1, device="cpu")
 
 
 def test_appends_before_and_after_collect_scatter_into_store():

@@ -63,6 +63,19 @@ def _close(a, b, rtol, atol):
     np.testing.assert_allclose(_np(a), np.asarray(b), rtol=rtol, atol=atol)
 
 
+@pytest.fixture
+def mesh1(tmp_path):
+    """A one-rank gloo mesh in this process (the distribution layer at
+    world 1; tests/test_torch_mesh.py runs worlds 1-8 in rank processes)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import data_mesh
+
+    mesh = data_mesh(1, 0, "file://" + str(tmp_path / "rendezvous"), device="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
 def _states_close(a, b, rtol=1e-5, atol=1e-5):
     for u, v in zip(a.flatten(), b.flatten()):
         np.testing.assert_allclose(_np(u), _np(v), rtol=rtol, atol=atol)
@@ -70,9 +83,10 @@ def _states_close(a, b, rtol=1e-5, atol=1e-5):
 
 # ------------------------------------------------------------ equivalence
 @pytest.mark.parametrize("normalization", ["paper", "standard"])
-def test_autocovariance_strategies_agree(normalization):
-    """serial = blocked (one batched launch) = streamed in the port, each
-    equal to the reference's serial estimator to 1e-5."""
+def test_autocovariance_strategies_agree(normalization, mesh1):
+    """serial = blocked (one batched launch) = streamed = sharded on a
+    one-rank mesh (bitwise blocked) in the port, each equal to the
+    reference's serial estimator to 1e-5."""
     x = _series()
     H = 5
     want = np.asarray(rstats.autocovariance(jnp.asarray(x), H, normalization=normalization))
@@ -83,8 +97,12 @@ def test_autocovariance_strategies_agree(normalization):
                 stats.streaming_autocovariance(engine, _stream(engine, x, UNEVEN),
                                                normalization)):
         _close(got, want, 1e-5, 1e-5)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        stats.autocovariance_sharded(None, None, H, None)
+    store = TimeSeriesStore.from_series(x, 128, 0, H, mesh=mesh1, device=CPU)
+    sharded = stats.autocovariance_sharded(store.blocks, store.spec, H, mesh1,
+                                           normalization=normalization)
+    _close(sharded, want, 1e-5, 1e-5)
+    assert torch.equal(sharded, stats.autocovariance_blocked(xt, H, 128,
+                                                             normalization=normalization))
 
 
 def test_block_lag_sums_is_one_batched_call_equal_to_reference():
