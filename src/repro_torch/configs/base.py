@@ -1,16 +1,18 @@
 """Architecture configuration (port of `repro.configs.base`).
 
 One `ArchConfig` per architecture, with ``reduced()`` -- a tiny config of
-the same family for CPU tests.  A copy, not an import: importing
-`repro.configs` runs `repro/__init__.py`, which imports JAX.  The shape
-suites of the reference's dry-run matrix are not carried over.
+the same family for CPU tests, and the shape suites of the reference's
+dry-run matrix (`ShapeConfig`, `SHAPES`, `cell_is_runnable`).  A copy, not
+an import: importing `repro.configs` runs `repro/__init__.py`, which
+imports JAX.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+from typing import Literal, Optional, Tuple
 
-__all__ = ["ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig"]
+__all__ = ["ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig", "ShapeConfig", "SHAPES",
+           "SHAPES_BY_NAME", "cell_is_runnable"]
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
 AttnKind = Literal["gqa", "mla"]
@@ -140,3 +142,31 @@ class ArchConfig:
                 ssm=SSMConfig(state_dim=16, head_dim=16, conv_width=4, chunk=32, expand=2),
             )
         return r
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+# The four shape suites of the dry-run matrix.
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def cell_is_runnable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """The skip rules of the (arch x shape) matrix."""
+    if shape.name == "long_500k" and not arch.is_subquadratic:
+        return False, "pure full-attention arch — long_500k skipped (brief rule)"
+    if shape.kind == "decode" and not arch.has_decode:
+        return False, "encoder-only arch — no decode step"
+    return True, ""

@@ -1,11 +1,13 @@
 """Core of the port: overlapping blocks, the map-reduce engine, backends
 and their calibration, the streaming monoid, fused plans, forecasts, frames
-and the multi-tenant session."""
+and the multi-tenant session, the halo exchange, the estimators, graphs
+(§9, §11) and differencing (§1.4, §10.3)."""
 from .backend import (AutoBackend, CircuitBreakerBackend, CudaBackend,  # noqa: F401
                       TorchBackend, get_backend, list_backends, register_backend,
                       resolve_device, set_default_backend)
 from .frame import (Deferred, FrameSession, SeriesFrame, session_state_from_numpy,  # noqa: F401
                     session_state_to_numpy)
+from .halo import halo_exchange, halo_exchange_grouped  # noqa: F401
 from .integrity import lane_health, sentinel_scan  # noqa: F401
 from .mapreduce import (block_partials, block_window_map_reduce,  # noqa: F401
                         scan_window_map_reduce, serial_window_map_reduce,
@@ -19,6 +21,8 @@ from .streaming import (PartialState, StreamingEngine, resolved_stat,  # noqa: F
                         state_from_numpy, state_to_numpy)
 from . import estimators  # noqa: F401
 from .estimators import *  # noqa: F401,F403  (the estimator API, as the reference)
+from .differencing import difference, difference_blocked, integrate  # noqa: F401
+from . import graphs  # noqa: F401
 
 
 def __getattr__(name):

@@ -1,5 +1,5 @@
-"""The multivariate innovation algorithm (port of
-`repro.core.estimators.innovation`).
+"""The multivariate innovation algorithm and MA fitting (port of
+`repro.core.estimators.innovation`; paper §3.3).
 
 With Gamma(h) = gamma(h)^T:  V_0 = Gamma(0); for m = 1, 2, ...:
 Theta_{m,m-k} = [Gamma(m-k) - sum_{j<k} Theta_{m,m-j} V_j Theta_{k,k-j}^T] V_k^{-1}
@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["innovation_algorithm"]
+__all__ = ["innovation_algorithm", "fit_ma"]
 
 
 def innovation_algorithm(gamma: torch.Tensor, m_max: int,
@@ -46,3 +46,15 @@ def innovation_algorithm(gamma: torch.Tensor, m_max: int,
         for j in range(1, m + 1):
             out[..., m - 1, j - 1, :, :] = theta[m][j]
     return out, torch.stack(V, -3)
+
+
+def fit_ma(gamma: torch.Tensor, q: int, m: int | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fit a MA(q) model from gamma(0..m) (>= m+1, d, d) (paper §3.3): the
+    innovation recursion to depth ``m`` (default: every lag given), then
+    B_j = Theta_{m,j} for j = 1..q (q, d, d) and sigma = V_m (d, d)."""
+    if m is None:
+        m = gamma.shape[0] - 1
+    if m < q:
+        raise ValueError(f"recursion depth m={m} must be ≥ q={q}")
+    theta, V = innovation_algorithm(gamma, m)
+    return theta[m - 1, :q], V[m]

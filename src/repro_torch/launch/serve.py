@@ -2,7 +2,7 @@
 (port of `repro.launch.serve`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch danube --reduced \
-      --batch 8 --prompt-len 32 --max-new 32 [--dtype bf16|f32] [--device cpu]
+      --batch 8 --prompt-len 32 --max-new 32 [--dtype bf16|f32] [--device cpu] [--quantize]
 
 Weights and prompts come from ``--seed``.  Runs on the card unless
 ``--device cpu`` is given.  Generates twice (cold, then warm) and prints one
@@ -39,6 +39,7 @@ def main(argv=None) -> float:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quantize", action="store_true", help="int8 weights")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
@@ -48,7 +49,7 @@ def main(argv=None) -> float:
     dtype = DTYPES[args.dtype]
     params = init_params(cfg, seed=args.seed, dtype=dtype, device=dev)
     eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new, dtype=dtype,
-                      device=dev)
+                      quantize=args.quantize, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
@@ -70,7 +71,7 @@ def main(argv=None) -> float:
     out, warm = run()
     tps = args.batch * args.max_new / warm
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[serve] {cfg.name} {args.dtype} on {where}: {args.batch}×{args.max_new} tokens — "
+    print(f"[serve] {cfg.name} {args.dtype}{' int8' if args.quantize else ''} on {where}: {args.batch}×{args.max_new} tokens — "
           f"cold {cold:.2f}s, warm {warm:.2f}s ({tps:.0f} tok/s); "
           f"first row: {out.tokens[0][:10].tolist()}")
     return tps

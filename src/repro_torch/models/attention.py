@@ -45,7 +45,7 @@ class TensorSpec(NamedTuple):
 def mla_not_ported(cfg) -> NotImplementedError:
     return NotImplementedError(
         f"{cfg.name}: multi-head latent attention (MLA) is not ported yet "
-        "(ROADMAP Queue A item 11)")
+        "(ROADMAP Queue A item 6.4)")
 
 
 class GQAAttention(nn.Module):

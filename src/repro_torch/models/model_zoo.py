@@ -7,6 +7,8 @@
   cache_spec(cfg, batch, seq)             -> {name: TensorSpec}
   params_from_numpy / params_to_numpy     -- the reference's weights carried
                                              across, and back
+  params_to_tree / params_from_tree       -- the same layout as tensors (layer
+                                             leaves stacked on a leading L axis)
 
 ``batch`` is a dict: ``tokens`` (and ``pos`` for decode).  Only the dense
 family is ported; every other family raises ``NotImplementedError`` naming
@@ -21,20 +23,21 @@ import numpy as np
 import torch
 
 from ..core.backend import resolve_device
+from ..core.mapreduce import tree_map
 from . import transformer
 from .attention import Attention, GQAAttention, TensorSpec, mla_not_ported
 from .layers import DTYPE, MLP, RMSNorm
 from .transformer import Block, Transformer
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "cache_spec",
-           "params_from_numpy", "params_to_numpy"]
+           "params_from_numpy", "params_to_numpy", "params_from_tree", "params_to_tree"]
 
 _OPEN_FAMILIES = {
-    "moe": "mixture-of-experts (models/moe.py), ROADMAP Queue A item 11",
-    "ssm": "xLSTM (models/xlstm.py, xlstm_lm.py), ROADMAP Queue A item 11",
-    "hybrid": "the SSM hybrid (models/ssm.py, zamba.py), ROADMAP Queue A item 11",
-    "encdec": "the encoder-decoder (models/encdec.py), ROADMAP Queue A item 11",
-    "vlm": "the VLM stub (models/vlm_stub.py), ROADMAP Queue A item 11",
+    "moe": "mixture-of-experts (models/moe.py), ROADMAP Queue A item 6.3",
+    "ssm": "xLSTM (models/xlstm.py, xlstm_lm.py), ROADMAP Queue A item 6.6",
+    "hybrid": "the SSM hybrid (models/ssm.py, zamba.py), ROADMAP Queue A item 6.5",
+    "encdec": "the encoder-decoder (models/encdec.py), ROADMAP Queue A item 6.7",
+    "vlm": "the VLM stub (models/vlm_stub.py), ROADMAP Queue A item 6.8",
 }
 
 
@@ -102,14 +105,9 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
-    """The reference's dense-family params -- a nest of dicts of numpy
-    arrays, layer leaves stacked on a leading (L, ...) axis, as
-    ``jax.tree.map(np.asarray, params)`` gives them -- as the port's model
-    on ``device``."""
-    _dense_only(cfg)
-    dev = resolve_device(device)
-    t = lambda a: _tensor(a, dev)  # noqa: E731
+def _assemble(tree: Dict[str, Any], cfg, t) -> Transformer:
+    """The model from a params tree in the reference's layout, ``t`` making
+    each leaf (a layer leaf indexed first) a tensor."""
     lay = tree["layers"]
     blocks = []
     for i in range(cfg.n_layers):
@@ -124,21 +122,45 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
                                                               cfg.norm_eps), head)
 
 
-def params_to_numpy(params: Transformer) -> Dict[str, Any]:
-    """The port's model as the reference's params tree of numpy arrays."""
-    stack = lambda ts: np.stack([_array(x) for x in ts])  # noqa: E731
+def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
+    """The reference's dense-family params -- a nest of dicts of numpy
+    arrays, layer leaves stacked on a leading (L, ...) axis, as
+    ``jax.tree.map(np.asarray, params)`` gives them -- as the port's model
+    on ``device``."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    return _assemble(tree, cfg, lambda a: _tensor(a, dev))
+
+
+def params_from_tree(tree: Dict[str, Any], cfg) -> Transformer:
+    """The model over a tree of tensors in :func:`params_to_tree`'s layout:
+    each layer's weights are views of the stacked leaves, never copies."""
+    _dense_only(cfg)
+    return _assemble(tree, cfg, lambda a: a)
+
+
+def params_to_tree(params: Transformer) -> Dict[str, Any]:
+    """The port's model as the reference's params tree of tensors on the
+    model's device: layer leaves stacked on a leading (L, ...) axis (new
+    tensors), the others the model's own."""
+    stack = lambda ts: torch.stack([x.detach() for x in ts])  # noqa: E731
     blocks = list(params.layers)
-    attn = {k: stack([getattr(b.attn, k) for b in blocks]) for k in ("wq", "wk", "wv", "wo")}
-    if blocks[0].attn.q_norm is not None:
-        attn.update({k: stack([getattr(b.attn, k) for b in blocks]) for k in ("q_norm", "k_norm")})
+    names = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm")
+                                        if blocks[0].attn.q_norm is not None else ())
     tree = {
-        "embed": _array(params.embed),
-        "layers": {"attn_norm": stack([b.attn_norm.weight for b in blocks]), "attn": attn,
+        "embed": params.embed.detach(),
+        "layers": {"attn_norm": stack([b.attn_norm.weight for b in blocks]),
+                   "attn": {k: stack([getattr(b.attn, k) for b in blocks]) for k in names},
                    "mlp_norm": stack([b.mlp_norm.weight for b in blocks]),
                    "mlp": {k: stack([getattr(b.mlp, k) for b in blocks])
                            for k in ("w_gate", "w_up", "w_down")}},
-        "final_norm": _array(params.final_norm.weight),
+        "final_norm": params.final_norm.weight.detach(),
     }
     if params.lm_head is not None:
-        tree["lm_head"] = _array(params.lm_head)
+        tree["lm_head"] = params.lm_head.detach()
     return tree
+
+
+def params_to_numpy(params: Transformer) -> Dict[str, Any]:
+    """The port's model as the reference's params tree of numpy arrays."""
+    return tree_map(_array, params_to_tree(params))

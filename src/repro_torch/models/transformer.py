@@ -52,10 +52,10 @@ class Transformer(nn.Module):
 def _check_family(cfg) -> None:
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are not ported "
-                                  "yet (ROADMAP Queue A item 11)")
+                                  "yet (ROADMAP Queue A item 6.3)")
     if cfg.family == "vlm":
         raise NotImplementedError(f"{cfg.name}: the VLM stub is not ported yet "
-                                  "(ROADMAP Queue A item 11)")
+                                  "(ROADMAP Queue A item 6.8)")
 
 
 def _layer_init(gen: torch.Generator, cfg, dtype, device) -> Block:

@@ -9,7 +9,11 @@ write index, and entries whose stored pos is above the current pos (or
 below 0) are masked.
 
 The engine runs on the card unless the caller passes ``device="cpu"``, and
-its params must live there.  On the card, prefill's attention launches the
+its params must live there.  ``quantize=True`` keeps the weights as int8
+codes with float32 scales (`serving.quant`, on the reference's stacked
+layout) and dequantizes them to the engine's dtype on each prefill and
+decode call, as the reference does inside its jitted calls; the model run
+is the same.  On the card, prefill's attention launches the
 sliding-window attention kernel once per layer, and decode launches none.
 PyTorch runs eagerly, so nothing is compiled ahead.
 """
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from ..core.backend import resolve_device
-from ..models import cache_spec, decode_step, prefill
+from ..models import cache_spec, decode_step, params_from_tree, params_to_tree, prefill
 
 __all__ = ["ServeEngine", "GenerationResult"]
 
@@ -38,18 +42,32 @@ class ServeEngine:
     def __init__(self, cfg, params, *, max_len: int, dtype=torch.float32, quantize: bool = False,
                  device="cuda"):
         """``dtype`` is the cache's, float32 by default as in the reference:
-        pass the model's dtype for bf16 weights."""
+        pass the model's dtype for bf16 weights.  With ``quantize=True`` the
+        engine holds int8 codes and float32 scales of the large leaves (the
+        rest as given) and dequantizes them to ``dtype`` on every call."""
         self.device = resolve_device(device)
         if params.embed.device.type != self.device.type:
             raise ValueError(f"the params lie on {params.embed.device}, the engine runs on "
                              f"{self.device}")
-        if quantize:
-            raise NotImplementedError("int8 weights wait for the port of serving/quant.py "
-                                      "(ROADMAP Queue A item 11)")
         self.cfg = cfg
-        self.params = params
         self.max_len = max_len
         self.dtype = dtype
+        self.quantize = quantize
+        if quantize:
+            from .quant import quantize_tree
+
+            self.params = quantize_tree(params_to_tree(params))
+        else:
+            self.params = params
+
+    def model(self):
+        """The model each call runs: the params, or their int8 codes
+        dequantized to the engine's dtype."""
+        if not self.quantize:
+            return self.params
+        from .quant import dequantize_tree
+
+        return params_from_tree(dequantize_tree(self.params, dtype=self.dtype), self.cfg)
 
     def _grow_cache(self, cache: Dict[str, torch.Tensor], batch: int) -> Dict[str, torch.Tensor]:
         """Fit the prefill cache into capacity-max_len buffers of the
@@ -80,13 +98,13 @@ class ServeEngine:
         S_prompt) int.  Sampling is greedy unless ``temperature > 0`` and a
         ``generator`` (on the params' device) is given.  ``keep_logits``
         also returns every step's logits."""
-        prompts = torch.as_tensor(prompts, device=self.params.embed.device).long()
+        prompts = torch.as_tensor(prompts, device=self.device).long()
         b, s_prompt = prompts.shape
         if s_prompt + max_new > self.max_len:
             raise ValueError(
                 f"prompt {s_prompt} + max_new {max_new} exceeds max_len {self.max_len}")
         batch = {"tokens": prompts, **(extra or {})}
-        logits, cache = prefill(self.params, batch, self.cfg)
+        logits, cache = prefill(self.model(), batch, self.cfg)
         cache = self._grow_cache(cache, b)
 
         pos0 = s_prompt
@@ -98,7 +116,7 @@ class ServeEngine:
         out.append(tok)
         kept.append(logits.float() if keep_logits else None)
         for i in range(1, max_new):
-            logits, cache = decode_step(self.params, cache,
+            logits, cache = decode_step(self.model(), cache,
                                         {"tokens": tok, "pos": pos0 + i - 1}, self.cfg)
             tok = self._sample(logits, temperature, generator)
             out.append(tok)

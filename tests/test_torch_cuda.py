@@ -1283,3 +1283,72 @@ def test_autocovariance_sharded_over_nccl_is_bitwise_blocked(dev, nccl_mesh):
                                                                      nccl_mesh))
     assert counts == {"cross_window_stats": 1} and coll == 1
     assert torch.equal(got, autocovariance_blocked(x, 16, 512))
+
+
+# ------------------------------- the paper's last estimators and int8 serving
+
+
+def test_fit_ar_mle_on_the_card_matches_the_cpu(dev):
+    """The §5 fit's blocks and autograd on the card against the same fit on
+    the CPU: A, precision and trace within rtol 1e-4 / atol 1e-5."""
+    from repro_torch.core.estimators import fit_ar_mle
+    from repro_torch.timeseries import random_stable_var, simulate_var
+
+    g = torch.Generator().manual_seed(0)
+    A = random_stable_var(g, 2, 5, radius=0.6, device="cpu")
+    x = simulate_var(g, A, 20_000, device="cpu")
+    want = fit_ar_mle(x, 2, n_steps=20, block_size=4096, update_precision_every=10)
+    got = fit_ar_mle(x.to(dev), 2, n_steps=20, block_size=4096, update_precision_every=10)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_graph_map_reduce_on_the_card_matches_the_cpu(dev):
+    from repro_torch.core import graphs
+
+    g = graphs.grid_graph(32, 32)
+    part = graphs.make_graph_partition(g, 8, 1)
+    x = torch.randn((1024, 64), generator=torch.Generator().manual_seed(1))
+
+    def kern(xc, nb, mask):
+        nbm = torch.where(mask[:, None], nb, 0.0).sum(0) / torch.clamp(mask.sum(), min=1)
+        return (xc * nbm).sum(), torch.outer(xc[:4], nbm[:4])
+
+    got = graphs.graph_window_map_reduce(kern, x.to(dev), g, part)
+    want = graphs.graph_window_map_reduce(kern, x, g, part)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+    traj = graphs.simulate_traffic_dbn(graphs.line_graph(256), torch.full((256,), 0.4), 64,
+                                       inflow_scale=0.0, device=dev)
+    cpu = graphs.simulate_traffic_dbn(graphs.line_graph(256), torch.full((256,), 0.4), 64,
+                                      inflow_scale=0.0, device="cpu")
+    np.testing.assert_allclose(traj.cpu().numpy(), cpu.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_quantized_generate_on_the_card_matches_the_cpu(dev):
+    """ServeEngine(quantize=True) in float32: the card's tokens equal the
+    CPU's (kernel 8 once per layer in prefill against the chunked plain
+    attention), its codes bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(get_arch("danube").reduced(), d_model=256, d_ff=512, vocab=1024)
+    cpu_model = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    card_model = init_params(cfg, seed=0, dtype=torch.float32, device="cpu").to(dev)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    want = ServeEngine(cfg, cpu_model, max_len=48, quantize=True, device="cpu").generate(
+        prompts, 8, keep_logits=True)
+    eng = ServeEngine(cfg, card_model, max_len=48, quantize=True, device=dev)
+    assert torch.equal(eng.params["embed"].codes.cpu(),
+                       ServeEngine(cfg, cpu_model, max_len=48, quantize=True,
+                                   device="cpu").params["embed"].codes)
+    reset_launch_counts()
+    got = eng.generate(prompts, 8, keep_logits=True)
+    assert launch_counts()["swa_attention"] == cfg.n_layers
+    err = (got.logits.cpu() - want.logits).abs().max() / want.logits.abs().max()
+    assert err <= 1e-4
+    np.testing.assert_array_equal(got.tokens, want.tokens)

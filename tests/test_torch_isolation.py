@@ -92,6 +92,8 @@ def test_entry_points_default_to_the_card():
     from repro_torch import (BandedARModel, FrameSession, ServeEngine, SeriesFrame, StatPlan,
                              analyze, get_arch)
     from repro_torch.core.backend import get_backend
+    from repro_torch.core.estimators import fit_ar_mle, fit_ar_sgd
+    from repro_torch.core.graphs import line_graph, simulate_traffic_dbn
     from repro_torch.core.estimators.spectral import hann_window, welch_chunk_kernel
     from repro_torch.core.plan import autocovariance_request
     from repro_torch.launch import serve
@@ -111,7 +113,10 @@ def test_entry_points_default_to_the_card():
                  lambda: StatsGateway(FrameSession(d=2, num_users=2)),
                  lambda: init_params(cfg), lambda: params_from_numpy(tree, cfg),
                  lambda: ServeEngine(cfg, cpu_model, max_len=8),
-                 lambda: serve.main(["--arch", "danube", "--reduced"])):
+                 lambda: ServeEngine(cfg, cpu_model, max_len=8, quantize=True),
+                 lambda: serve.main(["--arch", "danube", "--reduced"]),
+                 lambda: fit_ar_mle(x, 1, n_steps=1), lambda: fit_ar_sgd(x, 1, n_steps=1),
+                 lambda: simulate_traffic_dbn(line_graph(4), np.zeros(4, np.float32), 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert get_backend(device="cpu").name == "cuda"  # the kernels' plain versions on the CPU
@@ -273,3 +278,53 @@ def test_calibration_and_policy_run_without_jax(tmp_path):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_paper_estimators_graphs_and_quant_run_without_jax():
+    """The §5 MLE, fit_ma, differencing, graphs, the paper's VAR configs and
+    int8 serving with JAX and the reference package unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import numpy as np, torch, repro_torch\n"
+        "from repro_torch.configs import PAPER_VAR_CONFIGS, SHAPES, cell_is_runnable, get_arch\n"
+        "from repro_torch.core import (difference, difference_blocked, graphs, halo_exchange,\n"
+        "                              halo_exchange_grouped, integrate)\n"
+        "from repro_torch.core.differencing import fractional_difference\n"
+        "from repro_torch.core.estimators import (ar_conditional_nll, autocovariance, fit_ar_mle,\n"
+        "                                         fit_ar_sgd, fit_ma, optimal_step_size)\n"
+        "from repro_torch.serving.quant import quantize_tree, tree_param_bytes\n"
+        "from repro_torch.models import params_to_tree\n"
+        "assert PAPER_VAR_CONFIGS['varma'].q == 1 and len(SHAPES) == 4\n"
+        "assert cell_is_runnable(get_arch('danube'), SHAPES[0])[0]\n"
+        "x = np.random.default_rng(0).standard_normal((400, 2)).astype('float32')\n"
+        "fit = fit_ar_mle(x, 1, n_steps=3, block_size=64, device='cpu')\n"
+        "assert fit.A.shape == (1, 2, 2) and fit.nll_trace.shape == (3,)\n"
+        "assert fit_ar_sgd(x, 1, n_steps=3, batch=8, device='cpu').A.shape == (1, 2, 2)\n"
+        "xt = torch.from_numpy(x)\n"
+        "assert ar_conditional_nll(fit.A, torch.eye(2), xt).ndim == 0\n"
+        "assert float(optimal_step_size(xt)) > 0\n"
+        "B, s = fit_ma(autocovariance(xt, 6, 'standard'), 1)\n"
+        "assert B.shape == (1, 2, 2) and s.shape == (2, 2)\n"
+        "X = torch.cumsum(xt, 0)\n"
+        "assert torch.allclose(integrate(difference(X), X[:1]), X, atol=1e-4)\n"
+        "assert fractional_difference(X, 0.4, 8).shape == (392, 2)\n"
+        "g = graphs.grid_graph(4, 4); p = graphs.make_graph_partition(g, 4, 1)\n"
+        "k = lambda xc, nb, m: (xc * torch.where(m[:, None], nb, 0.0).sum(0)).sum()\n"
+        "assert graphs.graph_window_map_reduce(k, xt[:16], g, p).ndim == 0\n"
+        "tr = graphs.simulate_traffic_dbn(graphs.line_graph(8), torch.full((8,), 0.4), 5,\n"
+        "                                 device='cpu')\n"
+        "assert tr.shape == (6, 8)\n"
+        "cfg = get_arch('danube').reduced()\n"
+        "lm = repro_torch.init_params(cfg, seed=0, dtype=torch.float32, device='cpu')\n"
+        "eng = repro_torch.ServeEngine(cfg, lm, max_len=24, quantize=True, device='cpu')\n"
+        "assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
+        "assert tree_param_bytes(quantize_tree(params_to_tree(lm))) > 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

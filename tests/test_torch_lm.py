@@ -201,8 +201,14 @@ def test_bf16_engine_runs_and_other_families_raise():
         ServeEngine(cfg, model, max_len=24, device="cpu").generate(np.zeros((1, 20)), 4)
     with pytest.raises(ValueError, match="exceeds max_len"):
         ServeEngine(cfg, model, max_len=16, device="cpu").generate(np.zeros((1, 14)), 4)
-    with pytest.raises(NotImplementedError, match="quant"):
-        ServeEngine(cfg, model, max_len=16, quantize=True, device="cpu")
+    # int8 weights (serving/quant.py): the reduced model's leaves are all
+    # below 65,536 elements, so the engine serves them as given
+    quant = ServeEngine(cfg, model, max_len=24, dtype=torch.bfloat16, quantize=True,
+                        device="cpu")
+    assert np.array_equal(quant.generate(np.zeros((1, 20), np.int32), 4).tokens, out.tokens)
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        ServeEngine(cfg, model, max_len=16, quantize=True, device="cpu").generate(
+            np.zeros((1, 14)), 4)
     for arch in ("llama4", "deepseek-v2", "xlstm", "zamba2", "whisper", "llava"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_params(get_arch(arch).reduced(), device="cpu")

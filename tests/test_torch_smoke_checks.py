@@ -471,3 +471,158 @@ def test_results_bitwise_holds_nan_and_structure():
     b["y"][0][1] = -0.0
     assert not smoke.results_bitwise(a, b)
     assert not smoke.results_bitwise(a, {"x": a["x"], "z": a["y"]})
+
+
+def _var_series(n=3000, d=3, p=2, seed=0):
+    from repro_torch.timeseries import random_stable_var, simulate_var
+
+    g = torch.Generator().manual_seed(seed)
+    A = random_stable_var(g, p, d, radius=0.6, device="cpu")
+    return A, simulate_var(g, A, n, device="cpu")
+
+
+@pytest.mark.parametrize("p", [1, 3])
+def test_hessian_step_is_two_over_the_stacked_lag_extremes(p):
+    """paper_var's GD step: 2 / (m + L) of the (p d, p d) stacked-lag
+    covariance; at p = 1 it is the default step's Cov(X) up to one row."""
+    import numpy as np
+
+    from repro_torch.core.estimators import optimal_step_size
+
+    _, x = _var_series(p=p, seed=p)
+    xn, n = x.numpy().astype(np.float64), x.shape[0]
+    z = np.concatenate([xn[p - 1 - i: n - 1 - i] for i in range(p)], 1)
+    ev = np.linalg.eigvalsh(np.cov(z, rowvar=False))
+    assert smoke.hessian_step(x, p) == pytest.approx(2 / (ev[0] + ev[-1]), rel=1e-9)
+    if p == 1:
+        assert smoke.hessian_step(x, 1) == pytest.approx(float(optimal_step_size(x)), rel=1e-2)
+
+
+def test_mle_plain_holds_the_blocked_gradient_at_its_entry_scale():
+    """The float64 plain value and gradient agree with the blocked float32
+    path to rounding; the scale bounds every gradient entry, and a gradient
+    entry moved by 2e-4 of its scale is caught at PV_TOL."""
+    from repro_torch.core.estimators.mle import ar_nll_and_grad_blocked
+
+    A, x = _var_series()
+    v, g = ar_nll_and_grad_blocked(A, torch.eye(3), x, 512)
+    v64, g64, scale = smoke.mle_plain(A, x)
+    assert abs(v.item() - v64.item()) <= smoke.PV_TOL * abs(v64.item())
+    assert (g64.abs() <= scale + 1e-12).all()
+    assert smoke.scaled_error(g, g64, scale)[1] <= smoke.PV_TOL
+    assert smoke.planted_error_caught(g, g64, scale, smoke.PV_TOL)
+
+
+def test_nll_fall_share_is_the_reference_tests_rule():
+    """tests/test_estimators.py:139-140: a step falls when the NLL rises by
+    less than 1e-6; a flat step falls, a rise of one float32 ulp at 4 does
+    not."""
+    trace = [4.5, 4.2, 4.0, 4.0, 4.0 - 1e-6, 4.0 - 1e-6 + 5e-7]
+    assert smoke.nll_fall_share(trace) == 1.0
+    assert smoke.nll_fall_share(trace + [4.0 + 4.8e-7 * 4]) == pytest.approx(5 / 6)
+
+
+def test_sym_pd_rejects_asymmetry_indefiniteness_and_nan():
+    m = torch.tensor([[2.0, 0.5], [0.5, 1.0]])
+    assert smoke.sym_pd(m)["ok"]
+    assert not smoke.sym_pd(m + torch.tensor([[0.0, 1e-3], [0.0, 0.0]]))["ok"]
+    assert not smoke.sym_pd(torch.tensor([[1.0, 2.0], [2.0, 1.0]]))["ok"]
+    assert not smoke.sym_pd(torch.tensor([[float("nan"), 0.0], [0.0, 1.0]]))["ok"]
+
+
+def test_within_is_allclose():
+    want = torch.tensor([1.0, -2.0, 1e-7])
+    assert smoke.within(want + torch.tensor([1e-4, -2e-4, 9e-6]), want, 1e-4, 1e-5)[1]
+    assert not smoke.within(want + torch.tensor([0.0, 0.0, 2e-5]), want, 1e-4, 1e-5)[1]
+
+
+def test_fractional_plain_holds_the_port_and_catches_a_planted_error():
+    from repro_torch.core.differencing import fractional_difference
+
+    x = torch.cumsum(torch.randn((2000, 3), generator=torch.Generator().manual_seed(4)), 0)
+    y = fractional_difference(x, smoke.PV_FRAC_D, smoke.PV_FRAC_K)
+    y64, scale = smoke.fractional_plain(x, smoke.PV_FRAC_D, smoke.PV_FRAC_K)
+    assert y.shape == y64.shape == (2000 - smoke.PV_FRAC_K, 3)
+    assert smoke.scaled_error(y, y64, scale)[1] <= smoke.PV_TOL
+    assert smoke.planted_error_caught(y, y64, scale, smoke.PV_TOL)
+
+
+@pytest.mark.parametrize("n,block", [(1000, 128), (4096, 4096), (777, 100)])
+def test_blocked_difference_rows_are_bitwise(n, block):
+    x = torch.cumsum(torch.randn((n, 2), generator=torch.Generator().manual_seed(n)), 0)
+    got, want = smoke.blocked_difference_rows(x, block)
+    assert got.shape == want.shape == (n - 1, 2) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["neighbour_statistic", "neighbour_pair"])
+def test_graph_plain_equals_the_partitioned_map_reduce(kernel):
+    from repro_torch.core import graphs
+
+    g = graphs.grid_graph(8, 8)
+    x = torch.randn((64, 32), generator=torch.Generator().manual_seed(5))
+    kern = getattr(smoke, kernel)
+    got = graphs.graph_window_map_reduce(kern, x, g, graphs.make_graph_partition(g, 4, 1))
+    want = smoke.graph_plain(kern, x, g)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert b.dtype == torch.float64
+        assert abs(a.item() - b.item()) <= smoke.GRAPH_RTOL * abs(b.item())
+
+
+def test_traffic_checks_pass_rounding_and_catch_a_changed_send_rate():
+    """A closed corridor: the float32 run against float64 stays inside the
+    phase's per-step rounding bound and its mass does not rise; a send rate
+    moved by 1e-3 in the float64 run is caught."""
+    from repro_torch.core import graphs
+
+    steps, v = 256, 512
+    nbrs = torch.from_numpy(graphs.line_graph(v).nbrs).long()
+    x0 = torch.rand(v, generator=torch.Generator().manual_seed(6))
+
+    def run(x, rate):
+        out = [x]
+        for _ in range(steps):
+            x = graphs.traffic_dbn_step(x, nbrs, 0.0, send_rate=rate)
+            out.append(x)
+        return torch.stack(out)
+
+    f32, f64 = run(x0, 0.3), run(x0.double(), 0.3)
+    tol = steps * 2.0 ** -22
+    assert (f32.double() - f64).abs().max().item() <= tol
+    assert smoke.mass_rise(f32) <= v * 2.0 ** -22
+    assert (f32.double() - run(x0.double(), 0.301)).abs().max().item() > tol
+    assert smoke.GRAPH_TRAJ_TOL <= smoke.GRAPH_STEPS * 2.0 ** -22
+    assert smoke.GRAPH_MASS_SLACK <= smoke.GRAPH_LINKS * 2.0 ** -22
+
+
+def test_closed_corridor_from_the_phase_start_stays_inside_the_phase_limits():
+    """The graphs phase's closed corridor (occupancy GRAPH_X0, GRAPH_STEPS
+    steps, inflow 0) on 4,096 links, which drift as the phase's 65,536 do:
+    float32 against float64 inside GRAPH_TRAJ_TOL, mass rise inside
+    GRAPH_MASS_SLACK."""
+    from repro_torch.core import graphs
+
+    line = graphs.line_graph(4096)
+    x0 = torch.full((4096,), smoke.GRAPH_X0)
+    gen = torch.Generator().manual_seed(0)
+    f32 = graphs.simulate_traffic_dbn(line, x0, smoke.GRAPH_STEPS, generator=gen,
+                                      inflow_scale=0.0, device="cpu")
+    f64 = graphs.simulate_traffic_dbn(line, x0.double(), smoke.GRAPH_STEPS, generator=gen,
+                                      inflow_scale=0.0, device="cpu")
+    assert (f32.double() - f64).abs().max().item() <= smoke.GRAPH_TRAJ_TOL
+    assert smoke.mass_rise(f32) <= smoke.GRAPH_MASS_SLACK
+
+
+def test_gamma_plain_check_passes_the_port_and_catches_a_planted_error():
+    """varma's gamma held against the plain version at TOL["lag"]: the
+    port's autocovariance passes; one entry moved by 2e-4 of max|gamma| is
+    caught."""
+    from repro_torch.core.estimators import autocovariance
+
+    x = torch.randn((3000, 4), generator=torch.Generator().manual_seed(8))
+    got = autocovariance(x, smoke.PV_ARMA["lags"], normalization="standard")
+    assert got.shape == (smoke.PV_ARMA["lags"] + 1, 4, 4)
+    assert smoke.gamma_plain_check(x, got)["ok"]
+    bad = got.clone()
+    bad[7, 1, 2] += 2 * smoke.TOL["lag"] * got.abs().max()
+    assert not smoke.gamma_plain_check(x, bad)["ok"]
