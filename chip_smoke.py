@@ -22,7 +22,10 @@ checkpoints, kill and restart past a torn generation, a chaos-poisoned
 tenant quarantined and rebuilt), then checks and times kernel 8
 (sliding-window attention) and serves h2o-danube-1.8b at full width and
 depth through ``ServeEngine.generate``, then with int8 weights
-(``ServeEngine(quantize=True)``); then the paper's last estimators at its
+(``ServeEngine(quantize=True)``), then the mixture-of-experts family:
+llama4-maverick-400b-a17b at full width with its depth cut to 2 layers
+(its MoE layer held against a float32 loop over the experts), and
+qwen3-0.6b at full width and depth; then the paper's last estimators at its
 own VAR workload sizes (``configs/paper_var.py``: the §5 conditional MLE by
 gradient descent and SGD, ARMA and MA fits from kernel 2's
 autocovariances, the §6 banded fit with kernels 7 and 7b, differencing)
@@ -69,7 +72,13 @@ over 8 chunks (cut from 64, for time) and one tick of the session's
 tenants (cut from 65,536: it needs a fault-free twin run) of the gateway's
 width and plan.
 lm_quant: lm_serve's model and prompts, the engine holding int8 codes and
-float32 scales and dequantizing them to bf16 on every call.  paper_var:
+float32 scales and dequantizing them to bf16 on every call.  lm_moe:
+llama4-maverick-400b-a17b (d_model 5,120, 40 / 8 heads of 128, 128 experts
+of 8,192, top-1, one shared expert, vocab 202,048) in bf16 with depth
+**cut** from 48 to 2 layers (69.3 GB of weights), 4 prompts of 8,000
+tokens, 16 new each; kernel 8 is also checked and timed alone at its
+prefill's layer shape (W = S = 8,000, G = 5).  lm_qwen3: qwen3-0.6b, 2
+prompts of 4,096 tokens, 8 new.  paper_var:
 var-dense-small (n = 100,000, d = 8, p = 3) and var-dense-wide (n =
 1,000,000, d = 64, p = 2), each fit_ar_mle for 200 steps at block size
 4,096 (a second fit of 100 steps updates the precision every 50, and a
@@ -89,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -176,6 +186,37 @@ NLL_MIN_DESCENT = 3  # steps that must fall strictly before the noise floor
 # each (decode wraps the ring).  Kernel 8's layer shape is that prefill's.
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "danube", 4, 8000, 32
 SWA_B, SWA_S, SWA_H, SWA_KVH, SWA_D, SWA_W = 4, 8000, 32, 8, 80, 4096
+# lm_moe: llama4-maverick-400b-a17b at full width (d_model 5,120, 40 / 8
+# heads of 128, 128 experts of 8,192, top-1, one shared expert, vocab
+# 202,048, capacity factor 1.25, "gather" dispatch) in bf16 with its depth
+# **cut** to MOE_LAYERS of 48: a layer holds 32.59 GB (its experts 32.21),
+# the embedding and lm_head 2.069 GB each, so two layers take 69.3 GB of the
+# card's 80 GiB.  lm_serve's prompts (4 x 8,000 tokens: T = 32,000, each
+# expert's bucket 312) and MOE_NEW greedy new tokens.  No window, so its
+# prefill runs kernel 8 at W = S: MOE_SWA is that layer shape (B, S, H,
+# KVH, D), G = 5.  Check 2 holds moe_apply against a float32 loop over the
+# experts on the first layer's prefill input: max |kernel path - plain| of
+# each token's row within MOE_TOL of the row's max|plain| (bf16 rounds g, u,
+# the activation, each expert's and the shared expert's outputs and their
+# sum: about 4 ulps of 2^-8 at the row's largest entries).
+MOE_ARCH, MOE_LAYERS, MOE_NEW = "llama4", 2, 16
+# the plain path's query chunk: at W = S = 8,000 one chunk of 512 queries
+# holds (4, 8, 5, 512, 8,000) float32 logits, 2.6 GB, three times over,
+# beside 69.3 GB of weights; 128 queries hold a quarter of that
+MOE_PLAIN_CHUNK = 128
+MOE_SWA = (4, 8000, 40, 8, 128)
+MOE_TOL = 2e-2
+# the profiled prefill and decode step run each MoE layer inside MOE_RANGE,
+# and split its device time by the aten operators called in it: MOE_OPS
+MOE_RANGE = "lm_moe.moe_apply"
+MOE_OPS = {"experts_bmm": ("aten::bmm",),
+           "gathers_scatters": ("aten::index", "aten::index_put_"),
+           "shared_and_router_mm": ("aten::matmul", "aten::mm")}
+KERNEL8_NAME = "swa_bf16_kernel"  # kernel 8's bf16 entry, as the profiler names it
+# qwen3-0.6b at full width and depth (28 layers, d_model 1,024, 16 / 8
+# heads of 128, qk_norm, no window) in bf16: 2 prompts of 4,096 tokens, 8
+# new, lm_serve's checks 1-2 (kernel 8 at W = S = 4,096, G = 2).
+QWEN_ARCH, QWEN_BATCH, QWEN_PROMPT, QWEN_NEW = "qwen3", 2, 4096, 8
 # Kernel 8 per entry against its row's max|v| (an output row is a convex
 # combination of its window's rows of v): f32 1e-5 (both sides accumulate in
 # f32 in another order); bf16 1e-2 (P is rounded to bf16 before P V on both
@@ -956,6 +997,197 @@ def serve_launches_ok(launches: dict, layers: int) -> bool:
     none in decode."""
     return (launches["generate"] == layers and launches["prefill"] == layers
             and launches["extended_prefill"] == layers and launches["decode"] == 0)
+
+
+def moe_plain(layer, xt, k: int, capacity: int) -> tuple:
+    """A MoE layer's output by a loop over its experts, in float32, written
+    apart from `models/moe.py`: the float32 router's top-k, then for each
+    expert the tokens routed to it in token order, the first ``capacity`` of
+    them kept, SwiGLU by ``torch.mm`` on the float32 weights, weighted by the
+    renormalised gate; plus the shared expert.  xt (T, d) -> (out (T, d)
+    float32, expert_idx (T, k), pairs dropped)."""
+    xf = xt.float()
+    probs = torch.softmax(xf @ layer.router.float(), dim=-1)
+    gates, expert_idx = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    out = torch.zeros_like(xf)
+    dropped = 0
+    for e in range(layer.e_gate.shape[0]):
+        tok, choice = torch.nonzero(expert_idx == e, as_tuple=True)  # in token order
+        dropped += max(0, tok.numel() - capacity)
+        tok, choice = tok[:capacity], choice[:capacity]
+        if tok.numel() == 0:
+            continue
+        xe = xf[tok]
+        act = torch.nn.functional.silu(torch.mm(xe, layer.e_gate[e].float()))
+        y = torch.mm(act * torch.mm(xe, layer.e_up[e].float()), layer.e_down[e].float())
+        out.index_add_(0, tok, y * gates[tok, choice, None])
+    if layer.shared is not None:
+        s = layer.shared
+        act = torch.nn.functional.silu(torch.mm(xf, s.w_gate.float()))
+        out += torch.mm(act * torch.mm(xf, s.w_up.float()), s.w_down.float())
+    return out, expert_idx, dropped
+
+
+def host_drops(expert_idx: np.ndarray, capacity: int, experts: int) -> int:
+    """Pairs the stable-rank rule drops, counted on the host: an expert keeps
+    its first ``capacity`` pairs."""
+    counts = np.bincount(expert_idx.reshape(-1), minlength=experts)
+    return int(np.maximum(counts - capacity, 0).sum())
+
+
+def planted_capacity(cfg, t: int, capacity: int):
+    """``cfg`` with the capacity factor that gives each expert ``capacity``
+    slots for ``t`` tokens under the static rule (a planted fault)."""
+    from repro_torch.models.moe import moe_capacity
+
+    m = cfg.moe
+    factor = (capacity + 0.5) * m.num_experts / (t * m.top_k)
+    out = dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=factor))
+    if moe_capacity(t, out) != capacity:
+        raise ValueError(f"no capacity factor gives {capacity} slots for {t} tokens")
+    return out
+
+
+def moe_routes(model, cfg, store: list) -> list:
+    """Forward hooks on every layer's mlp_norm that append that layer's
+    routing of the tokens it sees, (expert_idx, kept), to ``store``; returns
+    the handles (remove them after the call)."""
+    from repro_torch.models.moe import moe_capacity, moe_route
+
+    def hook(layer):
+        def record(_mod, _inp, h):
+            xt = h.reshape(-1, h.shape[-1])
+            idx, pos = moe_route(layer.mlp, xt, cfg)[3:]
+            store.append((idx, pos < moe_capacity(xt.shape[0], cfg)))
+        return record
+
+    return [layer.mlp_norm.register_forward_hook(hook(layer)) for layer in model.layers]
+
+
+def route_differences(a: list, b: list) -> dict:
+    """(token, layer) routes that differ between two paths' routings, and
+    tokens kept in one path and dropped in the other."""
+    return {"routes_differ": sum(int((x[0] != y[0]).any(-1).sum()) for x, y in zip(a, b)),
+            "kept_vs_dropped": sum(int((x[1] != y[1]).any(-1).sum()) for x, y in zip(a, b))}
+
+
+def split_events(events, kernels=(KERNEL8_NAME,)) -> dict:
+    """Device ms of a profile split by stage: the MOE_RANGE ranges' (a CPU
+    range's device time: the kernels its operators launched), within them
+    each MOE_OPS group's (the operators called directly in the range) and
+    the rest of the MoE layer ("moe_other"), each kernel-name fragment's,
+    the total over device kernels (annotations left out) and the rest.
+    ``calls``: the operators seen in each MOE_OPS group."""
+    out = {name: 0.0 for name in (MOE_RANGE, *MOE_OPS, *kernels)}
+    calls = {group: 0 for group in MOE_OPS}
+    total = 0.0
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            if ev.name == MOE_RANGE:
+                out[MOE_RANGE] += ev.device_time_total / 1e3
+            parent = ev.cpu_parent
+            if parent is not None and parent.name == MOE_RANGE:
+                for group, ops in MOE_OPS.items():
+                    if ev.name in ops:
+                        out[group] += ev.device_time_total / 1e3
+                        calls[group] += 1
+        elif not getattr(ev, "is_user_annotation", False) and ev.name != MOE_RANGE:
+            total += ev.device_time_total / 1e3
+            for frag in kernels:
+                if frag in ev.name:
+                    out[frag] += ev.device_time_total / 1e3
+    out["moe_other"] = out[MOE_RANGE] - sum(out[group] for group in MOE_OPS)
+    out["total"] = total
+    out["rest"] = total - out[MOE_RANGE] - sum(out[frag] for frag in kernels)
+    out["calls"] = calls
+    return out
+
+
+@contextlib.contextmanager
+def moe_ranged():
+    """Within the block, the transformer runs each MoE layer inside a
+    profiler range named MOE_RANGE (for :func:`split_events`); the library
+    itself enters none."""
+    from unittest import mock
+
+    from torch.profiler import record_function
+
+    from repro_torch.models import transformer
+
+    apply = transformer.moe_apply
+
+    def ranged(*a, **kw):
+        with record_function(MOE_RANGE):
+            return apply(*a, **kw)
+
+    with mock.patch.object(transformer, "moe_apply", ranged):
+        yield
+
+
+def moe_device_split(fn, calls: int = 1) -> dict:
+    """:func:`split_events` of ``calls`` calls of ``fn`` (after one warm-up)
+    with each MoE layer in its range, per call, with the wall ms per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with moe_ranged(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    split = split_events(prof.events())
+    seen = split.pop("calls")
+    split = {k: v / calls for k, v in split.items()}
+    return {"wall_ms": wall, "device_busy_share": split["total"] / wall if wall else None,
+            "device_ms": split, "ops_seen": {k: v // calls for k, v in seen.items()}}
+
+
+def moe_serve_work(cfg, b: int, q_len: int, kv_len: int, capacity: int,
+                   experts_read: int = None, expert_pairs: int = None) -> dict:
+    """{op: (bytes, operations)} of one prefill (q_len = kv_len = S) or one
+    decode step (q_len = 1 against kv_len cached keys) of b sequences of a
+    MoE model in bf16: each weight read once, the token embeddings gathered,
+    the K/V written (prefill) or read (decode), the last position's logits
+    written; every matrix product's multiply-adds (2 operations each), the
+    experts over all E x capacity slots (the static-capacity formulation).
+    ``experts_read``: experts whose weights a decode step needs (default
+    all); ``expert_pairs``: the (token, choice) pairs the experts must
+    compute over all layers (default every slot, L E capacity), such as
+    the pairs a run's routing kept."""
+    m, L = cfg.moe, cfg.n_layers
+    d, hd, h, kvh, v = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.vocab
+    e, f, t = m.num_experts, m.d_ff_expert, b * q_len
+    fs = m.num_shared * f
+    pairs = b * h * (q_len * (q_len + 1) // 2 if q_len == kv_len else q_len * kv_len)
+    kv_bytes = 2 * L * b * kv_len * kvh * hd * 2
+    proj = d * (h * hd + 2 * kvh * hd) + h * hd * d
+    read = e if experts_read is None else experts_read
+    pairs_e = L * e * capacity if expert_pairs is None else expert_pairs
+    return {
+        "embed": (t * d * 2 * 2, 0),
+        "projections": (L * proj * 2, L * 2 * t * proj),
+        "attention": (kv_bytes, L * 4 * hd * pairs),
+        "router": (L * d * e * 4, L * 2 * t * d * e),
+        "experts": (L * read * 3 * d * f * 2, 2 * 3 * pairs_e * d * f),
+        "shared": (L * 3 * d * fs * 2, L * 2 * 3 * t * d * fs),
+        "lm_head": (d * v * 2 + b * v * 4, 2 * b * d * v),
+    }
+
+
+def work_bounds(work: dict) -> dict:
+    """The bound of the whole call, max(bytes / rate, operations / bf16
+    peak), and the sum of each operation's own bound."""
+    nbytes = sum(w[0] for w in work.values())
+    flops = sum(w[1] for w in work.values())
+    ms, by = bound_ms(nbytes, flops, PEAK_BF16)
+    per_op = {op: bound_ms(*w, PEAK_BF16) for op, w in work.items()}
+    return {"bound_ms": ms, "bound_by": by, "gbytes": nbytes / 1e9, "tflop": flops / 1e12,
+            "sum_of_op_bounds_ms": sum(b[0] for b in per_op.values()),
+            "op_bounds_ms": {op: b[0] for op, b in per_op.items()}}
 
 
 def stats_paths(args, dev, lagmom_fault) -> dict:
@@ -3455,6 +3687,8 @@ def swa_kernel(args, dev) -> dict:
 
     full = qkv(SWA_B, SWA_S, SWA_H, SWA_KVH, SWA_D, torch.bfloat16)
     parity = {"layer_shape": case(*full, SWA_W, fault=True)}
+    llama4 = qkv(*MOE_SWA, torch.bfloat16)  # lm_moe's prefill: W = S, G = 5
+    parity["llama4_layer_shape"] = case(*llama4, MOE_SWA[1], fault=True)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for name, (s, w, g, d, *bk) in SWA_EDGE.items():
             b, kvh = bk or (1, 2)
@@ -3527,7 +3761,52 @@ def swa_kernel(args, dev) -> dict:
           "library_max_rel_err": lib_rel,
           "note": "ms: median of CUDA-graph replays of the prepared launch; host_launch_ms, "
                   "wrapper_ms, plain_ms, library_ms: CUDA events around calls from the host"})
-    return {"parity": parity, "timing": timing, "bound": (b_ms, b_by)}
+    return {"parity": parity, "timing": timing, "bound": (b_ms, b_by),
+            "llama4": swa_llama4_timing(llama4)}
+
+
+def swa_llama4_timing(qkv) -> dict:
+    """Kernel 8 timed at lm_moe's prefill layer shape (W = S: plain causal
+    attention) beside its bound, the chunked plain version and the library
+    call of the same function, ``F.scaled_dot_product_attention(is_causal=
+    True, enable_gqa=True)``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.swa_attention import ops as sw, ref as swr
+
+    q, k, v = qkv
+    b, s, h, kvh, d = MOE_SWA
+    prep = sw.prepare_swa_attention(q, k, v, s, d ** -0.5)
+    samples = graph_ms([prep.launch])
+    qt, kt, vt = (t.transpose(1, 2) for t in qkv)
+
+    def sdpa():  # K/V read as they are (KVH heads), as kernel 8 reads them
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    plain = swr.swa_attention_chunked(q, k, v, s)
+    lib_rel = scaled_error(sdpa().transpose(1, 2), plain, swr.swa_row_scale(v, s, h))[1]
+    del plain
+    if lib_rel > SWA_TOL[torch.bfloat16]:
+        fail("SDPA at the llama4 shape disagrees with the plain version", max_rel_err=lib_rel)
+    nbytes, flops = swa_work(b, s, h, kvh, d, s, 2)
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
+    ms = samples[len(samples) // 2]
+    timing = {"ms": ms, "ms_samples": samples,
+              "wrapper_ms": cuda_ms(lambda: sw.swa_attention(q, k, v, s), 5, warmup=1),
+              "plain_ms": cuda_ms(lambda: swr.swa_attention_chunked(q, k, v, s), 3, warmup=1),
+              "library_ms": cuda_ms(sdpa, 5, warmup=1)}
+    emit({"phase": "timing_swa_attention_llama4",
+          "shape": f"q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kvh}, {d}) bf16, W=S={s}",
+          **timing, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+          "gbytes": nbytes / 1e9, "tflop": flops / 1e12, "tflop_per_s": flops / ms / 1e9,
+          "library_call": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+                          "under FLASH_ATTENTION: the same function at W = S",
+          "library_max_rel_err": lib_rel,
+          "note": "ms: median of CUDA-graph replays of the prepared launch; the others CUDA "
+                  "events around calls from the host"})
+    return {**timing, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def flash_rate_reference(qkv) -> dict:
@@ -4272,6 +4551,244 @@ def lm_quant(args, dev, serve: dict) -> int:
     return launches
 
 
+def lm_moe(args, dev) -> int:
+    """Phase lm_moe: llama4-maverick-400b-a17b at full width, depth cut to
+    MOE_LAYERS, bf16 weights from ``--seed`` (the expert leaves drawn slab by
+    slab), 4 x 8,000 prompt tokens and MOE_NEW greedy new tokens through
+    ``ServeEngine.generate``.  Checks: (1) the served prefill and teacher-
+    forced decode logits against the same model on the chunked plain
+    attention, with the routes that differ between the two paths counted;
+    (2) the first layer's MoE on its real prefill input against
+    :func:`moe_plain`, and the dropped pairs against a host recount; (3) the
+    same layer one slot short must fail (2); (4) the tokens' shape, finite
+    logits.  Returns kernel 8's launches in the generate."""
+    from repro_torch import ServeEngine, get_arch, init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, moe_apply, prefill
+    from repro_torch.models.moe import moe_capacity, moe_route
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    m = cfg.moe
+    B, P, NEW = SERVE_BATCH, SERVE_PROMPT, MOE_NEW
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # what earlier phases left
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=args.seed, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    weight_gb = sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 3)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    eng = ServeEngine(cfg, params, max_len=P + NEW, dtype=torch.bfloat16, device=dev)
+    eng.generate(prompts[:, :1000], 2)  # warm-up: cuBLAS handles at these widths
+
+    launches = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, NEW, keep_logits=True)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches["generate"] = launch_counts()["swa_attention"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = torch.from_numpy(res.tokens).to(dev)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, cache = prefill(params, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches["prefill"] = launch_counts()["swa_attention"]
+    cache = eng._grow_cache(cache, B)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, NEW):
+        _, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": P + i - 1}, cfg)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
+    launches["decode"] = launch_counts()["swa_attention"]
+    # where the time goes, by stage (one prefill; one decode step repeated
+    # at the same position, which rewrites the same slot with the same values)
+    step = {"tokens": tokens[:, NEW - 2], "pos": P + NEW - 2}
+    pre_split = moe_device_split(lambda: prefill(params, {"tokens": prompts}, cfg))
+    dec_split = moe_device_split(lambda: decode_step(params, cache, step, cfg), calls=3)
+    dec_routes = []
+    hooks = moe_routes(params, cfg, dec_routes)
+    decode_step(params, cache, step, cfg)
+    for hk in hooks:
+        hk.remove()
+    del cache
+    routed_experts = [int(idx.unique().numel()) for idx, _ in dec_routes]
+    capacity = moe_capacity(B * P, cfg)
+    pre_bounds = work_bounds(moe_serve_work(cfg, B, P, P, capacity))
+    dec_work = dict(cfg=cfg, b=B, q_len=1, kv_len=P + NEW - 1, capacity=moe_capacity(B, cfg))
+    dec_bounds = work_bounds(moe_serve_work(**dec_work))
+    routed_bounds = work_bounds(moe_serve_work(**dec_work, experts_read=max(routed_experts),
+                                               expert_pairs=B * m.top_k * cfg.n_layers))
+
+    # 1: the kernel path's and the plain path's routes, the plain path's
+    # prefill and teacher-forced decode logits; layer 0's prefill input
+    kernel_routes, plain_routes, first_in = [], [], []
+    hooks = moe_routes(params, cfg, kernel_routes)
+    hooks.append(params.layers[0].mlp_norm.register_forward_hook(
+        lambda _m, _i, h: first_in.append(h)))
+    again, _ = prefill(params, {"tokens": prompts}, cfg)
+    for hk in hooks:
+        hk.remove()
+    hooks = moe_routes(params, cfg, plain_routes)
+    plain_first, pcache = prefill(params, {"tokens": prompts}, cfg, attention=functools.partial(
+        swa_attention_chunked, chunk=MOE_PLAIN_CHUNK))
+    for hk in hooks:
+        hk.remove()
+    pcache = eng._grow_cache(pcache, B)
+    steps = [plain_first]
+    for i in range(1, NEW):
+        logits, pcache = decode_step(params, pcache, {"tokens": tokens[:, i - 1],
+                                                      "pos": P + i - 1}, cfg)
+        steps.append(logits)
+    del pcache
+    plain = torch.stack([t.float() for t in steps], 1)
+    served = res.logits
+    prefill_err = row_rel_errors(served[:, 0], plain[:, 0]).max().item()
+    decode_err = row_rel_errors(served[:, 1:], plain[:, 1:]).max().item()
+    routes = route_differences(kernel_routes, plain_routes)
+    # the prefill's bound over the pairs its routing kept (sum over experts
+    # of min(load, capacity), each layer), beside the all-slots bound
+    kept_pairs = [int(kept.sum()) for _, kept in kernel_routes]
+    kept_bounds = work_bounds(moe_serve_work(cfg, B, P, P, capacity,
+                                             expert_pairs=sum(kept_pairs)))
+    del plain, steps, kernel_routes, plain_routes
+
+    # 2-3: the first MoE layer on its prefill input against the plain loop,
+    # then the same layer one slot short
+    layer, h = params.layers[0].mlp, first_in[0]
+    xt = h.reshape(-1, cfg.d_model)
+    got, _ = moe_apply(layer, h, cfg)
+    want, plain_idx, plain_drops = moe_plain(layer, xt, m.top_k, capacity)
+    idx, pos = moe_route(layer, xt, cfg)[3:]
+    loads = torch.bincount(idx.reshape(-1), minlength=m.num_experts)
+    dispatch_err = row_rel_errors(got.reshape(-1, cfg.d_model), want).max().item()
+    drops = {"moe_apply": int((pos >= capacity).sum()), "plain_loop": plain_drops,
+             "host_recount": host_drops(idx.cpu().numpy(), capacity, m.num_experts)}
+    fault_capacity = min(capacity, int(loads.max())) - 1
+    bad, _ = moe_apply(layer, h, planted_capacity(cfg, B * P, fault_capacity))
+    fault_err = row_rel_errors(bad.reshape(-1, cfg.d_model), want).max().item()
+    del got, want, bad, first_in, h, xt
+    finite = bool(torch.isfinite(served).all())
+    out = {
+        "phase": "lm_moe", "arch": cfg.name, "layers": cfg.n_layers,
+        "cut": f"depth {cfg.n_layers} of 48 layers (the card's 80 GiB: 32.59 GB a layer)",
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "head_dim": cfg.resolved_head_dim, "experts": m.num_experts, "top_k": m.top_k,
+        "d_ff_expert": m.d_ff_expert, "shared": m.num_shared, "vocab": cfg.vocab,
+        "capacity_factor": m.capacity_factor, "dispatch": m.dispatch, "dtype": "bfloat16",
+        "weights_gb": weight_gb, "batch": B, "prompt_len": P, "new_tokens": NEW,
+        "capacity": capacity, "init_ms": init_ms, "generate_ms": generate_ms,
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+        "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_memory_gb": peak_gb,
+        "held_at_start_gb": held_gb, "prefill_bound": pre_bounds,
+        "prefill_bound_kept_pairs": {"kept_pairs_per_layer": kept_pairs, **kept_bounds},
+        "decode_step_bound": dec_bounds,
+        "shares_of_bound": {"prefill": pre_bounds["bound_ms"] / prefill_ms,
+                            "prefill_kept_pairs": kept_bounds["bound_ms"] / prefill_ms,
+                            "decode_step": dec_bounds["bound_ms"] / decode_ms,
+                            "decode_step_routed_experts": routed_bounds["bound_ms"] / decode_ms},
+        "decode_step_bound_routed_experts": {"experts_routed_per_layer": routed_experts,
+                                             **routed_bounds},
+        "profiled_prefill": pre_split, "profiled_decode_step": dec_split,
+        "launches": launches, "tol": SERVE_TOL,
+        "checks": {"prefill_vs_plain_rel_err": prefill_err,
+                   "teacher_forced_decode_vs_plain_rel_err": decode_err,
+                   "prefill_again_bitwise_generate": bool(torch.equal(again.float(),
+                                                                      served[:, 0])), **routes,
+                   "dispatch_vs_plain_rel_err": dispatch_err, "dispatch_tol": MOE_TOL,
+                   "routing_equal_plain": bool(torch.equal(idx, plain_idx)),
+                   "dropped_pairs": drops, "expert_load_max": int(loads.max()),
+                   "expert_load_min": int(loads.min()), "finite": finite},
+        "fault": {"capacity": fault_capacity,
+                  "rule": "capacity - 1" if fault_capacity == capacity - 1 else
+                          "fullest bucket - 1 (no bucket reached the capacity)",
+                  "dispatch_vs_plain_rel_err": fault_err, "caught": fault_err > MOE_TOL},
+        "first_row_tokens": res.tokens[0][:8].tolist(),
+        "phase_peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "wall_ms": (time.perf_counter() - t_phase) * 1e3,
+    }
+    out["ok"] = (launches["generate"] == launches["prefill"] == cfg.n_layers
+                 and launches["decode"] == 0 and finite
+                 and tuple(res.tokens.shape) == (B, NEW)
+                 and max(prefill_err, decode_err) <= SERVE_TOL and dispatch_err <= MOE_TOL
+                 and out["checks"]["routing_equal_plain"]
+                 and len(set(drops.values())) == 1 and out["fault"]["caught"])
+    emit(out)
+    if not out["ok"]:
+        fail("lm_moe")
+    return launches["generate"]
+
+
+def lm_qwen3(args, dev) -> int:
+    """Phase lm_qwen3: qwen3-0.6b at full width and depth in bf16 (qk_norm,
+    no window: kernel 8 at W = S), QWEN_BATCH prompts of QWEN_PROMPT tokens
+    and QWEN_NEW greedy new tokens through ``ServeEngine.generate``, held
+    as lm_serve's checks 1-2 hold danube: the served prefill and teacher-
+    forced decode logits against the chunked plain attention's.  Returns
+    kernel 8's launches in the generate."""
+    from repro_torch import ServeEngine, get_arch, init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, prefill
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(QWEN_ARCH)
+    B, P, NEW = QWEN_BATCH, QWEN_PROMPT, QWEN_NEW
+    params = init_params(cfg, seed=args.seed, dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 6)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    eng = ServeEngine(cfg, params, max_len=P + NEW, dtype=torch.bfloat16, device=dev)
+    eng.generate(prompts[:, :512], 2)  # warm-up
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, NEW, keep_logits=True)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()["swa_attention"]
+    tokens = torch.from_numpy(res.tokens).to(dev)
+    plain_first, pcache = prefill(params, {"tokens": prompts}, cfg,
+                                  attention=swa_attention_chunked)
+    pcache = eng._grow_cache(pcache, B)
+    steps = [plain_first]
+    for i in range(1, NEW):
+        logits, pcache = decode_step(params, pcache, {"tokens": tokens[:, i - 1],
+                                                      "pos": P + i - 1}, cfg)
+        steps.append(logits)
+    del pcache
+    plain = torch.stack([t.float() for t in steps], 1)
+    prefill_err = row_rel_errors(res.logits[:, 0], plain[:, 0]).max().item()
+    decode_err = row_rel_errors(res.logits[:, 1:], plain[:, 1:]).max().item()
+    finite = bool(torch.isfinite(res.logits).all() and torch.isfinite(plain).all())
+    out = {"phase": "lm_qwen3", "arch": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.resolved_head_dim, "qk_norm": cfg.qk_norm, "dtype": "bfloat16",
+           "batch": B, "prompt_len": P, "new_tokens": NEW, "generate_ms": generate_ms,
+           "launches": {"generate": launches}, "tol": SERVE_TOL,
+           "checks": {"prefill_vs_plain_rel_err": prefill_err,
+                      "teacher_forced_decode_vs_plain_rel_err": decode_err, "finite": finite},
+           "wall_ms": (time.perf_counter() - t_phase) * 1e3}
+    out["ok"] = (launches == cfg.n_layers and finite and tuple(res.tokens.shape) == (B, NEW)
+                 and max(prefill_err, decode_err) <= SERVE_TOL)
+    emit(out)
+    if not out["ok"]:
+        fail("lm_qwen3")
+    return launches
+
+
 # ------------------------------------------------- the backend policy layer
 def calibration_phase(args, dev):
     """Phase 11: `repro_torch.core.calibrate.calibrate` at the reference's
@@ -4843,6 +5360,14 @@ def main() -> None:
     del serve
     gc.collect()
     torch.cuda.empty_cache()
+    # the MoE family: llama4-maverick at full width, depth cut (69.3 GB of
+    # weights: danube's are gone), then qwen3-0.6b at full width and depth
+    moe_launches = lm_moe(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_launches = lm_qwen3(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the paper's last estimators at its VAR workload sizes, then graphs
     paper_var_launches = paper_var_phase(args, dev)
     gc.collect()
@@ -4878,7 +5403,11 @@ def main() -> None:
             "gateway_launches_per_query": gateway["launches_per_query"].get(name, 0),
             "paper_var_launches": paper_var_launches.get(name, 0),
             "lm_quant_launches": quant_launches if name == "swa_attention" else 0,
+            "lm_moe_launches": moe_launches if name == "swa_attention" else 0,
+            "lm_qwen3_launches": qwen_launches if name == "swa_attention" else 0,
         })
+        if name == "swa_attention":  # the second shape: lm_moe's prefill, W = S
+            kernels[-1]["llama4_shape"] = swa["llama4"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,8 +4,8 @@ The JAX package `repro` is the reference; this package re-creates its fused
 statistics plan with its overlapping block store, its streaming
 estimators, its rolling moments and cross-spectra, its §6 banded
 spatial AR fit, its forecasts and anomaly scores, its serving gateway
-with verified checkpoints, and its dense-family LM serving path on
-PyTorch, with each
+with verified checkpoints, and its dense- and MoE-family LM serving path
+on PyTorch, with each
 Pallas kernel on those paths rewritten as a hand-written CUDA kernel for
 Hopper (sm_90a).  It imports nothing from `repro` and no JAX.
 

@@ -59,10 +59,18 @@ def fractional_difference(x: torch.Tensor, d: float, truncation: int = 64) -> to
     reversed weights), so the overlapping windows are never copied: a
     matmul of the unfold view would materialise (N - K) dims (K + 1)
     elements, 16.6 GB at N = 10^6, 64 dims, K = 64.
+
+    A series that is not floating point is computed and returned in
+    float32, as the reference promotes it; a series of at most
+    ``truncation`` rows has no full support and gives (0, dims).
     """
     if x.ndim == 1:
         x = x[:, None]
-    w = fractional_diff_weights(d, truncation, device=x.device).to(x.dtype).flip(0)
+    if not x.is_floating_point():
+        x = x.float()
     dims = x.shape[1]
+    if x.shape[0] <= truncation:
+        return x.new_empty((0, dims))
+    w = fractional_diff_weights(d, truncation, device=x.device).to(x.dtype).flip(0)
     y = torch.nn.functional.conv1d(x.T[None], w.expand(dims, 1, truncation + 1), groups=dims)
     return y[0].T

@@ -16,8 +16,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["DTYPE", "dense_init", "embed_init", "rms_norm", "rope_frequencies", "apply_rope",
-           "swiglu", "mlp_init", "RMSNorm", "MLP", "weight"]
+__all__ = ["DTYPE", "dense_init", "expert_init", "embed_init", "rms_norm", "rope_frequencies",
+           "apply_rope", "swiglu", "mlp_init", "RMSNorm", "MLP", "weight"]
 
 DTYPE = torch.bfloat16  # activation / parameter dtype of the full-size configs
 
@@ -31,6 +31,20 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype=DTYPE,
                device=None) -> torch.Tensor:
     scale = 1.0 / math.sqrt(in_dim)
     return (torch.randn((in_dim, out_dim), generator=gen, device=device) * scale).to(dtype)
+
+
+def expert_init(gen: torch.Generator, shape, scale: float, dtype=DTYPE,
+                device=None) -> torch.Tensor:
+    """A stacked (E, a, b) leaf of standard normals times ``scale``, drawn
+    one (a, b) slab at a time into a preallocated ``dtype`` tensor: the only
+    float32 temporary is one slab (an expert of llama4-maverick is 168 MB in
+    float32; its whole (128, 5120, 8192) leaf would be 21.5 GB)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    slab = torch.empty(shape[1:], dtype=torch.float32, device=device)
+    for i in range(shape[0]):
+        torch.randn(shape[1:], generator=gen, device=device, out=slab)
+        out[i].copy_(slab.mul_(scale))
+    return out
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=DTYPE,

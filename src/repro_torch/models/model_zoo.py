@@ -1,7 +1,8 @@
-"""Model zoo dispatcher, dense family (port of `repro.models.model_zoo`).
+"""Model zoo dispatcher, dense and MoE families (port of `repro.models.model_zoo`).
 
   init_params(cfg, seed=...)              -> Transformer
-  forward(params, batch, cfg)             -> logits (B, S, V)
+  forward(params, batch, cfg)             -> logits (B, S, V) (``return_aux``:
+                                             and the MoE aux losses)
   prefill(params, batch, cfg)             -> (last logits, cache)
   decode_step(params, cache, batch, cfg)  -> (logits, cache)
   cache_spec(cfg, batch, seq)             -> {name: TensorSpec}
@@ -10,10 +11,11 @@
   params_to_tree / params_from_tree       -- the same layout as tensors (layer
                                              leaves stacked on a leading L axis)
 
-``batch`` is a dict: ``tokens`` (and ``pos`` for decode).  Only the dense
-family is ported; every other family raises ``NotImplementedError`` naming
-its ROADMAP item.  ``init_params`` and ``params_from_numpy`` put the model on
-the card unless the caller asks for the CPU.
+``batch`` is a dict: ``tokens`` (and ``pos`` for decode).  The dense and
+MoE families with GQA attention are ported; every other family, and MLA
+attention (deepseek-v2), raises ``NotImplementedError`` naming its ROADMAP
+item.  ``init_params`` and ``params_from_numpy`` put the model on the card
+unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -27,13 +29,13 @@ from ..core.mapreduce import tree_map
 from . import transformer
 from .attention import Attention, GQAAttention, TensorSpec, mla_not_ported
 from .layers import DTYPE, MLP, RMSNorm
+from .moe import MoE
 from .transformer import Block, Transformer
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "cache_spec",
            "params_from_numpy", "params_to_numpy", "params_from_tree", "params_to_tree"]
 
 _OPEN_FAMILIES = {
-    "moe": "mixture-of-experts (models/moe.py), ROADMAP Queue A item 6.3",
     "ssm": "xLSTM (models/xlstm.py, xlstm_lm.py), ROADMAP Queue A item 6.6",
     "hybrid": "the SSM hybrid (models/ssm.py, zamba.py), ROADMAP Queue A item 6.5",
     "encdec": "the encoder-decoder (models/encdec.py), ROADMAP Queue A item 6.7",
@@ -41,7 +43,7 @@ _OPEN_FAMILIES = {
 }
 
 
-def _dense_only(cfg) -> None:
+def _require_ported(cfg) -> None:
     if cfg.family in _OPEN_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet: "
                                   f"{_OPEN_FAMILIES[cfg.family]}")
@@ -53,7 +55,7 @@ def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = No
                 dtype=DTYPE, device="cuda") -> Transformer:
     """Random weights from ``seed`` (or an explicit ``generator`` on
     ``device``), made on ``device``."""
-    _dense_only(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -61,29 +63,34 @@ def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = No
     return transformer.lm_init(generator, cfg, dtype, dev)
 
 
-def forward(params: Transformer, batch: Dict[str, Any], cfg) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
-    _dense_only(cfg)
-    return transformer.lm_forward(params, batch["tokens"], cfg)
+def forward(params: Transformer, batch: Dict[str, Any], cfg, *, return_aux: bool = False):
+    """Full-sequence forward -> logits (B, S, V); with ``return_aux``,
+    (logits, aux losses summed over layers) as the reference returns."""
+    _require_ported(cfg)
+    return transformer.lm_forward(params, batch["tokens"], cfg, return_aux=return_aux)
 
 
 def prefill(params: Transformer, batch: Dict[str, Any], cfg, *,
             attention: Optional[Attention] = None):
-    _dense_only(cfg)
+    _require_ported(cfg)
     return transformer.lm_prefill(params, batch["tokens"], cfg, attention=attention)
 
 
 def decode_step(params: Transformer, cache, batch: Dict[str, Any], cfg):
-    _dense_only(cfg)
+    _require_ported(cfg)
     return transformer.lm_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
 
 
 def cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, TensorSpec]:
-    _dense_only(cfg)
+    _require_ported(cfg)
     return transformer.lm_cache_spec(cfg, batch, seq_len, dtype)
 
 
 # ------------------------------------------------- weights carried across --
+
+
+_MLP_NAMES = ("w_gate", "w_up", "w_down")
+_MOE_NAMES = ("router", "e_gate", "e_up", "e_down")
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -105,6 +112,15 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _mlp(tree: Dict[str, Any], i: int, t) -> MLP:
+    return MLP(*(t(tree[k][i]) for k in _MLP_NAMES))
+
+
+def _moe(tree: Dict[str, Any], i: int, t) -> MoE:
+    shared = _mlp(tree["shared"], i, t) if "shared" in tree else None
+    return MoE(*(t(tree[k][i]) for k in _MOE_NAMES), shared)
+
+
 def _assemble(tree: Dict[str, Any], cfg, t) -> Transformer:
     """The model from a params tree in the reference's layout, ``t`` making
     each leaf (a layer leaf indexed first) a tensor."""
@@ -114,7 +130,7 @@ def _assemble(tree: Dict[str, Any], cfg, t) -> Transformer:
         at = {k: a[i] for k, a in lay["attn"].items()}
         attn = GQAAttention(t(at["wq"]), t(at["wk"]), t(at["wv"]), t(at["wo"]),
                             *((t(at["q_norm"]), t(at["k_norm"])) if cfg.qk_norm else ()))
-        mlp = MLP(*(t(lay["mlp"][k][i]) for k in ("w_gate", "w_up", "w_down")))
+        mlp = _moe(lay["moe"], i, t) if cfg.moe is not None else _mlp(lay["mlp"], i, t)
         blocks.append(Block(RMSNorm(t(lay["attn_norm"][i]), cfg.norm_eps), attn,
                             RMSNorm(t(lay["mlp_norm"][i]), cfg.norm_eps), mlp))
     head = None if cfg.tie_embeddings else t(tree["lm_head"])
@@ -123,11 +139,11 @@ def _assemble(tree: Dict[str, Any], cfg, t) -> Transformer:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
-    """The reference's dense-family params -- a nest of dicts of numpy
+    """The reference's dense- or MoE-family params -- a nest of dicts of numpy
     arrays, layer leaves stacked on a leading (L, ...) axis, as
     ``jax.tree.map(np.asarray, params)`` gives them -- as the port's model
     on ``device``."""
-    _dense_only(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     return _assemble(tree, cfg, lambda a: _tensor(a, dev))
 
@@ -135,7 +151,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
 def params_from_tree(tree: Dict[str, Any], cfg) -> Transformer:
     """The model over a tree of tensors in :func:`params_to_tree`'s layout:
     each layer's weights are views of the stacked leaves, never copies."""
-    _dense_only(cfg)
+    _require_ported(cfg)
     return _assemble(tree, cfg, lambda a: a)
 
 
@@ -145,15 +161,24 @@ def params_to_tree(params: Transformer) -> Dict[str, Any]:
     tensors), the others the model's own."""
     stack = lambda ts: torch.stack([x.detach() for x in ts])  # noqa: E731
     blocks = list(params.layers)
+
+    def stacked(mods, names):
+        return {k: stack([getattr(m, k) for m in mods]) for k in names}
+
+    ffns = [b.mlp for b in blocks]
+    if isinstance(ffns[0], MoE):
+        ffn = {"moe": stacked(ffns, _MOE_NAMES)}
+        if ffns[0].shared is not None:
+            ffn["moe"]["shared"] = stacked([m.shared for m in ffns], _MLP_NAMES)
+    else:
+        ffn = {"mlp": stacked(ffns, _MLP_NAMES)}
     names = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm")
                                         if blocks[0].attn.q_norm is not None else ())
     tree = {
         "embed": params.embed.detach(),
         "layers": {"attn_norm": stack([b.attn_norm.weight for b in blocks]),
-                   "attn": {k: stack([getattr(b.attn, k) for b in blocks]) for k in names},
-                   "mlp_norm": stack([b.mlp_norm.weight for b in blocks]),
-                   "mlp": {k: stack([getattr(b.mlp, k) for b in blocks])
-                           for k in ("w_gate", "w_up", "w_down")}},
+                   "attn": stacked([b.attn for b in blocks], names),
+                   "mlp_norm": stack([b.mlp_norm.weight for b in blocks]), **ffn},
         "final_norm": params.final_norm.weight.detach(),
     }
     if params.lm_head is not None:

@@ -1,4 +1,5 @@
-"""Decoder-only LM backbone, dense family (port of `repro.models.transformer`).
+"""Decoder-only LM backbone, dense and MoE families (port of
+`repro.models.transformer`).
 
 The reference stacks its layers' parameters on a leading L axis and scans
 over them; the port keeps one :class:`Block` per layer in an
@@ -7,17 +8,19 @@ stacked layout, ``{"k", "v": (L, B, C, KVH, hd), "pos": (L, C)}``, so the
 two compare leaf by leaf.
 
 Entry points (all under ``torch.no_grad``; training is a later slice):
-  lm_forward      -- tokens -> logits (B, S, V)
+  lm_forward      -- tokens -> logits (B, S, V) (with ``return_aux``, and
+                     the aux losses summed over layers)
   lm_prefill      -- tokens -> (last logits (B, V), stacked cache)
   lm_decode_step  -- (cache, tokens (B,), pos) -> (logits (B, V), cache)
 
 ``lm_prefill`` takes ``attention=`` (default: the sliding-window attention
 kernel's wrapper) for its attention; decode attention is plain PyTorch.
-MoE layers wait for their slice.
+A block's feed-forward is a dense SwiGLU (:class:`MLP`) or, for a config
+with ``moe``, a mixture of experts (:class:`MoE`, `moe.py`).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -25,13 +28,18 @@ from torch import nn
 from .attention import (Attention, Cache, GQAAttention, TensorSpec, attention_cache_spec,
                         attention_init, gqa_apply)
 from .layers import DTYPE, MLP, RMSNorm, dense_init, embed_init, mlp_init, weight
+from .moe import Aux, MoE, moe_apply, moe_init
 
 __all__ = ["Block", "Transformer", "lm_init", "lm_forward", "lm_prefill", "lm_decode_step",
            "lm_cache_spec", "lm_head_matrix"]
 
 
 class Block(nn.Module):
-    def __init__(self, attn_norm: RMSNorm, attn: GQAAttention, mlp_norm: RMSNorm, mlp: MLP):
+    """Attention and a feed-forward ``mlp``: a dense :class:`MLP`, or an
+    :class:`MoE` (the reference's ``layers["moe"]``)."""
+
+    def __init__(self, attn_norm: RMSNorm, attn: GQAAttention, mlp_norm: RMSNorm,
+                 mlp: Union[MLP, MoE]):
         super().__init__()
         self.attn_norm, self.attn, self.mlp_norm, self.mlp = attn_norm, attn, mlp_norm, mlp
 
@@ -50,9 +58,6 @@ class Transformer(nn.Module):
 
 
 def _check_family(cfg) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are not ported "
-                                  "yet (ROADMAP Queue A item 6.3)")
     if cfg.family == "vlm":
         raise NotImplementedError(f"{cfg.name}: the VLM stub is not ported yet "
                                   "(ROADMAP Queue A item 6.8)")
@@ -61,8 +66,9 @@ def _check_family(cfg) -> None:
 def _layer_init(gen: torch.Generator, cfg, dtype, device) -> Block:
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=device)  # noqa: E731
     attn = attention_init(gen, cfg, dtype, device)
-    return Block(RMSNorm(ones(), cfg.norm_eps), attn, RMSNorm(ones(), cfg.norm_eps),
-                 mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device))
+    mlp = (moe_init(gen, cfg, dtype, device) if cfg.moe is not None
+           else mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device))
+    return Block(RMSNorm(ones(), cfg.norm_eps), attn, RMSNorm(ones(), cfg.norm_eps), mlp)
 
 
 def lm_init(gen: torch.Generator, cfg, dtype=DTYPE, device=None) -> Transformer:
@@ -78,12 +84,18 @@ def lm_init(gen: torch.Generator, cfg, dtype=DTYPE, device=None) -> Transformer:
 
 def _block(p: Block, x: torch.Tensor, cfg, positions: torch.Tensor, cache: Optional[Cache] = None,
            pos: Optional[int] = None, return_cache: bool = False,
-           attention: Optional[Attention] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
+           attention: Optional[Attention] = None, aux: bool = False
+           ) -> Tuple[torch.Tensor, Optional[Cache], Optional[Aux]]:
+    """-> (x, cache, the MoE layer's aux losses when ``aux``, else None)."""
     attn_out, new_cache = gqa_apply(p.attn, p.attn_norm(x), cfg, positions, cache=cache, pos=pos,
                                     return_cache=return_cache, attention=attention)
     x = x + attn_out
-    x = x + p.mlp(p.mlp_norm(x))
-    return x, new_cache
+    h = p.mlp_norm(x)
+    if isinstance(p.mlp, MoE):
+        mlp_out, layer_aux = moe_apply(p.mlp, h, cfg, aux=aux)
+    else:
+        mlp_out, layer_aux = p.mlp(h), None
+    return x + mlp_out, new_cache, layer_aux
 
 
 def _embed_inputs(p: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -103,13 +115,18 @@ def _positions(n: int, start: int, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def lm_forward(p: Transformer, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
+def lm_forward(p: Transformer, tokens: torch.Tensor, cfg, *, return_aux: bool = False):
+    """Full-sequence forward -> logits (B, S, V); with ``return_aux``,
+    (logits, {"lb_loss", "z_loss"} summed over layers, 0 for dense ones)."""
     x = _embed_inputs(p, tokens)
     positions = _positions(x.shape[1], 0, x.device)
+    total = {name: torch.zeros((), device=x.device) for name in ("lb_loss", "z_loss")}
     for layer in p.layers:
-        x, _ = _block(layer, x, cfg, positions)
-    return _unembed(p, x)
+        x, _, aux = _block(layer, x, cfg, positions, aux=return_aux)
+        for name, v in (aux or {}).items():
+            total[name] = total[name] + v
+    logits = _unembed(p, x)
+    return (logits, total) if return_aux else logits
 
 
 @torch.no_grad()
@@ -120,7 +137,7 @@ def lm_prefill(p: Transformer, tokens: torch.Tensor, cfg, *,
     positions = _positions(x.shape[1], 0, x.device)
     caches = []
     for layer in p.layers:
-        x, cache = _block(layer, x, cfg, positions, return_cache=True, attention=attention)
+        x, cache, _ = _block(layer, x, cfg, positions, return_cache=True, attention=attention)
         caches.append(cache)
     logits = _unembed(p, x[:, -1:, :])[:, 0]
     return logits, {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
@@ -135,8 +152,8 @@ def lm_decode_step(p: Transformer, cache: Cache, tokens: torch.Tensor, pos: int,
     x = _embed_inputs(p, tokens[:, None])
     positions = _positions(1, pos, x.device)
     for i, layer in enumerate(p.layers):
-        x, _ = _block(layer, x, cfg, positions, cache={k: t[i] for k, t in cache.items()},
-                      pos=pos)
+        x, _, _ = _block(layer, x, cfg, positions, cache={k: t[i] for k, t in cache.items()},
+                         pos=pos)
     return _unembed(p, x)[:, 0], cache
 
 

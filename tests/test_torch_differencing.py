@@ -91,6 +91,27 @@ def test_fractional_difference_matches(d, k, dims):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
+def test_fractional_difference_of_an_integer_series_is_float32():
+    """The reference promotes an int32 series to float32; the weights are
+    not cut to the series' dtype (they would all round to 0 or 1)."""
+    x = np.random.default_rng(11).integers(-5, 5, (40, 2)).astype(np.int32)
+    want = jd.fractional_difference(jnp.asarray(x), 0.4, 8)
+    got = td.fractional_difference(torch.from_numpy(x), 0.4, 8)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (32, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [5, 8])
+def test_fractional_difference_of_a_short_series_is_empty(n):
+    """At most ``truncation`` rows: no full support, (0, dims) of the
+    result's dtype, as the reference returns."""
+    x = _walk(n, 3, seed=n)
+    want = jd.fractional_difference(jnp.asarray(x), 0.4, 8)
+    got = td.fractional_difference(torch.from_numpy(x), 0.4, 8)
+    assert got.shape == want.shape == (0, 3)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+
+
 def test_fractional_difference_of_order_one_is_delta():
     """tests/test_system.py:80-88: d = 1 gives weights (1, -1, 0, ...)."""
     x = _walk(500, 2, seed=3)

@@ -104,6 +104,9 @@ def test_entry_points_default_to_the_card():
     cfg = get_arch("danube").reduced()
     cpu_model = init_params(cfg, device="cpu")
     tree = params_to_numpy(cpu_model)
+    moe_cfg = get_arch("llama4").reduced()
+    moe_model = init_params(moe_cfg, device="cpu")
+    moe_tree = params_to_numpy(moe_model)
     for call in (lambda: SeriesFrame.from_array(x), lambda: SeriesFrame.from_chunks([x]),
                  lambda: FrameSession(d=2, num_users=4),
                  lambda: StatPlan([autocovariance_request(2)], d=2),
@@ -114,6 +117,9 @@ def test_entry_points_default_to_the_card():
                  lambda: init_params(cfg), lambda: params_from_numpy(tree, cfg),
                  lambda: ServeEngine(cfg, cpu_model, max_len=8),
                  lambda: ServeEngine(cfg, cpu_model, max_len=8, quantize=True),
+                 lambda: init_params(moe_cfg), lambda: params_from_numpy(moe_tree, moe_cfg),
+                 lambda: ServeEngine(moe_cfg, moe_model, max_len=8, quantize=True),
+                 lambda: serve.main(["--arch", "llama4", "--reduced"]),
                  lambda: serve.main(["--arch", "danube", "--reduced"]),
                  lambda: fit_ar_mle(x, 1, n_steps=1), lambda: fit_ar_sgd(x, 1, n_steps=1),
                  lambda: simulate_traffic_dbn(line_graph(4), np.zeros(4, np.float32), 2)):
@@ -320,6 +326,47 @@ def test_paper_estimators_graphs_and_quant_run_without_jax():
         "eng = repro_torch.ServeEngine(cfg, lm, max_len=24, quantize=True, device='cpu')\n"
         "assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
         "assert tree_param_bytes(quantize_tree(params_to_tree(lm))) > 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_moe_serving_runs_without_jax():
+    """The MoE family (models/moe.py, the transformer's MoE branch), its
+    weights carried out and in, int8 serving of its expert leaves and the
+    config shims with JAX and the reference package unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import numpy as np, torch, repro_torch\n"
+        "from repro_torch.configs import (glm4_9b, llama4_maverick_400b, phi3_medium_14b,\n"
+        "                                 qwen3_0_6b)\n"
+        "from repro_torch.models import (forward, moe_apply, params_from_numpy,\n"
+        "                                params_to_numpy)\n"
+        "from repro_torch.models.layers import expert_init\n"
+        "assert llama4_maverick_400b.CONFIG.moe.num_experts == 128\n"
+        "assert qwen3_0_6b.CONFIG.qk_norm and glm4_9b.CONFIG.n_kv_heads == 2\n"
+        "assert phi3_medium_14b.CONFIG.d_model == 5120\n"
+        "cfg = repro_torch.get_arch('llama4').reduced()\n"
+        "lm = repro_torch.init_params(cfg, seed=0, dtype=torch.float32, device='cpu')\n"
+        "x = torch.randn(2, 6, cfg.d_model)\n"
+        "out, aux = moe_apply(lm.layers[0].mlp, x, cfg)\n"
+        "assert out.shape == x.shape and set(aux) == {'lb_loss', 'z_loss'}\n"
+        "tok = torch.zeros((2, 20), dtype=torch.long)\n"
+        "logits, aux = forward(lm, {'tokens': tok}, cfg, return_aux=True)\n"
+        "assert logits.shape == (2, 20, cfg.vocab) and float(aux['z_loss']) > 0\n"
+        "back = params_from_numpy(params_to_numpy(lm), cfg, device='cpu')\n"
+        "assert torch.equal(forward(back, {'tokens': tok}, cfg), logits)\n"
+        "for quantize in (False, True):\n"
+        "    eng = repro_torch.ServeEngine(cfg, lm, max_len=24, quantize=quantize, device='cpu')\n"
+        "    assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "assert expert_init(g, (2, 8, 4), 0.5, torch.bfloat16).dtype == torch.bfloat16\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -626,3 +626,159 @@ def test_gamma_plain_check_passes_the_port_and_catches_a_planted_error():
     bad = got.clone()
     bad[7, 1, 2] += 2 * smoke.TOL["lag"] * got.abs().max()
     assert not smoke.gamma_plain_check(x, bad)["ok"]
+
+
+@pytest.mark.parametrize("top_k,shared,cf", [(1, 1, 1.0), (2, 2, 1.0), (1, 0, 4.0)])
+def test_moe_plain_loop_holds_moe_apply_and_recounts_the_drops(top_k, shared, cf):
+    """lm_moe's checks 2-3 on a reduced llama4 in float32: the loop over
+    experts agrees with ``moe_apply`` to float32 rounding, the three drop
+    counts agree, and the layer one slot short (or one below its fullest
+    bucket when none is full) fails the dispatch check."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    base = get_arch("llama4").reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, top_k=top_k, num_shared=shared, capacity_factor=cf))
+    layer = moe.moe_init(torch.Generator().manual_seed(top_k), cfg, torch.float32)
+    x = torch.randn((2, 48, cfg.d_model), generator=torch.Generator().manual_seed(7))
+    xt = x.reshape(-1, cfg.d_model)
+    cap = moe.moe_capacity(96, cfg)
+    got, _ = moe.moe_apply(layer, x, cfg)
+    want, idx, plain_drops = smoke.moe_plain(layer, xt, top_k, cap)
+    assert smoke.row_rel_errors(got.reshape(-1, cfg.d_model), want).max().item() < 1e-5
+    ridx, pos = moe.moe_route(layer, xt, cfg)[3:]
+    assert torch.equal(idx, ridx)
+    drops = int((pos >= cap).sum())
+    assert drops == plain_drops == smoke.host_drops(idx.numpy(), cap, 4)
+    assert (drops > 0) == (cf == 1.0)
+    loads = torch.bincount(idx.reshape(-1), minlength=4)
+    short = smoke.planted_capacity(cfg, 96, min(cap, int(loads.max())) - 1)
+    bad, _ = moe.moe_apply(layer, x, short)
+    assert smoke.row_rel_errors(bad.reshape(-1, cfg.d_model), want).max().item() > smoke.MOE_TOL
+
+
+@pytest.mark.parametrize("t,top_k,capacity", [(32000, 1, 311), (32000, 1, 5), (96, 2, 47),
+                                              (7, 1, 4)])
+def test_planted_capacity_gives_the_asked_slots_by_the_static_rule(t, top_k, capacity):
+    """lm_moe's planted fault: llama4's 128 experts over 4 x 8,000 tokens
+    one slot short of 312, and small cases down to the rule's floor; a
+    capacity below the floor min(t k, 4) has no factor and raises."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import moe_capacity
+
+    base = get_arch("llama4")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, top_k=top_k))
+    assert moe_capacity(t, smoke.planted_capacity(cfg, t, capacity)) == capacity
+    with pytest.raises(ValueError):
+        smoke.planted_capacity(cfg, t, min(t * top_k, 4) - 1)
+
+
+def test_route_differences_count_tokens_not_choices():
+    a = [(torch.tensor([[0, 1], [2, 3], [1, 0]]), torch.tensor([[True, True], [True, False],
+                                                                 [True, True]]))]
+    b = [(torch.tensor([[0, 1], [3, 2], [1, 0]]), torch.tensor([[True, True], [True, True],
+                                                                 [False, True]]))]
+    assert smoke.route_differences(a, b) == {"routes_differ": 1, "kept_vs_dropped": 2}
+
+
+def test_split_events_takes_ranges_from_cpu_events_and_totals_device_kernels():
+    """The MoE range's device time, split by the operators called directly
+    in it (a bmm inside an einsum is not an expert's), kernel 8 by its
+    kernel name, the rest; annotations left out of the total."""
+    from types import SimpleNamespace as E
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    moe = E(name=smoke.MOE_RANGE, device_type=cpu, device_time_total=5000.0, cpu_parent=None)
+    einsum = E(name="aten::einsum", device_type=cpu, device_time_total=400.0, cpu_parent=moe)
+    events = [moe, einsum,
+              E(name="aten::bmm", device_type=cpu, device_time_total=3000.0, cpu_parent=moe),
+              E(name="aten::bmm", device_type=cpu, device_time_total=400.0, cpu_parent=einsum),
+              E(name="aten::index", device_type=cpu, device_time_total=300.0, cpu_parent=moe),
+              E(name="aten::index_put_", device_type=cpu, device_time_total=200.0,
+                cpu_parent=moe),
+              E(name="aten::matmul", device_type=cpu, device_time_total=600.0, cpu_parent=moe),
+              E(name="aten::index", device_type=cpu, device_time_total=90.0, cpu_parent=None),
+              E(name=smoke.MOE_RANGE, device_type=cuda, device_time_total=5100.0,
+                is_user_annotation=True),
+              E(name="nvjet_gemm", device_type=cuda, device_time_total=3600.0),
+              E(name="gather_kernel", device_type=cuda, device_time_total=590.0),
+              E(name="elementwise", device_type=cuda, device_time_total=900.0),
+              E(name="void swa_bf16_kernel<128>(SwaParams)", device_type=cuda,
+                device_time_total=2000.0)]
+    out = smoke.split_events(events)
+    assert out[smoke.MOE_RANGE] == 5.0 and out["experts_bmm"] == 3.0
+    assert out["gathers_scatters"] == 0.5 and out["shared_and_router_mm"] == 0.6
+    assert out["moe_other"] == pytest.approx(0.9)
+    assert out["swa_bf16_kernel"] == 2.0 and out["total"] == pytest.approx(7.09)
+    assert out["rest"] == pytest.approx(0.09)
+    assert out["calls"] == {"experts_bmm": 1, "gathers_scatters": 2, "shared_and_router_mm": 1}
+
+
+def test_moe_ranged_profile_finds_each_layers_operators_on_the_cpu():
+    """A reduced llama4 prefill and decode step profiled on the CPU inside
+    :func:`smoke.moe_ranged`: each MoE layer's three expert bmms, its
+    gathers and scatters (two bucket-rank gathers and one scatter, the
+    dispatch's scatter and gather, the combine's gather) and its router and
+    shared-expert products (1 + 3) sit directly in a MOE_RANGE range; none
+    outside the block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_arch("llama4").reduced()
+    model = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(0))
+    _, cache = prefill(model, {"tokens": tokens}, cfg)
+    cache = ServeEngine(cfg, model, max_len=25, device="cpu")._grow_cache(cache, 2)
+    want = {"experts_bmm": 3, "gathers_scatters": 6, "shared_and_router_mm": 4}
+    for call in (lambda: prefill(model, {"tokens": tokens}, cfg),
+                 lambda: decode_step(model, cache, {"tokens": tokens[:, -1], "pos": 24}, cfg)):
+        with smoke.moe_ranged(), profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        seen = smoke.split_events(prof.events())["calls"]
+        assert seen == {k: v * cfg.n_layers for k, v in want.items()}
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        assert smoke.split_events(prof.events())["calls"] == dict.fromkeys(want, 0)
+
+
+def test_moe_bounds_at_llama4_full_width():
+    """The prefill of 4 x 8,000 tokens through 2 layers: 10.05 TFLOP of
+    experts a layer (E x C = 128 x 312 slots), 24.75 TFLOP a layer in all,
+    bound by operations at about 50 ms (50.95 as the sum of each operation's
+    bound: lm_head's 2.07 GB read, 0.62 ms, the 0.65 GB embedding gather and
+    the router added); a decode step reads every
+    expert in the static-capacity formulation, about 67 GB: bytes, ~20 ms."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch("llama4"), n_layers=2)
+    work = smoke.moe_serve_work(cfg, 4, 8000, 8000, 312)
+    assert work["experts"][1] / 2 == pytest.approx(10.05e12, rel=1e-3)
+    per_layer = sum(work[k][1] for k in ("experts", "shared", "projections", "attention")) / 2
+    assert per_layer == pytest.approx(24.75e12, rel=2e-3)
+    pre = smoke.work_bounds(work)
+    assert pre["bound_by"] == "operations" and 49.9 < pre["bound_ms"] < 50.2
+    assert 50.8 < pre["sum_of_op_bounds_ms"] < 51.1
+    dec = smoke.work_bounds(smoke.moe_serve_work(cfg, 4, 1, 8015, 4))
+    assert dec["bound_by"] == "bytes" and 66.5 < dec["gbytes"] < 68
+    assert 19.8 < dec["bound_ms"] < 20.3
+    routed = smoke.work_bounds(smoke.moe_serve_work(cfg, 4, 1, 8015, 4, experts_read=4))
+    assert routed["gbytes"] < 6
+    # the pairs a routing kept: 25,545 of 32,000 a layer -> 6.43 TFLOP of
+    # experts a layer (against 10.05 over every slot), bound about 42.8 ms
+    kept = smoke.moe_serve_work(cfg, 4, 8000, 8000, 312, expert_pairs=2 * 25545)
+    assert kept["experts"][1] / 2 == pytest.approx(6.427e12, rel=1e-3)
+    assert {k: v for k, v in kept.items() if k != "experts"} == \
+        {k: v for k, v in work.items() if k != "experts"}
+    kept_bound = smoke.work_bounds(kept)
+    assert kept_bound["bound_by"] == "operations" and 42.7 < kept_bound["bound_ms"] < 42.9
+    assert smoke.moe_serve_work(cfg, 4, 8000, 8000, 312, expert_pairs=2 * 128 * 312) == work
