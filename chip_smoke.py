@@ -24,8 +24,11 @@ tenant quarantined and rebuilt), then checks and times kernel 8
 depth through ``ServeEngine.generate``, then with int8 weights
 (``ServeEngine(quantize=True)``), then the mixture-of-experts family:
 llama4-maverick-400b-a17b at full width with its depth cut to 2 layers
-(its MoE layer held against a float32 loop over the experts), and
-qwen3-0.6b at full width and depth; then the paper's last estimators at its
+(its MoE layer held against a float32 loop over the experts),
+deepseek-v2-236b at full width with its depth cut to 7 layers (multi-head
+latent attention: the prefill through kernel 8 at q/k 192, v 128, the
+decode absorbed against the latent cache), and qwen3-0.6b at full width
+and depth; then the paper's last estimators at its
 own VAR workload sizes (``configs/paper_var.py``: the §5 conditional MLE by
 gradient descent and SGD, ARMA and MA fits from kernel 2's
 autocovariances, the §6 banded fit with kernels 7 and 7b, differencing)
@@ -77,7 +80,13 @@ llama4-maverick-400b-a17b (d_model 5,120, 40 / 8 heads of 128, 128 experts
 of 8,192, top-1, one shared expert, vocab 202,048) in bf16 with depth
 **cut** from 48 to 2 layers (69.3 GB of weights), 4 prompts of 8,000
 tokens, 16 new each; kernel 8 is also checked and timed alone at its
-prefill's layer shape (W = S = 8,000, G = 5).  lm_qwen3: qwen3-0.6b, 2
+prefill's layer shape (W = S = 8,000, G = 5).  lm_mla: deepseek-v2-236b
+(d_model 5,120, 128 heads, MLA ranks q 1,536 / kv 512, rope 64, nope 128,
+v 128, 160 experts of 1,536, top-6, two shared, vocab 102,400) in bf16
+with depth **cut** from 60 to 7 layers (57.72 GB of weights), 4 prompts of
+8,000 tokens, 16 new each; kernel 8 is also checked and timed alone at its
+prefill's layer shape (q/k 192, v 128, G = 1, W = S = 8,000), and at q/k
+and v widths that differ over an edge grid.  lm_qwen3: qwen3-0.6b, 2
 prompts of 4,096 tokens, 8 new.  paper_var:
 var-dense-small (n = 100,000, d = 8, p = 3) and var-dense-wide (n =
 1,000,000, d = 64, p = 2), each fit_ar_mle for 200 steps at block size
@@ -213,6 +222,30 @@ MOE_OPS = {"experts_bmm": ("aten::bmm",),
            "gathers_scatters": ("aten::index", "aten::index_put_"),
            "shared_and_router_mm": ("aten::matmul", "aten::mm")}
 KERNEL8_NAME = "swa_bf16_kernel"  # kernel 8's bf16 entry, as the profiler names it
+# lm_mla: deepseek-v2-236b at full width (d_model 5,120, 128 heads, MLA ranks
+# q 1,536 and kv 512, rope 64, nope 128, v 128; 160 experts of 1,536, top-6,
+# two shared; vocab 102,400; capacity factor 1.25, "gather" dispatch) in
+# bf16 with its depth **cut** to MLA_LAYERS of 60: a layer holds 7.946 GB
+# (experts 7.550, MLA 0.298, shared 0.094), the embedding and lm_head 1.049
+# GB each, so 7 layers take 57.72 GB; with 8 (65.67 GB) the plain path's
+# attention ran out of the card's 79.18 GiB (its einsum copies K, 1.46 GiB,
+# beside 5.8 GiB of the allocator's unused blocks).  lm_serve's prompts (4 x
+# 8,000 tokens) and MLA_NEW greedy new tokens.  The prefill runs kernel 8
+# at the non-absorbed form's layer shape MLA_SWA (B, S, H, D, DV): q/k of
+# nope + rope = 192, v of 128, G = 1 (KVH = H), W = S; decode is absorbed
+# (plain PyTorch against the (B, C, 576) latent cache).  MLA_RANGE: each
+# layer's attention in its profiler range, split by MLA_OPS: the products
+# called directly in it (a prefill's seven projections; a decode step's
+# five, the fold through w_uk and the two attention products).
+MLA_ARCH, MLA_LAYERS, MLA_NEW = "deepseek-v2", 7, 16
+MLA_SWA = (4, 8000, 128, 192, 128)
+# the plain path's query chunk: at W = S one chunk of 64 queries holds (4,
+# 128, 1, 64, 8,000) float32 logits, 1.05 GB, a few times over
+MLA_PLAIN_CHUNK = 64
+MLA_RANGE = "lm_mla.mla_apply"
+MLA_OPS = {"mla_projections": ("aten::matmul", "aten::mm", "aten::einsum")}
+# the transformer function each profiler range wraps
+RANGE_TARGETS = {MOE_RANGE: "moe_apply", MLA_RANGE: "attention_apply"}
 # qwen3-0.6b at full width and depth (28 layers, d_model 1,024, 16 / 8
 # heads of 128, qk_norm, no window) in bf16: 2 prompts of 4,096 tokens, 8
 # new, lm_serve's checks 1-2 (kernel 8 at W = S = 4,096, G = 2).
@@ -252,6 +285,18 @@ SWA_EDGE = {  # name: (S, W, G, D[, B, KVH]); B = 1 and 2 KV heads unless given
     "s40_w16_g4_d80": (40, 16, 4, 80),
     "s1_w4_g4_d80": (1, 4, 4, 80),
     "s700_w200_g4_d80_b2_kvh8": (700, 200, 4, 80, 2, 8),
+}
+SWA_EDGE_DV = {  # name: (S, W, G, D, DV), q/k of D and v of DV; B = 1, 2 KV heads
+    # multi-head latent attention's widths, W = S and banded; a pair the
+    # (192, 128) instantiation serves with zero columns; pairs square
+    # instantiations serve; S not a multiple of 64, below one tile, 1
+    "s1000_w_is_s_g1_d192_dv128": (1000, 1000, 1, 192, 128),
+    "s300_w70_g2_d192_dv128": (300, 70, 2, 192, 128),
+    "s130_w_is_s_g1_d184_dv120": (130, 130, 1, 184, 120),
+    "s1000_w300_g4_d24_dv16": (1000, 300, 4, 24, 16),
+    "s200_w50_g2_d64_dv128": (200, 50, 2, 64, 128),
+    "s40_w16_g1_d192_dv128": (40, 16, 1, 192, 128),
+    "s1_w4_g1_d192_dv128": (1, 4, 1, 192, 128),
 }
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 
@@ -943,14 +988,17 @@ def new_kernel_work(name: str, shape: dict) -> tuple:
     raise KeyError(name)
 
 
-def swa_work(b: int, s: int, h: int, kvh: int, d: int, window: int, itemsize: int) -> tuple:
-    """(bytes, operations) of sliding-window attention: q, k, v read once,
-    out written once; 4 D operations (a multiply-add in each of Q K^T and
-    P V) per unmasked (query, key) pair of every head."""
+def swa_work(b: int, s: int, h: int, kvh: int, d: int, window: int, itemsize: int,
+             dv: int = None) -> tuple:
+    """(bytes, operations) of sliding-window attention with q/k of D and v of
+    DV (default D): q, k, v read once, out written once; 2 (D + DV)
+    operations (a multiply-add a column of Q K^T and of P V) per unmasked
+    (query, key) pair of every head."""
     from repro_torch.kernels.swa_attention.ref import valid_pairs
 
-    nbytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * itemsize
-    return nbytes, 4 * d * valid_pairs(s, window) * b * h
+    dv = d if dv is None else dv
+    nbytes = (b * s * h * (d + dv) + b * s * kvh * (d + dv)) * itemsize
+    return nbytes, 2 * (d + dv) * valid_pairs(s, window) * b * h
 
 
 def row_norm_errors(got, want):
@@ -1065,6 +1113,33 @@ def moe_routes(model, cfg, store: list) -> list:
     return [layer.mlp_norm.register_forward_hook(hook(layer)) for layer in model.layers]
 
 
+@contextlib.contextmanager
+def forced_routes(recorded: list):
+    """Within the block, the i-th MoE layer call routes its tokens to the
+    experts of ``recorded``'s i-th entry (a :func:`moe_routes` store of
+    another run of the same calls), with gates from this call's own router
+    probabilities at those experts, renormalised, and bucket places by the
+    same stable rank: two paths compared through the same routes, so that
+    a near-tie expert moved by rounding does not move one path's output by
+    a whole expert's.  Raises if the calls outnumber the store."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    entries = iter(recorded)
+    route = moe.moe_route
+
+    def forced(p, xt, cfg):
+        logits, probs = route(p, xt, cfg)[:2]
+        idx = next(entries)[0]
+        gates = probs.gather(1, idx)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        return logits, probs, gates, idx, moe.bucket_positions(idx, cfg.moe.num_experts)
+
+    with mock.patch.object(moe, "moe_route", forced):
+        yield
+
+
 def route_differences(a: list, b: list) -> dict:
     """(token, layer) routes that differ between two paths' routings, and
     tokens kept in one path and dropped in the other."""
@@ -1072,78 +1147,122 @@ def route_differences(a: list, b: list) -> dict:
             "kept_vs_dropped": sum(int((x[1] != y[1]).any(-1).sum()) for x, y in zip(a, b))}
 
 
-def split_events(events, kernels=(KERNEL8_NAME,)) -> dict:
-    """Device ms of a profile split by stage: the MOE_RANGE ranges' (a CPU
-    range's device time: the kernels its operators launched), within them
-    each MOE_OPS group's (the operators called directly in the range) and
-    the rest of the MoE layer ("moe_other"), each kernel-name fragment's,
-    the total over device kernels (annotations left out) and the rest.
-    ``calls``: the operators seen in each MOE_OPS group."""
-    out = {name: 0.0 for name in (MOE_RANGE, *MOE_OPS, *kernels)}
-    calls = {group: 0 for group in MOE_OPS}
+def range_other(name: str) -> str:
+    """The key of a range's device time outside its operator groups:
+    "moe_other" for MOE_RANGE, "mla_other" for MLA_RANGE."""
+    return name.rsplit(".", 1)[-1].replace("apply", "other")
+
+
+def split_events(events, kernels=(KERNEL8_NAME,), ranges=None) -> dict:
+    """Device ms of a profile split by stage: each range's of ``ranges``
+    (name -> operator groups; default MOE_RANGE's MOE_OPS), a CPU range's
+    device time being the kernels its operators launched; within each, its
+    groups' (the operators called directly in the range) and the rest of
+    the range (:func:`range_other`); each kernel-name fragment's; the total
+    over device kernels (annotations left out) and the rest.  A kernel
+    launched through ctypes (kernel 8) is no operator's: its time is its
+    own, outside every range, even where the range's function launched it
+    (as the H100's profiles show).  ``calls``: the operators seen in each
+    group."""
+    ranges = {MOE_RANGE: MOE_OPS} if ranges is None else ranges
+    groups = {group: ops for r in ranges.values() for group, ops in r.items()}
+    out = {name: 0.0 for name in (*ranges, *groups, *kernels)}
+    calls = {group: 0 for group in groups}
     total = 0.0
     for ev in events:
         if ev.device_type == torch.autograd.DeviceType.CPU:
-            if ev.name == MOE_RANGE:
-                out[MOE_RANGE] += ev.device_time_total / 1e3
+            if ev.name in ranges:
+                out[ev.name] += ev.device_time_total / 1e3
             parent = ev.cpu_parent
-            if parent is not None and parent.name == MOE_RANGE:
-                for group, ops in MOE_OPS.items():
+            if parent is not None and parent.name in ranges:
+                for group, ops in ranges[parent.name].items():
                     if ev.name in ops:
                         out[group] += ev.device_time_total / 1e3
                         calls[group] += 1
-        elif not getattr(ev, "is_user_annotation", False) and ev.name != MOE_RANGE:
+        elif not getattr(ev, "is_user_annotation", False) and ev.name not in ranges:
             total += ev.device_time_total / 1e3
             for frag in kernels:
                 if frag in ev.name:
                     out[frag] += ev.device_time_total / 1e3
-    out["moe_other"] = out[MOE_RANGE] - sum(out[group] for group in MOE_OPS)
+    for name, ops in ranges.items():
+        out[range_other(name)] = out[name] - sum(out[group] for group in ops)
     out["total"] = total
-    out["rest"] = total - out[MOE_RANGE] - sum(out[frag] for frag in kernels)
+    out["rest"] = total - sum(out[name] for name in ranges) - sum(out[frag] for frag in kernels)
     out["calls"] = calls
     return out
 
 
 @contextlib.contextmanager
-def moe_ranged():
-    """Within the block, the transformer runs each MoE layer inside a
-    profiler range named MOE_RANGE (for :func:`split_events`); the library
-    itself enters none."""
+def moe_ranged(names=(MOE_RANGE,)):
+    """Within the block, the transformer runs each call of the function
+    RANGE_TARGETS names for each range of ``names`` (each MoE layer, each
+    layer's attention) inside a profiler range of that name (for
+    :func:`split_events`); the library itself enters none."""
     from unittest import mock
 
     from torch.profiler import record_function
 
     from repro_torch.models import transformer
 
-    apply = transformer.moe_apply
+    def ranged(apply, name):
+        def call(*a, **kw):
+            with record_function(name):
+                return apply(*a, **kw)
+        return call
 
-    def ranged(*a, **kw):
-        with record_function(MOE_RANGE):
-            return apply(*a, **kw)
-
-    with mock.patch.object(transformer, "moe_apply", ranged):
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            target = RANGE_TARGETS[name]
+            stack.enter_context(mock.patch.object(
+                transformer, target, ranged(getattr(transformer, target), name)))
         yield
 
 
-def moe_device_split(fn, calls: int = 1) -> dict:
+def moe_device_split(fn, calls: int = 1, ranges=None) -> dict:
     """:func:`split_events` of ``calls`` calls of ``fn`` (after one warm-up)
-    with each MoE layer in its range, per call, with the wall ms per call."""
+    with each range's function in its range (default: each MoE layer), per
+    call, with the wall ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
+    ranges = {MOE_RANGE: MOE_OPS} if ranges is None else ranges
     fn()
     torch.cuda.synchronize()
-    with moe_ranged(), profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA]) as prof:
+    with moe_ranged(tuple(ranges)), profile(activities=[ProfilerActivity.CPU,
+                                                        ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
-    split = split_events(prof.events())
+    split = split_events(prof.events(), ranges=ranges)
     seen = split.pop("calls")
     split = {k: v / calls for k, v in split.items()}
     return {"wall_ms": wall, "device_busy_share": split["total"] / wall if wall else None,
             "device_ms": split, "ops_seen": {k: v // calls for k, v in seen.items()}}
+
+
+def mla_work(cfg, b: int, q_len: int, kv_len: int) -> tuple:
+    """((bytes, operations) of the projections, of the attention) of one
+    prefill (q_len = kv_len: the non-absorbed form) or decode step (q_len =
+    1: absorbed) of b sequences through an MLA model's layers in bf16.
+    Every projection weight is read once and multiplies every token in both
+    forms (the absorbed fold q_nope W_uk and the context's W_uv cost what the
+    non-absorbed k_nope and v expansions do a token); the prefill's
+    attention takes 2 (nope + rope + v) operations a causal (query, key)
+    pair of each head and writes the latent cache, the decode step's 2 (2
+    kv_lora + rope) a cached key of each head and reads the cache."""
+    m, L, d, h = cfg.mla, cfg.n_layers, cfg.d_model, cfg.n_heads
+    r, rp, n, hv = m.kv_lora_rank, m.rope_head_dim, m.nope_head_dim, m.v_head_dim
+    t = b * q_len
+    q_proj = (d * m.q_lora_rank + m.q_lora_rank * h * (n + rp) if m.q_lora_rank
+              else d * h * (n + rp))
+    weights = q_proj + d * (r + rp) + r * h * n + r * h * hv + h * hv * d
+    lat_bytes = L * b * kv_len * (r + rp) * 2
+    if q_len == kv_len:
+        attn_ops = 2 * (n + rp + hv) * b * h * q_len * (q_len + 1) // 2
+    else:
+        attn_ops = 2 * (2 * r + rp) * b * h * q_len * kv_len
+    return (L * weights * 2, L * 2 * t * weights), (lat_bytes, L * attn_ops)
 
 
 def moe_serve_work(cfg, b: int, q_len: int, kv_len: int, capacity: int,
@@ -1154,6 +1273,7 @@ def moe_serve_work(cfg, b: int, q_len: int, kv_len: int, capacity: int,
     the K/V written (prefill) or read (decode), the last position's logits
     written; every matrix product's multiply-adds (2 operations each), the
     experts over all E x capacity slots (the static-capacity formulation).
+    An MLA model's projections and attention are :func:`mla_work`'s.
     ``experts_read``: experts whose weights a decode step needs (default
     all); ``expert_pairs``: the (token, choice) pairs the experts must
     compute over all layers (default every slot, L E capacity), such as
@@ -1162,15 +1282,19 @@ def moe_serve_work(cfg, b: int, q_len: int, kv_len: int, capacity: int,
     d, hd, h, kvh, v = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.vocab
     e, f, t = m.num_experts, m.d_ff_expert, b * q_len
     fs = m.num_shared * f
-    pairs = b * h * (q_len * (q_len + 1) // 2 if q_len == kv_len else q_len * kv_len)
-    kv_bytes = 2 * L * b * kv_len * kvh * hd * 2
-    proj = d * (h * hd + 2 * kvh * hd) + h * hd * d
+    if cfg.attn == "mla":
+        projections, attention = mla_work(cfg, b, q_len, kv_len)
+    else:
+        pairs = b * h * (q_len * (q_len + 1) // 2 if q_len == kv_len else q_len * kv_len)
+        proj = d * (h * hd + 2 * kvh * hd) + h * hd * d
+        projections = (L * proj * 2, L * 2 * t * proj)
+        attention = (2 * L * b * kv_len * kvh * hd * 2, L * 4 * hd * pairs)
     read = e if experts_read is None else experts_read
     pairs_e = L * e * capacity if expert_pairs is None else expert_pairs
     return {
         "embed": (t * d * 2 * 2, 0),
-        "projections": (L * proj * 2, L * 2 * t * proj),
-        "attention": (kv_bytes, L * 4 * hd * pairs),
+        "projections": projections,
+        "attention": attention,
         "router": (L * d * e * 4, L * 2 * t * d * e),
         "experts": (L * read * 3 * d * f * 2, 2 * 3 * pairs_e * d * f),
         "shared": (L * 3 * d * fs * 2, L * 2 * 3 * t * d * fs),
@@ -3636,8 +3760,10 @@ def gateway_chaos(args, dev, bins, run, ckdir) -> dict:
 
 def swa_kernel(args, dev) -> dict:
     """Phase 9: kernel 8 against the chunked plain version at the prefill's
-    layer shape and over an edge grid (bf16 and f32), then timed at the
-    layer shape beside its bound, the plain version and SDPA."""
+    layer shape, lm_moe's and lm_mla's (q/k 192, v 128), and over an edge
+    grid with q/k and v of one width and of two (bf16 and f32), then timed
+    at the three layer shapes beside its bound, the plain version and
+    SDPA."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.swa_attention import ops as sw, ref as swr
@@ -3645,9 +3771,9 @@ def swa_kernel(args, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 4)
 
-    def qkv(b, s, h, kvh, d, dtype):
-        return tuple(torch.randn((b, s, n, d), generator=gen, device=dev).to(dtype)
-                     for n in (h, kvh, kvh))
+    def qkv(b, s, h, kvh, d, dtype, dv=None):
+        return tuple(torch.randn((b, s, n, w), generator=gen, device=dev).to(dtype)
+                     for n, w in ((h, d), (kvh, d), (kvh, d if dv is None else dv)))
 
     def row_scale(q, k, v, window):
         return swr.swa_row_scale(v, window, q.shape[2])
@@ -3659,11 +3785,12 @@ def swa_kernel(args, dev) -> dict:
         worst, mean = rows.max().item(), rows[:, min(window, want.shape[1]) - 1:].mean().item()
         return worst, mean, worst <= SWA_ROW_TOL[want.dtype] and mean <= SWA_ROW_MEAN_TOL[want.dtype]
 
-    def case(q, k, v, window, fault: bool = False):
+    def case(q, k, v, window, fault: bool = False, chunk: int = 512):
         tol, row_tol = SWA_TOL[q.dtype], SWA_ROW_TOL[q.dtype]
         got, again = sw.swa_attention(q, k, v, window), sw.swa_attention(q, k, v, window)
         torch.cuda.synchronize()
-        want, scale = swr.swa_attention_chunked(q, k, v, window), row_scale(q, k, v, window)
+        want = swr.swa_attention_chunked(q, k, v, window, chunk=chunk)
+        scale = row_scale(q, k, v, window)
         err, rel, finite = scaled_error(got, want, scale)
         worst, mean, rows_ok = rows_check(got, want, window)
         res = {"max_abs_err": err, "max_rel_err": rel, "tol": tol, "finite": finite,
@@ -3689,10 +3816,17 @@ def swa_kernel(args, dev) -> dict:
     parity = {"layer_shape": case(*full, SWA_W, fault=True)}
     llama4 = qkv(*MOE_SWA, torch.bfloat16)  # lm_moe's prefill: W = S, G = 5
     parity["llama4_layer_shape"] = case(*llama4, MOE_SWA[1], fault=True)
+    # lm_mla's prefill: q/k 192, v 128, G = 1, W = S (the plain version in
+    # query chunks of MOE_PLAIN_CHUNK: 128 heads of (chunk x 8,000) logits)
+    b, s, h, d, dv = MLA_SWA
+    mla = qkv(b, s, h, h, d, torch.bfloat16, dv)
+    parity["mla_layer_shape"] = case(*mla, s, fault=True, chunk=MOE_PLAIN_CHUNK)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for name, (s, w, g, d, *bk) in SWA_EDGE.items():
             b, kvh = bk or (1, 2)
             parity[f"{name}_{tag}"] = case(*qkv(b, s, kvh * g, kvh, d, dtype), w)
+        for name, (s, w, g, d, dv) in SWA_EDGE_DV.items():
+            parity[f"{name}_{tag}"] = case(*qkv(1, s, 2 * g, 2, d, dtype, dv), w)
     emit({"phase": "parity_swa_attention", "tolerance": "per entry: max|kernel - chunked "
           "plain| <= tol * the row's max|v| over its window; per output row: ||kernel - "
           "plain|| / ||plain|| <= row_tol, and <= row_mean_tol on average over the rows whose "
@@ -3762,7 +3896,77 @@ def swa_kernel(args, dev) -> dict:
           "note": "ms: median of CUDA-graph replays of the prepared launch; host_launch_ms, "
                   "wrapper_ms, plain_ms, library_ms: CUDA events around calls from the host"})
     return {"parity": parity, "timing": timing, "bound": (b_ms, b_by),
-            "llama4": swa_llama4_timing(llama4)}
+            "llama4": swa_llama4_timing(llama4), "mla": swa_mla_timing(mla)}
+
+
+def swa_mla_timing(qkv) -> dict:
+    """Kernel 8 timed at lm_mla's prefill layer shape (q/k 192, v 128, G =
+    1, W = S: plain causal attention) beside its bound, the chunked plain
+    version and the library call of the same function,
+    ``F.scaled_dot_product_attention(is_causal=True)``: each backend that
+    takes v narrower than q/k is tried on the tensors as they are, FLASH
+    (one head dim) on v padded with zero columns to 192 and its output
+    sliced back; each must agree with the plain version, and the fastest is
+    library_ms."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.swa_attention import ops as sw, ref as swr
+
+    q, k, v = qkv
+    b, s, h, d, dv = MLA_SWA
+    scale = d ** -0.5
+    prep = sw.prepare_swa_attention(q, k, v, s, scale)
+    samples = graph_ms([prep.launch])
+    qt, kt, vt = (t.transpose(1, 2) for t in qkv)  # (B, heads, S, D) views
+    vpad = torch.nn.functional.pad(v, (0, d - dv)).transpose(1, 2)
+
+    def sdpa(backend, padded):
+        def call():
+            with sdpa_kernel(backend):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vpad if padded else vt, is_causal=True, scale=scale)
+            return out[..., :dv] if padded else out
+        return call
+
+    plain = swr.swa_attention_chunked(q, k, v, s, chunk=MOE_PLAIN_CHUNK)
+    row = swr.swa_row_scale(v, s, h)
+    library = {}
+    for name, backend, padded in (("CUDNN_ATTENTION", SDPBackend.CUDNN_ATTENTION, False),
+                                  ("EFFICIENT_ATTENTION", SDPBackend.EFFICIENT_ATTENTION, False),
+                                  ("FLASH_ATTENTION, v padded to 192",
+                                   SDPBackend.FLASH_ATTENTION, True)):
+        call = sdpa(backend, padded)
+        try:
+            rel = scaled_error(call().transpose(1, 2), plain, row)[1]
+        except RuntimeError as err:  # the backend refuses these shapes on this build
+            library[name] = {"error": str(err)[:160]}
+            continue
+        library[name] = {"max_rel_err": rel, "agrees": rel <= SWA_TOL[torch.bfloat16],
+                         "ms": cuda_ms(call, 5, warmup=1)}
+    del plain
+    agreeing = {n: r for n, r in library.items() if r.get("agrees")}
+    if not agreeing:
+        fail("no SDPA backend computes the MLA shape's attention", backends=library)
+    best = min(agreeing, key=lambda n: agreeing[n]["ms"])
+    nbytes, flops = swa_work(b, s, h, h, d, s, 2, dv=dv)
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
+    ms = samples[len(samples) // 2]
+    timing = {"ms": ms, "ms_samples": samples,
+              "wrapper_ms": cuda_ms(lambda: sw.swa_attention(q, k, v, s), 5, warmup=1),
+              "plain_ms": cuda_ms(lambda: swr.swa_attention_chunked(
+                  q, k, v, s, chunk=MOE_PLAIN_CHUNK), 2, warmup=1),
+              "library_ms": agreeing[best]["ms"]}
+    emit({"phase": "timing_swa_attention_mla",
+          "shape": f"q ({b}, {s}, {h}, {d}), k ({b}, {s}, {h}, {d}), v ({b}, {s}, {h}, {dv}) "
+                   f"bf16, W=S={s}, G=1",
+          **timing, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+          "gbytes": nbytes / 1e9, "tflop": flops / 1e12, "tflop_per_s": flops / ms / 1e9,
+          "library_call": f"F.scaled_dot_product_attention(is_causal=True) under {best}: the "
+                          "same function", "library_backends": library,
+          "note": "ms: median of CUDA-graph replays of the prepared launch; the others CUDA "
+                  "events around calls from the host; plain_ms in query chunks of "
+                  f"{MOE_PLAIN_CHUNK}"})
+    return {**timing, "bound_ms": b_ms, "bound_by": b_by, "library_call": best}
 
 
 def swa_llama4_timing(qkv) -> dict:
@@ -4731,6 +4935,311 @@ def lm_moe(args, dev) -> int:
     return launches["generate"]
 
 
+def mla_layer_check(got, want) -> dict:
+    """Check 2 of lm_mla: a layer's attention output (B, S, d) through
+    kernel 8 against the same layer on the plain attention, each token
+    row's ||got - want|| / ||want|| within SWA_ROW_TOL at most and
+    SWA_ROW_MEAN_TOL on average (bf16: the two round P at other points)."""
+    rows = row_norm_errors(got, want)
+    worst, mean = rows.max().item(), rows.mean().item()
+    tol, mean_tol = SWA_ROW_TOL[torch.bfloat16], SWA_ROW_MEAN_TOL[torch.bfloat16]
+    return {"row_norm_rel_err": worst, "row_norm_rel_err_mean": mean, "row_tol": tol,
+            "row_mean_tol": mean_tol, "ok": worst <= tol and mean <= mean_tol}
+
+
+def absorbed_check(absorbed, non_absorbed, tol: float) -> dict:
+    """Check 3 of lm_mla at the logits: the decode steps' logits (B, T, V)
+    with MLA in its absorbed form against the same steps in the
+    non-absorbed form (:func:`mla_decode_non_absorbed`) from the same cache
+    and tokens through the same routes (:func:`forced_routes`), each row
+    within ``tol`` of its max|logit|; the same held one step off (a planted
+    fault) must fail."""
+    err = row_rel_errors(absorbed, non_absorbed).max().item()
+    shifted = row_rel_errors(absorbed[:, :-1], non_absorbed[:, 1:]).max().item()
+    return {"absorbed_vs_non_absorbed_rel_err": err, "one_step_off_rel_err": shifted,
+            "tol": tol, "ok": err <= tol, "fault_caught": shifted > tol}
+
+
+def mla_decode_non_absorbed(p, x, cfg, positions, *, cache, pos, **_):
+    """One decode step of an MLA layer in the non-absorbed form, the
+    prefill's math, written apart from `models/attention.py` and computed in
+    float32 past the projections the two forms share (q and this token's
+    latent, in the model's dtype): per-head keys [c_kv W_uk, k_rope] and
+    values c_kv W_uv expanded from the whole latent cache (B, C, r + rope),
+    which takes this token's latent at ``pos`` as the absorbed step writes
+    it.  x (B, 1, d) -> (out (B, 1, d) in x's dtype, the cache)."""
+    from repro_torch.models.layers import apply_rope, rms_norm
+
+    m = cfg.mla
+    b, h, c = x.shape[0], cfg.n_heads, cache["lat"].shape[1]
+    n, rp, r, hv = m.nope_head_dim, m.rope_head_dim, m.kv_lora_rank, m.v_head_dim
+    q = rms_norm(x @ p.w_dq, p.q_norm, cfg.norm_eps) @ p.w_uq if p.wq is None else x @ p.wq
+    q = q.view(b, 1, h, n + rp)
+    q = torch.cat([q[..., :n], apply_rope(q[..., n:], positions, cfg.rope_theta)], -1)
+    lat, cpos = cache["lat"], cache["pos"]
+    lat[:, pos] = torch.cat([rms_norm(x @ p.w_dkv, p.kv_norm, cfg.norm_eps),
+                             apply_rope(x @ p.w_kr, positions, cfg.rope_theta)], -1)[:, 0]
+    cpos[pos] = pos
+    c_kv = lat[..., :r].float()
+    k = torch.cat([(c_kv @ p.w_uk.float()).view(b, c, h, n),
+                   lat[:, :, None, r:].float().expand(b, c, h, rp)], -1)
+    logits = torch.einsum("bhk,bshk->bhs", q[:, 0].float(), k) / math.sqrt(n + rp)
+    del k
+    logits = torch.where(((cpos <= pos) & (cpos >= 0))[None, None], logits, -1e30)
+    v = (c_kv @ p.w_uv.float()).view(b, c, h, hv)
+    ctx = torch.einsum("bhs,bshv->bhv", torch.softmax(logits, -1), v)
+    return (ctx.reshape(b, 1, h * hv) @ p.wo.float()).to(x.dtype), cache
+
+
+def layer0_decode_check(params, cache, tokens, cfg, pos0: int) -> dict:
+    """Check 3 of lm_mla at layer 0, whose input at a decode step is the
+    token's normed embedding alone: each step's attention output in the
+    absorbed form (``mla_apply``) and in the non-absorbed form
+    (:func:`mla_decode_non_absorbed`) on the same input, each against its
+    own copy of layer 0's latent ``cache`` {"lat": (B, C, r + rope),
+    "pos"}, held by :func:`mla_layer_check`.  ``tokens`` (B, T) are the
+    steps' tokens, at positions pos0, pos0 + 1, ..."""
+    from repro_torch.models.attention import mla_apply
+
+    layer = params.layers[0]
+    caches = [{k: v.clone() for k, v in cache.items()} for _ in range(2)]
+    outs = ([], [])
+    for i in range(tokens.shape[1]):
+        h = layer.attn_norm(params.embed[tokens[:, i:i + 1]])
+        at = torch.tensor([pos0 + i], dtype=torch.int32, device=h.device)
+        for out, c, form in zip(outs, caches, (mla_apply, mla_decode_non_absorbed)):
+            out.append(form(layer.attn, h, cfg, at, cache=c, pos=pos0 + i)[0])
+    return mla_layer_check(torch.cat(outs[0], 1), torch.cat(outs[1], 1))
+
+
+@contextlib.contextmanager
+def non_absorbed_decoding():
+    """Within the block, the transformer's decode steps run MLA in the
+    non-absorbed form (:func:`mla_decode_non_absorbed`); its prefills are
+    unchanged."""
+    from unittest import mock
+
+    from repro_torch.models import transformer
+
+    apply = transformer.attention_apply
+
+    def route(p, x, cfg, positions, cache=None, **kw):
+        if cache is None:
+            return apply(p, x, cfg, positions, **kw)
+        return mla_decode_non_absorbed(p, x, cfg, positions, cache=cache, **kw)
+
+    with mock.patch.object(transformer, "attention_apply", route):
+        yield
+
+
+def lm_mla(args, dev) -> int:
+    """Phase lm_mla: deepseek-v2-236b at full width, depth cut to MLA_LAYERS,
+    bf16 weights from ``--seed`` (the expert leaves drawn slab by slab), 4 x
+    8,000 prompt tokens and MLA_NEW greedy new tokens through
+    ``ServeEngine.generate``: the prefill's MLA in its non-absorbed form
+    through kernel 8 (q/k 192, v 128), the decode absorbed against the
+    latent cache.  Checks: (1) the served prefill and teacher-forced decode
+    logits against the same model on the chunked plain attention, with the
+    routes that differ between the two paths counted; (2) the first
+    layer's attention on its real prefill input through kernel 8 against
+    ``mla_apply`` on the plain attention (:func:`mla_layer_check`), and the
+    kernel at W = S / 2 must fail it; (3) the absorbed decode against the
+    non-absorbed form at the same steps, from the same cache and tokens
+    (:func:`absorbed_check`);
+    (4) the tokens' shape, finite logits, kernel 8 once a layer in each
+    prefill and never in a decode step of either form.  Returns kernel 8's
+    launches in the generate."""
+    from repro_torch import ServeEngine, get_arch, init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.swa_attention.ops import swa_attention
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.attention import mla_apply
+    from repro_torch.models.moe import moe_capacity
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(MLA_ARCH), n_layers=MLA_LAYERS)
+    m, a = cfg.moe, cfg.mla
+    B, P, NEW = SERVE_BATCH, SERVE_PROMPT, MLA_NEW
+    plain_attention = functools.partial(swa_attention_chunked, chunk=MLA_PLAIN_CHUNK)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # what earlier phases left
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=args.seed, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    weight_gb = sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 7)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    eng = ServeEngine(cfg, params, max_len=P + NEW, dtype=torch.bfloat16, device=dev)
+    eng.generate(prompts[:, :1000], 2)  # warm-up: cuBLAS handles at these widths
+
+    launches = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, NEW, keep_logits=True)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches["generate"] = launch_counts()["swa_attention"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = torch.from_numpy(res.tokens).to(dev)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, cache = prefill(params, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches["prefill"] = launch_counts()["swa_attention"]
+    cache = eng._grow_cache(cache, B)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, NEW):
+        _, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": P + i - 1}, cfg)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (NEW - 1)
+    launches["decode"] = launch_counts()["swa_attention"]
+    # where the time goes: each layer's attention and MoE in their ranges
+    # (one prefill; one decode step repeated at the same position, which
+    # rewrites the same slot with the same values)
+    ranges = {MLA_RANGE: MLA_OPS, MOE_RANGE: MOE_OPS}
+    step = {"tokens": tokens[:, NEW - 2], "pos": P + NEW - 2}
+    pre_split = moe_device_split(lambda: prefill(params, {"tokens": prompts}, cfg),
+                                 ranges=ranges)
+    dec_split = moe_device_split(lambda: decode_step(params, cache, step, cfg), calls=3,
+                                 ranges=ranges)
+    del cache
+    capacity = moe_capacity(B * P, cfg)
+    pre_bounds = work_bounds(moe_serve_work(cfg, B, P, P, capacity))
+    dec_bounds = work_bounds(moe_serve_work(cfg, B, 1, P + NEW - 1, moe_capacity(B, cfg)))
+
+    def run(attention=None, form=contextlib.nullcontext, record=None, force=None,
+            cache=None) -> tuple:
+        """Logits (B, NEW, V) float32 of a prefill (``attention``) and the
+        NEW - 1 decode steps on the served tokens (MLA in ``form``), or of
+        the steps alone from ``cache`` (step 0's entry then None); the
+        routes recorded into ``record`` or forced from ``force``; kernel
+        8's launches in the decode steps."""
+        hooks = [] if record is None else moe_routes(params, cfg, record)
+        with contextlib.ExitStack() as stack:
+            if force is not None:
+                stack.enter_context(forced_routes(force))
+            steps = [None]
+            if cache is None:
+                logits, cache = prefill(params, {"tokens": prompts}, cfg, attention=attention)
+                steps = [logits.float()]
+                cache = eng._grow_cache(cache, B)
+            reset_launch_counts()
+            with form():
+                for i in range(1, NEW):
+                    logits, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1],
+                                                                "pos": P + i - 1}, cfg)
+                    steps.append(logits.float())
+        for hk in hooks:
+            hk.remove()
+        out = torch.stack(steps[1:], 1) if steps[0] is None else torch.stack(steps, 1)
+        return out, launch_counts()["swa_attention"]
+
+    # 1: the kernel path again with its routes recorded (its prefill's, then
+    # its decode steps'), and layer 0's attention input; the plain path
+    # with its own routes (read, not held: a top-6 route moved by rounding
+    # moves the output by a whole expert's), then through the kernel path's
+    # routes (held)
+    served = res.logits
+    kernel_routes, plain_routes, first_in = [], [], []
+    hook = params.layers[0].attn_norm.register_forward_hook(lambda _m, _i, h: first_in.append(h))
+    kernel, _ = run(record=kernel_routes)
+    hook.remove()
+    del first_in[1:]  # the prefill's input only
+    plain_free, _ = run(attention=plain_attention, record=plain_routes)
+    plain, _ = run(attention=plain_attention, force=kernel_routes)
+    prefill_err = row_rel_errors(served[:, 0], plain[:, 0]).max().item()
+    decode_err = row_rel_errors(served[:, 1:], plain[:, 1:]).max().item()
+    routes = route_differences(kernel_routes, plain_routes)
+    free = {"prefill_vs_plain_rel_err": row_rel_errors(served[:, 0], plain_free[:, 0]).max().item(),
+            "teacher_forced_decode_vs_plain_rel_err":
+                row_rel_errors(served[:, 1:], plain_free[:, 1:]).max().item(), **routes}
+    kept_pairs = [int(kept.sum()) for _, kept in kernel_routes[:cfg.n_layers]]
+    finite = bool(torch.isfinite(served).all() and torch.isfinite(plain).all())
+    rerun_bitwise = bool(torch.equal(kernel, served))
+    del kernel, plain, plain_free, plain_routes
+
+    # 2: the first layer's attention on its prefill input, kernel 8 against
+    # the plain attention; the kernel at half the window must fail
+    attn, h = params.layers[0].attn, first_in[0]
+    positions = torch.arange(P, dtype=torch.int32, device=dev)
+    got, _ = mla_apply(attn, h, cfg, positions)
+    want, _ = mla_apply(attn, h, cfg, positions, attention=plain_attention)
+    layer = mla_layer_check(got, want)
+    bad, _ = mla_apply(attn, h, cfg, positions, attention=lambda q, k, v, w, scale: swa_attention(
+        q, k, v, w // 2, scale=scale))
+    layer["fault"] = {"window": P // 2, **mla_layer_check(bad, want)}
+    layer["fault"]["caught"] = not layer["fault"].pop("ok")
+    del got, want, bad, first_in, h
+
+    # 3: the served decode steps again from the kernel path's prefill cache
+    # in the non-absorbed form, through the absorbed steps' routes (held)
+    # and with their own (read); layer 0's attention in both forms
+    _, prefill_cache = prefill(params, {"tokens": prompts}, cfg)
+    prefill_cache = eng._grow_cache(prefill_cache, B)
+    copy = lambda: {k: v.clone() for k, v in prefill_cache.items()}  # noqa: E731
+    own_routes = []
+    non_absorbed, launches["non_absorbed_decode"] = run(
+        form=non_absorbed_decoding, force=kernel_routes[cfg.n_layers:], cache=copy())
+    non_absorbed_free, _ = run(form=non_absorbed_decoding, record=own_routes, cache=copy())
+    absorbed = absorbed_check(served[:, 1:], non_absorbed, SERVE_TOL)
+    absorbed["own_routes"] = {
+        "absorbed_vs_non_absorbed_rel_err": row_rel_errors(served[:, 1:],
+                                                           non_absorbed_free).max().item(),
+        **route_differences(kernel_routes[cfg.n_layers:], own_routes)}
+    absorbed["layer0"] = layer0_decode_check(
+        params, {k: v[0] for k, v in prefill_cache.items()}, tokens[:, :NEW - 1], cfg, P)
+    absorbed["ok"] = absorbed["ok"] and absorbed["layer0"]["ok"]
+    del non_absorbed, non_absorbed_free, own_routes, kernel_routes, prefill_cache
+    out = {
+        "phase": "lm_mla", "arch": cfg.name, "layers": cfg.n_layers,
+        "cut": f"depth {cfg.n_layers} of 60 layers (the card's 80 GiB: 7.946 GB a layer)",
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "mla": {"q_lora_rank": a.q_lora_rank, "kv_lora_rank": a.kv_lora_rank,
+                "rope": a.rope_head_dim, "nope": a.nope_head_dim, "v": a.v_head_dim},
+        "experts": m.num_experts, "top_k": m.top_k, "d_ff_expert": m.d_ff_expert,
+        "shared": m.num_shared, "vocab": cfg.vocab, "capacity_factor": m.capacity_factor,
+        "dispatch": m.dispatch, "dtype": "bfloat16", "weights_gb": weight_gb, "batch": B,
+        "prompt_len": P, "new_tokens": NEW, "capacity": capacity, "init_ms": init_ms,
+        "generate_ms": generate_ms, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+        "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_memory_gb": peak_gb,
+        "held_at_start_gb": held_gb, "prefill_bound": pre_bounds, "decode_step_bound": dec_bounds,
+        "shares_of_bound": {"prefill": pre_bounds["bound_ms"] / prefill_ms,
+                            "decode_step": dec_bounds["bound_ms"] / decode_ms},
+        "kept_pairs_per_layer": kept_pairs,
+        "profiled_prefill": pre_split, "profiled_decode_step": dec_split,
+        "launches": launches, "tol": SERVE_TOL,
+        "checks": {"prefill_vs_plain_rel_err": prefill_err,
+                   "teacher_forced_decode_vs_plain_rel_err": decode_err,
+                   "kernel_path_again_bitwise_generate": rerun_bitwise,
+                   "plain_path_own_routes": free,
+                   "layer0_attention_vs_plain": layer, "absorbed_decode": absorbed,
+                   "finite": finite},
+        "first_row_tokens": res.tokens[0][:8].tolist(),
+        "phase_peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "wall_ms": (time.perf_counter() - t_phase) * 1e3,
+    }
+    out["ok"] = (launches["generate"] == launches["prefill"] == cfg.n_layers
+                 and launches["decode"] == launches["non_absorbed_decode"] == 0 and finite
+                 and tuple(res.tokens.shape) == (B, NEW)
+                 and max(prefill_err, decode_err) <= SERVE_TOL
+                 and layer["ok"] and layer["fault"]["caught"]
+                 and absorbed["ok"] and absorbed["fault_caught"])
+    emit(out)
+    if not out["ok"]:
+        fail("lm_mla")
+    return launches["generate"]
+
+
 def lm_qwen3(args, dev) -> int:
     """Phase lm_qwen3: qwen3-0.6b at full width and depth in bf16 (qk_norm,
     no window: kernel 8 at W = S), QWEN_BATCH prompts of QWEN_PROMPT tokens
@@ -5365,6 +5874,11 @@ def main() -> None:
     moe_launches = lm_moe(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # multi-head latent attention: deepseek-v2 at full width, depth cut
+    # (57.72 GB of weights: llama4's are gone), kernel 8 at q/k 192, v 128
+    mla_launches = lm_mla(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     qwen_launches = lm_qwen3(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5404,10 +5918,12 @@ def main() -> None:
             "paper_var_launches": paper_var_launches.get(name, 0),
             "lm_quant_launches": quant_launches if name == "swa_attention" else 0,
             "lm_moe_launches": moe_launches if name == "swa_attention" else 0,
+            "lm_mla_launches": mla_launches if name == "swa_attention" else 0,
             "lm_qwen3_launches": qwen_launches if name == "swa_attention" else 0,
         })
-        if name == "swa_attention":  # the second shape: lm_moe's prefill, W = S
+        if name == "swa_attention":  # lm_moe's prefill, W = S; lm_mla's, q/k 192, v 128
             kernels[-1]["llama4_shape"] = swa["llama4"]
+            kernels[-1]["mla_shape"] = swa["mla"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -44,6 +44,7 @@ __all__ = ["PlanParams", "WelchMember", "MomentParams", "LagMomParams", "LagMomB
            "LM_BATCH_BLK", "BAND_COLS", "BAND_PASS",
            "BAND_MAX_SLABS", "BAND_OFFSETS",
            "SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS", "SWA_PANEL", "SWA_MAX_D",
+           "SWA_MAX_DV", "SWA_SMEM_MAX",
            "THREADS"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -89,14 +90,18 @@ BAND_PASS = 8
 BAND_MAX_SLABS = 8
 BAND_OFFSETS = 17
 # Compile-time constants of swa_attention/csrc/swa_attention.cu (bf16 path):
-# keys per K/V tile, ring stages, consumer warpgroups of SWA_WG_ROWS
-# flattened rows, D columns per shared-memory panel.
+# keys per K/V tile, ring stages (fewer where they do not fit beside Q: 3 at
+# D = 192), consumer warpgroups of SWA_WG_ROWS flattened rows, columns per
+# shared-memory panel, the widest q/k and v head dims, a block's shared
+# memory.
 SWA_KEYS = 64
 SWA_STAGES = 4
 SWA_CONSUMERS = 3
 SWA_WG_ROWS = 64
 SWA_PANEL = 16
-SWA_MAX_D = 128
+SWA_MAX_D = 192
+SWA_MAX_DV = 128
+SWA_SMEM_MAX = 232448
 
 
 class WelchMember(ctypes.Structure):
@@ -270,6 +275,7 @@ class SwaParams(ctypes.Structure):
         ("H", ctypes.c_int),
         ("KVH", ctypes.c_int),
         ("D", ctypes.c_int),
+        ("DV", ctypes.c_int),
         ("G", ctypes.c_int),
         ("window", ctypes.c_int),
         ("dtype", ctypes.c_int),
@@ -305,7 +311,8 @@ BAND_CONSTANTS = {"BAND_COLS": "BM_COLS", "BAND_PASS": "BM_PASS",
                   "BAND_MAX_SLABS": "BG_MAX_SLABS", "BAND_OFFSETS": "BG_OFFSETS"}
 # Those that mirror swa_attention.cu, in the order rt_swa_constants writes them.
 SWA_CONSTANTS = {name: name for name in ("SWA_KEYS", "SWA_STAGES", "SWA_CONSUMERS", "SWA_WG_ROWS",
-                                         "SWA_PANEL", "SWA_MAX_D")}
+                                         "SWA_PANEL", "SWA_MAX_D", "SWA_MAX_DV",
+                                         "SWA_SMEM_MAX")}
 
 
 def sources() -> list:

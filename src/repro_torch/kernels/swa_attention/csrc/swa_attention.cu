@@ -4,11 +4,14 @@
 // (body _kernel): out[b, q, h] = softmax_k(q . k / sqrt(D)) v over the keys
 // k in (q - W, q], with f32 accumulation and the output in the input's type.
 //
-// Contract (the port's own, not the TPU kernel's): q (B, S, H, D) and k, v
-// (B, S, KVH, D) as the projections produce them, out (B, S, H, D); query
-// head h reads KV head h / G, G = H / KVH.  No transpose, no repeat of K/V
-// to H heads, no padding of S: every load and store is masked against the
-// true S and D.
+// Contract (the port's own, not the TPU kernel's): q (B, S, H, D) and k
+// (B, S, KVH, D), v (B, S, KVH, DV) as the projections produce them, out
+// (B, S, H, DV); query head h reads KV head h / G, G = H / KVH.  D (q and
+// k) is at most 192 and DV at most 128: multi-head latent attention
+// (deepseek-v2) attends with q/k of 192 (nope 128 + rope 64) and v of 128,
+// and every GQA model with one D <= 128 for the three.  No transpose, no
+// repeat of K/V to H heads, no padding of S: every load and store is
+// masked against the true S, D and DV.
 //
 // Bound on the H100: operations.  At the serving prefill's shape (B, H, S,
 // D) = (4, 32, 8000, 80), W = 4096, the 3.12e9 unmasked (q, k) pairs cost
@@ -23,7 +26,10 @@
 // V from L2, 5.3 GB a prefill layer) and the two products alone 0.68 and
 // 1.04 ms.  Three consumer warpgroups (192 rows a CTA) cut that stream by a
 // third against two; 64-key tiles keep their S accumulators within the 160
-// registers a consumer thread has at 512 threads.
+// registers a consumer thread has at 512 threads.  At deepseek-v2's prefill
+// (q/k (4, 8000, 128, 192), v of 128, G = 1, W = S: 10.49 TFLOP, 10.60 ms)
+// it measured 19.7 ms (PERF.md): at G = 1 every CTA streams its head's whole
+// prefix from L2.
 //
 // bf16 design (FlashAttention-3's shape): the S*G (position, head) rows of
 // one (b, KV head) are flattened, f = s G + g, and one CTA takes SWA_ROWS
@@ -37,11 +43,18 @@
 //    j >= S and columns >= D come back zero-filled from the box edge.
 //  - D is split into DK / 16 panels (DK = D rounded up to 16): panel p
 //    holds columns [16 p, 16 p + 16) of every row, 32 bytes a row, and is
-//    exactly one k-step of Q K^T.  The same panels serve P V as an MN-major
-//    B operand (wgmma's transpose bit): the leading byte offset steps from
-//    panel to panel along D, the stride byte offset from 8 keys to the next.
-//    So any D that is a multiple of 8 takes one layout; the columns between
-//    D and DK are zero in Q, K and V.
+//    exactly one k-step of Q K^T.  V's DV / 16 panels (DV rounded up
+//    likewise) serve P V as an MN-major B operand (wgmma's transpose bit):
+//    the leading byte offset steps from panel to panel along DV, the stride
+//    byte offset from 8 keys to the next.  So any D and DV that are
+//    multiples of 8 take one layout; the columns past the true D (DV) are
+//    zero in Q and K (V).
+//  - One instantiation per (DK, DV): (16, 16) to (128, 128) in steps of 16,
+//    and (192, 128); a shape runs in the smallest one that covers both
+//    widths (its columns past the true widths read as zero).  The ring
+//    keeps SWA_STAGES stages where they fit beside Q in a block's 227 KB,
+//    so every D <= 128 keeps 4; at (192, 128) Q takes 72 KB and a K and V
+//    stage 40 KB, and the ring 3.
 //  - Q's flattened rows form no TMA box when G does not divide 64, so each
 //    consumer warpgroup stages its own 64 rows once with 16-byte loads into
 //    the same swizzled panels.
@@ -49,7 +62,7 @@
 //    (Q and K from shared memory), the online softmax on the accumulator
 //    fragments (f32, log2 domain), and O += P V as wgmma m64nDKk16 with P
 //    converted in registers from the S accumulator into the A operand.  O
-//    (64 x DK f32) stays in registers.
+//    (64 x DV f32) stays in registers.
 //  - Overlap: the next tile's Q K^T and this tile's P V are issued
 //    together, and the softmax of the next tile runs while P V is in
 //    flight; the consumer warpgroups take turns to issue their products
@@ -72,9 +85,10 @@
 // equal.
 //
 // fp32 design (SIMT FMA, for the f32 models; TF32 stays off): a CTA of 4
-// warps takes 16 rows, 4 per warp; per tile of 32 keys staged in shared
-// memory, lane j scores key j, the warp reduces max and sum by shuffles, and
-// lane c accumulates output columns c, c + 32, c + 64, c + 96.
+// warps takes 16 rows, 4 per warp; per tile of 32 keys staged in dynamic
+// shared memory (53 KB at D = 192, DV = 128: above the 48 KB of static
+// arrays), lane j scores key j, the warp reduces max and sum by shuffles,
+// and lane c accumulates output columns c, c + 32, c + 64, c + 96.
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,16 +110,18 @@
 #define SWA_CONSUMER_REGS 160
 #define SWA_F32_ROWS 16  // fp32: rows per CTA, 4 per warp
 #define SWA_F32_KEYS 32  // fp32: keys per tile, one per lane
-#define SWA_MAX_D 128
+#define SWA_MAX_D 192       // q and k head dim
+#define SWA_MAX_DV 128      // v head dim
+#define SWA_SMEM_MAX 232448  // shared memory a block may take (227 KB)
 #define SWA_NEG_INF (-1e30f)
 #define SWA_FLT_MAX 3.402823466e38f
 
 struct SwaParams {
   const void* q;    // (B, S, H, D)
   const void* k;    // (B, S, KVH, D)
-  const void* v;    // (B, S, KVH, D)
-  void* out;        // (B, S, H, D)
-  int B, S, H, KVH, D, G;
+  const void* v;    // (B, S, KVH, DV)
+  void* out;        // (B, S, H, DV)
+  int B, S, H, KVH, D, DV, G;
   int window;       // W >= 1: keys in (q - W, q]
   int dtype;        // 0: float32, 1: bfloat16
   float scale;      // logit scale, 1 / sqrt(D) by default
@@ -355,30 +371,38 @@ __device__ __forceinline__ SwaTiles swa_tiles(const SwaParams& p) {
   return t;
 }
 
-template <int DK>
+// Shared memory of the (DK, DV) instantiation: Q's panels, then the ring
+// of K tiles, the ring of V tiles and the full / empty barriers.  The ring
+// keeps SWA_STAGES stages where they fit, else as many as fit.
+template <int DK, int DV>
 struct SwaSmem {
-  static constexpr int PANELS = DK / SWA_PANEL;
-  static constexpr int Q_BYTES = PANELS * SWA_ROWS * 32;
-  static constexpr int KV_BYTES = PANELS * SWA_KEYS * 32;  // one K (or V) tile
-  static constexpr int BYTES = Q_BYTES + 2 * SWA_STAGES * KV_BYTES + 2 * SWA_STAGES * 8;
+  static constexpr int K_PANELS = DK / SWA_PANEL;
+  static constexpr int V_PANELS = DV / SWA_PANEL;
+  static constexpr int Q_BYTES = K_PANELS * SWA_ROWS * 32;
+  static constexpr int K_BYTES = K_PANELS * SWA_KEYS * 32;  // one K tile
+  static constexpr int V_BYTES = V_PANELS * SWA_KEYS * 32;  // one V tile
   static constexpr int ALIGN = 1024;
+  static constexpr int FIT = (SWA_SMEM_MAX - ALIGN - Q_BYTES) / (K_BYTES + V_BYTES + 16);
+  static constexpr int STAGES = FIT < SWA_STAGES ? FIT : SWA_STAGES;
+  static constexpr int BYTES = Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 2 * STAGES * 8;
+  static_assert(STAGES >= 2 && BYTES + ALIGN <= SWA_SMEM_MAX, "the ring does not fit");
 };
 
-template <int DK>
+template <int DK, int DV>
 __device__ __forceinline__ void swa_consumer(const SwaParams& p, const SwaTiles& t,
                                              unsigned char* qs, unsigned char* ks,
                                              unsigned char* vs, uint64_t* full,
                                              uint64_t* empty) {
-  using Sm = SwaSmem<DK>;
+  using Sm = SwaSmem<DK, DV>;
   constexpr int NS = SWA_KEYS / 2;  // S accumulator registers a thread
-  constexpr int NO = DK / 2;        // O accumulator registers a thread
+  constexpr int NO = DV / 2;        // O accumulator registers a thread
   // the warpgroup index through a shuffle, so that the compiler sees it
   // uniform: a wgmma under a branch it cannot prove uniform is serialized
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const int G = p.G, S = p.S, D = p.D, W = p.window;
+  const int G = p.G, S = p.S, D = p.D, DVt = p.DV, W = p.window;
   const int rows_total = S * G;
 
   // stage this warpgroup's 64 rows of Q (zero past the rows and past D)
@@ -431,15 +455,15 @@ __device__ __forceinline__ void swa_consumer(const SwaParams& p, const SwaTiles&
   auto turn_pass = [&]() { bar_arrive(1 + (wg + 1) % SWA_CONSUMERS, 256); };
   auto issue_s = [&](int stage) {
 #pragma unroll
-    for (int kk = 0; kk < Sm::PANELS; ++kk)
+    for (int kk = 0; kk < Sm::K_PANELS; ++kk)
       wgmma_ss(s, sw32_desc(q_wg + kk * SWA_ROWS * 32, 16),
-               sw32_desc(ks + stage * Sm::KV_BYTES + kk * SWA_KEYS * 32, 16), kk > 0);
+               sw32_desc(ks + stage * Sm::K_BYTES + kk * SWA_KEYS * 32, 16), kk > 0);
     wgmma_commit();
   };
   auto issue_pv = [&](int stage) {
 #pragma unroll
     for (int kk = 0; kk < SWA_KEYS / 16; ++kk)
-      wgmma_rs(o, pa[kk], sw32_desc(vs + stage * Sm::KV_BYTES + kk * 16 * 32, SWA_KEYS * 32));
+      wgmma_rs(o, pa[kk], sw32_desc(vs + stage * Sm::V_BYTES + kk * 16 * 32, SWA_KEYS * 32));
     wgmma_commit();
   };
   // The online softmax of S in the log2 domain, masked only where the tile
@@ -514,8 +538,8 @@ __device__ __forceinline__ void swa_consumer(const SwaParams& p, const SwaTiles&
   const int it_lo = live ? (max(0, w_lo - W + 1) - t.kt0) / SWA_KEYS : t.n_tiles;
   const int it_hi = live ? (w_hi - t.kt0) / SWA_KEYS : t.n_tiles - 1;
   auto skip = [&](int it) {
-    const int stage = it % SWA_STAGES;
-    mbar_wait(&full[stage], (it / SWA_STAGES) & 1);
+    const int stage = it % Sm::STAGES;
+    mbar_wait(&full[stage], (it / Sm::STAGES) & 1);
     turn_wait();
     turn_pass();
     release(stage);
@@ -544,8 +568,8 @@ __device__ __forceinline__ void swa_consumer(const SwaParams& p, const SwaTiles&
   int it = 0;
   for (; it < it_lo; ++it) skip(it);
   if (it_lo <= it_hi) {
-    int stage = it % SWA_STAGES;
-    mbar_wait(&full[stage], (it / SWA_STAGES) & 1);
+    int stage = it % Sm::STAGES;
+    mbar_wait(&full[stage], (it / Sm::STAGES) & 1);
     turn_wait();
     wgmma_fence();
     issue_s(stage);
@@ -554,8 +578,8 @@ __device__ __forceinline__ void swa_consumer(const SwaParams& p, const SwaTiles&
     consume(it, false, 0);
     for (++it; it <= it_hi; ++it) {
       const int prev = stage;
-      stage = it % SWA_STAGES;
-      mbar_wait(&full[stage], (it / SWA_STAGES) & 1);
+      stage = it % Sm::STAGES;
+      mbar_wait(&full[stage], (it / Sm::STAGES) & 1);
       turn_wait();
       wgmma_fence();
       issue_s(stage);  // the next S and the last P V in flight together
@@ -587,12 +611,12 @@ __device__ __forceinline__ void swa_consumer(const SwaParams& p, const SwaTiles&
   }
   const float div_a = l_a > 0.f ? l_a : 1.f, div_b = l_b > 0.f ? l_b : 1.f;
   __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.out);
-  const long long off_a = ((long long)(b * S + pos_a) * p.H + kvh * G + fa % G) * D;
-  const long long off_b = ((long long)(b * S + pos_b) * p.H + kvh * G + fb % G) * D;
+  const long long off_a = ((long long)(b * S + pos_a) * p.H + kvh * G + fa % G) * DVt;
+  const long long off_b = ((long long)(b * S + pos_b) * p.H + kvh * G + fb % G) * DVt;
 #pragma unroll
   for (int j = 0; j < NO / 4; ++j) {
     const int col = j * 8 + t2;
-    if (col >= D) continue;
+    if (col >= DVt) continue;
     if (fa < rows_total)
       *reinterpret_cast<__nv_bfloat162*>(O + off_a + col) =
           __floats2bfloat162_rn(o[4 * j] / div_a, o[4 * j + 1] / div_a);
@@ -604,22 +628,22 @@ __device__ __forceinline__ void swa_consumer(const SwaParams& p, const SwaTiles&
 
 // Warpgroups 0 .. SWA_CONSUMERS - 1 consume, the last one produces: one
 // if / else at the top, so that setmaxnreg is honoured.
-template <int DK>
+template <int DK, int DV>
 static __global__ void __launch_bounds__(SWA_THREADS, 1)
     swa_bf16_kernel(const __grid_constant__ SwaParams p, const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap) {
-  using Sm = SwaSmem<DK>;
+  using Sm = SwaSmem<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + Sm::ALIGN - 1) & ~(uintptr_t)(Sm::ALIGN - 1));
   unsigned char* ks = qs + Sm::Q_BYTES;              // [stage][panel][key][32 bytes]
-  unsigned char* vs = ks + SWA_STAGES * Sm::KV_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(vs + SWA_STAGES * Sm::KV_BYTES);
-  uint64_t* empty = full + SWA_STAGES;
+  unsigned char* vs = ks + Sm::STAGES * Sm::K_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + Sm::STAGES * Sm::V_BYTES);
+  uint64_t* empty = full + Sm::STAGES;
   const SwaTiles t = swa_tiles(p);
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < SWA_STAGES; ++i) {
+    for (int i = 0; i < Sm::STAGES; ++i) {
       mbar_init(&full[i], 1);                   // the producer's expect_tx
       mbar_init(&empty[i], 4 * SWA_CONSUMERS);  // every consumer warp
     }
@@ -632,29 +656,42 @@ static __global__ void __launch_bounds__(SWA_THREADS, 1)
     if (threadIdx.x == 128 * SWA_CONSUMERS) {
       const int b = blockIdx.z, kvh = blockIdx.y;
       for (int it = 0; it < t.n_tiles; ++it) {
-        const int stage = it % SWA_STAGES, kt = t.kt0 + it * SWA_KEYS;
-        mbar_wait(&empty[stage], ((it / SWA_STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[stage], 2 * Sm::KV_BYTES);
+        const int stage = it % Sm::STAGES, kt = t.kt0 + it * SWA_KEYS;
+        mbar_wait(&empty[stage], ((it / Sm::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[stage], Sm::K_BYTES + Sm::V_BYTES);
+        // K panel p and V panel p in turn, then the K panels past DV
 #pragma unroll 1
-        for (int pn = 0; pn < Sm::PANELS; ++pn) {
-          const int off = stage * Sm::KV_BYTES + pn * SWA_KEYS * 32;
-          tma_load4(ks + off, &kmap, pn * SWA_PANEL, kvh, kt, b, &full[stage]);
-          tma_load4(vs + off, &vmap, pn * SWA_PANEL, kvh, kt, b, &full[stage]);
+        for (int pn = 0; pn < Sm::K_PANELS; ++pn) {
+          tma_load4(ks + stage * Sm::K_BYTES + pn * SWA_KEYS * 32, &kmap, pn * SWA_PANEL, kvh,
+                    kt, b, &full[stage]);
+          if (DK == DV || pn < Sm::V_PANELS)
+            tma_load4(vs + stage * Sm::V_BYTES + pn * SWA_KEYS * 32, &vmap, pn * SWA_PANEL, kvh,
+                      kt, b, &full[stage]);
         }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(SWA_CONSUMER_REGS));
-    swa_consumer<DK>(p, t, qs, ks, vs, full, empty);
+    swa_consumer<DK, DV>(p, t, qs, ks, vs, full, empty);
   }
 }
 
+// Floats of the f32 path's dynamic shared memory: Q rows (D a row), K rows
+// (an odd stride, so that lane j reading row j meets no bank conflict) and V
+// rows (DV a row).
+__host__ __device__ __forceinline__ int swa_f32_ks_stride(int d) { return d | 1; }
+__host__ __device__ __forceinline__ int swa_f32_smem_floats(int d, int dv) {
+  return SWA_F32_ROWS * d + SWA_F32_KEYS * (swa_f32_ks_stride(d) + dv);
+}
+
 static __global__ void __launch_bounds__(128) swa_f32_kernel(SwaParams p) {
-  __shared__ float qs[SWA_F32_ROWS][SWA_MAX_D];
-  __shared__ float ks[SWA_F32_KEYS][SWA_MAX_D + 1];  // +1: lane j reads row j
-  __shared__ float vs[SWA_F32_KEYS][SWA_MAX_D];
+  extern __shared__ float f32_smem[];
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const int G = p.G, S = p.S, D = p.D, W = p.window;
+  const int G = p.G, S = p.S, D = p.D, DV = p.DV, W = p.window;
+  const int KS = swa_f32_ks_stride(D);
+  float* qs = f32_smem;                       // [SWA_F32_ROWS][D]
+  float* ks = qs + SWA_F32_ROWS * D;          // [SWA_F32_KEYS][KS]
+  float* vs = ks + SWA_F32_KEYS * KS;         // [SWA_F32_KEYS][DV]
   const int rows_total = S * G;
   const int f0 = blockIdx.x * SWA_F32_ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -665,7 +702,7 @@ static __global__ void __launch_bounds__(128) swa_f32_kernel(SwaParams p) {
 
   for (int i = threadIdx.x; i < SWA_F32_ROWS * D; i += blockDim.x) {
     const int r = i / D, c = i % D, f = f0 + r;
-    qs[r][c] = f < rows_total
+    qs[r * D + c] = f < rows_total
                    ? Q[((long long)(b * S + f / G) * p.H + kvh * G + f % G) * D + c]
                    : 0.f;
   }
@@ -684,9 +721,11 @@ static __global__ void __launch_bounds__(128) swa_f32_kernel(SwaParams p) {
     __syncthreads();
     for (int i = threadIdx.x; i < SWA_F32_KEYS * D; i += blockDim.x) {
       const int r = i / D, c = i % D, j = kt + r;
-      const long long off = ((long long)(b * S + j) * p.KVH + kvh) * D + c;
-      ks[r][c] = j < S ? K[off] : 0.f;
-      vs[r][c] = j < S ? V[off] : 0.f;
+      ks[r * KS + c] = j < S ? K[((long long)(b * S + j) * p.KVH + kvh) * D + c] : 0.f;
+    }
+    for (int i = threadIdx.x; i < SWA_F32_KEYS * DV; i += blockDim.x) {
+      const int r = i / DV, c = i % DV, j = kt + r;
+      vs[r * DV + c] = j < S ? V[((long long)(b * S + j) * p.KVH + kvh) * DV + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -696,7 +735,7 @@ static __global__ void __launch_bounds__(128) swa_f32_kernel(SwaParams p) {
       const int pos = f / G, key = kt + lane;
       const bool ok = key <= pos && key > pos - W;
       float s = 0.f;
-      for (int c = 0; c < D; ++c) s = fmaf(qs[warp * 4 + i][c], ks[lane][c], s);
+      for (int c = 0; c < D; ++c) s = fmaf(qs[(warp * 4 + i) * D + c], ks[lane * KS + c], s);
       s = ok ? s * p.scale : SWA_NEG_INF;
       float mx = s;
 #pragma unroll
@@ -715,7 +754,7 @@ static __global__ void __launch_bounds__(128) swa_f32_kernel(SwaParams p) {
         float a = acc[i][c4] * alpha;
         for (int j = 0; j < SWA_F32_KEYS; ++j) {
           const float pj = __shfl_sync(0xffffffffu, pr, j);
-          if (col < D) a = fmaf(pj, vs[j][col], a);
+          if (col < DV) a = fmaf(pj, vs[j * DV + col], a);
         }
         acc[i][c4] = a;
       }
@@ -726,11 +765,11 @@ static __global__ void __launch_bounds__(128) swa_f32_kernel(SwaParams p) {
     const int f = f0 + warp * 4 + i;
     if (f >= rows_total) continue;
     const float div = l[i] > 0.f ? l[i] : 1.f;
-    float* orow = O + ((long long)(b * S + f / G) * p.H + kvh * G + f % G) * D;
+    float* orow = O + ((long long)(b * S + f / G) * p.H + kvh * G + f % G) * DV;
 #pragma unroll
     for (int c4 = 0; c4 < 4; ++c4) {
       const int col = lane + 32 * c4;
-      if (col < D) orow[col] = acc[i][c4] / div;
+      if (col < DV) orow[col] = acc[i][c4] / div;
     }
   }
 }
@@ -761,13 +800,14 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// K or V (B, S, KVH, D) bf16 as a rank-4 map over (D, KVH, S, B); a box is
-// one 16-column panel of SWA_KEYS keys, 32-byte swizzled, zero past S and D.
-static int kv_map(CUtensorMap* map, const SwaParams* p, const void* base) {
+// K (B, S, KVH, D) or V (B, S, KVH, DV) bf16 as a rank-4 map over (cols,
+// KVH, S, B); a box is one 16-column panel of SWA_KEYS keys, 32-byte
+// swizzled, zero past S and past cols.
+static int kv_map(CUtensorMap* map, const SwaParams* p, const void* base, int cols) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t row = (cuuint64_t)p->D * 2;
-  cuuint64_t dims[4] = {(cuuint64_t)p->D, (cuuint64_t)p->KVH, (cuuint64_t)p->S,
+  const cuuint64_t row = (cuuint64_t)cols * 2;
+  cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)p->KVH, (cuuint64_t)p->S,
                         (cuuint64_t)p->B};
   cuuint64_t strides[3] = {row, row * p->KVH, row * p->KVH * p->S};
   cuuint32_t box[4] = {SWA_PANEL, 1, SWA_KEYS, 1};
@@ -779,40 +819,48 @@ static int kv_map(CUtensorMap* map, const SwaParams* p, const void* base) {
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DK>
+template <int DK, int DV>
 static int launch_bf16(const SwaParams* p, cudaStream_t st) {
-  using Sm = SwaSmem<DK>;
+  using Sm = SwaSmem<DK, DV>;
   const int smem = Sm::BYTES + Sm::ALIGN;
   CUtensorMap kmap, vmap;
-  int err = kv_map(&kmap, p, p->k);
-  if (err == 0) err = kv_map(&vmap, p, p->v);
+  int err = kv_map(&kmap, p, p->k, p->D);
+  if (err == 0) err = kv_map(&vmap, p, p->v, p->DV);
   if (err != 0) return err;
-  cudaError_t e = cudaFuncSetAttribute(swa_bf16_kernel<DK>,
+  cudaError_t e = cudaFuncSetAttribute(swa_bf16_kernel<DK, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((p->S * p->G + SWA_ROWS - 1) / SWA_ROWS, p->KVH, p->B);
-  swa_bf16_kernel<DK><<<grid, SWA_THREADS, smem, st>>>(*p, kmap, vmap);
+  swa_bf16_kernel<DK, DV><<<grid, SWA_THREADS, smem, st>>>(*p, kmap, vmap);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rt_swa_attention(const SwaParams* p, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (p->D < 1 || p->D > SWA_MAX_D) return (int)cudaErrorInvalidValue;
+  if (p->D < 1 || p->D > SWA_MAX_D || p->DV < 1 || p->DV > SWA_MAX_DV)
+    return (int)cudaErrorInvalidValue;
   if (p->dtype == 0) {
+    const int smem = swa_f32_smem_floats(p->D, p->DV) * (int)sizeof(float);
+    cudaError_t e = cudaFuncSetAttribute(swa_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
     dim3 grid((p->S * p->G + SWA_F32_ROWS - 1) / SWA_F32_ROWS, p->KVH, p->B);
-    swa_f32_kernel<<<grid, 128, 0, st>>>(*p);
+    swa_f32_kernel<<<grid, 128, smem, st>>>(*p);
     return (int)cudaGetLastError();
   }
-  if (p->D % 8 != 0) return (int)cudaErrorInvalidValue;
-  switch ((p->D + 15) / 16) {
-    case 1: return launch_bf16<16>(p, st);
-    case 2: return launch_bf16<32>(p, st);
-    case 3: return launch_bf16<48>(p, st);
-    case 4: return launch_bf16<64>(p, st);
-    case 5: return launch_bf16<80>(p, st);
-    case 6: return launch_bf16<96>(p, st);
-    case 7: return launch_bf16<112>(p, st);
-    default: return launch_bf16<128>(p, st);
+  if (p->D % 8 != 0 || p->DV % 8 != 0) return (int)cudaErrorInvalidValue;
+  // the smallest instantiation that covers both widths
+  const int dk = (p->D + 15) / 16, dv = (p->DV + 15) / 16;
+  if (dk > 8) return launch_bf16<192, 128>(p, st);
+  switch (dk > dv ? dk : dv) {
+    case 1: return launch_bf16<16, 16>(p, st);
+    case 2: return launch_bf16<32, 32>(p, st);
+    case 3: return launch_bf16<48, 48>(p, st);
+    case 4: return launch_bf16<64, 64>(p, st);
+    case 5: return launch_bf16<80, 80>(p, st);
+    case 6: return launch_bf16<96, 96>(p, st);
+    case 7: return launch_bf16<112, 112>(p, st);
+    default: return launch_bf16<128, 128>(p, st);
   }
 }
 
@@ -820,6 +868,7 @@ extern "C" int rt_swa_params_size() { return (int)sizeof(SwaParams); }
 
 // The design constants the Python side mirrors (_build.SWA_CONSTANTS order).
 extern "C" void rt_swa_constants(int* out) {
-  const int c[] = {SWA_KEYS, SWA_STAGES, SWA_CONSUMERS, SWA_WG_ROWS, SWA_PANEL, SWA_MAX_D};
+  const int c[] = {SWA_KEYS,  SWA_STAGES, SWA_CONSUMERS, SWA_WG_ROWS,
+                   SWA_PANEL, SWA_MAX_D,  SWA_MAX_DV,    SWA_SMEM_MAX};
   for (int i = 0; i < (int)(sizeof(c) / sizeof(c[0])); ++i) out[i] = c[i];
 }

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of sliding-window causal attention.
 
 Position q attends to keys k in (q - window, q].  Both functions take the
-port's layout -- q (B, S, H, D), k and v (B, S_k, KVH, D), query head h
-served by KV head h // (H / KVH) -- and return (B, S, H, D):
+port's layout -- q (B, S, H, D), k (B, S_k, KVH, D) and v (B, S_k, KVH,
+DV), query head h served by KV head h // (H / KVH) -- and return (B, S, H,
+DV), v's head dim (DV = 128 against D = 192 in multi-head latent
+attention):
 
   * :func:`swa_attention_ref` -- dense, O(S^2) logits: the port of
     `repro.kernels.swa_attention.ref.swa_attention_ref` (with the GQA head
@@ -40,7 +42,7 @@ def _group(q: torch.Tensor, k: torch.Tensor) -> int:
 def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
                       scale: Optional[float] = None) -> torch.Tensor:
     """Dense sliding-window causal attention; logits and the product with v
-    in float32, the result in q's dtype."""
+    in float32, the result (B, S, H, DV) in q's dtype."""
     g = _group(q, k)
     s, d = q.shape[1], q.shape[3]
     scale = d**-0.5 if scale is None else scale
@@ -58,8 +60,8 @@ def swa_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           chunk: int = 512, q_pos0: int = 0,
                           causal: bool = True) -> torch.Tensor:
     """Causal (optionally banded) attention, query-chunked.  ``window=None``
-    is plain causal attention over all S_k keys; the result is in v's
-    dtype."""
+    is plain causal attention over all S_k keys; the result (B, S, H, DV)
+    is in v's dtype."""
     g = _group(q, k)
     b, s, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]

@@ -12,10 +12,10 @@
                                              leaves stacked on a leading L axis)
 
 ``batch`` is a dict: ``tokens`` (and ``pos`` for decode).  The dense and
-MoE families with GQA attention are ported; every other family, and MLA
-attention (deepseek-v2), raises ``NotImplementedError`` naming its ROADMAP
-item.  ``init_params`` and ``params_from_numpy`` put the model on the card
-unless the caller asks for the CPU.
+MoE families, with GQA or MLA attention (deepseek-v2), are ported; every
+other family raises ``NotImplementedError`` naming its ROADMAP item.
+``init_params`` and ``params_from_numpy`` put the model on the card unless
+the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 from ..core.backend import resolve_device
 from ..core.mapreduce import tree_map
 from . import transformer
-from .attention import Attention, GQAAttention, TensorSpec, mla_not_ported
+from .attention import Attention, GQAAttention, MLAAttention, TensorSpec
 from .layers import DTYPE, MLP, RMSNorm
 from .moe import MoE
 from .transformer import Block, Transformer
@@ -47,8 +47,6 @@ def _require_ported(cfg) -> None:
     if cfg.family in _OPEN_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet: "
                                   f"{_OPEN_FAMILIES[cfg.family]}")
-    if cfg.attn == "mla":
-        raise mla_not_ported(cfg)
 
 
 def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = None,
@@ -91,6 +89,8 @@ def cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, TensorSp
 
 _MLP_NAMES = ("w_gate", "w_up", "w_down")
 _MOE_NAMES = ("router", "e_gate", "e_up", "e_down")
+_MLA_NAMES = ("w_dkv", "kv_norm", "w_uk", "w_uv", "w_kr", "wo")
+_MLA_Q_NAMES = {True: ("w_dq", "q_norm", "w_uq"), False: ("wq",)}  # by q_lora_rank > 0
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -121,15 +121,23 @@ def _moe(tree: Dict[str, Any], i: int, t) -> MoE:
     return MoE(*(t(tree[k][i]) for k in _MOE_NAMES), shared)
 
 
+def _attention(at: Dict[str, Any], cfg, t):
+    """One layer's attention from its leaves ``at`` (``t`` makes each a
+    tensor)."""
+    if cfg.attn == "mla":
+        return MLAAttention(*(t(at[k]) for k in _MLA_NAMES),
+                            **{k: t(at[k]) for k in _MLA_Q_NAMES[bool(cfg.mla.q_lora_rank)]})
+    return GQAAttention(t(at["wq"]), t(at["wk"]), t(at["wv"]), t(at["wo"]),
+                        *((t(at["q_norm"]), t(at["k_norm"])) if cfg.qk_norm else ()))
+
+
 def _assemble(tree: Dict[str, Any], cfg, t) -> Transformer:
     """The model from a params tree in the reference's layout, ``t`` making
     each leaf (a layer leaf indexed first) a tensor."""
     lay = tree["layers"]
     blocks = []
     for i in range(cfg.n_layers):
-        at = {k: a[i] for k, a in lay["attn"].items()}
-        attn = GQAAttention(t(at["wq"]), t(at["wk"]), t(at["wv"]), t(at["wo"]),
-                            *((t(at["q_norm"]), t(at["k_norm"])) if cfg.qk_norm else ()))
+        attn = _attention({k: a[i] for k, a in lay["attn"].items()}, cfg, t)
         mlp = _moe(lay["moe"], i, t) if cfg.moe is not None else _mlp(lay["mlp"], i, t)
         blocks.append(Block(RMSNorm(t(lay["attn_norm"][i]), cfg.norm_eps), attn,
                             RMSNorm(t(lay["mlp_norm"][i]), cfg.norm_eps), mlp))
@@ -139,10 +147,10 @@ def _assemble(tree: Dict[str, Any], cfg, t) -> Transformer:
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
-    """The reference's dense- or MoE-family params -- a nest of dicts of numpy
-    arrays, layer leaves stacked on a leading (L, ...) axis, as
-    ``jax.tree.map(np.asarray, params)`` gives them -- as the port's model
-    on ``device``."""
+    """The reference's dense- or MoE-family params, GQA or MLA -- a nest of
+    dicts of numpy arrays, layer leaves stacked on a leading (L, ...) axis,
+    as ``jax.tree.map(np.asarray, params)`` gives them -- as the port's
+    model on ``device``."""
     _require_ported(cfg)
     dev = resolve_device(device)
     return _assemble(tree, cfg, lambda a: _tensor(a, dev))
@@ -172,8 +180,12 @@ def params_to_tree(params: Transformer) -> Dict[str, Any]:
             ffn["moe"]["shared"] = stacked([m.shared for m in ffns], _MLP_NAMES)
     else:
         ffn = {"mlp": stacked(ffns, _MLP_NAMES)}
-    names = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm")
-                                        if blocks[0].attn.q_norm is not None else ())
+    attn = blocks[0].attn
+    if isinstance(attn, MLAAttention):
+        names = _MLA_NAMES + _MLA_Q_NAMES[attn.wq is None]
+    else:
+        names = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm")
+                                            if attn.q_norm is not None else ())
     tree = {
         "embed": params.embed.detach(),
         "layers": {"attn_norm": stack([b.attn_norm.weight for b in blocks]),

@@ -31,7 +31,7 @@ from torch import nn
 
 from .layers import DTYPE, MLP, expert_init, mlp_init, weight
 
-__all__ = ["MoE", "moe_init", "moe_apply", "moe_capacity", "moe_route"]
+__all__ = ["MoE", "moe_init", "moe_apply", "moe_capacity", "moe_route", "bucket_positions"]
 
 Aux = Dict[str, torch.Tensor]
 
@@ -71,6 +71,18 @@ def moe_capacity(t: int, cfg) -> int:
     return max(int(t * k / m.num_experts * m.capacity_factor), min(t * k, 4))
 
 
+def bucket_positions(expert_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Each (token, choice)'s place in its expert's bucket, (T, k) int64: how
+    many earlier pairs, token-major, chose the same expert (a stable-sort
+    rank)."""
+    flat_e = expert_idx.reshape(-1)
+    sort_idx = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[sort_idx]
+    seg_start = torch.searchsorted(sorted_e, torch.arange(num_experts, device=flat_e.device))
+    pos_sorted = torch.arange(flat_e.numel(), device=flat_e.device) - seg_start[sorted_e]
+    return torch.empty_like(flat_e).index_put_((sort_idx,), pos_sorted).reshape(expert_idx.shape)
+
+
 def moe_route(p: MoE, xt: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
     """Routing of the tokens xt (T, d): (logits (T, E) float32, probs,
     gates (T, k), expert_idx (T, k) int64, pos (T, k) int64, the place of
@@ -80,13 +92,7 @@ def moe_route(p: MoE, xt: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1, sorted=True)
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
-    flat_e = expert_idx.reshape(-1)
-    sort_idx = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[sort_idx]
-    seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=xt.device))
-    pos_sorted = torch.arange(flat_e.numel(), device=xt.device) - seg_start[sorted_e]
-    pos = torch.empty_like(flat_e).index_put_((sort_idx,), pos_sorted).reshape(expert_idx.shape)
-    return logits, probs, gate_vals, expert_idx, pos
+    return logits, probs, gate_vals, expert_idx, bucket_positions(expert_idx, e)
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg, *,
@@ -119,10 +125,15 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg, *,
         x_pad = torch.cat([xt, xt.new_zeros((1, d))])
         ein = x_pad[src[:-1]].reshape(e, capacity, d)
 
+    # each buffer is let go once read: at deepseek-v2's prefill (E x C =
+    # 160 x 1,500 slots of 5,120) they are 0.7-2.5 GB each
     g = torch.bmm(ein, p.e_gate)
     u = torch.bmm(ein, p.e_up)
+    del ein
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    del g, u
     eout = torch.bmm(h, p.e_down)  # (E, C, d)
+    del h
 
     if m.dispatch == "einsum":
         out = torch.einsum("tec,ecd->td", combine, eout.float()).to(x.dtype)

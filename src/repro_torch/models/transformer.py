@@ -4,8 +4,9 @@
 The reference stacks its layers' parameters on a leading L axis and scans
 over them; the port keeps one :class:`Block` per layer in an
 ``nn.ModuleList`` and loops.  The decode cache keeps the reference's
-stacked layout, ``{"k", "v": (L, B, C, KVH, hd), "pos": (L, C)}``, so the
-two compare leaf by leaf.
+stacked layout, ``{"k", "v": (L, B, C, KVH, hd), "pos": (L, C)}`` (MLA:
+``{"lat": (L, B, C, kv_lora + rope), "pos"}``), so the two compare leaf by
+leaf.
 
 Entry points (all under ``torch.no_grad``; training is a later slice):
   lm_forward      -- tokens -> logits (B, S, V) (with ``return_aux``, and
@@ -15,8 +16,10 @@ Entry points (all under ``torch.no_grad``; training is a later slice):
 
 ``lm_prefill`` takes ``attention=`` (default: the sliding-window attention
 kernel's wrapper) for its attention; decode attention is plain PyTorch.
-A block's feed-forward is a dense SwiGLU (:class:`MLP`) or, for a config
-with ``moe``, a mixture of experts (:class:`MoE`, `moe.py`).
+A block's attention is grouped-query (:class:`GQAAttention`) or, for a
+config with ``attn == "mla"``, multi-head latent (:class:`MLAAttention`);
+its feed-forward a dense SwiGLU (:class:`MLP`) or, for a config with
+``moe``, a mixture of experts (:class:`MoE`, `moe.py`).
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from .attention import (Attention, Cache, GQAAttention, TensorSpec, attention_cache_spec,
-                        attention_init, gqa_apply)
+from .attention import (Attention, Cache, GQAAttention, MLAAttention, TensorSpec,
+                        attention_apply, attention_cache_spec, attention_init)
 from .layers import DTYPE, MLP, RMSNorm, dense_init, embed_init, mlp_init, weight
 from .moe import Aux, MoE, moe_apply, moe_init
 
@@ -35,11 +38,11 @@ __all__ = ["Block", "Transformer", "lm_init", "lm_forward", "lm_prefill", "lm_de
 
 
 class Block(nn.Module):
-    """Attention and a feed-forward ``mlp``: a dense :class:`MLP`, or an
-    :class:`MoE` (the reference's ``layers["moe"]``)."""
+    """Attention (GQA or MLA) and a feed-forward ``mlp``: a dense
+    :class:`MLP`, or an :class:`MoE` (the reference's ``layers["moe"]``)."""
 
-    def __init__(self, attn_norm: RMSNorm, attn: GQAAttention, mlp_norm: RMSNorm,
-                 mlp: Union[MLP, MoE]):
+    def __init__(self, attn_norm: RMSNorm, attn: Union[GQAAttention, MLAAttention],
+                 mlp_norm: RMSNorm, mlp: Union[MLP, MoE]):
         super().__init__()
         self.attn_norm, self.attn, self.mlp_norm, self.mlp = attn_norm, attn, mlp_norm, mlp
 
@@ -87,8 +90,9 @@ def _block(p: Block, x: torch.Tensor, cfg, positions: torch.Tensor, cache: Optio
            attention: Optional[Attention] = None, aux: bool = False
            ) -> Tuple[torch.Tensor, Optional[Cache], Optional[Aux]]:
     """-> (x, cache, the MoE layer's aux losses when ``aux``, else None)."""
-    attn_out, new_cache = gqa_apply(p.attn, p.attn_norm(x), cfg, positions, cache=cache, pos=pos,
-                                    return_cache=return_cache, attention=attention)
+    attn_out, new_cache = attention_apply(p.attn, p.attn_norm(x), cfg, positions, cache=cache,
+                                          pos=pos, return_cache=return_cache,
+                                          attention=attention)
     x = x + attn_out
     h = p.mlp_norm(x)
     if isinstance(p.mlp, MoE):

@@ -597,6 +597,82 @@ def test_reduced_generate_kernel_path_matches_plain_path(dev, dtype):
         np.testing.assert_array_equal(served.tokens, want.argmax(-1).cpu().numpy())
 
 
+def _qkv_dv(dev, b, s, h, kvh, d, dv, dtype, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return tuple(torch.randn((b, s, n, w), generator=g, device=dev).to(dtype)
+                 for n, w in ((h, d), (kvh, d), (kvh, dv)))
+
+
+@pytest.mark.parametrize("s,window,group,d,dv,dtype", [
+    # multi-head latent attention's q/k 192, v 128 (G = 1, W = S), a pair
+    # the (192, 128) instantiation serves with zero columns, square
+    # instantiations serving a narrower v or q/k; S not a multiple of 64
+    (1000, 1000, 1, 192, 128, torch.bfloat16), (300, 70, 2, 192, 128, torch.bfloat16),
+    (130, 130, 1, 184, 120, torch.bfloat16), (1000, 300, 4, 24, 16, torch.bfloat16),
+    (200, 50, 2, 64, 128, torch.bfloat16), (1, 4, 1, 192, 128, torch.bfloat16),
+    (1000, 1000, 1, 192, 128, torch.float32), (130, 40, 2, 184, 120, torch.float32),
+    (300, 70, 4, 24, 16, torch.float32)])
+def test_swa_kernel_takes_a_v_narrower_than_q(dev, s, window, group, d, dv, dtype):
+    """q/k of D and v of DV: out (B, S, H, DV) held to the chunked plain
+    version as at D = DV; two launches bitwise equal."""
+    from repro_torch.kernels.swa_attention import ops as sw, ref as swr
+
+    kvh = 2
+    q, k, v = _qkv_dv(dev, 1, s, kvh * group, kvh, d, dv, dtype)
+    got, again = sw.swa_attention(q, k, v, window), sw.swa_attention(q, k, v, window)
+    want = swr.swa_attention_chunked(q, k, v, window)
+    scale = swr.swa_row_scale(v, window, kvh * group)
+    assert got.dtype == dtype and tuple(got.shape) == (1, s, kvh * group, dv)
+    assert ((got.float() - want.float()).abs() / scale).max() <= SWA_TOL[dtype]
+    rows = (got.double() - want.double()).norm(dim=-1) / want.double().norm(dim=-1)
+    assert rows.max() <= SWA_ROW_TOL[dtype]
+    assert rows[:, min(window, s) - 1:].mean() <= SWA_ROW_MEAN_TOL[dtype]
+    assert torch.equal(got, again)
+
+
+def test_swa_kernel_refuses_heads_wider_than_its_instantiations(dev):
+    from repro_torch.kernels.swa_attention import ops as sw
+
+    for d, dv in ((200, 128), (192, 136)):
+        with pytest.raises(ValueError, match="head dims"):
+            sw.swa_attention(*_qkv_dv(dev, 1, 64, 2, 2, d, dv, torch.bfloat16), 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_deepseek_generate_kernel_path_matches_plain_path(dev, dtype):
+    """Reduced deepseek-v2 (MLA: q/k 24, v 16 through kernel 8): the kernel
+    path's logits close to the plain path's, prefill launches the kernel
+    once per layer and the absorbed decode never."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_arch("deepseek-v2").reduced()
+    params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (2, 40), generator=g, device=dev)
+    eng = ServeEngine(cfg, params, max_len=48, dtype=dtype, device=dev)
+    reset_launch_counts()
+    served = eng.generate(prompts, 8, keep_logits=True)
+    assert launch_counts()["swa_attention"] == cfg.n_layers
+    reset_launch_counts()
+    logits, cache = prefill(params, {"tokens": prompts}, cfg, attention=swa_attention_chunked)
+    cache = eng._grow_cache(cache, prompts.shape[0])
+    tokens = torch.from_numpy(served.tokens).to(dev)
+    steps = [logits]
+    for i in range(1, 8):
+        logits, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": 40 + i - 1},
+                                    cfg)
+        steps.append(logits)
+    assert launch_counts()["swa_attention"] == 0
+    got, want = served.logits, torch.stack([s.float() for s in steps], 1)
+    assert (got - want).abs().max() / want.abs().max() <= (1e-4 if dtype == torch.float32
+                                                           else 3e-2)
+
+
 # ------------------------------- batched kernels 1-4 (the tenant axis)
 def _tenants(dev, B, n, d, reach, seed=0):
     g = torch.Generator(device=dev)

@@ -107,6 +107,9 @@ def test_entry_points_default_to_the_card():
     moe_cfg = get_arch("llama4").reduced()
     moe_model = init_params(moe_cfg, device="cpu")
     moe_tree = params_to_numpy(moe_model)
+    mla_cfg = get_arch("deepseek-v2").reduced()
+    mla_model = init_params(mla_cfg, device="cpu")
+    mla_tree = params_to_numpy(mla_model)
     for call in (lambda: SeriesFrame.from_array(x), lambda: SeriesFrame.from_chunks([x]),
                  lambda: FrameSession(d=2, num_users=4),
                  lambda: StatPlan([autocovariance_request(2)], d=2),
@@ -119,6 +122,9 @@ def test_entry_points_default_to_the_card():
                  lambda: ServeEngine(cfg, cpu_model, max_len=8, quantize=True),
                  lambda: init_params(moe_cfg), lambda: params_from_numpy(moe_tree, moe_cfg),
                  lambda: ServeEngine(moe_cfg, moe_model, max_len=8, quantize=True),
+                 lambda: init_params(mla_cfg), lambda: params_from_numpy(mla_tree, mla_cfg),
+                 lambda: ServeEngine(mla_cfg, mla_model, max_len=8),
+                 lambda: serve.main(["--arch", "deepseek-v2", "--reduced"]),
                  lambda: serve.main(["--arch", "llama4", "--reduced"]),
                  lambda: serve.main(["--arch", "danube", "--reduced"]),
                  lambda: fit_ar_mle(x, 1, n_steps=1), lambda: fit_ar_sgd(x, 1, n_steps=1),
@@ -367,6 +373,48 @@ def test_moe_serving_runs_without_jax():
         "    assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
         "g = torch.Generator().manual_seed(0)\n"
         "assert expert_init(g, (2, 8, 4), 0.5, torch.bfloat16).dtype == torch.bfloat16\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_mla_serving_runs_without_jax():
+    """Multi-head latent attention (models/attention.py's MLA half), the
+    deepseek-v2 config shim, its weights carried out and in, the latent
+    cache and int8 serving, with JAX and the reference package
+    unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import numpy as np, torch, repro_torch\n"
+        "from repro_torch.configs import deepseek_v2_236b\n"
+        "from repro_torch.kernels.swa_attention import ops\n"
+        "from repro_torch.models import cache_spec, params_from_numpy, params_to_numpy, prefill\n"
+        "from repro_torch.models.attention import MLAAttention, attention_apply, mla_apply\n"
+        "assert deepseek_v2_236b.CONFIG.mla.kv_lora_rank == 512\n"
+        "cfg = repro_torch.get_arch('deepseek-v2').reduced()\n"
+        "lm = repro_torch.init_params(cfg, seed=0, dtype=torch.float32, device='cpu')\n"
+        "attn = lm.layers[0].attn\n"
+        "assert isinstance(attn, MLAAttention)\n"
+        "x, pos = torch.randn(2, 6, cfg.d_model), torch.arange(6, dtype=torch.int32)\n"
+        "out, cache = mla_apply(attn, x, cfg, pos, return_cache=True)\n"
+        "assert out.shape == x.shape and cache['lat'].shape == (2, 6, 40)\n"
+        "assert torch.equal(attention_apply(attn, x, cfg, pos)[0], out)\n"
+        "q, k, v = (torch.randn(1, 9, 2, n) for n in (192, 192, 128))\n"
+        "assert ops.swa_attention(q, k, v, 9).shape == (1, 9, 2, 128)\n"
+        "tok = torch.zeros((2, 20), dtype=torch.long)\n"
+        "logits, cache = prefill(lm, {'tokens': tok}, cfg)\n"
+        "assert cache['lat'].shape == tuple(cache_spec(cfg, 2, 20)['lat'].shape)\n"
+        "back = params_from_numpy(params_to_numpy(lm), cfg, device='cpu')\n"
+        "assert torch.equal(prefill(back, {'tokens': tok}, cfg)[0], logits)\n"
+        "for quantize in (False, True):\n"
+        "    eng = repro_torch.ServeEngine(cfg, lm, max_len=24, quantize=quantize, device='cpu')\n"
+        "    assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -281,8 +281,9 @@ def test_new_struct_mirrors_have_the_c_layout():
     assert ctypes.sizeof(_build.LagMomBatchParams) == 4 * 8 + (5 + _build.MAX_WINDOWS + 3) * 4
     assert ctypes.sizeof(_build.BandParams) == 3 * 8 + 12 * 4
     assert ctypes.sizeof(_build.BandGradParams) == 3 * 8 + 11 * 4 + 4
-    assert ctypes.sizeof(_build.SwaParams) == 4 * 8 + 8 * 4 + 4 + 4
-    assert _build.SwaParams.scale.offset == 4 * 8 + 8 * 4
+    assert ctypes.sizeof(_build.SwaParams) == 4 * 8 + 9 * 4 + 4  # B .. dtype with DV
+    assert _build.SwaParams.DV.offset == 4 * 8 + 5 * 4  # after D, before G
+    assert _build.SwaParams.scale.offset == 4 * 8 + 9 * 4
     names = {n for n, _ in _build.STRUCT_SIZES}
     assert names == {"rt_plan_params_size", "rt_welch_member_size", "rt_moment_params_size",
                      "rt_lagmom_params_size", "rt_lagmom_batch_params_size",

@@ -369,13 +369,26 @@ def test_moe_init_shapes_dtypes_and_scales():
 
 
 def test_deepseek_v2_still_raises_through_mla():
-    for cfg in (get_arch("deepseek-v2"), get_arch("deepseek-v2").reduced()):
-        assert cfg.family == "moe"
-        with pytest.raises(NotImplementedError, match="6.4"):
-            init_params(cfg, device="cpu")
+    """deepseek-v2 no longer raises through MLA: its reduced config builds
+    on the CPU with MLA attention over the MoE family, and its cache spec
+    is the latent cache, {"lat": (L, B, C, kv_lora + rope), "pos": (L, C)}."""
+    from repro_torch.models import cache_spec
+    from repro_torch.models.attention import MLAAttention
+
+    cfg = get_arch("deepseek-v2").reduced()
+    assert cfg.family == "moe" and cfg.attn == "mla"
+    model = init_params(cfg, device="cpu")
+    assert isinstance(model.layers[0].attn, MLAAttention)
+    assert isinstance(model.layers[0].mlp, tmoe.MoE)
+    spec = cache_spec(cfg, 2, 48)
+    assert set(spec) == {"lat", "pos"}
+    assert spec["lat"].shape == (cfg.n_layers, 2, 48, 32 + 8) and spec["pos"].shape == (2, 48)
+    full = cache_spec(get_arch("deepseek-v2"), 4, 8016)
+    assert full["lat"].shape == (60, 4, 8016, 576) and full["pos"].dtype == torch.int32
 
 
 @pytest.mark.parametrize("module,name", [("llama4_maverick_400b", "llama4"),
+                                         ("deepseek_v2_236b", "deepseek-v2"),
                                          ("glm4_9b", "glm4"), ("qwen3_0_6b", "qwen3"),
                                          ("phi3_medium_14b", "phi3"),
                                          ("h2o_danube_1_8b", "danube")])

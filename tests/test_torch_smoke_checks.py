@@ -782,3 +782,227 @@ def test_moe_bounds_at_llama4_full_width():
     kept_bound = smoke.work_bounds(kept)
     assert kept_bound["bound_by"] == "operations" and 42.7 < kept_bound["bound_ms"] < 42.9
     assert smoke.moe_serve_work(cfg, 4, 8000, 8000, 312, expert_pairs=2 * 128 * 312) == work
+
+
+# ------------------------------------------------------------ lm_mla checks
+def _deepseek(layers=2, q_lora_rank=24, dtype=torch.float32, seed=0):
+    """Reduced deepseek-v2 with the full model's low-rank query path."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    cfg = get_arch("deepseek-v2").reduced()
+    cfg = dataclasses.replace(cfg, n_layers=layers,
+                              mla=dataclasses.replace(cfg.mla, q_lora_rank=q_lora_rank))
+    return cfg, init_params(cfg, seed=seed, dtype=dtype, device="cpu")
+
+
+def test_swa_bound_at_the_mla_layer_shape():
+    """q/k (4, 8,000, 128, 192), v (.., 128) bf16, W = S, G = 1: 32,004,000
+    causal pairs a head, 640 operations each, 10.49 TFLOP -- bound by
+    operations at 10.60 ms; 5.24 GB; D = DV gives the old count."""
+    nbytes, flops = smoke.swa_work(4, 8000, 128, 128, 192, 8000, 2, dv=128)
+    assert nbytes == 5_242_880_000 and flops == 640 * 32_004_000 * 4 * 128
+    ms, by = smoke.bound_ms(nbytes, flops, smoke.PEAK_BF16)
+    assert by == "operations" and ms == pytest.approx(10.6037, rel=1e-4)
+    assert smoke.swa_work(4, 8000, 32, 8, 80, 4096, 2, dv=80) == smoke.swa_work(
+        4, 8000, 32, 8, 80, 4096, 2)
+
+
+@pytest.mark.parametrize("layers,prefill_ms,decode_gb", [(8, 278.54, 64.91), (7, 243.73, 56.93)])
+def test_mla_bounds_at_deepseek_full_width(layers, prefill_ms, decode_gb):
+    """A prefill of 4 x 8,000 tokens: 34.4 TFLOP a layer (projections 9.55,
+    attention 10.49, experts 11.32 over 160 x 1,500 slots, shared 3.02),
+    bound by operations; a decode step reads every expert, the MLA weights
+    and the latent cache: bytes."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import moe_capacity
+
+    cfg = dataclasses.replace(get_arch("deepseek-v2"), n_layers=layers)
+    assert moe_capacity(32000, cfg) == 1500
+    work = smoke.moe_serve_work(cfg, 4, 8000, 8000, 1500)
+    per_layer = {k: work[k][1] / layers / 1e12 for k in ("projections", "attention", "experts",
+                                                           "shared")}
+    assert per_layer == pytest.approx({"projections": 9.5504, "attention": 10.4871,
+                                       "experts": 11.3246, "shared": 3.0199}, rel=1e-4)
+    pre = smoke.work_bounds(work)
+    assert pre["bound_by"] == "operations" and pre["bound_ms"] == pytest.approx(prefill_ms,
+                                                                                rel=1e-4)
+    dec = smoke.work_bounds(smoke.moe_serve_work(cfg, 4, 1, 8015, moe_capacity(4, cfg)))
+    assert dec["bound_by"] == "bytes" and dec["gbytes"] == pytest.approx(decode_gb, rel=1e-3)
+    # the latent cache read a step: L x 4 x 8,015 x 576 bf16
+    assert smoke.mla_work(cfg, 4, 1, 8015)[1][0] == layers * 4 * 8015 * 576 * 2
+
+
+def test_mla_layer_check_passes_rounding_and_fails_a_cut_window():
+    """A bf16 MLA layer through the wrapper (the chunked plain version, P
+    rounded to bf16) against the dense one (P in float32) passes; the same
+    at half the window fails."""
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked, swa_attention_ref
+    from repro_torch.models.attention import mla_apply
+
+    cfg, model = _deepseek(dtype=torch.bfloat16)
+    x = torch.randn(2, 96, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    x = x.to(torch.bfloat16)
+    pos = torch.arange(96, dtype=torch.int32)
+    attn = model.layers[0].attn
+    want, _ = mla_apply(attn, x, cfg, pos, attention=lambda q, k, v, w, scale: swa_attention_ref(
+        q, k, v, w, scale))
+    got, _ = mla_apply(attn, x, cfg, pos)
+    ok = smoke.mla_layer_check(got, want)
+    assert ok["ok"] and 0 < ok["row_norm_rel_err"] <= smoke.SWA_ROW_TOL[torch.bfloat16]
+    bad, _ = mla_apply(attn, x, cfg, pos, attention=lambda q, k, v, w, scale:
+                       swa_attention_chunked(q, k, v, w // 2, scale=scale))
+    assert not smoke.mla_layer_check(bad, want)["ok"]
+
+
+def _decode_runs(cfg, model, prompt=24, steps=5, seed=3):
+    """The model's prefill cache grown by ``steps``, the steps' tokens, and
+    the absorbed decode's logits (B, steps, V) and routes."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import ServeEngine
+
+    g = torch.Generator().manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab, (2, prompt), generator=g)
+    tokens = torch.randint(0, cfg.vocab, (2, steps), generator=g)
+    _, cache = prefill(model, {"tokens": prompts}, cfg)
+    cache = ServeEngine(cfg, model, max_len=prompt + steps, dtype=model.embed.dtype,
+                        device="cpu")._grow_cache(cache, 2)
+    return prompts, tokens, cache, decode_step
+
+
+def _steps(model, cfg, cache, tokens, prompt, decode_step, form=None, record=None, force=None):
+    import contextlib
+
+    cache = {k: v.clone() for k, v in cache.items()}
+    hooks = [] if record is None else smoke.moe_routes(model, cfg, record)
+    out = []
+    with contextlib.ExitStack() as stack:
+        if form is not None:
+            stack.enter_context(form())
+        if force is not None:
+            stack.enter_context(smoke.forced_routes(force))
+        for i in range(tokens.shape[1]):
+            logits, cache = decode_step(model, cache, {"tokens": tokens[:, i], "pos": prompt + i},
+                                        cfg)
+            out.append(logits.float())
+    for hk in hooks:
+        hk.remove()
+    return torch.stack(out, 1), cache
+
+
+@pytest.mark.parametrize("q_lora_rank", [0, 24])
+def test_non_absorbed_decode_is_the_absorbed_math(q_lora_rank):
+    """In float32 the check's non-absorbed step (per-head keys and values
+    from the latent) gives the absorbed step's logits within 1e-5 and writes
+    the same cache; absorbed_check passes them and fails them one step
+    off."""
+    cfg, model = _deepseek(q_lora_rank=q_lora_rank)
+    _, tokens, cache, decode_step = _decode_runs(cfg, model)
+    absorbed, ca = _steps(model, cfg, cache, tokens, 24, decode_step)
+    plain, cb = _steps(model, cfg, cache, tokens, 24, decode_step,
+                       form=smoke.non_absorbed_decoding)
+    assert smoke.row_rel_errors(absorbed, plain).max() <= 1e-5
+    assert torch.equal(ca["pos"], cb["pos"])
+    assert torch.allclose(ca["lat"], cb["lat"], rtol=1e-4, atol=1e-5)
+    res = smoke.absorbed_check(absorbed, plain, smoke.SERVE_TOL)
+    assert res["ok"] and res["fault_caught"]
+    bad = smoke.absorbed_check(absorbed, torch.roll(plain, 1, dims=1), smoke.SERVE_TOL)
+    assert not bad["ok"]
+
+
+def test_layer0_decode_check_holds_both_forms_and_catches_a_shifted_position():
+    cfg, model = _deepseek(dtype=torch.bfloat16)
+    _, tokens, cache, _ = _decode_runs(cfg, model)
+    layer0 = {k: v[0] for k, v in cache.items()}
+    res = smoke.layer0_decode_check(model, layer0, tokens, cfg, 24)
+    assert res["ok"] and res["row_norm_rel_err"] <= smoke.SWA_ROW_TOL[torch.bfloat16]
+    # the steps' tokens written one position later: their rope angles move
+    from repro_torch.models.attention import mla_apply
+
+    bad, good = [], []
+    c1 = {k: v.clone() for k, v in layer0.items()}
+    c2 = {k: v.clone() for k, v in layer0.items()}
+    for i in range(tokens.shape[1] - 1):
+        h = model.layers[0].attn_norm(model.embed[tokens[:, i:i + 1]])
+        good.append(mla_apply(model.layers[0].attn, h, cfg, torch.tensor([24 + i]), cache=c1,
+                              pos=24 + i)[0])
+        bad.append(smoke.mla_decode_non_absorbed(model.layers[0].attn, h, cfg,
+                                                 torch.tensor([25 + i]), cache=c2, pos=25 + i)[0])
+    assert not smoke.mla_layer_check(torch.cat(bad, 1), torch.cat(good, 1))["ok"]
+
+
+def test_forced_routes_replay_bitwise_and_move_the_output_when_wrong():
+    """Replaying a run's own routes gives its logits bit for bit; the routes
+    of other tokens move them past the serving limit; a call beyond the
+    recorded ones raises."""
+    cfg, model = _deepseek()
+    _, tokens, cache, decode_step = _decode_runs(cfg, model)
+    routes = []
+    free, _ = _steps(model, cfg, cache, tokens, 24, decode_step, record=routes)
+    assert len(routes) == tokens.shape[1] * cfg.n_layers
+    again, _ = _steps(model, cfg, cache, tokens, 24, decode_step, force=routes)
+    assert torch.equal(again, free)
+    other = [(torch.flip(idx, [0]), kept) for idx, kept in routes]  # batch rows swapped
+    moved, _ = _steps(model, cfg, cache, tokens, 24, decode_step, force=other)
+    assert smoke.row_rel_errors(moved, free).max() > smoke.SERVE_TOL
+    with pytest.raises(StopIteration):
+        _steps(model, cfg, cache, tokens, 24, decode_step, force=routes[:-1])
+
+
+def test_split_events_takes_the_mla_and_moe_ranges():
+    """Two ranges split by their own groups; kernel 8, launched through
+    ctypes inside the MLA range's function, is counted by its name outside
+    both ranges."""
+    from types import SimpleNamespace as E
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    mla = E(name=smoke.MLA_RANGE, device_type=cpu, device_time_total=4000.0, cpu_parent=None)
+    moe = E(name=smoke.MOE_RANGE, device_type=cpu, device_time_total=3000.0, cpu_parent=None)
+    events = [mla, moe,
+              E(name="aten::matmul", device_type=cpu, device_time_total=1500.0, cpu_parent=mla),
+              E(name="aten::einsum", device_type=cpu, device_time_total=100.0, cpu_parent=mla),
+              E(name="aten::bmm", device_type=cpu, device_time_total=2000.0, cpu_parent=moe),
+              E(name="gemm", device_type=cuda, device_time_total=3600.0),
+              E(name="elementwise", device_type=cuda, device_time_total=3400.0),
+              E(name="void swa_bf16_kernel<192, 128>(SwaParams)", device_type=cuda,
+                device_time_total=2000.0),
+              E(name="embedding", device_type=cuda, device_time_total=500.0)]
+    out = smoke.split_events(events, ranges={smoke.MLA_RANGE: smoke.MLA_OPS,
+                                             smoke.MOE_RANGE: smoke.MOE_OPS})
+    assert out["mla_projections"] == 1.6 and out["swa_bf16_kernel"] == 2.0
+    assert out["mla_other"] == pytest.approx(2.4) and out["experts_bmm"] == 2.0
+    assert out["moe_other"] == pytest.approx(1.0) and out["total"] == pytest.approx(9.5)
+    assert out["rest"] == pytest.approx(0.5)
+    assert out["calls"] == {"mla_projections": 2, "experts_bmm": 1, "gathers_scatters": 0,
+                            "shared_and_router_mm": 0}
+    assert smoke.range_other(smoke.MLA_RANGE) == "mla_other"
+    assert smoke.range_other(smoke.MOE_RANGE) == "moe_other"
+
+
+def test_mla_ranged_profile_finds_each_layers_projections_on_the_cpu():
+    """A reduced deepseek prefill and decode step in the MLA and MoE ranges:
+    the MLA layer's products called directly in its range -- prefill: w_dq,
+    w_uq, w_dkv, w_kr, w_uk, w_uv, wo (7 matmuls; on the CPU also the
+    chunked plain attention's 2 einsums, which kernel 8 replaces on the
+    card); decode: w_dq, w_uq, w_dkv, w_kr, the fold through w_uk, the two
+    attention einsums, w_uv and wo (9) -- and the MoE's as before."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import prefill
+
+    cfg, model = _deepseek()
+    prompts, tokens, cache, decode_step = _decode_runs(cfg, model)
+    names = (smoke.MLA_RANGE, smoke.MOE_RANGE)
+    ranges = {smoke.MLA_RANGE: smoke.MLA_OPS, smoke.MOE_RANGE: smoke.MOE_OPS}
+    for call, mla_ops in ((lambda: prefill(model, {"tokens": prompts}, cfg), 9),
+                          (lambda: decode_step(model, cache, {"tokens": tokens[:, 0], "pos": 24},
+                                               cfg), 9)):
+        with smoke.moe_ranged(names), profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        seen = smoke.split_events(prof.events(), ranges=ranges)["calls"]
+        assert seen["mla_projections"] == mla_ops * cfg.n_layers
+        assert seen["experts_bmm"] == 3 * cfg.n_layers

@@ -128,3 +128,66 @@ def test_valid_pairs_and_row_scale():
     for s in (0, 3, 4, 39):
         for h in range(6):
             assert scale[0, s, h, 0] == v[0, max(0, s - 4): s + 1, h // 2].abs().max()
+
+
+# ------------------------------------------- q/k and v of different widths --
+
+def _qkv_dv(s, group, dk, dv, kvh=2, seed=0):
+    """(q (B, H, S, DK), k (B, KVH, S, DK), v (B, KVH, S, DV)) numpy in the JAX
+    layout: multi-head latent attention's shapes (q/k 192, v 128) and a
+    small pair."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((1, n, s, d)).astype(np.float32)
+                 for n, d in ((kvh * group, dk), (kvh, dk), (kvh, dv)))
+
+
+@pytest.mark.parametrize("window", [None, 1, 37, 100])
+@pytest.mark.parametrize("dk,dv", [(24, 16), (192, 128)])
+def test_plain_versions_take_a_v_narrower_than_q(dk, dv, window):
+    """Both plain versions against the model's `_chunked_attention` at DK !=
+    DV, with and without a window, S below and above the chunk: out (B, S,
+    H, DV)."""
+    s, group, kvh, chunk = 150, 2, 2, 64
+    q, k, v = _qkv_dv(s, group, dk, dv, kvh=kvh, seed=dk + (window or 0))
+    qm = np.swapaxes(q, 1, 2).reshape(1, s, kvh, group, dk)
+    km, vm = np.swapaxes(k, 1, 2), np.swapaxes(v, 1, 2)
+    want = np.asarray(_chunked_attention(jnp.asarray(qm), jnp.asarray(km), jnp.asarray(vm),
+                                         dk**-0.5, window=window, chunk=chunk))
+    want = want.reshape(1, s, kvh * group, dv)
+    tq, tk, tv = (_port(a) for a in (q, k, v))
+    chunked = swr.swa_attention_chunked(tq, tk, tv, window, chunk=chunk)
+    dense = swr.swa_attention_ref(tq, tk, tv, s if window is None else window)
+    wrapper = sw.swa_attention(tq, tk, tv, s if window is None else window)
+    for got in (chunked, dense, wrapper):
+        assert tuple(got.shape) == (1, s, kvh * group, dv)
+        np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
+
+
+@pytest.mark.parametrize("s,window,group,dk,dv", [(128, 16, 2, 24, 16), (100, 100, 1, 192, 128),
+                                                  (130, 40, 4, 192, 128)])
+def test_narrow_v_matches_pallas_interpret_on_v_padded_to_dk(s, window, group, dk, dv):
+    """The Pallas kernel (interpret mode) takes one D: v padded with zero
+    columns to DK gives the same function, sliced back to DV."""
+    q, k, v = _qkv_dv(s, group, dk, dv, seed=s + dk)
+    vpad = np.concatenate([v, np.zeros(v.shape[:3] + (dk - dv,), np.float32)], -1)
+    want = np.asarray(jswa.swa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(vpad),
+                                         window, block_q=64, block_k=64, interpret=True))
+    want = np.swapaxes(want[..., :dv], 1, 2)
+    tq, tk, tv = (_port(a) for a in (q, k, v))
+    for got in (swr.swa_attention_ref(tq, tk, tv, window), sw.swa_attention(tq, tk, tv, window)):
+        np.testing.assert_allclose(got.numpy(), want, **TOL["f32"])
+
+
+def test_wrapper_rejects_heads_wider_than_the_kernel():
+    """q/k above 192 or v above 128 raise on every device (the kernel has no
+    instantiation for them); 192 / 128 itself runs."""
+    q, k, v = (_port(a) for a in _qkv_dv(16, 1, 200, 128))
+    with pytest.raises(ValueError, match="up to 192"):
+        sw.swa_attention(q, k, v, 8)
+    q, k, v = (_port(a) for a in _qkv_dv(16, 1, 192, 136))
+    with pytest.raises(ValueError, match="up to 128"):
+        sw.swa_attention(q, k, v, 8)
+    q, k, v = (_port(a) for a in _qkv_dv(16, 1, 192, 128))
+    assert tuple(sw.swa_attention(q, k, v, 8).shape) == (1, 16, 2, 128)
+    with pytest.raises(ValueError, match="KVH"):  # v's heads must be k's
+        sw.swa_attention(q, k, v[:, :, :1].contiguous(), 8)

@@ -295,20 +295,21 @@ def test_grid_runs_full_windows_first_and_every_row_once():
 
 
 def kernel_model(q, k, v, w, scale):
-    """The bf16 path's walk in float64 for one batch row: q (S, H, D), k, v
-    (S, KVH, D) -> (S, H, D), tile by tile in the kernel's order, with its
-    online softmax in the log2 domain and its masking; P V of a tile lands
-    before the next tile's rescale, as the overlapped loop orders it."""
+    """The bf16 path's walk in float64 for one batch row: q (S, H, D), k (S,
+    KVH, D), v (S, KVH, DV) -> (S, H, DV), tile by tile in the kernel's
+    order, with its online softmax in the log2 domain and its masking; P V
+    of a tile lands before the next tile's rescale, as the overlapped loop
+    orders it."""
     s, h, d = q.shape
-    kvh = k.shape[1]
+    kvh, dv = k.shape[1], v.shape[2]
     g = h // kvh
-    dk = _dk(d)
-    out = np.zeros_like(q)
+    dk, dvp = _dk(d), _dk(dv)
+    out = np.zeros((s, h, dv))
     scale2 = abs(scale) * math.log2(math.e)
     for head in range(kvh):
         kp = np.zeros((s + 2 * KEYS, dk))
-        vp = np.zeros((s + 2 * KEYS, dk))
-        kp[:s, :d], vp[:s, :d] = k[:, head], v[:, head]
+        vp = np.zeros((s + 2 * KEYS, dvp))
+        kp[:s, :d], vp[:s, :dv] = k[:, head], v[:, head]
         n_blocks = -(-s * g // ROWS)
         for bx in range(n_blocks):
             f0, kt0, n_tiles = cta_tiles(bx, s, g, w)
@@ -320,7 +321,7 @@ def kernel_model(q, k, v, w, scale):
                 qf[live, :d] = q[f[live] // g, head * g + f[live] % g]
                 m = np.full(WG_ROWS, -1e30)
                 l = np.zeros(WG_ROWS)
-                o = np.zeros((WG_ROWS, dk))
+                o = np.zeros((WG_ROWS, dvp))
                 for it in range(it_lo, it_hi + 1):
                     kt = kt0 + it * KEYS
                     raw = np.sign(scale) * qf @ kp[kt:kt + KEYS].T
@@ -334,7 +335,7 @@ def kernel_model(q, k, v, w, scale):
                     o = alpha[:, None] * o + p @ vp[kt:kt + KEYS]
                     m = mn
                 res = o / np.where(l > 0, l, 1.0)[:, None]
-                out[f[live] // g, head * g + f[live] % g] = res[live, :d]
+                out[f[live] // g, head * g + f[live] % g] = res[live, :dv]
     return out
 
 
@@ -375,6 +376,8 @@ def test_swa_constants_match_the_c_defines():
     src, defines = _defines()
     assert {name: defines[name] for name in _build.SWA_CONSTANTS} == {
         name: getattr(_build, name) for name in _build.SWA_CONSTANTS}
+    assert (defines["SWA_MAX_D"], defines["SWA_MAX_DV"], defines["SWA_SMEM_MAX"]) == (
+        192, 128, 232448)
     body = src[src.index("void rt_swa_constants"):]
     assert (re.findall(r"SWA_\w+", body[body.index("{"): body.index("};")])
             == list(_build.SWA_CONSTANTS.values()))
@@ -433,3 +436,125 @@ def test_variant_patches_apply_to_the_source():
         assert ("bar_sync(1 + wg, 256)" in text) == bool(point[4])
     assert vb._wgmma_ss(KEYS) in src
     assert "#ifdef ABL_NO_TMA" in vb._patch(src, vb._ABLATION_PATCHES, "ablation")
+
+
+# ------------------------------------------ q/k and v of different widths --
+
+# (D, DV) pairs of the widened contract: multi-head latent attention's (192,
+# 128), one the (192, 128) instantiation serves with zero columns, and pairs
+# a square instantiation serves
+DKV_CASES = [(192, 128), (184, 120), (136, 8), (24, 16), (128, 64), (64, 128), (80, 80)]
+
+
+def instantiations():
+    """The (DK, DV) pairs swa_attention.cu instantiates, from its dispatch."""
+    src = SOURCE.read_text()
+    body = src[src.index('extern "C" int rt_swa_attention'):src.index("rt_swa_params_size")]
+    return [(int(a), int(b)) for a, b in re.findall(r"launch_bf16<(\d+), (\d+)>", body)]
+
+
+def instantiation(d, dv):
+    """rt_swa_attention's choice: (192, 128) past 128 columns of q/k, else
+    the square one of the wider width, both rounded up to 16."""
+    dk, dvp = _dk(d), _dk(dv)
+    return (192, 128) if dk > 128 else (max(dk, dvp),) * 2
+
+
+def smem_layout(dk, dv):
+    """SwaSmem<DK, DV>: (stages, byte offsets of Q, K ring, V ring and the
+    barriers, total bytes with the alignment slack)."""
+    q_bytes = dk // PANEL * ROWS * 32
+    k_bytes, v_bytes = dk // PANEL * KEYS * 32, dv // PANEL * KEYS * 32
+    fit = (_build.SWA_SMEM_MAX - 1024 - q_bytes) // (k_bytes + v_bytes + 16)
+    stages = min(fit, _build.SWA_STAGES)
+    offsets = {"q": 0, "k": q_bytes, "v": q_bytes + stages * k_bytes,
+               "bars": q_bytes + stages * (k_bytes + v_bytes)}
+    return stages, offsets, offsets["bars"] + 2 * stages * 8 + 1024
+
+
+def test_instantiations_cover_every_pair_with_the_smallest():
+    """The source instantiates the eight square widths up to 128 and (192,
+    128); each pair runs in the smallest instantiation whose q/k and v
+    widths both cover it."""
+    inst = instantiations()
+    assert sorted(inst) == sorted([(n, n) for n in range(16, 129, 16)] + [(192, 128)])
+    for d in range(8, _build.SWA_MAX_D + 1, 8):
+        for dv in range(8, _build.SWA_MAX_DV + 1, 8):
+            chosen = instantiation(d, dv)
+            assert chosen in inst and chosen[0] >= d and chosen[1] >= dv
+            covering = [p for p in inst if p[0] >= d and p[1] >= dv]
+            assert sum(chosen) == min(sum(p) for p in covering)
+
+
+@pytest.mark.parametrize("dk,dv", sorted({(n, n) for n in range(16, 129, 16)} | {(192, 128)}))
+def test_shared_memory_layout_of_each_instantiation(dk, dv):
+    """Every D <= 128 keeps SWA_STAGES stages, (192, 128) takes 3; the
+    regions are disjoint, each tile starts on 256 bytes (the 32-byte
+    swizzle's period) and the barriers on 8, all within a block's 227 KB."""
+    stages, off, total = smem_layout(dk, dv)
+    assert stages == (3 if dk > 128 else _build.SWA_STAGES)
+    assert total <= _build.SWA_SMEM_MAX
+    if dk == 192:
+        assert total == 197680
+    k_bytes, v_bytes = dk // PANEL * KEYS * 32, dv // PANEL * KEYS * 32
+    starts = [off["k"] + i * k_bytes for i in range(stages)] + \
+             [off["v"] + i * v_bytes for i in range(stages)]
+    assert all(a % 256 == 0 for a in starts) and off["bars"] % 8 == 0
+    assert off["k"] + stages * k_bytes == off["v"] and off["v"] + stages * v_bytes == off["bars"]
+    # one stage more would not fit at (192, 128): 3 is the most
+    if dk > 128:
+        q_bytes = off["k"]
+        assert q_bytes + (stages + 1) * (k_bytes + v_bytes + 16) + 1024 > _build.SWA_SMEM_MAX
+
+
+@pytest.mark.parametrize("d,dv", DKV_CASES)
+def test_wide_panels_are_the_tma_boxes_and_the_wgmma_layouts(d, dv):
+    """In the instantiation a pair runs in: Q's and K's DK / 16 panels are
+    the TMA boxes and the K-major descriptors of Q K^T, V's DV / 16 panels
+    the MN-major descriptors of P V with N = DV; each box of K (V) lands in
+    its own stage's K (V) region."""
+    dk, dvp = instantiation(d, dv)
+    stages, off, _ = smem_layout(dk, dvp)
+    k_bytes, v_bytes = dk // PANEL * KEYS * 32, dvp // PANEL * KEYS * 32
+    for kk in range(dk // PANEL):
+        key, k = np.meshgrid(np.arange(KEYS), np.arange(16), indexing="ij")
+        assert np.array_equal(kmajor_offset(key, k, kk * KEYS * 32),
+                              tma_box_offset(key, 16 * kk + k, KEYS))
+        rr, k = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+        for wg in range(CONSUMERS):
+            assert np.array_equal(kmajor_offset(rr, k, kk * ROWS * 32 + wg * 64 * 32),
+                                  sw32_offset(wg * 64 + rr, 16 * kk + k, ROWS))
+    for kk in range(KEYS // 16):
+        key, n = np.meshgrid(np.arange(16), np.arange(dvp), indexing="ij")
+        assert np.array_equal(mnmajor_offset(n, key, kk * 16 * 32, lbo=KEYS * 32),
+                              tma_box_offset(16 * kk + key, n, KEYS))
+    # the producer's boxes: K panel pn at stage * K_BYTES + pn * KEYS * 32,
+    # V panel pn at stage * V_BYTES + pn * KEYS * 32; expect_tx counts both
+    for stage in range(stages):
+        k_boxes = [off["k"] + stage * k_bytes + pn * KEYS * 32 for pn in range(dk // PANEL)]
+        v_boxes = [off["v"] + stage * v_bytes + pn * KEYS * 32 for pn in range(dvp // PANEL)]
+        assert (len(k_boxes) + len(v_boxes)) * KEYS * 32 == k_bytes + v_bytes
+        assert k_boxes[-1] + KEYS * 32 <= off["v"] and v_boxes[-1] + KEYS * 32 <= off["bars"]
+    # columns past the true widths: zero in Q and K past D (staging, TMA),
+    # in V past DV (TMA); the output stores columns < DV only
+    acc_row, acc_col = acc_layout(dvp)
+    assert acc_col.max() == dvp - 1 and (acc_col < dv).sum() == 64 * dv
+
+
+@pytest.mark.parametrize("s,w,g,d,dv", [(150, 40, 2, 192, 128), (70, 4096, 1, 184, 120),
+                                        (100, 9, 4, 24, 16), (37, 37, 3, 64, 128)])
+def test_walk_with_a_narrow_v_matches_the_jax_reference(s, w, g, d, dv):
+    """The walk's model with v of DV columns against repro's dense
+    swa_attention_ref (v's width passes through its einsum)."""
+    rng = np.random.default_rng(s + d + dv)
+    kvh = 2
+    q = rng.standard_normal((s, g * kvh, d))
+    k = rng.standard_normal((s, kvh, d))
+    v = rng.standard_normal((s, kvh, dv))
+    sc = d ** -0.5
+    got = kernel_model(q, k, v, w, sc)
+    assert got.shape == (s, g * kvh, dv)
+    kk, vv = np.repeat(k, g, axis=1), np.repeat(v, g, axis=1)
+    want = np.asarray(jax_swa_ref(*(jnp.asarray(t.transpose(1, 0, 2), jnp.float32)
+                                    for t in (q, kk, vv)), w, sc)).transpose(1, 0, 2)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(v).max()

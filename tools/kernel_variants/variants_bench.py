@@ -28,8 +28,9 @@ both shapes, A^T through the flag against the transposed copy, the wrapper
 at one right-hand side, and d diags against the baseline's plain products.
 Samples go to build/kernel_variants/variants_banded.json.
 
-stats: times the kernels of this checkout (1-8, 7b, and kernel 3 also at the
-moments finalize's tail shape) against those of another version of
+stats: times the kernels of this checkout (1-8, 7b, kernel 3 also at the
+moments finalize's tail shape, kernel 8 also at lm_moe's prefill layer, q
+(4, 8,000, 40, 128), k/v (4, 8,000, 8, 128), W = S) against those of another version of
 ``src/repro_torch/kernels`` (a copy of the package directory, for example a
 parent commit's, unpacked with ``git archive`` into a directory that
 .gitignore lists), both built here and loaded side by side, at
@@ -518,8 +519,12 @@ def moments(gen, dev) -> None:
 
 
 def load_kernels(name: str, directory: str):
-    """The kernels package in ``directory`` imported as ``name`` (its modules
-    import each other relatively), built with its own sources."""
+    """The kernels package in ``directory`` imported as ``repro_torch.<name>``
+    (its modules import each other relatively, and ``tiling`` reaches
+    ``..core``: this checkout's), built with its own sources."""
+    import repro_torch  # noqa: F401  (the parent of the loaded package)
+
+    name = f"repro_torch.{name}"
     spec = importlib.util.spec_from_file_location(
         name, os.path.join(directory, "__init__.py"), submodule_search_locations=[directory])
     pkg = importlib.util.module_from_spec(spec)
@@ -1272,6 +1277,9 @@ def stats(baseline_dir: str, gen, dev, turns_only: bool = False) -> None:
     q = torch.randn((4, 8000, 32, 80), generator=gen, device=dev).bfloat16()
     kv = [torch.randn((4, 8000, 8, 80), generator=gen, device=dev).bfloat16()
           for _ in range(2)]
+    # kernel 8 at lm_moe's prefill layer (llama4-maverick: G = 5, D = 128, W = S)
+    qkv_llama4 = [torch.randn((4, 8000, n, 128), generator=gen, device=dev).bfloat16()
+                  for n in (40, 8, 8)]
 
     def single(m, which):
         ws, sd = m["window_stats.ops"], m["segment_dft.ops"]
@@ -1284,6 +1292,9 @@ def stats(baseline_dir: str, gen, dev, turns_only: bool = False) -> None:
             return [_band_prepare(m, diags, x7)]
         if which == "band_gradient":
             return [m["banded_matvec.ops"].prepare_band_gradient(g7, x7, 4)]
+        if which == "swa_attention_llama4":
+            return [m["swa_attention.ops"].prepare_swa_attention(*qkv_llama4, 8000,
+                                                                  1 / math.sqrt(128))]
         return [m["swa_attention.ops"].prepare_swa_attention(q, kv[0], kv[1], 4096,
                                                               1 / math.sqrt(80))]
 
@@ -1297,7 +1308,7 @@ def stats(baseline_dir: str, gen, dev, turns_only: bool = False) -> None:
     multi = ["fused_plan_megakernel", "cross_window_stats", "fused_lag_moments",
              "fused_lag_moments_tail", "segment_dft_power"]
     names = multi + ["window_moments", "segment_csd", "banded_matvec", "band_gradient",
-                     "swa_attention"]
+                     "swa_attention", "swa_attention_llama4"]
     for name in names:
         make = preps if name in multi else single
         # parity of this package's first launch against the baseline's
@@ -1505,14 +1516,15 @@ _ABLATION_PATCHES = [
     ("      softmax(Masked<true>(), kt, alpha_a, alpha_b);\n",
      "#ifndef ABL_NO_SOFTMAX\n      softmax(Masked<true>(), kt, alpha_a, alpha_b);\n"
      "#else\n      ;\n#endif\n"),
-    ("        mbar_expect_tx(&full[stage], 2 * Sm::KV_BYTES);\n",
+    ("        mbar_expect_tx(&full[stage], Sm::K_BYTES + Sm::V_BYTES);\n",
      "#ifdef ABL_NO_TMA\n        mbar_arrive(&full[stage]);\n        continue;\n#endif\n"
-     "        mbar_expect_tx(&full[stage], 2 * Sm::KV_BYTES);\n"),
-    ("  if (threadIdx.x == 0) {\n    for (int i = 0; i < SWA_STAGES; ++i) {\n",
+     "        mbar_expect_tx(&full[stage], Sm::K_BYTES + Sm::V_BYTES);\n"),
+    ("  if (threadIdx.x == 0) {\n    for (int i = 0; i < Sm::STAGES; ++i) {\n",
      "#ifdef ABL_NO_TMA\n"
-     "  for (int i = threadIdx.x; i < 2 * SWA_STAGES * Sm::KV_BYTES / 16; i += blockDim.x)\n"
+     "  for (int i = threadIdx.x; i < Sm::STAGES * (Sm::K_BYTES + Sm::V_BYTES) / 16;\n"
+     "       i += blockDim.x)\n"
      "    reinterpret_cast<uint4*>(ks)[i] = make_uint4(0, 0, 0, 0);\n#endif\n"
-     "  if (threadIdx.x == 0) {\n    for (int i = 0; i < SWA_STAGES; ++i) {\n"),
+     "  if (threadIdx.x == 0) {\n    for (int i = 0; i < Sm::STAGES; ++i) {\n"),
 ]
 
 
