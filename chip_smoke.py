@@ -27,8 +27,11 @@ llama4-maverick-400b-a17b at full width with its depth cut to 2 layers
 (its MoE layer held against a float32 loop over the experts),
 deepseek-v2-236b at full width with its depth cut to 7 layers (multi-head
 latent attention: the prefill through kernel 8 at q/k 192, v 128, the
-decode absorbed against the latent cache), and qwen3-0.6b at full width
-and depth; then the paper's last estimators at its
+decode absorbed against the latent cache), qwen3-0.6b at full width
+and depth, and zamba2-7b at full width and full depth (the Mamba2 /
+shared-attention hybrid: the prefill through kernel 8 at head dim 112, G =
+1, once per application of the shared block; the chunked SSD held against
+its recurrence); then the paper's last estimators at its
 own VAR workload sizes (``configs/paper_var.py``: the §5 conditional MLE by
 gradient descent and SGD, ARMA and MA fits from kernel 2's
 autocovariances, the §6 banded fit with kernels 7 and 7b, differencing)
@@ -87,7 +90,12 @@ with depth **cut** from 60 to 7 layers (57.72 GB of weights), 4 prompts of
 8,000 tokens, 16 new each; kernel 8 is also checked and timed alone at its
 prefill's layer shape (q/k 192, v 128, G = 1, W = S = 8,000), and at q/k
 and v widths that differ over an edge grid.  lm_qwen3: qwen3-0.6b, 2
-prompts of 4,096 tokens, 8 new.  paper_var:
+prompts of 4,096 tokens, 8 new.  lm_zamba: zamba2-7b (81 Mamba2 layers of
+d_model 3,584, 112 SSD heads of 64, state 64, chunk 256; one shared block of
+32 heads of 112 and d_ff 14,336 applied 14 times; vocab 32,000) in bf16 with
+no cut (13.50 GB of weights), 4 prompts of 8,000 tokens, 16 new each;
+kernel 8 is also checked and timed alone at its prefill's layer shape (W =
+S = 8,000, G = 1, D = 112).  paper_var:
 var-dense-small (n = 100,000, d = 8, p = 3) and var-dense-wide (n =
 1,000,000, d = 64, p = 2), each fit_ar_mle for 200 steps at block size
 4,096 (a second fit of 100 steps updates the precision every 50, and a
@@ -244,12 +252,56 @@ MLA_SWA = (4, 8000, 128, 192, 128)
 MLA_PLAIN_CHUNK = 64
 MLA_RANGE = "lm_mla.mla_apply"
 MLA_OPS = {"mla_projections": ("aten::matmul", "aten::mm", "aten::einsum")}
-# the transformer function each profiler range wraps
+# the function each profiler range wraps: a name in `models/transformer.py`,
+# or (module, attribute path)
 RANGE_TARGETS = {MOE_RANGE: "moe_apply", MLA_RANGE: "attention_apply"}
 # qwen3-0.6b at full width and depth (28 layers, d_model 1,024, 16 / 8
 # heads of 128, qk_norm, no window) in bf16: 2 prompts of 4,096 tokens, 8
 # new, lm_serve's checks 1-2 (kernel 8 at W = S = 4,096, G = 2).
 QWEN_ARCH, QWEN_BATCH, QWEN_PROMPT, QWEN_NEW = "qwen3", 2, 4096, 8
+# lm_zamba: zamba2-7b at full width and full depth (81 Mamba2 layers of
+# d_model 3,584, d_inner 7,168, 112 SSD heads of 64, state 64, conv 4,
+# chunk 256; one shared attention + MLP block, 32 heads of 112, d_ff
+# 14,336, applied before layers 0, 6, ..., 78: 14 applications, each with
+# its own KV cache; vocab 32,000) in bf16: 6.75e9 parameters, 13.50 GB.
+# lm_serve's prompts (4 x 8,000 tokens: 8,000 is not a multiple of the
+# chunk, so the SSD's pad runs) and ZAMBA_NEW greedy new tokens.  Its
+# prefill runs kernel 8 at ZAMBA_SWA (B, S, H = KVH, D), W = S, G = 1, once
+# an application.  Check 3 holds layer 0's chunked SSD over the first
+# ZAMBA_SSD_STEPS tokens (4 chunks, the last padded) against as many steps
+# of its s == 1 recurrence, on a float32 copy of the layer's weights and
+# input (the two forms sum in other orders: ~1e-6 of max|y|), normwise
+# within ZAMBA_SSD_TOL; the reference's unmasked decay planted in its place
+# must give NaN and fail it.
+ZAMBA_ARCH, ZAMBA_NEW, ZAMBA_SSD_STEPS, ZAMBA_SSD_TOL = "zamba2", 16, 1000, 1e-4
+# Checks 1 and 4 at the logits: 81 random bf16 layers amplify a rounding
+# difference in one layer's attention far above SERVE_TOL (on the H100 the
+# kernel and plain paths' logits read 0.148 apart, where their attention
+# agrees to 1.6e-2 a row at the layer).  So each application's attention is held
+# in situ, on the kernel path's own q, k, v, at the layer limits
+# (SWA_ROW_TOL, SWA_ROW_MEAN_TOL), and the logits against the floor of the
+# model's amplification: the distance between the plain path and the same
+# path with its attention computed in float32 (Q K^T, P and P V left
+# unrounded), measured in the same run; the logits must be within
+# ZAMBA_FLOOR_FACTOR times that floor, and never need less than SERVE_TOL.
+ZAMBA_FLOOR_FACTOR = 2.0
+ZAMBA_SWA = (4, 8000, 32, 112)
+# the plain path's query chunk: at W = S one chunk of 256 queries holds (4,
+# 32, 1, 256, 8,000) float32 logits, 1.05 GB, a few times over
+ZAMBA_PLAIN_CHUNK = 256
+# each Mamba2 mixer, its SSD, the shared block's attention and its MLP in
+# profiler ranges, split by the products called directly in each
+ZAMBA_MIXER_RANGE, ZAMBA_SSD_RANGE = "lm_zamba.mamba2_apply", "lm_zamba.ssd_apply"
+ZAMBA_ATTN_RANGE, ZAMBA_MLP_RANGE = "lm_zamba.attention_apply", "lm_zamba.mlp_apply"
+_MM = ("aten::matmul", "aten::mm")
+ZAMBA_OPS = {ZAMBA_MIXER_RANGE: {"mamba_projections": _MM},
+             ZAMBA_SSD_RANGE: {"ssd_products": ("aten::einsum", "aten::matmul", "aten::bmm")},
+             ZAMBA_ATTN_RANGE: {"attention_projections": _MM},
+             ZAMBA_MLP_RANGE: {"shared_mlp_products": _MM}}
+RANGE_TARGETS.update({ZAMBA_MIXER_RANGE: ("repro_torch.models.zamba", "mamba2_apply"),
+                      ZAMBA_SSD_RANGE: ("repro_torch.models.ssm", "_ssd"),
+                      ZAMBA_ATTN_RANGE: "attention_apply",
+                      ZAMBA_MLP_RANGE: ("repro_torch.models.layers", "MLP.forward")})
 # Kernel 8 per entry against its row's max|v| (an output row is a convex
 # combination of its window's rows of v): f32 1e-5 (both sides accumulate in
 # f32 in another order); bf16 1e-2 (P is rounded to bf16 before P V on both
@@ -1153,34 +1205,66 @@ def range_other(name: str) -> str:
     return name.rsplit(".", 1)[-1].replace("apply", "other")
 
 
+def range_target(name: str) -> tuple:
+    """(owner, attribute) of the function RANGE_TARGETS names for a range."""
+    import importlib
+
+    target = RANGE_TARGETS[name]
+    module, path = (("repro_torch.models.transformer", target) if isinstance(target, str)
+                    else target)
+    owner = importlib.import_module(module)
+    *outer, attr = path.split(".")
+    for part in outer:
+        owner = getattr(owner, part)
+    return owner, attr
+
+
 def split_events(events, kernels=(KERNEL8_NAME,), ranges=None) -> dict:
     """Device ms of a profile split by stage: each range's of ``ranges``
-    (name -> operator groups; default MOE_RANGE's MOE_OPS), a CPU range's
-    device time being the kernels its operators launched; within each, its
-    groups' (the operators called directly in the range) and the rest of
-    the range (:func:`range_other`); each kernel-name fragment's; the total
-    over device kernels (annotations left out) and the rest.  A kernel
-    launched through ctypes (kernel 8) is no operator's: its time is its
-    own, outside every range, even where the range's function launched it
-    (as the H100's profiles show).  ``calls``: the operators seen in each
-    group."""
+    (name -> operator groups; default MOE_RANGE's MOE_OPS) and, within it,
+    its groups' (the operators called directly in the range) and the rest
+    of the range (:func:`range_other`); each kernel-name fragment's; the
+    total over device kernels (annotations left out) and the rest.  Each
+    device kernel is counted once, where the ``aten::`` operator that
+    launched it sits: in the innermost range above it (a range's time
+    leaves the ranges nested in it out, as lm_zamba's SSD in its mixer) and
+    in the group of its ancestor called directly in that range.  A range's
+    own annotation is never counted, nor the kernels the profiler also
+    hangs on the runtime's events under an operator ("Command Buffer Full"
+    where the host runs ahead of a saturated card: summing a range's
+    ``device_time_total`` counted those kernels twice).  A kernel launched
+    through ctypes (kernel 8) is no operator's: its time is its own,
+    outside every range, even where the range's function launched it (as
+    the H100's profiles show).  ``calls``: the operators seen in each group;
+    ``top_kernels``: the ten kernel names (cut to 80 characters) with the
+    most device ms."""
     ranges = {MOE_RANGE: MOE_OPS} if ranges is None else ranges
     groups = {group: ops for r in ranges.values() for group, ops in r.items()}
     out = {name: 0.0 for name in (*ranges, *groups, *kernels)}
     calls = {group: 0 for group in groups}
+    by_name = collections.Counter()
     total = 0.0
     for ev in events:
         if ev.device_type == torch.autograd.DeviceType.CPU:
-            if ev.name in ranges:
-                out[ev.name] += ev.device_time_total / 1e3
+            if not ev.name.startswith("aten::"):
+                continue
             parent = ev.cpu_parent
             if parent is not None and parent.name in ranges:
                 for group, ops in ranges[parent.name].items():
-                    if ev.name in ops:
-                        out[group] += ev.device_time_total / 1e3
-                        calls[group] += 1
+                    calls[group] += ev.name in ops
+            own = sum(k.duration for k in ev.kernels) / 1e3
+            child = ev
+            while parent is not None and parent.name not in ranges:
+                child, parent = parent, parent.cpu_parent
+            if parent is None or not own:
+                continue
+            out[parent.name] += own
+            for group, ops in ranges[parent.name].items():
+                if child.name in ops:
+                    out[group] += own
         elif not getattr(ev, "is_user_annotation", False) and ev.name not in ranges:
             total += ev.device_time_total / 1e3
+            by_name[ev.name[:80]] += ev.device_time_total / 1e3
             for frag in kernels:
                 if frag in ev.name:
                     out[frag] += ev.device_time_total / 1e3
@@ -1189,20 +1273,20 @@ def split_events(events, kernels=(KERNEL8_NAME,), ranges=None) -> dict:
     out["total"] = total
     out["rest"] = total - sum(out[name] for name in ranges) - sum(out[frag] for frag in kernels)
     out["calls"] = calls
+    out["top_kernels"] = by_name.most_common(10)
     return out
 
 
 @contextlib.contextmanager
 def moe_ranged(names=(MOE_RANGE,)):
-    """Within the block, the transformer runs each call of the function
-    RANGE_TARGETS names for each range of ``names`` (each MoE layer, each
-    layer's attention) inside a profiler range of that name (for
-    :func:`split_events`); the library itself enters none."""
+    """Within the block, each call of the function RANGE_TARGETS names for
+    each range of ``names`` (each MoE layer, each layer's attention, each
+    Mamba2 mixer and its SSD, the shared MLP) runs inside a profiler range
+    of that name (for :func:`split_events`); the library itself enters
+    none."""
     from unittest import mock
 
     from torch.profiler import record_function
-
-    from repro_torch.models import transformer
 
     def ranged(apply, name):
         def call(*a, **kw):
@@ -1212,20 +1296,21 @@ def moe_ranged(names=(MOE_RANGE,)):
 
     with contextlib.ExitStack() as stack:
         for name in names:
-            target = RANGE_TARGETS[name]
+            owner, attr = range_target(name)
             stack.enter_context(mock.patch.object(
-                transformer, target, ranged(getattr(transformer, target), name)))
+                owner, attr, ranged(getattr(owner, attr), name)))
         yield
 
 
-def moe_device_split(fn, calls: int = 1, ranges=None) -> dict:
-    """:func:`split_events` of ``calls`` calls of ``fn`` (after one warm-up)
-    with each range's function in its range (default: each MoE layer), per
-    call, with the wall ms per call."""
+def moe_device_split(fn, calls: int = 1, ranges=None, warm: bool = True) -> dict:
+    """:func:`split_events` of ``calls`` calls of ``fn`` (after one warm-up
+    unless not ``warm``) with each range's function in its range (default:
+    each MoE layer), per call, with the wall ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     ranges = {MOE_RANGE: MOE_OPS} if ranges is None else ranges
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with moe_ranged(tuple(ranges)), profile(activities=[ProfilerActivity.CPU,
                                                         ProfilerActivity.CUDA]) as prof:
@@ -1236,7 +1321,9 @@ def moe_device_split(fn, calls: int = 1, ranges=None) -> dict:
         wall = (time.perf_counter() - t0) * 1e3 / calls
     split = split_events(prof.events(), ranges=ranges)
     seen = split.pop("calls")
+    top = [(name, ms / calls) for name, ms in split.pop("top_kernels")]
     split = {k: v / calls for k, v in split.items()}
+    split["top_kernels"] = top
     return {"wall_ms": wall, "device_busy_share": split["total"] / wall if wall else None,
             "device_ms": split, "ops_seen": {k: v // calls for k, v in seen.items()}}
 
@@ -1312,6 +1399,168 @@ def work_bounds(work: dict) -> dict:
     return {"bound_ms": ms, "bound_by": by, "gbytes": nbytes / 1e9, "tflop": flops / 1e12,
             "sum_of_op_bounds_ms": sum(b[0] for b in per_op.values()),
             "op_bounds_ms": {op: b[0] for op, b in per_op.items()}}
+
+
+def zamba_work(cfg, b: int, q_len: int, kv_len: int = None) -> dict:
+    """{op: (bytes, operations, peak rate)} of one prefill (q_len = kv_len =
+    S) or one decode step (q_len = 1 against kv_len cached keys) of b
+    sequences through the hybrid in bf16, its SSD in float32.  Each weight
+    read once (A_log, D, dt_bias in float32), the token embeddings
+    gathered, the last position's logits written; the prefill writes the
+    KV caches and the Mamba2 states, a decode step reads the KV caches and
+    reads and writes the states.  Operations: 2 a multiply-add of every
+    matrix product, the shared block's at each of its applications, the
+    attention's 4 hd a causal (query, key) pair of each head (a cached key
+    in decode); the SSD's products as its chunked form computes them, over
+    the sequence padded to the chunk: C B^T (l, s), the whole (l, s) square
+    of scores times x per head, the chunk states and their readout (2 N hd
+    a step and head each); a decode step's state update and readout."""
+    kv_len = q_len if kv_len is None else kv_len
+    m, L, d, v = cfg.ssm, cfg.n_layers, cfg.d_model, cfg.vocab
+    d_in = m.expand * d
+    nh, n, p, chunk = d_in // m.head_dim, m.state_dim, m.head_dim, m.chunk
+    conv_ch = d_in + 2 * n
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    apps = -(-L // cfg.shared_attn_every)
+    t = b * q_len
+    mixer_mm = d * (2 * d_in + 2 * n + nh) + d_in * d
+    mixer_bytes = (mixer_mm + m.conv_width * conv_ch + conv_ch + d_in + d) * 2 + 3 * nh * 4
+    shared_mm = d * (h + 2 * kvh) * hd + h * hd * d + 3 * d * cfg.d_ff
+    state_bytes = L * b * (nh * p * n * 4 + (m.conv_width - 1) * conv_ch * 2)
+    kv_bytes = apps * 2 * b * kv_len * kvh * hd * 2
+    if q_len == kv_len:
+        pairs = b * h * q_len * (q_len + 1) // 2
+        padded = -(-q_len // chunk) * chunk
+        ssd_ops = 2 * b * padded * chunk * (n + nh * p) + 2 * 2 * b * padded * nh * p * n
+        states = state_bytes
+    else:
+        pairs = b * h * q_len * kv_len
+        ssd_ops = 2 * 2 * b * nh * p * n
+        states = 2 * state_bytes
+    return {
+        "embed": (t * d * 2 * 2, 0, PEAK_BF16),
+        "mamba_projections": (L * mixer_bytes, L * 2 * t * mixer_mm, PEAK_BF16),
+        "shared_block": ((shared_mm + 2 * d) * 2, apps * 2 * t * shared_mm, PEAK_BF16),
+        "attention": (kv_bytes, apps * 4 * hd * pairs, PEAK_BF16),
+        "ssd_products": (states, L * ssd_ops, PEAK_FP32),
+        "lm_head": ((d * v + d) * 2 + b * v * 2, 2 * b * d * v, PEAK_BF16),
+    }
+
+
+def zamba_bounds(work: dict) -> dict:
+    """The bound of the whole call: max(bytes / rate, the sum over ops of
+    operations / that op's peak: bf16 tensor cores, the SSD's float32),
+    and each op's own bound."""
+    nbytes = sum(w[0] for w in work.values())
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = sum(w[1] / w[2] for w in work.values())
+    per_op = {op: bound_ms(*w) for op, w in work.items()}
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gbytes": nbytes / 1e9, "tflop": sum(w[1] for w in work.values()) / 1e12,
+            "tflop_by_op": {op: w[1] / 1e12 for op, w in work.items()},
+            "op_bounds_ms": {op: b[0] for op, b in per_op.items()}}
+
+
+def zamba_groups(split: dict) -> dict:
+    """A profiled zamba call's device ms by operator group, from
+    :func:`split_events` over ZAMBA_OPS' ranges: the Mamba2 and
+    attention projections, the SSD's products and its elementwise passes,
+    kernel 8, the shared MLP, the rest of the mixers (conv, gates, gate
+    norm, softplus), and the rest (rope, decode attention, layer norms and
+    residual adds, embedding, lm_head)."""
+    groups = {"projections": split["mamba_projections"] + split["attention_projections"],
+              "ssd_products": split["ssd_products"], "ssd_elementwise": split["ssd_other"],
+              "kernel8": split[KERNEL8_NAME], "shared_mlp": split[ZAMBA_MLP_RANGE],
+              "mixer_other": split["mamba2_other"]}
+    groups["rest"] = split["total"] - sum(groups.values())
+    return groups
+
+
+def checked_attention(plain, report: list, cut: int = 0):
+    """An ``attention=`` hook for a prefill: each call runs kernel 8 (at the
+    window less ``cut`` keys: a planted fault) and ``plain`` on the same q,
+    k, v, appends the (max, mean) of their row norm errors
+    (:func:`row_norm_errors`) to ``report``, and returns kernel 8's
+    output."""
+    from repro_torch.kernels.swa_attention.ops import swa_attention
+
+    def attention(q, k, v, window, scale=None):
+        got = swa_attention(q, k, v, window - cut, scale=scale)
+        rows = row_norm_errors(got, plain(q, k, v, window, scale=scale))
+        report.append((rows.max().item(), rows.mean().item()))
+        return got
+    return attention
+
+
+def in_situ_ok(report: list) -> bool:
+    """Every call of :func:`checked_attention` within the layer limits."""
+    tol, mean_tol = SWA_ROW_TOL[torch.bfloat16], SWA_ROW_MEAN_TOL[torch.bfloat16]
+    return bool(report) and all(worst <= tol and mean <= mean_tol for worst, mean in report)
+
+
+def zamba_launches_ok(launches: dict, cfg) -> bool:
+    """Kernel 8 pinned on the hybrid's serving path: once per application
+    of the shared block in each prefill, never in decode."""
+    apps = -(-cfg.n_layers // cfg.shared_attn_every)
+    return (launches["generate"] == launches["prefill"] == apps and launches["decode"] == 0)
+
+
+def unmasked_diag_scores(cum, cb, dt):
+    """The reference's within-chunk scores, `repro/models/ssm.py:138-147`
+    copied in the port's (b, nc, h, l, s) layout: the exp over the whole
+    (l, s) square, then the causal mask.  Above the diagonal the exponent is
+    a sum of |dt A| that can pass float32's exp range, and inf x 0 = NaN."""
+    chunk = cum.shape[-1]
+    li, sj = cum[..., :, None], cum[..., None, :]
+    decay = torch.exp(li - sj)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32, device=cum.device))
+    return cb[:, :, None] * decay * causal * dt[..., None, :]
+
+
+@contextlib.contextmanager
+def planted_unmasked_decay():
+    """Within the block, the port's SSD takes the reference's unmasked
+    decay (:func:`unmasked_diag_scores`): a planted fault."""
+    from unittest import mock
+
+    from repro_torch.models import ssm
+
+    with mock.patch.object(ssm, "_diag_scores", unmasked_diag_scores):
+        yield
+
+
+def ssd_recurrence_check(mixer, x, cfg, tol: float = ZAMBA_SSD_TOL, step=None) -> tuple:
+    """Check 3 of lm_zamba: ``mamba2_apply``'s chunked form over x (B, S,
+    d) against S steps of its s == 1 recurrence from a zero state, the
+    output and the final SSD and conv states each within ``tol`` of the
+    recurrence's max|.|; a NaN anywhere fails.  ``step``: the recurrence's
+    (output, state) from an earlier call on the same input.  Returns
+    (report, step)."""
+    from repro_torch.models.ssm import mamba2_apply, mamba2_state_spec
+
+    y, st = mamba2_apply(mixer, x, cfg, return_state=True)
+    if step is None:
+        state = {k: torch.zeros(s.shape, dtype=s.dtype, device=x.device)
+                 for k, s in mamba2_state_spec(cfg, x.shape[0], x.dtype).items()}
+        ys = []
+        for i in range(x.shape[1]):
+            out, state = mamba2_apply(mixer, x[:, i:i + 1], cfg, state=state)
+            ys.append(out)
+        step = (torch.cat(ys, 1), state)
+    y_step, st_step = step
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+    errs = {"output": rel(y, y_step), "ssd": rel(st["ssd"], st_step["ssd"]),
+            "conv": rel(st["conv"], st_step["conv"])}
+    report = {"rel_err": errs, "tol": tol, "steps": x.shape[1],
+              "nan_share": 1.0 - torch.isfinite(y).float().mean().item(),
+              "recurrence_finite": bool(torch.isfinite(y_step).all())}
+    report["ok"] = (report["nan_share"] == 0 and report["recurrence_finite"]
+                    and all(e <= tol for e in errs.values()))
+    return report, step
 
 
 def stats_paths(args, dev, lagmom_fault) -> dict:
@@ -3760,10 +4009,10 @@ def gateway_chaos(args, dev, bins, run, ckdir) -> dict:
 
 def swa_kernel(args, dev) -> dict:
     """Phase 9: kernel 8 against the chunked plain version at the prefill's
-    layer shape, lm_moe's and lm_mla's (q/k 192, v 128), and over an edge
-    grid with q/k and v of one width and of two (bf16 and f32), then timed
-    at the three layer shapes beside its bound, the plain version and
-    SDPA."""
+    layer shape, lm_moe's, lm_mla's (q/k 192, v 128) and lm_zamba's (112, G
+    = 1), and over an edge grid with q/k and v of one width and of two
+    (bf16 and f32), then timed at the four layer shapes beside its bound,
+    the plain version and SDPA."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.swa_attention import ops as sw, ref as swr
@@ -3821,6 +4070,11 @@ def swa_kernel(args, dev) -> dict:
     b, s, h, d, dv = MLA_SWA
     mla = qkv(b, s, h, h, d, torch.bfloat16, dv)
     parity["mla_layer_shape"] = case(*mla, s, fault=True, chunk=MOE_PLAIN_CHUNK)
+    # lm_zamba's prefill: 32 heads of 112, G = 1, W = S (the (112, 112)
+    # instantiation)
+    b, s, h, d = ZAMBA_SWA
+    zamba = qkv(b, s, h, h, d, torch.bfloat16)
+    parity["zamba_layer_shape"] = case(*zamba, s, fault=True, chunk=ZAMBA_PLAIN_CHUNK)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for name, (s, w, g, d, *bk) in SWA_EDGE.items():
             b, kvh = bk or (1, 2)
@@ -3896,29 +4150,33 @@ def swa_kernel(args, dev) -> dict:
           "note": "ms: median of CUDA-graph replays of the prepared launch; host_launch_ms, "
                   "wrapper_ms, plain_ms, library_ms: CUDA events around calls from the host"})
     return {"parity": parity, "timing": timing, "bound": (b_ms, b_by),
-            "llama4": swa_llama4_timing(llama4), "mla": swa_mla_timing(mla)}
+            "llama4": swa_llama4_timing(llama4),
+            "mla": swa_causal_timing(mla, "timing_swa_attention_mla", MOE_PLAIN_CHUNK),
+            "zamba": swa_causal_timing(zamba, "timing_swa_attention_zamba", ZAMBA_PLAIN_CHUNK)}
 
 
-def swa_mla_timing(qkv) -> dict:
-    """Kernel 8 timed at lm_mla's prefill layer shape (q/k 192, v 128, G =
-    1, W = S: plain causal attention) beside its bound, the chunked plain
-    version and the library call of the same function,
-    ``F.scaled_dot_product_attention(is_causal=True)``: each backend that
-    takes v narrower than q/k is tried on the tensors as they are, FLASH
-    (one head dim) on v padded with zero columns to 192 and its output
-    sliced back; each must agree with the plain version, and the fastest is
+def swa_causal_timing(qkv, phase: str, chunk: int) -> dict:
+    """Kernel 8 timed at a prefill layer shape with G = 1 and W = S (plain
+    causal attention: lm_mla's q/k 192, v 128; lm_zamba's 112) beside its
+    bound, the chunked plain version (query chunks of ``chunk``) and the
+    library call of the same function,
+    ``F.scaled_dot_product_attention(is_causal=True)``: each backend is
+    tried on the tensors as they are, FLASH (one head dim) on v padded with
+    zero columns to q's width where v is narrower and its output sliced
+    back; each must agree with the plain version, and the fastest is
     library_ms."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.swa_attention import ops as sw, ref as swr
 
     q, k, v = qkv
-    b, s, h, d, dv = MLA_SWA
+    b, s, h, d = q.shape
+    dv = v.shape[-1]
     scale = d ** -0.5
     prep = sw.prepare_swa_attention(q, k, v, s, scale)
     samples = graph_ms([prep.launch])
     qt, kt, vt = (t.transpose(1, 2) for t in qkv)  # (B, heads, S, D) views
-    vpad = torch.nn.functional.pad(v, (0, d - dv)).transpose(1, 2)
+    vpad = torch.nn.functional.pad(v, (0, d - dv)).transpose(1, 2) if dv < d else None
 
     def sdpa(backend, padded):
         def call():
@@ -3928,13 +4186,13 @@ def swa_mla_timing(qkv) -> dict:
             return out[..., :dv] if padded else out
         return call
 
-    plain = swr.swa_attention_chunked(q, k, v, s, chunk=MOE_PLAIN_CHUNK)
+    plain = swr.swa_attention_chunked(q, k, v, s, chunk=chunk)
     row = swr.swa_row_scale(v, s, h)
     library = {}
+    flash = (f"FLASH_ATTENTION, v padded to {d}" if dv < d else "FLASH_ATTENTION", dv < d)
     for name, backend, padded in (("CUDNN_ATTENTION", SDPBackend.CUDNN_ATTENTION, False),
                                   ("EFFICIENT_ATTENTION", SDPBackend.EFFICIENT_ATTENTION, False),
-                                  ("FLASH_ATTENTION, v padded to 192",
-                                   SDPBackend.FLASH_ATTENTION, True)):
+                                  (flash[0], SDPBackend.FLASH_ATTENTION, flash[1])):
         call = sdpa(backend, padded)
         try:
             rel = scaled_error(call().transpose(1, 2), plain, row)[1]
@@ -3946,7 +4204,7 @@ def swa_mla_timing(qkv) -> dict:
     del plain
     agreeing = {n: r for n, r in library.items() if r.get("agrees")}
     if not agreeing:
-        fail("no SDPA backend computes the MLA shape's attention", backends=library)
+        fail(f"no SDPA backend computes {phase}'s attention", backends=library)
     best = min(agreeing, key=lambda n: agreeing[n]["ms"])
     nbytes, flops = swa_work(b, s, h, h, d, s, 2, dv=dv)
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
@@ -3954,9 +4212,9 @@ def swa_mla_timing(qkv) -> dict:
     timing = {"ms": ms, "ms_samples": samples,
               "wrapper_ms": cuda_ms(lambda: sw.swa_attention(q, k, v, s), 5, warmup=1),
               "plain_ms": cuda_ms(lambda: swr.swa_attention_chunked(
-                  q, k, v, s, chunk=MOE_PLAIN_CHUNK), 2, warmup=1),
+                  q, k, v, s, chunk=chunk), 2, warmup=1),
               "library_ms": agreeing[best]["ms"]}
-    emit({"phase": "timing_swa_attention_mla",
+    emit({"phase": phase,
           "shape": f"q ({b}, {s}, {h}, {d}), k ({b}, {s}, {h}, {d}), v ({b}, {s}, {h}, {dv}) "
                    f"bf16, W=S={s}, G=1",
           **timing, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
@@ -3964,8 +4222,7 @@ def swa_mla_timing(qkv) -> dict:
           "library_call": f"F.scaled_dot_product_attention(is_causal=True) under {best}: the "
                           "same function", "library_backends": library,
           "note": "ms: median of CUDA-graph replays of the prepared launch; the others CUDA "
-                  "events around calls from the host; plain_ms in query chunks of "
-                  f"{MOE_PLAIN_CHUNK}"})
+                  f"events around calls from the host; plain_ms in query chunks of {chunk}"})
     return {**timing, "bound_ms": b_ms, "bound_by": b_by, "library_call": best}
 
 
@@ -5298,6 +5555,211 @@ def lm_qwen3(args, dev) -> int:
     return launches
 
 
+def lm_zamba(args, dev) -> int:
+    """Phase lm_zamba: zamba2-7b at full width and full depth (81 Mamba2
+    layers, the shared attention block at 14 of them), bf16 weights from
+    ``--seed``, 4 x 8,000 prompt tokens and ZAMBA_NEW greedy new tokens
+    through ``ServeEngine.generate``.  Timed: init, the generate, a prefill
+    and each decode step, each profiled with its device busy share and
+    device ms by operator group (:func:`zamba_groups`) beside its bound
+    (:func:`zamba_work`).  Checks: (1a) each application's attention on the
+    kernel path's own q, k, v, kernel 8 against the plain version
+    (:func:`checked_attention`), and the window cut by SWA_FAULT keys must
+    fail; (1b) the served prefill and teacher-forced decode logits against
+    the same model on the chunked plain attention, within
+    ZAMBA_FLOOR_FACTOR times the floor the same path with float32 attention
+    reads (at least SERVE_TOL), the greedy tokens wherever the plain top-2
+    margin decides at that limit; (3) layer 0's chunked SSD against its
+    recurrence (:func:`ssd_recurrence_check`), and the reference's unmasked
+    decay planted must give NaN and fail it; (4) the first decode step's
+    logits against the full forward over the prompt and the first token
+    (one row), at check 1b's limit; (5) kernel 8 once an application in
+    each prefill, never in decode; every logit finite.  Check 2 (kernel 8
+    alone at this layer shape) is phase 9's.  Returns kernel 8's launches
+    in the generate."""
+    from repro_torch import ServeEngine, get_arch, init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, prefill, ssm, zamba
+    from repro_torch.models.transformer import _block
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(ZAMBA_ARCH)
+    m = cfg.ssm
+    B, P, NEW = SERVE_BATCH, SERVE_PROMPT, ZAMBA_NEW
+    apps = -(-cfg.n_layers // cfg.shared_attn_every)
+    plain_attention = functools.partial(swa_attention_chunked, chunk=ZAMBA_PLAIN_CHUNK)
+    ranges = dict(ZAMBA_OPS)
+    profile = functools.partial(moe_device_split, ranges=ranges)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # what earlier phases left
+    torch.cuda.reset_peak_memory_stats(dev)
+    made = []
+    init = profile(lambda: made.append(init_params(cfg, seed=args.seed, dtype=torch.bfloat16,
+                                                   device=dev)), warm=False)
+    params = made.pop()
+    n_params = sum(t.numel() for t in params.parameters())
+    weight_gb = sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 8)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    eng = ServeEngine(cfg, params, max_len=P + NEW, dtype=torch.bfloat16, device=dev)
+    eng.generate(prompts[:, :1000], 2)  # warm-up: cuBLAS handles at these widths
+
+    launches = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, NEW, keep_logits=True)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches["generate"] = launch_counts()["swa_attention"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = torch.from_numpy(res.tokens).to(dev)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, cache = prefill(params, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches["prefill"] = launch_counts()["swa_attention"]
+    cache = eng._grow_cache(cache, B)
+    reset_launch_counts()
+    step_ms = []
+    for i in range(1, NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": P + i - 1}, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_ms = sum(step_ms) / len(step_ms)
+    launches["decode"] = launch_counts()["swa_attention"]
+    # where the time goes: one prefill; one decode step repeated at the same
+    # position (it rewrites the same KV slot with the same values; the SSD
+    # state moves on, which changes no shape or operation)
+    step = {"tokens": tokens[:, NEW - 2], "pos": P + NEW - 2}
+    profiled = {"init": init,
+                "prefill": profile(lambda: prefill(params, {"tokens": prompts}, cfg)),
+                "decode_step": profile(lambda: decode_step(params, cache, step, cfg), calls=3)}
+    for prof in profiled.values():
+        prof["device_ms_by_group"] = zamba_groups(prof["device_ms"])
+    del cache
+    bounds = {"prefill": zamba_bounds(zamba_work(cfg, B, P)),
+              "decode_step": zamba_bounds(zamba_work(cfg, B, 1, P + NEW - 1))}
+
+    # 1a: each application's attention on the kernel path's own q, k, v,
+    # kernel 8 against the plain version; the window cut by SWA_FAULT keys
+    # at the first application must fail
+    in_situ, fault_rows = [], []
+    prefill(params, {"tokens": prompts}, cfg,
+            attention=checked_attention(plain_attention, in_situ))
+    positions = torch.arange(P, dtype=torch.int32, device=dev)
+    _block(params.shared_attn, params.embed[prompts], cfg, positions,
+           attention=checked_attention(plain_attention, fault_rows, cut=SWA_FAULT))
+    layer = {"row_norm_rel_err": [r[0] for r in in_situ],
+             "row_norm_rel_err_mean": [r[1] for r in in_situ],
+             "row_tol": SWA_ROW_TOL[torch.bfloat16],
+             "row_mean_tol": SWA_ROW_MEAN_TOL[torch.bfloat16], "ok": in_situ_ok(in_situ),
+             "fault": {"window": P - SWA_FAULT, "row_norm_rel_err": fault_rows[0][0],
+                       "row_norm_rel_err_mean": fault_rows[0][1],
+                       "caught": not in_situ_ok(fault_rows)}}
+
+    # 1b: the plain path (chunked attention), the kernel path's tokens
+    # forced, against the floor: the plain path with float32 attention
+    def teacher_forced(attention):
+        logits, c = prefill(params, {"tokens": prompts}, cfg, attention=attention)
+        c = eng._grow_cache(c, B)
+        steps = [logits.float()]
+        for i in range(1, NEW):
+            logits, c = decode_step(params, c, {"tokens": tokens[:, i - 1], "pos": P + i - 1},
+                                    cfg)
+            steps.append(logits.float())
+        del c, logits
+        return torch.stack(steps, 1)
+
+    def float32_attention(q, k, v, window, scale=None):
+        return plain_attention(q.float(), k.float(), v.float(), window,
+                               scale=scale).to(q.dtype)
+
+    served = res.logits
+    plain = teacher_forced(plain_attention)
+    prefill_err = row_rel_errors(served[:, 0], plain[:, 0]).max().item()
+    decode_err = row_rel_errors(served[:, 1:], plain[:, 1:]).max().item()
+    rounded = teacher_forced(float32_attention)
+    floor = {"prefill": row_rel_errors(rounded[:, 0], plain[:, 0]).max().item(),
+             "decode": row_rel_errors(rounded[:, 1:], plain[:, 1:]).max().item()}
+    limit = max(SERVE_TOL, ZAMBA_FLOOR_FACTOR * max(floor.values()))
+    decided, wrong = greedy_disagreements(plain, tokens, limit)
+    finite = bool(torch.isfinite(served).all() and torch.isfinite(plain).all()
+                  and torch.isfinite(rounded).all())
+    del plain, rounded
+
+    # 4: prefill hands its state to decode: the full forward over the
+    # prompt and the first token against the first decode step (row 0)
+    hidden = zamba.zamba_forward(params, torch.cat([prompts[:1], tokens[:1, :1]], 1), cfg,
+                                 return_hidden=True)[:, -1]
+    full = (hidden @ params.lm_head).float()
+    handoff_err = row_rel_errors(served[0, 1], full[0]).item()
+    finite = finite and bool(torch.isfinite(full).all())
+    del hidden, full
+
+    # 3: layer 0's SSD, chunked against its recurrence, in float32; then the
+    # reference's unmasked decay planted in its place
+    first = params.mamba_layers[0]
+    x = _block(params.shared_attn, params.embed[prompts[:, :ZAMBA_SSD_STEPS]], cfg,
+               positions[:ZAMBA_SSD_STEPS], attention=plain_attention)[0]
+    x = first.norm(x).float()
+    mixer = ssm.Mamba2(*(getattr(first.mixer, k).float() for k in ssm.NAMES))
+    t0 = time.perf_counter()
+    ssd, recurrence = ssd_recurrence_check(mixer, x, cfg)
+    ssd["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    with planted_unmasked_decay():
+        fault, _ = ssd_recurrence_check(mixer, x, cfg, step=recurrence)
+    ssd["fault"] = {"nan_share": fault["nan_share"], "rel_err": fault["rel_err"],
+                    "caught": not fault["ok"] and fault["nan_share"] > 0}
+    del mixer, x, recurrence
+
+    out = {
+        "phase": "lm_zamba", "arch": cfg.name, "layers": cfg.n_layers,
+        "cut": f"none: full width and depth, {cfg.n_layers} layers",
+        "d_model": cfg.d_model, "ssm": {"d_inner": m.expand * cfg.d_model,
+                                        "heads": m.expand * cfg.d_model // m.head_dim,
+                                        "head_dim": m.head_dim, "state": m.state_dim,
+                                        "conv": m.conv_width, "chunk": m.chunk},
+        "shared_block": {"every": cfg.shared_attn_every, "applications": apps,
+                         "heads": [cfg.n_heads, cfg.n_kv_heads],
+                         "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff},
+        "vocab": cfg.vocab, "params": n_params, "dtype": "bfloat16", "weights_gb": weight_gb,
+        "batch": B, "prompt_len": P, "new_tokens": NEW, "init_ms": init["wall_ms"],
+        "generate_ms": generate_ms, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "decode_step_ms": step_ms, "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+        "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_memory_gb": peak_gb,
+        "held_at_start_gb": held_gb, "bounds": bounds,
+        "shares_of_bound": {"prefill": bounds["prefill"]["bound_ms"] / prefill_ms,
+                            "decode_step": bounds["decode_step"]["bound_ms"] / decode_ms},
+        "profiled": profiled, "launches": launches,
+        "tol": {"serve": SERVE_TOL, "floor_factor": ZAMBA_FLOOR_FACTOR, "logits": limit},
+        "checks": {"attention_in_situ_vs_plain": layer,
+                   "prefill_vs_plain_rel_err": prefill_err,
+                   "teacher_forced_decode_vs_plain_rel_err": decode_err,
+                   "floor_float32_attention_vs_plain_rel_err": floor,
+                   "greedy_decided_steps": decided, "greedy_disagreements": wrong,
+                   "first_decode_vs_full_forward_rel_err": handoff_err,
+                   "ssd_chunked_vs_recurrence": ssd, "finite": finite},
+        "first_row_tokens": res.tokens[0][:8].tolist(),
+        "phase_peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "wall_ms": (time.perf_counter() - t_phase) * 1e3,
+    }
+    out["ok"] = (zamba_launches_ok(launches, cfg) and finite
+                 and tuple(res.tokens.shape) == (B, NEW)
+                 and layer["ok"] and layer["fault"]["caught"]
+                 and max(prefill_err, decode_err, handoff_err) <= limit and wrong == 0
+                 and ssd["ok"] and ssd["fault"]["caught"])
+    emit(out)
+    if not out["ok"]:
+        fail("lm_zamba")
+    return launches["generate"]
+
+
 # ------------------------------------------------- the backend policy layer
 def calibration_phase(args, dev):
     """Phase 11: `repro_torch.core.calibrate.calibrate` at the reference's
@@ -5882,6 +6344,11 @@ def main() -> None:
     qwen_launches = lm_qwen3(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # the Mamba2 / shared-attention hybrid: zamba2-7b at full width and
+    # depth (13.50 GB of weights: qwen3's are gone), kernel 8 at 112, G = 1
+    zamba_launches = lm_zamba(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the paper's last estimators at its VAR workload sizes, then graphs
     paper_var_launches = paper_var_phase(args, dev)
     gc.collect()
@@ -5920,10 +6387,12 @@ def main() -> None:
             "lm_moe_launches": moe_launches if name == "swa_attention" else 0,
             "lm_mla_launches": mla_launches if name == "swa_attention" else 0,
             "lm_qwen3_launches": qwen_launches if name == "swa_attention" else 0,
+            "lm_zamba_launches": zamba_launches if name == "swa_attention" else 0,
         })
-        if name == "swa_attention":  # lm_moe's prefill, W = S; lm_mla's, q/k 192, v 128
-            kernels[-1]["llama4_shape"] = swa["llama4"]
+        if name == "swa_attention":  # lm_moe's prefill, W = S; lm_mla's, q/k 192, v 128;
+            kernels[-1]["llama4_shape"] = swa["llama4"]  # lm_zamba's, 112, G = 1
             kernels[-1]["mla_shape"] = swa["mla"]
+            kernels[-1]["zamba_shape"] = swa["zamba"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
-"""Model zoo dispatcher, dense and MoE families (port of `repro.models.model_zoo`).
+"""Model zoo dispatcher, dense, MoE and hybrid families (port of
+`repro.models.model_zoo`).
 
-  init_params(cfg, seed=...)              -> Transformer
+  init_params(cfg, seed=...)              -> Transformer (Zamba for the hybrid)
   forward(params, batch, cfg)             -> logits (B, S, V) (``return_aux``:
                                              and the MoE aux losses)
   prefill(params, batch, cfg)             -> (last logits, cache)
@@ -12,32 +13,36 @@
                                              leaves stacked on a leading L axis)
 
 ``batch`` is a dict: ``tokens`` (and ``pos`` for decode).  The dense and
-MoE families, with GQA or MLA attention (deepseek-v2), are ported; every
-other family raises ``NotImplementedError`` naming its ROADMAP item.
+MoE families, with GQA or MLA attention (deepseek-v2), and the Mamba2 /
+shared-attention hybrid (zamba2, `zamba.py`) are ported; every other family
+raises ``NotImplementedError`` naming its ROADMAP item.
 ``init_params`` and ``params_from_numpy`` put the model on the card unless
 the caller asks for the CPU.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..core.backend import resolve_device
 from ..core.mapreduce import tree_map
-from . import transformer
-from .attention import Attention, GQAAttention, MLAAttention, TensorSpec
+from . import transformer, zamba
+from .attention import Attention, GQAAttention, MLAAttention
 from .layers import DTYPE, MLP, RMSNorm
 from .moe import MoE
+from .ssm import NAMES as _MAMBA_NAMES, Mamba2
 from .transformer import Block, Transformer
+from .zamba import MambaLayer, Zamba
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "cache_spec",
            "params_from_numpy", "params_to_numpy", "params_from_tree", "params_to_tree"]
 
+Model = Union[Transformer, Zamba]
+
 _OPEN_FAMILIES = {
     "ssm": "xLSTM (models/xlstm.py, xlstm_lm.py), ROADMAP Queue A item 6.6",
-    "hybrid": "the SSM hybrid (models/ssm.py, zamba.py), ROADMAP Queue A item 6.5",
     "encdec": "the encoder-decoder (models/encdec.py), ROADMAP Queue A item 6.7",
     "vlm": "the VLM stub (models/vlm_stub.py), ROADMAP Queue A item 6.8",
 }
@@ -50,7 +55,7 @@ def _require_ported(cfg) -> None:
 
 
 def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = None,
-                dtype=DTYPE, device="cuda") -> Transformer:
+                dtype=DTYPE, device="cuda") -> Model:
     """Random weights from ``seed`` (or an explicit ``generator`` on
     ``device``), made on ``device``."""
     _require_ported(cfg)
@@ -58,29 +63,45 @@ def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = No
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
+    if cfg.family == "hybrid":
+        return zamba.zamba_init(generator, cfg, dtype, dev)
     return transformer.lm_init(generator, cfg, dtype, dev)
 
 
-def forward(params: Transformer, batch: Dict[str, Any], cfg, *, return_aux: bool = False):
+def forward(params: Model, batch: Dict[str, Any], cfg, *, return_aux: bool = False):
     """Full-sequence forward -> logits (B, S, V); with ``return_aux``,
-    (logits, aux losses summed over layers) as the reference returns."""
+    (logits, aux losses summed over layers) as the reference returns (zero
+    for the hybrid)."""
     _require_ported(cfg)
+    if cfg.family == "hybrid":
+        logits = zamba.zamba_forward(params, batch["tokens"], cfg)
+        if not return_aux:
+            return logits
+        return logits, {name: torch.zeros((), device=logits.device)
+                        for name in ("lb_loss", "z_loss")}
     return transformer.lm_forward(params, batch["tokens"], cfg, return_aux=return_aux)
 
 
-def prefill(params: Transformer, batch: Dict[str, Any], cfg, *,
+def prefill(params: Model, batch: Dict[str, Any], cfg, *,
             attention: Optional[Attention] = None):
     _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return zamba.zamba_prefill(params, batch["tokens"], cfg, attention=attention)
     return transformer.lm_prefill(params, batch["tokens"], cfg, attention=attention)
 
 
-def decode_step(params: Transformer, cache, batch: Dict[str, Any], cfg):
+def decode_step(params: Model, cache, batch: Dict[str, Any], cfg):
     _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return zamba.zamba_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
     return transformer.lm_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
 
 
-def cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, TensorSpec]:
+def cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, Any]:
+    """{name: TensorSpec}; the hybrid's is nested, {"ssm": ..., "attn": ...}."""
     _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return zamba.zamba_cache_spec(cfg, batch, seq_len, dtype)
     return transformer.lm_cache_spec(cfg, batch, seq_len, dtype)
 
 
@@ -146,50 +167,91 @@ def _assemble(tree: Dict[str, Any], cfg, t) -> Transformer:
                                                               cfg.norm_eps), head)
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
-    """The reference's dense- or MoE-family params, GQA or MLA -- a nest of
-    dicts of numpy arrays, layer leaves stacked on a leading (L, ...) axis,
-    as ``jax.tree.map(np.asarray, params)`` gives them -- as the port's
-    model on ``device``."""
+def _assemble_hybrid(tree: Dict[str, Any], cfg, t) -> Zamba:
+    """The hybrid from the reference's tree: ``mamba_layers`` ({"norm",
+    "mixer": {...}} stacked on L), ``shared_attn`` (one block's leaves),
+    ``embed``, ``final_norm``, ``lm_head``."""
+    lay, sh = tree["mamba_layers"], tree["shared_attn"]
+    norm = lambda w: RMSNorm(t(w), cfg.norm_eps)  # noqa: E731
+    layers = [MambaLayer(norm(lay["norm"][i]),
+                         Mamba2(*(t(lay["mixer"][k][i]) for k in _MAMBA_NAMES)))
+              for i in range(cfg.n_layers)]
+    shared = Block(norm(sh["attn_norm"]), _attention(sh["attn"], cfg, t), norm(sh["mlp_norm"]),
+                   MLP(*(t(sh["mlp"][k]) for k in _MLP_NAMES)))
+    return Zamba(cfg, t(tree["embed"]), layers, shared, norm(tree["final_norm"]),
+                 t(tree["lm_head"]))
+
+
+def _assembler(cfg):
+    return _assemble_hybrid if cfg.family == "hybrid" else _assemble
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Model:
+    """The reference's dense-, MoE- or hybrid-family params, GQA or MLA -- a
+    nest of dicts of numpy arrays, layer leaves stacked on a leading (L,
+    ...) axis, as ``jax.tree.map(np.asarray, params)`` gives them -- as the
+    port's model on ``device``."""
     _require_ported(cfg)
     dev = resolve_device(device)
-    return _assemble(tree, cfg, lambda a: _tensor(a, dev))
+    return _assembler(cfg)(tree, cfg, lambda a: _tensor(a, dev))
 
 
-def params_from_tree(tree: Dict[str, Any], cfg) -> Transformer:
+def params_from_tree(tree: Dict[str, Any], cfg) -> Model:
     """The model over a tree of tensors in :func:`params_to_tree`'s layout:
     each layer's weights are views of the stacked leaves, never copies."""
     _require_ported(cfg)
-    return _assemble(tree, cfg, lambda a: a)
+    return _assembler(cfg)(tree, cfg, lambda a: a)
 
 
-def params_to_tree(params: Transformer) -> Dict[str, Any]:
+def _stacked(mods, names) -> Dict[str, torch.Tensor]:
+    """{name: the modules' leaves stacked on a new leading axis}."""
+    return {k: torch.stack([getattr(m, k).detach() for m in mods]) for k in names}
+
+
+def _gqa_names(attn: GQAAttention) -> tuple:
+    return ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if attn.q_norm is not None else ())
+
+
+def _hybrid_tree(params: Zamba) -> Dict[str, Any]:
+    layers, sh = list(params.mamba_layers), params.shared_attn
+    own = lambda m, names: {k: getattr(m, k).detach() for k in names}  # noqa: E731
+    return {
+        "embed": params.embed.detach(),
+        "mamba_layers": {"norm": torch.stack([la.norm.weight.detach() for la in layers]),
+                         "mixer": _stacked([la.mixer for la in layers], _MAMBA_NAMES)},
+        "shared_attn": {"attn_norm": sh.attn_norm.weight.detach(),
+                        "attn": own(sh.attn, _gqa_names(sh.attn)),
+                        "mlp_norm": sh.mlp_norm.weight.detach(), "mlp": own(sh.mlp, _MLP_NAMES)},
+        "final_norm": params.final_norm.weight.detach(),
+        "lm_head": params.lm_head.detach(),
+    }
+
+
+def params_to_tree(params: Model) -> Dict[str, Any]:
     """The port's model as the reference's params tree of tensors on the
     model's device: layer leaves stacked on a leading (L, ...) axis (new
     tensors), the others the model's own."""
+    if isinstance(params, Zamba):
+        return _hybrid_tree(params)
     stack = lambda ts: torch.stack([x.detach() for x in ts])  # noqa: E731
     blocks = list(params.layers)
 
-    def stacked(mods, names):
-        return {k: stack([getattr(m, k) for m in mods]) for k in names}
-
     ffns = [b.mlp for b in blocks]
     if isinstance(ffns[0], MoE):
-        ffn = {"moe": stacked(ffns, _MOE_NAMES)}
+        ffn = {"moe": _stacked(ffns, _MOE_NAMES)}
         if ffns[0].shared is not None:
-            ffn["moe"]["shared"] = stacked([m.shared for m in ffns], _MLP_NAMES)
+            ffn["moe"]["shared"] = _stacked([m.shared for m in ffns], _MLP_NAMES)
     else:
-        ffn = {"mlp": stacked(ffns, _MLP_NAMES)}
+        ffn = {"mlp": _stacked(ffns, _MLP_NAMES)}
     attn = blocks[0].attn
     if isinstance(attn, MLAAttention):
         names = _MLA_NAMES + _MLA_Q_NAMES[attn.wq is None]
     else:
-        names = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm")
-                                            if attn.q_norm is not None else ())
+        names = _gqa_names(attn)
     tree = {
         "embed": params.embed.detach(),
         "layers": {"attn_norm": stack([b.attn_norm.weight for b in blocks]),
-                   "attn": stacked([b.attn for b in blocks], names),
+                   "attn": _stacked([b.attn for b in blocks], names),
                    "mlp_norm": stack([b.mlp_norm.weight for b in blocks]), **ffn},
         "final_norm": params.final_norm.weight.detach(),
     }
@@ -198,6 +260,6 @@ def params_to_tree(params: Transformer) -> Dict[str, Any]:
     return tree
 
 
-def params_to_numpy(params: Transformer) -> Dict[str, Any]:
+def params_to_numpy(params: Model) -> Dict[str, Any]:
     """The port's model as the reference's params tree of numpy arrays."""
     return tree_map(_array, params_to_tree(params))

@@ -14,7 +14,8 @@ codes with float32 scales (`serving.quant`, on the reference's stacked
 layout) and dequantizes them to the engine's dtype on each prefill and
 decode call, as the reference does inside its jitted calls; the model run
 is the same.  On the card, prefill's attention launches the
-sliding-window attention kernel once per layer, and decode launches none.
+sliding-window attention kernel once per layer (the hybrid: once per
+application of its shared block), and decode launches none.
 PyTorch runs eagerly, so nothing is compiled ahead.
 """
 from __future__ import annotations
@@ -69,18 +70,26 @@ class ServeEngine:
 
         return params_from_tree(dequantize_tree(self.params, dtype=self.dtype), self.cfg)
 
-    def _grow_cache(self, cache: Dict[str, torch.Tensor], batch: int) -> Dict[str, torch.Tensor]:
-        """Fit the prefill cache into capacity-max_len buffers of the
-        engine's dtype (positions stay int32): pad ``pos`` with -1 and K/V
-        with 0.  A cache longer than max_len (a ring cache of the window's
-        length with max_len below the window) raises, as the reference's
-        negative pad does."""
-        spec = cache_spec(self.cfg, batch, self.max_len, dtype=self.dtype)
+    def _grow_cache(self, cache: Dict[str, Any], batch: int) -> Dict[str, Any]:
+        """Fit the prefill cache into capacity-max_len buffers, leaf by leaf
+        of a flat or nested cache against :func:`cache_spec`'s tree, as the
+        reference's ``jax.tree.map(fit, cache, spec)``: each leaf takes its
+        spec's dtype (the engine's, or the spec's own: positions int32, a
+        Mamba2 layer's SSD state float32), ``pos`` is padded with -1 and
+        K/V with 0.  A cache longer than max_len (a ring cache of the
+        window's length with max_len below the window) raises, as the
+        reference's negative pad does."""
+        return self._fit(cache, cache_spec(self.cfg, batch, self.max_len, dtype=self.dtype))
+
+    def _fit(self, cache: Dict[str, Any], spec: Dict[str, Any], path: str = "") -> Dict[str, Any]:
         out = {}
         for name, a in cache.items():
+            if isinstance(a, dict):
+                out[name] = self._fit(a, spec[name], f"{path}{name}.")
+                continue
             shape, dtype = spec[name]
             if any(n > m for n, m in zip(a.shape, shape)):
-                raise ValueError(f"cache {name} {tuple(a.shape)} does not fit capacity "
+                raise ValueError(f"cache {path}{name} {tuple(a.shape)} does not fit capacity "
                                  f"{tuple(shape)} (max_len {self.max_len})")
             if tuple(a.shape) == tuple(shape):
                 out[name] = a.to(dtype)

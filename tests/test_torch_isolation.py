@@ -110,6 +110,9 @@ def test_entry_points_default_to_the_card():
     mla_cfg = get_arch("deepseek-v2").reduced()
     mla_model = init_params(mla_cfg, device="cpu")
     mla_tree = params_to_numpy(mla_model)
+    hybrid_cfg = get_arch("zamba2").reduced()
+    hybrid_model = init_params(hybrid_cfg, device="cpu")
+    hybrid_tree = params_to_numpy(hybrid_model)
     for call in (lambda: SeriesFrame.from_array(x), lambda: SeriesFrame.from_chunks([x]),
                  lambda: FrameSession(d=2, num_users=4),
                  lambda: StatPlan([autocovariance_request(2)], d=2),
@@ -124,6 +127,9 @@ def test_entry_points_default_to_the_card():
                  lambda: ServeEngine(moe_cfg, moe_model, max_len=8, quantize=True),
                  lambda: init_params(mla_cfg), lambda: params_from_numpy(mla_tree, mla_cfg),
                  lambda: ServeEngine(mla_cfg, mla_model, max_len=8),
+                 lambda: init_params(hybrid_cfg),
+                 lambda: params_from_numpy(hybrid_tree, hybrid_cfg),
+                 lambda: ServeEngine(hybrid_cfg, hybrid_model, max_len=8),
                  lambda: serve.main(["--arch", "deepseek-v2", "--reduced"]),
                  lambda: serve.main(["--arch", "llama4", "--reduced"]),
                  lambda: serve.main(["--arch", "danube", "--reduced"]),
@@ -373,6 +379,46 @@ def test_moe_serving_runs_without_jax():
         "    assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
         "g = torch.Generator().manual_seed(0)\n"
         "assert expert_init(g, (2, 8, 4), 0.5, torch.bfloat16).dtype == torch.bfloat16\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_hybrid_serving_runs_without_jax():
+    """The Mamba2 mixer (models/ssm.py), the zamba2 hybrid (models/zamba.py),
+    the config shim, its weights carried out and in, the nested cache and
+    int8 serving, with JAX and the reference package unimportable: a
+    reduced zamba2 forward on the CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import numpy as np, torch, repro_torch\n"
+        "from repro_torch.configs import zamba2_7b\n"
+        "from repro_torch.models import (cache_spec, forward, params_from_numpy,\n"
+        "                                params_to_numpy, prefill, ssm, zamba)\n"
+        "assert zamba2_7b.CONFIG.ssm.chunk == 256 and zamba2_7b.CONFIG.n_layers == 81\n"
+        "cfg = repro_torch.get_arch('zamba2').reduced()\n"
+        "lm = repro_torch.init_params(cfg, seed=0, dtype=torch.float32, device='cpu')\n"
+        "assert isinstance(lm, zamba.Zamba)\n"
+        "x = torch.randn(2, 40, cfg.d_model)\n"
+        "y, st = ssm.mamba2_apply(lm.mamba_layers[0].mixer, x, cfg, return_state=True)\n"
+        "assert y.shape == x.shape and st['ssd'].dtype == torch.float32\n"
+        "tok = torch.zeros((2, 20), dtype=torch.long)\n"
+        "logits = forward(lm, {'tokens': tok}, cfg)\n"
+        "assert logits.shape == (2, 20, cfg.vocab) and torch.isfinite(logits).all()\n"
+        "_, cache = prefill(lm, {'tokens': tok}, cfg)\n"
+        "spec = cache_spec(cfg, 2, 20)\n"
+        "assert cache['attn']['k'].shape == tuple(spec['attn']['k'].shape)\n"
+        "back = params_from_numpy(params_to_numpy(lm), cfg, device='cpu')\n"
+        "assert torch.equal(forward(back, {'tokens': tok}, cfg), logits)\n"
+        "for quantize in (False, True):\n"
+        "    eng = repro_torch.ServeEngine(cfg, lm, max_len=24, quantize=quantize, device='cpu')\n"
+        "    assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -693,16 +693,17 @@ def test_split_events_takes_ranges_from_cpu_events_and_totals_device_kernels():
     from types import SimpleNamespace as E
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    moe = E(name=smoke.MOE_RANGE, device_type=cpu, device_time_total=5000.0, cpu_parent=None)
-    einsum = E(name="aten::einsum", device_type=cpu, device_time_total=400.0, cpu_parent=moe)
-    events = [moe, einsum,
-              E(name="aten::bmm", device_type=cpu, device_time_total=3000.0, cpu_parent=moe),
-              E(name="aten::bmm", device_type=cpu, device_time_total=400.0, cpu_parent=einsum),
-              E(name="aten::index", device_type=cpu, device_time_total=300.0, cpu_parent=moe),
-              E(name="aten::index_put_", device_type=cpu, device_time_total=200.0,
-                cpu_parent=moe),
-              E(name="aten::matmul", device_type=cpu, device_time_total=600.0, cpu_parent=moe),
-              E(name="aten::index", device_type=cpu, device_time_total=90.0, cpu_parent=None),
+
+    def op(name, parent, *us):  # an operator and the kernels it launched itself
+        return E(name=name, device_type=cpu, cpu_parent=parent,
+                 kernels=[E(duration=u) for u in us])
+
+    moe = op(smoke.MOE_RANGE, None)
+    einsum = op("aten::einsum", moe)
+    events = [moe, einsum, op("aten::bmm", moe, 3000.0), op("aten::bmm", einsum, 400.0),
+              op("aten::index", moe, 300.0), op("aten::index_put_", moe, 200.0),
+              op("aten::matmul", moe, 600.0), op("aten::mul", moe, 500.0),
+              op("aten::index", None, 90.0),
               E(name=smoke.MOE_RANGE, device_type=cuda, device_time_total=5100.0,
                 is_user_annotation=True),
               E(name="nvjet_gemm", device_type=cuda, device_time_total=3600.0),
@@ -960,12 +961,15 @@ def test_split_events_takes_the_mla_and_moe_ranges():
     from types import SimpleNamespace as E
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    mla = E(name=smoke.MLA_RANGE, device_type=cpu, device_time_total=4000.0, cpu_parent=None)
-    moe = E(name=smoke.MOE_RANGE, device_type=cpu, device_time_total=3000.0, cpu_parent=None)
-    events = [mla, moe,
-              E(name="aten::matmul", device_type=cpu, device_time_total=1500.0, cpu_parent=mla),
-              E(name="aten::einsum", device_type=cpu, device_time_total=100.0, cpu_parent=mla),
-              E(name="aten::bmm", device_type=cpu, device_time_total=2000.0, cpu_parent=moe),
+
+    def op(name, parent, *us):  # an operator and the kernels it launched itself
+        return E(name=name, device_type=cpu, cpu_parent=parent,
+                 kernels=[E(duration=u) for u in us])
+
+    mla, moe = op(smoke.MLA_RANGE, None), op(smoke.MOE_RANGE, None)
+    events = [mla, moe, op("aten::matmul", mla, 1500.0), op("aten::einsum", mla, 100.0),
+              op("aten::rms_norm", mla, 2400.0), op("aten::bmm", moe, 2000.0),
+              op("aten::add", moe, 1000.0),
               E(name="gemm", device_type=cuda, device_time_total=3600.0),
               E(name="elementwise", device_type=cuda, device_time_total=3400.0),
               E(name="void swa_bf16_kernel<192, 128>(SwaParams)", device_type=cuda,
@@ -1006,3 +1010,207 @@ def test_mla_ranged_profile_finds_each_layers_projections_on_the_cpu():
         seen = smoke.split_events(prof.events(), ranges=ranges)["calls"]
         assert seen["mla_projections"] == mla_ops * cfg.n_layers
         assert seen["experts_bmm"] == 3 * cfg.n_layers
+
+
+# ---------------------------------------------------------- lm_zamba checks
+def _zamba(chunk=None, layers=None, dtype=torch.float32):
+    """Reduced zamba2 (4 layers, the shared block every 3: applications at
+    layers 0 and 3), its chunk and depth as asked, on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    cfg = get_arch("zamba2").reduced()
+    if chunk is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, init_params(cfg, seed=0, dtype=dtype, device="cpu")
+
+
+def test_zamba_bounds_at_full_width_and_depth():
+    """A prefill of 4 x 8,000 tokens through 81 layers: Mamba2 projections
+    403.99 TFLOP, the shared block at its 14 applications 184.15, the
+    attention 25.69 (1.835 a launch), the SSD's float32 products 14.70 over
+    the sequence padded to 8,192; bound 840.0 ms by operations (620.7 of
+    bf16, 219.4 of float32).  A decode step: 20.9 GB (weights 13.50, KV
+    caches, SSD states read and written), bound about 6.25 ms by bytes.
+    The weight bytes counted are a model's own (reduced: 438,784 B)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("zamba2")
+    work = smoke.zamba_work(cfg, 4, 8000)
+    tflop = {k: work[k][1] / 1e12 for k in ("mamba_projections", "shared_block", "attention",
+                                            "ssd_products")}
+    assert tflop == pytest.approx({"mamba_projections": 403.99, "shared_block": 184.15,
+                                   "attention": 25.69, "ssd_products": 14.70}, abs=5e-3)
+    launch = smoke.swa_work(4, 8000, 32, 32, 112, 8000, 2)[1]
+    assert work["attention"][1] == 14 * launch
+    assert work["ssd_products"][2] == smoke.PEAK_FP32 and work["shared_block"][2] == smoke.PEAK_BF16
+    pre = smoke.zamba_bounds(work)
+    assert pre["bound_by"] == "operations" and pre["bound_ms"] == pytest.approx(840.04, rel=1e-4)
+    assert pre["op_bounds_ms"]["ssd_products"] == pytest.approx(219.38, rel=1e-4)
+    dec = smoke.zamba_bounds(smoke.zamba_work(cfg, 4, 1, 8015))
+    assert dec["bound_by"] == "bytes" and dec["gbytes"] == pytest.approx(20.925, rel=1e-3)
+    assert dec["bound_ms"] == pytest.approx(6.246, rel=1e-3)
+    red, model = _zamba(dtype=torch.bfloat16)
+    w = smoke.zamba_work(red, 1, 1, 5)
+    weights = (w["mamba_projections"][0] + w["shared_block"][0] + w["lm_head"][0] - red.vocab * 2
+               + red.vocab * red.d_model * 2)  # lm_head's entry writes the logits too
+    assert weights == sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def test_ssd_recurrence_check_passes_and_catches_the_planted_unmasked_decay():
+    """Reduced zamba2 at chunk 256, B = 2, S = 300 (two chunks, padded):
+    the port's chunked SSD holds its recurrence well inside the limit; the
+    reference's unmasked decay planted in its place gives NaN in about half
+    the outputs and fails the check; the planted scores equal the port's
+    wherever they are finite."""
+    cfg, model = _zamba(chunk=256)
+    mixer = model.mamba_layers[0].mixer
+    x = torch.randn((2, 300, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    report, step = smoke.ssd_recurrence_check(mixer, x, cfg)
+    assert report["ok"] and report["nan_share"] == 0 and report["steps"] == 300
+    assert max(report["rel_err"].values()) < 1e-5
+    with smoke.planted_unmasked_decay():
+        fault, again = smoke.ssd_recurrence_check(mixer, x, cfg, step=step)
+    assert again is step
+    assert not fault["ok"] and 0.2 < fault["nan_share"] < 0.8
+    from repro_torch.models import ssm
+
+    g = torch.Generator().manual_seed(2)
+    cum = -torch.rand((1, 2, 3, 8), generator=g).cumsum(-1)
+    cb, dt = torch.randn((1, 2, 8, 8), generator=g), torch.rand((1, 2, 3, 8), generator=g)
+    assert torch.equal(smoke.unmasked_diag_scores(cum, cb, dt), ssm._diag_scores(cum, cb, dt))
+
+
+def test_zamba_launch_count_comes_to_two_at_reduced():
+    """Kernel 8's pin on the hybrid: one launch per application of the
+    shared block a prefill (2 at reduced(): layers 0 and 3), none in decode;
+    counted here through the prefill's attention hook."""
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import prefill
+
+    cfg, model = _zamba()
+    calls = []
+
+    def attention(*a, **kw):
+        calls.append(a[3])
+        return swa_attention_chunked(*a, **kw)
+
+    prefill(model, {"tokens": torch.zeros((2, 40), dtype=torch.long)}, cfg, attention=attention)
+    assert calls == [40, 40]
+    assert smoke.zamba_launches_ok({"generate": 2, "prefill": 2, "decode": 0}, cfg)
+    for bad in ({"generate": 2, "prefill": 1, "decode": 0},
+                {"generate": 4, "prefill": 4, "decode": 0},
+                {"generate": 2, "prefill": 2, "decode": 1}):
+        assert not smoke.zamba_launches_ok(bad, cfg)
+    from repro_torch.configs import get_arch
+
+    assert smoke.zamba_launches_ok({"generate": 14, "prefill": 14, "decode": 0},
+                                   get_arch("zamba2"))
+
+
+def test_zamba_ranged_profile_finds_each_group_on_the_cpu():
+    """A reduced zamba2 prefill and decode step in ZAMBA_OPS' ranges: each
+    mixer's two projections, its SSD's products (prefill: C B^T, the scores
+    times x, the chunk states, their readout; decode: the state update's
+    outer product and the readout), each application's four attention
+    projections and three MLP products, each called directly in its range;
+    none outside the block.  :func:`smoke.zamba_groups` splits the device
+    time into its six groups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import ServeEngine
+
+    cfg, model = _zamba()
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(0))
+    _, cache = prefill(model, {"tokens": tokens}, cfg)
+    cache = ServeEngine(cfg, model, max_len=41, device="cpu")._grow_cache(cache, 2)
+    names = tuple(smoke.ZAMBA_OPS)
+    for call, ssd_ops in ((lambda: prefill(model, {"tokens": tokens}, cfg), 4),
+                          (lambda: decode_step(model, cache, {"tokens": tokens[:, -1],
+                                                              "pos": 40}, cfg), 2)):
+        with smoke.moe_ranged(names), profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        split = smoke.split_events(prof.events(), ranges=smoke.ZAMBA_OPS)
+        assert split.pop("calls") == {"mamba_projections": 2 * 4, "ssd_products": ssd_ops * 4,
+                                      "attention_projections": 4 * 2,
+                                      "shared_mlp_products": 3 * 2}
+        groups = smoke.zamba_groups(split)
+        assert set(groups) == {"projections", "ssd_products", "ssd_elementwise", "kernel8",
+                               "shared_mlp", "mixer_other", "rest"}
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        assert set(smoke.split_events(prof.events(), ranges=smoke.ZAMBA_OPS)[
+            "calls"].values()) == {0}
+
+
+def test_split_events_counts_each_kernel_once_in_nested_ranges():
+    """An SSD range nested in a mixer range, each carrying an annotation
+    (device time of its own that covers its children's), and a runtime
+    event holding a kernel an operator holds too: every kernel is counted
+    once, in the innermost range above its operator and in the group of the
+    operator called directly there (a bmm inside an einsum is the
+    einsum's); kernel 8 by name; the rest outside every range."""
+    from types import SimpleNamespace as E
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def op(name, parent, *us):
+        return E(name=name, device_type=cpu, cpu_parent=parent,
+                 kernels=[E(duration=u) for u in us])
+
+    mixer = op(smoke.ZAMBA_MIXER_RANGE, None, 9000.0)  # its annotation, never counted
+    ssd = op(smoke.ZAMBA_SSD_RANGE, mixer, 5000.0)
+    einsum = op("aten::einsum", ssd)
+    mlp = op(smoke.ZAMBA_MLP_RANGE, None)
+    mlp_matmul = op("aten::matmul", mlp)
+    events = [mixer, ssd, einsum, mlp, mlp_matmul,
+              op("aten::matmul", mixer, 1000.0), op("aten::mul", mixer, 200.0),
+              op("aten::bmm", einsum, 700.0), op("aten::exp_", ssd, 1500.0),
+              op("aten::mm", mlp_matmul, 400.0),
+              op("aten::add", None, 50.0),
+              op("Command Buffer Full", einsum, 700.0),  # the bmm's kernel hung again
+              E(name=smoke.ZAMBA_SSD_RANGE, device_type=cuda, device_time_total=2300.0,
+                is_user_annotation=True),
+              E(name="gemm", device_type=cuda, device_time_total=2100.0),
+              E(name="elementwise", device_type=cuda, device_time_total=1750.0),
+              E(name="void swa_bf16_kernel<112, 112>(SwaParams)", device_type=cuda,
+                device_time_total=300.0)]
+    out = smoke.split_events(events, ranges=smoke.ZAMBA_OPS)
+    assert out[smoke.ZAMBA_MIXER_RANGE] == 1.2 and out["mamba_projections"] == 1.0
+    assert out["mamba2_other"] == pytest.approx(0.2)
+    assert out[smoke.ZAMBA_SSD_RANGE] == 2.2 and out["ssd_products"] == 0.7
+    assert out["ssd_other"] == pytest.approx(1.5)
+    assert out[smoke.ZAMBA_MLP_RANGE] == 0.4 and out["shared_mlp_products"] == 0.4
+    assert out["total"] == pytest.approx(4.15) and out[smoke.KERNEL8_NAME] == 0.3
+    assert out["rest"] == pytest.approx(4.15 - 1.2 - 2.2 - 0.4 - 0.3)
+    assert out["calls"] == {"mamba_projections": 1, "ssd_products": 1,
+                            "attention_projections": 0, "shared_mlp_products": 1}
+    assert out["top_kernels"][0] == ("gemm", 2.1)
+    groups = smoke.zamba_groups(out)
+    assert groups["projections"] == 1.0 and groups["mixer_other"] == pytest.approx(0.2)
+    assert sum(groups.values()) == pytest.approx(out["total"])
+
+
+@pytest.mark.parametrize("cut", [0, 8])
+def test_checked_attention_holds_each_call_and_catches_a_cut_window(cut):
+    """The in-situ hook on the CPU, where kernel 8's wrapper runs the plain
+    version: each application's rows read 0 against the plain version; the
+    window cut by 8 keys fails the layer limits."""
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import prefill
+
+    cfg, model = _zamba()
+    report = []
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(3))
+    logits, _ = prefill(model, {"tokens": tokens}, cfg,
+                        attention=smoke.checked_attention(swa_attention_chunked, report, cut))
+    assert len(report) == 2 and torch.isfinite(logits).all()
+    assert smoke.in_situ_ok(report) == (cut == 0)
+    if cut == 0:
+        assert report == [(0.0, 0.0), (0.0, 0.0)]
+    assert not smoke.in_situ_ok([]) and not smoke.in_situ_ok([(0.0, 0.02)])
