@@ -31,7 +31,10 @@ decode absorbed against the latent cache), qwen3-0.6b at full width
 and depth, and zamba2-7b at full width and full depth (the Mamba2 /
 shared-attention hybrid: the prefill through kernel 8 at head dim 112, G =
 1, once per application of the shared block; the chunked SSD held against
-its recurrence); then the paper's last estimators at its
+its recurrence), and xlstm-125m at full width and full depth (the xLSTM
+family: mLSTM and sLSTM mixers in plain PyTorch, no kernel on the path;
+held in float32 against the CPU, its chunked mLSTM against its recurrence,
+its sLSTM across segments); then the paper's last estimators at its
 own VAR workload sizes (``configs/paper_var.py``: the §5 conditional MLE by
 gradient descent and SGD, ARMA and MA fits from kernel 2's
 autocovariances, the §6 banded fit with kernels 7 and 7b, differencing)
@@ -95,7 +98,11 @@ d_model 3,584, 112 SSD heads of 64, state 64, chunk 256; one shared block of
 32 heads of 112 and d_ff 14,336 applied 14 times; vocab 32,000) in bf16 with
 no cut (13.50 GB of weights), 4 prompts of 8,000 tokens, 16 new each;
 kernel 8 is also checked and timed alone at its prefill's layer shape (W =
-S = 8,000, G = 1, D = 112).  paper_var:
+S = 8,000, G = 1, D = 112).  lm_xlstm: xlstm-125m (6 pairs of mLSTM ->
+sLSTM, d_model 768, 4 heads, the mLSTM's d_in 1,536, vocab 50,304) in bf16
+with no cut (0.35 GB of weights), 4 prompts of 2,000 tokens (the serial
+sLSTM runs 12,000 eager steps a prefill), 32 new each; its profiled
+prefill **cut** to 500 tokens.  paper_var:
 var-dense-small (n = 100,000, d = 8, p = 3) and var-dense-wide (n =
 1,000,000, d = 64, p = 2), each fit_ar_mle for 200 steps at block size
 4,096 (a second fit of 100 steps updates the precision every 50, and a
@@ -302,6 +309,58 @@ RANGE_TARGETS.update({ZAMBA_MIXER_RANGE: ("repro_torch.models.zamba", "mamba2_ap
                       ZAMBA_SSD_RANGE: ("repro_torch.models.ssm", "_ssd"),
                       ZAMBA_ATTN_RANGE: "attention_apply",
                       ZAMBA_MLP_RANGE: ("repro_torch.models.layers", "MLP.forward")})
+# lm_xlstm: xlstm-125m at full width and full depth (12 layers in 6 pairs of
+# mLSTM -> sLSTM, d_model 768, 4 heads: the mLSTM's d_in 1,536 in heads of
+# 384, the sLSTM's heads of 192; vocab 50,304) in bf16: 1.729e8 parameters,
+# 0.35 GB.  XLSTM_BATCH prompts of XLSTM_PROMPT tokens (2,000 = 31 x 64 +
+# 16: the mLSTM's pad of 48 runs; the xLSTM paper's 125M models were
+# trained at a context of 2,048, which 2,000 + XLSTM_NEW fit) and
+# XLSTM_NEW greedy new tokens.  4 x 8,000, the other LM phases' prompts,
+# would be 48,000 serial sLSTM steps a prefill, about a million eager
+# launches.  No kernel runs on this path: both mixers are plain PyTorch (the
+# reference's are jnp and lax.scan).  Checks, all in float32 on a copy of
+# the bf16 weights: (1) the card against the CPU over a 1 x XLSTM_CHECK_PROMPT
+# prompt and XLSTM_CHECK_STEPS decode steps, logits within XLSTM_LOGITS_TOL
+# of each row's max|logit| (IEEE float32 on both: the port turns TF32 off);
+# (2) layer 0's mLSTM chunked against its s == 1 recurrence over the
+# prompts, the output and the final C e^m and n e^m within XLSTM_MLSTM_TOL
+# normwise (tests/test_mixers.py:60), the causal mask on the log weights
+# dropped (a planted fault) must fail it; (3) layer 1's sLSTM, 1,000 tokens
+# then 1,000 more from their state, against all 2,000 at once within
+# XLSTM_SLSTM_TOL (tests/test_mixers.py:98), the second segment restarted
+# from the fresh state (a planted fault) must fail it; (4) the greedy tokens
+# of 1 x XLSTM_CHECK_PROMPT + XLSTM_GREEDY_NEW against greedy by full
+# forward where the top-2 margin decides at XLSTM_LOGITS_TOL, and the first
+# decode step against the full forward at that limit.
+XLSTM_ARCH, XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = "xlstm", 4, 2000, 32
+XLSTM_CHECK_PROMPT, XLSTM_CHECK_STEPS, XLSTM_GREEDY_NEW = 256, 4, 8
+XLSTM_LOGITS_TOL, XLSTM_MLSTM_TOL, XLSTM_SLSTM_TOL = 1e-4, 2e-4, 1e-5
+XLSTM_SPLIT = 1000  # check 3's first segment
+# the profiled prefill's prompt, **cut** from 2,000: a prefill launches
+# about 20 device kernels a step of each sLSTM layer, and on an NVIDIA H100
+# 80GB HBM3 at 700 W the profile of the whole 4 x 2,000 prefill (about
+# 250,000 kernels) took about 100 s to record and split
+XLSTM_PROFILE_PROMPT = 500
+# each mixer, its scan, the sLSTM's FFN and the head in profiler ranges,
+# split by the products called directly in each
+XLSTM_MLSTM_RANGE, XLSTM_SLSTM_RANGE = "lm_xlstm.mlstm_apply", "lm_xlstm.slstm_apply"
+XLSTM_SCAN_RANGE, XLSTM_STEP_RANGE = "lm_xlstm.mlstm_scan_apply", "lm_xlstm.mlstm_step_apply"
+XLSTM_REC_RANGE, XLSTM_FFN_RANGE = "lm_xlstm.slstm_scan_apply", "lm_xlstm.slstm_ffn_apply"
+XLSTM_HEAD_RANGE = "lm_xlstm.head_apply"
+XLSTM_OPS = {XLSTM_MLSTM_RANGE: {"mlstm_projections": _MM},
+             XLSTM_SCAN_RANGE: {"scan_products": ("aten::matmul",)},
+             XLSTM_STEP_RANGE: {"step_products": ("aten::matmul",)},
+             XLSTM_SLSTM_RANGE: {"slstm_gate_projection": _MM},
+             XLSTM_REC_RANGE: {"recurrent_products": ("aten::baddbmm",)},
+             XLSTM_FFN_RANGE: {"ffn_products": _MM},
+             XLSTM_HEAD_RANGE: {"head_products": _MM}}
+RANGE_TARGETS.update({XLSTM_MLSTM_RANGE: ("repro_torch.models.xlstm_lm", "mlstm_apply"),
+                      XLSTM_SLSTM_RANGE: ("repro_torch.models.xlstm_lm", "slstm_apply"),
+                      XLSTM_SCAN_RANGE: ("repro_torch.models.xlstm", "_mlstm_chunk_scan"),
+                      XLSTM_STEP_RANGE: ("repro_torch.models.xlstm", "_mlstm_step"),
+                      XLSTM_REC_RANGE: ("repro_torch.models.xlstm", "_slstm_scan"),
+                      XLSTM_FFN_RANGE: ("repro_torch.models.xlstm", "_slstm_ffn"),
+                      XLSTM_HEAD_RANGE: ("repro_torch.models.xlstm_lm", "_logits")})
 # Kernel 8 per entry against its row's max|v| (an output row is a convex
 # combination of its window's rows of v): f32 1e-5 (both sides accumulate in
 # f32 in another order); bf16 1e-2 (P is rounded to bf16 before P V on both
@@ -1530,6 +1589,11 @@ def planted_unmasked_decay():
         yield
 
 
+def _rel64(a, b) -> float:
+    """max|a - b| / max|b| in float64."""
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+
 def ssd_recurrence_check(mixer, x, cfg, tol: float = ZAMBA_SSD_TOL, step=None) -> tuple:
     """Check 3 of lm_zamba: ``mamba2_apply``'s chunked form over x (B, S,
     d) against S steps of its s == 1 recurrence from a zero state, the
@@ -1549,18 +1613,183 @@ def ssd_recurrence_check(mixer, x, cfg, tol: float = ZAMBA_SSD_TOL, step=None) -
             ys.append(out)
         step = (torch.cat(ys, 1), state)
     y_step, st_step = step
-
-    def rel(a, b):
-        return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
-
-    errs = {"output": rel(y, y_step), "ssd": rel(st["ssd"], st_step["ssd"]),
-            "conv": rel(st["conv"], st_step["conv"])}
+    errs = {"output": _rel64(y, y_step), "ssd": _rel64(st["ssd"], st_step["ssd"]),
+            "conv": _rel64(st["conv"], st_step["conv"])}
     report = {"rel_err": errs, "tol": tol, "steps": x.shape[1],
               "nan_share": 1.0 - torch.isfinite(y).float().mean().item(),
               "recurrence_finite": bool(torch.isfinite(y_step).all())}
     report["ok"] = (report["nan_share"] == 0 and report["recurrence_finite"]
                     and all(e <= tol for e in errs.values()))
     return report, step
+
+
+def xlstm_work(cfg, b: int, q_len: int) -> dict:
+    """{op: (bytes, operations, peak rate)} of one prefill of b sequences of
+    q_len > 1 tokens, or one decode step (q_len = 1), through the xLSTM in
+    bf16, its recurrent states in float32.  Each weight read once, the token
+    embeddings gathered, the last position's logits written; the prefill
+    writes the states, a decode step reads and writes them.  Operations: 2
+    a multiply-add of every bf16 product (the mLSTM's four projections, the
+    sLSTM's gate projection and FFN, lm_head at the last position); in
+    float32 the sLSTM's recurrent product (2 nh hd 4 hd a token) and the
+    mLSTM's as its chunked form computes them over the sequence padded to
+    the chunk (q k^T and the weighted scores times v, 4 L hd a token and
+    head; the carry's readout and update, 4 hd^2; the normaliser's, 4 hd),
+    or a decode step's update and readout (4 hd^2 a head)."""
+    from repro_torch.models.xlstm_lm import _n_pairs
+
+    d, v, nh, pairs = cfg.d_model, cfg.vocab, cfg.n_heads, _n_pairs(cfg)
+    d_in, hs = 2 * d, d // nh
+    hm = d_in // nh
+    t = b * q_len
+    m_mm = d * 2 * d_in + d_in * 3 * d_in + d_in * 2 * nh + d_in * d
+    s_mm = d * 4 * d + d * 2 * d + 2 * d * d if cfg.slstm_every else 0
+    r = nh * hs * 4 * hs if cfg.slstm_every else 0
+    norms = pairs * (d + d_in + (2 * d if cfg.slstm_every else 0)) + d
+    m_state = pairs * b * nh * (hm * hm + hm + 1) * 4
+    s_state = pairs * b * 4 * nh * hs * 4 if cfg.slstm_every else 0
+    if q_len > 1:
+        chunk = min(64, q_len)
+        padded = -(-q_len // chunk) * chunk
+        scan_ops = pairs * b * nh * padded * (4 * chunk * hm + 4 * hm * hm + 4 * hm)
+        moved = 1
+    else:
+        scan_ops = pairs * b * nh * 4 * hm * hm
+        moved = 2
+    return {
+        "embed": (t * d * 2 * 2, 0, PEAK_BF16),
+        "mlstm_projections": (pairs * m_mm * 2, pairs * 2 * t * m_mm, PEAK_BF16),
+        "mlstm_scan": (moved * m_state, scan_ops, PEAK_FP32),
+        "slstm_recurrence": (pairs * r * 2 + moved * s_state, pairs * 2 * t * r, PEAK_FP32),
+        "slstm_projections": (pairs * s_mm * 2, pairs * 2 * t * s_mm, PEAK_BF16),
+        "norms": (norms * 2, 0, PEAK_BF16),
+        "lm_head": (d * v * 2 + b * v * 2, 2 * b * d * v, PEAK_BF16),
+    }
+
+
+def xlstm_groups(split: dict) -> dict:
+    """A profiled xLSTM call's device ms by group, from :func:`split_events`
+    over XLSTM_OPS' ranges: the mLSTM's four projections, its chunk scan
+    (a decode step: its recurrence step), the sLSTM's recurrence, its gate
+    projection, its FFN, the mixers' norms and gates (the rest of both
+    mixers: the gate activations, the silu gate, the gate norms, casts,
+    pads and layout copies), lm_head with the final norm, and the rest (the
+    pairs' pre-norms, residual adds, the embedding)."""
+    groups = {"mlstm_projections": split["mlstm_projections"],
+              "mlstm_scan": split[XLSTM_SCAN_RANGE] + split[XLSTM_STEP_RANGE],
+              "slstm_recurrence": split[XLSTM_REC_RANGE],
+              "slstm_gate_projection": split["slstm_gate_projection"],
+              "slstm_ffn": split[XLSTM_FFN_RANGE],
+              "norms_and_gates": split["mlstm_other"] + split["slstm_other"],
+              "lm_head": split[XLSTM_HEAD_RANGE]}
+    groups["rest"] = split["total"] - sum(groups.values())
+    return groups
+
+
+def unmasked_log_weights(cf, li):
+    """The mLSTM's within-chunk log weights cf[l] - cf[s] + li[s] without
+    the causal mask: every source, later ones too, reaches every target."""
+    return cf[..., :, None] - cf[..., None, :] + li[..., None, :]
+
+
+@contextlib.contextmanager
+def planted_unmasked_log_weights():
+    """Within the block, the port's mLSTM drops the causal mask on its log
+    weights (:func:`unmasked_log_weights`): a planted fault."""
+    from unittest import mock
+
+    from repro_torch.models import xlstm
+
+    with mock.patch.object(xlstm, "_log_weights", unmasked_log_weights):
+        yield
+
+
+def mlstm_recurrence_check(mixer, x, cfg, tol: float = XLSTM_MLSTM_TOL, step=None) -> tuple:
+    """Check 2 of lm_xlstm: ``mlstm_apply``'s chunked form over x (B, S, d)
+    against S steps of its s == 1 recurrence from the fresh state: the
+    output, and the final state's C e^m and n e^m (the stabiliser m splits
+    the scale between them in each form's own way), each within ``tol`` of
+    the recurrence's max|.|; a non-finite value fails.  ``step``: the
+    recurrence's (output, state) from an earlier call on the same input.
+    Returns (report, step)."""
+    from repro_torch.models.xlstm import mlstm_apply, mlstm_state_spec
+
+    y, st = mlstm_apply(mixer, x, cfg, return_state=True)
+    if step is None:
+        state = {k: torch.zeros(s.shape, dtype=s.dtype, device=x.device)
+                 for k, s in mlstm_state_spec(cfg, x.shape[0]).items()}
+        state["m"].fill_(-1e30)
+        ys = []
+        for i in range(x.shape[1]):
+            out, state = mlstm_apply(mixer, x[:, i:i + 1], cfg, state=state)
+            ys.append(out)
+        step = (torch.cat(ys, 1), state)
+    y_step, st_step = step
+
+    def scaled(state, name):
+        m = state["m"].double().exp()
+        return state[name].double() * (m[..., None, None] if name == "C" else m[..., None])
+
+    errs = {"output": _rel64(y, y_step),
+            "C_exp_m": _rel64(scaled(st, "C"), scaled(st_step, "C")),
+            "n_exp_m": _rel64(scaled(st, "n"), scaled(st_step, "n"))}
+    finite = bool(torch.isfinite(y).all() and all(torch.isfinite(t).all() for t in st.values()))
+    report = {"rel_err": errs, "tol": tol, "steps": x.shape[1], "finite": finite,
+              "recurrence_finite": bool(torch.isfinite(y_step).all())}
+    report["ok"] = (finite and report["recurrence_finite"]
+                    and all(e <= tol for e in errs.values()))
+    return report, step
+
+
+def slstm_carry_check(mixer, x, cfg, split: int, tol: float = XLSTM_SLSTM_TOL,
+                      restart: bool = False) -> dict:
+    """Check 3 of lm_xlstm: ``slstm_apply`` over x[:, :split], then over the
+    rest from that state (from the fresh state with ``restart``: a planted
+    fault), against one pass over all of x: the outputs and the final state
+    within |a - b| <= tol + tol |b| (tests/test_mixers.py:98's rule)."""
+    from repro_torch.models.xlstm import slstm_apply
+
+    t0 = time.perf_counter()
+    y, st = slstm_apply(mixer, x, cfg, return_state=True)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    y1, st1 = slstm_apply(mixer, x[:, :split], cfg, return_state=True)
+    y2, st2 = slstm_apply(mixer, x[:, split:], cfg, state=None if restart else st1,
+                          return_state=True)
+
+    def excess(a, b):  # max of |a - b| / (tol + tol |b|): at most 1 passes
+        return ((a.double() - b.double()).abs() / (tol + tol * b.double().abs())).max().item()
+
+    worst = {"output": excess(torch.cat([y1, y2], 1), y),
+             **{f"state_{k}": excess(st2[k], st[k]) for k in st}}
+    return {"excess_over_tol": worst, "tol": tol, "steps": x.shape[1], "split": split,
+            "full_pass_ms": full_ms, "finite": bool(torch.isfinite(y).all()),
+            "ok": bool(torch.isfinite(y).all()) and all(e <= 1.0 for e in worst.values())}
+
+
+def xlstm_teacher_forced(model, cfg, prompts, tokens) -> "torch.Tensor":
+    """The logits (B, T, V) float32 of a prefill over ``prompts`` and T - 1
+    decode steps fed ``tokens`` (B, T)[:, :-1]: the steps a generate of T
+    tokens takes, on another model or device."""
+    from repro_torch.models import decode_step, prefill
+
+    logits, cache = prefill(model, {"tokens": prompts}, cfg)
+    steps = [logits.float()]
+    for i in range(1, tokens.shape[1]):
+        logits, cache = decode_step(model, cache, {"tokens": tokens[:, i - 1],
+                                                   "pos": prompts.shape[1] + i - 1}, cfg)
+        steps.append(logits.float())
+    return torch.stack(steps, 1)
+
+
+def float_model(params, cfg, device):
+    """A float32 copy of a model on ``device`` (its tree's leaves cast)."""
+    from repro_torch.core.mapreduce import tree_map
+    from repro_torch.models import params_from_tree, params_to_tree
+
+    return params_from_tree(tree_map(lambda t: t.to(device, torch.float32),
+                                     params_to_tree(params)), cfg)
 
 
 def stats_paths(args, dev, lagmom_fault) -> dict:
@@ -5760,6 +5989,213 @@ def lm_zamba(args, dev) -> int:
     return launches["generate"]
 
 
+def lm_xlstm(args, dev) -> dict:
+    """Phase lm_xlstm: xlstm-125m at full width and full depth (6 pairs of
+    mLSTM -> sLSTM), bf16 weights from ``--seed``, XLSTM_BATCH x
+    XLSTM_PROMPT prompt tokens and XLSTM_NEW greedy new tokens through
+    ``ServeEngine.generate``.  Timed: init, the generate, a prefill and each
+    decode step, each profiled with its device busy share and device ms by
+    group (:func:`xlstm_groups`) beside its bound (:func:`xlstm_work`).
+    Checks, in float32 on a copy of the weights: (1) the card against the
+    CPU, logits within XLSTM_LOGITS_TOL of each row's max|logit|; (2) layer
+    0's chunked mLSTM against its recurrence
+    (:func:`mlstm_recurrence_check`), the causal mask dropped must fail it;
+    (3) layer 1's sLSTM carried across two segments
+    (:func:`slstm_carry_check`), the second restarted from the fresh state
+    must fail it; (4) greedy tokens against greedy by full forward where
+    the top-2 margin decides, and the prefill and first decode step against
+    the full forward; (5) the bf16 serve finite and of its shape, its
+    distance from float32 on the same weights reported (a floor, not held);
+    (6) no kernel of the port launched through the generate, a prefill or
+    decode.  Returns each kernel's launches in the generate."""
+    from repro_torch import ServeEngine, get_arch, init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, forward, prefill, xlstm
+    from repro_torch.models.xlstm_lm import _n_pairs
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(XLSTM_ARCH)
+    B, P, NEW = XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW
+    profile = functools.partial(moe_device_split, ranges=dict(XLSTM_OPS))
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    made = []
+    init = profile(lambda: made.append(init_params(cfg, seed=args.seed, dtype=torch.bfloat16,
+                                                   device=dev)), warm=False)
+    params = made.pop()
+    n_params = sum(t.numel() for t in params.parameters())
+    weight_gb = sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 9)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    eng = ServeEngine(cfg, params, max_len=P + NEW, dtype=torch.bfloat16, device=dev)
+    eng.generate(prompts[:, :100], 2)  # warm-up: cuBLAS handles at these widths
+
+    launches = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, NEW, keep_logits=True)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = dict(launch_counts())
+    launches["generate"] = sum(by_kernel.values())
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = torch.from_numpy(res.tokens).to(dev)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, cache = prefill(params, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches["prefill"] = sum(launch_counts().values())
+    cache_gb = sum(t.numel() * t.element_size() for g in cache.values() for t in g.values()) / 1e9
+    reset_launch_counts()
+    step_ms = []
+    for i in range(1, NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": P + i - 1}, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_ms = sum(step_ms) / len(step_ms)
+    launches["decode"] = sum(launch_counts().values())
+    # where the time goes: one prefill (of XLSTM_PROFILE_PROMPT tokens); one
+    # decode step repeated (the states move on, which changes no shape or
+    # operation)
+    step = {"tokens": tokens[:, NEW - 2], "pos": P + NEW - 2}
+    short = prompts[:, :XLSTM_PROFILE_PROMPT]
+    t0 = time.perf_counter()
+    profiled = {"init": init,
+                "prefill": profile(lambda: prefill(params, {"tokens": short}, cfg), warm=False)}
+    profile_s = time.perf_counter() - t0
+    profiled["decode_step"] = profile(lambda: decode_step(params, cache, step, cfg), calls=3)
+    for prof in profiled.values():
+        prof["device_ms_by_group"] = xlstm_groups(prof["device_ms"])
+    profiled["prefill"].update(prompt_len=XLSTM_PROFILE_PROMPT, record_and_split_s=profile_s)
+    del cache
+    bounds = {"prefill": zamba_bounds(xlstm_work(cfg, B, P)),
+              "decode_step": zamba_bounds(xlstm_work(cfg, B, 1))}
+
+    sections = {"serve_and_profile": time.perf_counter() - t_phase}
+    mark = time.perf_counter
+
+    # float32 copies of the weights: on the card for checks 1-5, on the CPU
+    # for check 1's comparison
+    f32 = float_model(params, cfg, dev)
+    eng32 = ServeEngine(cfg, f32, max_len=XLSTM_CHECK_PROMPT + XLSTM_GREEDY_NEW, device=dev)
+
+    # 1: the card against the CPU, teacher-forced on the card's tokens
+    t_check = mark()
+    short = prompts[:1, :XLSTM_CHECK_PROMPT]
+    served32 = eng32.generate(short, XLSTM_GREEDY_NEW, keep_logits=True)
+    tokens32 = torch.from_numpy(served32.tokens).to(dev)
+    card = served32.logits[:, :XLSTM_CHECK_STEPS + 1]
+    t0 = time.perf_counter()
+    cpu = xlstm_teacher_forced(float_model(params, cfg, torch.device("cpu")), cfg, short.cpu(),
+                               tokens32[:, :XLSTM_CHECK_STEPS + 1].cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    card_cpu = row_rel_errors(card.cpu(), cpu)
+    check_cpu = {"rows": tuple(card.shape[:2]), "row_rel_err_max": card_cpu.max().item(),
+                 "row_rel_err": card_cpu[0].tolist(), "tol": XLSTM_LOGITS_TOL,
+                 "cpu_wall_ms": cpu_ms,
+                 "ok": card_cpu.max().item() <= XLSTM_LOGITS_TOL
+                 and bool(torch.isfinite(cpu).all())}
+    del cpu
+    sections["check1"], t_check = mark() - t_check, mark()
+
+    # 2: layer 0's mLSTM, chunked against its recurrence, in float32 over the
+    # prompts (the pad runs); then the causal mask dropped
+    first = f32.pairs[0]
+    x0 = f32.embed[prompts]
+    h0 = first.m_norm(x0)
+    t0 = time.perf_counter()
+    mlstm_check, recurrence = mlstm_recurrence_check(first.mlstm, h0, cfg)
+    mlstm_check["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    with planted_unmasked_log_weights():
+        fault, _ = mlstm_recurrence_check(first.mlstm, h0, cfg, step=recurrence)
+    mlstm_check["fault"] = {"rel_err": fault["rel_err"], "caught": not fault["ok"]}
+    del recurrence
+    sections["check2"], t_check = mark() - t_check, mark()
+
+    # 3: layer 1 (pair 0's sLSTM) carried across two segments; then the
+    # second segment restarted from the fresh state
+    xs = first.s_norm(x0 + xlstm.mlstm_apply(first.mlstm, h0, cfg)[0])
+    slstm_check = slstm_carry_check(first.slstm, xs, cfg, XLSTM_SPLIT)
+    fault = slstm_carry_check(first.slstm, xs, cfg, XLSTM_SPLIT, restart=True)
+    slstm_check["fault"] = {"excess_over_tol": fault["excess_over_tol"],
+                            "caught": not fault["ok"]}
+    del x0, h0, xs
+    sections["check3"], t_check = mark() - t_check, mark()
+
+    # 4: greedy generation against greedy by full forward (prompt + the
+    # tokens before each step), and the prefill and first decode step
+    # against the full forward's rows
+    full = []
+    for i in range(XLSTM_GREEDY_NEW):
+        seq = torch.cat([short, tokens32[:, :i]], 1)
+        full.append(forward(f32, {"tokens": seq}, cfg)[:, -1].float())
+    full = torch.stack(full, 1)
+    decided, wrong = greedy_disagreements(full, tokens32, XLSTM_LOGITS_TOL)
+    rows = row_rel_errors(served32.logits, full)[0]
+    greedy = {"new_tokens": XLSTM_GREEDY_NEW, "decided_steps": decided, "disagreements": wrong,
+              "prefill_vs_forward_rel_err": rows[0].item(),
+              "first_decode_vs_forward_rel_err": rows[1].item(),
+              "max_step_vs_forward_rel_err": rows.max().item(), "tol": XLSTM_LOGITS_TOL}
+    greedy["ok"] = (wrong == 0 and max(rows[0].item(), rows[1].item()) <= XLSTM_LOGITS_TOL
+                    and bool(torch.isfinite(full).all()))
+    del full
+    sections["check4"], t_check = mark() - t_check, mark()
+
+    # 5: the bf16 serve finite and of its shape; its distance from float32 on
+    # the same weights, teacher-forced on the served tokens: the floor
+    served = res.logits
+    plain32 = xlstm_teacher_forced(f32, cfg, prompts, tokens)
+    floor = {"prefill": row_rel_errors(served[:, 0], plain32[:, 0]).max().item(),
+             "decode": row_rel_errors(served[:, 1:], plain32[:, 1:]).max().item()}
+    decided16, wrong16 = greedy_disagreements(plain32, tokens, max(floor.values()))
+    finite = bool(torch.isfinite(served).all())
+    del plain32, f32, eng32
+    sections["check5"] = mark() - t_check
+
+    out = {
+        "phase": "lm_xlstm", "arch": cfg.name, "layers": cfg.n_layers, "pairs": _n_pairs(cfg),
+        "cut": f"none: full width and depth, {cfg.n_layers} layers",
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "mlstm": {"d_inner": 2 * cfg.d_model, "head_dim": 2 * cfg.d_model // cfg.n_heads,
+                  "chunk": 64},
+        "slstm": {"head_dim": cfg.d_model // cfg.n_heads, "ffn": 2 * cfg.d_model},
+        "vocab": cfg.vocab, "params": n_params, "dtype": "bfloat16", "weights_gb": weight_gb,
+        "cache_gb": cache_gb, "batch": B, "prompt_len": P, "new_tokens": NEW,
+        "init_ms": init["wall_ms"], "generate_ms": generate_ms, "prefill_ms": prefill_ms,
+        "decode_ms_per_step": decode_ms, "decode_step_ms": step_ms,
+        "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+        "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_memory_gb": peak_gb,
+        "held_at_start_gb": held_gb, "bounds": bounds,
+        "shares_of_bound": {"prefill": bounds["prefill"]["bound_ms"] / prefill_ms,
+                            "decode_step": bounds["decode_step"]["bound_ms"] / decode_ms},
+        "profiled": profiled, "launches": launches,
+        "checks": {"card_vs_cpu_float32": check_cpu,
+                   "mlstm_chunked_vs_recurrence": mlstm_check,
+                   "slstm_segment_carry": slstm_check, "greedy_vs_full_forward": greedy,
+                   "bf16_vs_float32_floor": {**floor, "decided_steps": decided16,
+                                             "disagreements": wrong16, "held": False},
+                   "finite": finite},
+        "first_row_tokens": res.tokens[0][:8].tolist(), "section_s": sections,
+        "phase_peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "wall_ms": (time.perf_counter() - t_phase) * 1e3,
+    }
+    out["ok"] = (all(n == 0 for n in launches.values()) and finite
+                 and tuple(res.tokens.shape) == (B, NEW)
+                 and check_cpu["ok"] and greedy["ok"]
+                 and mlstm_check["ok"] and mlstm_check["fault"]["caught"]
+                 and slstm_check["ok"] and slstm_check["fault"]["caught"])
+    emit(out)
+    if not out["ok"]:
+        fail("lm_xlstm")
+    return by_kernel
+
+
 # ------------------------------------------------- the backend policy layer
 def calibration_phase(args, dev):
     """Phase 11: `repro_torch.core.calibrate.calibrate` at the reference's
@@ -6349,6 +6785,11 @@ def main() -> None:
     zamba_launches = lm_zamba(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # the xLSTM family: xlstm-125m at full width and depth, no kernel on its
+    # path (both mixers are plain PyTorch)
+    xlstm_launches = lm_xlstm(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the paper's last estimators at its VAR workload sizes, then graphs
     paper_var_launches = paper_var_phase(args, dev)
     gc.collect()
@@ -6388,6 +6829,7 @@ def main() -> None:
             "lm_mla_launches": mla_launches if name == "swa_attention" else 0,
             "lm_qwen3_launches": qwen_launches if name == "swa_attention" else 0,
             "lm_zamba_launches": zamba_launches if name == "swa_attention" else 0,
+            "lm_xlstm_launches": xlstm_launches.get(name, 0),
         })
         if name == "swa_attention":  # lm_moe's prefill, W = S; lm_mla's, q/k 192, v 128;
             kernels[-1]["llama4_shape"] = swa["llama4"]  # lm_zamba's, 112, G = 1

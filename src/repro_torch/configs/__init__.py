@@ -2,7 +2,7 @@
 shape suites, the paper's VAR workloads, and the config shims of the ported
 architectures (``configs.<id>.CONFIG``)."""
 from . import (glm4_9b, h2o_danube_1_8b, llama4_maverick_400b, phi3_medium_14b,  # noqa: F401
-               qwen3_0_6b, zamba2_7b)
+               qwen3_0_6b, xlstm_125m, zamba2_7b)
 from .base import (SHAPES, SHAPES_BY_NAME, ArchConfig, MLAConfig, MoEConfig, ShapeConfig,
                    SSMConfig, cell_is_runnable)
 from .paper_var import PAPER_VAR_CONFIGS, VARWorkload

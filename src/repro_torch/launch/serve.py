@@ -1,5 +1,5 @@
-"""Serving from the command line: batched generation with a dense-, MoE- or
-hybrid-family architecture (port of `repro.launch.serve`).
+"""Serving from the command line: batched generation with a dense-, MoE-,
+hybrid- or xLSTM-family architecture (port of `repro.launch.serve`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch danube --reduced \
       --batch 8 --prompt-len 32 --max-new 32 [--dtype bf16|f32] [--device cpu] [--quantize]

@@ -1,7 +1,8 @@
-"""Model zoo dispatcher, dense, MoE and hybrid families (port of
+"""Model zoo dispatcher, dense, MoE, hybrid and xLSTM families (port of
 `repro.models.model_zoo`).
 
-  init_params(cfg, seed=...)              -> Transformer (Zamba for the hybrid)
+  init_params(cfg, seed=...)              -> Transformer (Zamba for the hybrid,
+                                             XLSTM for the "ssm" family)
   forward(params, batch, cfg)             -> logits (B, S, V) (``return_aux``:
                                              and the MoE aux losses)
   prefill(params, batch, cfg)             -> (last logits, cache)
@@ -13,9 +14,10 @@
                                              leaves stacked on a leading L axis)
 
 ``batch`` is a dict: ``tokens`` (and ``pos`` for decode).  The dense and
-MoE families, with GQA or MLA attention (deepseek-v2), and the Mamba2 /
-shared-attention hybrid (zamba2, `zamba.py`) are ported; every other family
-raises ``NotImplementedError`` naming its ROADMAP item.
+MoE families, with GQA or MLA attention (deepseek-v2), the Mamba2 /
+shared-attention hybrid (zamba2, `zamba.py`) and the xLSTM family
+(xlstm-125m, `xlstm_lm.py`) are ported; every other family raises
+``NotImplementedError`` naming its ROADMAP item.
 ``init_params`` and ``params_from_numpy`` put the model on the card unless
 the caller asks for the CPU.
 """
@@ -28,21 +30,22 @@ import torch
 
 from ..core.backend import resolve_device
 from ..core.mapreduce import tree_map
-from . import transformer, zamba
+from . import transformer, xlstm_lm, zamba
 from .attention import Attention, GQAAttention, MLAAttention
 from .layers import DTYPE, MLP, RMSNorm
 from .moe import MoE
 from .ssm import NAMES as _MAMBA_NAMES, Mamba2
 from .transformer import Block, Transformer
+from .xlstm import MLSTM, MLSTM_NAMES, SLSTM, SLSTM_NAMES
+from .xlstm_lm import XLSTM, XLSTMPair
 from .zamba import MambaLayer, Zamba
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "cache_spec",
            "params_from_numpy", "params_to_numpy", "params_from_tree", "params_to_tree"]
 
-Model = Union[Transformer, Zamba]
+Model = Union[Transformer, Zamba, XLSTM]
 
 _OPEN_FAMILIES = {
-    "ssm": "xLSTM (models/xlstm.py, xlstm_lm.py), ROADMAP Queue A item 6.6",
     "encdec": "the encoder-decoder (models/encdec.py), ROADMAP Queue A item 6.7",
     "vlm": "the VLM stub (models/vlm_stub.py), ROADMAP Queue A item 6.8",
 }
@@ -65,16 +68,19 @@ def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = No
         generator.manual_seed(seed)
     if cfg.family == "hybrid":
         return zamba.zamba_init(generator, cfg, dtype, dev)
+    if cfg.family == "ssm":
+        return xlstm_lm.xlstm_lm_init(generator, cfg, dtype, dev)
     return transformer.lm_init(generator, cfg, dtype, dev)
 
 
 def forward(params: Model, batch: Dict[str, Any], cfg, *, return_aux: bool = False):
     """Full-sequence forward -> logits (B, S, V); with ``return_aux``,
     (logits, aux losses summed over layers) as the reference returns (zero
-    for the hybrid)."""
+    for the hybrid and the xLSTM)."""
     _require_ported(cfg)
-    if cfg.family == "hybrid":
-        logits = zamba.zamba_forward(params, batch["tokens"], cfg)
+    if cfg.family in ("hybrid", "ssm"):
+        run = zamba.zamba_forward if cfg.family == "hybrid" else xlstm_lm.xlstm_forward
+        logits = run(params, batch["tokens"], cfg)
         if not return_aux:
             return logits
         return logits, {name: torch.zeros((), device=logits.device)
@@ -84,9 +90,13 @@ def forward(params: Model, batch: Dict[str, Any], cfg, *, return_aux: bool = Fal
 
 def prefill(params: Model, batch: Dict[str, Any], cfg, *,
             attention: Optional[Attention] = None):
+    """(last logits (B, V), cache); ``attention`` is the prefill's attention
+    (the xLSTM has none)."""
     _require_ported(cfg)
     if cfg.family == "hybrid":
         return zamba.zamba_prefill(params, batch["tokens"], cfg, attention=attention)
+    if cfg.family == "ssm":
+        return xlstm_lm.xlstm_prefill(params, batch["tokens"], cfg)
     return transformer.lm_prefill(params, batch["tokens"], cfg, attention=attention)
 
 
@@ -94,14 +104,20 @@ def decode_step(params: Model, cache, batch: Dict[str, Any], cfg):
     _require_ported(cfg)
     if cfg.family == "hybrid":
         return zamba.zamba_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
+    if cfg.family == "ssm":
+        return xlstm_lm.xlstm_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
     return transformer.lm_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
 
 
 def cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, Any]:
-    """{name: TensorSpec}; the hybrid's is nested, {"ssm": ..., "attn": ...}."""
+    """{name: TensorSpec}; the hybrid's is nested, {"ssm": ..., "attn": ...},
+    and so is the xLSTM's, {"m": ..., "s": ...} (float32 states, no
+    sequence axis)."""
     _require_ported(cfg)
     if cfg.family == "hybrid":
         return zamba.zamba_cache_spec(cfg, batch, seq_len, dtype)
+    if cfg.family == "ssm":
+        return xlstm_lm.xlstm_cache_spec(cfg, batch, seq_len, dtype)
     return transformer.lm_cache_spec(cfg, batch, seq_len, dtype)
 
 
@@ -182,15 +198,33 @@ def _assemble_hybrid(tree: Dict[str, Any], cfg, t) -> Zamba:
                  t(tree["lm_head"]))
 
 
+def _assemble_xlstm(tree: Dict[str, Any], cfg, t) -> XLSTM:
+    """The xLSTM from the reference's tree: ``pairs`` ({"m_norm", "mlstm":
+    {...}} and, with ``slstm_every``, {"s_norm", "slstm": {...}}, stacked
+    on P), ``embed``, ``final_norm``, ``lm_head``."""
+    pr = tree["pairs"]
+    norm = lambda w: RMSNorm(t(w), cfg.norm_eps)  # noqa: E731
+
+    def pair(i):
+        mixer = MLSTM(*(t(pr["mlstm"][k][i]) for k in MLSTM_NAMES))
+        if not cfg.slstm_every:
+            return XLSTMPair(norm(pr["m_norm"][i]), mixer)
+        return XLSTMPair(norm(pr["m_norm"][i]), mixer, norm(pr["s_norm"][i]),
+                         SLSTM(*(t(pr["slstm"][k][i]) for k in SLSTM_NAMES)))
+
+    return XLSTM(cfg, t(tree["embed"]), [pair(i) for i in range(xlstm_lm._n_pairs(cfg))],
+                 norm(tree["final_norm"]), t(tree["lm_head"]))
+
+
 def _assembler(cfg):
-    return _assemble_hybrid if cfg.family == "hybrid" else _assemble
+    return {"hybrid": _assemble_hybrid, "ssm": _assemble_xlstm}.get(cfg.family, _assemble)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Model:
-    """The reference's dense-, MoE- or hybrid-family params, GQA or MLA -- a
-    nest of dicts of numpy arrays, layer leaves stacked on a leading (L,
-    ...) axis, as ``jax.tree.map(np.asarray, params)`` gives them -- as the
-    port's model on ``device``."""
+    """The reference's dense-, MoE-, hybrid- or xLSTM-family params, GQA or
+    MLA -- a nest of dicts of numpy arrays, layer leaves stacked on a
+    leading (L, ...) axis, as ``jax.tree.map(np.asarray, params)`` gives
+    them -- as the port's model on ``device``."""
     _require_ported(cfg)
     dev = resolve_device(device)
     return _assembler(cfg)(tree, cfg, lambda a: _tensor(a, dev))
@@ -227,12 +261,25 @@ def _hybrid_tree(params: Zamba) -> Dict[str, Any]:
     }
 
 
+def _xlstm_tree(params: XLSTM) -> Dict[str, Any]:
+    pairs = list(params.pairs)
+    tree = {"m_norm": torch.stack([p.m_norm.weight.detach() for p in pairs]),
+            "mlstm": _stacked([p.mlstm for p in pairs], MLSTM_NAMES)}
+    if pairs[0].slstm is not None:
+        tree.update(s_norm=torch.stack([p.s_norm.weight.detach() for p in pairs]),
+                    slstm=_stacked([p.slstm for p in pairs], SLSTM_NAMES))
+    return {"embed": params.embed.detach(), "pairs": tree,
+            "final_norm": params.final_norm.weight.detach(), "lm_head": params.lm_head.detach()}
+
+
 def params_to_tree(params: Model) -> Dict[str, Any]:
     """The port's model as the reference's params tree of tensors on the
     model's device: layer leaves stacked on a leading (L, ...) axis (new
     tensors), the others the model's own."""
     if isinstance(params, Zamba):
         return _hybrid_tree(params)
+    if isinstance(params, XLSTM):
+        return _xlstm_tree(params)
     stack = lambda ts: torch.stack([x.detach() for x in ts])  # noqa: E731
     blocks = list(params.layers)
 

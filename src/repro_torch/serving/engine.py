@@ -15,7 +15,8 @@ layout) and dequantizes them to the engine's dtype on each prefill and
 decode call, as the reference does inside its jitted calls; the model run
 is the same.  On the card, prefill's attention launches the
 sliding-window attention kernel once per layer (the hybrid: once per
-application of its shared block), and decode launches none.
+application of its shared block; the xLSTM, which has no attention,
+never), and decode launches none.
 PyTorch runs eagerly, so nothing is compiled ahead.
 """
 from __future__ import annotations
@@ -75,10 +76,10 @@ class ServeEngine:
         of a flat or nested cache against :func:`cache_spec`'s tree, as the
         reference's ``jax.tree.map(fit, cache, spec)``: each leaf takes its
         spec's dtype (the engine's, or the spec's own: positions int32, a
-        Mamba2 layer's SSD state float32), ``pos`` is padded with -1 and
-        K/V with 0.  A cache longer than max_len (a ring cache of the
-        window's length with max_len below the window) raises, as the
-        reference's negative pad does."""
+        Mamba2 layer's SSD state and the xLSTM's states float32), ``pos``
+        is padded with -1 and K/V with 0.  A cache longer than max_len (a
+        ring cache of the window's length with max_len below the window)
+        raises, as the reference's negative pad does."""
         return self._fit(cache, cache_spec(self.cfg, batch, self.max_len, dtype=self.dtype))
 
     def _fit(self, cache: Dict[str, Any], spec: Dict[str, Any], path: str = "") -> Dict[str, Any]:

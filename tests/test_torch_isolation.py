@@ -113,6 +113,9 @@ def test_entry_points_default_to_the_card():
     hybrid_cfg = get_arch("zamba2").reduced()
     hybrid_model = init_params(hybrid_cfg, device="cpu")
     hybrid_tree = params_to_numpy(hybrid_model)
+    xlstm_cfg = get_arch("xlstm").reduced()
+    xlstm_model = init_params(xlstm_cfg, device="cpu")
+    xlstm_tree = params_to_numpy(xlstm_model)
     for call in (lambda: SeriesFrame.from_array(x), lambda: SeriesFrame.from_chunks([x]),
                  lambda: FrameSession(d=2, num_users=4),
                  lambda: StatPlan([autocovariance_request(2)], d=2),
@@ -130,6 +133,9 @@ def test_entry_points_default_to_the_card():
                  lambda: init_params(hybrid_cfg),
                  lambda: params_from_numpy(hybrid_tree, hybrid_cfg),
                  lambda: ServeEngine(hybrid_cfg, hybrid_model, max_len=8),
+                 lambda: init_params(xlstm_cfg), lambda: params_from_numpy(xlstm_tree, xlstm_cfg),
+                 lambda: ServeEngine(xlstm_cfg, xlstm_model, max_len=8, quantize=True),
+                 lambda: serve.main(["--arch", "xlstm", "--reduced"]),
                  lambda: serve.main(["--arch", "deepseek-v2", "--reduced"]),
                  lambda: serve.main(["--arch", "llama4", "--reduced"]),
                  lambda: serve.main(["--arch", "danube", "--reduced"]),
@@ -418,6 +424,50 @@ def test_hybrid_serving_runs_without_jax():
         "assert torch.equal(forward(back, {'tokens': tok}, cfg), logits)\n"
         "for quantize in (False, True):\n"
         "    eng = repro_torch.ServeEngine(cfg, lm, max_len=24, quantize=quantize, device='cpu')\n"
+        "    assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_xlstm_serving_runs_without_jax():
+    """The xLSTM mixers (models/xlstm.py), the LM (models/xlstm_lm.py), the
+    config shim, its weights carried out and in, the float32 state cache
+    and int8 serving, with JAX and the reference package unimportable: a
+    reduced xlstm-125m on the CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import numpy as np, torch, repro_torch\n"
+        "from repro_torch.configs import xlstm_125m\n"
+        "from repro_torch.models import (cache_spec, forward, params_from_numpy,\n"
+        "                                params_to_numpy, prefill, xlstm, xlstm_lm)\n"
+        "assert xlstm_125m.CONFIG.slstm_every == 2 and xlstm_125m.CONFIG.n_layers == 12\n"
+        "cfg = repro_torch.get_arch('xlstm').reduced()\n"
+        "lm = repro_torch.init_params(cfg, seed=0, dtype=torch.bfloat16, device='cpu')\n"
+        "assert isinstance(lm, xlstm_lm.XLSTM)\n"
+        "x = torch.randn(2, 40, cfg.d_model, dtype=torch.bfloat16)\n"
+        "y, st = xlstm.mlstm_apply(lm.pairs[0].mlstm, x, cfg, return_state=True)\n"
+        "assert y.shape == x.shape and st['C'].dtype == torch.float32\n"
+        "y, st = xlstm.slstm_apply(lm.pairs[0].slstm, x, cfg, return_state=True)\n"
+        "assert y.shape == x.shape and st['c'].dtype == torch.float32\n"
+        "tok = torch.zeros((2, 20), dtype=torch.long)\n"
+        "logits = forward(lm, {'tokens': tok}, cfg)\n"
+        "assert logits.shape == (2, 20, cfg.vocab) and torch.isfinite(logits).all()\n"
+        "_, cache = prefill(lm, {'tokens': tok}, cfg)\n"
+        "spec = cache_spec(cfg, 2, 20, dtype=torch.bfloat16)\n"
+        "assert cache['m']['C'].shape == tuple(spec['m']['C'].shape)\n"
+        "assert spec['s']['h'].dtype == torch.float32\n"
+        "back = params_from_numpy(params_to_numpy(lm), cfg, device='cpu')\n"
+        "assert torch.equal(forward(back, {'tokens': tok}, cfg), logits)\n"
+        "for quantize in (False, True):\n"
+        "    eng = repro_torch.ServeEngine(cfg, lm, max_len=24, dtype=torch.bfloat16,\n"
+        "                                  quantize=quantize, device='cpu')\n"
         "    assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"

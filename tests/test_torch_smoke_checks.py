@@ -1214,3 +1214,142 @@ def test_checked_attention_holds_each_call_and_catches_a_cut_window(cut):
     if cut == 0:
         assert report == [(0.0, 0.0), (0.0, 0.0)]
     assert not smoke.in_situ_ok([]) and not smoke.in_situ_ok([(0.0, 0.02)])
+
+
+# ---------------------------------------------------------- lm_xlstm checks
+def _xlstm(layers=None, dtype=torch.float32):
+    """Reduced xlstm-125m (one mLSTM -> sLSTM pair, d_model 64, 4 heads),
+    its depth as asked, on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    cfg = get_arch("xlstm").reduced()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, init_params(cfg, seed=0, dtype=dtype, device="cpu")
+
+
+def test_xlstm_bounds_at_full_width_and_depth():
+    """A prefill of 4 x 2,000 tokens through xlstm-125m's 6 pairs: bf16
+    products 1.474 TFLOP (the mLSTM's projections 1.0204, the sLSTM's gate
+    projection and FFN 0.4530, lm_head at the last position), the mLSTM's
+    float32 chunk products 0.1356 over the sequence padded to 2,048, the
+    sLSTM's recurrent products 0.0566; bound 4.359 ms by operations.  A
+    decode step: 0.383 GB (the matmul weights 0.191, lm_head 0.077, the
+    mLSTM's C read and written 0.113), bound 0.1144 ms by bytes.  The
+    weight bytes counted are a model's own (reduced: its parameters)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("xlstm")
+    work = smoke.xlstm_work(cfg, 4, 2000)
+    tflop = {k: work[k][1] / 1e12 for k in work}
+    assert tflop == pytest.approx({"embed": 0.0, "mlstm_projections": 1.020396,
+                                   "mlstm_scan": 0.135593, "slstm_recurrence": 0.0566231,
+                                   "slstm_projections": 0.452985, "norms": 0.0,
+                                   "lm_head": 0.000309068}, rel=1e-4)
+    assert work["mlstm_scan"][2] == work["slstm_recurrence"][2] == smoke.PEAK_FP32
+    assert work["lm_head"][2] == smoke.PEAK_BF16
+    pre = smoke.zamba_bounds(work)
+    assert pre["bound_by"] == "operations" and pre["bound_ms"] == pytest.approx(4.35898, rel=1e-4)
+    dec = smoke.zamba_bounds(smoke.xlstm_work(cfg, 4, 1))
+    assert dec["bound_by"] == "bytes" and dec["gbytes"] == pytest.approx(0.383111, rel=1e-5)
+    assert dec["bound_ms"] == pytest.approx(0.114362, rel=1e-4)
+    m_state = smoke.xlstm_work(cfg, 4, 1)["mlstm_scan"][0]
+    assert m_state == 2 * 6 * 4 * 4 * (384 * 384 + 384 + 1) * 4  # C, n, m read and written
+    red, model = _xlstm(dtype=torch.bfloat16)
+    w = smoke.xlstm_work(red, 1, 1)
+    weights = (w["mlstm_projections"][0] + w["slstm_projections"][0] + w["norms"][0]
+               + w["lm_head"][0] - red.vocab * 2 + red.vocab * red.d_model * 2
+               + w["slstm_recurrence"][0] - 4 * red.n_heads * (red.d_model // red.n_heads) * 4
+               * 2)  # lm_head's entry writes the logits, the recurrence's moves the states
+    assert weights == sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def test_mlstm_recurrence_check_passes_and_catches_the_dropped_mask():
+    """Layer 0's mLSTM over B = 2, S = 150 (three chunks of 64, the last
+    padded) against its recurrence: well inside the limit; with the causal
+    mask on the log weights dropped the outputs read later sources and fail
+    it, while the chunk-end state (which the mask does not touch) holds."""
+    cfg, model = _xlstm()
+    mixer = model.pairs[0].mlstm
+    x = torch.randn((2, 150, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    report, step = smoke.mlstm_recurrence_check(mixer, x, cfg)
+    assert report["ok"] and report["steps"] == 150 and report["finite"]
+    assert max(report["rel_err"].values()) < 1e-5
+    with smoke.planted_unmasked_log_weights():
+        fault, again = smoke.mlstm_recurrence_check(mixer, x, cfg, step=step)
+    assert again is step and not fault["ok"] and fault["rel_err"]["output"] > 0.1
+    assert fault["rel_err"]["C_exp_m"] < 1e-5
+    from repro_torch.models import xlstm
+
+    g = torch.Generator().manual_seed(2)
+    cf, li = -torch.rand((2, 3, 8), generator=g).cumsum(-1), torch.randn((2, 3, 8), generator=g)
+    masked = xlstm._log_weights(cf, li)
+    lower = torch.ones((8, 8), dtype=torch.bool).tril()
+    assert torch.equal(masked[..., lower], smoke.unmasked_log_weights(cf, li)[..., lower])
+    assert torch.isneginf(masked[..., ~lower]).all()
+
+
+def test_slstm_carry_check_passes_and_catches_the_restart():
+    """Layer 1's sLSTM over B = 2, S = 120 split at 50: the two segments
+    equal one pass; the second restarted from the fresh state fails."""
+    cfg, model = _xlstm()
+    x = torch.randn((2, 120, cfg.d_model), generator=torch.Generator().manual_seed(3))
+    report = smoke.slstm_carry_check(model.pairs[0].slstm, x, cfg, 50)
+    assert report["ok"] and max(report["excess_over_tol"].values()) <= 1.0
+    fault = smoke.slstm_carry_check(model.pairs[0].slstm, x, cfg, 50, restart=True)
+    assert not fault["ok"] and fault["excess_over_tol"]["output"] > 10
+
+
+def test_xlstm_teacher_forced_steps_are_the_generate_logits():
+    """The teacher-forced prefill and decode steps on a generate's tokens
+    give that generate's logits, bitwise, and a float32 copy of a bf16
+    model computes in float32 with the same values."""
+    from repro_torch.serving import ServeEngine
+
+    cfg, model = _xlstm(layers=4)
+    prompts = torch.randint(0, cfg.vocab, (2, 30), generator=torch.Generator().manual_seed(4))
+    res = ServeEngine(cfg, model, max_len=36, device="cpu").generate(prompts, 5, keep_logits=True)
+    forced = smoke.xlstm_teacher_forced(model, cfg, prompts, torch.from_numpy(res.tokens))
+    assert torch.equal(forced, res.logits)
+    _, bf16 = _xlstm(layers=4, dtype=torch.bfloat16)
+    f32 = smoke.float_model(bf16, cfg, torch.device("cpu"))
+    assert all(p.dtype == torch.float32 for p in f32.parameters())
+    assert torch.equal(f32.pairs[1].slstm.r_gates, bf16.pairs[1].slstm.r_gates.float())
+
+
+def test_xlstm_ranged_profile_finds_each_group_on_the_cpu():
+    """A reduced xLSTM prefill (S = 100: two chunks) and decode step in
+    XLSTM_OPS' ranges: each mLSTM's four projections, each chunk's six
+    products (a decode step's one readout), each sLSTM step's recurrent
+    baddbmm, the sLSTM's gate projection and two FFN products, lm_head;
+    none outside the block.  :func:`smoke.xlstm_groups` splits the device
+    time into its eight groups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, prefill
+
+    cfg, model = _xlstm()
+    tokens = torch.randint(0, cfg.vocab, (2, 100), generator=torch.Generator().manual_seed(5))
+    _, cache = prefill(model, {"tokens": tokens}, cfg)
+    names = tuple(smoke.XLSTM_OPS)
+    for call, want in ((lambda: prefill(model, {"tokens": tokens}, cfg),
+                        {"scan_products": 12, "step_products": 0, "recurrent_products": 100}),
+                       (lambda: decode_step(model, cache, {"tokens": tokens[:, -1], "pos": 100},
+                                            cfg),
+                        {"scan_products": 0, "step_products": 1, "recurrent_products": 1})):
+        with smoke.moe_ranged(names), profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        split = smoke.split_events(prof.events(), ranges=smoke.XLSTM_OPS)
+        assert split.pop("calls") == {"mlstm_projections": 4, "slstm_gate_projection": 1,
+                                      "ffn_products": 2, "head_products": 1, **want}
+        groups = smoke.xlstm_groups(split)
+        assert set(groups) == {"mlstm_projections", "mlstm_scan", "slstm_recurrence",
+                               "slstm_gate_projection", "slstm_ffn", "norms_and_gates",
+                               "lm_head", "rest"}
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        assert set(smoke.split_events(prof.events(), ranges=smoke.XLSTM_OPS)[
+            "calls"].values()) == {0}
