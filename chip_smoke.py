@@ -34,7 +34,12 @@ shared-attention hybrid: the prefill through kernel 8 at head dim 112, G =
 its recurrence), and xlstm-125m at full width and full depth (the xLSTM
 family: mLSTM and sLSTM mixers in plain PyTorch, no kernel on the path;
 held in float32 against the CPU, its chunked mLSTM against its recurrence,
-its sLSTM across segments); then the paper's last estimators at its
+its sLSTM across segments), whisper-base at full width and full depth (the
+encoder-decoder: the decoder's causal self-attention prefill through kernel
+8 at head dim 64, G = 1, the encoder and cross-attention bidirectional in
+plain PyTorch; held in float32 against the CPU) and llava-next-34b at full
+width (the VLM: 2,880 stub patch embeddings before the text, every layer's
+prefill through kernel 8 at 128, G = 7); then the paper's last estimators at its
 own VAR workload sizes (``configs/paper_var.py``: the §5 conditional MLE by
 gradient descent and SGD, ARMA and MA fits from kernel 2's
 autocovariances, the §6 banded fit with kernels 7 and 7b, differencing)
@@ -102,7 +107,14 @@ S = 8,000, G = 1, D = 112).  lm_xlstm: xlstm-125m (6 pairs of mLSTM ->
 sLSTM, d_model 768, 4 heads, the mLSTM's d_in 1,536, vocab 50,304) in bf16
 with no cut (0.35 GB of weights), 4 prompts of 2,000 tokens (the serial
 sLSTM runs 12,000 eager steps a prefill), 32 new each; its profiled
-prefill **cut** to 500 tokens.  paper_var:
+prefill **cut** to 500 tokens.  lm_whisper: whisper-base (6 encoder and 6
+decoder layers, d_model 512, 8 heads of 64, d_ff 2,048, vocab 51,865) in
+bf16 with no cut (0.22 GB of weights), 32 clips of 1,500 stub frames, a
+192-token decoder prompt and 64 new tokens each, max_len 256.  lm_llava:
+llava-next-34b (60 layers, d_model 7,168, 56 / 8 heads of 128, d_ff
+20,480, vocab 64,000, 2,880 patches) in bf16 at depth LLAVA_LAYERS (60:
+no cut, 68.9 GB of weights), 4 requests of 2,880 stub patch embeddings
+and 512 text tokens, 32 new each.  paper_var:
 var-dense-small (n = 100,000, d = 8, p = 3) and var-dense-wide (n =
 1,000,000, d = 64, p = 2), each fit_ar_mle for 200 steps at block size
 4,096 (a second fit of 100 steps updates the precision every 50, and a
@@ -361,6 +373,73 @@ RANGE_TARGETS.update({XLSTM_MLSTM_RANGE: ("repro_torch.models.xlstm_lm", "mlstm_
                       XLSTM_REC_RANGE: ("repro_torch.models.xlstm", "_slstm_scan"),
                       XLSTM_FFN_RANGE: ("repro_torch.models.xlstm", "_slstm_ffn"),
                       XLSTM_HEAD_RANGE: ("repro_torch.models.xlstm_lm", "_logits")})
+# lm_whisper: whisper-base at full width and full depth (6 encoder and 6
+# decoder layers, d_model 512, 8 heads of 64, d_ff 2,048, vocab 51,865; the
+# reference's backbone: rope, RMSNorm, SwiGLU, a separate lm_head; the audio
+# frontend a stub, `models.vlm_stub.fake_frame_embeds`) in bf16: 32 clips of
+# WHISPER_FRAMES encoder frames (Whisper's 30-second window after its two
+# stride-2 convolutions), each with a WHISPER_PROMPT-token decoder prompt
+# (the previous segment's text and the start-of-transcript tokens, as in
+# long-form transcription) and WHISPER_NEW greedy new tokens, capacity
+# WHISPER_MAX_LEN.  The prefill runs kernel 8 at WHISPER_SWA (B, S, H, KVH,
+# D), W = S, G = 1, once a decoder layer; the encoder's self-attention and
+# every cross-attention are bidirectional plain PyTorch
+# (`encdec.full_attention`).  Checks: (1) the card against the CPU in
+# float32 over WHISPER_CHECK_BATCH clips and WHISPER_CHECK_STEPS decode
+# steps, logits within WHISPER_LOGITS_TOL of each row's max|logit|; (2)
+# kernel 8 against the plain path, each decoder layer in situ and the
+# logits against the floor (lm_zamba's rule), the window cut by SWA_FAULT
+# keys must fail; (3) the encoder run causal (a planted fault) must fail
+# check 1's limit; (4) the cross K/V padded by WHISPER_CROSS_PAD zero
+# positions (a planted fault) must fail check 1's limit; (5) greedy tokens
+# against a teacher-forced full forward where the top-2 margin decides;
+# (6) kernel 8 once a decoder layer a prefill, never in the encoder,
+# cross-attention or decode; the other kernels never.
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_FRAMES = "whisper", 32, 1500
+WHISPER_PROMPT, WHISPER_NEW, WHISPER_MAX_LEN = 192, 64, 256
+WHISPER_CHECK_BATCH, WHISPER_CHECK_STEPS, WHISPER_LOGITS_TOL = 2, 4, 1e-4
+WHISPER_CROSS_PAD = 64
+WHISPER_SWA = (32, 192, 8, 8, 64)
+# each decoder layer's self-attention, its cross-attention, the cross K/V
+# projections and each MLP in profiler ranges; `encdec.full_attention` in
+# one of two, by its caller: the encoder's self-attention or a
+# cross-attention (`whisper_ranged`)
+WHISPER_SELF_RANGE, WHISPER_CROSS_RANGE = "lm_whisper.self_attn_apply", "lm_whisper.cross_attn_apply"
+WHISPER_XKV_RANGE, WHISPER_MLP_RANGE = "lm_whisper.cross_kv_apply", "lm_whisper.mlp_apply"
+WHISPER_ENC_ATTN_RANGE = "lm_whisper.encoder_attention_apply"
+WHISPER_XATTN_RANGE = "lm_whisper.cross_attention_apply"
+WHISPER_OPS = {WHISPER_SELF_RANGE: {"self_projections": _MM},
+               WHISPER_CROSS_RANGE: {"cross_projections": _MM},
+               WHISPER_XKV_RANGE: {"cross_kv_projections": _MM},
+               WHISPER_MLP_RANGE: {"mlp_products": _MM},
+               WHISPER_ENC_ATTN_RANGE: {"encoder_attention_products": ("aten::einsum",)},
+               WHISPER_XATTN_RANGE: {"cross_attention_products": ("aten::einsum",)}}
+RANGE_TARGETS.update({WHISPER_SELF_RANGE: ("repro_torch.models.encdec", "_self_attn"),
+                      WHISPER_XKV_RANGE: ("repro_torch.models.encdec", "_cross_kv"),
+                      WHISPER_MLP_RANGE: ("repro_torch.models.layers", "MLP.forward")})
+# lm_llava: llava-next-34b at full width (60 layers, d_model 7,168, 56 query
+# and 8 KV heads of 128 (G = 7), d_ff 20,480, vocab 64,000, rope theta 5e6;
+# the vision tower a stub, `models.vlm_stub.fake_patch_embeds`, through
+# patch_proj (7,168 x 7,168)) in bf16: 34.44e9 parameters, 68.9 GB, depth
+# LLAVA_LAYERS.  LLAVA_BATCH requests, each one image at the anyres budget
+# of 2,880 patch embeddings and LLAVA_PROMPT text tokens, LLAVA_NEW greedy
+# new tokens.  Its prefill runs kernel 8 at LLAVA_SWA (B, S = 2,880 + 512,
+# H, KVH, D), W = S, G = 7, once a layer.  Checks: (1) kernel 8 against the
+# plain path as lm_whisper's check 2 (the plain version in query chunks of
+# LLAVA_PLAIN_CHUNK: (4, 8, 7, 256, 3,392) float32 logits, 0.78 GB, a few
+# times over beside 68.9 GB of weights); (2) decode from pos0 = S_text (the
+# patches forgotten) must fail against decode from S_text + n_patches; (3)
+# greedy tokens against a teacher-forced full forward; (4) kernel 8 once a
+# layer a prefill, never in decode.
+LLAVA_ARCH, LLAVA_BATCH, LLAVA_PROMPT, LLAVA_NEW = "llava", 4, 512, 32
+LLAVA_LAYERS = 60
+LLAVA_SWA = (4, 3392, 56, 8, 128)
+LLAVA_PLAIN_CHUNK = 256
+LLAVA_ATTN_RANGE, LLAVA_MLP_RANGE = "lm_llava.attention_apply", "lm_llava.mlp_apply"
+LLAVA_OPS = {LLAVA_ATTN_RANGE: {"attention_projections": _MM},
+             LLAVA_MLP_RANGE: {"mlp_products": _MM}}
+RANGE_TARGETS.update({LLAVA_ATTN_RANGE: "attention_apply",
+                      LLAVA_MLP_RANGE: ("repro_torch.models.layers", "MLP.forward")})
 # Kernel 8 per entry against its row's max|v| (an output row is a convex
 # combination of its window's rows of v): f32 1e-5 (both sides accumulate in
 # f32 in another order); bf16 1e-2 (P is rounded to bf16 before P V on both
@@ -1361,17 +1440,19 @@ def moe_ranged(names=(MOE_RANGE,)):
         yield
 
 
-def moe_device_split(fn, calls: int = 1, ranges=None, warm: bool = True) -> dict:
+def moe_device_split(fn, calls: int = 1, ranges=None, warm: bool = True,
+                     ranged=None) -> dict:
     """:func:`split_events` of ``calls`` calls of ``fn`` (after one warm-up
     unless not ``warm``) with each range's function in its range (default:
-    each MoE layer), per call, with the wall ms per call."""
+    each MoE layer; ``ranged``: another context of :func:`moe_ranged`'s
+    signature), per call, with the wall ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     ranges = {MOE_RANGE: MOE_OPS} if ranges is None else ranges
     if warm:
         fn()
     torch.cuda.synchronize()
-    with moe_ranged(tuple(ranges)), profile(activities=[ProfilerActivity.CPU,
+    with (ranged or moe_ranged)(tuple(ranges)), profile(activities=[ProfilerActivity.CPU,
                                                         ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
@@ -1768,17 +1849,27 @@ def slstm_carry_check(mixer, x, cfg, split: int, tol: float = XLSTM_SLSTM_TOL,
             "ok": bool(torch.isfinite(y).all()) and all(e <= 1.0 for e in worst.values())}
 
 
-def xlstm_teacher_forced(model, cfg, prompts, tokens) -> "torch.Tensor":
-    """The logits (B, T, V) float32 of a prefill over ``prompts`` and T - 1
-    decode steps fed ``tokens`` (B, T)[:, :-1]: the steps a generate of T
-    tokens takes, on another model or device."""
+def teacher_forced(model, cfg, prompts, tokens, extra=None, grow=None, pos0=None,
+                   attention=None) -> "torch.Tensor":
+    """The logits (B, T, V) float32 of a prefill over ``prompts`` (and the
+    ``extra`` inputs: frames, patch embeddings; through ``attention``, by
+    default the kernel's wrapper) and T - 1 decode steps fed ``tokens``
+    (B, T)[:, :-1] from ``pos0`` (default: where a generate starts, after
+    the VLM's patches): the steps a generate of T tokens takes, on another
+    model, device or attention.  ``grow`` fits the prefill's cache to a
+    capacity (an engine's ``_grow_cache``) where decode needs one."""
     from repro_torch.models import decode_step, prefill
 
-    logits, cache = prefill(model, {"tokens": prompts}, cfg)
+    logits, cache = prefill(model, {"tokens": prompts, **(extra or {})}, cfg,
+                            attention=attention)
+    if grow is not None:
+        cache = grow(cache, prompts.shape[0])
+    if pos0 is None:
+        pos0 = prompts.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
     steps = [logits.float()]
     for i in range(1, tokens.shape[1]):
         logits, cache = decode_step(model, cache, {"tokens": tokens[:, i - 1],
-                                                   "pos": prompts.shape[1] + i - 1}, cfg)
+                                                   "pos": pos0 + i - 1}, cfg)
         steps.append(logits.float())
     return torch.stack(steps, 1)
 
@@ -1790,6 +1881,191 @@ def float_model(params, cfg, device):
 
     return params_from_tree(tree_map(lambda t: t.to(device, torch.float32),
                                      params_to_tree(params)), cfg)
+
+
+def whisper_work(cfg, b: int, enc_len: int, q_len: int = 0, kv_len: int = None) -> dict:
+    """{op: (bytes, operations, peak rate)} in bf16 of b clips of enc_len
+    frames through the encoder alone (q_len = 0), a prefill (q_len = kv_len
+    = S_dec: the encoder, each decoder layer's cross K/V and the decoder)
+    or a decode step (q_len = 1 against kv_len cached self keys and the
+    enc_len cross keys).  Each weight read once, the frames read (and the
+    encoder's states written when it runs alone), the token embeddings
+    gathered, the last position's logits written; the prefill writes the
+    self and cross caches, a decode step reads them.  Operations: 2 a
+    multiply-add of every matrix product; attention 4 hd a (query, key)
+    pair of each head: every pair in the encoder and cross-attention, the
+    causal pairs in the prefill's self-attention, the cached keys in
+    decode."""
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    le, ld, v = cfg.enc_layers, cfg.n_layers, cfg.vocab
+    attn_w = d * (h + 2 * kvh) * hd + h * hd * d  # one self-attention's projections
+    cross_qo, cross_kv, mlp_w = 2 * d * h * hd, 2 * d * kvh * hd, 3 * d * cfg.d_ff
+    kv_row = kvh * hd * 2 * 2  # one position's K and V
+    te = b * enc_len
+    work = {}
+    if q_len != 1:  # the encoder runs
+        work["frames"] = (te * d * 2 * (2 if q_len == 0 else 1), 0, PEAK_BF16)
+        work["encoder_projections"] = ((attn_w + 2 * d) * le * 2 + d * 2,
+                                       2 * te * attn_w * le, PEAK_BF16)
+        work["encoder_mlp"] = (mlp_w * le * 2, 2 * te * mlp_w * le, PEAK_BF16)
+        work["encoder_attention"] = (0, 4 * hd * b * h * enc_len * enc_len * le, PEAK_BF16)
+    if q_len == 0:
+        return work
+    kv_len = q_len if kv_len is None else kv_len
+    td = b * q_len
+    prefill = q_len == kv_len
+    pairs = b * h * q_len * (q_len + 1) // 2 if prefill else b * h * kv_len
+    cross_cache = ld * te * kv_row
+    work["embed"] = (td * d * 2 * 2, 0, PEAK_BF16)
+    work["decoder_projections"] = ((attn_w + cross_qo + 3 * d) * ld * 2 + d * 2,
+                                   2 * td * (attn_w + cross_qo) * ld, PEAK_BF16)
+    if prefill:
+        work["cross_kv"] = (cross_kv * ld * 2 + cross_cache, 2 * te * cross_kv * ld, PEAK_BF16)
+    work["decoder_mlp"] = (mlp_w * ld * 2, 2 * td * mlp_w * ld, PEAK_BF16)
+    work["self_attention"] = (ld * b * kv_len * kv_row, 4 * hd * pairs * ld, PEAK_BF16)
+    work["cross_attention"] = (0 if prefill else cross_cache,
+                               4 * hd * b * h * q_len * enc_len * ld, PEAK_BF16)
+    work["lm_head"] = (d * v * 2 + b * v * 2, 2 * b * d * v, PEAK_BF16)
+    return work
+
+
+def llava_work(cfg, b: int, text_len: int, kv_len: int = None) -> dict:
+    """{op: (bytes, operations, peak rate)} in bf16 of a prefill (kv_len
+    None: n_patches + text_len positions, the patch embeddings through
+    patch_proj) or a decode step (one token against kv_len cached keys) of
+    b requests through the VLM.  Each weight read once, the inputs read,
+    the KV cache written (prefill) or read (decode), the last position's
+    logits written; 2 operations a multiply-add, attention 4 hd a causal
+    (query, key) pair of each head (a cached key in decode)."""
+    d, h, kvh, hd, n_l, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                             cfg.n_layers, cfg.vocab)
+    attn_w = d * (h + 2 * kvh) * hd + h * hd * d
+    mlp_w = 3 * d * cfg.d_ff
+    kv_row = kvh * hd * 2 * 2
+    if kv_len is None:
+        q = s = cfg.n_patches + text_len
+        pairs = b * h * q * (q + 1) // 2
+        work = {"patch_proj": (d * d * 2 + b * cfg.n_patches * d * 2,
+                               2 * b * cfg.n_patches * d * d, PEAK_BF16),
+                "embed": (b * text_len * d * 2 * 2, 0, PEAK_BF16)}
+    else:
+        q, s = 1, kv_len
+        pairs = b * h * kv_len
+        work = {"embed": (b * d * 2 * 2, 0, PEAK_BF16)}
+    t = b * q
+    work.update({
+        "projections": ((attn_w + 2 * d) * n_l * 2 + d * 2, 2 * t * attn_w * n_l, PEAK_BF16),
+        "mlp": (mlp_w * n_l * 2, 2 * t * mlp_w * n_l, PEAK_BF16),
+        "attention": (n_l * b * s * kv_row, 4 * hd * pairs * n_l, PEAK_BF16),
+        "lm_head": (d * v * 2 + b * v * 2, 2 * b * d * v, PEAK_BF16),
+    })
+    return work
+
+
+@contextlib.contextmanager
+def whisper_ranged(names):
+    """:func:`moe_ranged` over ``names``, with the two ranges that are no
+    function's: `encdec.full_attention` runs in WHISPER_XATTN_RANGE when a
+    cross-attention (itself in WHISPER_CROSS_RANGE) calls it, else (the
+    encoder's self-attention) in WHISPER_ENC_ATTN_RANGE."""
+    from unittest import mock
+
+    from torch.profiler import record_function
+
+    from repro_torch.models import encdec
+
+    cross, full = encdec._cross_attn, encdec.full_attention
+    inside = []
+
+    def ranged_cross(*a, **kw):
+        inside.append(True)
+        try:
+            with record_function(WHISPER_CROSS_RANGE):
+                return cross(*a, **kw)
+        finally:
+            inside.pop()
+
+    def ranged_full(*a, **kw):
+        with record_function(WHISPER_XATTN_RANGE if inside else WHISPER_ENC_ATTN_RANGE):
+            return full(*a, **kw)
+
+    own = (WHISPER_CROSS_RANGE, WHISPER_XATTN_RANGE, WHISPER_ENC_ATTN_RANGE)
+    with mock.patch.object(encdec, "_cross_attn", ranged_cross), \
+            mock.patch.object(encdec, "full_attention", ranged_full), \
+            moe_ranged(tuple(n for n in names if n not in own)):
+        yield
+
+
+def whisper_groups(split: dict) -> dict:
+    """A profiled whisper call's device ms by group, from
+    :func:`split_events` over WHISPER_OPS' ranges: the encoder's attention
+    and the cross-attention (each `full_attention`: products, float32
+    softmax, casts), kernel 8, the projections (self, cross q/o, cross
+    K/V), the MLPs, the self-attention's rest (rope, the decode step's
+    attention), and the rest (norms, residual adds, embedding, lm_head)."""
+    groups = {"encoder_attention": split[WHISPER_ENC_ATTN_RANGE],
+              "cross_attention": split[WHISPER_XATTN_RANGE], "kernel8": split[KERNEL8_NAME],
+              "projections": split["self_projections"] + split["cross_projections"]
+              + split["cross_kv_projections"], "mlp": split[WHISPER_MLP_RANGE],
+              "self_attention_other": split["self_attn_other"]}
+    groups["rest"] = split["total"] - sum(groups.values())
+    return groups
+
+
+def llava_groups(split: dict) -> dict:
+    """A profiled llava call's device ms by group: the attention
+    projections, kernel 8, the attention's rest (rope, the decode step's
+    attention), the MLPs, and the rest (norms, residuals, patch_proj,
+    embedding, lm_head)."""
+    groups = {"projections": split["attention_projections"], "kernel8": split[KERNEL8_NAME],
+              "attention_other": split["attention_other"], "mlp": split[LLAVA_MLP_RANGE]}
+    groups["rest"] = split["total"] - sum(groups.values())
+    return groups
+
+
+@contextlib.contextmanager
+def planted_causal_encoder():
+    """The planted fault of lm_whisper's check 3: the encoder's
+    self-attention made causal (the plain chunked version), the decoder's
+    and every cross-attention left as they are."""
+    from unittest import mock
+
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import encdec
+
+    self_attn = encdec._self_attn
+
+    def causal_encoder(p, x, cfg, positions, causal, **kw):
+        if not causal:
+            return self_attn(p, x, cfg, positions, True, attention=swa_attention_chunked)
+        return self_attn(p, x, cfg, positions, causal, **kw)
+
+    with mock.patch.object(encdec, "_self_attn", causal_encoder):
+        yield
+
+
+def padded_cross(grow, pad: int):
+    """The planted fault of lm_whisper's check 4: an engine's ``_grow_cache``
+    whose cross K/V gains ``pad`` zero positions (what fitting the cross
+    cache to a longer capacity would do)."""
+    def padded(cache, batch):
+        out = grow(cache, batch)
+        out["cross"] = {name: torch.cat([t, t.new_zeros(t.shape[:2] + (pad,) + t.shape[3:])], 2)
+                        for name, t in out["cross"].items()}
+        return out
+    return padded
+
+
+def prefill_launches_ok(report: dict, layers: int) -> bool:
+    """Kernel 8 pinned on a serving path: once a layer (the
+    encoder-decoder's: a decoder layer) in each prefill, the generate's
+    and the split one, and never in any other call counted (the encoder, a
+    cross-attention, decode); no other kernel in the generate.  ``report``:
+    {"swa_attention": {call: launches}, "other_kernels": {name: launches}}."""
+    swa = report["swa_attention"]
+    return (swa["generate"] == swa["prefill"] == layers
+            and all(n == 0 for call, n in swa.items() if call not in ("generate", "prefill"))
+            and all(n == 0 for n in report["other_kernels"].values()))
 
 
 def stats_paths(args, dev, lagmom_fault) -> dict:
@@ -4238,10 +4514,11 @@ def gateway_chaos(args, dev, bins, run, ckdir) -> dict:
 
 def swa_kernel(args, dev) -> dict:
     """Phase 9: kernel 8 against the chunked plain version at the prefill's
-    layer shape, lm_moe's, lm_mla's (q/k 192, v 128) and lm_zamba's (112, G
-    = 1), and over an edge grid with q/k and v of one width and of two
-    (bf16 and f32), then timed at the four layer shapes beside its bound,
-    the plain version and SDPA."""
+    layer shape, lm_moe's, lm_mla's (q/k 192, v 128), lm_zamba's (112, G =
+    1), lm_whisper's (64, G = 1) and lm_llava's (128, G = 7), and over an
+    edge grid with q/k and v of one width and of two (bf16 and f32), then
+    timed at the six layer shapes beside its bound, the plain version and
+    SDPA."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.swa_attention import ops as sw, ref as swr
@@ -4304,6 +4581,13 @@ def swa_kernel(args, dev) -> dict:
     b, s, h, d = ZAMBA_SWA
     zamba = qkv(b, s, h, h, d, torch.bfloat16)
     parity["zamba_layer_shape"] = case(*zamba, s, fault=True, chunk=ZAMBA_PLAIN_CHUNK)
+    # lm_whisper's decoder prefill: 8 heads of 64, G = 1, W = S = 192 (the
+    # (64, 64) instantiation); lm_llava's: 56 / 8 heads of 128, G = 7, W = S
+    whisper = qkv(*WHISPER_SWA, torch.bfloat16)
+    parity["whisper_layer_shape"] = case(*whisper, WHISPER_SWA[1], fault=True)
+    llava = qkv(*LLAVA_SWA, torch.bfloat16)
+    parity["llava_layer_shape"] = case(*llava, LLAVA_SWA[1], fault=True,
+                                       chunk=LLAVA_PLAIN_CHUNK)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for name, (s, w, g, d, *bk) in SWA_EDGE.items():
             b, kvh = bk or (1, 2)
@@ -4381,18 +4665,21 @@ def swa_kernel(args, dev) -> dict:
     return {"parity": parity, "timing": timing, "bound": (b_ms, b_by),
             "llama4": swa_llama4_timing(llama4),
             "mla": swa_causal_timing(mla, "timing_swa_attention_mla", MOE_PLAIN_CHUNK),
-            "zamba": swa_causal_timing(zamba, "timing_swa_attention_zamba", ZAMBA_PLAIN_CHUNK)}
+            "zamba": swa_causal_timing(zamba, "timing_swa_attention_zamba", ZAMBA_PLAIN_CHUNK),
+            "whisper": swa_causal_timing(whisper, "timing_swa_attention_whisper", 512),
+            "llava": swa_causal_timing(llava, "timing_swa_attention_llava", LLAVA_PLAIN_CHUNK)}
 
 
 def swa_causal_timing(qkv, phase: str, chunk: int) -> dict:
-    """Kernel 8 timed at a prefill layer shape with G = 1 and W = S (plain
-    causal attention: lm_mla's q/k 192, v 128; lm_zamba's 112) beside its
-    bound, the chunked plain version (query chunks of ``chunk``) and the
-    library call of the same function,
-    ``F.scaled_dot_product_attention(is_causal=True)``: each backend is
-    tried on the tensors as they are, FLASH (one head dim) on v padded with
-    zero columns to q's width where v is narrower and its output sliced
-    back; each must agree with the plain version, and the fastest is
+    """Kernel 8 timed at a prefill layer shape with W = S (plain causal
+    attention: lm_mla's q/k 192, v 128; lm_zamba's 112; lm_whisper's 64;
+    lm_llava's 128 at G = 7) beside its bound, the chunked plain version
+    (query chunks of ``chunk``) and the library call of the same function,
+    ``F.scaled_dot_product_attention(is_causal=True)``, with
+    ``enable_gqa=True`` where K/V have fewer heads: each backend is tried
+    on the tensors as they are, FLASH (one head dim) on v padded with zero
+    columns to q's width where v is narrower and its output sliced back;
+    each must agree with the plain version, and the fastest is
     library_ms."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -4400,7 +4687,8 @@ def swa_causal_timing(qkv, phase: str, chunk: int) -> dict:
 
     q, k, v = qkv
     b, s, h, d = q.shape
-    dv = v.shape[-1]
+    kvh, dv = k.shape[2], v.shape[-1]
+    gqa = {"enable_gqa": True} if kvh != h else {}
     scale = d ** -0.5
     prep = sw.prepare_swa_attention(q, k, v, s, scale)
     samples = graph_ms([prep.launch])
@@ -4411,7 +4699,7 @@ def swa_causal_timing(qkv, phase: str, chunk: int) -> dict:
         def call():
             with sdpa_kernel(backend):
                 out = torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vpad if padded else vt, is_causal=True, scale=scale)
+                    qt, kt, vpad if padded else vt, is_causal=True, scale=scale, **gqa)
             return out[..., :dv] if padded else out
         return call
 
@@ -4435,7 +4723,7 @@ def swa_causal_timing(qkv, phase: str, chunk: int) -> dict:
     if not agreeing:
         fail(f"no SDPA backend computes {phase}'s attention", backends=library)
     best = min(agreeing, key=lambda n: agreeing[n]["ms"])
-    nbytes, flops = swa_work(b, s, h, h, d, s, 2, dv=dv)
+    nbytes, flops = swa_work(b, s, h, kvh, d, s, 2, dv=dv)
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
     ms = samples[len(samples) // 2]
     timing = {"ms": ms, "ms_samples": samples,
@@ -4443,12 +4731,13 @@ def swa_causal_timing(qkv, phase: str, chunk: int) -> dict:
               "plain_ms": cuda_ms(lambda: swr.swa_attention_chunked(
                   q, k, v, s, chunk=chunk), 2, warmup=1),
               "library_ms": agreeing[best]["ms"]}
+    call = "is_causal=True, enable_gqa=True" if gqa else "is_causal=True"
     emit({"phase": phase,
-          "shape": f"q ({b}, {s}, {h}, {d}), k ({b}, {s}, {h}, {d}), v ({b}, {s}, {h}, {dv}) "
-                   f"bf16, W=S={s}, G=1",
+          "shape": f"q ({b}, {s}, {h}, {d}), k ({b}, {s}, {kvh}, {d}), v ({b}, {s}, {kvh}, "
+                   f"{dv}) bf16, W=S={s}, G={h // kvh}",
           **timing, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
           "gbytes": nbytes / 1e9, "tflop": flops / 1e12, "tflop_per_s": flops / ms / 1e9,
-          "library_call": f"F.scaled_dot_product_attention(is_causal=True) under {best}: the "
+          "library_call": f"F.scaled_dot_product_attention({call}) under {best}: the "
                           "same function", "library_backends": library,
           "note": "ms: median of CUDA-graph replays of the prepared launch; the others CUDA "
                   f"events around calls from the host; plain_ms in query chunks of {chunk}"})
@@ -6092,7 +6381,7 @@ def lm_xlstm(args, dev) -> dict:
     tokens32 = torch.from_numpy(served32.tokens).to(dev)
     card = served32.logits[:, :XLSTM_CHECK_STEPS + 1]
     t0 = time.perf_counter()
-    cpu = xlstm_teacher_forced(float_model(params, cfg, torch.device("cpu")), cfg, short.cpu(),
+    cpu = teacher_forced(float_model(params, cfg, torch.device("cpu")), cfg, short.cpu(),
                                tokens32[:, :XLSTM_CHECK_STEPS + 1].cpu())
     cpu_ms = (time.perf_counter() - t0) * 1e3
     card_cpu = row_rel_errors(card.cpu(), cpu)
@@ -6150,7 +6439,7 @@ def lm_xlstm(args, dev) -> dict:
     # 5: the bf16 serve finite and of its shape; its distance from float32 on
     # the same weights, teacher-forced on the served tokens: the floor
     served = res.logits
-    plain32 = xlstm_teacher_forced(f32, cfg, prompts, tokens)
+    plain32 = teacher_forced(f32, cfg, prompts, tokens)
     floor = {"prefill": row_rel_errors(served[:, 0], plain32[:, 0]).max().item(),
              "decode": row_rel_errors(served[:, 1:], plain32[:, 1:]).max().item()}
     decided16, wrong16 = greedy_disagreements(plain32, tokens, max(floor.values()))
@@ -6193,6 +6482,456 @@ def lm_xlstm(args, dev) -> dict:
     emit(out)
     if not out["ok"]:
         fail("lm_xlstm")
+    return by_kernel
+
+
+def lm_whisper(args, dev) -> dict:
+    """Phase lm_whisper: whisper-base at full width and full depth (6 + 6
+    layers), bf16 weights from ``--seed``, WHISPER_BATCH clips of
+    WHISPER_FRAMES stub frames, WHISPER_PROMPT prompt tokens and
+    WHISPER_NEW greedy new tokens each through ``ServeEngine.generate``
+    (``extra={"frames": ...}``).  Timed: init, the encoder alone, the
+    prefill, each decode step and the generate, each profiled with its
+    device busy share and device ms by group (:func:`whisper_groups`)
+    beside its bound (:func:`whisper_work`).  Checks: (1) the card against
+    the CPU in float32 over WHISPER_CHECK_BATCH clips, logits within
+    WHISPER_LOGITS_TOL of each row's max|logit|; (2) each decoder layer's
+    attention in situ, kernel 8 against the plain version
+    (:func:`checked_attention`), the window cut by SWA_FAULT keys must
+    fail, and the served logits against the plain path within
+    ZAMBA_FLOOR_FACTOR times the floor its float32 attention reads (at
+    least SERVE_TOL); (3) the encoder made causal
+    (:func:`planted_causal_encoder`) must fail check 1's limit; (4) the
+    cross K/V padded by WHISPER_CROSS_PAD zero positions
+    (:func:`padded_cross`) must fail check 1's limit; (5) greedy tokens
+    against a teacher-forced full forward wherever the top-2 margin decides
+    at check 2's limit, and the prefill and first decode step against that
+    forward; (6) kernel 8 once a decoder layer a prefill, never in the
+    encoder, a cross-attention or decode, the other kernels never
+    (:func:`prefill_launches_ok`).  Returns each kernel's launches in the
+    generate."""
+    from repro_torch import ServeEngine, get_arch, init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, encdec, encode, fake_frame_embeds, forward, prefill
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(WHISPER_ARCH)
+    B, F, P, NEW = WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_NEW
+    profile = functools.partial(moe_device_split, ranges=dict(WHISPER_OPS),
+                                ranged=whisper_ranged)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    made = []
+    init = profile(lambda: made.append(init_params(cfg, seed=args.seed, dtype=torch.bfloat16,
+                                                   device=dev)), warm=False)
+    params = made.pop()
+    n_params = sum(t.numel() for t in params.parameters())
+    weight_gb = sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 10)
+    frames = fake_frame_embeds(gen, B, F, cfg.d_model, dtype=torch.bfloat16, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    extra = {"frames": frames}
+    eng = ServeEngine(cfg, params, max_len=WHISPER_MAX_LEN, dtype=torch.bfloat16, device=dev)
+    eng.generate(prompts[:, :16], 2, extra=extra)  # warm-up: cuBLAS handles at these widths
+
+    def swa_launches():
+        return launch_counts()["swa_attention"]
+
+    launches = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, NEW, extra=extra, keep_logits=True)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = dict(launch_counts())
+    launches["generate"] = by_kernel["swa_attention"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = torch.from_numpy(res.tokens).to(dev)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    enc_out = encode(params, frames, cfg)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    launches["encode"] = swa_launches()
+    layer0 = params.dec_layers[0]
+    enc_kv = encdec._cross_kv(layer0.xattn, enc_out, cfg)
+    reset_launch_counts()
+    encdec._cross_attn(layer0.xattn, params.embed[prompts], cfg, enc_kv)
+    torch.cuda.synchronize()
+    launches["cross_attention"] = swa_launches()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, cache = prefill(params, {"tokens": prompts, **extra}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches["prefill"] = swa_launches()
+    cache = eng._grow_cache(cache, B)
+    cache_gb = sum(t.numel() * t.element_size() for g in cache.values() for t in g.values()) / 1e9
+    reset_launch_counts()
+    step_ms = []
+    for i in range(1, NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": P + i - 1}, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_ms = sum(step_ms) / len(step_ms)
+    launches["decode"] = swa_launches()
+    # where the time goes: the encoder, one prefill, one decode step
+    # repeated at the same position (it rewrites the same self K/V slot),
+    # the whole generate
+    step = {"tokens": tokens[:, NEW - 2], "pos": P + NEW - 2}
+    profiled = {"init": init, "encoder": profile(lambda: encode(params, frames, cfg)),
+                "prefill": profile(lambda: prefill(params, {"tokens": prompts, **extra}, cfg)),
+                "decode_step": profile(lambda: decode_step(params, cache, step, cfg), calls=3),
+                "generate": profile(lambda: eng.generate(prompts, NEW, extra=extra),
+                                    warm=False)}
+    for prof in profiled.values():
+        prof["device_ms_by_group"] = whisper_groups(prof["device_ms"])
+    del cache
+    bounds = {"encoder": zamba_bounds(whisper_work(cfg, B, F)),
+              "prefill": zamba_bounds(whisper_work(cfg, B, F, P)),
+              "decode_step": zamba_bounds(whisper_work(cfg, B, F, 1, P + NEW - 1))}
+    sections = {"serve_and_profile": time.perf_counter() - t_phase}
+    mark = time.perf_counter
+
+    # 2: each decoder layer's attention on the kernel path's own q, k, v,
+    # kernel 8 against the plain version; the window cut by SWA_FAULT keys
+    # at the first layer must fail; then the served logits against the
+    # plain path, the kernel path's tokens forced, held to the floor the
+    # plain path with float32 attention reads
+    t_check = mark()
+    in_situ, fault_rows = [], []
+    prefill(params, {"tokens": prompts, **extra}, cfg,
+            attention=checked_attention(swa_attention_chunked, in_situ))
+    positions = torch.arange(P, dtype=torch.int32, device=dev)
+    encdec._decoder_layer(layer0, params.embed[prompts], cfg, positions, enc_kv,
+                          attention=checked_attention(swa_attention_chunked, fault_rows,
+                                                      cut=SWA_FAULT))
+    del enc_out, enc_kv
+    layer = {"row_norm_rel_err": [r[0] for r in in_situ],
+             "row_norm_rel_err_mean": [r[1] for r in in_situ],
+             "row_tol": SWA_ROW_TOL[torch.bfloat16],
+             "row_mean_tol": SWA_ROW_MEAN_TOL[torch.bfloat16], "ok": in_situ_ok(in_situ),
+             "calls": len(in_situ),
+             "fault": {"window": P - SWA_FAULT, "row_norm_rel_err": fault_rows[0][0],
+                       "row_norm_rel_err_mean": fault_rows[0][1],
+                       "caught": not in_situ_ok(fault_rows)}}
+
+    def float32_attention(q, k, v, window, scale=None):
+        return swa_attention_chunked(q.float(), k.float(), v.float(), window,
+                                     scale=scale).to(q.dtype)
+
+    forced = functools.partial(teacher_forced, params, cfg, prompts, tokens, extra,
+                               grow=eng._grow_cache)
+    served = res.logits
+    plain = forced(attention=swa_attention_chunked)
+    prefill_err = row_rel_errors(served[:, 0], plain[:, 0]).max().item()
+    decode_err = row_rel_errors(served[:, 1:], plain[:, 1:]).max().item()
+    rounded = forced(attention=float32_attention)
+    floor = {"prefill": row_rel_errors(rounded[:, 0], plain[:, 0]).max().item(),
+             "decode": row_rel_errors(rounded[:, 1:], plain[:, 1:]).max().item()}
+    limit = max(SERVE_TOL, ZAMBA_FLOOR_FACTOR * max(floor.values()))
+    finite = bool(torch.isfinite(served).all() and torch.isfinite(plain).all()
+                  and torch.isfinite(rounded).all())
+    del plain, rounded
+    sections["check2"], t_check = mark() - t_check, mark()
+
+    # 5: greedy tokens against one teacher-forced full forward over the
+    # prompt and the generated tokens (the encoder run again)
+    full = forward(params, {"tokens": torch.cat([prompts, tokens[:, :-1]], 1), **extra},
+                   cfg)[:, P - 1:].float()
+    decided, wrong = greedy_disagreements(full, tokens, limit)
+    rows = row_rel_errors(served, full)
+    greedy = {"new_tokens": NEW, "decided_steps": decided, "disagreements": wrong,
+              "prefill_vs_forward_rel_err": rows[:, 0].max().item(),
+              "first_decode_vs_forward_rel_err": rows[:, 1].max().item(),
+              "max_step_vs_forward_rel_err": rows.max().item(), "tol": limit}
+    greedy["ok"] = (wrong == 0 and max(greedy["prefill_vs_forward_rel_err"],
+                                       greedy["first_decode_vs_forward_rel_err"]) <= limit
+                    and bool(torch.isfinite(full).all()))
+    del full
+    sections["check5"], t_check = mark() - t_check, mark()
+
+    # 1, 3, 4: float32 copies of the weights on the card and on the CPU,
+    # WHISPER_CHECK_BATCH clips; the card's generate against the CPU's
+    # teacher-forced steps on its tokens; then the causal encoder and the
+    # padded cross K/V, each against the same CPU steps
+    f32 = float_model(params, cfg, dev)
+    eng32 = ServeEngine(cfg, f32, max_len=WHISPER_MAX_LEN, device=dev)
+    nb, steps = WHISPER_CHECK_BATCH, WHISPER_CHECK_STEPS + 1
+    short = {"frames": frames[:nb].float()}
+    served32 = eng32.generate(prompts[:nb], steps, extra=short, keep_logits=True)
+    tokens32 = torch.from_numpy(served32.tokens).to(dev)
+    t0 = time.perf_counter()
+    cpu_model = float_model(params, cfg, torch.device("cpu"))
+    cpu = teacher_forced(cpu_model, cfg, prompts[:nb].cpu(), tokens32.cpu(),
+                         {"frames": short["frames"].cpu()},
+                         grow=ServeEngine(cfg, cpu_model, max_len=WHISPER_MAX_LEN,
+                                          device="cpu")._grow_cache)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    del cpu_model
+    card_cpu = row_rel_errors(served32.logits.cpu(), cpu)
+    check_cpu = {"rows": tuple(card_cpu.shape), "row_rel_err_max": card_cpu.max().item(),
+                 "tol": WHISPER_LOGITS_TOL, "cpu_wall_ms": cpu_ms,
+                 "ok": card_cpu.max().item() <= WHISPER_LOGITS_TOL
+                 and bool(torch.isfinite(cpu).all())}
+    with planted_causal_encoder():
+        causal = teacher_forced(f32, cfg, prompts[:nb], tokens32, short,
+                                grow=eng32._grow_cache)
+    causal_err = row_rel_errors(causal.cpu(), cpu).max().item()
+    with_pad = padded_cross(eng32._grow_cache, WHISPER_CROSS_PAD)
+    padded = teacher_forced(f32, cfg, prompts[:nb], tokens32, short, grow=with_pad)
+    # the prefill's logits come before the cache is grown: the pad shows
+    # from the first decode step
+    pad_err = row_rel_errors(padded[:, 1:].cpu(), cpu[:, 1:]).max().item()
+    faults = {"causal_encoder": {"row_rel_err_max": causal_err,
+                                 "caught": causal_err > WHISPER_LOGITS_TOL},
+              "padded_cross": {"pad": WHISPER_CROSS_PAD, "row_rel_err_max": pad_err,
+                               "caught": pad_err > WHISPER_LOGITS_TOL}}
+    del f32, eng32, cpu, causal, padded
+    sections["checks134"] = mark() - t_check
+
+    launch_report = {"swa_attention": launches,
+                     "other_kernels": {k: n for k, n in by_kernel.items()
+                                       if k != "swa_attention"}}
+    out = {
+        "phase": "lm_whisper", "arch": cfg.name,
+        "layers": {"encoder": cfg.enc_layers, "decoder": cfg.n_layers},
+        "cut": f"none: full width and depth, {cfg.enc_layers} + {cfg.n_layers} layers",
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "params": n_params, "dtype": "bfloat16", "weights_gb": weight_gb, "cache_gb": cache_gb,
+        "batch": B, "frames": F, "prompt_len": P, "new_tokens": NEW,
+        "max_len": WHISPER_MAX_LEN, "init_ms": init["wall_ms"], "encode_ms": encode_ms,
+        "generate_ms": generate_ms, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "decode_step_ms": step_ms, "prefill_clips_per_s": B / (prefill_ms / 1e3),
+        "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_memory_gb": peak_gb,
+        "held_at_start_gb": held_gb, "bounds": bounds,
+        "shares_of_bound": {"encoder": bounds["encoder"]["bound_ms"] / encode_ms,
+                            "prefill": bounds["prefill"]["bound_ms"] / prefill_ms,
+                            "decode_step": bounds["decode_step"]["bound_ms"] / decode_ms},
+        "profiled": profiled, "launches": launch_report,
+        "tol": {"card_vs_cpu": WHISPER_LOGITS_TOL, "serve": SERVE_TOL,
+                "floor_factor": ZAMBA_FLOOR_FACTOR, "logits": limit},
+        "checks": {"card_vs_cpu_float32": check_cpu,
+                   "attention_in_situ_vs_plain": layer,
+                   "prefill_vs_plain_rel_err": prefill_err,
+                   "teacher_forced_decode_vs_plain_rel_err": decode_err,
+                   "floor_float32_attention_vs_plain_rel_err": floor,
+                   "planted_faults": faults, "greedy_vs_full_forward": greedy,
+                   "finite": finite},
+        "first_row_tokens": res.tokens[0][:8].tolist(), "section_s": sections,
+        "phase_peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "wall_ms": (time.perf_counter() - t_phase) * 1e3,
+    }
+    out["ok"] = (prefill_launches_ok(launch_report, cfg.n_layers) and finite
+                 and tuple(res.tokens.shape) == (B, NEW)
+                 and check_cpu["ok"] and layer["ok"] and layer["fault"]["caught"]
+                 and max(prefill_err, decode_err) <= limit
+                 and all(f["caught"] for f in faults.values()) and greedy["ok"])
+    emit(out)
+    if not out["ok"]:
+        fail("lm_whisper")
+    return by_kernel
+
+
+def lm_llava(args, dev) -> dict:
+    """Phase lm_llava: llava-next-34b at full width, depth LLAVA_LAYERS,
+    bf16 weights from ``--seed``, LLAVA_BATCH requests of one image's 2,880
+    stub patch embeddings and LLAVA_PROMPT text tokens, LLAVA_NEW greedy new
+    tokens each, through ``ServeEngine.generate`` (``extra={"patch_embeds":
+    ...}``).  Timed: init, the generate, the prefill and each decode step,
+    each profiled with its device busy share and device ms by group
+    (:func:`llava_groups`) beside its bound (:func:`llava_work`).  Checks:
+    (1) each layer's attention in situ, kernel 8 against the plain version,
+    the window cut by SWA_FAULT keys must fail, and the served logits
+    against the plain path within ZAMBA_FLOOR_FACTOR times the floor its
+    float32 attention reads (at least SERVE_TOL); (2) decode from pos0 =
+    S_text (the patches forgotten) must leave the served decode logits by
+    more than check 1's limit; (3) greedy tokens against a teacher-forced
+    full forward wherever the top-2 margin decides at that limit, and the
+    prefill and first decode step against that forward; (4) kernel 8 once a
+    layer a prefill, never in decode; every logit finite.  Returns each
+    kernel's launches in the generate."""
+    from repro_torch import ServeEngine, get_arch, init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import decode_step, fake_patch_embeds, forward, prefill
+    from repro_torch.models.transformer import _block, _embed_inputs
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(LLAVA_ARCH), n_layers=LLAVA_LAYERS)
+    B, P, NEW, NP = LLAVA_BATCH, LLAVA_PROMPT, LLAVA_NEW, cfg.n_patches
+    S = NP + P
+    max_len = S + NEW
+    plain_attention = functools.partial(swa_attention_chunked, chunk=LLAVA_PLAIN_CHUNK)
+    profile = functools.partial(moe_device_split, ranges=dict(LLAVA_OPS))
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    made = []
+    init = profile(lambda: made.append(init_params(cfg, seed=args.seed, dtype=torch.bfloat16,
+                                                   device=dev)), warm=False)
+    params = made.pop()
+    n_params = sum(t.numel() for t in params.parameters())
+    weight_gb = sum(t.numel() * t.element_size() for t in params.parameters()) / 1e9
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 11)
+    patches = fake_patch_embeds(gen, B, NP, cfg.d_model, dtype=torch.bfloat16, device=dev)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    extra = {"patch_embeds": patches}
+    eng = ServeEngine(cfg, params, max_len=max_len, dtype=torch.bfloat16, device=dev)
+    # warm-up: cuBLAS handles at these widths (one request, 16 text tokens)
+    eng.generate(prompts[:1, :16], 2, extra={"patch_embeds": patches[:1]})
+
+    launches = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, NEW, extra=extra, keep_logits=True)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = dict(launch_counts())
+    launches["generate"] = by_kernel["swa_attention"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = torch.from_numpy(res.tokens).to(dev)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, cache = prefill(params, {"tokens": prompts, **extra}, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches["prefill"] = launch_counts()["swa_attention"]
+    cache = eng._grow_cache(cache, B)
+    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    reset_launch_counts()
+    step_ms = []
+    for i in range(1, NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = decode_step(params, cache, {"tokens": tokens[:, i - 1], "pos": S + i - 1}, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_ms = sum(step_ms) / len(step_ms)
+    launches["decode"] = launch_counts()["swa_attention"]
+    step = {"tokens": tokens[:, NEW - 2], "pos": S + NEW - 2}
+    profiled = {"init": init,
+                "prefill": profile(lambda: prefill(params, {"tokens": prompts, **extra}, cfg)),
+                "decode_step": profile(lambda: decode_step(params, cache, step, cfg), calls=3)}
+    for prof in profiled.values():
+        prof["device_ms_by_group"] = llava_groups(prof["device_ms"])
+    del cache
+    bounds = {"prefill": zamba_bounds(llava_work(cfg, B, P)),
+              "decode_step": zamba_bounds(llava_work(cfg, B, P, S + NEW - 1))}
+    sections = {"serve_and_profile": time.perf_counter() - t_phase}
+    mark = time.perf_counter
+
+    # 1: each layer's attention in situ, kernel 8 against the plain
+    # version; the window cut by SWA_FAULT keys at the first layer must
+    # fail; the served logits against the plain path and its floor
+    t_check = mark()
+    in_situ, fault_rows = [], []
+    prefill(params, {"tokens": prompts, **extra}, cfg,
+            attention=checked_attention(plain_attention, in_situ))
+    x = _embed_inputs(params, prompts, patches)
+    _block(params.layers[0], x, cfg, torch.arange(S, dtype=torch.int32, device=dev),
+           attention=checked_attention(plain_attention, fault_rows, cut=SWA_FAULT))
+    del x
+    layer = {"row_norm_rel_err": [r[0] for r in in_situ],
+             "row_norm_rel_err_mean": [r[1] for r in in_situ],
+             "row_tol": SWA_ROW_TOL[torch.bfloat16],
+             "row_mean_tol": SWA_ROW_MEAN_TOL[torch.bfloat16], "ok": in_situ_ok(in_situ),
+             "calls": len(in_situ),
+             "fault": {"window": S - SWA_FAULT, "row_norm_rel_err": fault_rows[0][0],
+                       "row_norm_rel_err_mean": fault_rows[0][1],
+                       "caught": not in_situ_ok(fault_rows)}}
+
+    def float32_attention(q, k, v, window, scale=None):
+        return plain_attention(q.float(), k.float(), v.float(), window,
+                               scale=scale).to(q.dtype)
+
+    forced = functools.partial(teacher_forced, params, cfg, prompts, tokens, extra,
+                               grow=eng._grow_cache)
+    served = res.logits
+    plain = forced(attention=plain_attention)
+    prefill_err = row_rel_errors(served[:, 0], plain[:, 0]).max().item()
+    decode_err = row_rel_errors(served[:, 1:], plain[:, 1:]).max().item()
+    rounded = forced(attention=float32_attention)
+    floor = {"prefill": row_rel_errors(rounded[:, 0], plain[:, 0]).max().item(),
+             "decode": row_rel_errors(rounded[:, 1:], plain[:, 1:]).max().item()}
+    limit = max(SERVE_TOL, ZAMBA_FLOOR_FACTOR * max(floor.values()))
+    finite = bool(torch.isfinite(served).all() and torch.isfinite(plain).all()
+                  and torch.isfinite(rounded).all())
+    del plain, rounded
+    sections["check1"], t_check = mark() - t_check, mark()
+
+    # 2: decode from pos0 = S_text, the patches forgotten: its first step
+    # writes over a patch's slot and masks the text out
+    forgot = teacher_forced(params, cfg, prompts, tokens[:, :2], extra, grow=eng._grow_cache,
+                            pos0=P)
+    forgot_err = row_rel_errors(forgot[:, 1], served[:, 1]).max().item()
+    positions = {"pos0": S, "forgotten_pos0": P, "first_step_row_rel_err": forgot_err,
+                 "caught": forgot_err > limit}
+    del forgot
+    sections["check2"], t_check = mark() - t_check, mark()
+
+    # 3: greedy tokens against one teacher-forced full forward over the
+    # patches, the prompt and the generated tokens
+    full = forward(params, {"tokens": torch.cat([prompts, tokens[:, :-1]], 1), **extra},
+                   cfg)[:, S - 1:].float()
+    decided, wrong = greedy_disagreements(full, tokens, limit)
+    rows = row_rel_errors(served, full)
+    greedy = {"new_tokens": NEW, "decided_steps": decided, "disagreements": wrong,
+              "prefill_vs_forward_rel_err": rows[:, 0].max().item(),
+              "first_decode_vs_forward_rel_err": rows[:, 1].max().item(),
+              "max_step_vs_forward_rel_err": rows.max().item(), "tol": limit}
+    greedy["ok"] = (wrong == 0 and max(greedy["prefill_vs_forward_rel_err"],
+                                       greedy["first_decode_vs_forward_rel_err"]) <= limit
+                    and bool(torch.isfinite(full).all()))
+    del full
+    sections["check3"] = mark() - t_check
+
+    launch_report = {"swa_attention": launches,
+                     "other_kernels": {k: n for k, n in by_kernel.items()
+                                       if k != "swa_attention"}}
+    out = {
+        "phase": "lm_llava", "arch": cfg.name, "layers": cfg.n_layers,
+        "cut": ("none: full width and depth" if cfg.n_layers == get_arch(LLAVA_ARCH).n_layers
+                else f"depth cut to {cfg.n_layers} of {get_arch(LLAVA_ARCH).n_layers}"),
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+        "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "n_patches": NP, "params": n_params, "dtype": "bfloat16", "weights_gb": weight_gb,
+        "cache_gb": cache_gb, "batch": B, "prompt_len": P, "sequence": S, "new_tokens": NEW,
+        "max_len": max_len, "init_ms": init["wall_ms"], "generate_ms": generate_ms,
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms, "decode_step_ms": step_ms,
+        "prefill_tokens_per_s": B * S / (prefill_ms / 1e3),
+        "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_memory_gb": peak_gb,
+        "held_at_start_gb": held_gb, "bounds": bounds,
+        "shares_of_bound": {"prefill": bounds["prefill"]["bound_ms"] / prefill_ms,
+                            "decode_step": bounds["decode_step"]["bound_ms"] / decode_ms},
+        "profiled": profiled, "launches": launch_report,
+        "tol": {"serve": SERVE_TOL, "floor_factor": ZAMBA_FLOOR_FACTOR, "logits": limit},
+        "checks": {"attention_in_situ_vs_plain": layer,
+                   "prefill_vs_plain_rel_err": prefill_err,
+                   "teacher_forced_decode_vs_plain_rel_err": decode_err,
+                   "floor_float32_attention_vs_plain_rel_err": floor,
+                   "forgotten_patches_decode": positions, "greedy_vs_full_forward": greedy,
+                   "finite": finite},
+        "first_row_tokens": res.tokens[0][:8].tolist(), "section_s": sections,
+        "phase_peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "wall_ms": (time.perf_counter() - t_phase) * 1e3,
+    }
+    out["ok"] = (prefill_launches_ok(launch_report, cfg.n_layers) and finite and tuple(res.tokens.shape) == (B, NEW)
+                 and layer["ok"] and layer["fault"]["caught"]
+                 and max(prefill_err, decode_err) <= limit and positions["caught"]
+                 and greedy["ok"])
+    emit(out)
+    if not out["ok"]:
+        fail("lm_llava")
     return by_kernel
 
 
@@ -6790,6 +7529,15 @@ def main() -> None:
     xlstm_launches = lm_xlstm(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # the encoder-decoder: whisper-base at full width and depth, kernel 8
+    # once a decoder layer (64, G = 1); then the VLM: llava-next-34b at full
+    # width (68.9 GB of weights at full depth), kernel 8 at 128, G = 7
+    whisper_launches = lm_whisper(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llava_launches = lm_llava(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the paper's last estimators at its VAR workload sizes, then graphs
     paper_var_launches = paper_var_phase(args, dev)
     gc.collect()
@@ -6830,11 +7578,15 @@ def main() -> None:
             "lm_qwen3_launches": qwen_launches if name == "swa_attention" else 0,
             "lm_zamba_launches": zamba_launches if name == "swa_attention" else 0,
             "lm_xlstm_launches": xlstm_launches.get(name, 0),
+            "lm_whisper_launches": whisper_launches.get(name, 0),
+            "lm_llava_launches": llava_launches.get(name, 0),
         })
         if name == "swa_attention":  # lm_moe's prefill, W = S; lm_mla's, q/k 192, v 128;
-            kernels[-1]["llama4_shape"] = swa["llama4"]  # lm_zamba's, 112, G = 1
-            kernels[-1]["mla_shape"] = swa["mla"]
-            kernels[-1]["zamba_shape"] = swa["zamba"]
+            kernels[-1]["llama4_shape"] = swa["llama4"]  # lm_zamba's, 112, G = 1;
+            kernels[-1]["mla_shape"] = swa["mla"]  # lm_whisper's, 64, G = 1;
+            kernels[-1]["zamba_shape"] = swa["zamba"]  # lm_llava's, 128, G = 7
+            kernels[-1]["whisper_shape"] = swa["whisper"]
+            kernels[-1]["llava_shape"] = swa["llava"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

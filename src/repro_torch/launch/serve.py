@@ -7,6 +7,13 @@ hybrid- or xLSTM-family architecture (port of `repro.launch.serve`).
 Weights and prompts come from ``--seed``.  Runs on the card unless
 ``--device cpu`` is given.  Generates twice (cold, then warm) and prints one
 summary line.
+
+Like the reference's, the command line supplies no frontend input, so it
+does not serve the encoder-decoder (whisper: ``frames``) or the VLM
+(llava: ``patch_embeds``): for those it raises ``ValueError`` naming the
+missing input before any weight is made.  Serve them from Python,
+``ServeEngine.generate(prompts, n, extra={"frames": ...})`` or
+``{"patch_embeds": ...}`` (stand-ins: `models.vlm_stub`).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from ..models import init_params
 from ..serving.engine import ServeEngine
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+FRONTEND_INPUT = {"encdec": "frames", "vlm": "patch_embeds"}  # what the CLI cannot supply
 
 
 def _sync(dev: torch.device) -> None:
@@ -43,6 +51,11 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
+    if cfg.family in FRONTEND_INPUT:
+        raise ValueError(f"{cfg.name}: the command line supplies no "
+                         f"{FRONTEND_INPUT[cfg.family]!r} input; serve it from Python with "
+                         f"ServeEngine.generate(..., extra={{{FRONTEND_INPUT[cfg.family]!r}: "
+                         f"...}})")
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)

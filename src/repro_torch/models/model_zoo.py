@@ -1,8 +1,9 @@
-"""Model zoo dispatcher, dense, MoE, hybrid and xLSTM families (port of
+"""Model zoo dispatcher over every family of the registry (port of
 `repro.models.model_zoo`).
 
   init_params(cfg, seed=...)              -> Transformer (Zamba for the hybrid,
-                                             XLSTM for the "ssm" family)
+                                             XLSTM for the "ssm" family, EncDec
+                                             for the encoder-decoder)
   forward(params, batch, cfg)             -> logits (B, S, V) (``return_aux``:
                                              and the MoE aux losses)
   prefill(params, batch, cfg)             -> (last logits, cache)
@@ -13,11 +14,14 @@
   params_to_tree / params_from_tree       -- the same layout as tensors (layer
                                              leaves stacked on a leading L axis)
 
-``batch`` is a dict: ``tokens`` (and ``pos`` for decode).  The dense and
-MoE families, with GQA or MLA attention (deepseek-v2), the Mamba2 /
-shared-attention hybrid (zamba2, `zamba.py`) and the xLSTM family
-(xlstm-125m, `xlstm_lm.py`) are ported; every other family raises
-``NotImplementedError`` naming its ROADMAP item.
+``batch`` is a dict: ``tokens`` (and ``pos`` for decode); the
+encoder-decoder (whisper-base, `encdec.py`) also takes ``frames`` (B,
+S_enc, d_model) and the VLM (llava-next-34b) ``patch_embeds`` (B,
+n_patches, d_model) for prefill and forward, the stubbed frontends'
+outputs (`vlm_stub.py`); without them they raise ``ValueError``.  The
+dense and MoE families, with GQA or MLA attention (deepseek-v2), the VLM,
+the Mamba2 / shared-attention hybrid (zamba2, `zamba.py`), the xLSTM
+family (xlstm-125m, `xlstm_lm.py`) and the encoder-decoder are ported.
 ``init_params`` and ``params_from_numpy`` put the model on the card unless
 the caller asks for the CPU.
 """
@@ -30,8 +34,9 @@ import torch
 
 from ..core.backend import resolve_device
 from ..core.mapreduce import tree_map
-from . import transformer, xlstm_lm, zamba
+from . import encdec, transformer, xlstm_lm, zamba
 from .attention import Attention, GQAAttention, MLAAttention
+from .encdec import XATTN_NAMES, CrossAttention, DecoderLayer, EncDec, EncoderLayer
 from .layers import DTYPE, MLP, RMSNorm
 from .moe import MoE
 from .ssm import NAMES as _MAMBA_NAMES, Mamba2
@@ -43,29 +48,27 @@ from .zamba import MambaLayer, Zamba
 __all__ = ["init_params", "forward", "prefill", "decode_step", "cache_spec",
            "params_from_numpy", "params_to_numpy", "params_from_tree", "params_to_tree"]
 
-Model = Union[Transformer, Zamba, XLSTM]
-
-_OPEN_FAMILIES = {
-    "encdec": "the encoder-decoder (models/encdec.py), ROADMAP Queue A item 6.7",
-    "vlm": "the VLM stub (models/vlm_stub.py), ROADMAP Queue A item 6.8",
-}
+Model = Union[Transformer, Zamba, XLSTM, EncDec]
 
 
-def _require_ported(cfg) -> None:
-    if cfg.family in _OPEN_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet: "
-                                  f"{_OPEN_FAMILIES[cfg.family]}")
+def _frames(batch: Dict[str, Any], cfg) -> torch.Tensor:
+    if batch.get("frames") is None:
+        raise ValueError(f"{cfg.name}: the encoder-decoder needs frames, the stubbed audio "
+                         f"frontend's (B, S_enc, d_model) output "
+                         f"(models.vlm_stub.fake_frame_embeds)")
+    return batch["frames"]
 
 
 def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = None,
                 dtype=DTYPE, device="cuda") -> Model:
     """Random weights from ``seed`` (or an explicit ``generator`` on
     ``device``), made on ``device``."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
+    if cfg.family == "encdec":
+        return encdec.encdec_init(generator, cfg, dtype, dev)
     if cfg.family == "hybrid":
         return zamba.zamba_init(generator, cfg, dtype, dev)
     if cfg.family == "ssm":
@@ -76,32 +79,40 @@ def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = No
 def forward(params: Model, batch: Dict[str, Any], cfg, *, return_aux: bool = False):
     """Full-sequence forward -> logits (B, S, V); with ``return_aux``,
     (logits, aux losses summed over layers) as the reference returns (zero
-    for the hybrid and the xLSTM)."""
-    _require_ported(cfg)
-    if cfg.family in ("hybrid", "ssm"):
-        run = zamba.zamba_forward if cfg.family == "hybrid" else xlstm_lm.xlstm_forward
-        logits = run(params, batch["tokens"], cfg)
+    for the hybrid, the xLSTM and the encoder-decoder)."""
+    if cfg.family in ("hybrid", "ssm", "encdec"):
+        if cfg.family == "encdec":
+            logits = encdec.encdec_forward(params, _frames(batch, cfg), batch["tokens"], cfg)
+        else:
+            run = zamba.zamba_forward if cfg.family == "hybrid" else xlstm_lm.xlstm_forward
+            logits = run(params, batch["tokens"], cfg)
         if not return_aux:
             return logits
         return logits, {name: torch.zeros((), device=logits.device)
                         for name in ("lb_loss", "z_loss")}
-    return transformer.lm_forward(params, batch["tokens"], cfg, return_aux=return_aux)
+    return transformer.lm_forward(params, batch["tokens"], cfg,
+                                  patch_embeds=batch.get("patch_embeds"), return_aux=return_aux)
 
 
 def prefill(params: Model, batch: Dict[str, Any], cfg, *,
             attention: Optional[Attention] = None):
     """(last logits (B, V), cache); ``attention`` is the prefill's attention
-    (the xLSTM has none)."""
-    _require_ported(cfg)
+    (the xLSTM has none; the encoder-decoder's is its decoder's causal
+    self-attention)."""
+    if cfg.family == "encdec":
+        return encdec.encdec_prefill(params, _frames(batch, cfg), batch["tokens"], cfg,
+                                     attention=attention)
     if cfg.family == "hybrid":
         return zamba.zamba_prefill(params, batch["tokens"], cfg, attention=attention)
     if cfg.family == "ssm":
         return xlstm_lm.xlstm_prefill(params, batch["tokens"], cfg)
-    return transformer.lm_prefill(params, batch["tokens"], cfg, attention=attention)
+    return transformer.lm_prefill(params, batch["tokens"], cfg,
+                                  patch_embeds=batch.get("patch_embeds"), attention=attention)
 
 
 def decode_step(params: Model, cache, batch: Dict[str, Any], cfg):
-    _require_ported(cfg)
+    if cfg.family == "encdec":
+        return encdec.encdec_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
     if cfg.family == "hybrid":
         return zamba.zamba_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
     if cfg.family == "ssm":
@@ -112,8 +123,10 @@ def decode_step(params: Model, cache, batch: Dict[str, Any], cfg):
 def cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, Any]:
     """{name: TensorSpec}; the hybrid's is nested, {"ssm": ..., "attn": ...},
     and so is the xLSTM's, {"m": ..., "s": ...} (float32 states, no
-    sequence axis)."""
-    _require_ported(cfg)
+    sequence axis), and the encoder-decoder's, {"self": ..., "cross": ...}
+    (the cross cache at ``enc_len = seq_len``, as the reference's)."""
+    if cfg.family == "encdec":
+        return encdec.encdec_cache_spec(cfg, batch, seq_len, enc_len=seq_len, dtype=dtype)
     if cfg.family == "hybrid":
         return zamba.zamba_cache_spec(cfg, batch, seq_len, dtype)
     if cfg.family == "ssm":
@@ -179,8 +192,9 @@ def _assemble(tree: Dict[str, Any], cfg, t) -> Transformer:
         blocks.append(Block(RMSNorm(t(lay["attn_norm"][i]), cfg.norm_eps), attn,
                             RMSNorm(t(lay["mlp_norm"][i]), cfg.norm_eps), mlp))
     head = None if cfg.tie_embeddings else t(tree["lm_head"])
-    return Transformer(cfg, t(tree["embed"]), blocks, RMSNorm(t(tree["final_norm"]),
-                                                              cfg.norm_eps), head)
+    proj = t(tree["patch_proj"]) if cfg.family == "vlm" else None
+    return Transformer(cfg, t(tree["embed"]), blocks,
+                       RMSNorm(t(tree["final_norm"]), cfg.norm_eps), head, proj)
 
 
 def _assemble_hybrid(tree: Dict[str, Any], cfg, t) -> Zamba:
@@ -216,16 +230,34 @@ def _assemble_xlstm(tree: Dict[str, Any], cfg, t) -> XLSTM:
                  norm(tree["final_norm"]), t(tree["lm_head"]))
 
 
+def _assemble_encdec(tree: Dict[str, Any], cfg, t) -> EncDec:
+    """The encoder-decoder from the reference's tree: ``enc_layers``
+    ({"attn_norm", "attn", "mlp_norm", "mlp"} stacked on the encoder's L),
+    ``dec_layers`` (the same and {"x_norm", "xattn"}, stacked on the
+    decoder's L), ``embed``, ``enc_norm``, ``final_norm``, ``lm_head``."""
+    enc, dec = tree["enc_layers"], tree["dec_layers"]
+    norm = lambda w: RMSNorm(t(w), cfg.norm_eps)  # noqa: E731
+    attn = lambda lay, i: _attention({k: a[i] for k, a in lay["attn"].items()}, cfg, t)  # noqa: E731
+    enc_layers = [EncoderLayer(norm(enc["attn_norm"][i]), attn(enc, i), norm(enc["mlp_norm"][i]),
+                               _mlp(enc["mlp"], i, t)) for i in range(cfg.enc_layers)]
+    dec_layers = [DecoderLayer(norm(dec["attn_norm"][i]), attn(dec, i), norm(dec["x_norm"][i]),
+                               CrossAttention(*(t(dec["xattn"][k][i]) for k in XATTN_NAMES)),
+                               norm(dec["mlp_norm"][i]), _mlp(dec["mlp"], i, t))
+                  for i in range(cfg.n_layers)]
+    return EncDec(cfg, t(tree["embed"]), enc_layers, dec_layers, norm(tree["enc_norm"]),
+                  norm(tree["final_norm"]), t(tree["lm_head"]))
+
+
 def _assembler(cfg):
-    return {"hybrid": _assemble_hybrid, "ssm": _assemble_xlstm}.get(cfg.family, _assemble)
+    return {"hybrid": _assemble_hybrid, "ssm": _assemble_xlstm,
+            "encdec": _assemble_encdec}.get(cfg.family, _assemble)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Model:
-    """The reference's dense-, MoE-, hybrid- or xLSTM-family params, GQA or
-    MLA -- a nest of dicts of numpy arrays, layer leaves stacked on a
-    leading (L, ...) axis, as ``jax.tree.map(np.asarray, params)`` gives
-    them -- as the port's model on ``device``."""
-    _require_ported(cfg)
+    """The reference's params of any family -- a nest of dicts of numpy
+    arrays, layer leaves stacked on a leading (L, ...) axis, as
+    ``jax.tree.map(np.asarray, params)`` gives them -- as the port's model
+    on ``device``."""
     dev = resolve_device(device)
     return _assembler(cfg)(tree, cfg, lambda a: _tensor(a, dev))
 
@@ -233,7 +265,6 @@ def params_from_numpy(tree: Dict[str, Any], cfg, device="cuda") -> Model:
 def params_from_tree(tree: Dict[str, Any], cfg) -> Model:
     """The model over a tree of tensors in :func:`params_to_tree`'s layout:
     each layer's weights are views of the stacked leaves, never copies."""
-    _require_ported(cfg)
     return _assembler(cfg)(tree, cfg, lambda a: a)
 
 
@@ -272,6 +303,23 @@ def _xlstm_tree(params: XLSTM) -> Dict[str, Any]:
             "final_norm": params.final_norm.weight.detach(), "lm_head": params.lm_head.detach()}
 
 
+def _encdec_tree(params: EncDec) -> Dict[str, Any]:
+    def stacked(layers, *parts):
+        out = {}
+        for norm in parts:
+            out[norm] = torch.stack([getattr(la, norm).weight.detach() for la in layers])
+        out["attn"] = _stacked([la.attn for la in layers], _gqa_names(layers[0].attn))
+        out["mlp"] = _stacked([la.mlp for la in layers], _MLP_NAMES)
+        return out
+
+    dec = list(params.dec_layers)
+    return {"enc_layers": stacked(list(params.enc_layers), "attn_norm", "mlp_norm"),
+            "dec_layers": {**stacked(dec, "attn_norm", "x_norm", "mlp_norm"),
+                           "xattn": _stacked([la.xattn for la in dec], XATTN_NAMES)},
+            "embed": params.embed.detach(), "enc_norm": params.enc_norm.weight.detach(),
+            "final_norm": params.final_norm.weight.detach(), "lm_head": params.lm_head.detach()}
+
+
 def params_to_tree(params: Model) -> Dict[str, Any]:
     """The port's model as the reference's params tree of tensors on the
     model's device: layer leaves stacked on a leading (L, ...) axis (new
@@ -280,6 +328,8 @@ def params_to_tree(params: Model) -> Dict[str, Any]:
         return _hybrid_tree(params)
     if isinstance(params, XLSTM):
         return _xlstm_tree(params)
+    if isinstance(params, EncDec):
+        return _encdec_tree(params)
     stack = lambda ts: torch.stack([x.detach() for x in ts])  # noqa: E731
     blocks = list(params.layers)
 
@@ -304,6 +354,8 @@ def params_to_tree(params: Model) -> Dict[str, Any]:
     }
     if params.lm_head is not None:
         tree["lm_head"] = params.lm_head.detach()
+    if params.patch_proj is not None:
+        tree["patch_proj"] = params.patch_proj.detach()
     return tree
 
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM backbone, dense and MoE families (port of
+"""Decoder-only LM backbone, dense, MoE and VLM families (port of
 `repro.models.transformer`).
 
 The reference stacks its layers' parameters on a leading L axis and scans
@@ -20,6 +20,12 @@ A block's attention is grouped-query (:class:`GQAAttention`) or, for a
 config with ``attn == "mla"``, multi-head latent (:class:`MLAAttention`);
 its feed-forward a dense SwiGLU (:class:`MLP`) or, for a config with
 ``moe``, a mixture of experts (:class:`MoE`, `moe.py`).
+
+The VLM family (llava-next-34b) takes ``patch_embeds`` (B, n_patches,
+d_model), the stubbed vision tower's output (`vlm_stub.py`), through
+``patch_proj`` (d, d) and prefixes them to the text: positions run over
+n_patches + S_text, causal over the whole sequence, patches included, so
+decode continues at ``pos = n_patches + S_text``.
 """
 from __future__ import annotations
 
@@ -48,22 +54,19 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Embedding (V, d), blocks, final norm and, unless tied, lm_head (d, V)."""
+    """Embedding (V, d), blocks, final norm, unless tied lm_head (d, V),
+    and for the VLM family patch_proj (d, d)."""
 
     def __init__(self, cfg, embed: torch.Tensor, layers: List[Block], final_norm: RMSNorm,
-                 lm_head: Optional[torch.Tensor] = None):
+                 lm_head: Optional[torch.Tensor] = None,
+                 patch_proj: Optional[torch.Tensor] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = weight(embed)
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
         self.lm_head = None if lm_head is None else weight(lm_head)
-
-
-def _check_family(cfg) -> None:
-    if cfg.family == "vlm":
-        raise NotImplementedError(f"{cfg.name}: the VLM stub is not ported yet "
-                                  "(ROADMAP Queue A item 6.8)")
+        self.patch_proj = None if patch_proj is None else weight(patch_proj)
 
 
 def _layer_init(gen: torch.Generator, cfg, dtype, device) -> Block:
@@ -77,12 +80,13 @@ def _layer_init(gen: torch.Generator, cfg, dtype, device) -> Block:
 def lm_init(gen: torch.Generator, cfg, dtype=DTYPE, device=None) -> Transformer:
     """Random weights from ``gen``, the reference's initialisers and scales
     (its numbers differ: another generator)."""
-    _check_family(cfg)
     layers = [_layer_init(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]
     embed = embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
     head = None if cfg.tie_embeddings else dense_init(gen, cfg.d_model, cfg.vocab, dtype, device)
+    proj = (dense_init(gen, cfg.d_model, cfg.d_model, dtype, device) if cfg.family == "vlm"
+            else None)
     final = RMSNorm(torch.ones((cfg.d_model,), dtype=dtype, device=device), cfg.norm_eps)
-    return Transformer(cfg, embed, layers, final, head)
+    return Transformer(cfg, embed, layers, final, head, proj)
 
 
 def _block(p: Block, x: torch.Tensor, cfg, positions: torch.Tensor, cache: Optional[Cache] = None,
@@ -102,8 +106,18 @@ def _block(p: Block, x: torch.Tensor, cfg, positions: torch.Tensor, cache: Optio
     return x + mlp_out, new_cache, layer_aux
 
 
-def _embed_inputs(p: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    return p.embed[tokens]
+def _embed_inputs(p: Transformer, tokens: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings; for the VLM family the projected patch
+    embeddings before them (B, n_patches + S_text, d)."""
+    x = p.embed[tokens]
+    if p.cfg.family != "vlm":
+        return x
+    if patch_embeds is None:
+        raise ValueError(f"{p.cfg.name}: the VLM needs patch_embeds, the stubbed vision "
+                         f"tower's (B, n_patches, d_model) output "
+                         f"(models.vlm_stub.fake_patch_embeds)")
+    return torch.cat([patch_embeds.to(x.dtype) @ p.patch_proj, x], 1)
 
 
 def lm_head_matrix(p: Transformer) -> torch.Tensor:
@@ -119,10 +133,12 @@ def _positions(n: int, start: int, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def lm_forward(p: Transformer, tokens: torch.Tensor, cfg, *, return_aux: bool = False):
-    """Full-sequence forward -> logits (B, S, V); with ``return_aux``,
-    (logits, {"lb_loss", "z_loss"} summed over layers, 0 for dense ones)."""
-    x = _embed_inputs(p, tokens)
+def lm_forward(p: Transformer, tokens: torch.Tensor, cfg, *,
+               patch_embeds: Optional[torch.Tensor] = None, return_aux: bool = False):
+    """Full-sequence forward -> logits (B, S, V) (the VLM's S counts its
+    patches); with ``return_aux``, (logits, {"lb_loss", "z_loss"} summed
+    over layers, 0 for dense ones)."""
+    x = _embed_inputs(p, tokens, patch_embeds)
     positions = _positions(x.shape[1], 0, x.device)
     total = {name: torch.zeros((), device=x.device) for name in ("lb_loss", "z_loss")}
     for layer in p.layers:
@@ -135,9 +151,10 @@ def lm_forward(p: Transformer, tokens: torch.Tensor, cfg, *, return_aux: bool = 
 
 @torch.no_grad()
 def lm_prefill(p: Transformer, tokens: torch.Tensor, cfg, *,
+               patch_embeds: Optional[torch.Tensor] = None,
                attention: Optional[Attention] = None) -> Tuple[torch.Tensor, Cache]:
     """Prefill -> (logits of the last position (B, V), stacked cache)."""
-    x = _embed_inputs(p, tokens)
+    x = _embed_inputs(p, tokens, patch_embeds)
     positions = _positions(x.shape[1], 0, x.device)
     caches = []
     for layer in p.layers:
@@ -153,7 +170,7 @@ def lm_decode_step(p: Transformer, cache: Cache, tokens: torch.Tensor, pos: int,
     """One decode step at write position ``pos`` -> (logits (B, V), the same
     cache, updated in place)."""
     pos = int(pos)
-    x = _embed_inputs(p, tokens[:, None])
+    x = p.embed[tokens[:, None]]
     positions = _positions(1, pos, x.device)
     for i, layer in enumerate(p.layers):
         x, _, _ = _block(layer, x, cfg, positions, cache={k: t[i] for k, t in cache.items()},

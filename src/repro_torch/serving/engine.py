@@ -15,8 +15,13 @@ layout) and dequantizes them to the engine's dtype on each prefill and
 decode call, as the reference does inside its jitted calls; the model run
 is the same.  On the card, prefill's attention launches the
 sliding-window attention kernel once per layer (the hybrid: once per
-application of its shared block; the xLSTM, which has no attention,
-never), and decode launches none.
+application of its shared block; the encoder-decoder: once per decoder
+layer, its encoder and cross-attention being bidirectional; the xLSTM,
+which has no attention, never), and decode launches none.
+
+The encoder-decoder takes its frames and the VLM its patch embeddings
+through ``generate(..., extra={"frames": ...})`` / ``{"patch_embeds":
+...}``; the VLM's decode starts at ``pos = S_prompt + n_patches``.
 PyTorch runs eagerly, so nothing is compiled ahead.
 """
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from ..core.backend import resolve_device
 from ..models import cache_spec, decode_step, params_from_tree, params_to_tree, prefill
+from ..models.encdec import encdec_cache_spec
 
 __all__ = ["ServeEngine", "GenerationResult"]
 
@@ -79,8 +85,16 @@ class ServeEngine:
         Mamba2 layer's SSD state and the xLSTM's states float32), ``pos``
         is padded with -1 and K/V with 0.  A cache longer than max_len (a
         ring cache of the window's length with max_len below the window)
-        raises, as the reference's negative pad does."""
-        return self._fit(cache, cache_spec(self.cfg, batch, self.max_len, dtype=self.dtype))
+        raises, as the reference's negative pad does.  The encoder-decoder
+        grows only its self cache: its cross K/V keeps the encoder's own
+        length (cross-attention is unmasked, so a zero row at a phantom
+        encoder position would take probability mass)."""
+        if self.cfg.family == "encdec":
+            spec = encdec_cache_spec(self.cfg, batch, self.max_len,
+                                     enc_len=cache["cross"]["k"].shape[2], dtype=self.dtype)
+        else:
+            spec = cache_spec(self.cfg, batch, self.max_len, dtype=self.dtype)
+        return self._fit(cache, spec)
 
     def _fit(self, cache: Dict[str, Any], spec: Dict[str, Any], path: str = "") -> Dict[str, Any]:
         out = {}

@@ -97,7 +97,8 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.estimators.spectral import hann_window, welch_chunk_kernel
     from repro_torch.core.plan import autocovariance_request
     from repro_torch.launch import serve
-    from repro_torch.models import init_params, params_from_numpy, params_to_numpy
+    from repro_torch.models import (fake_frame_embeds, fake_patch_embeds, init_params,
+                                    params_from_numpy, params_to_numpy)
     from repro_torch.serving import StatsGateway
 
     x = np.zeros((64, 2), np.float32)
@@ -116,6 +117,13 @@ def test_entry_points_default_to_the_card():
     xlstm_cfg = get_arch("xlstm").reduced()
     xlstm_model = init_params(xlstm_cfg, device="cpu")
     xlstm_tree = params_to_numpy(xlstm_model)
+    whisper_cfg = get_arch("whisper").reduced()
+    whisper_model = init_params(whisper_cfg, device="cpu")
+    whisper_tree = params_to_numpy(whisper_model)
+    llava_cfg = get_arch("llava").reduced()
+    llava_model = init_params(llava_cfg, device="cpu")
+    llava_tree = params_to_numpy(llava_model)
+    stub_gen = torch.Generator()
     for call in (lambda: SeriesFrame.from_array(x), lambda: SeriesFrame.from_chunks([x]),
                  lambda: FrameSession(d=2, num_users=4),
                  lambda: StatPlan([autocovariance_request(2)], d=2),
@@ -135,6 +143,14 @@ def test_entry_points_default_to_the_card():
                  lambda: ServeEngine(hybrid_cfg, hybrid_model, max_len=8),
                  lambda: init_params(xlstm_cfg), lambda: params_from_numpy(xlstm_tree, xlstm_cfg),
                  lambda: ServeEngine(xlstm_cfg, xlstm_model, max_len=8, quantize=True),
+                 lambda: init_params(whisper_cfg),
+                 lambda: params_from_numpy(whisper_tree, whisper_cfg),
+                 lambda: ServeEngine(whisper_cfg, whisper_model, max_len=8),
+                 lambda: ServeEngine(whisper_cfg, whisper_model, max_len=8, quantize=True),
+                 lambda: init_params(llava_cfg), lambda: params_from_numpy(llava_tree, llava_cfg),
+                 lambda: ServeEngine(llava_cfg, llava_model, max_len=8),
+                 lambda: fake_frame_embeds(stub_gen, 1, 4, 8),
+                 lambda: fake_patch_embeds(stub_gen, 1, 4, 8),
                  lambda: serve.main(["--arch", "xlstm", "--reduced"]),
                  lambda: serve.main(["--arch", "deepseek-v2", "--reduced"]),
                  lambda: serve.main(["--arch", "llama4", "--reduced"]),
@@ -469,6 +485,60 @@ def test_xlstm_serving_runs_without_jax():
         "    eng = repro_torch.ServeEngine(cfg, lm, max_len=24, dtype=torch.bfloat16,\n"
         "                                  quantize=quantize, device='cpu')\n"
         "    assert eng.generate(np.zeros((2, 20), np.int32), 3).tokens.shape == (2, 3)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_encdec_and_vlm_serving_run_without_jax():
+    """The encoder-decoder (models/encdec.py), the VLM branch of the
+    transformer, the frontend stubs (models/vlm_stub.py), both config shims,
+    their weights carried out and in, and serving in bf16 and int8, with JAX
+    and the reference package unimportable: reduced whisper-base and
+    llava-next-34b on the CPU."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import numpy as np, torch, repro_torch\n"
+        "from repro_torch.configs import llava_next_34b, whisper_base\n"
+        "from repro_torch.models import (encdec, encode, fake_frame_embeds, fake_patch_embeds,\n"
+        "                                forward, params_from_numpy, params_to_numpy, prefill)\n"
+        "assert whisper_base.CONFIG.enc_layers == 6 and llava_next_34b.CONFIG.n_patches == 2880\n"
+        "gen = torch.Generator().manual_seed(0)\n"
+        "tok = torch.zeros((2, 10), dtype=torch.long)\n"
+        "cfg = repro_torch.get_arch('whisper').reduced()\n"
+        "lm = repro_torch.init_params(cfg, seed=0, dtype=torch.bfloat16, device='cpu')\n"
+        "assert isinstance(lm, encdec.EncDec)\n"
+        "frames = fake_frame_embeds(gen, 2, 30, cfg.d_model, device='cpu')\n"
+        "assert encode(lm, frames, cfg).shape == (2, 30, cfg.d_model)\n"
+        "logits = forward(lm, {'frames': frames, 'tokens': tok}, cfg)\n"
+        "assert logits.shape == (2, 10, cfg.vocab) and torch.isfinite(logits).all()\n"
+        "_, cache = prefill(lm, {'frames': frames, 'tokens': tok}, cfg)\n"
+        "assert cache['cross']['k'].shape[2] == 30 and cache['self']['k'].shape[2] == 10\n"
+        "back = params_from_numpy(params_to_numpy(lm), cfg, device='cpu')\n"
+        "assert torch.equal(forward(back, {'frames': frames, 'tokens': tok}, cfg), logits)\n"
+        "for quantize in (False, True):\n"
+        "    eng = repro_torch.ServeEngine(cfg, lm, max_len=16, dtype=torch.bfloat16,\n"
+        "                                  quantize=quantize, device='cpu')\n"
+        "    out = eng.generate(np.zeros((2, 10), np.int32), 3, extra={'frames': frames})\n"
+        "    assert out.tokens.shape == (2, 3)\n"
+        "cfg = repro_torch.get_arch('llava').reduced()\n"
+        "lm = repro_torch.init_params(cfg, seed=0, dtype=torch.bfloat16, device='cpu')\n"
+        "patches = fake_patch_embeds(gen, 2, cfg.n_patches, cfg.d_model, device='cpu')\n"
+        "logits = forward(lm, {'patch_embeds': patches, 'tokens': tok}, cfg)\n"
+        "assert logits.shape == (2, 10 + cfg.n_patches, cfg.vocab)\n"
+        "back = params_from_numpy(params_to_numpy(lm), cfg, device='cpu')\n"
+        "assert torch.equal(forward(back, {'patch_embeds': patches, 'tokens': tok}, cfg), logits)\n"
+        "for quantize in (False, True):\n"
+        "    eng = repro_torch.ServeEngine(cfg, lm, max_len=24, dtype=torch.bfloat16,\n"
+        "                                  quantize=quantize, device='cpu')\n"
+        "    out = eng.generate(np.zeros((2, 10), np.int32), 3, extra={'patch_embeds': patches})\n"
+        "    assert out.tokens.shape == (2, 3)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -1312,7 +1312,7 @@ def test_xlstm_teacher_forced_steps_are_the_generate_logits():
     cfg, model = _xlstm(layers=4)
     prompts = torch.randint(0, cfg.vocab, (2, 30), generator=torch.Generator().manual_seed(4))
     res = ServeEngine(cfg, model, max_len=36, device="cpu").generate(prompts, 5, keep_logits=True)
-    forced = smoke.xlstm_teacher_forced(model, cfg, prompts, torch.from_numpy(res.tokens))
+    forced = smoke.teacher_forced(model, cfg, prompts, torch.from_numpy(res.tokens))
     assert torch.equal(forced, res.logits)
     _, bf16 = _xlstm(layers=4, dtype=torch.bfloat16)
     f32 = smoke.float_model(bf16, cfg, torch.device("cpu"))
@@ -1353,3 +1353,201 @@ def test_xlstm_ranged_profile_finds_each_group_on_the_cpu():
             call()
         assert set(smoke.split_events(prof.events(), ranges=smoke.XLSTM_OPS)[
             "calls"].values()) == {0}
+
+
+def _encdec(family="whisper", dtype=torch.float32):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    cfg = get_arch(family).reduced()
+    return cfg, init_params(cfg, seed=0, dtype=dtype, device="cpu")
+
+
+def _frontend(cfg, b=2, n=20, s=12):
+    g = torch.Generator().manual_seed(3)
+    key = "frames" if cfg.family == "encdec" else "patch_embeds"
+    n = n if cfg.family == "encdec" else cfg.n_patches
+    return ({key: torch.randn((b, n, cfg.d_model), generator=g)},
+            torch.randint(0, cfg.vocab, (b, s), generator=g))
+
+
+def test_whisper_bounds_at_full_width_and_depth():
+    """32 clips of 1,500 frames, 192 prompt tokens: the encoder alone 3.30
+    TFLOP (projections 0.604, MLP 1.812, every (query, key) pair 0.885),
+    bound 3.337 ms by operations; the prefill adds the cross K/V 0.302, the
+    decoder's projections 0.116 and MLP 0.232, its causal self-attention
+    0.0073 (six kernel 8 launches) and cross-attention 0.113: 4.073 TFLOP,
+    4.118 ms.  A decode step against 255 cached positions: 0.803 GB (the
+    cross cache 0.590), bound 0.2398 ms by bytes.  The weight bytes counted
+    are a model's own (reduced: its parameters)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("whisper")
+    work = smoke.whisper_work(cfg, 32, 1500, 192)
+    tflop = {k: w[1] / 1e12 for k, w in work.items() if w[1]}
+    assert tflop == pytest.approx({
+        "encoder_projections": 0.603980, "encoder_mlp": 1.811939, "encoder_attention": 0.884736,
+        "decoder_projections": 0.115964, "cross_kv": 0.301990, "decoder_mlp": 0.231928,
+        "self_attention": 0.007285, "cross_attention": 0.113246, "lm_head": 0.0016995}, rel=1e-4)
+    assert work["self_attention"][1] == 6 * smoke.swa_work(32, 192, 8, 8, 64, 192, 2)[1]
+    enc = smoke.zamba_bounds(smoke.whisper_work(cfg, 32, 1500))
+    assert enc["bound_by"] == "operations" and enc["bound_ms"] == pytest.approx(3.33737, rel=1e-4)
+    pre = smoke.zamba_bounds(work)
+    assert pre["bound_by"] == "operations" and pre["bound_ms"] == pytest.approx(4.11807, rel=1e-4)
+    dec = smoke.zamba_bounds(smoke.whisper_work(cfg, 32, 1500, 1, 255))
+    assert dec["bound_by"] == "bytes" and dec["gbytes"] == pytest.approx(0.803231, rel=1e-5)
+    assert dec["bound_ms"] == pytest.approx(0.239771, rel=1e-4)
+    assert dec.keys() == pre.keys() and "cross_kv" not in smoke.whisper_work(cfg, 32, 1500, 1, 255)
+    red, model = _encdec(dtype=torch.bfloat16)
+    b, f, s = 1, 7, 5
+    w = smoke.whisper_work(red, b, f, s)
+    kv_row = red.n_kv_heads * red.resolved_head_dim * 2 * 2
+    weights = (sum(x[0] for x in w.values()) - w["frames"][0] - w["embed"][0]
+               - red.n_layers * b * (s + f) * kv_row  # the self and cross caches written
+               - b * red.vocab * 2 + red.vocab * red.d_model * 2)  # logits out, embedding in
+    assert weights == sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def test_llava_bounds_at_full_width():
+    """4 requests of 2,880 patches and 512 tokens through 60 layers: MLP
+    717.05 TFLOP, projections 191.21, the causal attention 39.60 (60 kernel
+    8 launches), patch_proj 1.18: bound 959.60 ms by operations.  A decode
+    step against 3,423 cached positions: 71.23 GB (weights 68.88, the cache
+    3.37), bound 21.26 ms by bytes.  The weight bytes counted are a model's
+    own (reduced: its parameters)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("llava")
+    work = smoke.llava_work(cfg, 4, 512)
+    tflop = {k: w[1] / 1e12 for k, w in work.items() if w[1]}
+    assert tflop == pytest.approx({"patch_proj": 1.18380, "projections": 191.2123,
+                                   "mlp": 717.0451, "attention": 39.59852,
+                                   "lm_head": 0.003670}, rel=1e-4)
+    assert work["attention"][1] == 60 * smoke.swa_work(4, 3392, 56, 8, 128, 3392, 2)[1]
+    pre = smoke.zamba_bounds(work)
+    assert pre["bound_by"] == "operations" and pre["bound_ms"] == pytest.approx(959.598, rel=1e-5)
+    dec = smoke.zamba_bounds(smoke.llava_work(cfg, 4, 512, 3423))
+    assert dec["bound_by"] == "bytes" and dec["gbytes"] == pytest.approx(71.2259, rel=1e-5)
+    assert dec["bound_ms"] == pytest.approx(21.2615, rel=1e-4)
+    red, model = _encdec("llava", dtype=torch.bfloat16)
+    b, s = 1, 5
+    w = smoke.llava_work(red, b, s)
+    kv_row = red.n_kv_heads * red.resolved_head_dim * 2 * 2
+    weights = (sum(x[0] for x in w.values()) - w["embed"][0]
+               - b * red.n_patches * red.d_model * 2  # the patch embeddings read
+               - red.n_layers * b * (red.n_patches + s) * kv_row  # the cache written
+               - b * red.vocab * 2 + red.vocab * red.d_model * 2)
+    assert weights == sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+@pytest.mark.parametrize("family", ["whisper", "llava"])
+def test_teacher_forced_steps_are_the_generate_logits(family):
+    """On the frontend families too: the teacher-forced prefill (frames or
+    patch embeddings as ``extra``) and decode steps from where the generate
+    starts (after the VLM's patches) give that generate's logits, bitwise."""
+    from repro_torch.serving import ServeEngine
+
+    cfg, model = _encdec(family)
+    extra, prompts = _frontend(cfg)
+    eng = ServeEngine(cfg, model, max_len=40, device="cpu")
+    res = eng.generate(prompts, 5, extra=extra, keep_logits=True)
+    forced = smoke.teacher_forced(model, cfg, prompts, torch.from_numpy(res.tokens), extra,
+                                  grow=eng._grow_cache)
+    assert torch.equal(forced, res.logits)
+
+
+def test_whisper_planted_faults_fail_the_float32_limit():
+    """Check 3's causal encoder and check 4's cross K/V padded by 64 zero
+    positions each move the float32 logits far beyond WHISPER_LOGITS_TOL of
+    the row max; the pad leaves the prefill's row (its cache is grown
+    after) and moves every decode step; outside the blocks the model is
+    itself again."""
+    from repro_torch.serving import ServeEngine
+
+    cfg, model = _encdec()
+    extra, prompts = _frontend(cfg)
+    eng = ServeEngine(cfg, model, max_len=40, device="cpu")
+    tokens = torch.from_numpy(eng.generate(prompts, 4, extra=extra).tokens)
+    want = smoke.teacher_forced(model, cfg, prompts, tokens, extra, grow=eng._grow_cache)
+    with smoke.planted_causal_encoder():
+        causal = smoke.teacher_forced(model, cfg, prompts, tokens, extra, grow=eng._grow_cache)
+    assert smoke.row_rel_errors(causal, want).min() > 100 * smoke.WHISPER_LOGITS_TOL
+    padded = smoke.teacher_forced(model, cfg, prompts, tokens, extra,
+                                  grow=smoke.padded_cross(eng._grow_cache, smoke.WHISPER_CROSS_PAD))
+    rows = smoke.row_rel_errors(padded, want)
+    assert rows[:, 0].max() == 0 and rows[:, 1:].min() > 100 * smoke.WHISPER_LOGITS_TOL
+    again = smoke.teacher_forced(model, cfg, prompts, tokens, extra, grow=eng._grow_cache)
+    assert torch.equal(again, want)
+
+
+def test_prefill_launches_pin():
+    """Kernel 8 once a layer in each prefill and nowhere else counted; any
+    other kernel in the generate fails the pin."""
+    good = {"swa_attention": {"generate": 6, "encode": 0, "cross_attention": 0, "prefill": 6,
+                              "decode": 0}, "other_kernels": {"segment_csd": 0}}
+    assert smoke.prefill_launches_ok(good, 6)
+    assert not smoke.prefill_launches_ok(good, 60)
+    for call, n in (("encode", 1), ("cross_attention", 6), ("decode", 1), ("prefill", 12),
+                    ("generate", 5)):
+        assert not smoke.prefill_launches_ok(
+            {**good, "swa_attention": {**good["swa_attention"], call: n}}, 6)
+    assert not smoke.prefill_launches_ok({**good, "other_kernels": {"segment_csd": 1}}, 6)
+
+
+def test_whisper_ranged_profile_finds_each_group_on_the_cpu():
+    """A reduced whisper prefill and decode step in WHISPER_OPS' ranges:
+    each self-attention's four projections (the encoder's and the
+    decoder's), each cross-attention's q and out projections, each decoder
+    layer's cross K/V projections (prefill only), each MLP's three
+    products, the encoder's attention products apart from the
+    cross-attention's by caller; none outside the block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import ServeEngine
+
+    cfg, model = _encdec()
+    extra, prompts = _frontend(cfg)
+    batch = {"tokens": prompts, **extra}
+    _, cache = prefill(model, batch, cfg)
+    cache = ServeEngine(cfg, model, max_len=20, device="cpu")._grow_cache(cache, 2)
+    names = tuple(smoke.WHISPER_OPS)
+    step = {"tokens": prompts[:, -1], "pos": 12}
+    for call, want in (
+            (lambda: prefill(model, batch, cfg),
+             {"self_projections": 16, "cross_projections": 4, "cross_kv_projections": 4,
+              "mlp_products": 12, "encoder_attention_products": 4,
+              "cross_attention_products": 4}),
+            (lambda: decode_step(model, cache, step, cfg),
+             {"self_projections": 8, "cross_projections": 4, "cross_kv_projections": 0,
+              "mlp_products": 6, "encoder_attention_products": 0,
+              "cross_attention_products": 4})):
+        with smoke.whisper_ranged(names), profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        split = smoke.split_events(prof.events(), ranges=smoke.WHISPER_OPS)
+        assert split.pop("calls") == want
+        assert set(smoke.whisper_groups(split)) == {
+            "encoder_attention", "cross_attention", "kernel8", "projections", "mlp",
+            "self_attention_other", "rest"}
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            call()
+        assert set(smoke.split_events(prof.events(), ranges=smoke.WHISPER_OPS)[
+            "calls"].values()) == {0}
+
+
+def test_llava_ranged_profile_finds_each_group_on_the_cpu():
+    """A reduced llava prefill in LLAVA_OPS' ranges: each layer's four
+    attention projections and three MLP products."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import prefill
+
+    cfg, model = _encdec("llava")
+    extra, prompts = _frontend(cfg)
+    with smoke.moe_ranged(tuple(smoke.LLAVA_OPS)), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        prefill(model, {"tokens": prompts, **extra}, cfg)
+    split = smoke.split_events(prof.events(), ranges=smoke.LLAVA_OPS)
+    assert split.pop("calls") == {"attention_projections": 8, "mlp_products": 6}
+    assert set(smoke.llava_groups(split)) == {"projections", "kernel8", "attention_other",
+                                              "mlp", "rest"}
