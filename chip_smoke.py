@@ -28,8 +28,12 @@ llama4-maverick-400b-a17b at full width with its depth cut to 2 layers
 deepseek-v2-236b at full width with its depth cut to 7 layers (multi-head
 latent attention: the prefill through kernel 8 at q/k 192, v 128, the
 decode absorbed against the latent cache), qwen3-0.6b at full width
-and depth, and zamba2-7b at full width and full depth (the Mamba2 /
-shared-attention hybrid: the prefill through kernel 8 at head dim 112, G =
+and depth, served and then trained (``lm_train``: AdamW steps at train_4k's
+sequence of 4,096 on the synthetic token pipeline, float32 moments, remat,
+the fused cross-entropy, plain attention: no kernel has a backward; checked
+against the served loss, finite differences, float32 accumulation and a
+bitwise restart from a checkpoint), and zamba2-7b at full width and full
+depth (the Mamba2 / shared-attention hybrid: the prefill through kernel 8 at head dim 112, G =
 1, once per application of the shared block; the chunked SSD held against
 its recurrence), and xlstm-125m at full width and full depth (the xLSTM
 family: mLSTM and sLSTM mixers in plain PyTorch, no kernel on the path;
@@ -98,7 +102,11 @@ with depth **cut** from 60 to 7 layers (57.72 GB of weights), 4 prompts of
 8,000 tokens, 16 new each; kernel 8 is also checked and timed alone at its
 prefill's layer shape (q/k 192, v 128, G = 1, W = S = 8,000), and at q/k
 and v widths that differ over an edge grid.  lm_qwen3: qwen3-0.6b, 2
-prompts of 4,096 tokens, 8 new.  lm_zamba: zamba2-7b (81 Mamba2 layers of
+prompts of 4,096 tokens, 8 new.  lm_train: qwen3-0.6b in bf16 at full
+width and depth, sequence 4,096, microbatches of 8, the global batch
+**cut** from 256 to TRAIN_MICRO x TRAIN_ACCUM sequences (the phase's time),
+the pipeline's bigram vocabulary **cut** to 4,096 (its dense tables), 3
+steps and a restart of 2.  lm_zamba: zamba2-7b (81 Mamba2 layers of
 d_model 3,584, 112 SSD heads of 64, state 64, chunk 256; one shared block of
 32 heads of 112 and d_ff 14,336 applied 14 times; vocab 32,000) in bf16 with
 no cut (13.50 GB of weights), 4 prompts of 8,000 tokens, 16 new each;
@@ -278,6 +286,50 @@ RANGE_TARGETS = {MOE_RANGE: "moe_apply", MLA_RANGE: "attention_apply"}
 # heads of 128, qk_norm, no window) in bf16: 2 prompts of 4,096 tokens, 8
 # new, lm_serve's checks 1-2 (kernel 8 at W = S = 4,096, G = 2).
 QWEN_ARCH, QWEN_BATCH, QWEN_PROMPT, QWEN_NEW = "qwen3", 2, 4096, 8
+# lm_train: qwen3-0.6b trained at full width and depth (28 layers, d_model
+# 1,024, 16 / 8 heads of 128, d_ff 3,072, vocab 151,936, qk_norm; 596 M
+# matmul weights with lm_head, 752 M parameters with the embedding) in bf16
+# from ``--seed``: float32 AdamW moments, every block under full remat, the
+# fused chunked cross-entropy, plain chunked attention (kernel 8 has no
+# backward).  train_4k's sequence of TRAIN_SEQ tokens, microbatches of
+# TRAIN_MICRO sequences, TRAIN_ACCUM of them a step: a global batch of
+# TRAIN_MICRO x TRAIN_ACCUM sequences, **cut** from train_4k's 256 to fit
+# the phase's time.  Tokens from the pipeline with its bigram vocabulary
+# **cut** to TRAIN_DATA_VOCAB (the reference's dense (V, V) tables would be
+# 92 GB each at 151,936); the model keeps its full embedding and head.
+# TRAIN_STEPS steps from the seed (warmup 1: step 0's lr is 0), the state
+# after step 0 checkpointed, restored into a model of another seed, and
+# steps 1-2 run again (the restart check, under deterministic algorithms).
+# On an H100 80GB HBM3 at 700 W a microbatch took about 6 s and a step of 8
+# of them 48.5 s: 6 steps and the checks overran the phase's 300 s, so a
+# step takes TRAIN_ACCUM = 4 (a global batch of 32).
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_ACCUM = "qwen3", 4096, 8, 4
+TRAIN_GLOBAL_BATCH = 256  # train_4k's
+TRAIN_DATA_VOCAB, TRAIN_STEPS, TRAIN_LR = 4096, 3, 3e-4
+# check 2: finite differences of the float32 loss on one sequence along
+# TRAIN_FD_DIRS random directions in the span of the leaves' own scalings
+# (each leaf scaled by 1 + e c_l, c_l standard normal), at e = TRAIN_FD_EPS
+# and half of it (their difference is the floor)
+TRAIN_FD_DIRS, TRAIN_FD_EPS, TRAIN_FD_FACTOR = 4, 1e-2, 4.0
+# check 3: TRAIN_ACC_ROWS sequences in float32, accum = TRAIN_ACC_ROWS
+# against 1; the floor is accum 1 over one row repeated against that row
+TRAIN_ACC_ROWS, TRAIN_ACC_FACTOR = 2, 8.0
+# check 1: the training loss and logits against the served forward's
+# (kernel 8) on one microbatch (the logits on its first row), within
+# TRAIN_SERVE_FACTOR x the floors that float32 attention in the served path
+# reads; and against the served path with the same plain bf16 attention
+# (the loss to TRAIN_SAME_TOL relative: float32 sums in another order)
+TRAIN_SERVE_FACTOR, TRAIN_SAME_TOL = 4.0, 1e-5
+TRAIN_OPT_RANGE = "lm_train.adamw_update"
+# lm_train runs in a process of its own under torch.use_deterministic_
+# algorithms, which needs cuBLAS's fixed workspace (TRAIN_CUBLAS, read when
+# a process makes its first cuBLAS handle); in this process it would hold
+# for every phase (a decode step of lm_moe's model took 25.6-27.0 ms with
+# it against 24.9 without on an H100 80GB HBM3 at 700 W,
+# `tools/moe_decode_timing.py` in turns)
+TRAIN_CUBLAS, TRAIN_TIMEOUT_S = ":4096:8", 600
+TRAIN_GROUPS = ("projection_and_mlp_gemms", "attention_products", "attention_elementwise",
+                "cross_entropy", "optimizer", "other")
 # lm_zamba: zamba2-7b at full width and full depth (81 Mamba2 layers of
 # d_model 3,584, d_inner 7,168, 112 SSD heads of 64, state 64, conv 4,
 # chunk 256; one shared attention + MLP block, 32 heads of 112, d_ff
@@ -6073,6 +6125,616 @@ def lm_qwen3(args, dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- lm_train --
+
+
+def train_work(cfg, n_seq: int, seq: int) -> dict:
+    """The model work of one train step over ``n_seq`` sequences of ``seq``
+    tokens (a dense GQA model): FLOPs 6 x the matmul weights (the
+    projections, the MLP and lm_head; not the embedding or the norms) x
+    the tokens, plus the causal attention's two products forward and
+    backward, 3 x 2 S^2 H D a layer and sequence (half the S x S square);
+    remat's recompute is not counted.  Bytes: the optimizer's pass over
+    the parameters (bf16 read and written, the bf16 gradient read, float32
+    m and v read and written).  The bound is the larger of the FLOPs over
+    the bf16 peak and the bytes over the memory rate."""
+    hd, d, layers = cfg.resolved_head_dim, cfg.d_model, cfg.n_layers
+    per_layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                 + 3 * d * cfg.d_ff)
+    matmul_weights = layers * per_layer + d * cfg.vocab
+    params = matmul_weights + cfg.vocab * d + (2 * layers + 1) * d + (
+        2 * layers * hd if cfg.qk_norm else 0)
+    tokens = n_seq * seq
+    matmul = 6 * matmul_weights * tokens
+    attention = layers * n_seq * 6 * seq * seq * cfg.n_heads * hd
+    nbytes = params * (2 * 2 + 2 + 4 * 4)
+    ms, by = bound_ms(nbytes, matmul + attention, PEAK_BF16)
+    return {"matmul_weights": matmul_weights, "params": params, "tokens": tokens,
+            "matmul_flops": matmul, "attention_flops": attention,
+            "flops": matmul + attention, "bytes": nbytes, "bound_ms": ms, "bound_by": by}
+
+
+@contextlib.contextmanager
+def planted_detached_remat():
+    """Check 2's planted fault: every block's checkpoint detaches its
+    input, so no gradient reaches the layers below it."""
+    from unittest import mock
+
+    from repro_torch.models import layers, transformer
+
+    def detached(fn, *args, policy="full"):
+        return layers.remat(fn, *(a.detach() if isinstance(a, torch.Tensor) else a
+                                  for a in args), policy=policy)
+
+    with mock.patch.object(transformer, "remat", detached):
+        yield
+
+
+@contextlib.contextmanager
+def planted_bf16_accumulation():
+    """Check 3's planted fault: microbatch gradients added into bfloat16
+    buffers (autograd's own dtype on the card) instead of float32."""
+    from unittest import mock
+
+    from repro_torch.training import train_step
+
+    def bf16(named):
+        return {k: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
+                for k, p in named.items()}
+
+    with mock.patch.object(train_step, "grad_buffers", bf16):
+        yield
+
+
+@contextlib.contextmanager
+def planted_noncausal_training():
+    """Check 1's planted fault: the training forward's attention sees the
+    keys after each query."""
+    from unittest import mock
+
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.models import transformer
+
+    with mock.patch.object(transformer, "swa_attention_chunked",
+                           functools.partial(swa_attention_chunked, causal=False)):
+        yield
+
+
+@contextlib.contextmanager
+def served_attention(fn):
+    """The served forward's prefill attention replaced by ``fn`` (the
+    kernel wrapper is the default)."""
+    from unittest import mock
+
+    from repro_torch.models import attention
+
+    with mock.patch.object(attention, "swa_attention", fn):
+        yield
+
+
+def f32_plain_attention(q, k, v, window, *, scale=None):
+    """The chunked plain attention on float32 copies of q, k, v."""
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+
+    return swa_attention_chunked(q.float(), k.float(), v.float(), window,
+                                 scale=scale).to(q.dtype)
+
+
+def served_loss(model, batch, cfg) -> tuple:
+    """(the next-token cross-entropy of the served forward's logits, the
+    first row's logits): the no-grad serving path, the loss one row at a
+    time (each row counts S - 1 labels)."""
+    from repro_torch.models import forward
+    from repro_torch.models.layers import cross_entropy_loss
+
+    logits = forward(model, {"tokens": batch["tokens"]}, cfg)
+    rows = [cross_entropy_loss(logits[r:r + 1, :-1], batch["labels"][r:r + 1, 1:]).item()
+            for r in range(logits.shape[0])]
+    first = logits[0].clone()
+    del logits
+    return sum(rows) / len(rows), first
+
+
+def training_loss(model, batch, cfg) -> tuple:
+    """(the training forward's loss (remat, plain attention, fused CE),
+    with gradients enabled as in a step; the first row's logits from the
+    same forward)."""
+    from repro_torch.models import train_forward
+    from repro_torch.training import loss_fn
+
+    with torch.enable_grad():
+        loss = loss_fn(model, batch, cfg, fused=True)[0].item()
+    with torch.no_grad():
+        logits = train_forward(model, {"tokens": batch["tokens"][:1]}, cfg)[0][0]
+    return loss, logits
+
+
+def train_serve_check(model, batch, cfg) -> dict:
+    """Check 1: the training forward against the served forward (kernel 8
+    on the card): the float32 loss over the microbatch, and the first
+    row's logits (max |diff| of a position over its max |logit|), each
+    within TRAIN_SERVE_FACTOR x its floor (the served path with float32
+    plain attention against bf16 plain: how far attention's rounding alone
+    moves it); the served path with the training forward's own bf16 plain
+    attention within TRAIN_SAME_TOL relative (the loss) and the logits'
+    floor; the planted non-causal attention must fail it."""
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+
+    train, train_logits = training_loss(model, batch, cfg)
+    served, served_logits = served_loss(model, batch, cfg)
+    with served_attention(swa_attention_chunked):
+        plain, plain_logits = served_loss(model, batch, cfg)
+    with served_attention(f32_plain_attention):
+        plain32, plain32_logits = served_loss(model, batch, cfg)
+    floor = abs(plain - plain32)
+    logits_floor = row_rel_errors(plain_logits, plain32_logits).max().item()
+    del plain32_logits
+    tol, logits_tol = TRAIN_SERVE_FACTOR * floor, TRAIN_SERVE_FACTOR * logits_floor
+    logits_err = row_rel_errors(train_logits, served_logits).max().item()
+    same_logits = row_rel_errors(train_logits, plain_logits).max().item()
+    del train_logits, plain_logits
+    with planted_noncausal_training():
+        fault, fault_logits = training_loss(model, batch, cfg)
+    fault_logits_err = row_rel_errors(fault_logits, served_logits).max().item()
+    del fault_logits, served_logits
+    out = {"rows": int(batch["tokens"].shape[0]), "train_loss": train, "served_loss": served,
+           "served_plain_loss": plain, "served_plain_f32_attention_loss": plain32,
+           "floor": floor, "tol": tol, "err": abs(train - served),
+           "same_attention_rel_err": abs(train - plain) / abs(plain),
+           "same_attention_tol": TRAIN_SAME_TOL,
+           "logits": {"rows": 1, "floor": logits_floor, "tol": logits_tol, "err": logits_err,
+                      "same_attention_err": same_logits},
+           "fault": {"loss": fault, "err": abs(fault - served), "logits_err": fault_logits_err,
+                     "caught": abs(fault - served) > tol or fault_logits_err > logits_tol}}
+    out["ok"] = (out["err"] <= tol and out["same_attention_rel_err"] <= TRAIN_SAME_TOL
+                 and logits_err <= logits_tol and same_logits <= logits_floor
+                 and all(math.isfinite(x) for x in (train, served, plain, plain32)))
+    return out
+
+
+def directional(grads, theta, coef) -> float:
+    """sum_l c_l (g_l . theta_l): the gradient along the direction that
+    scales each leaf of ``theta`` by (1 + e c_l), in float64."""
+    return sum(coef[k] * float((g.double() * p.double()).sum())
+               for (k, p), g in zip(theta.items(), grads))
+
+
+def fd_check(model32, batch, cfg, *, dirs=TRAIN_FD_DIRS, eps=TRAIN_FD_EPS, seed=0,
+             factor=TRAIN_FD_FACTOR) -> dict:
+    """Check 2: the float32 gradient against central finite differences of
+    the loss along ``dirs`` random directions, each scaling every leaf by
+    (1 + e c_l), c_l standard normal (directions independent of the
+    gradient that reach every leaf), at e = ``eps`` and ``eps`` / 2.  The
+    floor is the largest difference of the two step sizes' estimates
+    (truncation and rounding), the limit ``factor`` x the floor; the
+    planted detached block input must fail it."""
+    from repro_torch.training import loss_fn, named_parameters
+
+    named = named_parameters(model32)
+    orig = {k: p.detach().clone() for k, p in named.items()}
+
+    def grads():
+        loss = loss_fn(model32, batch, cfg, fused=True)[0]
+        got = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+        # a leaf the planted fault cuts off has no gradient: zero
+        return loss.item(), [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(named.values(), got)]
+
+    loss0, g = grads()
+    with planted_detached_remat():
+        _, g_fault = grads()
+    gen = torch.Generator().manual_seed(seed)
+    rows = []
+
+    @torch.no_grad()
+    def loss_at(coef, e):
+        for k, p in named.items():
+            p.copy_(orig[k] * (1 + e * coef[k]))
+        return loss_fn(model32, batch, cfg, fused=True)[0].item()
+
+    for _ in range(dirs):
+        coef = dict(zip(named, torch.randn(len(named), generator=gen,
+                                            dtype=torch.float64).tolist()))
+        fds = [(loss_at(coef, e) - loss_at(coef, -e)) / (2 * e) for e in (eps, eps / 2)]
+        rows.append({"grad": directional(g, orig, coef),
+                     "fault_grad": directional(g_fault, orig, coef),
+                     "fd": fds[1], "fd_at_eps": fds[0]})
+    with torch.no_grad():
+        for k, p in named.items():
+            p.copy_(orig[k])
+    del g, g_fault, orig
+    floor = max(abs(r["fd_at_eps"] - r["fd"]) for r in rows)
+    tol = factor * floor
+    errs = [abs(r["grad"] - r["fd"]) for r in rows]
+    fault = [abs(r["fault_grad"] - r["fd"]) for r in rows]
+    return {"rows": int(batch["tokens"].shape[0]), "loss": loss0, "eps": eps,
+            "directions": rows, "floor": floor, "tol": tol, "err": max(errs),
+            "fault": {"err": max(fault), "caught": max(fault) > tol},
+            "ok": max(errs) <= tol and all(math.isfinite(r["fd"]) for r in rows)}
+
+
+def grad_rel(a: dict, b: dict) -> tuple:
+    """(the largest over leaves of max |a - b| / max |b|, that leaf)."""
+    errs = {k: float((a[k].float() - b[k].float()).abs().max()
+                     / b[k].float().abs().max().clamp_min(1e-30)) for k in b}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def accum_check(model32, batch, cfg, *, factor=TRAIN_ACC_FACTOR) -> dict:
+    """Check 3: the float32 mean gradient of accum = rows microbatches of
+    one row against accum = 1 on the same rows, within ``factor`` x the
+    floor: accum = 1 over the first row repeated rows times against that
+    row alone, where the accumulated mean is exactly the row's gradient, so
+    their difference is what one reduction over all the rows costs against
+    one a microbatch (at least one float32 epsilon); the planted bf16
+    accumulation must fail it."""
+    from repro_torch.training import accumulate_grads
+
+    k = int(batch["tokens"].shape[0])
+    run = functools.partial(accumulate_grads, model32, cfg=cfg, fused_loss=True)
+    _, _, g1 = run(batch, accum=1)
+    _, _, one = run({n: t[:1] for n, t in batch.items()}, accum=1)
+    _, _, dup = run({n: t[:1].expand(k, -1).contiguous() for n, t in batch.items()}, accum=1)
+    floor, floor_leaf = grad_rel(dup, one)
+    floor = max(floor, float(torch.finfo(torch.float32).eps))
+    del one, dup
+    _, _, gk = run(batch, accum=k)
+    err, err_leaf = grad_rel(gk, g1)
+    del gk
+    with planted_bf16_accumulation():
+        _, _, gf = run(batch, accum=k)
+    fault, _ = grad_rel(gf, g1)
+    tol = factor * floor
+    return {"rows": k, "accum": k, "floor": floor, "floor_leaf": floor_leaf, "tol": tol,
+            "err": err, "err_leaf": err_leaf, "fault": {"err": fault, "caught": fault > tol},
+            "ok": err <= tol}
+
+
+def optimizer_step_as_zero(opt):
+    """Check 4's planted fault: the restored optimizer state with its step
+    reset to 0 (the schedule's lr and the bias corrections restart)."""
+    return opt._replace(step=torch.zeros_like(opt.step))
+
+
+def finite_ok(values) -> bool:
+    return all(math.isfinite(v) for v in values)
+
+
+def train_group(ev, vocab: int) -> str:
+    """The operator group of an ``aten::`` event of a training profile: the
+    optimizer (inside TRAIN_OPT_RANGE); the cross-entropy (an input whose
+    last dim is the vocabulary: its logits, their gradient, lm_head's
+    products); the products, bmm the attention's and mm the projections',
+    MLP's; the attention's elementwise passes (5-D inputs: (B, KVH, G, q,
+    s) logits and the grouped q); the rest (norms, rope, SwiGLU, residual
+    adds, the embedding, casts)."""
+    parent = ev.cpu_parent
+    while parent is not None:
+        if parent.name == TRAIN_OPT_RANGE:
+            return "optimizer"
+        parent = parent.cpu_parent
+    shapes = [s for s in (ev.input_shapes or []) if isinstance(s, (list, tuple)) and s]
+    if any(s[-1] == vocab for s in shapes):
+        return "cross_entropy"
+    if ev.name in ("aten::bmm", "aten::baddbmm"):
+        return "attention_products"
+    if ev.name in ("aten::mm", "aten::addmm"):
+        return "projection_and_mlp_gemms"
+    if any(len(s) >= 5 for s in shapes):
+        return "attention_elementwise"
+    return "other"
+
+
+def train_split(events, vocab: int) -> dict:
+    """Device ms of a training profile by :func:`train_group`, each device
+    kernel counted once at the ``aten::`` operator that launched it; the
+    total over device kernels and what no operator launched."""
+    out = {g: 0.0 for g in TRAIN_GROUPS}
+    total = 0.0
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            if not ev.name.startswith("aten::"):
+                continue
+            own = sum(k.duration for k in ev.kernels) / 1e3
+            if own:
+                out[train_group(ev, vocab)] += own
+        elif not getattr(ev, "is_user_annotation", False) and ev.name != TRAIN_OPT_RANGE:
+            total += ev.device_time_total / 1e3
+    out["unattributed"] = total - sum(out.values())
+    out["total"] = total
+    return out
+
+
+def train_profile(model, opt, cfg, batch) -> dict:
+    """One microbatch's step (forward, backward, AdamW) profiled with its
+    input shapes: device ms by group, the busy share, the wall ms."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.training import make_train_step, train_step
+
+    inner = train_step.adamw_update
+
+    def ranged(*a, **kw):
+        with record_function(TRAIN_OPT_RANGE):
+            return inner(*a, **kw)
+
+    step = make_train_step(cfg, lr_fn=TRAIN_LR, accum=1, fused_loss=True)
+    torch.cuda.synchronize()
+    with mock.patch.object(train_step, "adamw_update", ranged), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    split = train_split(prof.events(), cfg.vocab)
+    return {"rows": int(batch["tokens"].shape[0]), "wall_ms": wall,
+            "device_busy_share": split["total"] / wall, "device_ms_by_group": split,
+            "split_s": time.perf_counter() - t0}
+
+
+def timed_batches(pipe, start: int, pool, times: list):
+    """The pipeline's batches from ``start`` on, each built on ``pool``'s
+    thread while the caller steps on the one before it, its build time
+    appended to ``times`` (ms)."""
+    def build(step):
+        t0 = time.perf_counter()
+        b = pipe.host_batch(step)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return b
+
+    step = start
+    ahead = pool.submit(build, step)
+    while True:
+        batch = ahead.result()
+        step += 1
+        ahead = pool.submit(build, step)
+        yield batch
+
+
+def train_steps(model, opt, step_fn, batches, steps, dev, after=None):
+    """Run ``steps`` on the batches -> (opt, a record per step: loss,
+    gradient norm, lr, the ms waited for the batch, the step's ms)."""
+    records = []
+    for s in steps:
+        t0 = time.perf_counter()
+        hb = next(batches)
+        wait = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in hb.items()}
+        model, opt, m = step_fn(model, opt, batch)
+        m = {k: v.item() for k, v in m.items()}
+        records.append({"step": s, "loss": m["loss"], "grad_norm": m["grad_norm"],
+                        "lr": m["lr"], "wait_ms": wait,
+                        "step_ms": (time.perf_counter() - t0) * 1e3})
+        if after is not None:
+            after(s, opt)
+    return opt, records
+
+
+def lm_train_process(args) -> dict:
+    """:func:`lm_train` in a child process with ``CUBLAS_WORKSPACE_CONFIG``
+    = TRAIN_CUBLAS, on the library this run built; its lines are printed
+    here, and a failed child fails the run.  Returns its launches."""
+    code = (f"import argparse, sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
+            f"cs.train_child(argparse.Namespace(seed={args.seed}))")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TRAIN_CUBLAS)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=TRAIN_TIMEOUT_S)
+    sys.stderr.write(proc.stderr[-20000:])
+    launches = None
+    for line in proc.stdout.splitlines():
+        print(line, flush=True)
+        if line.startswith('{"phase": "lm_train"'):
+            launches = json.loads(line)["lm_train_launches"]
+    if proc.returncode != 0 or launches is None:
+        fail("lm_train", returncode=proc.returncode)
+    return launches
+
+
+def train_child(args) -> None:
+    """The child of :func:`lm_train_process`: load the built library,
+    initialise CUDA, run the phase."""
+    from repro_torch.kernels import _build
+
+    _build.library()
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)  # CUDA up before the phase's memory-stat reset
+    lm_train(args, dev)
+
+
+def lm_train(args, dev) -> dict:
+    """Phase lm_train: qwen3-0.6b trained at full width and depth (see
+    TRAIN_ARCH): TRAIN_STEPS steps of a global batch of TRAIN_MICRO x
+    TRAIN_ACCUM sequences of TRAIN_SEQ tokens from the pipeline, bf16
+    weights from ``--seed``, float32 AdamW moments, full remat, the fused
+    cross-entropy; under ``torch.use_deterministic_algorithms(True)``.
+    Reported: each step's ms (and their median after the first) against
+    the bound of :func:`train_work`, tokens a second, the loss and
+    gradient-norm trace, peak GB, the data pipeline's ms a batch and the
+    ms a step waited for it, the checkpoint's bytes and save and restore
+    ms, one microbatch step's device ms by operator group and busy share
+    (:func:`train_profile`), and each kernel's launches through the steps
+    (none: no kernel has a backward, so the path runs none).  Checks, each
+    with a planted fault caught in the same run: (1) the training loss
+    against the served forward's (:func:`train_serve_check`); (2) the
+    float32 gradient against finite differences (:func:`fd_check`); (3)
+    accumulation in float32 (:func:`accum_check`); (4) the state after
+    step 0 restored into a model of another seed and steps 1-2 run again:
+    losses, parameters, m and v bitwise the unbroken run's, and the step
+    restored as 0 (:func:`optimizer_step_as_zero`) must differ; (5) every
+    loss and gradient norm finite.  Returns each kernel's launches."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    from repro_torch import get_arch, init_params
+    from repro_torch.checkpoint.manager import CheckpointManager, restore_pytree
+    from repro_torch.data.tokens import SyntheticTokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import trainable
+    from repro_torch.training import adamw_init, cosine_schedule, make_train_step
+    from repro_torch.training import named_parameters
+
+    t_phase = time.perf_counter()
+    mark = time.perf_counter
+    sections = {}
+    cfg = get_arch(TRAIN_ARCH)
+    rows = TRAIN_MICRO * TRAIN_ACCUM
+    work = train_work(cfg, rows, TRAIN_SEQ)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    ckdir = tempfile.mkdtemp(prefix="lm_train_ckpt.")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        t0 = mark()
+        pipe = SyntheticTokenPipeline(vocab=TRAIN_DATA_VOCAB, seq_len=TRAIN_SEQ,
+                                      global_batch=rows, seed=args.seed)
+        pipe_ms = (mark() - t0) * 1e3
+        data_ms = []
+
+        def fresh(seed):
+            model = trainable(init_params(cfg, seed=seed, dtype=torch.bfloat16, device=dev))
+            return model, named_parameters(model)
+
+        model, named = fresh(args.seed)
+        n_params = sum(p.numel() for p in named.values())
+        step_fn = make_train_step(cfg, lr_fn=cosine_schedule(TRAIN_LR, warmup=1,
+                                                            total=TRAIN_STEPS),
+                                  accum=TRAIN_ACCUM, fused_loss=True)
+        saved = {}
+        mgr = CheckpointManager(ckdir)
+
+        def after(s, opt):
+            if s == 0:  # the state after step 0: a checkpoint
+                t0 = mark()
+                mgr.save({"params": {k: p.detach() for k, p in named.items()}, "opt": opt}, s)
+                mgr.flush()
+                saved["save_ms"] = (mark() - t0) * 1e3
+            if s == 1:
+                saved["params_after_1"] = {k: p.detach().clone() for k, p in named.items()}
+
+        reset_launch_counts()
+        opt, records = train_steps(model, adamw_init(named), step_fn,
+                                   timed_batches(pipe, 0, pool, data_ms), range(TRAIN_STEPS),
+                                   dev, after)
+        launches = dict(launch_counts())
+        mgr.close()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        sections["steps"] = mark() - t_phase
+        ck_bytes = sum(os.path.getsize(os.path.join(root, f))
+                       for root, _, files in os.walk(ckdir) for f in files)
+
+        # 4: the restart, and the step restored as 0
+        t_check = mark()
+
+        m2, n2 = fresh(args.seed + 1)
+        t0 = mark()
+        state = restore_pytree({"params": {k: p.detach() for k, p in n2.items()},
+                                "opt": adamw_init(n2)}, ckdir, 0)
+
+        def load(n):
+            with torch.no_grad():
+                for k, p in n.items():
+                    p.copy_(state["params"][k])
+
+        load(n2)
+        torch.cuda.synchronize()
+        restore_ms = (mark() - t0) * 1e3
+        # the step replaces m and v with new tensors: state's stay as restored
+        o2, again = train_steps(m2, state["opt"], step_fn,
+                                timed_batches(pipe, 1, pool, data_ms), range(1, TRAIN_STEPS),
+                                dev)
+        same_params = all(torch.equal(p, named[k]) for k, p in n2.items())
+        same_m = all(torch.equal(o2.m[k], opt.m[k]) for k in named)
+        same_v = all(torch.equal(o2.v[k], opt.v[k]) for k in named)
+        del o2
+        load(n2)  # the restored state again, its step as 0
+        _, bad = train_steps(m2, optimizer_step_as_zero(state["opt"]), step_fn,
+                             timed_batches(pipe, 1, pool, data_ms), [1], dev)
+        fault_same = all(torch.equal(p, saved["params_after_1"][k]) for k, p in n2.items())
+        del m2, n2, state, saved["params_after_1"]
+        restart = {"resumed_from_step": 0, "rerun_steps": [1, TRAIN_STEPS - 1],
+                   "losses": [r["loss"] for r in again],
+                   "losses_equal": [r["loss"] for r in again] == [r["loss"] for r in records[1:]],
+                   "params_bitwise": same_params, "m_bitwise": same_m, "v_bitwise": same_v,
+                   "restore_ms": restore_ms,
+                   "fault": {"step_restored_as_0": True, "loss": bad[0]["loss"],
+                             "params_equal": fault_same, "caught": not fault_same}}
+        restart["ok"] = (restart["losses_equal"] and same_params and same_m and same_v)
+        sections["check4"], t_check = mark() - t_check, mark()
+
+        # 1: the training loss against the served forward's, one microbatch
+        hb = pipe.host_batch(0)
+        mb = {k: torch.from_numpy(v[:TRAIN_MICRO]).to(dev) for k, v in hb.items()}
+        serve_check = train_serve_check(model, mb, cfg)
+        sections["check1"], t_check = mark() - t_check, mark()
+
+        # 2, 3: a float32 copy of the trained weights
+        f32 = trainable(float_model(model, cfg, dev))
+        fd = fd_check(f32, {k: v[:1] for k, v in mb.items()}, cfg, seed=args.seed)
+        sections["check2"], t_check = mark() - t_check, mark()
+        acc = accum_check(f32, {k: v[:TRAIN_ACC_ROWS] for k, v in mb.items()}, cfg)
+        del f32
+        sections["check3"], t_check = mark() - t_check, mark()
+
+        # where the time goes: one microbatch's step (it moves the weights:
+        # last)
+        prof = train_profile(model, opt, cfg, mb)
+        sections["profile"] = mark() - t_check
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.use_deterministic_algorithms(was_deterministic)
+
+    step_ms = [r["step_ms"] for r in records]
+    median_ms = float(np.median(step_ms[1:]))
+    values = [r[k] for r in records + again for k in ("loss", "grad_norm")]
+    finite = {"ok": finite_ok(values), "fault_caught": not finite_ok(values + [math.inf])}
+    out = {
+        "phase": "lm_train", "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.resolved_head_dim,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params, "dtype": "bfloat16",
+        "optimizer": "AdamW, float32 m and v", "remat": cfg.remat_policy,
+        "loss": "fused chunked cross-entropy, chunk 256", "seq": TRAIN_SEQ,
+        "micro_batch": TRAIN_MICRO, "accum": TRAIN_ACCUM, "global_batch": rows,
+        "cuts": {"global_batch": f"{rows} of train_4k's {TRAIN_GLOBAL_BATCH} sequences "
+                                 f"(accum {TRAIN_ACCUM} of {TRAIN_GLOBAL_BATCH // TRAIN_MICRO}): "
+                                 f"the phase's time",
+                 "data_vocab": f"the pipeline's bigram vocabulary {TRAIN_DATA_VOCAB} of "
+                               f"{cfg.vocab}: its dense (V, V) tables"},
+        "width_depth_seq": "full: no cut",
+        "steps": records, "step_ms": step_ms, "median_step_ms_after_first": median_ms,
+        "tokens_per_s": work["tokens"] / (median_ms / 1e3), "work": work,
+        "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+        "share_of_bound": work["bound_ms"] / median_ms, "profile": prof,
+        "busy_share": prof["device_busy_share"], "peak_memory_gb": peak_gb,
+        "held_at_start_gb": held_gb, "data": {"pipeline_init_ms": pipe_ms, "batch_ms": data_ms},
+        "checkpoint": {"bytes": ck_bytes, "save_ms": saved.get("save_ms"),
+                       "restore_ms": restore_ms},
+        "lm_train_launches": launches,
+        "checks": {"train_vs_served_loss": serve_check, "gradient_vs_fd": fd,
+                   "accumulation": acc, "restart": restart, "finite": finite},
+        "section_s": sections, "phase_peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "wall_ms": (time.perf_counter() - t_phase) * 1e3,
+    }
+    checks = out["checks"]
+    out["ok"] = (all(n == 0 for n in launches.values()) and finite["ok"]
+                 and finite["fault_caught"]
+                 and all(checks[c]["ok"] and checks[c]["fault"]["caught"]
+                         for c in ("train_vs_served_loss", "gradient_vs_fd", "accumulation",
+                                   "restart")))
+    emit(out)
+    if not out["ok"]:
+        fail("lm_train")
+    return launches
+
+
 def lm_zamba(args, dev) -> int:
     """Phase lm_zamba: zamba2-7b at full width and full depth (81 Mamba2
     layers, the shared attention block at 14 of them), bf16 weights from
@@ -7519,6 +8181,12 @@ def main() -> None:
     qwen_launches = lm_qwen3(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # training: qwen3-0.6b at full width and depth, sequence 4,096, AdamW
+    # steps under deterministic algorithms (in a child process); no kernel
+    # on the path
+    train_launches = lm_train_process(args)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the Mamba2 / shared-attention hybrid: zamba2-7b at full width and
     # depth (13.50 GB of weights: qwen3's are gone), kernel 8 at 112, G = 1
     zamba_launches = lm_zamba(args, dev)
@@ -7576,6 +8244,7 @@ def main() -> None:
             "lm_moe_launches": moe_launches if name == "swa_attention" else 0,
             "lm_mla_launches": mla_launches if name == "swa_attention" else 0,
             "lm_qwen3_launches": qwen_launches if name == "swa_attention" else 0,
+            "lm_train_launches": train_launches.get(name, 0),
             "lm_zamba_launches": zamba_launches if name == "swa_attention" else 0,
             "lm_xlstm_launches": xlstm_launches.get(name, 0),
             "lm_whisper_launches": whisper_launches.get(name, 0),

@@ -18,7 +18,9 @@ Format: one ``arrays.npz`` a generation, keyed by the flattened tree paths
 of the reference (``group_0/lanes/.stat/lagged``, ``group_0/counts``: dict
 keys, ``.field`` for a dataclass field, indices for sequences), and a JSON
 manifest with the step, the sorted keys, the per-key crc32 of the raw leaf
-bytes and the caller's ``meta``.  A generation written by either package
+bytes, ``dtypes`` (a bfloat16 leaf, which numpy has no type for, is stored
+as its uint16 bits and named there, and restores bit for bit) and the
+caller's ``meta``.  A generation written by either package
 restores in the other.  Sessions record ``meta["tenant_axes"]``, from which
 :func:`restore_tenant_pytree` slices one tenant out of a generation.
 
@@ -107,12 +109,31 @@ def _map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
     return None if tree is None else fn(path, tree)
 
 
-def _to_host(leaf) -> np.ndarray:
+def _to_host(leaf):
+    """The leaf on the host: a numpy array, or for a bfloat16 tensor (numpy
+    has no such type) a CPU tensor, stored by :func:`_stored`."""
     if _mesh_of(leaf) is not None:
         leaf = leaf.full_tensor()  # a collective: every rank of the mesh calls it
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        return leaf if leaf.dtype == torch.bfloat16 else leaf.numpy()
     return np.asarray(leaf)
+
+
+def _stored(host) -> Tuple[np.ndarray, Optional[str]]:
+    """(the array the payload holds, the dtype the manifest records for it
+    or None): a bfloat16 leaf is stored as its uint16 bits, losslessly."""
+    if isinstance(host, torch.Tensor):
+        return host.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return host, None
+
+
+def _from_stored(arr: np.ndarray, dtype: Optional[str]):
+    """A payload array as the leaf it was: the bfloat16 bits of a leaf the
+    manifest records as ``"bfloat16"`` as a CPU bfloat16 tensor."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return arr
 
 
 def _mesh_of(leaf):
@@ -132,7 +153,7 @@ def _writes(tree: Any):
     return mesh.get_local_rank() == 0, mesh.get_group()
 
 
-def _flatten(tree: Any) -> Dict[str, np.ndarray]:
+def _flatten(tree: Any) -> Dict[str, Any]:
     return {path_key(p): _to_host(leaf) for p, leaf in _items(tree)}
 
 
@@ -169,9 +190,12 @@ def save_pytree(tree: Any, directory: str, step: int, meta: Optional[dict] = Non
         torch.distributed.barrier(group=group)
 
 
-def _write(flat: Dict[str, np.ndarray], tree: Any, directory: str, step: int,
+def _write(flat: Dict[str, Any], tree: Any, directory: str, step: int,
            meta: Optional[dict]) -> str:
     chaos = _chaos()
+    stored = {k: _stored(v) for k, v in flat.items()}
+    flat = {k: arr for k, (arr, _) in stored.items()}
+    dtypes = {k: dt for k, (_, dt) in stored.items() if dt is not None}
     os.makedirs(directory, exist_ok=True)
     # a unique tmp name: two writers of one step never collide, and a crash
     # mid-write leaves an identifiable orphan for sweep_tmp_dirs
@@ -188,7 +212,7 @@ def _write(flat: Dict[str, np.ndarray], tree: Any, directory: str, step: int,
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump({"step": step, "treedef": _structure(tree), "keys": sorted(flat),
                    "checksums": {k: _checksum(v) for k, v in flat.items()},
-                   "meta": dict(meta or {})}, f)
+                   "dtypes": dtypes, "meta": dict(meta or {})}, f)
     # swap, never delete-then-rename: the old generation of this step moves
     # aside under a unique trash name first
     trash = None
@@ -259,6 +283,17 @@ def _load_checksums(step_dir: str) -> Optional[Dict[str, int]]:
     return {k: int(v) for k, v in sums.items()}
 
 
+def _load_dtypes(step_dir: str) -> Dict[str, str]:
+    """The manifest's ``dtypes``: the leaves stored in another type than
+    their own (bfloat16 as uint16 bits); empty for a generation without."""
+    try:
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            dtypes = json.load(f).get("dtypes")
+    except (OSError, ValueError):
+        return {}
+    return dtypes if isinstance(dtypes, dict) else {}
+
+
 def load_manifest(directory: str, step: int) -> dict:
     """One generation's manifest; :class:`CheckpointCorrupt` when it is
     missing or unparseable."""
@@ -311,12 +346,22 @@ def _verified_leaf(data, key: str, checksums, step: int, directory: str,
     return arr
 
 
-def _like(arr: np.ndarray, leaf) -> Any:
-    """``arr`` where the template ``leaf`` lies: a tensor on its device and
-    dtype, else a host numpy array of its dtype."""
+def _tensor(arr) -> torch.Tensor:
+    """A host tensor of ``arr``, of its shape (``np.ascontiguousarray``
+    makes a 0-d array 1-d)."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(np.shape(arr)))
+
+
+def _like(arr, leaf) -> Any:
+    """``arr`` (a numpy array, or a bfloat16 tensor from
+    :func:`_from_stored`) where the template ``leaf`` lies: a tensor on its
+    device and dtype, else a host numpy array of its dtype."""
     if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device=leaf.device,
-                                                               dtype=leaf.dtype)
+        return _tensor(arr).to(device=leaf.device, dtype=leaf.dtype)
+    if isinstance(arr, torch.Tensor):
+        arr = arr.float().numpy()
     return np.asarray(arr, dtype=np.asarray(leaf).dtype)
 
 
@@ -341,8 +386,7 @@ def _placed(arr: np.ndarray, leaf, sharding) -> Any:
     elif not isinstance(placement, Replicate):
         raise ValueError(f"restore places leaves by Shard(0) on a 1-D mesh or Replicate(), "
                          f"got {placement}")
-    local = torch.from_numpy(np.ascontiguousarray(arr)).to(device=mesh_device(mesh),
-                                                           dtype=leaf.dtype)
+    local = _tensor(arr).to(device=mesh_device(mesh), dtype=leaf.dtype)
     return DTensor.from_local(local, mesh, [placement], run_check=False)
 
 
@@ -368,13 +412,15 @@ def restore_pytree(template: Any, directory: str, step: Optional[int] = None,
     for ``[Replicate()]``).  A generation written at any world size
     restores at any other."""
     step = _resolve_step(directory, step)
-    checksums = (_load_checksums(os.path.join(directory, f"step_{step:010d}"))
-                 if verify else None)
+    step_dir = os.path.join(directory, f"step_{step:010d}")
+    checksums = _load_checksums(step_dir) if verify else None
+    dtypes = _load_dtypes(step_dir)
     data = _open_payload(directory, step)
 
     def leaf_of(path, leaf):
-        arr = _verified_leaf(data, path_key(path), checksums, step, directory,
-                             tuple(np.shape(leaf)))
+        key = path_key(path)
+        arr = _from_stored(_verified_leaf(data, key, checksums, step, directory,
+                                          tuple(np.shape(leaf))), dtypes.get(key))
         sharding = _sharding_at(shardings, path)
         return _like(arr, leaf) if sharding is None else _placed(arr, leaf, sharding)
 
@@ -410,8 +456,9 @@ def _restore_tenant_host(template: Any, directory: str, tenant: int, step: int,
         raise CheckpointCorrupt(f"checkpoint step {step} under {directory} carries no "
                                 f"tenant_axes metadata: written before per-tenant extraction "
                                 f"existed, or by a saver that is not a session gateway")
-    checksums = (_load_checksums(os.path.join(directory, f"step_{step:010d}"))
-                 if verify else None)
+    step_dir = os.path.join(directory, f"step_{step:010d}")
+    checksums = _load_checksums(step_dir) if verify else None
+    dtypes = _load_dtypes(step_dir)
     data = _open_payload(directory, step)
 
     def leaf_of(path, leaf):
@@ -425,7 +472,7 @@ def _restore_tenant_host(template: Any, directory: str, tenant: int, step: int,
         if not 0 <= tenant < arr.shape[ax]:
             raise ValueError(f"tenant {tenant} out of range [0, {arr.shape[ax]}) on leaf "
                              f"{key!r} (axis {ax})")
-        return np.take(arr, tenant, axis=ax)
+        return _from_stored(np.take(arr, tenant, axis=ax), dtypes.get(key))
 
     return _map_with_path(leaf_of, template)
 
@@ -462,6 +509,8 @@ def restore_tenant_latest_intact(template: Any, directory: str, tenant: int,
         try:
             host = _restore_tenant_host(template, directory, tenant, step, verify)
             for _, arr in _items(host):
+                if isinstance(arr, torch.Tensor):
+                    arr = arr.float().numpy()
                 if arr.dtype.kind in "fc" and not np.isfinite(arr).all():
                     raise CheckpointCorrupt(f"step {step}: tenant {tenant}'s slice holds "
                                             f"non-finite values, poisoned before the snapshot")

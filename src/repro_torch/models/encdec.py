@@ -23,6 +23,12 @@ decode step writes the new token's self K/V at ``pos`` in place (the self
 cache has no ``pos`` leaf: a step masks by ``arange(C) <= pos``) and never
 runs the encoder.  The cross cache keeps the true encoder length: it is
 unmasked, so a padded row would take probability mass.
+
+:func:`encdec_train_forward` is the forward with gradients: every encoder
+layer under :func:`layers.remat` (the reference checkpoints its encoder
+layers always), every decoder layer too when ``remat``, and the decoder's
+causal self-attention the plain ``swa_attention_chunked``, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -33,11 +39,14 @@ import torch
 from torch import nn
 
 from ..kernels.swa_attention.ops import swa_attention
+from ..kernels.swa_attention.ref import swa_attention_chunked
 from .attention import Attention, Cache, GQAAttention, TensorSpec, _decode_attention, gqa_init
-from .layers import DTYPE, MLP, RMSNorm, apply_rope, dense_init, embed_init, mlp_init, weight
+from .layers import (DTYPE, MLP, RMSNorm, apply_rope, dense_init, embed_init, mlp_init, remat,
+                     weight)
 
 __all__ = ["CrossAttention", "EncoderLayer", "DecoderLayer", "EncDec", "full_attention",
-           "encdec_init", "encode", "decode_forward", "encdec_forward", "encdec_prefill",
+           "encdec_init", "encode", "decode_forward", "encdec_forward", "encdec_train_forward",
+           "encdec_prefill",
            "encdec_decode_step", "encdec_cache_spec", "XATTN_NAMES"]
 
 XATTN_NAMES = ("wq", "wk", "wv", "wo")
@@ -178,16 +187,24 @@ def _positions(n: int, start: int, device) -> torch.Tensor:
     return torch.arange(start, start + n, dtype=torch.int32, device=device)
 
 
+def _encode(p: EncDec, frames: torch.Tensor, cfg, policy: Optional[str] = None) -> torch.Tensor:
+    x = frames.to(p.enc_norm.weight.dtype)
+    positions = _positions(x.shape[1], 0, x.device)
+
+    def body(layer, x):
+        x = x + _self_attn(layer.attn, layer.attn_norm(x), cfg, positions, causal=False)[0]
+        return x + layer.mlp(layer.mlp_norm(x))
+
+    for layer in p.enc_layers:
+        x = remat(body, layer, x, policy=policy)
+    return p.enc_norm(x)
+
+
 @torch.no_grad()
 def encode(p: EncDec, frames: torch.Tensor, cfg) -> torch.Tensor:
     """frames (B, S_enc, d_model), the stubbed frontend's output -> the
     encoder's states (B, S_enc, d_model) in the weights' dtype."""
-    x = frames.to(p.enc_norm.weight.dtype)
-    positions = _positions(x.shape[1], 0, x.device)
-    for layer in p.enc_layers:
-        x = x + _self_attn(layer.attn, layer.attn_norm(x), cfg, positions, causal=False)[0]
-        x = x + layer.mlp(layer.mlp_norm(x))
-    return p.enc_norm(x)
+    return _encode(p, frames, cfg)
 
 
 def _decoder_layer(layer: DecoderLayer, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -203,20 +220,43 @@ def _logits(p: EncDec, x: torch.Tensor) -> torch.Tensor:
     return p.final_norm(x) @ p.lm_head
 
 
-@torch.no_grad()
-def decode_forward(p: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor, cfg) -> torch.Tensor:
-    """Teacher-forced decoder pass over the encoder's states -> logits (B,
-    S_dec, V)."""
+def _decode(p: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor, cfg, return_hidden: bool,
+            attention: Optional[Attention] = None, policy: Optional[str] = None) -> torch.Tensor:
     x = p.embed[tokens]
     positions = _positions(x.shape[1], 0, x.device)
+
+    def body(layer, x, enc_out):
+        return _decoder_layer(layer, x, cfg, positions, _cross_kv(layer.xattn, enc_out, cfg),
+                              attention=attention)[0]
+
     for layer in p.dec_layers:
-        x, _ = _decoder_layer(layer, x, cfg, positions, _cross_kv(layer.xattn, enc_out, cfg))
-    return _logits(p, x)
+        x = remat(body, layer, x, enc_out, policy=policy)
+    return p.final_norm(x) if return_hidden else _logits(p, x)
 
 
-def encdec_forward(p: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """The encoder, then the teacher-forced decoder -> logits (B, S_dec, V)."""
-    return decode_forward(p, tokens, encode(p, frames, cfg), cfg)
+@torch.no_grad()
+def decode_forward(p: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor, cfg, *,
+                   return_hidden: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder pass over the encoder's states -> logits (B,
+    S_dec, V), or with ``return_hidden`` the final normed hidden states."""
+    return _decode(p, tokens, enc_out, cfg, return_hidden)
+
+
+def encdec_forward(p: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg, *,
+                   return_hidden: bool = False) -> torch.Tensor:
+    """The encoder, then the teacher-forced decoder -> logits (B, S_dec,
+    V), or with ``return_hidden`` the final normed hidden states."""
+    return decode_forward(p, tokens, encode(p, frames, cfg), cfg, return_hidden=return_hidden)
+
+
+def encdec_train_forward(p: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg, *,
+                         remat: bool = True, return_hidden: bool = False) -> torch.Tensor:
+    """:func:`encdec_forward` with gradients: the encoder's layers always
+    under full remat, the decoder's when ``remat``, the decoder's causal
+    self-attention plain."""
+    enc_out = _encode(p, frames, cfg, policy="full")
+    return _decode(p, tokens, enc_out, cfg, return_hidden, attention=swa_attention_chunked,
+                   policy="full" if remat else None)
 
 
 @torch.no_grad()

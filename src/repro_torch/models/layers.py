@@ -6,18 +6,23 @@ embedding and the SwiGLU activation compute in float32 and cast back, as
 the reference does, so bf16 models round where the reference rounds.
 
 The reference's ``scan_layers`` is a loop over an ``nn.ModuleList`` in
-`transformer.py`; its cross-entropy functions arrive with training.
+`transformer.py`.  Training adds the reference's two cross-entropy
+functions and :func:`remat`, the port of its ``jax.checkpoint`` of a layer
+body under ``cfg.remat_policy``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 __all__ = ["DTYPE", "dense_init", "expert_init", "embed_init", "rms_norm", "rope_frequencies",
-           "apply_rope", "swiglu", "mlp_init", "RMSNorm", "MLP", "weight"]
+           "apply_rope", "swiglu", "mlp_init", "RMSNorm", "MLP", "weight",
+           "cross_entropy_loss", "chunked_cross_entropy", "remat", "REMAT_POLICIES"]
 
 DTYPE = torch.bfloat16  # activation / parameter dtype of the full-size configs
 
@@ -120,3 +125,70 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=DTYPE, device=
     return MLP(dense_init(gen, d_model, d_ff, dtype, device),
                dense_init(gen, d_model, d_ff, dtype, device),
                dense_init(gen, d_ff, d_model, dtype, device))
+
+
+# ------------------------------------------------------------ training --
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy over the labels that are not ``ignore_id``;
+    logits (..., V) reduced in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = labels != ignore_id
+    return (lse - gold).mul(mask).sum() / mask.sum().clamp_min(1)
+
+
+def _chunk_nll(h: torch.Tensor, head: torch.Tensor, lab: torch.Tensor,
+               ignore_id: int) -> torch.Tensor:
+    """The summed NLL of one chunk's (B, c) labels; its (B, c, V) logits live
+    only here.  The gold logit is picked by an index compare and a masked
+    sum, as the reference picks it (its backward is elementwise: no
+    scatter)."""
+    logits = (h @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(iota == lab[..., None], logits, 0.0).sum(-1)
+    return ((lse - gold) * (lab != ignore_id)).sum()
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                          ignore_id: int = -1, chunk: int = 256) -> torch.Tensor:
+    """Fused next-token cross-entropy that never holds the (B, S, V) logits:
+    hidden (B, S, d) final normed states, head (d, V), labels (B, S) with
+    position t the target of hidden[t].  The sequence is walked in chunks of
+    ``chunk`` positions; each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's per-chunk
+    ``jax.checkpoint``), so its residuals are O(B c d)."""
+    s = hidden.shape[1]
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        part = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk], head, labels[:, c0:c0 + chunk],
+                          ignore_id, use_reentrant=False)
+        nll = nll + part
+    count = (labels != ignore_id).sum()
+    return nll / count.clamp_min(1)
+
+
+# the matmul outputs a "dots" block keeps (the reference's
+# dots_with_no_batch_dims_saveable: products without batch dims)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+REMAT_POLICIES = ("full", "dots")
+
+
+def remat(fn: Callable, *args, policy: Optional[str] = "full"):
+    """``fn(*args)`` under activation checkpointing, the reference's
+    ``jax.checkpoint`` of a layer body: ``"full"`` keeps only the inputs
+    and recomputes the body in the backward; ``"dots"`` also keeps the
+    outputs of the products without batch dims (``torch.mm``, what ``x @
+    w`` lowers to) and recomputes the rest; None runs ``fn`` plainly."""
+    if policy is None:
+        return fn(*args)
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {policy!r} is not one of {REMAT_POLICIES}")
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _DOTS))
+    return checkpoint(fn, *args, use_reentrant=False)

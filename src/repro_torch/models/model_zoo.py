@@ -9,6 +9,15 @@
   prefill(params, batch, cfg)             -> (last logits, cache)
   decode_step(params, cache, batch, cfg)  -> (logits, cache)
   cache_spec(cfg, batch, seq)             -> {name: TensorSpec}
+  train_forward(params, batch, cfg)       -> (logits, aux): the training
+                                             forward, with gradients
+  forward_hidden(params, batch, cfg)      -> (hidden, head, aux): the same,
+                                             stopped at the final normed
+                                             hidden states (the fused loss)
+  input_specs(cfg, shape)                 -> {name: TensorSpec} of a cell's
+                                             inputs (train, prefill, decode)
+  trainable(params)                       -> the model, every parameter
+                                             requiring grad
   params_from_numpy / params_to_numpy     -- the reference's weights carried
                                              across, and back
   params_to_tree / params_from_tree       -- the same layout as tensors (layer
@@ -35,7 +44,7 @@ import torch
 from ..core.backend import resolve_device
 from ..core.mapreduce import tree_map
 from . import encdec, transformer, xlstm_lm, zamba
-from .attention import Attention, GQAAttention, MLAAttention
+from .attention import Attention, GQAAttention, MLAAttention, TensorSpec
 from .encdec import XATTN_NAMES, CrossAttention, DecoderLayer, EncDec, EncoderLayer
 from .layers import DTYPE, MLP, RMSNorm
 from .moe import MoE
@@ -45,8 +54,9 @@ from .xlstm import MLSTM, MLSTM_NAMES, SLSTM, SLSTM_NAMES
 from .xlstm_lm import XLSTM, XLSTMPair
 from .zamba import MambaLayer, Zamba
 
-__all__ = ["init_params", "forward", "prefill", "decode_step", "cache_spec",
-           "params_from_numpy", "params_to_numpy", "params_from_tree", "params_to_tree"]
+__all__ = ["init_params", "forward", "prefill", "decode_step", "cache_spec", "train_forward",
+           "forward_hidden", "input_specs", "trainable", "params_from_numpy",
+           "params_to_numpy", "params_from_tree", "params_to_tree"]
 
 Model = Union[Transformer, Zamba, XLSTM, EncDec]
 
@@ -92,6 +102,75 @@ def forward(params: Model, batch: Dict[str, Any], cfg, *, return_aux: bool = Fal
                         for name in ("lb_loss", "z_loss")}
     return transformer.lm_forward(params, batch["tokens"], cfg,
                                   patch_embeds=batch.get("patch_embeds"), return_aux=return_aux)
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {name: torch.zeros((), device=device) for name in ("lb_loss", "z_loss")}
+
+
+def _train_out(params: Model, batch: Dict[str, Any], cfg, remat: bool, return_hidden: bool):
+    """(logits or hidden, aux) of the training forward of any family."""
+    tokens = batch["tokens"]
+    if cfg.family == "encdec":
+        out = encdec.encdec_train_forward(params, _frames(batch, cfg), tokens, cfg, remat=remat,
+                                          return_hidden=return_hidden)
+    elif cfg.family in ("hybrid", "ssm"):
+        run = zamba.zamba_train_forward if cfg.family == "hybrid" else xlstm_lm.xlstm_train_forward
+        out = run(params, tokens, cfg, remat=remat, return_hidden=return_hidden)
+    else:
+        return transformer.lm_train_forward(params, tokens, cfg,
+                                            patch_embeds=batch.get("patch_embeds"), remat=remat,
+                                            return_hidden=return_hidden)
+    return out, _zero_aux(out.device)
+
+
+def train_forward(params: Model, batch: Dict[str, Any], cfg, *, remat: bool = True):
+    """The training forward (the reference's ``forward``), with gradients
+    -> (logits over the full target sequence, aux losses summed over layers,
+    zero outside the MoE family).  Attention is the plain chunked version
+    (the attention kernel has no backward); layers run under remat."""
+    return _train_out(params, batch, cfg, remat, return_hidden=False)
+
+
+def forward_hidden(params: Model, batch: Dict[str, Any], cfg, *, remat: bool = True):
+    """The training forward stopped at the final normed hidden states (the
+    fused-loss path) -> (hidden (B, S, d), head (d, V), aux)."""
+    hidden, aux = _train_out(params, batch, cfg, remat, return_hidden=True)
+    head = (transformer.lm_head_matrix(params) if isinstance(params, Transformer)
+            else params.lm_head)
+    return hidden, head, aux
+
+
+def trainable(params: Model) -> Model:
+    """The model with every parameter requiring grad, in place (serving
+    models are built frozen, ``layers.weight``); returns it.  The served
+    entry points keep running under ``torch.no_grad()``."""
+    return params.requires_grad_(True)
+
+
+def input_specs(cfg, shape) -> Dict[str, Any]:
+    """{name: TensorSpec} of every model input of a cell (``shape`` a
+    ``ShapeConfig``): train takes ``tokens`` and ``labels`` (the VLM's
+    labels over n_patches + S_text, its tokens over S_text, with
+    ``patch_embeds``; the encoder-decoder ``frames`` beside them),
+    prefill ``tokens`` (and the stubs' inputs), decode one token a row,
+    ``pos`` and the ``cache``."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        specs: Dict[str, Any] = {}
+        text = s
+        if cfg.family == "encdec":
+            specs["frames"] = TensorSpec((b, s, cfg.d_model), DTYPE)
+        elif cfg.family == "vlm":
+            text = s - cfg.n_patches
+            specs["patch_embeds"] = TensorSpec((b, cfg.n_patches, cfg.d_model), DTYPE)
+        specs["tokens"] = TensorSpec((b, text), i32)
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((b, s), i32)
+        return specs
+    return {"tokens": TensorSpec((b,), i32), "pos": TensorSpec((), i32),
+            "cache": cache_spec(cfg, b, s)}
 
 
 def prefill(params: Model, batch: Dict[str, Any], cfg, *,

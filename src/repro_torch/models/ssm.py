@@ -103,8 +103,12 @@ def _diag_scores(cum: torch.Tensor, cb: torch.Tensor, dt: torch.Tensor) -> torch
     log dA, cb (b, nc, l, s) = C_l . B_s, dt (b, nc, h, s)."""
     chunk = cum.shape[-1]
     upper = torch.ones((chunk, chunk), dtype=torch.bool, device=cum.device).triu_(1)
-    scores = (cum[..., :, None] - cum[..., None, :]).masked_fill_(upper, float("-inf")).exp_()
-    return scores.mul_(cb[:, :, None]).mul_(dt[..., None, :])
+    scores = (cum[..., :, None] - cum[..., None, :]).masked_fill_(upper, float("-inf"))
+    if torch.is_grad_enabled():  # autograd keeps exp's output: no in-place product on it
+        return scores.exp() * cb[:, :, None] * dt[..., None, :]
+    # serving: in place, one (b, nc, h, l, s) buffer (3.76 GB a layer at
+    # zamba2's prefill)
+    return scores.exp_().mul_(cb[:, :, None]).mul_(dt[..., None, :])
 
 
 def _ssd_step(xh, bc, cc, dt, log_da, D, h0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,7 +155,8 @@ def _ssd_chunked(xh, bc, cc, dt, log_da, D, h0, chunk: int) -> Tuple[torch.Tenso
         h_prevs.append(h)  # the state entering chunk c
         h = h * chunk_decay[:, c, :, None, None] + s_local[:, c]
     y_off = torch.einsum("bcln,bchpn->bclhp", cck, torch.stack(h_prevs, 1))
-    y_off *= torch.exp(cum)[..., None]
+    decay = torch.exp(cum)[..., None]
+    y_off = y_off * decay if torch.is_grad_enabled() else y_off.mul_(decay)
     y = (y_diag + y_off).reshape(b, nc * chunk, nh, hd) + D[None, None, :, None] * xh
     return y[:, :s], h
 

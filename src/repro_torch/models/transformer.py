@@ -8,11 +8,21 @@ stacked layout, ``{"k", "v": (L, B, C, KVH, hd), "pos": (L, C)}`` (MLA:
 ``{"lat": (L, B, C, kv_lora + rope), "pos"}``), so the two compare leaf by
 leaf.
 
-Entry points (all under ``torch.no_grad``; training is a later slice):
+Serving entry points (under ``torch.no_grad``):
   lm_forward      -- tokens -> logits (B, S, V) (with ``return_aux``, and
                      the aux losses summed over layers)
   lm_prefill      -- tokens -> (last logits (B, V), stacked cache)
   lm_decode_step  -- (cache, tokens (B,), pos) -> (logits (B, V), cache)
+and the training forward, with gradients:
+  lm_train_forward -- tokens -> (logits, or the final normed hidden states
+                     with ``return_hidden``, aux losses summed over layers)
+
+The training forward runs each block under :func:`layers.remat` with
+``cfg.remat_policy`` (the reference's ``jax.checkpoint`` of its scanned
+body), and its attention is the plain chunked ``swa_attention_chunked``,
+the reference's own training attention (``_chunked_attention``): the
+attention kernel has no backward, as the reference's Pallas kernel has
+none.
 
 ``lm_prefill`` takes ``attention=`` (default: the sliding-window attention
 kernel's wrapper) for its attention; decode attention is plain PyTorch.
@@ -34,13 +44,14 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..kernels.swa_attention.ref import swa_attention_chunked
 from .attention import (Attention, Cache, GQAAttention, MLAAttention, TensorSpec,
                         attention_apply, attention_cache_spec, attention_init)
-from .layers import DTYPE, MLP, RMSNorm, dense_init, embed_init, mlp_init, weight
+from .layers import DTYPE, MLP, RMSNorm, dense_init, embed_init, mlp_init, remat, weight
 from .moe import Aux, MoE, moe_apply, moe_init
 
-__all__ = ["Block", "Transformer", "lm_init", "lm_forward", "lm_prefill", "lm_decode_step",
-           "lm_cache_spec", "lm_head_matrix"]
+__all__ = ["Block", "Transformer", "lm_init", "lm_forward", "lm_train_forward", "lm_prefill",
+           "lm_decode_step", "lm_cache_spec", "lm_head_matrix"]
 
 
 class Block(nn.Module):
@@ -132,21 +143,48 @@ def _positions(n: int, start: int, device) -> torch.Tensor:
     return torch.arange(start, start + n, dtype=torch.int32, device=device)
 
 
+def _layers(p: Transformer, tokens: torch.Tensor, cfg, patch_embeds: Optional[torch.Tensor],
+            aux: bool, attention: Optional[Attention] = None,
+            policy: Optional[str] = None) -> Tuple[torch.Tensor, Aux]:
+    """The embedding and every block -> (x before the final norm, the aux
+    losses summed over layers, 0 for dense ones or without ``aux``); each
+    block under :func:`remat` with ``policy``."""
+    x = _embed_inputs(p, tokens, patch_embeds)
+    positions = _positions(x.shape[1], 0, x.device)
+    total = {name: torch.zeros((), device=x.device) for name in ("lb_loss", "z_loss")}
+
+    def body(layer, x):
+        x, _, layer_aux = _block(layer, x, cfg, positions, attention=attention, aux=aux)
+        return x, layer_aux
+
+    for layer in p.layers:
+        x, layer_aux = remat(body, layer, x, policy=policy)
+        for name, v in (layer_aux or {}).items():
+            total[name] = total[name] + v
+    return x, total
+
+
 @torch.no_grad()
 def lm_forward(p: Transformer, tokens: torch.Tensor, cfg, *,
                patch_embeds: Optional[torch.Tensor] = None, return_aux: bool = False):
     """Full-sequence forward -> logits (B, S, V) (the VLM's S counts its
     patches); with ``return_aux``, (logits, {"lb_loss", "z_loss"} summed
     over layers, 0 for dense ones)."""
-    x = _embed_inputs(p, tokens, patch_embeds)
-    positions = _positions(x.shape[1], 0, x.device)
-    total = {name: torch.zeros((), device=x.device) for name in ("lb_loss", "z_loss")}
-    for layer in p.layers:
-        x, _, aux = _block(layer, x, cfg, positions, aux=return_aux)
-        for name, v in (aux or {}).items():
-            total[name] = total[name] + v
+    x, total = _layers(p, tokens, cfg, patch_embeds, aux=return_aux)
     logits = _unembed(p, x)
     return (logits, total) if return_aux else logits
+
+
+def lm_train_forward(p: Transformer, tokens: torch.Tensor, cfg, *,
+                     patch_embeds: Optional[torch.Tensor] = None, remat: bool = True,
+                     return_hidden: bool = False) -> Tuple[torch.Tensor, Aux]:
+    """The training forward, with gradients -> (logits (B, S, V), or with
+    ``return_hidden`` the final normed hidden states (B, S, d), and the aux
+    losses summed over layers).  Each block runs under ``cfg.remat_policy``
+    when ``remat``; attention is the plain ``swa_attention_chunked``."""
+    x, total = _layers(p, tokens, cfg, patch_embeds, aux=True, attention=swa_attention_chunked,
+                       policy=cfg.remat_policy if remat else None)
+    return (p.final_norm(x) if return_hidden else _unembed(p, x)), total
 
 
 @torch.no_grad()

@@ -11,6 +11,9 @@ cache: ``{"m": {"C": (P, B, nh, hd, hd), "n": (P, B, nh, hd), "m": (P, B,
 nh)}, "s": {"h", "c", "n", "m": (P, B, nh, hd)}}``, all float32 whatever
 the model's dtype, and without a sequence axis: its bytes do not grow with
 the context.  Decode updates it in place.
+
+:func:`xlstm_train_forward` is the forward with gradients, each pair under
+:func:`layers.remat` (the reference checkpoints its scanned body).
 """
 from __future__ import annotations
 
@@ -20,11 +23,12 @@ import torch
 from torch import nn
 
 from .attention import TensorSpec
-from .layers import DTYPE, RMSNorm, dense_init, embed_init, weight
+from .layers import DTYPE, RMSNorm, dense_init, embed_init, remat, weight
 from .xlstm import (MLSTM, SLSTM, mlstm_apply, mlstm_init, mlstm_state_spec, slstm_apply,
                     slstm_init, slstm_state_spec)
 
-__all__ = ["XLSTMPair", "XLSTM", "xlstm_lm_init", "xlstm_forward", "xlstm_prefill",
+__all__ = ["XLSTMPair", "XLSTM", "xlstm_lm_init", "xlstm_forward", "xlstm_train_forward",
+           "xlstm_prefill",
            "xlstm_decode_step", "xlstm_cache_spec"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -95,15 +99,27 @@ def _pair_apply(pair: XLSTMPair, x: torch.Tensor, cfg, states: Optional[Cache] =
     return x, (new if (return_state or states is not None) else None)
 
 
+def _run(p: XLSTM, tokens: torch.Tensor, cfg, return_hidden: bool,
+         policy: Optional[str] = None) -> torch.Tensor:
+    x = p.embed[tokens]
+    for pair in p.pairs:
+        x = remat(lambda pair, x: _pair_apply(pair, x, cfg)[0], pair, x, policy=policy)
+    return p.final_norm(x) if return_hidden else _logits(p, x)
+
+
 @torch.no_grad()
 def xlstm_forward(p: XLSTM, tokens: torch.Tensor, cfg, *,
                   return_hidden: bool = False) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V), or with ``return_hidden``
     the final normed hidden states (B, S, d)."""
-    x = p.embed[tokens]
-    for pair in p.pairs:
-        x, _ = _pair_apply(pair, x, cfg)
-    return p.final_norm(x) if return_hidden else _logits(p, x)
+    return _run(p, tokens, cfg, return_hidden)
+
+
+def xlstm_train_forward(p: XLSTM, tokens: torch.Tensor, cfg, *, remat: bool = True,
+                        return_hidden: bool = False) -> torch.Tensor:
+    """:func:`xlstm_forward` with gradients, each pair under
+    full remat when ``remat`` (the reference's plain ``jax.checkpoint``)."""
+    return _run(p, tokens, cfg, return_hidden, policy="full" if remat else None)
 
 
 def _logits(p: XLSTM, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ The decode cache is the reference's tree, ``{"ssm": {"conv": (L, B, cw -
 KVH, hd), "pos": (A, S)}}``, and decode updates it in place.  Prefill's
 attention goes through ``attention=`` (default: kernel 8's wrapper, at
 window = S), once per application.
+
+:func:`zamba_train_forward` is the forward with gradients: each layer (the
+shared block where it applies, then the mixer) under :func:`layers.remat`
+(the reference checkpoints its scanned body), the shared block's attention
+the plain ``swa_attention_chunked``, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,12 +30,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..kernels.swa_attention.ref import swa_attention_chunked
 from .attention import Attention, TensorSpec, gqa_cache_spec, gqa_init
-from .layers import DTYPE, RMSNorm, dense_init, embed_init, mlp_init, weight
+from .layers import DTYPE, RMSNorm, dense_init, embed_init, mlp_init, remat, weight
 from .ssm import Mamba2, mamba2_apply, mamba2_init, mamba2_state_spec
 from .transformer import Block, _block, _positions
 
-__all__ = ["MambaLayer", "Zamba", "zamba_init", "zamba_forward", "zamba_prefill",
+__all__ = ["MambaLayer", "Zamba", "zamba_init", "zamba_forward", "zamba_train_forward",
+           "zamba_prefill",
            "zamba_decode_step", "zamba_cache_spec"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
@@ -82,19 +89,37 @@ def _mixer(layer: MambaLayer, x: torch.Tensor, cfg, **kw):
     return x + m, state
 
 
+def _run(p: Zamba, tokens: torch.Tensor, cfg, return_hidden: bool,
+         attention: Optional[Attention] = None, policy: Optional[str] = None) -> torch.Tensor:
+    x = p.embed[tokens]
+    positions = _positions(x.shape[1], 0, x.device)
+
+    def body(i, layer, x):
+        if i % cfg.shared_attn_every == 0:
+            x = _block(p.shared_attn, x, cfg, positions, attention=attention)[0]
+        return _mixer(layer, x, cfg)[0]
+
+    for i, layer in enumerate(p.mamba_layers):
+        x = remat(body, i, layer, x, policy=policy)
+    x = p.final_norm(x)
+    return x if return_hidden else x @ p.lm_head
+
+
 @torch.no_grad()
 def zamba_forward(p: Zamba, tokens: torch.Tensor, cfg, *,
                   return_hidden: bool = False) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V), or with ``return_hidden``
     the final normed hidden states (B, S, d)."""
-    x = p.embed[tokens]
-    positions = _positions(x.shape[1], 0, x.device)
-    for i, layer in enumerate(p.mamba_layers):
-        if i % cfg.shared_attn_every == 0:
-            x = _block(p.shared_attn, x, cfg, positions)[0]
-        x, _ = _mixer(layer, x, cfg)
-    x = p.final_norm(x)
-    return x if return_hidden else x @ p.lm_head
+    return _run(p, tokens, cfg, return_hidden)
+
+
+def zamba_train_forward(p: Zamba, tokens: torch.Tensor, cfg, *, remat: bool = True,
+                        return_hidden: bool = False) -> torch.Tensor:
+    """:func:`zamba_forward` with gradients, each layer under full remat
+    when ``remat`` (the reference's plain ``jax.checkpoint``), the shared
+    block's attention plain."""
+    return _run(p, tokens, cfg, return_hidden, attention=swa_attention_chunked,
+                policy="full" if remat else None)
 
 
 @torch.no_grad()

@@ -27,6 +27,8 @@ from repro.kernels.banded_matvec import ops as jbm
 from repro_torch.kernels import _build
 from repro_torch.kernels.banded_matvec import ops as bm, ref as bmr
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 SMS = 132  # the H100's SMs: the wrappers size their grids by them
 TOL = 1e-5
 F32 = np.float32

@@ -34,6 +34,8 @@ from repro_torch.kernels.fused_plan import ops as fp, ref as fpr
 from repro_torch.kernels.segment_dft.ref import segment_dft_power_ref
 from repro_torch.kernels.window_stats import ops as ws, ref as wsr
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 SMS = 132  # the H100's SMs: the wrappers size the grid by them
 TILE = _build.TILE
 F32 = np.float32

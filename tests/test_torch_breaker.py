@@ -35,6 +35,8 @@ from repro_torch.runtime import chaos
 from repro_torch.runtime.chaos import FaultInjector
 from repro_torch.serving.gateway import Degraded, GatewayConfig, StatsGateway
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 D = 2
 TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_backend.py's f32 lag and moment tolerances
 

@@ -31,6 +31,8 @@ from repro_torch.core import calibrate as cal
 from repro_torch.core.backend import (AutoBackend, CudaBackend, TorchBackend, get_backend,
                                       list_backends, set_default_backend)
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

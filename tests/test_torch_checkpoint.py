@@ -34,6 +34,8 @@ from repro_torch.runtime import chaos
 from repro_torch.runtime.chaos import FaultInjector, InjectedFault
 from repro_torch.runtime.fault import (FaultTolerantLoop, StragglerMonitor, plan_remesh)
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 D = 2
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -275,6 +277,67 @@ def test_torn_payload_walk_back_and_cold_start(tmp_path):
         got, start = loop.restore_or(_big(5))
     assert start == 0 and loop.last_restore_skipped == [2, 1, 0]
     loop.close()
+
+
+def _mixed_tree(seed=0):
+    """bfloat16, float32 and integer leaves (bf16 with a NaN, an inf, a
+    subnormal and -0.0 among them)."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(33, 7, generator=g).to(torch.bfloat16)
+    w.view(-1)[:4] = torch.tensor([float("nan"), float("inf"), 1e-40, -0.0])
+    return {"params": {"w": w, "b": torch.randn(7, generator=g).to(torch.bfloat16)},
+            "m": torch.randn(33, 7, generator=g), "step": torch.tensor(3, dtype=torch.int32),
+            "cursor": np.arange(5, dtype=np.int64)}
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def test_bf16_leaves_save_and_restore_bitwise(tmp_path):
+    """A bfloat16 leaf is stored as its uint16 bits, named in the
+    manifest's ``dtypes``, and restores bit for bit (NaN payload and -0.0
+    included), synchronously and through the async manager; float32 and
+    integer leaves beside it restore as before."""
+    tree = _mixed_tree(1)
+    save_pytree(tree, str(tmp_path / "sync"), 0)
+    mgr = CheckpointManager(str(tmp_path / "async"))
+    mgr.save(tree, 0)
+    mgr.close()
+    for sub in ("sync", "async"):
+        manifest = tm.load_manifest(str(tmp_path / sub), 0)
+        assert manifest["dtypes"] == {"params/b": "bfloat16", "params/w": "bfloat16"}
+        got = restore_pytree(_zeros_like(_mixed_tree(2)), str(tmp_path / sub), 0)
+        for (p, x), (_, y) in zip(tm._items(got), tm._items(tree)):
+            if isinstance(x, torch.Tensor):
+                assert x.dtype == y.dtype, p
+                assert torch.equal(_bits(x), _bits(y)), p
+            else:
+                np.testing.assert_array_equal(x, y)
+    # a float32 template takes the bf16 values exactly
+    f32 = restore_pytree({"params": {"w": torch.zeros(33, 7), "b": torch.zeros(7)},
+                          "m": torch.zeros(33, 7), "step": torch.tensor(0, dtype=torch.int32),
+                          "cursor": np.zeros(5, np.int64)}, str(tmp_path / "sync"), 0)
+    assert torch.equal(f32["params"]["b"], tree["params"]["b"].float())
+
+
+def test_corrupt_bf16_payload_is_caught(tmp_path):
+    """One flipped bit in a bf16 leaf's stored bits fails its crc32; a torn
+    payload fails to load."""
+    save_pytree(_mixed_tree(), str(tmp_path), 0)
+    payload = str(tmp_path / "step_0000000000" / "arrays.npz")
+    with np.load(payload) as data:
+        arrays = {k: data[k] for k in data.files}
+    assert arrays["params/w"].dtype == np.uint16
+    arrays["params/w"].reshape(-1)[7] ^= 1
+    np.savez(payload, **arrays)
+    with pytest.raises(CheckpointCorrupt, match="params/w.*verification"):
+        restore_pytree(_mixed_tree(), str(tmp_path), 0)
+    big = {"w": torch.randn(512, 256, generator=torch.Generator().manual_seed(3)).bfloat16()}
+    save_pytree(big, str(tmp_path), 1)
+    _tear(str(tmp_path / "step_0000000001" / "arrays.npz"))
+    with pytest.raises(CheckpointCorrupt, match="verification|unreadable"):
+        restore_pytree(big, str(tmp_path), 1)
 
 
 def test_injected_corruption_and_pre_checksum_generations(tmp_path):

@@ -26,6 +26,8 @@ from repro_torch import configs as tconfigs
 from repro_torch.core import OverlapSpec, differencing as td, make_overlapping_blocks
 from repro_torch.core.estimators import innovation as tinno
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

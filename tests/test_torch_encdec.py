@@ -32,6 +32,8 @@ from repro_torch.models import (cache_spec, decode_step, encdec, encode, fake_fr
 from repro_torch.serving import ServeEngine
 from repro_torch.serving import quant as tq
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 TOL = 2e-5
 GEN_TOL = 1e-4
 BF16_TOL = 6e-2

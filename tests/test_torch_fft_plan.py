@@ -22,6 +22,8 @@ from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.segment_dft.ref import fft_roots_host
 from repro_torch.kernels.window_stats.ref import masked_lagged_sums_ref
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 POWERS = [2**k for k in range(1, 13)]  # 2 .. FFT_MAX_L
 THREADS = _build.THREADS
 # per-thread register arrays of the kernel (stats_tiles.cuh)

@@ -13,6 +13,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 from repro.core import forecast as jf
 from repro.core.frame import FrameSession as RefSession
 from repro.core.frame import SeriesFrame as RefFrame

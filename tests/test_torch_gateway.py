@@ -30,6 +30,8 @@ from repro_torch.serving import gateway as tg
 from repro_torch.serving.gateway import (Degraded, GatewayConfig, PoisonedChunk, QueueFull,
                                          RateClass, RateLimited, StatsGateway)
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 D = 2
 N = 4
 TOL = dict(rtol=1e-4, atol=1e-5)

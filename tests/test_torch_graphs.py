@@ -15,6 +15,8 @@ from repro.core import graphs as jg
 from repro_torch.core import graphs as tg
 from repro_torch.core.mapreduce import tree_leaves
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

@@ -10,6 +10,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 
 def test_imports_and_runs_without_jax():
     code = (
@@ -589,3 +591,61 @@ def test_mla_serving_runs_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_training_runs_without_jax(tmp_path):
+    """The training modules, the pipeline, the cell builders and the train
+    command line import and run a reduced step with JAX and the reference package
+    unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import math, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch import get_arch\n"
+        "from repro_torch.data.tokens import SyntheticTokenPipeline\n"
+        "from repro_torch.launch import steps, train\n"
+        "from repro_torch.models import init_params, trainable\n"
+        "from repro_torch.training import (adamw_init, compress_int8, cosine_schedule,\n"
+        "                                  make_train_step, named_parameters)\n"
+        "cfg = get_arch('qwen3').reduced()\n"
+        "pipe = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)\n"
+        "b = {k: torch.from_numpy(v) for k, v in pipe.host_batch(0).items()}\n"
+        "model = trainable(init_params(cfg, seed=0, dtype=torch.float32, device='cpu'))\n"
+        "step = make_train_step(cfg, lr_fn=cosine_schedule(1e-3, 1, 4), accum=2, fused_loss=True)\n"
+        "_, opt, m = step(model, adamw_init(named_parameters(model)), b)\n"
+        "assert math.isfinite(float(m['loss'])) and int(opt.step) == 1\n"
+        "assert compress_int8(torch.ones(5))[0].dtype == torch.int8\n"
+        "cell = steps.build_cell(cfg, 'train_4k')\n"
+        "assert cell.inputs['tokens'].shape == (256, 4096)\n"
+        f"loss = train.main(['--arch', 'qwen3', '--reduced', '--steps', '3', '--batch', '2',"
+        f" '--seq', '16', '--f32', '--device', 'cpu', '--ckpt-dir', {str(tmp_path)!r}])\n"
+        "assert math.isfinite(loss)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """The train command line and a trainable model run on the card unless the
+    CPU is asked for: without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from repro_torch import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, trainable
+    from repro_torch.parallel import data_mesh
+
+    cfg = get_arch("qwen3").reduced()
+    for call in (lambda: trainable(init_params(cfg)),
+                 lambda: train.main(["--arch", "qwen3", "--reduced", "--steps", "1",
+                                     "--ckpt-dir", str(tmp_path)]),
+                 lambda: data_mesh(1, 0, "file://" + str(tmp_path / "rdv"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.iterdir())  # nothing ran: no checkpoint written

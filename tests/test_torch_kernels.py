@@ -22,6 +22,8 @@ from repro_torch.kernels.fused_plan import ops as fp
 from repro_torch.kernels.segment_dft import ops as sd, ref as sdr
 from repro_torch.kernels.window_stats import ops as ws
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 JNP = JnpBackend()
 # The reference oracles, jitted: one compile per shape instead of one per op.
 jnp_lagged_sums = jax.jit(JNP.lagged_sums, static_argnums=1)

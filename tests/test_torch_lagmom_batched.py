@@ -37,6 +37,8 @@ from repro.kernels.window_stats import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels.window_stats import ops as ws, ref as wsr
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 THREADS, BLK = _build.THREADS, _build.LM_BATCH_BLK
 F32 = np.float32
 TOL = 1e-5

@@ -34,6 +34,8 @@ from repro.core.backend import JnpBackend, PallasBackend
 from repro_torch.kernels import _build
 from repro_torch.kernels.window_stats import ops as ws, ref as wsr
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 SMS = 132  # the H100's SMs: sym_shape sizes the grid by them
 THREADS, TILE, BLK = _build.THREADS, _build.TILE, _build.LM_BLK
 F32 = np.float32

@@ -26,6 +26,8 @@ from repro_torch.models import (attention as tattn, decode_step, forward, init_p
                                 params_from_numpy, params_to_numpy, prefill)
 from repro_torch.serving import ServeEngine
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 TOL = 1e-5
 PROMPT = 40  # > the reduced window of 16
 

@@ -32,6 +32,8 @@ from repro_torch.models import (attention as tattn, cache_spec, init_params, par
 from repro_torch.serving import ServeEngine
 from repro_torch.serving import quant as tq
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 RTOL, ATOL = 1e-4, 1e-5
 PROMPT, NEW, STEPS = 40, 8, 3
 Q_FORMS = {"wq": 0, "low_rank_q": 24}  # name: q_lora_rank

@@ -16,6 +16,8 @@ from repro.core.estimators import mle as jmle
 from repro_torch.core.estimators import mle as tmle
 from repro_torch.timeseries import random_stable_var, simulate_var
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 RTOL, ATOL = 1e-4, 1e-5
 N = 250
 

@@ -37,6 +37,8 @@ from repro_torch.models.model_zoo import _moe
 from repro_torch.serving import ServeEngine
 from repro_torch.serving import quant as tq
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 RTOL, ATOL = 1e-4, 1e-5
 PROMPT, NEW = 40, 8
 VARIANTS = {  # name: MoEConfig fields replaced on the reduced llama4

@@ -15,6 +15,8 @@ from repro_torch.core import plan as tplan
 from repro_torch.core.backend import TorchBackend
 from repro_torch.core.frame import SeriesFrame
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 N, D = 3000, 3
 
 

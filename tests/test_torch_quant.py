@@ -26,6 +26,8 @@ from repro_torch.models import params_from_numpy, params_from_tree, params_to_nu
 from repro_torch.serving import ServeEngine
 from repro_torch.serving import quant as tq
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 WIDE = dict(d_model=256, d_ff=512, vocab=1024)  # embed 262,144, mlp (2, 256, 512)
 PROMPT, NEW = 40, 8
 

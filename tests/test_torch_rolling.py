@@ -19,6 +19,8 @@ from repro.serving.rolling import RollingStatsService as RefService
 from repro_torch.core import plan as tplan
 from repro_torch.serving import RollingStatsService
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 
 def _data(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)

@@ -21,6 +21,8 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.segment_dft import ops as sd, ref as sdr
 from repro_torch.kernels.window_stats import ops as ws, ref as wsr
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 JNP = JnpBackend()
 PALLAS = PallasBackend(interpret=True)
 PORT = {"cuda": CudaBackend(), "torch": TorchBackend()}

@@ -20,6 +20,8 @@ from repro_torch import FrameSession, SeriesFrame, session_state_from_numpy, ses
 from repro_torch.core import integrity as tintegrity
 from repro_torch.core.backend import TorchBackend
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 D = 3
 TOL = {"autocovariance": dict(rtol=1e-4, atol=1e-4), "yule_walker": dict(rtol=1e-3, atol=1e-4),
        "arma": dict(rtol=1e-3, atol=1e-4), "moments": dict(rtol=1e-5, atol=1e-5),

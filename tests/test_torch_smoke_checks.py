@@ -7,10 +7,13 @@ own scale, so a small error in a small leaf is not hidden by a large one.
 import importlib.util
 import os
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
 
 
 def _smoke():
@@ -1551,3 +1554,155 @@ def test_llava_ranged_profile_finds_each_group_on_the_cpu():
     assert split.pop("calls") == {"attention_projections": 8, "mlp_products": 6}
     assert set(smoke.llava_groups(split)) == {"projections", "kernel8", "attention_other",
                                               "mlp", "rest"}
+
+
+# ------------------------------------------------------------- lm_train --
+def test_train_work_is_the_hand_count():
+    """qwen3-0.6b: 28 layers of (2 x 1,024 x 2,048 + 2 x 1,024 x 1,024 +
+    3 x 1,024 x 3,072) = 15,728,640 matmul weights, plus lm_head 1,024 x
+    151,936; 6 x weights x tokens, plus 28 x n x 6 x S^2 x 16 x 128 for the
+    causal attention; 1,048,576 tokens give 5.227 PFLOP, 5.285 s at 989
+    TFLOP/s."""
+    from repro_torch import get_arch
+
+    cfg = get_arch("qwen3")
+    w = smoke.train_work(cfg, 256, 4096)
+    weights = 28 * (2 * 1024 * 2048 + 2 * 1024 * 1024 + 3 * 1024 * 3072) + 1024 * 151936
+    assert w["matmul_weights"] == weights == 595_984_384
+    assert w["tokens"] == 1_048_576
+    assert w["matmul_flops"] == 6 * weights * 1_048_576
+    assert w["attention_flops"] == 28 * 256 * 6 * 4096 ** 2 * 16 * 128
+    assert w["flops"] == 5_227_353_156_354_048
+    assert w["bound_by"] == "operations"
+    assert w["bound_ms"] == pytest.approx(w["flops"] / 989e12 * 1e3, rel=1e-12)
+    assert w["bound_ms"] == pytest.approx(5285.49, abs=0.01)
+    model_params = w["params"]
+    from repro_torch.models import init_params
+
+    reduced = cfg.reduced()
+    m = init_params(reduced, device="cpu", dtype=torch.float32)
+    assert smoke.train_work(reduced, 1, 8)["params"] == sum(p.numel() for p in m.parameters())
+    assert model_params == 751_632_384
+
+
+def _train_fixture(dtype=torch.float32):
+    from repro_torch import get_arch
+    from repro_torch.models import init_params, trainable
+
+    cfg = get_arch("qwen3").reduced()
+    model = trainable(init_params(cfg, seed=0, dtype=dtype, device="cpu"))
+    tok = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (4, 40)))
+    return cfg, model, {"tokens": tok, "labels": tok}
+
+
+def test_train_fd_check_holds_and_catches_the_detached_remat():
+    cfg, model, batch = _train_fixture()
+    res = smoke.fd_check(model, {k: v[:1] for k, v in batch.items()}, cfg, seed=0)
+    assert res["ok"] and res["fault"]["caught"], res
+    assert res["floor"] > 0 and len(res["directions"]) == smoke.TRAIN_FD_DIRS
+    # the weights are put back bitwise
+    cfg2, fresh, _ = _train_fixture()
+    for a, b in zip(model.parameters(), fresh.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_train_accum_check_holds_and_catches_bf16_buffers():
+    cfg, model, batch = _train_fixture()
+    res = smoke.accum_check(model, {k: v[:2] for k, v in batch.items()}, cfg)
+    assert res["ok"] and res["fault"]["caught"], res
+    assert res["fault"]["err"] > 100 * res["tol"]
+
+
+def test_train_serve_check_holds_and_catches_noncausal_training():
+    cfg, model, batch = _train_fixture(torch.bfloat16)
+    res = smoke.train_serve_check(model, batch, cfg)
+    assert res["ok"] and res["fault"]["caught"], res
+    assert res["floor"] > 0 and res["same_attention_rel_err"] <= smoke.TRAIN_SAME_TOL
+
+
+def test_train_restart_is_bitwise_and_step_zero_is_caught(tmp_path):
+    """The phase's restart on the CPU: a checkpoint after step 0 restored
+    into a model of another seed, steps 1-2 again: bitwise; the
+    optimizer's step restored as 0 moves step 1's parameters elsewhere."""
+    import concurrent.futures
+
+    from repro_torch import get_arch
+    from repro_torch.checkpoint.manager import CheckpointManager, restore_pytree
+    from repro_torch.data.tokens import SyntheticTokenPipeline
+    from repro_torch.models import init_params, trainable
+    from repro_torch.training import (adamw_init, cosine_schedule, make_train_step,
+                                      named_parameters)
+
+    cfg = get_arch("qwen3").reduced()
+    pipe = SyntheticTokenPipeline(vocab=cfg.vocab, seq_len=24, global_batch=4, seed=0)
+    step_fn = make_train_step(cfg, lr_fn=cosine_schedule(3e-4, warmup=1, total=3), accum=2,
+                              fused_loss=True)
+    dev = torch.device("cpu")
+
+    def model_of(seed):
+        m = trainable(init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cpu"))
+        return m, named_parameters(m)
+
+    model, named = model_of(0)
+    mgr = CheckpointManager(str(tmp_path))
+    kept = {}
+
+    def after(s, opt):
+        if s == 0:
+            mgr.save({"params": {k: p.detach().clone() for k, p in named.items()}, "opt": opt}, 0)
+        if s == 1:
+            kept.update({k: p.detach().clone() for k, p in named.items()})
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        opt, records = smoke.train_steps(model, adamw_init(named), step_fn,
+                                         smoke.timed_batches(pipe, 0, pool, []), range(3), dev,
+                                         after)
+        mgr.close()
+
+        def restored(seed, zero=False):
+            m2, n2 = model_of(seed)
+            state = restore_pytree({"params": {k: p.detach() for k, p in n2.items()},
+                                    "opt": adamw_init(n2)}, str(tmp_path), 0)
+            with torch.no_grad():
+                for k, p in n2.items():
+                    p.copy_(state["params"][k])
+            o = state["opt"]
+            return m2, n2, (smoke.optimizer_step_as_zero(o) if zero else o)
+
+        m2, n2, o2 = restored(1)
+        o2, again = smoke.train_steps(m2, o2, step_fn, smoke.timed_batches(pipe, 1, pool, []),
+                                      [1, 2], dev)
+        m3, n3, o3 = restored(2, zero=True)
+        smoke.train_steps(m3, o3, step_fn, smoke.timed_batches(pipe, 1, pool, []), [1], dev)
+    assert [r["loss"] for r in again] == [r["loss"] for r in records[1:]]
+    for k in named:
+        assert torch.equal(n2[k], named[k]) and torch.equal(o2.m[k], opt.m[k])
+        assert torch.equal(o2.v[k], opt.v[k])
+    assert not all(torch.equal(p, kept[k]) for k, p in n3.items())
+    assert records[0]["lr"] == 0.0 and records[1]["lr"] > 0
+    assert smoke.finite_ok([r["loss"] for r in records])
+    assert not smoke.finite_ok([1.0, float("nan")])
+
+
+class _Ev:
+    def __init__(self, name, shapes=(), parent=None):
+        self.name, self.input_shapes, self.cpu_parent = name, list(shapes), parent
+
+
+def test_train_group_classifies_the_profile_operators():
+    opt = _Ev(smoke.TRAIN_OPT_RANGE)
+    v = 151936
+    cases = [(_Ev("aten::mul", [[1024, 2048]], _Ev("x", parent=opt)), "optimizer"),
+             (_Ev("aten::mm", [[2048, 1024], [1024, v]]), "cross_entropy"),
+             (_Ev("aten::mm", [[1024, 2048], [2048, v]]), "cross_entropy"),
+             (_Ev("aten::logsumexp", [[8, 256, v]]), "cross_entropy"),
+             (_Ev("aten::bmm", [[256, 512, 128], [256, 128, 4096]]), "attention_products"),
+             (_Ev("aten::mm", [[32768, 1024], [1024, 3072]]), "projection_and_mlp_gemms"),
+             (_Ev("aten::addmm", [[3072], [32768, 1024], [1024, 3072]]),
+              "projection_and_mlp_gemms"),
+             (_Ev("aten::_softmax", [[8, 8, 2, 512, 4096], [], []]), "attention_elementwise"),
+             (_Ev("aten::index_put_", [[v, 1024], [], [32768, 1024]]), "other"),
+             (_Ev("aten::mul", [[8, 4096, 16, 128], [4096, 1, 64]]), "other")]
+    for ev, group in cases:
+        assert smoke.train_group(ev, v) == group, (ev.name, ev.input_shapes)
+    assert set(smoke.TRAIN_GROUPS) >= {g for _, g in cases}

@@ -20,6 +20,8 @@ from repro_torch.core.estimators import spatial as tsp
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.banded_matvec import ops as bm, ref as bmr
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 JNP = JnpBackend()
 PALLAS = PallasBackend(interpret=True)
 PORT = {"cuda": CudaBackend(), "torch": TorchBackend()}

@@ -29,6 +29,8 @@ from repro.models import init_params as jinit, ssm as jssm
 from repro_torch.configs import SSMConfig, get_arch
 from repro_torch.models import params_from_numpy, ssm
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 TOL = 1e-5
 BF16_TOL = 1e-2
 B = 2

@@ -14,6 +14,8 @@ from repro.core import plan as jplan
 from repro_torch.core import plan as tplan
 from repro_torch.core.streaming import state_from_numpy, state_to_numpy
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 D = 2
 FIELDS = ("stat", "sample_sum", "head", "tail", "length", "t0", "stat_err")
 

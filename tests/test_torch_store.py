@@ -29,6 +29,8 @@ from repro_torch.core import mapreduce as tmr, overlap as tov
 from repro_torch.core.backend import TorchBackend
 from repro_torch.core.estimators.stats import autocovariance
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 TOL = {"autocovariance": dict(rtol=1e-5, atol=1e-4), "moments": dict(rtol=1e-5, atol=1e-4),
        "welch": dict(rtol=1e-5, atol=1e-4), "yule_walker": dict(rtol=1e-3, atol=1e-4),
        "arma": dict(rtol=1e-3, atol=1e-4), "g": dict(rtol=1e-5, atol=1e-4)}

@@ -31,6 +31,8 @@ from repro_torch.core.frame import SeriesFrame
 from repro_torch.core.streaming import StreamingEngine
 from repro_torch.timeseries import StreamingEstimator, TimeSeriesStore, generator, irregular
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 # the packages re-export the function yule_walker under its module's name
 yw = importlib.import_module("repro_torch.core.estimators.yule_walker")
 ryw = importlib.import_module("repro.core.estimators.yule_walker")

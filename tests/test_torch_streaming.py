@@ -10,6 +10,8 @@ from repro_torch.core import plan as tplan
 from repro_torch.core.estimators.stats import autocovariance
 from repro_torch.core.mapreduce import tree_leaves
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 D = 2
 
 

@@ -22,6 +22,8 @@ from repro.models.attention import _chunked_attention
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.swa_attention import ops as sw, ref as swr
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 TOL = {"f32": dict(rtol=1e-4, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 NP_DTYPE = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
 T_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}

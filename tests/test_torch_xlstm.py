@@ -25,6 +25,8 @@ from repro.models import init_params as jinit, xlstm as jx
 from repro_torch.configs import get_arch
 from repro_torch.models import params_from_numpy, xlstm
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 TOL = 1e-5
 BF16_TOL = 1e-2
 B = 2

@@ -33,6 +33,8 @@ from repro_torch.models import (cache_spec, decode_step, forward, params_from_nu
 from repro_torch.serving import ServeEngine
 from repro_torch.serving import quant as tq
 
+torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
+
 TOL = 1e-5
 BF16_TOL = 6e-2
 PROMPT, NEW = 40, 6
