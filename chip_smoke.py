@@ -43,7 +43,11 @@ encoder-decoder: the decoder's causal self-attention prefill through kernel
 8 at head dim 64, G = 1, the encoder and cross-attention bidirectional in
 plain PyTorch; held in float32 against the CPU) and llava-next-34b at full
 width (the VLM: 2,880 stub patch embeddings before the text, every layer's
-prefill through kernel 8 at 128, G = 7); then the paper's last estimators at its
+prefill through kernel 8 at 128, G = 7); then the dry run of each of those
+phases on the host (``dryrun``: `launch.costing`'s count of the phase's
+own prefill, decode or train step on the meta device held against the
+phase's hand count, its measured times against the bound and its peak
+memory against the prediction); then the paper's last estimators at its
 own VAR workload sizes (``configs/paper_var.py``: the §5 conditional MLE by
 gradient descent and SGD, ARMA and MA fits from kernel 2's
 autocovariances, the §6 banded fit with kernels 7 and 7b, differencing)
@@ -301,9 +305,11 @@ QWEN_ARCH, QWEN_BATCH, QWEN_PROMPT, QWEN_NEW = "qwen3", 2, 4096, 8
 # after step 0 checkpointed, restored into a model of another seed, and
 # steps 1-2 run again (the restart check, under deterministic algorithms).
 # On an H100 80GB HBM3 at 700 W a microbatch took about 6 s and a step of 8
-# of them 48.5 s: 6 steps and the checks overran the phase's 300 s, so a
-# step takes TRAIN_ACCUM = 4 (a global batch of 32).
-TRAIN_ARCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_ACCUM = "qwen3", 4096, 8, 4
+# of them 48.5 s: 6 steps and the checks overran the phase's 300 s; at 4 (a
+# global batch of 32) the whole run, with the dryrun phase, took 1,127.7 s
+# of its 1,200 s limit on a slower host, so a step takes TRAIN_ACCUM = 2 (a
+# global batch of 16: accumulation still runs in float32 buffers).
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_ACCUM = "qwen3", 4096, 8, 2
 TRAIN_GLOBAL_BATCH = 256  # train_4k's
 TRAIN_DATA_VOCAB, TRAIN_STEPS, TRAIN_LR = 4096, 3, 3e-4
 # check 2: finite differences of the float32 loss on one sequence along
@@ -4895,6 +4901,7 @@ def lm_serve(args, dev) -> dict:
 
     # the user's call, once, with the launch counts read around it
     launches = {}
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # the weights and what earlier phases left
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -4971,6 +4978,7 @@ def lm_serve(args, dev) -> dict:
         "tokens_per_s": B * NEW / (generate_ms / 1e3),
         "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
         "decode_tokens_per_s": B / (decode_ms / 1e3), "peak_memory_gb": peak_gb,
+        "held_at_reset_gb": held_gb,
         "profiled_generate": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                               "device_busy_share": busy_ms / wall_ms if wall_ms else None,
                               "device_ms_by_kernel": split},
@@ -4992,6 +5000,8 @@ def lm_serve(args, dev) -> dict:
                  and tuple(res.tokens.shape) == (B, NEW)
                  and max(prefill_err, decode_err, ring_err) <= SERVE_TOL and wrong == 0
                  and out["fault"]["caught"])
+    reading("lm_serve", cfg, batch=B, prompt=P, new=NEW, max_len=P + NEW, init=False,
+            prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_serve")
@@ -5515,6 +5525,8 @@ def lm_quant(args, dev, serve: dict) -> int:
     tree = params_to_tree(params)
     bf16_bytes = tree_param_bytes(tree)
     del tree
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # the bf16 weights and what else is held
+    torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, max_len=P + NEW, dtype=torch.bfloat16, quantize=True,
@@ -5530,6 +5542,7 @@ def lm_quant(args, dev, serve: dict) -> int:
     torch.cuda.synchronize()
     generate_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()["swa_attention"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tokens = torch.from_numpy(res.tokens).to(dev)
     dequant_ms = cuda_ms(eng.model, 3, warmup=1)
     # prefill and decode alone, each call dequantizing as the engine does
@@ -5564,6 +5577,7 @@ def lm_quant(args, dev, serve: dict) -> int:
                         "bound": QUANT_BYTES_RATIO}, "quantized_leaves": n_quant,
         "quantize_ms": quantize_ms, "dequantize_ms": dequant_ms, "generate_ms": generate_ms,
         "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "peak_memory_gb": peak_gb, "held_at_reset_gb": held_gb,
         "bf16": {"prefill_ms": serve["prefill_ms"], "decode_ms_per_step": serve["decode_ms"]},
         "launches": {"swa_attention": launches},
         "checks": {"tokens_equal_plain": same_tokens, "logits_vs_plain_rel_err": logit_err,
@@ -5576,6 +5590,8 @@ def lm_quant(args, dev, serve: dict) -> int:
     out["ok"] = (same_tokens and logit_err <= SERVE_TOL and out["checks"]["finite"]
                  and q_bytes < QUANT_BYTES_RATIO * bf16_bytes and launches == cfg.n_layers
                  and tuple(res.tokens.shape) == (B, NEW))
+    reading("lm_quant", cfg, batch=B, prompt=P, new=NEW, max_len=P + NEW, init=False,
+            quantize=True, quant_bytes=q_bytes, bf16_bytes=bf16_bytes, prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_quant")
@@ -5756,6 +5772,8 @@ def lm_moe(args, dev) -> int:
                  and max(prefill_err, decode_err) <= SERVE_TOL and dispatch_err <= MOE_TOL
                  and out["checks"]["routing_equal_plain"]
                  and len(set(drops.values())) == 1 and out["fault"]["caught"])
+    reading("lm_moe", cfg, batch=B, prompt=P, new=NEW, max_len=P + NEW, init=True,
+            prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_moe")
@@ -6061,6 +6079,8 @@ def lm_mla(args, dev) -> int:
                  and max(prefill_err, decode_err) <= SERVE_TOL
                  and layer["ok"] and layer["fault"]["caught"]
                  and absorbed["ok"] and absorbed["fault_caught"])
+    reading("lm_mla", cfg, batch=B, prompt=P, new=NEW, max_len=P + NEW, init=True,
+            prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_mla")
@@ -6082,6 +6102,8 @@ def lm_qwen3(args, dev) -> int:
     t_phase = time.perf_counter()
     cfg = get_arch(QWEN_ARCH)
     B, P, NEW = QWEN_BATCH, QWEN_PROMPT, QWEN_NEW
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # what earlier phases left
+    torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(cfg, seed=args.seed, dtype=torch.bfloat16, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 6)
@@ -6095,6 +6117,7 @@ def lm_qwen3(args, dev) -> int:
     torch.cuda.synchronize()
     generate_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()["swa_attention"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tokens = torch.from_numpy(res.tokens).to(dev)
     plain_first, pcache = prefill(params, {"tokens": prompts}, cfg,
                                   attention=swa_attention_chunked)
@@ -6113,12 +6136,15 @@ def lm_qwen3(args, dev) -> int:
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
            "head_dim": cfg.resolved_head_dim, "qk_norm": cfg.qk_norm, "dtype": "bfloat16",
            "batch": B, "prompt_len": P, "new_tokens": NEW, "generate_ms": generate_ms,
+           "peak_memory_gb": peak_gb, "held_at_start_gb": held_gb,
            "launches": {"generate": launches}, "tol": SERVE_TOL,
            "checks": {"prefill_vs_plain_rel_err": prefill_err,
                       "teacher_forced_decode_vs_plain_rel_err": decode_err, "finite": finite},
            "wall_ms": (time.perf_counter() - t_phase) * 1e3}
     out["ok"] = (launches == cfg.n_layers and finite and tuple(res.tokens.shape) == (B, NEW)
                  and max(prefill_err, decode_err) <= SERVE_TOL)
+    reading("lm_qwen3", cfg, batch=B, prompt=P, new=NEW, max_len=P + NEW, init=True,
+            generate_ms=generate_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_qwen3")
@@ -6519,6 +6545,8 @@ def lm_train_process(args) -> dict:
     """:func:`lm_train` in a child process with ``CUBLAS_WORKSPACE_CONFIG``
     = TRAIN_CUBLAS, on the library this run built; its lines are printed
     here, and a failed child fails the run.  Returns its launches."""
+    from repro_torch import get_arch
+
     code = (f"import argparse, sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as cs; "
             f"cs.train_child(argparse.Namespace(seed={args.seed}))")
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=TRAIN_CUBLAS)
@@ -6529,7 +6557,11 @@ def lm_train_process(args) -> dict:
     for line in proc.stdout.splitlines():
         print(line, flush=True)
         if line.startswith('{"phase": "lm_train"'):
-            launches = json.loads(line)["lm_train_launches"]
+            got = json.loads(line)
+            launches = got["lm_train_launches"]
+            reading("lm_train", get_arch(TRAIN_ARCH), micro=TRAIN_MICRO, accum=TRAIN_ACCUM,
+                    seq=TRAIN_SEQ, step_ms=got["median_step_ms_after_first"],
+                    peak_gb=got["peak_memory_gb"], held_gb=got["held_at_start_gb"])
     if proc.returncode != 0 or launches is None:
         fail("lm_train", returncode=proc.returncode)
     return launches
@@ -6934,6 +6966,8 @@ def lm_zamba(args, dev) -> int:
                  and layer["ok"] and layer["fault"]["caught"]
                  and max(prefill_err, decode_err, handoff_err) <= limit and wrong == 0
                  and ssd["ok"] and ssd["fault"]["caught"])
+    reading("lm_zamba", cfg, batch=B, prompt=P, new=NEW, max_len=P + NEW, init=True,
+            prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_zamba")
@@ -7141,6 +7175,8 @@ def lm_xlstm(args, dev) -> dict:
                  and check_cpu["ok"] and greedy["ok"]
                  and mlstm_check["ok"] and mlstm_check["fault"]["caught"]
                  and slstm_check["ok"] and slstm_check["fault"]["caught"])
+    reading("lm_xlstm", cfg, batch=B, prompt=P, new=NEW, max_len=P + NEW, init=True,
+            prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_xlstm")
@@ -7396,6 +7432,8 @@ def lm_whisper(args, dev) -> dict:
                  and check_cpu["ok"] and layer["ok"] and layer["fault"]["caught"]
                  and max(prefill_err, decode_err) <= limit
                  and all(f["caught"] for f in faults.values()) and greedy["ok"])
+    reading("lm_whisper", cfg, batch=B, prompt=P, new=NEW, max_len=WHISPER_MAX_LEN, frames=F,
+            init=True, prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_whisper")
@@ -7591,10 +7629,369 @@ def lm_llava(args, dev) -> dict:
                  and layer["ok"] and layer["fault"]["caught"]
                  and max(prefill_err, decode_err) <= limit and positions["caught"]
                  and greedy["ok"])
+    reading("lm_llava", cfg, batch=B, prompt=P, new=NEW, max_len=max_len, init=True,
+            prefill_ms=prefill_ms, decode_ms=decode_ms, peak_gb=peak_gb, held_gb=held_gb)
     emit(out)
     if not out["ok"]:
         fail("lm_llava")
     return by_kernel
+
+
+# ----------------------------------------------------------------- dryrun --
+# Phase dryrun: the dry run's count (`repro_torch.launch.costing`, traced on
+# the host's meta device; `launch.roofline`'s bound on the H100) of every LM
+# phase at that phase's own configuration, batch, lengths and depth, held
+# against what the phase measured in this run: (a) the function's FLOPs and
+# bytes of its prefill and decode step (lm_train: its step) against the
+# phase's hand-written count within DRYRUN_TOL, after the named conventions
+# of :func:`dryrun_hand` (each an exact closed form); (b) the phase's
+# measured prefill and decode ms (lm_qwen3: its generate; lm_train: its
+# median step) not below the bound, its share at most 100%; (c) the
+# phase's max_memory_allocated within DRYRUN_PEAK_BAND of the prediction:
+# what was allocated when the phase reset its peak, plus the traced peak of
+# its window (:func:`dryrun_window`).  Two planted counts of lm_serve's
+# prefill must fail (a): one that drops attention's products
+# (:func:`planted_dropped_attention`), one that counts the plain
+# attention's whole squares where kernel 8 runs
+# (:func:`planted_whole_square`).  No card work, under DRYRUN_LIMIT_S.  The
+# xLSTM's prefill (12,000 serial sLSTM steps, slow to trace) is traced at
+# DRYRUN_XLSTM_PROMPTS and extrapolated linearly to its prompt: every count
+# of its prefill is linear in the prompt (no attention; the chunked mLSTM's
+# chunk of 64 divides both), its peak is not quite (extrapolated 0.733 GB
+# above the held bytes where the whole 2,000-token trace reads 0.804, and
+# from 64 and 128 tokens 1.010: the pair chosen keeps the ratio in band).
+DRYRUN_TOL = 0.02
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+DRYRUN_LIMIT_S = 90.0
+DRYRUN_XLSTM_PROMPTS = (128, 256)
+READINGS: dict = {}  # LM phase -> what it measured (:func:`reading`)
+
+
+def reading(phase: str, cfg, **kw) -> None:
+    """Record what an LM phase measured, for the dryrun phase: its config,
+    batch, prompt, new tokens, the cache's max_len, its times, its peak and
+    what was allocated when it reset the peak (``held_gb``), ``init`` when
+    the weights were drawn inside that window."""
+    READINGS[phase] = dict(cfg=cfg, **kw)
+
+
+def _stage(cfg, model, mode, batch, out, cache_read=None) -> dict:
+    """One traced stage's function work and executed counts."""
+    from repro_torch.launch.costing import param_read_bytes, serve_bytes
+
+    flops = {k: float(v) for k, v in mode.function_flops.items()}
+    return {"flops_by_dtype": flops, "flops": sum(flops.values()),
+            "bytes": float(serve_bytes(cfg, model, mode, batch, out, cache_read)),
+            "params_read": float(param_read_bytes(model, cfg, batch["tokens"].numel(), mode)),
+            "executed_flops": float(sum(mode.executed_flops.values())),
+            "executed_bytes": float(mode.executed_bytes)}
+
+
+def dryrun_window(r: dict, prompt: int) -> dict:
+    """One serving phase's window traced on the meta device: its init when
+    the weights were drawn inside it, the engine (quantizing, for
+    lm_quant), then ServeEngine.generate(keep_logits=True)'s prefill and
+    first decode step -> {"prefill": work, "decode": work, "peaks": the
+    live bytes' peak in each stage: "init" (the weights when drawn in the
+    window, the engine), "prefill" (and the cache grown to max_len),
+    "decode", "end"}.  Later decode steps repeat the first one's transient
+    over a cache of the same size, each keeping one more (B, V) float32 row
+    of logits, and the generate ends by stacking them: "decode" and "end"
+    add those rows.  The warm-up generate before the timed one (a shorter
+    prompt) is not traced."""
+    from repro_torch import ServeEngine
+    from repro_torch.launch.costing import CountingMode, attention_boundaries, meta_model
+    from repro_torch.models import decode_step, fake_frame_embeds, fake_patch_embeds, prefill
+
+    cfg, b, new = r["cfg"], r["batch"], r["new"]
+    max_len = r["max_len"] - r["prompt"] + prompt
+    mode = CountingMode()
+    model = None if r["init"] else meta_model(cfg)
+    with attention_boundaries(mode), mode, torch.no_grad():
+        if model is None:
+            model = meta_model(cfg)
+        gen, extra = torch.Generator(), {}
+        if cfg.family == "encdec":
+            extra["frames"] = fake_frame_embeds(gen, b, r["frames"], cfg.d_model,
+                                                dtype=torch.bfloat16, device="meta")
+        if cfg.family == "vlm":
+            extra["patch_embeds"] = fake_patch_embeds(gen, b, cfg.n_patches, cfg.d_model,
+                                                      dtype=torch.bfloat16, device="meta")
+        prompts = torch.empty((b, prompt), dtype=torch.int64, device="meta")
+        eng = ServeEngine(cfg, model, max_len=max_len, dtype=torch.bfloat16,
+                          quantize=r.get("quantize", False), device="meta")
+        batch = {"tokens": prompts, **extra}
+        peaks = {"init": mode.peak}
+        mode.reset_counts()
+        out = prefill(eng.model(), batch, cfg)
+        stages = {"prefill": _stage(cfg, model, mode, batch, out)}
+        logits, cache = out
+        del out
+        cache = eng._grow_cache(cache, b)
+        kept = [logits.float()]
+        step = {"tokens": eng._sample(logits, 0.0, None),
+                "pos": prompt + (cfg.n_patches if cfg.family == "vlm" else 0)}
+        del logits
+        peaks["prefill"] = mode.peak
+        cache_read = sum(t.nbytes for _, t in leaves(cache))
+        mode.reset_counts()
+        out = decode_step(eng.model(), cache, step, cfg)
+        stages["decode"] = _stage(cfg, model, mode, step, out, cache_read)
+        kept.append(out[0].float())
+        del out
+        row = kept[-1].nbytes
+        peaks["decode"] = mode.peak + (new - 2) * row
+        peaks["end"] = mode.live + (new - 2) * row + new * row  # every row kept, then stacked
+    return {**stages, "peaks": {k: float(v) for k, v in peaks.items()}}
+
+
+def _extrapolated(a, b, xa: float, xb: float, x: float):
+    """Every number of ``a`` (at xa) and ``b`` (at xb), nested in dicts,
+    linearly extrapolated to x."""
+    if isinstance(a, dict):
+        return {k: _extrapolated(a[k], b[k], xa, xb, x) for k in a}
+    return a + (b - a) * (x - xa) / (xb - xa)
+
+
+def dryrun_train(r: dict) -> dict:
+    """lm_train's window traced on the meta device: its init, the AdamW
+    state, then one step of TRAIN_ACCUM microbatches traced as a step of two
+    (the function's FLOPs scale by TRAIN_ACCUM / 2: each microbatch's work
+    is the same; the peak is a microbatch's transient over the same float32
+    buffers), and the copy of the parameters check 4 holds through the last
+    step -> {"step": work, "peaks": {"init", "steps"}: bytes}."""
+    from repro_torch.launch.costing import CountingMode, attention_boundaries, meta_model
+    from repro_torch.models import trainable
+    from repro_torch.training import adamw_init, cosine_schedule, make_train_step
+    from repro_torch.training import named_parameters
+
+    cfg, micro, seq = r["cfg"], r["micro"], r["seq"]
+    mode = CountingMode(train=True)
+    with attention_boundaries(mode), mode:
+        model = trainable(meta_model(cfg))
+        named = named_parameters(model)
+        opt = adamw_init(named)
+        peak_init = mode.peak
+        step_fn = make_train_step(cfg, lr_fn=cosine_schedule(TRAIN_LR, warmup=1,
+                                                            total=TRAIN_STEPS),
+                                  accum=2, fused_loss=True)
+        batch = {k: torch.empty((2 * micro, seq), dtype=torch.int32, device="meta")
+                 for k in ("tokens", "labels")}
+        mode.reset_counts()
+        model, opt, _ = step_fn(model, opt, batch)
+        param_bytes = sum(p.nbytes for p in named.values())
+        opt_bytes = sum(t.nbytes for _, t in leaves({"m": opt.m, "v": opt.v}))
+    scale = r["accum"] / 2
+    flops = {k: float(v) * scale for k, v in mode.function_flops.items()}
+    # the optimizer's pass: parameters read and written, the float32
+    # gradient buffers read, float32 m and v read and written
+    nbytes = 2 * param_bytes + opt_bytes // 2 + 2 * opt_bytes
+    return {"step": {"flops_by_dtype": flops, "flops": sum(flops.values()), "bytes": float(nbytes),
+                     "executed_flops": float(sum(mode.executed_flops.values())) * scale},
+            "peaks": {"init": float(peak_init), "steps": float(mode.peak + param_bytes)},
+            "param_bytes": param_bytes}
+
+
+def dense_work(cfg, b: int, q_len: int, kv_len: int = None) -> dict:
+    """A dense GQA model's hand count: :func:`llava_work`'s terms without
+    its patch projection (n_patches 0)."""
+    work = llava_work(dataclasses.replace(cfg, n_patches=0), b, q_len, kv_len)
+    work.pop("patch_proj", None)
+    return work
+
+
+def dryrun_hand(name: str, r: dict) -> dict:
+    """{stage: (the phase's hand count {op: (bytes, operations, ...)}, the
+    named conventions {name: (bytes, operations)} added to it)}: where the
+    dry run counts by design otherwise, each an exact closed form.
+
+      embed_write: the hand counts write the gathered embedding rows as
+        well as read them; the dry run reads them (an input of the first
+        layer, not an output of the step);
+      window (h2o-danube): kernel 8 and the ring cache see min(W, .) keys,
+        llava_work's dense terms every causal pair and every cached key;
+      mlstm_decode_update (xlstm): the decode step's outer product v k^T
+        added into C is elementwise, not a product the dry run counts;
+      chunk_padding (xlstm): the prefill's chunked scan at the prompt's
+        length (the extrapolation's), xlstm_work's over it padded to the
+        chunk;
+      fp32_gradients (lm_train): accumulated over TRAIN_ACCUM microbatches,
+        the optimizer reads float32 gradient buffers; train_work a bf16
+        gradient."""
+    from repro_torch.kernels.swa_attention.ref import valid_pairs
+    from repro_torch.models.moe import moe_capacity
+
+    cfg = r["cfg"]
+    if name == "lm_train":
+        w = train_work(cfg, r["micro"] * r["accum"], r["seq"])
+        return {"step": ({"train_work": (w["bytes"], w["flops"])},
+                         {"fp32_gradients": (2 * w["params"], 0)})}
+    b, p, new = r["batch"], r["prompt"], r["new"]
+    kv = p + new - 1
+    d = cfg.d_model
+    if name in ("lm_serve", "lm_quant", "lm_qwen3"):
+        hand = {"prefill": dense_work(cfg, b, p), "decode": dense_work(cfg, b, p, kv)}
+    elif name in ("lm_moe", "lm_mla"):
+        hand = {"prefill": moe_serve_work(cfg, b, p, p, moe_capacity(b * p, cfg)),
+                "decode": moe_serve_work(cfg, b, 1, kv, moe_capacity(b, cfg))}
+    elif name == "lm_zamba":
+        hand = {"prefill": zamba_work(cfg, b, p), "decode": zamba_work(cfg, b, 1, kv)}
+    elif name == "lm_xlstm":
+        hand = {"prefill": xlstm_work(cfg, b, p), "decode": xlstm_work(cfg, b, 1)}
+    elif name == "lm_whisper":
+        hand = {"prefill": whisper_work(cfg, b, r["frames"], p),
+                "decode": whisper_work(cfg, b, r["frames"], 1, kv)}
+    else:  # lm_llava: kv counts the patches
+        hand = {"prefill": llava_work(cfg, b, p),
+                "decode": llava_work(cfg, b, p, cfg.n_patches + kv)}
+    conv = {"prefill": {"embed_write": (-b * p * d * 2, 0)},
+            "decode": {"embed_write": (-b * d * 2, 0)}}
+    if cfg.swa_window:
+        w, L, hd = cfg.swa_window, cfg.n_layers, cfg.resolved_head_dim
+        kv_row, ops = cfg.n_kv_heads * hd * 2 * 2, 4 * hd * b * cfg.n_heads * L
+        conv["prefill"]["window"] = (L * b * (min(w, p) - p) * kv_row,
+                                     ops * (valid_pairs(p, w) - p * (p + 1) // 2))
+        conv["decode"]["window"] = (L * b * (min(w, kv) - kv) * kv_row, ops * (min(w, kv) - kv))
+    if cfg.family == "ssm":
+        from repro_torch.models.xlstm_lm import _n_pairs
+
+        pairs, nh, hm = _n_pairs(cfg), cfg.n_heads, 2 * d // cfg.n_heads
+        conv["decode"]["mlstm_decode_update"] = (0, -2 * pairs * b * nh * hm * hm)
+        chunk = min(64, p)
+        padded = -(-p // chunk) * chunk
+        conv["prefill"]["chunk_padding"] = (
+            0, -pairs * b * nh * (padded - p) * (4 * chunk * hm + 4 * hm * hm + 4 * hm))
+    return {k: (hand[k], conv[k]) for k in hand}
+
+
+def _work_check(dry: dict, hand: dict, conv: dict) -> dict:
+    """(a) for one stage: the dry run's FLOPs and bytes against the hand
+    count plus its conventions."""
+    h_bytes = sum(w[0] for w in hand.values()) + sum(c[0] for c in conv.values())
+    h_flops = sum(w[1] for w in hand.values()) + sum(c[1] for c in conv.values())
+    rel = {"flops": dry["flops"] / h_flops - 1, "bytes": dry["bytes"] / h_bytes - 1}
+    return {"dry": {"flops": dry["flops"], "bytes": dry["bytes"]},
+            "hand": {"flops": h_flops, "bytes": h_bytes},
+            "conventions": {k: {"bytes": c[0], "flops": c[1]} for k, c in conv.items()},
+            "rel": rel, "ok": all(abs(v) <= DRYRUN_TOL for v in rel.values())}
+
+
+def dryrun_bound_ms(work: dict) -> float:
+    """max(each dtype's FLOPs over its peak, bytes over the HBM rate), ms."""
+    from repro_torch.launch.roofline import roofline_terms
+
+    terms = roofline_terms(work["flops_by_dtype"], work["bytes"], 0.0)
+    return max(terms.values()) * 1e3
+
+
+@contextlib.contextmanager
+def planted_dropped_attention():
+    """The dryrun phase's first planted count: attention's products
+    dropped (every attention boundary counts 0)."""
+    from repro_torch.launch import costing
+
+    saved = costing._attention_flops
+    costing._attention_flops = lambda q, v, pairs: 0
+    try:
+        yield
+    finally:
+        costing._attention_flops = saved
+
+
+@contextlib.contextmanager
+def planted_whole_square():
+    """The second: kernel 8's calls traced through the plain chunked
+    attention, whose whole (chunk, keys) squares are counted as the
+    function's work."""
+    from repro_torch.kernels.swa_attention.ref import swa_attention_chunked
+    from repro_torch.launch import costing
+    from repro_torch.models import attention, encdec
+
+    saved = costing.attention_boundaries
+
+    @contextlib.contextmanager
+    def boundaries(mode):
+        with saved(mode):
+            kept = attention.swa_attention, encdec.swa_attention
+            attention.swa_attention = encdec.swa_attention = swa_attention_chunked
+            try:
+                yield
+            finally:
+                attention.swa_attention, encdec.swa_attention = kept
+
+    costing.attention_boundaries = boundaries
+    try:
+        yield
+    finally:
+        costing.attention_boundaries = saved
+
+
+def dryrun_phase(args) -> dict:
+    """Phase dryrun (see DRYRUN_TOL's comment): for every LM phase that ran,
+    its dry run's work against its hand count, its measured time against
+    the bound, its peak against the prediction; the two planted counts."""
+    t_phase = time.perf_counter()
+    rows, dries = {}, {}
+    for name, r in READINGS.items():
+        hand = dryrun_hand(name, r)
+        if name == "lm_train":
+            dry = dryrun_train(r)
+            stages = {"step": r["step_ms"]}
+        elif r["cfg"].family == "ssm":
+            xa, xb = DRYRUN_XLSTM_PROMPTS
+            dry = _extrapolated(dryrun_window(r, xa), dryrun_window(r, xb), xa, xb, r["prompt"])
+            stages = {"prefill": r["prefill_ms"], "decode": r["decode_ms"]}
+        else:
+            dry = dryrun_window(r, r["prompt"])
+            stages = ({"generate": r["generate_ms"]} if "generate_ms" in r else
+                      {"prefill": r["prefill_ms"], "decode": r["decode_ms"]})
+        if name == "lm_quant":
+            # lm_serve's model and shapes: its work, the weights read as the
+            # engine's int8 codes and float32 scales (the bound's bytes);
+            # the engine dequantizes every call, so its trace reads no
+            # weight of the model
+            ratio = r["quant_bytes"] / r["bf16_bytes"]
+            for k in ("prefill", "decode"):
+                dry[k] = dict(dries["lm_serve"][k])
+                dry[k]["bytes"] -= dry[k]["params_read"] * (1 - ratio)
+            work = {k: dict(v, note="lm_serve's (a); the bound reads the int8 weights")
+                    for k, v in rows["lm_serve"]["work"].items()}
+        else:
+            work = {k: _work_check(dry[k], *hand[k]) for k in hand}
+        dries[name] = dry
+        bounds = {k: dryrun_bound_ms(dry[k]) for k in hand}
+        if "generate" in stages:
+            bounds["generate"] = bounds["prefill"] + (r["new"] - 1) * bounds["decode"]
+        shares = {k: bounds[k] / ms for k, ms in stages.items()}
+        predicted = r["held_gb"] * 1e9 + max(dry["peaks"].values())
+        peak_ratio = r["peak_gb"] * 1e9 / predicted
+        rows[name] = {
+            "work": work, "bound_ms": {k: bounds[k] for k in stages}, "measured_ms": stages,
+            "share": shares, "executed_flops": {k: dry[k]["executed_flops"] for k in hand},
+            "peak": {"predicted_gb": predicted / 1e9, "measured_gb": r["peak_gb"],
+                     "held_gb": r["held_gb"], "ratio": peak_ratio},
+            "ok": (all(w["ok"] for w in work.values()) and all(s <= 1.0 for s in shares.values())
+                   and DRYRUN_PEAK_BAND[0] <= peak_ratio <= DRYRUN_PEAK_BAND[1])}
+    # the planted counts, on lm_serve's prefill
+    faults = {}
+    if "lm_serve" in READINGS:
+        r = READINGS["lm_serve"]
+        hand, conv = dryrun_hand("lm_serve", r)["prefill"]
+        for fault, planted in (("dropped_attention", planted_dropped_attention),
+                               ("whole_square", planted_whole_square)):
+            with planted():
+                check = _work_check(dryrun_window(r, r["prompt"])["prefill"], hand, conv)
+            faults[fault] = {"rel": check["rel"], "caught": not check["ok"]}
+    seconds = time.perf_counter() - t_phase
+    out = {"phase": "dryrun", "tol": DRYRUN_TOL, "peak_band": DRYRUN_PEAK_BAND,
+           "phases": rows, "faults": faults, "seconds": seconds}
+    out["ok"] = (bool(rows) and all(row["ok"] for row in rows.values())
+                 and len(faults) == 2 and all(f["caught"] for f in faults.values())
+                 and seconds < DRYRUN_LIMIT_S)
+    emit(out)
+    if not out["ok"]:
+        fail("dryrun")
+    return out
 
 
 # ------------------------------------------------- the backend policy layer
@@ -8206,6 +8603,8 @@ def main() -> None:
     llava_launches = lm_llava(args, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # the dry run of every LM phase above, on the host (no card work)
+    dryrun_phase(args)
     # the paper's last estimators at its VAR workload sizes, then graphs
     paper_var_launches = paper_var_phase(args, dev)
     gc.collect()

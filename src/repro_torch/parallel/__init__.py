@@ -1,4 +1,9 @@
 """Distribution: the 1-D ``"data"`` mesh of SPMD ranks and its one
-collective (port of `repro.parallel`, the statistics half)."""
-from .sharding import (collective_count, data_mesh, gather_tree, mesh_axis_size,  # noqa: F401
-                       mesh_device, mesh_rank, psum_tree, reset_collective_count, sum_ranks)
+collective (port of `repro.parallel`, the statistics half), and the
+reference's logical-axis rule tables as data."""
+from .sharding import (AbstractMesh, abstract_mesh, collective_bytes,  # noqa: F401
+                       collective_count, data_mesh, gather_tree, logical_to_spec,
+                       mesh_axis_size, mesh_device, mesh_rank, param_pspecs, param_tree,
+                       psum_tree, reset_collective_count, set_sp_mode, shard_bytes,
+                       shard_shape, sp_mode_enabled, sum_ranks, tree_shard_bytes,
+                       zero1_pspecs)

@@ -11,8 +11,16 @@ global shape; every computation reads its ``.to_local()``.
 
 The reference's ``shard_map_compat`` has no counterpart: each SPMD rank runs
 the per-shard body directly on its local blocks.  Its logical-axis rules
-(``logical_to_spec``, ``param_pspecs``, ``zero1_pspecs``, ``shard``,
-``set_sp_mode``) place LM parameters and wait for a sharded training slice.
+are here as data (:data:`_RULES`, :data:`_PARAM_RULES`,
+:func:`logical_to_spec`, :func:`param_pspecs`, :func:`zero1_pspecs`, the SP
+switch :func:`set_sp_mode`): they resolve against a mesh of names and sizes
+(:func:`abstract_mesh`, no devices, no process group; or a ``DeviceMesh``)
+and give each leaf's per-dimension mesh axes, from which
+:func:`shard_shape` / :func:`tree_shard_bytes` give its per-device bytes.
+The dry run (`launch.dryrun`) reads them; no step of the port places a
+tensor by them yet (there is no tensor-parallel step).  A spec is a tuple
+with one entry a dimension: None (replicated), a mesh-axis name, or a tuple
+of names -- the reference's ``PartitionSpec`` entries.
 
 :func:`psum_tree` is the cluster-level merge of the weak-memory monoid: the
 per-shard partial statistics of halo-complete blocks already hold every
@@ -23,12 +31,15 @@ every rank, so the result is bitwise the same on every rank and from run to
 run, and at world 1 bitwise the local partial.  A plain ``all_reduce``
 gives neither: NCCL picks its reduction order by message size.
 :func:`collective_count` counts the collectives, as a kernel wrapper counts
-its launches.
+its launches, and :func:`collective_bytes` their payload bytes by kind
+(the reference's ``launch.roofline.CollectiveStats`` convention: an
+all-gather's payload is its gathered output).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -37,9 +48,15 @@ from ..core.backend import resolve_device
 from ..core.mapreduce import tree_leaves, tree_map
 
 __all__ = ["data_mesh", "mesh_axis_size", "mesh_rank", "mesh_device", "gather_tree",
-           "psum_tree", "sum_ranks", "collective_count", "reset_collective_count"]
+           "psum_tree", "sum_ranks", "collective_count", "collective_bytes",
+           "reset_collective_count", "AbstractMesh", "abstract_mesh", "set_sp_mode",
+           "sp_mode_enabled", "logical_to_spec", "param_pspecs", "zero1_pspecs",
+           "shard_shape", "shard_bytes", "tree_shard_bytes", "param_tree"]
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 
 _collectives = 0
+_payload: Dict[str, float] = dict.fromkeys(COLLECTIVES, 0.0)
 
 
 def collective_count() -> int:
@@ -48,9 +65,17 @@ def collective_count() -> int:
     return _collectives
 
 
+def collective_bytes() -> Dict[str, float]:
+    """Payload bytes of those collectives by kind since the last reset, per
+    rank: an all-gather's is its gathered output (world x its input)."""
+    return dict(_payload)
+
+
 def reset_collective_count() -> None:
     global _collectives
     _collectives = 0
+    for k in _payload:
+        _payload[k] = 0.0
 
 
 def data_mesh(world_size: int, rank: int, init_method: str, device="cuda",
@@ -81,10 +106,19 @@ def data_mesh(world_size: int, rank: int, init_method: str, device="cuda",
     return init_device_mesh(dev.type, (world_size,), mesh_dim_names=(axis,))
 
 
-def mesh_axis_size(mesh, names: Sequence[str]) -> int:
-    """Ranks along the mesh dimensions ``names`` (1 for a name it lacks)."""
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of an :class:`AbstractMesh` or a ``DeviceMesh``."""
+    if isinstance(mesh, AbstractMesh):
+        return dict(zip(mesh.axis_names, mesh.shape))
     dims = mesh.mesh_dim_names or ()
-    return math.prod(mesh.size(dims.index(n)) if n in dims else 1 for n in names)
+    return {n: mesh.size(i) for i, n in enumerate(dims)}
+
+
+def mesh_axis_size(mesh, names: Sequence[str]) -> int:
+    """Ranks along the mesh dimensions ``names`` (1 for a name it lacks), of
+    an :class:`AbstractMesh` or a ``DeviceMesh``."""
+    sizes = _axis_sizes(mesh)
+    return math.prod(sizes.get(n, 1) for n in names)
 
 
 def mesh_rank(mesh, axis: str = "data") -> int:
@@ -116,6 +150,7 @@ def gather_tree(tree: Any, mesh, axis: str = "data") -> Any:
         gathered = flat.new_empty((world, flat.numel()))
         dist.all_gather(list(gathered.unbind(0)), flat, group=group)
         _collectives += 1
+        _payload["all-gather"] += gathered.numel() * gathered.element_size()
         start = 0
         for i in idx:
             size = leaves[i].numel()
@@ -139,3 +174,242 @@ def psum_tree(tree: Any, mesh, axis: str = "data") -> Any:
     added in rank order on every rank (bitwise alike on every rank; at world
     1 bitwise the local partial)."""
     return tree_map(sum_ranks, gather_tree(tree, mesh, axis))
+
+
+# ------------------------------------------------ logical-axis rules ----
+# The reference's rules (DESIGN.md section 6), as data:
+#   batch   -> ("pod", "data")   data parallelism (pod = outer pure-DP axis)
+#   heads   -> "model"           tensor parallelism over (kv-grouped) heads
+#   ff      -> "model"           tensor parallelism over MLP hidden
+#   experts -> "model"           expert parallelism
+#   vocab   -> "model"           embedding / logits sharding
+#   seq     -> "data" in SP mode sequence/context parallelism (long_500k)
+
+LogicalAxis = Union[str, None, Tuple[str, ...]]
+Spec = Tuple[Union[str, Tuple[str, ...], None], ...]
+
+_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "heads": ("model",),
+    "kv": ("model",),
+    "ff": ("model",),
+    "experts": ("model",),
+    "vocab": ("model",),
+    "embed": (),
+    "seq": (),  # overridden in SP mode
+    "seq_sp": ("data",),
+    "seq_tp": ("model",),  # Megatron-SP residual sharding
+}
+
+_SP_MODE = False
+
+
+def set_sp_mode(enabled: bool) -> None:
+    """Sequence-parallel mode: 'seq' -> data axis, 'batch' -> replicated."""
+    global _SP_MODE
+    _SP_MODE = enabled
+
+
+def sp_mode_enabled() -> bool:
+    return _SP_MODE
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of axis names and sizes only: no devices, no process group."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def abstract_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> AbstractMesh:
+    """The mesh ``shape`` over ``axis_names`` (the reference's AbstractMesh)."""
+    shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"{len(shape)} sizes for {len(axis_names)} axis names")
+    return AbstractMesh(shape, axis_names)
+
+
+def _mesh_names(mesh) -> Tuple[str, ...]:
+    return tuple(_axis_sizes(mesh))
+
+
+def _resolve(logical: LogicalAxis, mesh) -> Tuple[str, ...]:
+    if logical is None:
+        return ()
+    if isinstance(logical, tuple):
+        names: Tuple[str, ...] = logical
+    else:
+        if logical == "batch" and _SP_MODE:
+            return ()
+        if logical == "seq" and _SP_MODE:
+            names = _RULES["seq_sp"]
+        else:
+            names = _RULES.get(logical, (logical,))
+    present = _mesh_names(mesh)
+    return tuple(n for n in names if n in present)
+
+
+def logical_to_spec(axes: Sequence[LogicalAxis], shape: Sequence[int], mesh) -> Spec:
+    """Resolve logical names per dimension with divisibility fallback: a
+    dimension whose mesh axes do not divide it (or are taken by an earlier
+    dimension) is replicated.  Returns one entry a dimension of ``shape``
+    that ``axes`` names (None, a name, or a tuple of names)."""
+    entries = []
+    used: set = set()
+    for dim, logical in zip(shape, axes):
+        names = tuple(n for n in _resolve(logical, mesh) if n not in used)
+        if names and dim % mesh_axis_size(mesh, names) == 0:
+            used.update(names)
+            entries.append(names if len(names) > 1 else names[0])
+        else:
+            entries.append(None)
+    return tuple(entries)
+
+
+# Leaf-name -> logical axes (per dimension).  Matched by the *last* path
+# component; falls back to replicated.  Divisibility fallback applies per
+# dim, so e.g. a 4-head test model simply replicates its head axis.
+_PARAM_RULES: Dict[str, Tuple[LogicalAxis, ...]] = {
+    # attention
+    "wq": (None, "heads"),
+    "wk": (None, "kv"),
+    "wv": (None, "kv"),
+    "wo": ("heads", None),
+    # MLA
+    "w_dq": (None, None),
+    "w_uq": (None, "heads"),
+    "w_dkv": (None, None),
+    "w_uk": (None, "heads"),
+    "w_uv": (None, "heads"),
+    "w_kr": (None, None),
+    # MLP
+    "w_gate": (None, "ff"),
+    "w_up": (None, "ff"),
+    "w_down": ("ff", None),
+    # MoE (leading expert axis)
+    "router": (None, None),
+    "e_gate": ("experts", None, None),
+    "e_up": ("experts", None, None),
+    "e_down": ("experts", None, None),
+    # embeddings / head
+    "embed": ("vocab", "embed"),
+    "lm_head": (None, "vocab"),
+    "patch_proj": (None, None),
+    # mamba2
+    "in_proj": (None, "ff"),
+    "conv_w": (None, "ff"),
+    "conv_b": ("ff",),
+    "out_proj": ("ff", None),
+    "A_log": ("ff",),
+    "D": ("ff",),
+    "dt_bias": ("ff",),
+    # xlstm
+    "w_qkv": (None, "ff"),
+    "w_if": (None, "heads"),
+    "w_o_gate": (None, "ff"),
+    "up_proj": (None, "ff"),
+    "down_proj": ("ff", None),
+    "w_gates": (None, "heads"),
+    "r_gates": (None, "heads"),
+}
+
+
+def _leaf_rule(path: Tuple[str, ...], leaf) -> Tuple[LogicalAxis, ...]:
+    """The logical axes of the leaf at ``path`` (its keys, outermost
+    first), by its last name: the rule, led by None for a stacked-over-
+    layers leaf (one more dimension than the rule), else all None."""
+    ndim = len(leaf.shape)
+    rule = _PARAM_RULES.get(path[-1] if path else "", None)
+    if rule is None:
+        return (None,) * ndim
+    if len(rule) == ndim:
+        return rule
+    if len(rule) + 1 == ndim:
+        return (None,) + rule
+    return (None,) * ndim
+
+
+def param_tree(params) -> Dict[str, Any]:
+    """``params`` in the reference's layout, the tree every rule resolves
+    on: a model (an ``nn.Module`` of `models`) becomes its params tree, each
+    layer leaf stacked on a leading (L, ...) axis (``params_to_tree``; on
+    the ``meta`` device the stack allocates nothing); a tree (a nest of
+    dicts of tensors or TensorSpecs) is returned as it is.  The rules must
+    see the stacked tree: ``zero1_pspecs`` puts the data axes on the first
+    unsharded divisible dimension, which can be the layer axis, so a leaf
+    per layer would be split along another dimension, with other
+    per-device bytes."""
+    if isinstance(params, dict):
+        return params
+    from ..models.model_zoo import params_to_tree
+
+    return params_to_tree(params)
+
+
+def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_pspecs(params: Any, mesh) -> Any:
+    """The spec of every leaf of ``params`` (a model or a tree of tensors or
+    TensorSpecs, see :func:`param_tree`)."""
+    return _map_with_path(
+        lambda path, leaf: logical_to_spec(_leaf_rule(path, leaf), leaf.shape, mesh),
+        param_tree(params))
+
+
+def zero1_pspecs(params: Any, mesh) -> Any:
+    """ZeRO-1 optimizer-state specs: the param spec PLUS the data(+pod) axes
+    on the first still-unsharded divisible dimension (the plain param spec
+    when no dimension divides).  Optimizer moments are only touched at the
+    update, so a reduce-scatter / all-gather there buys an N_data-fold
+    memory reduction."""
+    present = _mesh_names(mesh)
+    dp_axes = tuple(n for n in ("pod", "data") if n in present)
+    dp = mesh_axis_size(mesh, dp_axes)
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        spec = logical_to_spec(_leaf_rule(path, leaf), shape, mesh)
+        if dp <= 1:
+            return spec
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        for i, (dim, e) in enumerate(zip(shape, entries)):
+            if e is None and dim % dp == 0:
+                entries[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+                return tuple(entries)
+        return spec
+
+    return _map_with_path(one, param_tree(params))
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """One device's block of a leaf of ``shape`` under ``spec``."""
+    out = []
+    for i, dim in enumerate(shape):
+        e = spec[i] if i < len(spec) else None
+        names = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        out.append(dim // mesh_axis_size(mesh, names))
+    return tuple(out)
+
+
+def shard_bytes(leaf, spec: Spec, mesh, dtype=None) -> int:
+    """Per-device bytes of ``leaf`` (a tensor or TensorSpec) under ``spec``,
+    at ``dtype`` (default: the leaf's)."""
+    itemsize = torch.empty((), dtype=dtype or leaf.dtype).element_size()
+    return math.prod(shard_shape(leaf.shape, spec, mesh)) * itemsize
+
+
+def tree_shard_bytes(tree: Any, specs: Any, mesh, dtype: Optional[torch.dtype] = None) -> int:
+    """Per-device bytes of every leaf of ``tree`` under the matching
+    ``specs`` tree (each leaf at ``dtype``, or its own)."""
+    if isinstance(tree, dict):
+        return sum(tree_shard_bytes(v, specs[k], mesh, dtype) for k, v in tree.items())
+    return shard_bytes(tree, specs, mesh, dtype)
