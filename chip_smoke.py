@@ -32,7 +32,11 @@ and depth, served and then trained (``lm_train``: AdamW steps at train_4k's
 sequence of 4,096 on the synthetic token pipeline, float32 moments, remat,
 the fused cross-entropy, plain attention: no kernel has a backward; checked
 against the served loss, finite differences, float32 accumulation and a
-bitwise restart from a checkpoint), and zamba2-7b at full width and full
+bitwise restart from a checkpoint) and served over two model ranks on the
+one card (``lm_tp``: tensor parallelism, two processes of
+tools/tp_phase.py over gloo, kernel 8 on each rank's heads, each rank's
+vocab shard of the logits held against the whole model on one rank), and
+zamba2-7b at full width and full
 depth (the Mamba2 / shared-attention hybrid: the prefill through kernel 8 at head dim 112, G =
 1, once per application of the shared block; the chunked SSD held against
 its recurrence), and xlstm-125m at full width and full depth (the xLSTM
@@ -110,7 +114,10 @@ prompts of 4,096 tokens, 8 new.  lm_train: qwen3-0.6b in bf16 at full
 width and depth, sequence 4,096, microbatches of 8, the global batch
 **cut** from 256 to TRAIN_MICRO x TRAIN_ACCUM sequences (the phase's time),
 the pipeline's bigram vocabulary **cut** to 4,096 (its dense tables), 3
-steps and a restart of 2.  lm_zamba: zamba2-7b (81 Mamba2 layers of
+steps and a restart of 2.  lm_tp: qwen3-0.6b at full width and depth over
+2 model ranks (**cut**: one card, the ranks sharing it over host-staged
+gloo), lm_qwen3's 2 prompts of 4,096 tokens, 32 greedy decode steps.
+lm_zamba: zamba2-7b (81 Mamba2 layers of
 d_model 3,584, 112 SSD heads of 64, state 64, chunk 256; one shared block of
 32 heads of 112 and d_ff 14,336 applied 14 times; vocab 32,000) in bf16 with
 no cut (13.50 GB of weights), 4 prompts of 8,000 tokens, 16 new each;
@@ -290,6 +297,22 @@ RANGE_TARGETS = {MOE_RANGE: "moe_apply", MLA_RANGE: "attention_apply"}
 # heads of 128, qk_norm, no window) in bf16: 2 prompts of 4,096 tokens, 8
 # new, lm_serve's checks 1-2 (kernel 8 at W = S = 4,096, G = 2).
 QWEN_ARCH, QWEN_BATCH, QWEN_PROMPT, QWEN_NEW = "qwen3", 2, 4096, 8
+# lm_tp: qwen3-0.6b at full width and depth over TP_MODEL model ranks on
+# the one card (the gloo transport: NCCL refuses two ranks on one device;
+# each rank a process, tools/tp_phase.py), lm_qwen3's prompts, then
+# TP_STEPS greedy decode steps through build_cell's tensor-parallel
+# prefill and decode.  Kernel 8 runs on each rank's 8 query / 4 KV heads
+# (TP_SWA).  Checks 1 and 2 hold the ranks against the whole model on one
+# rank at TP_FLOOR_FACTOR x the floor measured in the same run (rank 0's
+# kernel prefill against its plain-attention prefill: random bf16 layers
+# amplify one attention's rounding, and a tensor-parallel rank rounds
+# each row-parallel partial to bf16 once more).
+TP_ARCH, TP_MODEL, TP_BATCH, TP_PROMPT, TP_STEPS = "qwen3", 2, 2, 4096, 32
+TP_FLOOR_FACTOR = 4.0
+TP_SWA = (2, 4096, 8, 4, 128)  # B, S, query heads, KV heads, head dim of a rank
+TP_LIMIT_S = 120.0  # the phase's time, the ranks' start included
+TP_TIMEOUT_S = 300  # the ranks' processes are killed after this
+TP_REHEARSAL = (40, 4)  # prompt, decode steps of the CPU rehearsal (the reduced config)
 # lm_train: qwen3-0.6b trained at full width and depth (28 layers, d_model
 # 1,024, 16 / 8 heads of 128, d_ff 3,072, vocab 151,936, qk_norm; 596 M
 # matmul weights with lm_head, 752 M parameters with the embedding) in bf16
@@ -4573,10 +4596,10 @@ def gateway_chaos(args, dev, bins, run, ckdir) -> dict:
 def swa_kernel(args, dev) -> dict:
     """Phase 9: kernel 8 against the chunked plain version at the prefill's
     layer shape, lm_moe's, lm_mla's (q/k 192, v 128), lm_zamba's (112, G =
-    1), lm_whisper's (64, G = 1) and lm_llava's (128, G = 7), and over an
-    edge grid with q/k and v of one width and of two (bf16 and f32), then
-    timed at the six layer shapes beside its bound, the plain version and
-    SDPA."""
+    1), lm_whisper's (64, G = 1), lm_llava's (128, G = 7) and one lm_tp
+    rank's (128, G = 2), and over an edge grid with q/k and v of one width
+    and of two (bf16 and f32), then timed at the seven layer shapes beside
+    its bound, the plain version and SDPA."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.swa_attention import ops as sw, ref as swr
@@ -4646,6 +4669,9 @@ def swa_kernel(args, dev) -> dict:
     llava = qkv(*LLAVA_SWA, torch.bfloat16)
     parity["llava_layer_shape"] = case(*llava, LLAVA_SWA[1], fault=True,
                                        chunk=LLAVA_PLAIN_CHUNK)
+    # lm_tp's prefill on one model rank: 8 / 4 heads of 128, G = 2, W = S
+    tp_qkv = qkv(*TP_SWA, torch.bfloat16)
+    parity["tp_layer_shape"] = case(*tp_qkv, TP_SWA[1], fault=True)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for name, (s, w, g, d, *bk) in SWA_EDGE.items():
             b, kvh = bk or (1, 2)
@@ -4725,7 +4751,8 @@ def swa_kernel(args, dev) -> dict:
             "mla": swa_causal_timing(mla, "timing_swa_attention_mla", MOE_PLAIN_CHUNK),
             "zamba": swa_causal_timing(zamba, "timing_swa_attention_zamba", ZAMBA_PLAIN_CHUNK),
             "whisper": swa_causal_timing(whisper, "timing_swa_attention_whisper", 512),
-            "llava": swa_causal_timing(llava, "timing_swa_attention_llava", LLAVA_PLAIN_CHUNK)}
+            "llava": swa_causal_timing(llava, "timing_swa_attention_llava", LLAVA_PLAIN_CHUNK),
+            "tp": swa_causal_timing(tp_qkv, "timing_swa_attention_tp", 512)}
 
 
 def swa_causal_timing(qkv, phase: str, chunk: int) -> dict:
@@ -6767,6 +6794,177 @@ def lm_train(args, dev) -> dict:
     return launches
 
 
+def tp_launches_ok(stages: dict, layers: int) -> bool:
+    """Kernel 8 once a layer in each rank's tensor-parallel prefill, never in
+    a decode step."""
+    return (all(st["launches"] == layers for st in stages["prefill"])
+            and all(st["launches"] == 0 for st in stages["decode"]))
+
+
+def tp_setup(rehearse: bool):
+    """lm_tp's (config, prompt length, decode steps): qwen3-0.6b whole on
+    the card; the reduced config at TP_REHEARSAL's sizes in the phase's CPU
+    rehearsal (the phase on a CPU device, ``--rehearse`` for a rank)."""
+    from repro_torch import get_arch
+
+    cfg = get_arch(TP_ARCH)
+    return (cfg.reduced(), *TP_REHEARSAL) if rehearse else (cfg, TP_PROMPT, TP_STEPS)
+
+
+def tp_rank_results(args, dev) -> list:
+    """Start tools/tp_phase.py once for each model rank (a ``file://``
+    rendezvous in a temporary directory), wait for every one, and load what
+    each wrote; a rank that fails or outlives TP_TIMEOUT_S fails the phase,
+    its log's tail printed."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="lm_tp_")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    procs = []
+    try:
+        for r in range(TP_MODEL):
+            cmd = [sys.executable, os.path.join(ROOT, "tools", "tp_phase.py"), "--rank", str(r),
+                   "--init", init, "--out", tmp, "--seed", str(args.seed)] + (
+                       ["--rehearse"] if dev.type == "cpu" else [])
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.perf_counter() + TP_TIMEOUT_S
+        rcs = []
+        for proc, _ in procs:
+            try:
+                rcs.append(proc.wait(timeout=max(1.0, deadline - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        if rcs != [0] * TP_MODEL:
+            for r in range(TP_MODEL):
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    sys.stderr.write(f"--- lm_tp rank {r}:\n{f.read()[-6000:]}\n")
+            fail("lm_tp", returncodes=rcs, timeout_s=TP_TIMEOUT_S)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(TP_MODEL)]
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def lm_tp(args, dev, swa=None) -> int:
+    """Phase lm_tp: qwen3-0.6b at full width and depth served over TP_MODEL
+    model ranks on the one card (tensor parallelism, `parallel.tensor`;
+    the ranks are tools/tp_phase.py's processes over the gloo transport),
+    TP_BATCH prompts of TP_PROMPT tokens (lm_qwen3's) through build_cell's
+    tensor-parallel prefill, then TP_STEPS greedy decode steps; rank 0 then
+    serves the whole model on one rank.  Checks: (1) each rank's vocab
+    shard of the prefill logits (and of every decode step's, the one-rank
+    run fed the same tokens) against the matching slice of the one-rank
+    logits, within TP_FLOOR_FACTOR x the floor (rank 0's kernel prefill
+    against its plain-attention prefill, this run); (2) the greedy tokens
+    against the one-rank logits' argmax wherever its top-2 margin exceeds
+    that limit (:func:`greedy_disagreements`); (3) the ranks' residuals into
+    the final norm and their tokens bitwise equal; (4) 2L + 1 model-axis
+    collectives a prefill and a decode step and one a pick, their payload
+    the dry run's count of the same cell on ``make_test_mesh(1, TP_MODEL)``;
+    (5) kernel 8 once a layer in each rank's prefill (its per-rank shape,
+    TP_SWA, held against its plain version in swa_kernel: ``swa``); (6) the
+    two planted faults (rank 1 slicing ``wq`` with rank 0's heads, one
+    block's row-parallel reduction skipped) each failing check 1; and the
+    phase within TP_LIMIT_S.  On a CPU device the phase is its rehearsal
+    (:func:`tp_setup`).  Returns kernel 8's launches in rank 0's
+    prefill."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.costing import trace_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.tensor import head_layout
+
+    t_phase = time.perf_counter()
+    cfg, prompt, steps = tp_setup(dev.type == "cpu")
+    res = tp_rank_results(args, dev)
+    r0 = res[0]
+    single = r0["single_logits"]  # (B, steps + 1, V): the whole model, the same tokens
+    vl = cfg.vocab // TP_MODEL
+    shard = [slice(r * vl, (r + 1) * vl) for r in range(TP_MODEL)]
+    floor = row_rel_errors(single[:, 0], r0["plain_logits"]).max().item()
+    limit = TP_FLOOR_FACTOR * floor
+
+    def err(r, got, step):
+        return row_rel_errors(got, single[:, step, shard[r]]).max().item()
+
+    prefill_err = [err(r, x["logits"][:, 0], 0) for r, x in enumerate(res)]
+    decode_err = [err(r, x["logits"][:, 1:], slice(1, None)) for r, x in enumerate(res)]
+    decided, wrong = greedy_disagreements(single, r0["tokens"], limit)
+    bitwise = {"residual": all(torch.equal(x["residual"], r0["residual"]) for x in res[1:]),
+               "tokens": all(torch.equal(x["tokens"], r0["tokens"]) for x in res[1:])}
+    n = 2 * cfg.n_layers + 1
+    mesh = make_test_mesh(1, TP_MODEL)
+    # one rank's prefill and its decode step over the cache's last position,
+    # on the counting mesh; the dryrun phase reads the same traces
+    pred = {"prefill": trace_cell(cfg, ShapeConfig("lm_tp_prefill", prompt, TP_BATCH,
+                                                   "prefill"), mesh=mesh),
+            "decode": trace_cell(cfg, ShapeConfig("lm_tp_decode", prompt + steps, TP_BATCH,
+                                                  "decode"), mesh=mesh)}
+    collectives = {}
+    for stage, tr in pred.items():  # the port's executed gathers
+        seen = {(st["count"], st["bytes"]) for x in res for st in x["stages"][stage]}
+        want = (tr.executed_collective_counts.get("all-gather", 0),
+                tr.executed_collective_payload.get("all-gather", 0.0))
+        collectives[stage] = {"measured": sorted(seen), "dry_run": want, "per_step": n,
+                              "ok": seen == {want} and want[0] == n}
+    picks_ok = all(x["pick_counts"] == [1] * (steps + 1) for x in res)
+    faults = {}
+    for name in ("wq", "skip"):
+        errs = [err(r, x[f"fault_{name}_logits"], 0) for r, x in enumerate(res)]
+        faults[name] = {"prefill_err": errs, "caught": max(errs) > limit}
+    faults["skip"]["call"] = r0["fault_skip_call"]
+    launches = [x["stages"]["prefill"][0]["launches"] for x in res]
+    finite = all(bool(torch.isfinite(x["logits"]).all()) for x in res) and bool(
+        torch.isfinite(single).all())
+    decode_ms = sorted(r0["decode_ms"])[len(r0["decode_ms"]) // 2]
+    ranks = [{"peak_memory_gb": x["peak_gb"], "busy": x.get("busy"), "start_s": x["start_s"],
+              "seconds": x["seconds"],
+              "collective_share": {k: x["collective_ms"][k] / x["instrumented_ms"][k]
+                                   for k in ("prefill", "decode")},
+              "collective_ms": x["collective_ms"], "instrumented_ms": x["instrumented_ms"]}
+             for x in res]
+    seconds = time.perf_counter() - t_phase
+    out = {"phase": "lm_tp", "arch": cfg.name, "layers": cfg.n_layers, "mesh": r0["mesh"],
+           "transport": r0["transport"], "heads_per_rank": list(head_layout(cfg, TP_MODEL)),
+           "dtype": "bfloat16", "batch": TP_BATCH, "prompt_len": prompt,
+           "decode_steps": steps, "prefill_ms": r0["prefill_ms"],
+           "decode_ms_median": decode_ms, "decode_ms": r0["decode_ms"],
+           "one_rank_ms": {"prefill": r0["single_ms"]["prefill"],
+                           "decode_median": sorted(r0["single_ms"]["decode"])[steps // 2]},
+           "ranks": ranks, "launches": {"prefill": launches, "decode": 0},
+           "kernel8_rank_shape": swa,
+           "floor": floor, "floor_factor": TP_FLOOR_FACTOR, "limit": limit,
+           "checks": {"prefill_vs_one_rank_rel_err": prefill_err,
+                      "decode_vs_one_rank_rel_err": decode_err,
+                      "greedy": {"decided": decided, "disagreeing": wrong,
+                                 "share_equal_to_one_rank_argmax": (
+                                     r0["single_tokens"] == r0["tokens"]).float().mean().item()},
+                      "bitwise_across_ranks": bitwise, "collectives": collectives,
+                      "pick_gathers": picks_ok, "finite": finite, "faults": faults},
+           "note": "gloo stages each collective through the host: the collective share is a "
+                   "correctness run's, not an NVLink figure",
+           "seconds": seconds, "limit_s": TP_LIMIT_S}
+    out["ok"] = (finite and max(prefill_err + decode_err) <= limit and wrong == 0
+                 and all(bitwise.values()) and all(c["ok"] for c in collectives.values())
+                 and picks_ok and all(f["caught"] for f in faults.values())
+                 and tp_launches_ok(r0["stages"], cfg.n_layers)
+                 and tp_launches_ok(res[-1]["stages"], cfg.n_layers)
+                 and r0["transport"] == "gloo" and seconds <= TP_LIMIT_S)
+    reading("lm_tp", cfg, batch=TP_BATCH, prompt=prompt, new=steps + 1, model=TP_MODEL,
+            prefill_ms=r0["prefill_ms"], decode_ms=decode_ms, traces=pred,
+            collectives=collectives)
+    emit(out)
+    if not out["ok"]:
+        fail("lm_tp")
+    return launches[0]
+
+
 def lm_zamba(args, dev) -> int:
     """Phase lm_zamba: zamba2-7b at full width and full depth (81 Mamba2
     layers, the shared attention block at 14 of them), bf16 weights from
@@ -7745,6 +7943,19 @@ def dryrun_window(r: dict, prompt: int) -> dict:
     return {**stages, "peaks": {k: float(v) for k, v in peaks.items()}}
 
 
+def dryrun_tp(r: dict) -> dict:
+    """lm_tp's rank program as lm_tp traced it on the counting mesh (check 4:
+    ``make_test_mesh(1, model)``, `launch.costing.trace_cell`): one rank's
+    prefill and its decode step over the cache's last position -> {stage:
+    work}."""
+    out = {}
+    for stage, tr in r["traces"].items():
+        flops = {k: float(v) for k, v in tr.function_flops.items()}
+        out[stage] = {"flops_by_dtype": flops, "flops": sum(flops.values()),
+                      "bytes": tr.function_bytes, "executed_flops": tr.executed_flops}
+    return out
+
+
 def _extrapolated(a, b, xa: float, xb: float, x: float):
     """Every number of ``a`` (at xa) and ``b`` (at xb), nested in dicts,
     linearly extrapolated to x."""
@@ -7822,6 +8033,14 @@ def dryrun_hand(name: str, r: dict) -> dict:
     from repro_torch.models.moe import moe_capacity
 
     cfg = r["cfg"]
+    if name == "lm_tp":  # one model rank: its heads, its ff columns, its vocab shard
+        from repro_torch.parallel.tensor import head_layout
+
+        m = r["model"]
+        hq, hkv = head_layout(cfg, m)
+        cfg = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
+                                  head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // m,
+                                  vocab=cfg.vocab // m)
     if name == "lm_train":
         w = train_work(cfg, r["micro"] * r["accum"], r["seq"])
         return {"step": ({"train_work": (w["bytes"], w["flops"])},
@@ -7829,7 +8048,7 @@ def dryrun_hand(name: str, r: dict) -> dict:
     b, p, new = r["batch"], r["prompt"], r["new"]
     kv = p + new - 1
     d = cfg.d_model
-    if name in ("lm_serve", "lm_quant", "lm_qwen3"):
+    if name in ("lm_serve", "lm_quant", "lm_qwen3", "lm_tp"):
         hand = {"prefill": dense_work(cfg, b, p), "decode": dense_work(cfg, b, p, kv)}
     elif name in ("lm_moe", "lm_mla"):
         hand = {"prefill": moe_serve_work(cfg, b, p, p, moe_capacity(b * p, cfg)),
@@ -7937,6 +8156,9 @@ def dryrun_phase(args) -> dict:
         if name == "lm_train":
             dry = dryrun_train(r)
             stages = {"step": r["step_ms"]}
+        elif name == "lm_tp":
+            dry = dryrun_tp(r)
+            stages = {"prefill": r["prefill_ms"], "decode": r["decode_ms"]}
         elif r["cfg"].family == "ssm":
             xa, xb = DRYRUN_XLSTM_PROMPTS
             dry = _extrapolated(dryrun_window(r, xa), dryrun_window(r, xb), xa, xb, r["prompt"])
@@ -7963,15 +8185,25 @@ def dryrun_phase(args) -> dict:
         if "generate" in stages:
             bounds["generate"] = bounds["prefill"] + (r["new"] - 1) * bounds["decode"]
         shares = {k: bounds[k] / ms for k, ms in stages.items()}
-        predicted = r["held_gb"] * 1e9 + max(dry["peaks"].values())
-        peak_ratio = r["peak_gb"] * 1e9 / predicted
         rows[name] = {
             "work": work, "bound_ms": {k: bounds[k] for k in stages}, "measured_ms": stages,
             "share": shares, "executed_flops": {k: dry[k]["executed_flops"] for k in hand},
-            "peak": {"predicted_gb": predicted / 1e9, "measured_gb": r["peak_gb"],
-                     "held_gb": r["held_gb"], "ratio": peak_ratio},
-            "ok": (all(w["ok"] for w in work.values()) and all(s <= 1.0 for s in shares.values())
-                   and DRYRUN_PEAK_BAND[0] <= peak_ratio <= DRYRUN_PEAK_BAND[1])}
+            "ok": (all(w["ok"] for w in work.values())
+                   and all(s <= 1.0 for s in shares.values()))}
+        if name == "lm_tp":
+            # lm_tp's check 4 held each rank's counted collectives against
+            # these traces; its verdict is carried here (rank 0 also holds
+            # the whole model for its one-rank run: no peak is predicted)
+            rows[name]["collectives"] = r["collectives"]
+            rows[name]["ok"] = rows[name]["ok"] and all(
+                c["ok"] for c in r["collectives"].values())
+            continue
+        predicted = r["held_gb"] * 1e9 + max(dry["peaks"].values())
+        peak_ratio = r["peak_gb"] * 1e9 / predicted
+        rows[name]["peak"] = {"predicted_gb": predicted / 1e9, "measured_gb": r["peak_gb"],
+                              "held_gb": r["held_gb"], "ratio": peak_ratio}
+        rows[name]["ok"] = (rows[name]["ok"]
+                            and DRYRUN_PEAK_BAND[0] <= peak_ratio <= DRYRUN_PEAK_BAND[1])
     # the planted counts, on lm_serve's prefill
     faults = {}
     if "lm_serve" in READINGS:
@@ -8584,6 +8816,11 @@ def main() -> None:
     train_launches = lm_train_process(args)
     gc.collect()
     torch.cuda.empty_cache()
+    # tensor parallelism: qwen3-0.6b at full width and depth over two model
+    # ranks on the card (two processes, gloo), kernel 8 on each rank's heads
+    tp_launches = lm_tp(args, dev, swa["tp"])
+    gc.collect()
+    torch.cuda.empty_cache()
     # the Mamba2 / shared-attention hybrid: zamba2-7b at full width and
     # depth (13.50 GB of weights: qwen3's are gone), kernel 8 at 112, G = 1
     zamba_launches = lm_zamba(args, dev)
@@ -8644,6 +8881,7 @@ def main() -> None:
             "lm_mla_launches": mla_launches if name == "swa_attention" else 0,
             "lm_qwen3_launches": qwen_launches if name == "swa_attention" else 0,
             "lm_train_launches": train_launches.get(name, 0),
+            "lm_tp_launches_a_rank": tp_launches if name == "swa_attention" else 0,
             "lm_zamba_launches": zamba_launches if name == "swa_attention" else 0,
             "lm_xlstm_launches": xlstm_launches.get(name, 0),
             "lm_whisper_launches": whisper_launches.get(name, 0),
@@ -8652,9 +8890,10 @@ def main() -> None:
         if name == "swa_attention":  # lm_moe's prefill, W = S; lm_mla's, q/k 192, v 128;
             kernels[-1]["llama4_shape"] = swa["llama4"]  # lm_zamba's, 112, G = 1;
             kernels[-1]["mla_shape"] = swa["mla"]  # lm_whisper's, 64, G = 1;
-            kernels[-1]["zamba_shape"] = swa["zamba"]  # lm_llava's, 128, G = 7
-            kernels[-1]["whisper_shape"] = swa["whisper"]
-            kernels[-1]["llava_shape"] = swa["llava"]
+            kernels[-1]["zamba_shape"] = swa["zamba"]  # lm_llava's, 128, G = 7;
+            kernels[-1]["whisper_shape"] = swa["whisper"]  # lm_tp's, 128, G = 2,
+            kernels[-1]["llava_shape"] = swa["llava"]  # on one model rank
+            kernels[-1]["tp_shape"] = swa["tp"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

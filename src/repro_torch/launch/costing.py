@@ -34,6 +34,13 @@ work is counted by formula, not by descending into the plain path:
   * the encoder-decoder's bidirectional ``full_attention`` is not a
     boundary: its whole square is the real work, in both counts.
 
+On a mesh with a model axis above 1 (`parallel.tensor`), the trace is one
+rank's tensor-parallel step: the model is the rank's shard
+(``shard_params`` of the meta model, on the counting ``AbstractMesh``),
+the batch its share, and every model-axis collective is counted by kind
+and payload (``sharding.collective_counts`` / ``collective_bytes``)
+without exchanging anything.
+
 The depth calibration (:func:`calibrated_cost`) traces the cell at two
 reduced depths and extrapolates linearly, as the reference does; its
 reason here is host time (xlstm's serial sLSTM steps and zamba2's 81
@@ -321,7 +328,10 @@ class CellTrace:
     at): the function's FLOPs by dtype and compulsory bytes, the executed
     FLOPs and bytes, the peak of live bytes, ``temp_bytes`` the peak above
     what was live when the step began (the parameters, the optimizer
-    state, the inputs and a decode step's cache), and the bytes it holds."""
+    state, the inputs and a decode step's cache), and the bytes it holds.
+    ``collective_*``: the collectives the function needs (what the bound
+    reads); ``executed_collective_*``: those the port's step runs (on a
+    model axis, the rank-ordered reduction's all-gathers; else the same)."""
 
     function_flops: Dict[str, float]
     function_bytes: float
@@ -335,6 +345,8 @@ class CellTrace:
     input_bytes: float
     collective_counts: Dict[str, float]
     collective_payload: Dict[str, float]
+    executed_collective_counts: Dict[str, float] = dataclasses.field(default_factory=dict)
+    executed_collective_payload: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def flops(self) -> float:
@@ -343,13 +355,12 @@ class CellTrace:
     def scalars(self) -> Dict[str, float]:
         """Every number of the trace by name (FLOPs by dtype as
         ``function_flops.<dtype>``)."""
-        out = {k: float(v) for k, v in dataclasses.asdict(self).items()
-               if not isinstance(v, dict)}
-        out.update({f"function_flops.{k}": float(v) for k, v in self.function_flops.items()})
-        out.update({f"collective_counts.{k}": float(v)
-                    for k, v in self.collective_counts.items()})
-        out.update({f"collective_payload.{k}": float(v)
-                    for k, v in self.collective_payload.items()})
+        out = {}
+        for name, v in dataclasses.asdict(self).items():
+            if isinstance(v, dict):
+                out.update({f"{name}.{k}": float(x) for k, x in v.items()})
+            else:
+                out[name] = float(v)
         return out
 
     @classmethod
@@ -357,37 +368,45 @@ class CellTrace:
         def group(prefix):
             return {k[len(prefix):]: v for k, v in s.items() if k.startswith(prefix)}
 
-        plain = {f.name: s[f.name] for f in dataclasses.fields(cls)
-                 if f.name in s and f.name not in ("function_flops", "collective_counts",
-                                                   "collective_payload")}
-        return cls(function_flops=group("function_flops."),
-                   collective_counts=group("collective_counts."),
-                   collective_payload=group("collective_payload."), **plain)
+        groups = ("function_flops", "collective_counts", "collective_payload",
+                  "executed_collective_counts", "executed_collective_payload")
+        kw = {f.name: group(f.name + ".") if f.name in groups else s[f.name]
+              for f in dataclasses.fields(cls) if f.name in groups or f.name in s}
+        return cls(**kw)
 
 
 def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accum: int = 1,
                fused_loss: bool = False, dtype=DTYPE,
-               inputs: Optional[Dict[str, Any]] = None) -> CellTrace:
+               inputs: Optional[Dict[str, Any]] = None, mesh=None) -> CellTrace:
     """Trace one step of the cell of ``arch`` at ``shape`` on the ``meta``
     device.  ``batch`` overrides the global batch (a data-parallel rank's
     share); ``world`` > 1 adds the data-parallel mean's all-gathers of a
     train step (:func:`dp_gather_payload`); ``inputs`` (TensorSpecs, a
     decode cell's cache under "cache") replaces the cell's own, such as an
     encoder-decoder's frames at another length than its tokens.  A decode
-    cell steps at the last position of its cache."""
+    cell steps at the last position of its cache.  ``mesh`` (an
+    ``AbstractMesh`` with a model axis above 1): one tensor-parallel rank's
+    prefill or decode step at its share of the global batch, its
+    collectives counted."""
+    from ..parallel import sharding, tensor
+
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     shape = SHAPES_BY_NAME[shape] if isinstance(shape, str) else shape
     if batch is not None:
         shape = dataclasses.replace(shape, global_batch=batch)
-    cell = build_cell(cfg, shape, dtype=dtype, accum=accum, fused_loss=fused_loss)
+    cell = build_cell(cfg, shape, dtype=dtype, accum=accum, fused_loss=fused_loss, mesh=mesh)
     if inputs is not None:
         cell.inputs = inputs
     train = shape.kind == "train"
     mode = CountingMode(train=train)
     counts: Dict[str, float] = {}
     payload: Dict[str, float] = {}
+    whole = None if mesh is None else meta_model(cfg, dtype)  # outside the count
+    before = [sharding.collective_counts(fn) for fn in (True, False)] + [
+        sharding.collective_bytes(fn) for fn in (True, False)]
     with attention_boundaries(mode), mode:
-        model = meta_model(cfg, dtype)
+        model = meta_model(cfg, dtype) if mesh is None else tensor.shard_params(whole, mesh)
+        del whole
         inputs = meta_inputs(cell.inputs)
         opt_bytes = cache_bytes = 0
         if train:
@@ -431,6 +450,14 @@ def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accu
             function_bytes = serve_bytes(cfg, model, mode, inputs, out, cache_bytes)
             del out, cache
         input_bytes = _nbytes(inputs)
+    executed = counts, payload
+    if mesh is not None:
+        after = [sharding.collective_counts(fn) for fn in (True, False)] + [
+            sharding.collective_bytes(fn) for fn in (True, False)]
+        counts, executed_counts, payload, executed_payload = (
+            {k: float(v - b[k]) for k, v in a.items() if v > b[k]}
+            for a, b in zip(after, before))
+        executed = executed_counts, executed_payload
     return CellTrace(
         function_flops=dict(mode.function_flops), function_bytes=float(function_bytes),
         executed_flops=float(sum(mode.executed_flops.values())),
@@ -438,7 +465,8 @@ def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accu
         temp_bytes=float(mode.peak - held),
         param_bytes=float(param_bytes), opt_bytes=float(opt_bytes),
         cache_bytes=float(cache_bytes), input_bytes=float(input_bytes),
-        collective_counts=counts, collective_payload=payload)
+        collective_counts=counts, collective_payload=payload,
+        executed_collective_counts=executed[0], executed_collective_payload=executed[1])
 
 
 # ------------------------------------------------------ depth calibration --
@@ -484,10 +512,14 @@ class CalibratedCost:
 def calibrated_cost(cfg: ArchConfig, shape: ShapeConfig, mesh=None, **kw) -> CalibratedCost:
     """Trace the cell at two reduced depths and extrapolate every count
     linearly to the full depth.  ``kw`` goes to :func:`trace_cell`
-    (``batch``, ``world``, ``accum``, ``fused_loss``); ``mesh`` is the
-    reference's argument, unused (the trace is one device's)."""
+    (``batch``, ``world``, ``accum``, ``fused_loss``); ``mesh`` with a model
+    axis above 1 traces one tensor-parallel rank (see :func:`trace_cell`),
+    else it is unused (the trace is one data-parallel rank's, at ``batch``)."""
+    from ..parallel.tensor import model_size
     from .roofline import collective_stats
 
+    if mesh is not None and model_size(mesh) > 1:
+        kw["mesh"] = mesh
     l1, l2 = _calib_depths(cfg)
     f1 = trace_cell(_reduced(cfg, l1), shape, **kw).scalars()
     f2 = trace_cell(_reduced(cfg, l2), shape, **kw).scalars()

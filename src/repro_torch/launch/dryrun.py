@@ -18,11 +18,20 @@ Meshes (`launch.mesh`):
   * ``pod16x16``, ``pod2x16x16``: the reference's production meshes.
 
 A cell's status is ``ok``, ``skipped`` (``cell_is_runnable``'s reason),
-``partial`` or ``error``.  ``partial``: the mesh has a model axis above 1,
-or the cell needs the sequence-parallel layout; the port has no
-tensor- or sequence-parallel step, so the cell's FLOPs, activations and
-collectives are not traced, and only its parameter, gradient, optimizer and
-cache bytes per device (exact, from the rule tables) are written.
+``partial`` or ``error``.  On a mesh with a model axis above 1 the dense
+family's prefill and decode cells are traced as one tensor-parallel rank's
+step (`parallel.tensor`: the rank's shard of the model on the counting
+mesh, its share of the batch, each model-axis collective counted by kind
+and payload; ``t_collective`` on ``NVLINK_BW`` from the function's
+collectives, an all-reduce of each partial, and the port's rank-ordered
+gathers beside it as ``executed_collectives``), with the step's own
+parameter and cache bytes per device beside the rule tables' (the step
+holds whole heads: GSPMD may cut one).  ``partial``: a train cell on a
+model axis, another family on one, a layout the heads, ``d_ff`` or the
+vocabulary do not allow, or the sequence-parallel layout -- each waits for
+a later slice, and its ``reason`` says which; its FLOPs, activations and
+collectives are not traced, and only its parameter, gradient, optimizer
+and cache bytes per device (exact, from the rule tables) are written.
 
 Results are JSON files under ``results/dryrun_torch/``, one a cell, which
 `launch.report` renders.
@@ -46,9 +55,10 @@ from ..configs import SHAPES, SHAPES_BY_NAME, cell_is_runnable, get_arch
 from ..configs.registry import ARCHS
 from ..models import cache_spec
 from ..parallel import sharding as shr
+from ..parallel import tensor
 from .costing import calibrated_cost, meta_model
 from .mesh import make_production_mesh, make_test_mesh, mesh_device_count
-from .roofline import HBM_BYTES, collective_stats, compute_roofline
+from .roofline import HBM_BYTES, NVLINK_BW, collective_stats, compute_roofline
 from .steps import cache_axes, use_sequence_parallel
 
 __all__ = ["RESULTS_DIR", "MESHES", "cell_tag", "cell_memory", "run_cell", "main"]
@@ -94,11 +104,15 @@ def cell_memory(cfg, shape, mesh) -> Dict[str, float]:
 
 
 def _traced(cfg, shape, mesh, mem: Dict[str, float], fused_loss: bool) -> Dict[str, Any]:
-    """The calibrated trace of one data-parallel rank's step -> the
-    roofline dicts and the memory per device."""
+    """The calibrated trace of one data-parallel (or, with a model axis,
+    tensor-parallel) rank's step -> the roofline dicts and the memory per
+    device."""
     dp = shr.mesh_axis_size(mesh, ("pod", "data"))
-    cal = calibrated_cost(cfg, shape, mesh, batch=shape.global_batch // dp, world=dp,
-                          fused_loss=fused_loss)
+    if tensor.model_size(mesh) > 1:
+        cal = calibrated_cost(cfg, shape, mesh, fused_loss=fused_loss)
+    else:
+        cal = calibrated_cost(cfg, shape, mesh, batch=shape.global_batch // dp, world=dp,
+                              fused_loss=fused_loss)
     tr = cal.trace
     mem = dict(mem)
     # what the step holds, exactly from the rule tables (ZeRO-1 moments),
@@ -107,14 +121,32 @@ def _traced(cfg, shape, mesh, mem: Dict[str, float], fused_loss: bool) -> Dict[s
                              + mem.get("cache_bytes", 0.0) + tr.input_bytes)
     mem["temp_bytes"] = tr.temp_bytes
     mem["peak_bytes"] = mem["argument_bytes"] + tr.temp_bytes
-    # the port's data-parallel step holds whole moments on every rank
-    mem["peak_bytes_port_step"] = (mem["peak_bytes"] + mem.get("opt_bytes_replicated", 0.0)
-                                   - mem.get("opt_bytes", 0.0))
+    if tensor.model_size(mesh) > 1:
+        # the tensor-parallel step holds whole heads: its own weights and
+        # cache, beside the rule tables'
+        mem["param_bytes_port_step"] = tr.param_bytes
+        if shape.kind == "decode":
+            mem["cache_bytes_port_step"] = tr.cache_bytes
+        mem["peak_bytes_port_step"] = (tr.param_bytes + mem.get("cache_bytes_port_step", 0.0)
+                                       + tr.input_bytes + tr.temp_bytes)
+    else:
+        # the port's data-parallel step holds whole moments on every rank
+        mem["peak_bytes_port_step"] = (mem["peak_bytes"] + mem.get("opt_bytes_replicated", 0.0)
+                                       - mem.get("opt_bytes", 0.0))
     coll = collective_stats(tr.collective_counts, tr.collective_payload)
     roof = compute_roofline(tr.function_flops, tr.function_bytes, cfg, shape,
                             mesh_device_count(mesh), collectives=coll,
                             executed_flops=tr.executed_flops, executed_bytes=tr.executed_bytes,
                             memory_per_device=mem)
+    out = roof.to_dict()
+    if tensor.model_size(mesh) > 1:
+        # the bound's collectives are the function's (an all-reduce of each
+        # partial); the port's rank-ordered reduction gathers every rank's
+        # partial instead, its payload written beside as executed
+        ex = collective_stats(tr.executed_collective_counts, tr.executed_collective_payload)
+        out["executed_collectives"] = {"counts": ex.counts, "payload_bytes": ex.payload_bytes,
+                                       "wire_bytes": ex.wire_bytes,
+                                       "t_collective": ex.wire_bytes / NVLINK_BW}
     calibrated = {
         "flops": cal.flops, "hbm_bytes": cal.hbm_bytes, "wire_bytes": cal.wire_bytes,
         "t_compute": roof.t_compute, "t_memory": roof.t_memory,
@@ -122,7 +154,7 @@ def _traced(cfg, shape, mesh, mem: Dict[str, float], fused_loss: bool) -> Dict[s
         "model_flops": roof.model_flops, "useful_flops_ratio": roof.useful_flops_ratio,
         "collective_counts": cal.collective_counts, "calibration_raw": cal.raw,
     }
-    return {"roofline": roof.to_dict(), "roofline_calibrated": calibrated}
+    return {"roofline": out, "roofline_calibrated": calibrated}
 
 
 def run_cell(arch_name: str, shape_name: str, mesh_tag: str = "h100x1",
@@ -156,10 +188,16 @@ def run_cell(arch_name: str, shape_name: str, mesh_tag: str = "h100x1",
             shr.set_sp_mode(False)
         result = {"cell": tag, "status": "ok", "arch": cfg.name, "shape": shape.name,
                   "mesh": mesh_tag, "sp_mode": sp}
-        if tp > 1 or sp:
-            why = (f"model axis of {tp}: the port has no tensor-parallel step" if tp > 1 else
-                   f"global batch {shape.global_batch} over {dp} data ranks takes the "
-                   f"sequence-parallel layout: the port has no sequence-parallel step")
+        why = None
+        if sp:
+            why = (f"global batch {shape.global_batch} over {dp} data ranks takes the "
+                   f"sequence-parallel layout: sequence parallelism waits for a later slice")
+        elif tp > 1 and shape.kind == "train":
+            why = (f"a train cell on a model axis of {tp}: the backward of the model-axis "
+                   f"collectives and the tensor-parallel train step wait for a later slice")
+        elif tp > 1:
+            why = tensor.layout_reason(cfg, tp)
+        if why:
             result.update(status="partial", reason=why + " (FLOPs, activations and "
                           "collectives not traced; bytes per device from the rule tables)",
                           memory_per_device=mem,
@@ -173,6 +211,8 @@ def run_cell(arch_name: str, shape_name: str, mesh_tag: str = "h100x1",
         roof = result["roofline"]
         result["fits"] = roof["memory_per_device"]["peak_bytes"] <= HBM_BYTES
         result["seconds"] = {"trace": time.time() - t0}
+        result["fits_port_step"] = (roof["memory_per_device"]["peak_bytes_port_step"]
+                                    <= HBM_BYTES)
         print(f"[dryrun] {tag}: OK  bottleneck={roof['bottleneck']} "
               f"T=(c {roof['t_compute']:.3e}, m {roof['t_memory']:.3e}, "
               f"n {roof['t_collective']:.3e})s useful={roof['useful_flops_ratio']:.2f} "

@@ -15,8 +15,8 @@ from ..configs.registry import ARCHS, get_arch
 from .dryrun import MESHES, RESULTS_DIR
 from .roofline import CARD, CARD_POWER_LIMIT, HBM_BYTES
 
-__all__ = ["dryrun_table", "roofline_table", "collective_table", "summary_table", "render",
-           "main"]
+__all__ = ["dryrun_table", "roofline_table", "collective_table", "summary_table",
+           "tensor_parallel_table", "render", "main"]
 
 _IMPROVEMENT_NOTE = {
     ("compute", "train"): "raise MFU: larger per-device batch or reduce remat recompute",
@@ -137,6 +137,41 @@ def collective_table(mesh_tag: str = "h100x4", results_dir: str = RESULTS_DIR) -
     return lines
 
 
+def tensor_parallel_table(results_dir: str = RESULTS_DIR,
+                          meshes=("pod16x16", "pod2x16x16")) -> List[str]:
+    """One row a traced cell of a mesh with a model axis: one rank's
+    function FLOPs and bytes, its three roofline terms (the collectives the
+    function needs, all-reduces of the partials, on NVLINK_BW), their count
+    and wire bytes, the port's executed collectives (the rank-ordered
+    reduction's all-gathers) and their time beside, and the parameter,
+    cache and peak bytes per device of the rule tables beside the step's
+    own (whole heads)."""
+    lines = [
+        "| arch | shape | mesh | TFLOP/dev | HBM GB/dev | T_comp s | T_mem s | T_coll s "
+        "| bottleneck | collectives | wire GB/dev | port's wire GB/dev (T s) "
+        "| params GB: rules / step | cache GB: rules / step | peak GB: rules / step |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for tag in meshes:
+        for (arch, shape), r in sorted(_load(tag, results_dir).items()):
+            if r["status"] != "ok":
+                continue
+            rc, mem = r["roofline"], r["roofline"]["memory_per_device"]
+            gb = lambda k: mem.get(k, 0.0) / 1e9  # noqa: E731
+            n = sum(rc["collective_counts"].values())
+            ex = rc["executed_collectives"]
+            lines.append(
+                f"| {arch} | {shape} | {tag} | {rc['flops'] / 1e12:.4g} "
+                f"| {rc['hbm_bytes'] / 1e9:.3g} | {fmt_t(rc['t_compute'])} "
+                f"| {fmt_t(rc['t_memory'])} | {fmt_t(rc['t_collective'])} | {rc['bottleneck']} "
+                f"| {n:.0f} | {rc['wire_bytes'] / 1e9:.3g} "
+                f"| {ex['wire_bytes'] / 1e9:.3g} ({fmt_t(ex['t_collective'])}) "
+                f"| {gb('param_bytes'):.3g} / {gb('param_bytes_port_step'):.3g} "
+                f"| {gb('cache_bytes'):.3g} / {gb('cache_bytes_port_step'):.3g} "
+                f"| {gb('peak_bytes'):.3g} / {gb('peak_bytes_port_step'):.3g} |")
+    return lines
+
+
 def summary_table(results_dir: str = RESULTS_DIR) -> List[str]:
     """One row a runnable cell: its peak per device and fit on one H100 and
     on four (data parallel, ZeRO-1 moments), its bound and bottleneck on
@@ -168,8 +203,10 @@ def summary_table(results_dir: str = RESULTS_DIR) -> List[str]:
 
 
 _MESH_TITLE = {"h100x1": "one H100", "h100x4": "four H100s, data parallel (ZeRO-1 moments)",
-               "pod16x16": "16x16 (256 devices), rule tables only",
-               "pod2x16x16": "2x16x16 (512 devices), rule tables only"}
+               "pod16x16": "16x16 (256 devices); dense prefill and decode traced "
+                           "tensor-parallel, the rest rule tables only",
+               "pod2x16x16": "2x16x16 (512 devices); dense prefill and decode traced "
+                             "tensor-parallel, the rest rule tables only"}
 
 
 def render(results_dir: str = RESULTS_DIR) -> str:
@@ -183,7 +220,9 @@ def render(results_dir: str = RESULTS_DIR) -> str:
         out += [f"## Roofline — {_MESH_TITLE[tag]}, depth-calibrated", ""]
         out += roofline_table(tag, results_dir) + [""]
     out += ["## Collective schedule — four H100s, data parallel", ""]
-    out += collective_table("h100x4", results_dir)
+    out += collective_table("h100x4", results_dir) + [""]
+    out += ["## Tensor-parallel cells — one model rank of the production meshes", ""]
+    out += tensor_parallel_table(results_dir)
     return "\n".join(out)
 
 

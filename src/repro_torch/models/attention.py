@@ -20,6 +20,14 @@ nope + rope = 192 and v of 128 through the kernel), and decode is absorbed
 (q folded through ``w_uk`` against the compact latent cache (B, C, kv_lora
 + rope)).  The reference's ``shard(...)`` annotations and its model-axis
 K/V repeat are dropped on one device.
+
+On a ``("data", "model")`` mesh (``mesh=``, `parallel.tensor`), GQA runs on
+the rank's local heads, read off its weights' widths: q/k/v are
+column-parallel, kernel 8 (or the decode attention) runs on the local
+heads, and ``wo`` is row-parallel, so the output is whole on every model
+rank; the decode cache holds the local KV heads (``gqa_cache_spec(...,
+mesh=)``), as the reference's cache rule ``("batch", "seq", "kv", None)``
+places them.
 """
 from __future__ import annotations
 
@@ -31,7 +39,8 @@ from torch import nn
 
 from ..kernels.swa_attention.ops import swa_attention
 from ..kernels.swa_attention.ref import NEG_INF
-from .layers import DTYPE, dense_init, rms_norm, apply_rope, weight
+from ..parallel import tensor as tp
+from .layers import DTYPE, column_parallel, dense_init, rms_norm, apply_rope, row_parallel, weight
 
 __all__ = ["GQAAttention", "MLAAttention", "TensorSpec", "gqa_init", "gqa_apply",
            "gqa_cache_spec", "mla_init", "mla_apply", "mla_cache_spec", "attention_init",
@@ -132,25 +141,27 @@ def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: 
 
 def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg, positions: torch.Tensor, *,
               cache: Optional[Cache] = None, pos: Optional[int] = None,
-              return_cache: bool = False,
-              attention: Optional[Attention] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
+              return_cache: bool = False, attention: Optional[Attention] = None,
+              mesh=None) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x (B, S, d) -> (out (B, S, d), cache or None).
 
     Without ``cache``: prefill over the whole sequence through ``attention``
     (default: the kernel wrapper ``swa_attention``; any function with its
     signature, such as the plain ``swa_attention_chunked``); with
     ``return_cache`` also the fresh decode cache.  With ``cache``: one
-    decode step (S = 1) writing position ``pos``, in place.
+    decode step (S = 1) writing position ``pos``, in place.  The heads are
+    those of ``p``'s weights: all of them, or on ``mesh`` the rank's.
     """
     hd = cfg.resolved_head_dim
-    kvh = cfg.n_kv_heads
-    g = cfg.n_heads // kvh
+    h = p.wq.shape[1] // hd
+    kvh = p.wk.shape[1] // hd
+    g = h // kvh
     scale = 1.0 / math.sqrt(hd)
     b, s, _ = x.shape
 
-    q = (x @ p.wq).view(b, s, cfg.n_heads, hd)
-    k = (x @ p.wk).view(b, s, kvh, hd)
-    v = (x @ p.wv).view(b, s, kvh, hd)
+    q = column_parallel(x, p.wq, mesh).view(b, s, h, hd)
+    k = column_parallel(x, p.wk, mesh).view(b, s, kvh, hd)
+    v = column_parallel(x, p.wv, mesh).view(b, s, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -180,8 +191,7 @@ def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg, positions: torch.Tensor, *,
         out = _decode_attention(q.view(b, s, kvh, g, hd), ck, cv, scale, valid)
         new_cache = cache
 
-    out = out.reshape(b, s, cfg.n_heads * hd)
-    return out @ p.wo, new_cache
+    return row_parallel(out.reshape(b, s, h * hd), p.wo, mesh), new_cache
 
 
 def _gqa_fresh_cache(cfg, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor) -> Cache:
@@ -210,12 +220,15 @@ def _gqa_fresh_cache(cfg, k: torch.Tensor, v: torch.Tensor, positions: torch.Ten
     return {"k": k, "v": v, "pos": pos}
 
 
-def gqa_cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, TensorSpec]:
-    """Shapes and dtypes of the decode cache of one layer."""
+def gqa_cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE,
+                   mesh=None) -> Dict[str, TensorSpec]:
+    """Shapes and dtypes of the decode cache of one layer (on ``mesh``, of
+    the rank's KV heads)."""
     hd = cfg.resolved_head_dim
+    kvh = cfg.n_kv_heads if mesh is None else tp.head_layout(cfg, tp.model_size(mesh))[1]
     c = min(cfg.swa_window, seq_len) if cfg.swa_window is not None else seq_len
-    return {"k": TensorSpec((batch, c, cfg.n_kv_heads, hd), dtype),
-            "v": TensorSpec((batch, c, cfg.n_kv_heads, hd), dtype),
+    return {"k": TensorSpec((batch, c, kvh, hd), dtype),
+            "v": TensorSpec((batch, c, kvh, hd), dtype),
             "pos": TensorSpec((c,), torch.int32)}
 
 
@@ -297,7 +310,8 @@ def attention_apply(p, x: torch.Tensor, cfg, positions: torch.Tensor, **kw
     return (mla_apply if cfg.attn == "mla" else gqa_apply)(p, x, cfg, positions, **kw)
 
 
-def attention_cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, TensorSpec]:
+def attention_cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE,
+                         mesh=None) -> Dict[str, TensorSpec]:
     if cfg.attn == "mla":
         return mla_cache_spec(cfg, batch, seq_len, dtype)
-    return gqa_cache_spec(cfg, batch, seq_len, dtype)
+    return gqa_cache_spec(cfg, batch, seq_len, dtype, mesh)

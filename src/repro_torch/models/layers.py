@@ -9,20 +9,31 @@ The reference's ``scan_layers`` is a loop over an ``nn.ModuleList`` in
 `transformer.py`.  Training adds the reference's two cross-entropy
 functions and :func:`remat`, the port of its ``jax.checkpoint`` of a layer
 body under ``cfg.remat_policy``.
+
+On a ``("data", "model")`` mesh (``mesh=``, `parallel.tensor`) the
+projections are column-parallel (:func:`column_parallel`: the replicated
+input times the rank's columns) or row-parallel (:func:`row_parallel`:
+the rank's rows, then the rank-ordered reduction), the embedding lookup is
+vocab-parallel (:func:`vocab_parallel_embed`) and the cross-entropies read
+the rank's vocab shard of the logits, their max, sum of exps and gold
+logit each reduced over the model axis (forward only in this slice).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from ..parallel import tensor as tp
+
 __all__ = ["DTYPE", "dense_init", "expert_init", "embed_init", "rms_norm", "rope_frequencies",
            "apply_rope", "swiglu", "mlp_init", "RMSNorm", "MLP", "weight",
-           "cross_entropy_loss", "chunked_cross_entropy", "remat", "REMAT_POLICIES"]
+           "column_parallel", "row_parallel", "vocab_parallel_embed", "cross_entropy_loss",
+           "chunked_cross_entropy", "remat", "REMAT_POLICIES"]
 
 DTYPE = torch.bfloat16  # activation / parameter dtype of the full-size configs
 
@@ -92,12 +103,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
     return out.to(x.dtype)
 
 
+def column_parallel(x: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x @ w`` with ``w`` the rank's columns and ``x`` replicated on the
+    model axis: the rank's columns of the output.  ``x @ w`` without a
+    mesh."""
+    return tp.replicated(x, mesh) @ w
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x @ w`` with ``x`` the rank's columns and ``w`` its rows, summed
+    over the model axis in rank order: the whole output on every rank."""
+    return tp.reduce_model(x @ w, mesh)
+
+
+def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The embedding rows of ``tokens`` from the rank's vocab rows
+    ``embed`` (V / tp, d): rows outside its range read as zero, then the
+    model axis's sum (exactly one rank holds each row)."""
+    if mesh is None:
+        return embed[tokens]
+    local = tokens - tp.vocab_start(mesh, embed.shape[0])
+    inside = (local >= 0) & (local < embed.shape[0])
+    x = torch.where(inside[..., None], embed[local.clamp(0, embed.shape[0] - 1)],
+                    embed.new_zeros(()))
+    return tp.reduce_model(x, mesh)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    g = x @ w_gate
-    u = x @ w_up
+           w_down: torch.Tensor, mesh=None) -> torch.Tensor:
+    """SwiGLU; on a mesh ``w_gate`` / ``w_up`` are column-parallel and
+    ``w_down`` row-parallel by ``ff``."""
+    g = column_parallel(x, w_gate, mesh)
+    u = column_parallel(x, w_up, mesh)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return h @ w_down
+    return row_parallel(h, w_down, mesh)
 
 
 class RMSNorm(nn.Module):
@@ -117,8 +156,8 @@ class MLP(nn.Module):
         super().__init__()
         self.w_gate, self.w_up, self.w_down = weight(w_gate), weight(w_up), weight(w_down)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return swiglu(x, self.w_gate, self.w_up, self.w_down)
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        return swiglu(x, self.w_gate, self.w_up, self.w_down, mesh)
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=DTYPE, device=None) -> MLP:
@@ -130,43 +169,68 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=DTYPE, device=
 # ------------------------------------------------------------ training --
 
 
+def _vocab_parallel_lse_gold(logits: torch.Tensor, gold: torch.Tensor,
+                             mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, gold logit) over the whole vocabulary from the rank's
+    float32 shard (..., V / tp) and its share of the gold logit (0 where
+    the label lies in another shard): the max, then the sum of exps and
+    the gold logit, each reduced over the model axis."""
+    top = tp.max_model(logits.amax(-1), mesh)
+    sums = torch.exp(logits - top[..., None]).sum(-1)
+    sums, gold = tp.reduce_model(torch.stack([sums, gold]), mesh).unbind(0)
+    return top + torch.log(sums), gold
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_id: int = -1) -> torch.Tensor:
+                       ignore_id: int = -1, mesh=None) -> torch.Tensor:
     """Mean token cross-entropy over the labels that are not ``ignore_id``;
-    logits (..., V) reduced in float32."""
+    logits (..., V) reduced in float32.  On a mesh ``logits`` is the rank's
+    vocab shard (..., V / tp) and the loss is the rank's rows' mean."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     mask = labels != ignore_id
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    else:
+        local = labels - tp.vocab_start(mesh, logits.shape[-1])
+        inside = (local >= 0) & (local < logits.shape[-1])
+        gold = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        lse, gold = _vocab_parallel_lse_gold(logits, torch.where(inside, gold, 0.0), mesh)
     return (lse - gold).mul(mask).sum() / mask.sum().clamp_min(1)
 
 
 def _chunk_nll(h: torch.Tensor, head: torch.Tensor, lab: torch.Tensor,
-               ignore_id: int) -> torch.Tensor:
+               ignore_id: int, mesh=None) -> torch.Tensor:
     """The summed NLL of one chunk's (B, c) labels; its (B, c, V) logits live
     only here.  The gold logit is picked by an index compare and a masked
     sum, as the reference picks it (its backward is elementwise: no
-    scatter)."""
-    logits = (h @ head).float()
-    lse = torch.logsumexp(logits, dim=-1)
+    scatter).  On a mesh ``head`` is the rank's vocab columns."""
+    logits = column_parallel(h, head, mesh).float()
     iota = torch.arange(logits.shape[-1], device=logits.device)
+    if mesh is not None:
+        iota = iota + tp.vocab_start(mesh, logits.shape[-1])
     gold = torch.where(iota == lab[..., None], logits, 0.0).sum(-1)
+    if mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        lse, gold = _vocab_parallel_lse_gold(logits, gold, mesh)
     return ((lse - gold) * (lab != ignore_id)).sum()
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                          ignore_id: int = -1, chunk: int = 256) -> torch.Tensor:
+                          ignore_id: int = -1, chunk: int = 256, mesh=None) -> torch.Tensor:
     """Fused next-token cross-entropy that never holds the (B, S, V) logits:
     hidden (B, S, d) final normed states, head (d, V), labels (B, S) with
     position t the target of hidden[t].  The sequence is walked in chunks of
     ``chunk`` positions; each chunk's logits are recomputed in the backward
     (``torch.utils.checkpoint``, the reference's per-chunk
-    ``jax.checkpoint``), so its residuals are O(B c d)."""
+    ``jax.checkpoint``), so its residuals are O(B c d).  On a mesh ``head``
+    is the rank's vocab columns (d, V / tp)."""
     s = hidden.shape[1]
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
         part = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk], head, labels[:, c0:c0 + chunk],
-                          ignore_id, use_reentrant=False)
+                          ignore_id, mesh, use_reentrant=False)
         nll = nll + part
     count = (labels != ignore_id).sum()
     return nll / count.clamp_min(1)

@@ -33,6 +33,14 @@ the Mamba2 / shared-attention hybrid (zamba2, `zamba.py`), the xLSTM
 family (xlstm-125m, `xlstm_lm.py`) and the encoder-decoder are ported.
 ``init_params`` and ``params_from_numpy`` put the model on the card unless
 the caller asks for the CPU.
+
+On a ``("data", "model")`` mesh (``mesh=``: `parallel.tensor`), ``forward``,
+``prefill``, ``decode_step``, ``train_forward`` and ``forward_hidden`` run
+the rank's shard (``parallel.tensor.shard_params``) on the rank's slice of
+the batch, tensor-parallel over the model axis; the logits are the rank's
+vocab shard.  The dense family only: any other family raises
+``NotImplementedError``, and a shard without its mesh (or a mesh without
+a shard) raises ``ValueError`` -- nothing is replicated silently.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import torch
 
 from ..core.backend import resolve_device
 from ..core.mapreduce import tree_map
+from ..parallel import tensor as tp
 from . import encdec, transformer, xlstm_lm, zamba
 from .attention import Attention, GQAAttention, MLAAttention, TensorSpec
 from .encdec import XATTN_NAMES, CrossAttention, DecoderLayer, EncDec, EncoderLayer
@@ -86,10 +95,31 @@ def init_params(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = No
     return transformer.lm_init(generator, cfg, dtype, dev)
 
 
-def forward(params: Model, batch: Dict[str, Any], cfg, *, return_aux: bool = False):
+def _mesh_kw(params: Model, cfg, mesh) -> Dict[str, Any]:
+    """``{"mesh": mesh}`` for a tensor-parallel call, ``{}`` for a whole
+    model; raises for another family on a mesh, or a shard and a mesh that
+    do not match."""
+    shard = getattr(params, "shard", None)
+    if mesh is None:
+        if shard is not None:
+            raise ValueError(f"{cfg.name}: this model is model rank {shard.rank} of "
+                             f"{shard.size}'s shard: call it with mesh=")
+        return {}
+    tp.check_family(cfg)
+    want = (tp.model_rank(mesh), tp.model_size(mesh))
+    if shard is None or (shard.rank, shard.size) != want:
+        raise ValueError(f"{cfg.name}: the mesh wants model rank {want[0]} of {want[1]}'s "
+                         f"shard (parallel.tensor.shard_params), the model is "
+                         f"{'whole' if shard is None else (shard.rank, shard.size)}")
+    return {"mesh": mesh}
+
+
+def forward(params: Model, batch: Dict[str, Any], cfg, *, return_aux: bool = False,
+            mesh=None):
     """Full-sequence forward -> logits (B, S, V); with ``return_aux``,
     (logits, aux losses summed over layers) as the reference returns (zero
     for the hybrid, the xLSTM and the encoder-decoder)."""
+    kw = _mesh_kw(params, cfg, mesh)
     if cfg.family in ("hybrid", "ssm", "encdec"):
         if cfg.family == "encdec":
             logits = encdec.encdec_forward(params, _frames(batch, cfg), batch["tokens"], cfg)
@@ -101,15 +131,18 @@ def forward(params: Model, batch: Dict[str, Any], cfg, *, return_aux: bool = Fal
         return logits, {name: torch.zeros((), device=logits.device)
                         for name in ("lb_loss", "z_loss")}
     return transformer.lm_forward(params, batch["tokens"], cfg,
-                                  patch_embeds=batch.get("patch_embeds"), return_aux=return_aux)
+                                  patch_embeds=batch.get("patch_embeds"), return_aux=return_aux,
+                                  **kw)
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
     return {name: torch.zeros((), device=device) for name in ("lb_loss", "z_loss")}
 
 
-def _train_out(params: Model, batch: Dict[str, Any], cfg, remat: bool, return_hidden: bool):
+def _train_out(params: Model, batch: Dict[str, Any], cfg, remat: bool, return_hidden: bool,
+               mesh=None):
     """(logits or hidden, aux) of the training forward of any family."""
+    kw = _mesh_kw(params, cfg, mesh)
     tokens = batch["tokens"]
     if cfg.family == "encdec":
         out = encdec.encdec_train_forward(params, _frames(batch, cfg), tokens, cfg, remat=remat,
@@ -120,22 +153,27 @@ def _train_out(params: Model, batch: Dict[str, Any], cfg, remat: bool, return_hi
     else:
         return transformer.lm_train_forward(params, tokens, cfg,
                                             patch_embeds=batch.get("patch_embeds"), remat=remat,
-                                            return_hidden=return_hidden)
+                                            return_hidden=return_hidden, **kw)
     return out, _zero_aux(out.device)
 
 
-def train_forward(params: Model, batch: Dict[str, Any], cfg, *, remat: bool = True):
+def train_forward(params: Model, batch: Dict[str, Any], cfg, *, remat: bool = True,
+                  mesh=None):
     """The training forward (the reference's ``forward``), with gradients
     -> (logits over the full target sequence, aux losses summed over layers,
     zero outside the MoE family).  Attention is the plain chunked version
-    (the attention kernel has no backward); layers run under remat."""
-    return _train_out(params, batch, cfg, remat, return_hidden=False)
+    (the attention kernel has no backward); layers run under remat.  On
+    ``mesh``, forward only (the collectives' backward comes with the next
+    slice)."""
+    return _train_out(params, batch, cfg, remat, return_hidden=False, mesh=mesh)
 
 
-def forward_hidden(params: Model, batch: Dict[str, Any], cfg, *, remat: bool = True):
+def forward_hidden(params: Model, batch: Dict[str, Any], cfg, *, remat: bool = True,
+                   mesh=None):
     """The training forward stopped at the final normed hidden states (the
-    fused-loss path) -> (hidden (B, S, d), head (d, V), aux)."""
-    hidden, aux = _train_out(params, batch, cfg, remat, return_hidden=True)
+    fused-loss path) -> (hidden (B, S, d), head (d, V), or on ``mesh`` the
+    rank's vocab columns, aux)."""
+    hidden, aux = _train_out(params, batch, cfg, remat, return_hidden=True, mesh=mesh)
     head = (transformer.lm_head_matrix(params) if isinstance(params, Transformer)
             else params.lm_head)
     return hidden, head, aux
@@ -148,14 +186,17 @@ def trainable(params: Model) -> Model:
     return params.requires_grad_(True)
 
 
-def input_specs(cfg, shape) -> Dict[str, Any]:
+def input_specs(cfg, shape, mesh=None) -> Dict[str, Any]:
     """{name: TensorSpec} of every model input of a cell (``shape`` a
     ``ShapeConfig``): train takes ``tokens`` and ``labels`` (the VLM's
     labels over n_patches + S_text, its tokens over S_text, with
     ``patch_embeds``; the encoder-decoder ``frames`` beside them),
     prefill ``tokens`` (and the stubs' inputs), decode one token a row,
-    ``pos`` and the ``cache``."""
+    ``pos`` and the ``cache``.  On ``mesh``, a rank's: its share of the
+    batch over the data axes and its KV heads' cache."""
     b, s = shape.global_batch, shape.seq_len
+    if mesh is not None:
+        b //= tp.data_size(mesh)
     i32 = torch.int32
     if shape.kind in ("train", "prefill"):
         specs: Dict[str, Any] = {}
@@ -170,14 +211,16 @@ def input_specs(cfg, shape) -> Dict[str, Any]:
             specs["labels"] = TensorSpec((b, s), i32)
         return specs
     return {"tokens": TensorSpec((b,), i32), "pos": TensorSpec((), i32),
-            "cache": cache_spec(cfg, b, s)}
+            "cache": cache_spec(cfg, b, s, mesh=mesh)}
 
 
 def prefill(params: Model, batch: Dict[str, Any], cfg, *,
-            attention: Optional[Attention] = None):
+            attention: Optional[Attention] = None, mesh=None):
     """(last logits (B, V), cache); ``attention`` is the prefill's attention
     (the xLSTM has none; the encoder-decoder's is its decoder's causal
-    self-attention)."""
+    self-attention).  On ``mesh``: the rank's vocab shard of the logits and
+    its KV heads' cache."""
+    kw = _mesh_kw(params, cfg, mesh)
     if cfg.family == "encdec":
         return encdec.encdec_prefill(params, _frames(batch, cfg), batch["tokens"], cfg,
                                      attention=attention)
@@ -186,24 +229,32 @@ def prefill(params: Model, batch: Dict[str, Any], cfg, *,
     if cfg.family == "ssm":
         return xlstm_lm.xlstm_prefill(params, batch["tokens"], cfg)
     return transformer.lm_prefill(params, batch["tokens"], cfg,
-                                  patch_embeds=batch.get("patch_embeds"), attention=attention)
+                                  patch_embeds=batch.get("patch_embeds"), attention=attention,
+                                  **kw)
 
 
-def decode_step(params: Model, cache, batch: Dict[str, Any], cfg):
+def decode_step(params: Model, cache, batch: Dict[str, Any], cfg, *, mesh=None):
+    """(logits (B, V), or on ``mesh`` the rank's vocab shard, and the cache
+    updated in place)."""
+    kw = _mesh_kw(params, cfg, mesh)
     if cfg.family == "encdec":
         return encdec.encdec_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
     if cfg.family == "hybrid":
         return zamba.zamba_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
     if cfg.family == "ssm":
         return xlstm_lm.xlstm_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
-    return transformer.lm_decode_step(params, cache, batch["tokens"], batch["pos"], cfg)
+    return transformer.lm_decode_step(params, cache, batch["tokens"], batch["pos"], cfg, **kw)
 
 
-def cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE) -> Dict[str, Any]:
+def cache_spec(cfg, batch: int, seq_len: int, dtype=DTYPE, mesh=None) -> Dict[str, Any]:
     """{name: TensorSpec}; the hybrid's is nested, {"ssm": ..., "attn": ...},
     and so is the xLSTM's, {"m": ..., "s": ...} (float32 states, no
     sequence axis), and the encoder-decoder's, {"self": ..., "cross": ...}
-    (the cross cache at ``enc_len = seq_len``, as the reference's)."""
+    (the cross cache at ``enc_len = seq_len``, as the reference's).  On
+    ``mesh`` (the dense family), the rank's KV heads'."""
+    if mesh is not None:
+        tp.check_family(cfg)
+        return transformer.lm_cache_spec(cfg, batch, seq_len, dtype, mesh)
     if cfg.family == "encdec":
         return encdec.encdec_cache_spec(cfg, batch, seq_len, enc_len=seq_len, dtype=dtype)
     if cfg.family == "hybrid":

@@ -17,8 +17,10 @@ switch :func:`set_sp_mode`): they resolve against a mesh of names and sizes
 (:func:`abstract_mesh`, no devices, no process group; or a ``DeviceMesh``)
 and give each leaf's per-dimension mesh axes, from which
 :func:`shard_shape` / :func:`tree_shard_bytes` give its per-device bytes.
-The dry run (`launch.dryrun`) reads them; no step of the port places a
-tensor by them yet (there is no tensor-parallel step).  A spec is a tuple
+The dry run (`launch.dryrun`) reads them.  The tensor-parallel step of
+the dense family (`parallel.tensor`) places its weights by the same rules
+wherever the split is head-aligned, and holds whole heads where the rules
+would cut one.  A spec is a tuple
 with one entry a dimension: None (replicated), a mesh-axis name, or a tuple
 of names -- the reference's ``PartitionSpec`` entries.
 
@@ -30,8 +32,10 @@ sufficient statistics, never of the data.  It gathers every rank's partials
 every rank, so the result is bitwise the same on every rank and from run to
 run, and at world 1 bitwise the local partial.  A plain ``all_reduce``
 gives neither: NCCL picks its reduction order by message size.
-:func:`collective_count` counts the collectives, as a kernel wrapper counts
-its launches, and :func:`collective_bytes` their payload bytes by kind
+:func:`collective_count` counts the collectives (these and the model-axis
+ones of `parallel.tensor`), as a kernel wrapper counts its launches,
+:func:`collective_counts` by kind, and :func:`collective_bytes` their
+payload bytes by kind
 (the reference's ``launch.roofline.CollectiveStats`` convention: an
 all-gather's payload is its gathered output).
 """
@@ -48,34 +52,58 @@ from ..core.backend import resolve_device
 from ..core.mapreduce import tree_leaves, tree_map
 
 __all__ = ["data_mesh", "mesh_axis_size", "mesh_rank", "mesh_device", "gather_tree",
-           "psum_tree", "sum_ranks", "collective_count", "collective_bytes",
-           "reset_collective_count", "AbstractMesh", "abstract_mesh", "set_sp_mode",
-           "sp_mode_enabled", "logical_to_spec", "param_pspecs", "zero1_pspecs",
+           "psum_tree", "sum_ranks", "collective_count", "collective_counts", "collective_bytes",
+           "record_collective", "reset_collective_count", "AbstractMesh", "abstract_mesh",
+           "set_sp_mode", "sp_mode_enabled", "logical_to_spec", "param_pspecs", "zero1_pspecs",
            "shard_shape", "shard_bytes", "tree_shard_bytes", "param_tree"]
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 
-_collectives = 0
+_counts: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
 _payload: Dict[str, float] = dict.fromkeys(COLLECTIVES, 0.0)
+# the collectives the function needs at least (see record_collective)
+_fn_counts: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
+_fn_payload: Dict[str, float] = dict.fromkeys(COLLECTIVES, 0.0)
+
+
+def record_collective(kind: str, nbytes: float,
+                      function: Optional[Tuple[str, float]] = None) -> None:
+    """Count one collective of ``kind`` moving ``nbytes`` of payload.
+    ``function`` is the (kind, payload) of the collective that computes the
+    same function, where the executed one moves more (the rank-ordered
+    reduction gathers every rank's partial; its function is an all-reduce
+    of the one partial); by default the executed one."""
+    _counts[kind] += 1
+    _payload[kind] += nbytes
+    fn_kind, fn_bytes = function or (kind, nbytes)
+    _fn_counts[fn_kind] += 1
+    _fn_payload[fn_kind] += fn_bytes
 
 
 def collective_count() -> int:
-    """Collectives made by :func:`gather_tree` / :func:`psum_tree` since the
-    last reset."""
-    return _collectives
+    """Collectives made since the last reset: by :func:`gather_tree` /
+    :func:`psum_tree` and by the model-axis collectives of
+    `parallel.tensor` (counted alike on a counting mesh)."""
+    return sum(_counts.values())
 
 
-def collective_bytes() -> Dict[str, float]:
+def collective_counts(function: bool = False) -> Dict[str, int]:
+    """Those collectives by kind; ``function``: the function's (see
+    :func:`record_collective`)."""
+    return dict(_fn_counts if function else _counts)
+
+
+def collective_bytes(function: bool = False) -> Dict[str, float]:
     """Payload bytes of those collectives by kind since the last reset, per
-    rank: an all-gather's is its gathered output (world x its input)."""
-    return dict(_payload)
+    rank: an all-gather's is its gathered output (world x its input), an
+    all-reduce's its input.  ``function``: the function's."""
+    return dict(_fn_payload if function else _payload)
 
 
 def reset_collective_count() -> None:
-    global _collectives
-    _collectives = 0
-    for k in _payload:
-        _payload[k] = 0.0
+    for k in COLLECTIVES:
+        _counts[k] = _fn_counts[k] = 0
+        _payload[k] = _fn_payload[k] = 0.0
 
 
 def data_mesh(world_size: int, rank: int, init_method: str, device="cuda",
@@ -137,7 +165,6 @@ def gather_tree(tree: Any, mesh, axis: str = "data") -> Any:
     """Every rank's copy of ``tree``, stacked: each leaf gains a leading
     (world,) axis in rank order.  The leaves are flattened into one buffer
     per dtype and gathered with one ``all_gather`` each."""
-    global _collectives
     leaves = tree_leaves(tree)
     group = mesh.get_group(axis)
     world = group.size()
@@ -149,8 +176,7 @@ def gather_tree(tree: Any, mesh, axis: str = "data") -> Any:
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
         gathered = flat.new_empty((world, flat.numel()))
         dist.all_gather(list(gathered.unbind(0)), flat, group=group)
-        _collectives += 1
-        _payload["all-gather"] += gathered.numel() * gathered.element_size()
+        record_collective("all-gather", gathered.numel() * gathered.element_size())
         start = 0
         for i in idx:
             size = leaves[i].numel()

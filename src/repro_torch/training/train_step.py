@@ -23,6 +23,14 @@ steps on its own slice of the global batch and the gradients and loss are
 averaged over the ranks before the update: every rank's tensors are
 gathered and summed in rank order (``parallel.psum_tree``), so every rank
 applies the same update, bitwise, whatever the backend's reduction order.
+
+On a ``("data", "model")`` mesh with a model axis (`parallel.tensor`),
+:func:`loss_fn` runs forward only: the rank's model shard on its rows, the
+vocab-parallel cross-entropy, and the loss averaged over the data axis in
+rank order (each rank's mean weighted by its count of labels: the global
+mean).  The backward through the model-axis collectives and a train step
+on a model axis come with the next slice: ``make_train_step`` raises for
+one until then.
 """
 from __future__ import annotations
 
@@ -54,21 +62,40 @@ def named_parameters(model) -> Named:
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg, *, lb_coef: float = 0.01,
-            z_coef: float = 1e-3, fused: bool = False,
-            loss_chunk: int = 256) -> Tuple[torch.Tensor, Metrics]:
+            z_coef: float = 1e-3, fused: bool = False, loss_chunk: int = 256,
+            mesh: Any = None) -> Tuple[torch.Tensor, Metrics]:
     """(loss, {"ce", "lb_loss", "z_loss"}): the next-token cross-entropy
     (hidden or logits at t against labels at t + 1) plus the MoE aux
-    losses."""
+    losses.  On a ``("data", "model")`` ``mesh``: ``params`` the rank's
+    shard, ``batch`` its rows, the loss the whole batch's (forward only)."""
     labels = batch["labels"]
     if fused:
-        hidden, head, aux = forward_hidden(params, batch, cfg)
+        hidden, head, aux = forward_hidden(params, batch, cfg, mesh=mesh)
         shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], 1)
-        ce = chunked_cross_entropy(hidden, head, shifted, chunk=loss_chunk)
+        ce = chunked_cross_entropy(hidden, head, shifted, chunk=loss_chunk, mesh=mesh)
     else:
-        logits, aux = train_forward(params, batch, cfg)
-        ce = cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+        logits, aux = train_forward(params, batch, cfg, mesh=mesh)
+        ce = cross_entropy_loss(logits[:, :-1], labels[:, 1:], mesh=mesh)
+    if mesh is not None:
+        ce, aux = _data_mean(ce, (labels[:, 1:] != -1).sum(), aux, mesh)
     loss = ce + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
     return loss, {"ce": ce, "lb_loss": aux["lb_loss"], "z_loss": aux["z_loss"]}
+
+
+def _data_mean(ce: torch.Tensor, count: torch.Tensor, aux: Metrics,
+               mesh) -> Tuple[torch.Tensor, Metrics]:
+    """The data ranks' cross-entropies weighted by their label counts, and
+    their aux losses averaged: one rank-ordered reduction over the data
+    axis."""
+    from ..parallel import tensor as tp
+
+    if tp.data_size(mesh) == 1:
+        return ce, aux
+    names = sorted(aux)
+    mine = torch.stack([ce * count, count.to(ce.dtype)] + [aux[k].float() for k in names])
+    total = tp.reduce_data(mine, mesh)
+    world = tp.data_size(mesh)
+    return total[0] / total[1], {k: total[2 + i] / world for i, k in enumerate(names)}
 
 
 def grad_buffers(named: Named) -> Named:
@@ -130,7 +157,13 @@ def make_train_step(cfg, *, lr_fn: Union[Callable[[torch.Tensor], torch.Tensor],
                     mesh: Any = None) -> Callable:
     """``step(model, opt_state, batch) -> (model, opt_state, metrics)``;
     ``lr_fn`` maps the optimizer's step (before the update) to the learning
-    rate, or is a constant."""
+    rate, or is a constant.  ``mesh``: a data mesh (a model axis of 1)."""
+    if mesh is not None:
+        from ..parallel import tensor as tp
+
+        if tp.model_size(mesh) > 1:
+            raise NotImplementedError(
+                f"a train step on a model axis of {tp.model_size(mesh)}: {tp.NEXT_SLICE}")
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
         loss, metrics, grads = accumulate_grads(params, batch, cfg, accum=accum,

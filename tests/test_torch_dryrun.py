@@ -12,9 +12,13 @@ the depth).  A data-parallel train step at gloo world 2 counts the
 collective payload bytes the dry run predicts for its cell.  chip_smoke's
 dryrun phase holds lm_serve's prefill and lm_train's step at full width
 against their hand counts and catches its two planted counts.  ``run_cell``
-writes the reference's skip reasons and JSON keys, ``partial`` on a model
-axis; the report renders its tables from written cells; the two modules
-import with no jax.  The reference's ``repro.launch.dryrun`` is never
+writes the reference's skip reasons and JSON keys; on the production
+meshes the dense family's prefill and decode cells are traced as one
+tensor-parallel rank (the step's own bytes beside the rule tables'), and
+the cells that wait for a later slice are ``partial`` with their reason;
+the counting mesh's collective payload equals the hand count; the report
+renders its tables from written cells; the two modules import with no
+jax.  The reference's ``repro.launch.dryrun`` is never
 imported here: it sets XLA_FLAGS to 512 host devices at import.
 """
 import dataclasses
@@ -34,6 +38,7 @@ from repro.configs.registry import get_arch as ref_get_arch
 from repro_torch.configs import ShapeConfig, get_arch
 from repro_torch.launch import dryrun, report
 from repro_torch.launch.costing import _reduced, calibrated_cost, trace_cell
+from repro_torch.launch.mesh import make_test_mesh
 from test_torch_mesh import ROOT, _finish, _start
 
 torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
@@ -117,6 +122,8 @@ def written(tmp_path_factory):
     cells = {m: dryrun.run_cell("qwen3", "decode_32k", m, out) for m in dryrun.MESHES}
     cells["skipped"] = dryrun.run_cell("glm4", "long_500k", "h100x1", out)
     cells["sp"] = dryrun.run_cell("zamba2", "long_500k", "h100x4", out)
+    cells["heads"] = dryrun.run_cell("phi3", "decode_32k", "pod16x16", out)
+    cells["tp_train"] = dryrun.run_cell("qwen3", "train_4k", "pod16x16", out)
     return out, cells
 
 
@@ -134,9 +141,20 @@ def test_run_cell_statuses_and_keys(written):
     mem = roof["memory_per_device"]
     assert mem["peak_bytes"] >= mem["argument_bytes"] >= mem["param_bytes"] + mem["cache_bytes"]
     assert cells["h100x4"]["status"] == "ok" and cells["h100x4"]["sp_mode"] is False
-    for tag in ("pod16x16", "pod2x16x16"):
-        assert cells[tag]["status"] == "partial" and "model axis of 16" in cells[tag]["reason"]
+    for tag in ("pod16x16", "pod2x16x16"):  # one tensor-parallel rank's decode step
+        tp_roof = cells[tag]["roofline"]
+        assert cells[tag]["status"] == "ok" and cells[tag]["fits_port_step"]
+        assert tp_roof["collective_counts"]["all-reduce"] == 2 * 28 + 1
+        assert tp_roof["executed_collectives"]["counts"]["all-gather"] == 2 * 28 + 1
+        assert tp_roof["t_collective"] > 0 and "peak_bytes_port_step" in tp_roof[
+            "memory_per_device"]
+    assert cells["heads"]["status"] == "partial"
+    assert cells["heads"]["reason"].startswith(
+        "phi3-medium-14b: 40 query heads do not split over a model axis of 16")
+    assert cells["tp_train"]["status"] == "partial"
+    assert "train cell on a model axis of 16" in cells["tp_train"]["reason"]
     assert cells["sp"]["status"] == "partial" and cells["sp"]["sp_mode"] is True
+    assert "sequence parallelism waits for a later slice" in cells["sp"]["reason"]
     skip = cells["skipped"]
     _, why = ref_cell_is_runnable(ref_get_arch("glm4"), REF_SHAPES_BY_NAME["long_500k"])
     assert skip == {"cell": "glm4-9b__long_500k__h100x1", "status": "skipped", "reason": why}
@@ -149,7 +167,7 @@ def test_cell_memory_from_rule_tables(written):
     _, cells = written
     one = cells["h100x1"]["roofline"]["memory_per_device"]
     four = cells["h100x4"]["roofline"]["memory_per_device"]
-    pod = cells["pod16x16"]["memory_per_device"]
+    pod = cells["pod16x16"]["roofline"]["memory_per_device"]
     assert four["param_bytes"] == one["param_bytes"]  # data parallel: whole replicas
     cfg = get_arch("qwen3")
     pos = cfg.n_layers * 32768 * 4  # the replicated int32 positions of each layer
@@ -159,6 +177,13 @@ def test_cell_memory_from_rule_tables(written):
     # 16-way model axis and stay whole
     assert pod["cache_bytes"] == kv / 16 + pos
     assert pod["param_bytes"] < one["param_bytes"] / 8
+    # the tensor-parallel step holds whole heads: one KV head a rank (the
+    # rules keep all 8 in the cache), and wk / wv of 128 columns a rank
+    # where the rules cut a head to 64
+    assert pod["cache_bytes_port_step"] == kv / 16 / 8 + pos
+    hd = cfg.resolved_head_dim
+    assert pod["param_bytes_port_step"] - pod["param_bytes"] == (
+        cfg.n_layers * 2 * cfg.d_model * (hd - cfg.n_kv_heads * hd // 16) * 2)
 
 
 def test_report_renders_written_cells(written):
@@ -170,6 +195,10 @@ def test_report_renders_written_cells(written):
     assert any("skipped — pure full-attention arch" in ln
                for ln in report.dryrun_table("h100x1", out))
     assert any("partial" in ln for ln in report.dryrun_table("pod16x16", out))
+    tp_rows = report.tensor_parallel_table(out)
+    assert len(tp_rows) == 4 and tp_rows[2].startswith("| qwen3-0.6b | decode_32k | pod16x16 |")
+    assert "| 57 |" in tp_rows[2]
+    assert "## Tensor-parallel cells" in text
     roof = report.roofline_table("h100x1", out)
     assert len(roof) == 3 and "**memory**" in roof[2]
     coll = report.collective_table("h100x4", out)
@@ -177,6 +206,53 @@ def test_report_renders_written_cells(written):
     summary = report.summary_table(out)
     assert len(summary) == 3 and summary[2].startswith("| qwen3-0.6b | decode_32k |")
     assert "no (6.15x)" in summary[2]  # 491.8 GB: the 128 x 32,768 cache
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (1, 4)], ids=["1x2", "2x2", "1x4"])
+def test_counting_mesh_payload_equals_hand_count(kind, mesh):
+    """One tensor-parallel rank traced on the counting mesh: 2L + 1
+    reductions (two a block, one for the embedding) of a partial (batch /
+    data, tokens, d) residual: to the function an all-reduce of it, as
+    executed an all-gather of the model axis's tp of them."""
+    cfg = get_arch("qwen3").reduced()
+    b, s = 4, 32
+    tr = trace_cell(cfg, ShapeConfig("c", s, b, kind), dtype=torch.bfloat16,
+                    mesh=make_test_mesh(*mesh))
+    tokens = s if kind == "prefill" else 1
+    n = 2 * cfg.n_layers + 1
+    partial = (b // mesh[0]) * tokens * cfg.d_model * 2
+    assert tr.collective_counts == {"all-reduce": n}
+    assert tr.collective_payload == {"all-reduce": n * partial}
+    assert tr.executed_collective_counts == {"all-gather": n}
+    assert tr.executed_collective_payload == {"all-gather": n * mesh[1] * partial}
+
+
+DENSE_TP = [(a, s, m) for a in ("qwen3", "danube", "glm4", "phi3")
+            for s in ("prefill_32k", "decode_32k") for m in ("pod16x16", "pod2x16x16")]
+
+
+@pytest.mark.parametrize("arch,shape,mesh", DENSE_TP, ids=["-".join(c) for c in DENSE_TP])
+def test_dense_production_cells_traced(tmp_path, arch, shape, mesh):
+    """The dense family's prefill and decode cells of the production meshes
+    are traced tensor-parallel, but phi3-medium-14b's, whose 40 heads do
+    not split over 16."""
+    cell = dryrun.run_cell(arch, shape, mesh, str(tmp_path))
+    if arch == "phi3":
+        assert cell["status"] == "partial" and "40 query heads" in cell["reason"]
+        return
+    roof = cell["roofline"]
+    assert cell["status"] == "ok", cell.get("error")
+    cfg = get_arch(arch)
+    assert roof["collective_counts"]["all-reduce"] == 2 * cfg.n_layers + 1
+    assert roof["wire_bytes"] > 0 and roof["flops"] > 0 and roof["hbm_bytes"] > 0
+    # the all-reduce's wire bytes (twice its payload) against the port's
+    # gathers of 16 partials: 8x
+    ex = roof["executed_collectives"]
+    assert ex["counts"]["all-gather"] == 2 * cfg.n_layers + 1
+    assert ex["wire_bytes"] == pytest.approx(8 * roof["wire_bytes"], rel=1e-9)
+    mem = roof["memory_per_device"]
+    assert mem["peak_bytes_port_step"] > mem["param_bytes_port_step"] > 0
 
 
 def test_main_and_imports_without_jax(tmp_path):

@@ -77,8 +77,39 @@ def test_session_runs_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_tensor_parallel_imports_without_jax():
+    """`parallel/tensor.py` and the tensor-parallel cells with JAX and the
+    reference package unimportable: the layout, the counting mesh's trace
+    of a rank's prefill, and a shard."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import torch\n"
+        "from repro_torch.parallel import tensor as tp\n"
+        "from repro_torch.configs import ShapeConfig, get_arch\n"
+        "from repro_torch.launch.costing import trace_cell\n"
+        "from repro_torch.launch.mesh import make_test_mesh\n"
+        "from repro_torch.models import init_params\n"
+        "cfg = get_arch('qwen3').reduced()\n"
+        "assert tp.head_layout(get_arch('qwen3'), 16) == (1, 1)\n"
+        "tr = trace_cell(cfg, ShapeConfig('p', 16, 2, 'prefill'), mesh=make_test_mesh(1, 2))\n"
+        "assert tr.collective_counts == {'all-reduce': 2 * cfg.n_layers + 1}\n"
+        "assert tr.executed_collective_counts == {'all-gather': 2 * cfg.n_layers + 1}\n"
+        "m = init_params(cfg, seed=0, dtype=torch.float32, device='cpu')\n"
+        "assert tp.shard_params(m, make_test_mesh(1, 2), rank=1).embed.shape == (256, 64)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) for m in sys.modules"
+        " if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_no_source_imports_jax_or_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").rglob("*.py")))
     assert len(files) > 10
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|import repro\.|from repro[. ])",
                          re.M)
