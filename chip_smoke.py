@@ -35,8 +35,11 @@ against the served loss, finite differences, float32 accumulation and a
 bitwise restart from a checkpoint) and served over two model ranks on the
 one card (``lm_tp``: tensor parallelism, two processes of
 tools/tp_phase.py over gloo, kernel 8 on each rank's heads, each rank's
-vocab shard of the logits held against the whole model on one rank), and
-zamba2-7b at full width and full
+vocab shard of the logits held against the whole model on one rank) and
+trained over a (2, 2) mesh of ranks on the one card (``lm_tp_train``: four
+processes, the backward through the model-axis collectives, the norm
+across shards, ZeRO-1 moments; each rank's float32 step held against the
+one-rank step on the whole batch), and zamba2-7b at full width and full
 depth (the Mamba2 / shared-attention hybrid: the prefill through kernel 8 at head dim 112, G =
 1, once per application of the shared block; the chunked SSD held against
 its recurrence), and xlstm-125m at full width and full depth (the xLSTM
@@ -117,6 +120,11 @@ the pipeline's bigram vocabulary **cut** to 4,096 (its dense tables), 3
 steps and a restart of 2.  lm_tp: qwen3-0.6b at full width and depth over
 2 model ranks (**cut**: one card, the ranks sharing it over host-staged
 gloo), lm_qwen3's 2 prompts of 4,096 tokens, 32 greedy decode steps.
+lm_tp_train: qwen3-0.6b at full width and depth over a (data, model) mesh
+of (2, 2) (**cut**: one card, the four ranks sharing it over host-staged
+gloo), train_4k's sequence of 4,096, 2 sequences a data rank (the global
+batch **cut** from 256 to 4, the phase's time), one float32 step and 2
+bf16 steps.
 lm_zamba: zamba2-7b (81 Mamba2 layers of
 d_model 3,584, 112 SSD heads of 64, state 64, chunk 256; one shared block of
 32 heads of 112 and d_ff 14,336 applied 14 times; vocab 32,000) in bf16 with
@@ -313,6 +321,25 @@ TP_SWA = (2, 4096, 8, 4, 128)  # B, S, query heads, KV heads, head dim of a rank
 TP_LIMIT_S = 120.0  # the phase's time, the ranks' start included
 TP_TIMEOUT_S = 300  # the ranks' processes are killed after this
 TP_REHEARSAL = (40, 4)  # prompt, decode steps of the CPU rehearsal (the reduced config)
+# lm_tp_train: qwen3-0.6b trained at full width and depth over a (data,
+# model) mesh of TP_TRAIN_MESH on the one card (four processes of
+# tools/tp_phase.py --train over gloo), train_4k's sequence of TP_TRAIN_SEQ,
+# TP_TRAIN_ROWS sequences a data rank (a global batch of 4: **cut** from
+# 256, the phase's time), full remat, the fused cross-entropy, the plain
+# chunked attention, ZeRO-1 moments.  Check 1 holds one float32 step,
+# clipped (TP_TRAIN_CLIP below the whole model's norm) at the constant lr
+# TP_TRAIN_LR, against the one-rank step on the whole batch (each rank runs
+# it in turn: the same function, and cheaper than carrying the whole
+# reference to every process through the host), normwise per leaf within
+# max(TP_TRAIN_MIN_LIMIT, TP_TRAIN_FLOOR_FACTOR x floor), the floor the
+# one-rank step's gradients at accumulation 1 against 2 (this run); check 5
+# runs TP_TRAIN_BF16_STEPS bf16 steps.
+TP_TRAIN_MESH, TP_TRAIN_SEQ, TP_TRAIN_ROWS = (2, 2), 4096, 2
+TP_TRAIN_LR, TP_TRAIN_CLIP, TP_TRAIN_BF16_STEPS = 1e-4, 0.1, 2
+TP_TRAIN_FLOOR_FACTOR, TP_TRAIN_MIN_LIMIT = 4.0, 1e-4
+TP_TRAIN_LIMIT_S = 180.0  # the phase's time, the ranks' start included
+TP_TRAIN_TIMEOUT_S = 420  # the ranks' processes are killed after this
+TP_TRAIN_REHEARSAL = 32  # the CPU rehearsal's sequence (the reduced config)
 # lm_train: qwen3-0.6b trained at full width and depth (28 layers, d_model
 # 1,024, 16 / 8 heads of 128, d_ff 3,072, vocab 151,936, qk_norm; 596 M
 # matmul weights with lm_head, 752 M parameters with the embedding) in bf16
@@ -6811,38 +6838,43 @@ def tp_setup(rehearse: bool):
     return (cfg.reduced(), *TP_REHEARSAL) if rehearse else (cfg, TP_PROMPT, TP_STEPS)
 
 
-def tp_rank_results(args, dev) -> list:
-    """Start tools/tp_phase.py once for each model rank (a ``file://``
-    rendezvous in a temporary directory), wait for every one, and load what
-    each wrote; a rank that fails or outlives TP_TIMEOUT_S fails the phase,
-    its log's tail printed."""
+def tp_rank_results(args, dev, phase: str = "lm_tp", world: int = TP_MODEL,
+                    timeout_s: float = TP_TIMEOUT_S, meanwhile=None) -> list:
+    """Start tools/tp_phase.py once for each of ``world`` ranks (a
+    ``file://`` rendezvous in a temporary directory; ``--train`` for
+    lm_tp_train), run ``meanwhile()`` here while they run, wait for every
+    one, and load what each wrote; a rank that fails or outlives
+    ``timeout_s`` fails the phase, its log's tail printed."""
     import shutil
     import tempfile
 
-    tmp = tempfile.mkdtemp(prefix="lm_tp_")
+    tmp = tempfile.mkdtemp(prefix=phase + "_")
     init = "file://" + os.path.join(tmp, "rendezvous")
     procs = []
     try:
-        for r in range(TP_MODEL):
+        for r in range(world):
             cmd = [sys.executable, os.path.join(ROOT, "tools", "tp_phase.py"), "--rank", str(r),
                    "--init", init, "--out", tmp, "--seed", str(args.seed)] + (
-                       ["--rehearse"] if dev.type == "cpu" else [])
+                       ["--rehearse"] if dev.type == "cpu" else []) + (
+                       ["--train"] if phase == "lm_tp_train" else [])
             log = open(os.path.join(tmp, f"rank{r}.log"), "w")
             procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
-        deadline = time.perf_counter() + TP_TIMEOUT_S
+        deadline = time.perf_counter() + timeout_s
+        if meanwhile is not None:
+            meanwhile()
         rcs = []
         for proc, _ in procs:
             try:
                 rcs.append(proc.wait(timeout=max(1.0, deadline - time.perf_counter())))
             except subprocess.TimeoutExpired:
                 rcs.append(None)
-        if rcs != [0] * TP_MODEL:
-            for r in range(TP_MODEL):
+        if rcs != [0] * world:
+            for r in range(world):
                 with open(os.path.join(tmp, f"rank{r}.log")) as f:
-                    sys.stderr.write(f"--- lm_tp rank {r}:\n{f.read()[-6000:]}\n")
-            fail("lm_tp", returncodes=rcs, timeout_s=TP_TIMEOUT_S)
+                    sys.stderr.write(f"--- {phase} rank {r}:\n{f.read()[-6000:]}\n")
+            fail(phase, returncodes=rcs, timeout_s=timeout_s)
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-                for r in range(TP_MODEL)]
+                for r in range(world)]
     finally:
         for proc, log in procs:
             if proc.poll() is None:
@@ -6963,6 +6995,207 @@ def lm_tp(args, dev, swa=None) -> int:
     if not out["ok"]:
         fail("lm_tp")
     return launches[0]
+
+
+def tp_train_setup(rehearse: bool):
+    """lm_tp_train's (config, sequence): qwen3-0.6b whole at train_4k's
+    sequence on the card; the reduced config at TP_TRAIN_REHEARSAL's in the
+    phase's CPU rehearsal (the phase on a CPU device, ``--rehearse`` for a
+    rank)."""
+    from repro_torch import get_arch
+
+    cfg = get_arch(TP_ARCH)
+    return (cfg.reduced(), TP_TRAIN_REHEARSAL) if rehearse else (cfg, TP_TRAIN_SEQ)
+
+
+@contextlib.contextmanager
+def planted_partial_norms():
+    """lm_tp_train's first planted fault: the q_norm / k_norm gradients left
+    as each rank's partial (their model-axis sum skipped)."""
+    from unittest import mock
+
+    from repro_torch.parallel import tensor as tp
+
+    kept = tp.combine_model_grads
+
+    def skipping(grads, cfg, mesh):
+        out = kept(grads, cfg, mesh)
+        return {k: (grads[k] if tp.grad_role(k, cfg, tp.model_size(mesh)) == "partial" else g)
+                for k, g in out.items()}
+
+    with mock.patch.object(tp, "combine_model_grads", skipping):
+        yield
+
+
+@contextlib.contextmanager
+def planted_local_clip():
+    """The second: the clip by the rank's own gradients' norm, not the
+    whole model's across shards."""
+    from unittest import mock
+
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.training import global_norm
+
+    with mock.patch.object(tp, "global_norm", lambda grads, cfg, mesh: global_norm(grads)):
+        yield
+
+
+def tp_train_traces(cfg, seq: int) -> dict:
+    """One rank's float32 and bf16 train step of lm_tp_train on the counting
+    mesh ``make_test_mesh(*TP_TRAIN_MESH)``: {dtype name: CellTrace}."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.costing import trace_cell
+    from repro_torch.launch.mesh import make_test_mesh
+
+    shape = ShapeConfig("lm_tp_train", seq, TP_TRAIN_MESH[0] * TP_TRAIN_ROWS, "train")
+    return {name: trace_cell(cfg, shape, dtype=dtype, fused_loss=True,
+                             mesh=make_test_mesh(*TP_TRAIN_MESH))
+            for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+
+
+def stages_match(measured: dict, trace) -> bool:
+    """Each stage's (count, bytes) of a rank's step equal to the trace's."""
+    want = {}
+    for key, v in trace.executed_collective_stages.items():
+        stage, what = key.rsplit(".", 1)
+        want.setdefault(stage, [0, 0.0])[what == "bytes"] = v
+    return {k: (float(n), float(b)) for k, (n, b) in measured.items()} == {
+        k: (float(n), float(b)) for k, (n, b) in want.items()}
+
+
+def lm_tp_train(args, dev) -> dict:
+    """Phase lm_tp_train: qwen3-0.6b trained at full width and depth over a
+    (data, model) mesh of TP_TRAIN_MESH ranks on the one card (the dense
+    family's tensor-parallel train step, ``make_train_step(mesh=)``: the
+    backward through the model-axis collectives, the gradient combine, the
+    norm across shards, ZeRO-1 moments; the ranks are tools/tp_phase.py
+    --train processes over gloo), TP_TRAIN_ROWS sequences of TP_TRAIN_SEQ a
+    data rank, weights from ``--seed``.  Checks: (1) one float32 step,
+    clipped (the norm above TP_TRAIN_CLIP, printed): every rank's gradient
+    shard, updated shard and ZeRO-1 slices of m and v normwise per leaf, the
+    loss and grad_norm relatively, against the one-rank step on the whole
+    batch, within max(TP_TRAIN_MIN_LIMIT, TP_TRAIN_FLOOR_FACTOR x floor) (the
+    floor: the one-rank gradients at accumulation 1 against 2); (2) after
+    every step the residual-side norm leaves equal across the model ranks,
+    every leaf across the data ranks and the clip scale on all ranks,
+    bitwise; (3) each stage's collectives (forward, recompute, backward,
+    combine, norm, ZeRO-1 gather) equal in count and bytes to the counting
+    mesh's trace of the same step; (4) a rank's moments half the whole
+    moments' bytes and the rule tables' ZeRO-1 ``opt_bytes``; (5)
+    TP_TRAIN_BF16_STEPS bf16 steps: finite losses, check 2, step 0's loss
+    within TP_TRAIN_FLOOR_FACTOR x the floor of the one-rank bf16 loss (the
+    floor: the one-rank bf16 loss of each sequence against its float32
+    loss, the largest); the two planted
+    faults (the q_norm / k_norm sum skipped; the clip by the rank's local
+    norm) each failing check 1; and the phase within TP_TRAIN_LIMIT_S.
+    Readings: the bf16 step's ms, its collective and busy shares, peak and
+    moment GB a rank, tokens a second, the share of the bound.  On a CPU
+    device the phase is its rehearsal (:func:`tp_train_setup`).  Returns
+    each kernel's launches in a bf16 step, the most of any rank (none: no
+    kernel has a backward)."""
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.launch.dryrun import cell_memory
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.perf_counter()
+    cfg, seq = tp_train_setup(dev.type == "cpu")
+    traces = {}
+    res = tp_rank_results(args, dev, "lm_tp_train", world=math.prod(TP_TRAIN_MESH),
+                          timeout_s=TP_TRAIN_TIMEOUT_S,
+                          meanwhile=lambda: traces.update(tp_train_traces(cfg, seq)))
+    r0 = res[0]
+    floor = r0["floor"][0]
+    limit = max(TP_TRAIN_MIN_LIMIT, TP_TRAIN_FLOOR_FACTOR * floor)
+    worst_errs = {k: max(x["f32"]["errors"][k] if k in ("loss", "grad_norm")
+                         else x["f32"]["errors"][k][0] for x in res)
+                  for k in ("grads", "params", "m", "v", "loss", "grad_norm")}
+    faults = {}
+    for name in r0["faults"]:
+        errs = {k: max(x["faults"][name][k] if k in ("loss", "grad_norm")
+                       else x["faults"][name][k][0] for x in res)
+                for k in worst_errs}
+        faults[name] = {"errors": errs, "caught": max(errs.values()) > limit}
+    norm = r0["f32"]["grad_norm"]
+    check1 = {"errors": worst_errs, "per_rank": [x["f32"]["errors"] for x in res],
+              "floor": r0["floor"], "limit": limit, "clip_norm": TP_TRAIN_CLIP,
+              "grad_norm": norm, "clip_acts": norm > TP_TRAIN_CLIP,
+              "one_rank_f32": r0["one_rank_f32"],
+              "ok": max(worst_errs.values()) <= limit and norm > TP_TRAIN_CLIP}
+    bitwise = {"f32": [x["f32"]["bitwise"] for x in res],
+               "bf16": [[st["bitwise"] for st in x["bf16"]] for x in res]}
+    check2 = {"ok": all(all(b.values()) for b in bitwise["f32"])
+              and all(all(b.values()) for steps in bitwise["bf16"] for b in steps),
+              "after_each_step": bitwise}
+    check3 = {"f32": all(stages_match(x["f32"]["stages"], traces["f32"]) for x in res),
+              "bf16": all(stages_match(st["stages"], traces["bf16"]) for x in res
+                          for st in x["bf16"]),
+              "measured": {k: list(v) for k, v in r0["bf16"][0]["stages"].items()},
+              "dry_run": traces["bf16"].executed_collective_stages}
+    check3["ok"] = check3["f32"] and check3["bf16"]
+    rules = cell_memory(cfg, SHAPES_BY_NAME["train_4k"], make_test_mesh(*TP_TRAIN_MESH))
+    held = [x["f32"]["moment_bytes"] for x in res]
+    check4 = {"moment_bytes": held, "whole_moment_bytes": [x["f32"]["whole_moment_bytes"]
+                                                           for x in res],
+              "rule_tables_opt_bytes": rules["opt_bytes"],
+              "ok": all(2 * h == x["f32"]["whole_moment_bytes"] and h == rules["opt_bytes"]
+                        for h, x in zip(held, res))}
+    one_bf16, one_f32 = r0["one_rank_bf16_loss"], r0["one_rank_f32"]["loss"]
+    # the floor: the one-rank bf16 loss against the float32 one, the most of
+    # any one sequence (the sequences' differences cancel in the whole
+    # batch's: 8.6e-6-1.55e-5 each and 1.5e-7 together on an H100, 30x
+    # under the tensor-parallel step's)
+    seq_losses = r0["one_rank_seq_losses"]
+    floor5 = max(abs(b / f - 1) for b, f in zip(seq_losses["bf16"], seq_losses["f32"]))
+    losses = [[st["loss"] for st in x["bf16"]] for x in res]
+    err5 = max(abs(x["bf16"][0]["loss"] / one_bf16 - 1) for x in res)
+    check5 = {"losses": losses, "one_rank_bf16_loss": one_bf16, "one_rank_f32_loss": one_f32,
+              "one_rank_seq_losses": seq_losses, "floor": floor5,
+              "whole_batch_difference": abs(one_bf16 / one_f32 - 1), "step0_rel_err": err5,
+              "finite": all(math.isfinite(v) for row in losses for v in row)}
+    check5["ok"] = check5["finite"] and err5 <= TP_TRAIN_FLOOR_FACTOR * floor5
+    launches = {}
+    for x in res:
+        for st in x["bf16"]:
+            for k, n in st["launches"].items():
+                launches[k] = max(launches.get(k, 0), n)
+    step_ms = r0["bf16"][0]["ms"]
+    tokens = TP_TRAIN_MESH[0] * TP_TRAIN_ROWS * seq
+    rank_bound = dryrun_bound_ms(dryrun_tp_train({"traces": traces})["step"])
+    ranks = [{"coords": x["coords"], "bf16_step_ms": [st["ms"] for st in x["bf16"]],
+              "collective_share": x["bf16"][1]["collective_ms"] / x["bf16"][1]["ms"]
+              if len(x["bf16"]) > 1 else None,
+              "busy": x.get("busy"), "peak_memory_gb": x["peak_gb"],
+              "moment_gb": x["moment_gb"], "start_s": x["start_s"], "seconds": x["seconds"]}
+             for x in res]
+    seconds = time.perf_counter() - t_phase
+    out = {"phase": "lm_tp_train", "arch": cfg.name, "layers": cfg.n_layers,
+           "mesh": r0["mesh"], "transport": r0["transport"], "dtype": "bfloat16 (check 1: float32)",
+           "seq": seq, "rows_per_data_rank": TP_TRAIN_ROWS,
+           "global_batch": TP_TRAIN_MESH[0] * TP_TRAIN_ROWS,
+           "cuts": {"global_batch": f"{TP_TRAIN_MESH[0] * TP_TRAIN_ROWS} of train_4k's "
+                                    f"{TRAIN_GLOBAL_BATCH} sequences: the phase's time",
+                    "mesh": "one card, the four ranks sharing it over host-staged gloo"},
+           "lr": TP_TRAIN_LR, "remat": cfg.remat_policy, "loss": "fused chunked cross-entropy",
+           "bf16_step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+           "rank_bound_ms": rank_bound, "card_bound_ms": len(res) * rank_bound,
+           "share_of_bound": len(res) * rank_bound / step_ms, "ranks": ranks,
+           "lm_tp_train_launches": launches,
+           "checks": {"one_rank_f32": check1, "bitwise": check2, "collectives": check3,
+                      "moments": check4, "bf16_steps": check5, "faults": faults},
+           "note": "gloo stages each collective through the host and the four ranks share "
+                   "the card: the collective share is a correctness run's, not an NVLink "
+                   "figure",
+           "seconds": seconds, "limit_s": TP_TRAIN_LIMIT_S}
+    out["ok"] = (check1["ok"] and check2["ok"] and check3["ok"] and check4["ok"]
+                 and check5["ok"] and all(f["caught"] for f in faults.values())
+                 and all(n == 0 for n in launches.values())
+                 and r0["transport"] == "gloo" and seconds <= TP_TRAIN_LIMIT_S)
+    reading("lm_tp_train", cfg, seq=seq, rows=TP_TRAIN_ROWS, mesh=TP_TRAIN_MESH,
+            step_ms=step_ms, traces=traces, collectives=check3)
+    emit(out)
+    if not out["ok"]:
+        fail("lm_tp_train")
+    return launches
 
 
 def lm_zamba(args, dev) -> int:
@@ -7956,6 +8189,15 @@ def dryrun_tp(r: dict) -> dict:
     return out
 
 
+def dryrun_tp_train(r: dict) -> dict:
+    """lm_tp_train's bf16 step of one rank as it was traced on the counting
+    mesh (check 3) -> {"step": work}."""
+    tr = r["traces"]["bf16"]
+    flops = {k: float(v) for k, v in tr.function_flops.items()}
+    return {"step": {"flops_by_dtype": flops, "flops": sum(flops.values()),
+                     "bytes": tr.function_bytes, "executed_flops": tr.executed_flops}}
+
+
 def _extrapolated(a, b, xa: float, xb: float, x: float):
     """Every number of ``a`` (at xa) and ``b`` (at xb), nested in dicts,
     linearly extrapolated to x."""
@@ -8045,6 +8287,17 @@ def dryrun_hand(name: str, r: dict) -> dict:
         w = train_work(cfg, r["micro"] * r["accum"], r["seq"])
         return {"step": ({"train_work": (w["bytes"], w["flops"])},
                          {"fp32_gradients": (2 * w["params"], 0)})}
+    if name == "lm_tp_train":  # one rank: its rows, heads, ff columns, vocab shard
+        from repro_torch.parallel.tensor import head_layout
+
+        data, m = r["mesh"]
+        hq, hkv = head_layout(cfg, m)
+        rank_cfg = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
+                                       head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff // m,
+                                       vocab=cfg.vocab // m)
+        w = train_work(rank_cfg, r["rows"], r["seq"])
+        return {"step": ({"train_work": (w["bytes"], w["flops"])},
+                         {"zero1_moments": (-w["params"] * 4 * 4 * (data - 1) // data, 0)})}
     b, p, new = r["batch"], r["prompt"], r["new"]
     kv = p + new - 1
     d = cfg.d_model
@@ -8159,6 +8412,9 @@ def dryrun_phase(args) -> dict:
         elif name == "lm_tp":
             dry = dryrun_tp(r)
             stages = {"prefill": r["prefill_ms"], "decode": r["decode_ms"]}
+        elif name == "lm_tp_train":
+            dry = dryrun_tp_train(r)
+            stages = {"step": r["step_ms"]}
         elif r["cfg"].family == "ssm":
             xa, xb = DRYRUN_XLSTM_PROMPTS
             dry = _extrapolated(dryrun_window(r, xa), dryrun_window(r, xb), xa, xb, r["prompt"])
@@ -8197,6 +8453,18 @@ def dryrun_phase(args) -> dict:
             rows[name]["collectives"] = r["collectives"]
             rows[name]["ok"] = rows[name]["ok"] and all(
                 c["ok"] for c in r["collectives"].values())
+            continue
+        if name == "lm_tp_train":
+            # the four ranks share the card: the bound is four ranks' work
+            # (each rank's the same); check 3's verdict is carried here, and
+            # no peak is predicted (the ranks also run the one-rank step)
+            bound = math.prod(r["mesh"]) * bounds["step"]
+            rows[name]["bound_ms"] = {"step": bound, "rank": bounds["step"]}
+            rows[name]["share"] = {"step": bound / r["step_ms"]}
+            rows[name]["collectives"] = {k: v for k, v in r["collectives"].items()
+                                         if k in ("f32", "bf16", "ok")}
+            rows[name]["ok"] = (all(w["ok"] for w in work.values()) and bound <= r["step_ms"]
+                                and r["collectives"]["ok"])
             continue
         predicted = r["held_gb"] * 1e9 + max(dry["peaks"].values())
         peak_ratio = r["peak_gb"] * 1e9 / predicted
@@ -8821,6 +9089,11 @@ def main() -> None:
     tp_launches = lm_tp(args, dev, swa["tp"])
     gc.collect()
     torch.cuda.empty_cache()
+    # the tensor-parallel train step: qwen3-0.6b at full width and depth over
+    # a (2, 2) mesh on the card (four processes, gloo); no kernel on the path
+    tp_train_launches = lm_tp_train(args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the Mamba2 / shared-attention hybrid: zamba2-7b at full width and
     # depth (13.50 GB of weights: qwen3's are gone), kernel 8 at 112, G = 1
     zamba_launches = lm_zamba(args, dev)
@@ -8882,6 +9155,7 @@ def main() -> None:
             "lm_qwen3_launches": qwen_launches if name == "swa_attention" else 0,
             "lm_train_launches": train_launches.get(name, 0),
             "lm_tp_launches_a_rank": tp_launches if name == "swa_attention" else 0,
+            "lm_tp_train_launches": tp_train_launches.get(name, 0),
             "lm_zamba_launches": zamba_launches if name == "swa_attention" else 0,
             "lm_xlstm_launches": xlstm_launches.get(name, 0),
             "lm_whisper_launches": whisper_launches.get(name, 0),

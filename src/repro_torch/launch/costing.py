@@ -37,9 +37,11 @@ work is counted by formula, not by descending into the plain path:
 On a mesh with a model axis above 1 (`parallel.tensor`), the trace is one
 rank's tensor-parallel step: the model is the rank's shard
 (``shard_params`` of the meta model, on the counting ``AbstractMesh``),
-the batch its share, and every model-axis collective is counted by kind
-and payload (``sharding.collective_counts`` / ``collective_bytes``)
-without exchanging anything.
+the batch its share, a train step's moments its ZeRO-1 slices, and every
+collective is counted by kind and payload (``sharding.collective_counts``
+/ ``collective_bytes``), and a train step's by stage (the forward, remat's
+recompute, the backward, the gradient combine, the norm, the ZeRO-1
+gather), without exchanging anything.
 
 The depth calibration (:func:`calibrated_cost`) traces the cell at two
 reduced depths and extrapolates linearly, as the reference does; its
@@ -306,20 +308,25 @@ def serve_bytes(cfg, model, mode: CountingMode, batch: Dict[str, Any], out,
             + logits.nbytes)
 
 
-def dp_gather_payload(named: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor],
-                      world: int, accum: int = 1) -> Tuple[int, int]:
-    """(all-gathers, payload bytes per rank) of a data-parallel train step's
-    mean (``train_step._mesh_mean``): one all-gather per dtype of the
-    gradients (the parameters' dtype at ``accum`` 1, float32 above) and of
-    the loss and the metrics, each gathering ``world`` times its input."""
-    by_dtype: Dict[torch.dtype, int] = defaultdict(int)
-    for p in named.values():
-        dt = p.dtype if accum == 1 else torch.float32
-        by_dtype[dt] += p.numel() * torch.empty((), dtype=dt).element_size()
-    for name in ("loss", "ce", "lb_loss", "z_loss"):
-        t = metrics[name]
-        by_dtype[t.dtype] += t.nbytes
-    return len(by_dtype), world * sum(by_dtype.values())
+def dp_gather_payload(named: Dict[str, torch.Tensor], world: int,
+                      accum: int = 1) -> Tuple[int, int]:
+    """(all-gathers, payload bytes per rank) of a data-parallel train
+    step's collectives (`training.train_step`): each microbatch's loss
+    gathers the ranks' float32 (cross-entropy, the label count of each of
+    the ``accum`` microbatches, lb_loss, z_loss), then the gradients are
+    summed with one all-gather per dtype (per ``sharding.buckets`` of it:
+    the parameters' dtype at ``accum`` 1, float32 above), each gathering
+    ``world`` times its input."""
+    from ..parallel.sharding import buckets
+
+    dtype = lambda p: p.dtype if accum == 1 else torch.float32  # noqa: E731
+    grads = {k: torch.empty(p.shape, dtype=dtype(p), device="meta") for k, p in named.items()}
+    by_dtype: Dict[torch.dtype, list] = defaultdict(list)
+    for k, g in grads.items():
+        by_dtype[g.dtype].append(k)
+    gathers = sum(len(buckets(keys, grads)) for keys in by_dtype.values())
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads.values())
+    return accum + gathers, world * (accum * (3 + accum) * 4 + grad_bytes)
 
 
 @dataclasses.dataclass
@@ -331,7 +338,9 @@ class CellTrace:
     state, the inputs and a decode step's cache), and the bytes it holds.
     ``collective_*``: the collectives the function needs (what the bound
     reads); ``executed_collective_*``: those the port's step runs (on a
-    model axis, the rank-ordered reduction's all-gathers; else the same)."""
+    model axis, the rank-ordered reduction's all-gathers; else the same);
+    ``executed_collective_stages``: those by the train step's stage
+    (``sharding.STAGES``), as ``<stage>.count`` and ``<stage>.bytes``."""
 
     function_flops: Dict[str, float]
     function_bytes: float
@@ -347,6 +356,7 @@ class CellTrace:
     collective_payload: Dict[str, float]
     executed_collective_counts: Dict[str, float] = dataclasses.field(default_factory=dict)
     executed_collective_payload: Dict[str, float] = dataclasses.field(default_factory=dict)
+    executed_collective_stages: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def flops(self) -> float:
@@ -369,7 +379,8 @@ class CellTrace:
             return {k[len(prefix):]: v for k, v in s.items() if k.startswith(prefix)}
 
         groups = ("function_flops", "collective_counts", "collective_payload",
-                  "executed_collective_counts", "executed_collective_payload")
+                  "executed_collective_counts", "executed_collective_payload",
+                  "executed_collective_stages")
         kw = {f.name: group(f.name + ".") if f.name in groups else s[f.name]
               for f in dataclasses.fields(cls) if f.name in groups or f.name in s}
         return cls(**kw)
@@ -386,8 +397,9 @@ def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accu
     encoder-decoder's frames at another length than its tokens.  A decode
     cell steps at the last position of its cache.  ``mesh`` (an
     ``AbstractMesh`` with a model axis above 1): one tensor-parallel rank's
-    prefill or decode step at its share of the global batch, its
-    collectives counted."""
+    train, prefill or decode step at its share of the global batch, its
+    collectives counted (a train step's by stage, its ZeRO-1 moments held:
+    ``opt_bytes`` the rank's)."""
     from ..parallel import sharding, tensor
 
     cfg = get_arch(arch) if isinstance(arch, str) else arch
@@ -404,6 +416,7 @@ def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accu
     whole = None if mesh is None else meta_model(cfg, dtype)  # outside the count
     before = [sharding.collective_counts(fn) for fn in (True, False)] + [
         sharding.collective_bytes(fn) for fn in (True, False)]
+    stages_before = sharding.collective_stages()
     with attention_boundaries(mode), mode:
         model = meta_model(cfg, dtype) if mesh is None else tensor.shard_params(whole, mesh)
         del whole
@@ -411,10 +424,10 @@ def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accu
         opt_bytes = cache_bytes = 0
         if train:
             from ..models import trainable
-            from ..training import adamw_init, named_parameters
+            from ..training import init_state, named_parameters
 
             named = named_parameters(trainable(model))
-            opt = adamw_init(named)
+            opt = init_state(model, cfg, mesh)
             opt_bytes = _nbytes((opt.m, opt.v))
             mode.reset_counts()
             held = mode.live
@@ -426,7 +439,7 @@ def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accu
             grad_bytes = param_bytes if accum == 1 else opt_bytes // 2
             function_bytes = 2 * param_bytes + grad_bytes + 2 * opt_bytes
             if world > 1:
-                n, pay = dp_gather_payload(named, metrics, world, accum)
+                n, pay = dp_gather_payload(named, world, accum)
                 counts, payload = {"all-gather": n}, {"all-gather": pay}
             del metrics, opt
         elif shape.kind == "prefill":
@@ -451,7 +464,12 @@ def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accu
             del out, cache
         input_bytes = _nbytes(inputs)
     executed = counts, payload
+    stages: Dict[str, float] = {}
     if mesh is not None:
+        for name, (n, nbytes) in sharding.collective_stages().items():
+            n0, b0 = stages_before.get(name, (0, 0.0))
+            if n > n0:
+                stages.update({f"{name}.count": float(n - n0), f"{name}.bytes": nbytes - b0})
         after = [sharding.collective_counts(fn) for fn in (True, False)] + [
             sharding.collective_bytes(fn) for fn in (True, False)]
         counts, executed_counts, payload, executed_payload = (
@@ -466,7 +484,8 @@ def trace_cell(arch, shape, *, batch: Optional[int] = None, world: int = 1, accu
         param_bytes=float(param_bytes), opt_bytes=float(opt_bytes),
         cache_bytes=float(cache_bytes), input_bytes=float(input_bytes),
         collective_counts=counts, collective_payload=payload,
-        executed_collective_counts=executed[0], executed_collective_payload=executed[1])
+        executed_collective_counts=executed[0], executed_collective_payload=executed[1],
+        executed_collective_stages=stages)
 
 
 # ------------------------------------------------------ depth calibration --

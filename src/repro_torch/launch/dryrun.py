@@ -19,19 +19,21 @@ Meshes (`launch.mesh`):
 
 A cell's status is ``ok``, ``skipped`` (``cell_is_runnable``'s reason),
 ``partial`` or ``error``.  On a mesh with a model axis above 1 the dense
-family's prefill and decode cells are traced as one tensor-parallel rank's
-step (`parallel.tensor`: the rank's shard of the model on the counting
-mesh, its share of the batch, each model-axis collective counted by kind
-and payload; ``t_collective`` on ``NVLINK_BW`` from the function's
-collectives, an all-reduce of each partial, and the port's rank-ordered
-gathers beside it as ``executed_collectives``), with the step's own
-parameter and cache bytes per device beside the rule tables' (the step
-holds whole heads: GSPMD may cut one).  ``partial``: a train cell on a
-model axis, another family on one, a layout the heads, ``d_ff`` or the
-vocabulary do not allow, or the sequence-parallel layout -- each waits for
-a later slice, and its ``reason`` says which; its FLOPs, activations and
-collectives are not traced, and only its parameter, gradient, optimizer
-and cache bytes per device (exact, from the rule tables) are written.
+family's train, prefill and decode cells are traced as one
+tensor-parallel rank's step (`parallel.tensor`: the rank's shard of the
+model on the counting mesh, its share of the batch, a train step's ZeRO-1
+moments, each collective counted by kind and payload, and a train step's
+by stage as ``executed_collectives.stages``; ``t_collective`` on
+``NVLINK_BW`` from the function's collectives, an all-reduce of each
+partial, and the port's rank-ordered gathers beside it as
+``executed_collectives``), with the step's own parameter, moment and
+cache bytes per device beside the rule tables' (the step holds whole
+heads: GSPMD may cut one).  ``partial``: another family on a model axis,
+a layout the heads, ``d_ff`` or the vocabulary do not allow, or the
+sequence-parallel layout -- each waits for a later slice, and its
+``reason`` says which; its FLOPs, activations and collectives are not
+traced, and only its parameter, gradient, optimizer and cache bytes per
+device (exact, from the rule tables) are written.
 
 Results are JSON files under ``results/dryrun_torch/``, one a cell, which
 `launch.report` renders.
@@ -127,7 +129,10 @@ def _traced(cfg, shape, mesh, mem: Dict[str, float], fused_loss: bool) -> Dict[s
         mem["param_bytes_port_step"] = tr.param_bytes
         if shape.kind == "decode":
             mem["cache_bytes_port_step"] = tr.cache_bytes
+        if shape.kind == "train":
+            mem["opt_bytes_port_step"] = tr.opt_bytes
         mem["peak_bytes_port_step"] = (tr.param_bytes + mem.get("cache_bytes_port_step", 0.0)
+                                       + mem.get("opt_bytes_port_step", 0.0)
                                        + tr.input_bytes + tr.temp_bytes)
     else:
         # the port's data-parallel step holds whole moments on every rank
@@ -146,7 +151,8 @@ def _traced(cfg, shape, mesh, mem: Dict[str, float], fused_loss: bool) -> Dict[s
         ex = collective_stats(tr.executed_collective_counts, tr.executed_collective_payload)
         out["executed_collectives"] = {"counts": ex.counts, "payload_bytes": ex.payload_bytes,
                                        "wire_bytes": ex.wire_bytes,
-                                       "t_collective": ex.wire_bytes / NVLINK_BW}
+                                       "t_collective": ex.wire_bytes / NVLINK_BW,
+                                       "stages": tr.executed_collective_stages}
     calibrated = {
         "flops": cal.flops, "hbm_bytes": cal.hbm_bytes, "wire_bytes": cal.wire_bytes,
         "t_compute": roof.t_compute, "t_memory": roof.t_memory,
@@ -192,9 +198,6 @@ def run_cell(arch_name: str, shape_name: str, mesh_tag: str = "h100x1",
         if sp:
             why = (f"global batch {shape.global_batch} over {dp} data ranks takes the "
                    f"sequence-parallel layout: sequence parallelism waits for a later slice")
-        elif tp > 1 and shape.kind == "train":
-            why = (f"a train cell on a model axis of {tp}: the backward of the model-axis "
-                   f"collectives and the tensor-parallel train step wait for a later slice")
         elif tp > 1:
             why = tensor.layout_reason(cfg, tp)
         if why:

@@ -14,11 +14,13 @@ axes of each decode-cache leaf, as data (:func:`cache_axes`).
 ``build_cell(..., mesh=)`` with a ``("data", "model")`` mesh (a
 ``DeviceMesh`` of `parallel.tensor.model_mesh`, or an ``AbstractMesh`` to
 count on) gives a rank's cell: its share of the batch, and with a model
-axis above 1 the tensor-parallel prefill and decode of the dense family
-(the rank's shard of the model, ``parallel.tensor.shard_params``; its
-vocab shard of the logits, its KV heads' cache) and the forward-only loss
-(``Cell.loss``).  A train cell on a model axis, another family on one, and
-the sequence-parallel layout raise until their slices come.
+axis above 1 the tensor-parallel step of the dense family (the rank's
+shard of the model, ``parallel.tensor.shard_params``): the train step
+(``make_train_step(mesh=)``, its state from ``training.init_state``),
+the prefill and decode (its vocab shard of the logits, its KV heads'
+cache) and the forward-only loss (``Cell.loss``).  Another family on a
+model axis and the sequence-parallel layout raise until their slices
+come.
 """
 from __future__ import annotations
 
@@ -112,9 +114,6 @@ def build_cell(arch, shape, *, data_ranks: int = 1, dtype=DTYPE, accum: int = 1,
         raise NotImplementedError(f"cell ({cfg.name} x {shape.name}): sequence parallelism "
                                   f"waits for a later slice")
     if model_axis > 1:
-        if shape.kind == "train":
-            raise NotImplementedError(f"a train cell on a model axis of {model_axis}: "
-                                      f"{tp.NEXT_SLICE}")
         tp.check_layout(cfg, model_axis)
     specs = input_specs(cfg, shape, mesh)
     if shape.kind != "decode":

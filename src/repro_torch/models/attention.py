@@ -159,9 +159,10 @@ def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg, positions: torch.Tensor, *,
     scale = 1.0 / math.sqrt(hd)
     b, s, _ = x.shape
 
-    q = column_parallel(x, p.wq, mesh).view(b, s, h, hd)
-    k = column_parallel(x, p.wk, mesh).view(b, s, kvh, hd)
-    v = column_parallel(x, p.wv, mesh).view(b, s, kvh, hd)
+    q, k, v = column_parallel(x, (p.wq, p.wk, p.wv), mesh)
+    q = q.view(b, s, h, hd)
+    k = k.view(b, s, kvh, hd)
+    v = v.view(b, s, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)

@@ -12,11 +12,14 @@ body under ``cfg.remat_policy``.
 
 On a ``("data", "model")`` mesh (``mesh=``, `parallel.tensor`) the
 projections are column-parallel (:func:`column_parallel`: the replicated
-input times the rank's columns) or row-parallel (:func:`row_parallel`:
-the rank's rows, then the rank-ordered reduction), the embedding lookup is
-vocab-parallel (:func:`vocab_parallel_embed`) and the cross-entropies read
-the rank's vocab shard of the logits, their max, sum of exps and gold
-logit each reduced over the model axis (forward only in this slice).
+input, marked once for all the products that read it, times the rank's
+columns) or row-parallel (:func:`row_parallel`: the rank's rows, then the
+rank-ordered reduction), the embedding lookup is vocab-parallel
+(:func:`vocab_parallel_embed`) and the cross-entropies read the rank's
+vocab shard of the logits, their max, sum of exps and gold logit each
+reduced over the model axis.  The backward mirrors each collective
+(`parallel.tensor`): a replicated input's gradient is summed over the
+model axis, a reduction's passes through, the max's is zero.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..parallel import tensor as tp
+from ..parallel.sharding import collective_stage
 
 __all__ = ["DTYPE", "dense_init", "expert_init", "embed_init", "rms_norm", "rope_frequencies",
            "apply_rope", "swiglu", "mlp_init", "RMSNorm", "MLP", "weight",
@@ -103,11 +107,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
     return out.to(x.dtype)
 
 
-def column_parallel(x: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
-    """``x @ w`` with ``w`` the rank's columns and ``x`` replicated on the
-    model axis: the rank's columns of the output.  ``x @ w`` without a
-    mesh."""
-    return tp.replicated(x, mesh) @ w
+def column_parallel(x: torch.Tensor, ws, mesh=None) -> Tuple[torch.Tensor, ...]:
+    """``x @ w`` for each ``w`` of ``ws``, the rank's columns, with ``x``
+    replicated on the model axis: the rank's columns of each output.
+    ``x`` is marked replicated once (:func:`parallel.tensor.replicated`),
+    so the backward makes one model-axis reduction for all the products."""
+    x = tp.replicated(x, mesh)
+    return tuple(x @ w for w in ws)
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -133,8 +139,7 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, mesh=None) -> torch.Tensor:
     """SwiGLU; on a mesh ``w_gate`` / ``w_up`` are column-parallel and
     ``w_down`` row-parallel by ``ff``."""
-    g = column_parallel(x, w_gate, mesh)
-    u = column_parallel(x, w_up, mesh)
+    g, u = column_parallel(x, (w_gate, w_up), mesh)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return row_parallel(h, w_down, mesh)
 
@@ -204,8 +209,9 @@ def _chunk_nll(h: torch.Tensor, head: torch.Tensor, lab: torch.Tensor,
     """The summed NLL of one chunk's (B, c) labels; its (B, c, V) logits live
     only here.  The gold logit is picked by an index compare and a masked
     sum, as the reference picks it (its backward is elementwise: no
-    scatter).  On a mesh ``head`` is the rank's vocab columns."""
-    logits = column_parallel(h, head, mesh).float()
+    scatter).  On a mesh ``head`` is the rank's vocab columns and ``h``
+    the replicated hidden states."""
+    logits = (h @ head).float()
     iota = torch.arange(logits.shape[-1], device=logits.device)
     if mesh is not None:
         iota = iota + tp.vocab_start(mesh, logits.shape[-1])
@@ -225,12 +231,14 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor, labels: torc
     ``chunk`` positions; each chunk's logits are recomputed in the backward
     (``torch.utils.checkpoint``, the reference's per-chunk
     ``jax.checkpoint``), so its residuals are O(B c d).  On a mesh ``head``
-    is the rank's vocab columns (d, V / tp)."""
+    is the rank's vocab columns (d, V / tp), and ``hidden`` is marked
+    replicated once for every chunk."""
+    hidden = tp.replicated(hidden, mesh)
     s = hidden.shape[1]
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
-        part = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk], head, labels[:, c0:c0 + chunk],
-                          ignore_id, mesh, use_reentrant=False)
+        part = checkpoint(_recomputed(_chunk_nll), hidden[:, c0:c0 + chunk], head,
+                          labels[:, c0:c0 + chunk], ignore_id, mesh, use_reentrant=False)
         nll = nll + part
     count = (labels != ignore_id).sum()
     return nll / count.clamp_min(1)
@@ -240,6 +248,22 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor, labels: torc
 # dots_with_no_batch_dims_saveable: products without batch dims)
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 REMAT_POLICIES = ("full", "dots")
+
+
+def _recomputed(fn: Callable) -> Callable:
+    """``fn`` for one ``torch.utils.checkpoint`` call: its first run is the
+    forward, and each later run (the backward's recompute) counts its
+    collectives as the train step's ``"recompute"`` stage."""
+    runs = []
+
+    def run(*args):
+        runs.append(None)
+        if len(runs) == 1:
+            return fn(*args)
+        with collective_stage("recompute"):
+            return fn(*args)
+
+    return run
 
 
 def remat(fn: Callable, *args, policy: Optional[str] = "full"):
@@ -253,6 +277,7 @@ def remat(fn: Callable, *args, policy: Optional[str] = "full"):
     if policy not in REMAT_POLICIES:
         raise ValueError(f"remat policy {policy!r} is not one of {REMAT_POLICIES}")
     if policy == "dots":
-        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
-            create_selective_checkpoint_contexts, _DOTS))
-    return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(_recomputed(fn), *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _DOTS))
+    return checkpoint(_recomputed(fn), *args, use_reentrant=False)

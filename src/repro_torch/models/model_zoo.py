@@ -163,8 +163,7 @@ def train_forward(params: Model, batch: Dict[str, Any], cfg, *, remat: bool = Tr
     -> (logits over the full target sequence, aux losses summed over layers,
     zero outside the MoE family).  Attention is the plain chunked version
     (the attention kernel has no backward); layers run under remat.  On
-    ``mesh``, forward only (the collectives' backward comes with the next
-    slice)."""
+    ``mesh``, the rank's shard and rows, the logits its vocab shard."""
     return _train_out(params, batch, cfg, remat, return_hidden=False, mesh=mesh)
 
 

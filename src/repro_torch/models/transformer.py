@@ -36,7 +36,9 @@ model from ``parallel.tensor.shard_params``; the dense family only), each
 block makes two rank-ordered model-axis reductions (after the
 row-parallel ``wo`` and ``w_down``), the embedding lookup is
 vocab-parallel (one more), and the logits are the rank's vocab shard
-(B, ..., V / tp): 2L + 1 collectives a prefill or decode step.
+(B, ..., V / tp): 2L + 1 collectives a prefill or decode step.  The
+training backward makes 2L + 1 more: one a replicated input (each block's
+attention and MLP inputs, the final hidden states into the loss).
 
 The VLM family (llava-next-34b) takes ``patch_embeds`` (B, n_patches,
 d_model), the stubbed vision tower's output (`vlm_stub.py`), through
@@ -150,7 +152,7 @@ def lm_head_matrix(p: Transformer) -> torch.Tensor:
 
 def _unembed(p: Transformer, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The logits (on ``mesh``, the rank's vocab shard)."""
-    return column_parallel(p.final_norm(x), lm_head_matrix(p), mesh)
+    return column_parallel(p.final_norm(x), (lm_head_matrix(p),), mesh)[0]
 
 
 def _positions(n: int, start: int, device) -> torch.Tensor:
@@ -199,8 +201,7 @@ def lm_train_forward(p: Transformer, tokens: torch.Tensor, cfg, *,
     ``return_hidden`` the final normed hidden states (B, S, d), and the aux
     losses summed over layers).  Each block runs under ``cfg.remat_policy``
     when ``remat``; attention is the plain ``swa_attention_chunked``.  On
-    ``mesh`` (forward only in this slice) the logits are the rank's vocab
-    shard."""
+    ``mesh`` the logits are the rank's vocab shard."""
     x, total = _layers(p, tokens, cfg, patch_embeds, aux=True, attention=swa_attention_chunked,
                        policy=cfg.remat_policy if remat else None, mesh=mesh)
     return (p.final_norm(x) if return_hidden else _unembed(p, x, mesh)), total

@@ -2,9 +2,10 @@
 collective (port of `repro.parallel`, the statistics half), the
 reference's logical-axis rule tables as data, and tensor parallelism over
 the ``"model"`` axis of a 2-D mesh for the dense family's serving path
-(`tensor.py`)."""
+and train step (`tensor.py`)."""
 from .sharding import (AbstractMesh, abstract_mesh, collective_bytes,  # noqa: F401
-                       collective_count, collective_counts, data_mesh, gather_tree,
+                       collective_count, collective_counts, collective_stage,
+                       collective_stages, data_mesh, gather_tree,
                        logical_to_spec, mesh_axis_size, mesh_device, mesh_rank,
                        param_pspecs, param_tree,
                        psum_tree, reset_collective_count, set_sp_mode, shard_bytes,

@@ -41,6 +41,7 @@ all-gather's payload is its gathered output).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -52,8 +53,10 @@ from ..core.backend import resolve_device
 from ..core.mapreduce import tree_leaves, tree_map
 
 __all__ = ["data_mesh", "mesh_axis_size", "mesh_rank", "mesh_device", "gather_tree",
-           "psum_tree", "sum_ranks", "collective_count", "collective_counts", "collective_bytes",
-           "record_collective", "reset_collective_count", "AbstractMesh", "abstract_mesh",
+           "psum_tree", "sum_ranks", "BUCKET", "buckets", "axis_world", "collective_count",
+           "collective_counts", "collective_bytes",
+           "record_collective", "reset_collective_count", "collective_stage", "collective_stages",
+           "STAGES", "AbstractMesh", "abstract_mesh",
            "set_sp_mode", "sp_mode_enabled", "logical_to_spec", "param_pspecs", "zero1_pspecs",
            "shard_shape", "shard_bytes", "tree_shard_bytes", "param_tree"]
 
@@ -64,20 +67,52 @@ _payload: Dict[str, float] = dict.fromkeys(COLLECTIVES, 0.0)
 # the collectives the function needs at least (see record_collective)
 _fn_counts: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
 _fn_payload: Dict[str, float] = dict.fromkeys(COLLECTIVES, 0.0)
+# the stages of a train step that the executed collectives are counted by:
+# the forward, remat's recompute inside the backward, the backward's own,
+# the gradient combine, the global norm and the ZeRO-1 parameter gather
+STAGES = ("forward", "recompute", "backward", "combine", "norm", "zero1")
+_stage = "forward"
+_stage_counts: Dict[str, int] = dict.fromkeys(STAGES, 0)
+_stage_payload: Dict[str, float] = dict.fromkeys(STAGES, 0.0)
 
 
 def record_collective(kind: str, nbytes: float,
-                      function: Optional[Tuple[str, float]] = None) -> None:
+                      function: Optional[Tuple[str, float]] = None,
+                      stage: Optional[str] = None) -> None:
     """Count one collective of ``kind`` moving ``nbytes`` of payload.
     ``function`` is the (kind, payload) of the collective that computes the
     same function, where the executed one moves more (the rank-ordered
     reduction gathers every rank's partial; its function is an all-reduce
-    of the one partial); by default the executed one."""
+    of the one partial); by default the executed one.  ``stage``: the
+    train step's stage it belongs to (default: :func:`collective_stage`'s)."""
     _counts[kind] += 1
     _payload[kind] += nbytes
     fn_kind, fn_bytes = function or (kind, nbytes)
     _fn_counts[fn_kind] += 1
     _fn_payload[fn_kind] += fn_bytes
+    stage = stage or _stage
+    _stage_counts[stage] += 1
+    _stage_payload[stage] += nbytes
+
+
+@contextlib.contextmanager
+def collective_stage(name: str):
+    """Count the collectives made inside as the stage ``name`` of
+    :data:`STAGES` (a train step's forward is the default)."""
+    global _stage
+    if name not in STAGES:
+        raise ValueError(f"stage {name!r} is not one of {STAGES}")
+    saved, _stage = _stage, name
+    try:
+        yield
+    finally:
+        _stage = saved
+
+
+def collective_stages() -> Dict[str, Tuple[int, float]]:
+    """{stage: (executed collectives, their payload bytes)} since the last
+    reset, for each stage that made one."""
+    return {s: (_stage_counts[s], _stage_payload[s]) for s in STAGES if _stage_counts[s]}
 
 
 def collective_count() -> int:
@@ -104,6 +139,9 @@ def reset_collective_count() -> None:
     for k in COLLECTIVES:
         _counts[k] = _fn_counts[k] = 0
         _payload[k] = _fn_payload[k] = 0.0
+    for s in STAGES:
+        _stage_counts[s] = 0
+        _stage_payload[s] = 0.0
 
 
 def data_mesh(world_size: int, rank: int, init_method: str, device="cuda",
@@ -161,45 +199,102 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def gather_tree(tree: Any, mesh, axis: str = "data") -> Any:
-    """Every rank's copy of ``tree``, stacked: each leaf gains a leading
-    (world,) axis in rank order.  The leaves are flattened into one buffer
-    per dtype and gathered with one ``all_gather`` each."""
-    leaves = tree_leaves(tree)
-    group = mesh.get_group(axis)
-    world = group.size()
+# the most elements one gather of a tree carries (a larger leaf goes
+# alone): the transient buffers of a gradient combine or of the ZeRO-1
+# parameter gather stay a few hundred MB a rank
+BUCKET = 1 << 26
+
+
+def buckets(names, named) -> list:
+    """Runs of consecutive indices into ``names`` of one dtype and at most
+    :data:`BUCKET` elements together (a larger tensor alone), in order."""
+    out, run, n = [], [], 0
+    for i, k in enumerate(names):
+        t = named[k]
+        if run and (n + t.numel() > BUCKET or t.dtype != named[names[run[0]]].dtype):
+            out.append(run)
+            run, n = [], 0
+        run.append(i)
+        n += t.numel()
+    return out + [run] if run else out
+
+
+def axis_world(mesh, axis: str) -> int:
+    """Ranks along ``axis`` (``"data"`` takes in a counting mesh's
+    ``"pod"`` axis too, as the rule tables' batch does)."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh_axis_size(mesh, ("pod", "data") if axis == "data" else (axis,))
+    return mesh.get_group(axis).size()
+
+
+def _gathers(leaves, mesh, axis: str, reduce: bool):
+    """(indices into ``leaves``, their flat buffers gathered (world, n)) for
+    each buffer of one dtype (or :func:`buckets` of it), one ``all_gather``
+    each, counted (``reduce``: its function is an all-reduce of the
+    buffer); on an :class:`AbstractMesh` only counted, empty."""
+    world = axis_world(mesh, axis)
     by_dtype: dict = {}
     for i, leaf in enumerate(leaves):
         by_dtype.setdefault(leaf.dtype, []).append(i)
+    for idx in by_dtype.values():
+        for run in buckets(idx, leaves):
+            run = [idx[j] for j in run]
+            flat = torch.cat([leaves[i].reshape(-1) for i in run])
+            nbytes = flat.numel() * flat.element_size()
+            record_collective("all-gather", world * nbytes,
+                              function=("all-reduce", nbytes) if reduce else None)
+            gathered = flat.new_empty((world, flat.numel()))
+            if not isinstance(mesh, AbstractMesh):
+                dist.all_gather(list(gathered.unbind(0)), flat, group=mesh.get_group(axis))
+            yield run, gathered
+
+
+def _unflatten(tree: Any, leaves, parts) -> Any:
+    """``tree`` with each leaf replaced by ``parts``' slices of the flat
+    buffers of :func:`_gathers` (the last dimension), each shaped as
+    (lead..., leaf's shape)."""
     out = [None] * len(leaves)
-    for dtype, idx in by_dtype.items():
-        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-        gathered = flat.new_empty((world, flat.numel()))
-        dist.all_gather(list(gathered.unbind(0)), flat, group=group)
-        record_collective("all-gather", gathered.numel() * gathered.element_size())
+    for run, buf in parts:
         start = 0
-        for i in idx:
+        for i in run:
             size = leaves[i].numel()
-            out[i] = gathered[:, start: start + size].reshape((world,) + leaves[i].shape)
+            out[i] = buf[..., start:start + size].reshape(buf.shape[:-1] + leaves[i].shape)
             start += size
     it = iter(out)
     return tree_map(lambda _: next(it), tree)
 
 
-def sum_ranks(stacked: torch.Tensor) -> torch.Tensor:
-    """The (world, ...) partials summed in rank order (rank 0 first)."""
-    acc = stacked[0]
+def gather_tree(tree: Any, mesh, axis: str = "data") -> Any:
+    """Every rank's copy of ``tree``, stacked: each leaf gains a leading
+    (world,) axis in rank order.  The leaves are flattened into one buffer
+    per dtype (per :func:`buckets` of it) and gathered with one
+    ``all_gather`` each; on an :class:`AbstractMesh` nothing is exchanged,
+    the result only has the right shape."""
+    leaves = tree_leaves(tree)
+    return _unflatten(tree, leaves, list(_gathers(leaves, mesh, axis, reduce=False)))
+
+
+def sum_ranks(stacked: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The (world, ...) partials summed in rank order (rank 0 first), in
+    float32 for a narrower float, cast to ``dtype`` (default the
+    partials')."""
+    acc_dtype = torch.float32 if stacked.element_size() < 4 and stacked.is_floating_point() \
+        else stacked.dtype
+    acc = stacked[0].to(acc_dtype)
     for r in range(1, stacked.shape[0]):
-        acc = acc + stacked[r]
-    return acc
+        acc = acc + stacked[r].to(acc_dtype)
+    return acc.to(dtype or stacked.dtype)
 
 
 def psum_tree(tree: Any, mesh, axis: str = "data") -> Any:
     """The sum over the mesh dimension ``axis`` of every rank's ``tree`` of
-    partial statistics: one collective per dtype, then the world's partials
-    added in rank order on every rank (bitwise alike on every rank; at world
-    1 bitwise the local partial)."""
-    return tree_map(sum_ranks, gather_tree(tree, mesh, axis))
+    partial statistics: one collective per dtype (per :func:`buckets` of
+    it, each summed before the next is gathered), the world's partials
+    added in rank order on every rank (bitwise alike on every rank; at
+    world 1 bitwise the local partial)."""
+    leaves = tree_leaves(tree)
+    return _unflatten(tree, leaves, ((run, sum_ranks(buf))
+                                     for run, buf in _gathers(leaves, mesh, axis, reduce=True)))
 
 
 # ------------------------------------------------ logical-axis rules ----

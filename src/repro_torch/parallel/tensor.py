@@ -1,6 +1,6 @@
 """Tensor parallelism over the ``"model"`` mesh axis for the dense family's
-serving path (the port of the reference's GSPMD placement: ``shard``
-for the activations and ``param_pspecs`` for the weights).
+serving path and train step (the port of the reference's GSPMD placement:
+``shard`` for the activations and ``param_pspecs`` for the weights).
 
 The reference runs one program on any ``("data", "model")`` mesh and lets
 XLA insert the collectives.  The port is SPMD with the collectives
@@ -36,14 +36,27 @@ model rank holds a bitwise-equal residual, run after run.  A transformer
 block makes two (after ``wo`` and after ``w_down``) and the embedding one:
 2L + 1 a prefill or decode step.
 
-The collectives are ``torch.autograd.Function`` s with a forward only: the
-backward through them, and a train step on a model axis, come with the
-next slice and raise ``NotImplementedError`` until then.  Every collective
+The collectives are ``torch.autograd.Function`` s with their backward,
+Megatron's f/g pair, so every model rank ends with bitwise-equal
+gradients wherever the forward was replicated: a reduction's backward is
+the identity (the incoming gradient is already replicated), a replicated
+input's (:func:`replicated`, marked once for each column-parallel input:
+the attention's and the MLP's normed inputs and the final hidden states)
+is the rank-ordered reduction of its partial gradient, the max of the
+vocab-parallel log-sum-exp has none, and the vocab gather's keeps the
+rank's slice.  A train step's backward thus makes 2L + 1 reductions, as
+its forward does.  :func:`grad_role`, :func:`combine_model_grads` and
+:func:`global_norm` are what the train step (`training.train_step`)
+needs past the backward: the gradients of the leaves the model axis does
+not split and the norm across shards (the data-axis sum is
+``sharding.psum_tree``).  Every collective
 is counted twice (``sharding.collective_counts`` / ``collective_bytes``):
 as executed, an all-gather of world x its input, and as the function needs
 it, ``function=True``: a reduction is an all-reduce of the one partial,
 which is what the dry run's bound reads (an all-reduce at 16 ranks moves
-about an eighth of the rank-ordered gather's bytes).  On an ``AbstractMesh``
+about an eighth of the rank-ordered gather's bytes); and by the train
+step's stage (``sharding.collective_stages``; `models.layers` marks
+remat's recompute).  On an ``AbstractMesh``
 (the counting mesh of the dry run) nothing is exchanged: the collectives
 return tensors of the right shape (on ``meta``) and only count, and
 :func:`shard_params` slices rank 0's shard (every rank's has its shape).
@@ -62,16 +75,17 @@ import torch
 import torch.distributed as dist
 
 from ..core.backend import resolve_device
-from .sharding import AbstractMesh, mesh_axis_size, record_collective
+from .sharding import (AbstractMesh, axis_world, buckets, mesh_axis_size, record_collective,
+                       sum_ranks)
+from .sharding import _mesh_names as _axis_names
 
 __all__ = ["TRANSPORTS", "ModelShard", "model_mesh", "mesh_transport", "model_size",
            "model_rank", "data_size", "head_layout", "layout_reason", "check_family",
-           "check_layout", "shard_params", "reduce_model", "max_model", "reduce_data",
-           "replicated", "gather_vocab", "greedy_pick", "vocab_start"]
+           "check_layout", "shard_params", "reduce_model", "max_model", "gather_data",
+           "replicated", "gather_vocab", "greedy_pick", "vocab_start", "data_rank",
+           "has_model_axis", "grad_role", "combine_model_grads", "global_norm"]
 
 TRANSPORTS = ("nccl", "gloo")
-NEXT_SLICE = ("the backward of the model-axis collectives comes with the tensor-parallel "
-              "train step, in a later slice")
 
 
 def model_mesh(data: int, model: int, rank: int, init_method: str, device="cuda",
@@ -135,6 +149,19 @@ def model_rank(mesh) -> int:
     if isinstance(mesh, AbstractMesh) or model_size(mesh) == 1:
         return 0
     return mesh.get_local_rank("model")
+
+
+def data_rank(mesh) -> int:
+    """This process's index on the data axis (0 on an ``AbstractMesh``)."""
+    if isinstance(mesh, AbstractMesh) or data_size(mesh) == 1:
+        return 0
+    return mesh.get_local_rank("data")
+
+
+def has_model_axis(mesh) -> bool:
+    """Whether ``mesh`` names a ``"model"`` axis (a 1-D data mesh does
+    not)."""
+    return "model" in _axis_names(mesh)
 
 
 # ------------------------------------------------------------- the layout --
@@ -247,15 +274,17 @@ def vocab_start(mesh, local: int) -> int:
 # ------------------------------------------------------ the collectives --
 
 
-def _gather(x: torch.Tensor, mesh, axis: str, reduce: bool = False) -> torch.Tensor:
+def _gather(x: torch.Tensor, mesh, axis: str, reduce: bool = False,
+            stage: Optional[str] = None) -> torch.Tensor:
     """Every rank's ``x`` along ``axis`` of the mesh, stacked in rank order
     (world, ...): one all-gather, counted (``reduce``: its function is an
-    all-reduce of ``x``); on a counting mesh an empty tensor of that
-    shape."""
-    world = mesh_axis_size(mesh, (axis,) if axis == "model" else ("pod", "data"))
+    all-reduce of ``x``) under ``stage`` (default the current one,
+    ``sharding.collective_stage``'s); on a counting mesh an empty tensor
+    of that shape."""
+    world = axis_world(mesh, axis)
     nbytes = x.numel() * x.element_size()
     record_collective("all-gather", world * nbytes,
-                      function=("all-reduce", nbytes) if reduce else None)
+                      function=("all-reduce", nbytes) if reduce else None, stage=stage)
     out = x.new_empty((world,) + tuple(x.shape))
     if isinstance(mesh, AbstractMesh):
         return out
@@ -263,52 +292,76 @@ def _gather(x: torch.Tensor, mesh, axis: str, reduce: bool = False) -> torch.Ten
     return out
 
 
-def _sum_ranks(stacked: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(world, ...) summed in rank order, in float32 for a narrower float."""
-    acc_dtype = torch.float32 if stacked.element_size() < 4 and stacked.is_floating_point() \
-        else stacked.dtype
-    acc = stacked[0].to(acc_dtype)
-    for r in range(1, stacked.shape[0]):
-        acc = acc + stacked[r].to(acc_dtype)
-    return acc.to(dtype)
-
-
-def _no_backward(name: str):
-    def backward(ctx, *grads):
-        raise NotImplementedError(f"{name}: {NEXT_SLICE}")
-    return staticmethod(backward)
+def _reduce(x: torch.Tensor, mesh, axis: str, stage: Optional[str] = None) -> torch.Tensor:
+    """The rank-ordered sum of every rank's ``x`` along ``axis``."""
+    return sum_ranks(_gather(x, mesh, axis, reduce=True, stage=stage), x.dtype)
 
 
 class _ReduceModel(torch.autograd.Function):
+    """g: the sum of the partials; its backward is the identity (the
+    incoming gradient is the same on every rank)."""
+
     @staticmethod
     def forward(ctx, x, mesh, axis):
-        return _sum_ranks(_gather(x, mesh, axis, reduce=True), x.dtype)
+        return _reduce(x, mesh, axis)
 
-    backward = _no_backward("the rank-ordered reduction")
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
 
 
 class _MaxModel(torch.autograd.Function):
+    """The max over the model axis: the shift of a log-sum-exp, whose
+    gradient is zero (it cancels; the reference's ``logsumexp`` stops it)."""
+
     @staticmethod
     def forward(ctx, x, mesh):
         return _gather(x, mesh, "model", reduce=True).amax(0)
 
-    backward = _no_backward("the model-axis max")
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
 
 
 class _Replicated(torch.autograd.Function):
+    """f: the identity forward; the backward sums the rank's partial
+    gradient over the model axis in rank order (in float32 for bf16)."""
+
     @staticmethod
     def forward(ctx, x, mesh):
+        ctx.mesh = mesh
         return x.view_as(x)
 
-    backward = _no_backward("the replicated input")
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(grad, ctx.mesh, "model", stage="backward"), None
 
 
 class _GatherVocab(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
+        ctx.mesh = mesh
         return torch.cat(list(_gather(x, mesh, "model").unbind(0)), -1)
 
-    backward = _no_backward("the vocab gather")
+    @staticmethod
+    def backward(ctx, grad):
+        local = grad.shape[-1] // model_size(ctx.mesh)
+        return grad.narrow(-1, vocab_start(ctx.mesh, local), local), None
+
+
+class _GatherData(torch.autograd.Function):
+    """Every data rank's ``x`` stacked in rank order; the backward keeps
+    the rank's own row (every rank computes the same function of the
+    stack)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _gather(x, mesh, "data", reduce=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[data_rank(ctx.mesh)], None
 
 
 def reduce_model(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -321,22 +374,24 @@ def reduce_model(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def max_model(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The elementwise max of every model rank's ``x``."""
+    """The elementwise max of every model rank's ``x`` (no gradient)."""
     if mesh is None or model_size(mesh) == 1:
         return x
     return _MaxModel.apply(x, mesh)
 
 
-def reduce_data(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum over the data ranks of ``x``, in rank order."""
+def gather_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data rank's ``x``, stacked in rank order (data, ...); the
+    gradient flows to the rank's own row.  (1, ...) on a data axis of 1."""
     if mesh is None or data_size(mesh) == 1:
-        return x
-    return _ReduceModel.apply(x, mesh, "data")
+        return x[None]
+    return _GatherData.apply(x, mesh)
 
 
 def replicated(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` as the replicated input of a column-parallel product: the
-    identity (its backward, a reduction, comes with the next slice)."""
+    """``x`` as the replicated input of the column-parallel products that
+    read it: the identity, whose backward is the model-axis sum of the
+    products' partial gradients (mark each input once, not each product)."""
     if mesh is None or model_size(mesh) == 1:
         return x
     return _Replicated.apply(x, mesh)
@@ -364,3 +419,89 @@ def greedy_pick(logits: torch.Tensor, mesh) -> torch.Tensor:
     both = _gather(torch.stack([best, idx.float()], -1), mesh, "model")  # (tp, B, 2)
     winner = both[..., 0].argmax(0)  # the first rank with the max
     return both[..., 1].gather(0, winner[None])[0].long()
+
+
+# ------------------------------------------------ the train step's gradients --
+
+
+def grad_role(name: str, cfg, tp: int) -> str:
+    """How a model rank's gradient of the leaf ``name`` (a name of
+    ``named_parameters``) relates to the whole model's:
+
+      * ``"replicated"``: a norm on the replicated residual (``attn_norm``,
+        ``mlp_norm``, ``final_norm``): the whole gradient, the same bits on
+        every model rank, with no collective;
+      * ``"partial"``: ``q_norm`` / ``k_norm``, which act on the rank's heads
+        only: the sum over the model axis is the whole gradient;
+      * ``"shared"``: ``wk`` / ``wv`` of a KV head replicated over tp / KVH
+        ranks: each holds the part its own query heads give, summed over
+        the ranks that share the head;
+      * ``"split"``: the rank's slice of a split leaf, whole as it is."""
+    leaf = name.split(".")
+    if leaf[-1] == "weight" and leaf[-2] in ("attn_norm", "mlp_norm", "final_norm"):
+        return "replicated"
+    if leaf[-1] in ("q_norm", "k_norm"):
+        return "partial"
+    if leaf[-1] in ("wk", "wv") and cfg.n_kv_heads % tp:
+        return "shared"
+    return "split"
+
+
+def _kv_group(cfg, mesh) -> slice:
+    """The model ranks that hold the same KV head as this one (the
+    replicated layout: tp / KVH consecutive ranks)."""
+    size = model_size(mesh) // cfg.n_kv_heads
+    first = model_rank(mesh) // size * size
+    return slice(first, first + size)
+
+
+def combine_model_grads(grads, cfg, mesh):
+    """The rank's gradients with each ``"partial"`` leaf summed over the
+    model axis and each ``"shared"`` one over its KV group, in rank order:
+    gathers of the model axis in :func:`buckets` (none without such a
+    leaf), counted as the step's ``"combine"``."""
+    tp = model_size(mesh)
+    if tp == 1:
+        return grads
+    out = dict(grads)
+    roles = {k: grad_role(k, cfg, tp) for k in grads}
+    todo = [k for k in grads if roles[k] in ("partial", "shared")]
+    group = _kv_group(cfg, mesh) if "shared" in roles.values() else None
+    for run in buckets(todo, grads):
+        names = [todo[i] for i in run]
+        stacked = _gather(torch.cat([grads[k].reshape(-1) for k in names]), mesh, "model",
+                          reduce=True, stage="combine")
+        start = 0
+        for k in names:
+            n = grads[k].numel()
+            rows = stacked[:, start:start + n]
+            if roles[k] == "shared":
+                rows = rows[group]
+            out[k] = sum_ranks(rows, grads[k].dtype).view_as(grads[k])
+            start += n
+    return out
+
+
+def global_norm(grads, cfg, mesh) -> torch.Tensor:
+    """The whole model's gradient norm from the rank's combined gradients:
+    the float32 sums of squares of its split leaves (a shared KV leaf on
+    the first rank of its group only) reduced over the model axis in rank
+    order (one gather, counted as ``"norm"``), plus those of the leaves
+    every rank holds whole, counted once.  The same bits on every rank."""
+    tp = model_size(mesh)
+    first = model_rank(mesh) % max(tp // cfg.n_kv_heads, 1) == 0
+    split, whole = [], []
+    for k, g in grads.items():
+        role = grad_role(k, cfg, tp)
+        sq = torch.sum(torch.square(g.float()))
+        if role in ("replicated", "partial"):
+            whole.append(sq)
+        elif role == "split" or first:
+            split.append(sq)
+    total = torch.stack(split).sum()
+    if tp > 1:
+        total = _reduce(total, mesh, "model", stage="norm")
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return torch.sqrt(total)
+

@@ -1,6 +1,6 @@
 """The train step: loss -> gradients -> AdamW, with microbatch accumulation
-and, on a mesh, a data-parallel gradient mean (port of
-`repro.training.train_step`).
+and, on a mesh, data and tensor parallelism (port of
+`repro.training.train_step` and of the reference's pjit placement of it).
 
 ``make_train_step(cfg, ...)`` returns ``step(model, opt_state, batch) ->
 (model, opt_state, metrics)``: the model's parameters are updated in place
@@ -18,19 +18,36 @@ buffers, and their sum divided by ``accum``; the loss is the mean of the
 microbatch losses.  As in the reference, ``lb_loss`` and ``z_loss`` are
 then reported as 0.
 
-With ``mesh`` (a 1-D ``"data"`` mesh of `repro_torch.parallel`), each rank
-steps on its own slice of the global batch and the gradients and loss are
-averaged over the ranks before the update: every rank's tensors are
-gathered and summed in rank order (``parallel.psum_tree``), so every rank
-applies the same update, bitwise, whatever the backend's reduction order.
+On a mesh each rank steps on its own rows, and :func:`loss_fn` makes the
+loss the whole (micro)batch's: one gather of the data axis a microbatch
+brings every rank's cross-entropy and count of labels that are not -1,
+and each rank's is weighted by its share of the labels (the aux losses by
+1 / data), in rank order -- the reference's ``sum(nll mask) / sum(mask)``
+over the whole batch.  Its backward gives each rank the gradient of that
+global loss with respect to its own rows' terms, so the data-axis combine
+of the gradients is a sum (rank-ordered, ``parallel.psum_tree``; every
+rank applies the same update, bitwise).  A microbatch is each data
+rank's i-th slice of its rows; it lies inside one of the reference's
+microbatches (the global batch's i-th slice, its rows in rank-major
+order), and its cross-entropy is weighted by its share of that global
+microbatch's labels, so the step's loss is the reference's mean of the
+microbatch means.
 
-On a ``("data", "model")`` mesh with a model axis (`parallel.tensor`),
-:func:`loss_fn` runs forward only: the rank's model shard on its rows, the
-vocab-parallel cross-entropy, and the loss averaged over the data axis in
-rank order (each rank's mean weighted by its count of labels: the global
-mean).  The backward through the model-axis collectives and a train step
-on a model axis come with the next slice: ``make_train_step`` raises for
-one until then.
+A 1-D ``"data"`` mesh (`repro_torch.parallel.data_mesh`) is data
+parallelism for any family.  A ``("data", "model")`` mesh
+(`parallel.tensor.model_mesh`) with a model axis above 1 is the dense
+family's tensor-parallel step: the model is the rank's shard
+(``parallel.tensor.shard_params``), its backward runs through the
+collectives' own (2L + 1 model-axis reductions a microbatch); then the
+``q_norm`` / ``k_norm`` gradients are summed over the model axis and a
+replicated KV head's over the ranks that share it
+(``tensor.combine_model_grads``), the gradients summed over the data
+axis, the clip takes the whole model's norm across shards
+(``tensor.global_norm``), and the AdamW moments are ZeRO-1 over the data
+axis (``optimizer.zero1_update``: each data rank holds and updates its
+1/data of each leaf, then the parameters are gathered).  Its state comes
+from :func:`init_state`.  Every collective is counted by the stage it
+belongs to (``parallel.collective_stages``).
 """
 from __future__ import annotations
 
@@ -40,10 +57,12 @@ import torch
 
 from ..models.layers import chunked_cross_entropy, cross_entropy_loss
 from ..models.model_zoo import forward_hidden, train_forward
-from .optimizer import AdamWState, adamw_update, global_norm
+from ..parallel.sharding import collective_stage, psum_tree, sum_ranks
+from .optimizer import (AdamWState, adamw_init, adamw_update, global_norm, zero1_init,
+                        zero1_plan, zero1_update)
 
 __all__ = ["loss_fn", "named_parameters", "accumulate_grads", "grad_buffers",
-           "make_train_step"]
+           "make_train_step", "init_state"]
 
 Named = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -61,41 +80,73 @@ def named_parameters(model) -> Named:
     return named
 
 
+def _tensor_parallel(mesh) -> bool:
+    from ..parallel import tensor as tp
+
+    return mesh is not None and tp.has_model_axis(mesh)
+
+
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg, *, lb_coef: float = 0.01,
             z_coef: float = 1e-3, fused: bool = False, loss_chunk: int = 256,
-            mesh: Any = None) -> Tuple[torch.Tensor, Metrics]:
+            mesh: Any = None,
+            microbatch: Optional[Tuple[int, torch.Tensor]] = None) -> Tuple[torch.Tensor, Metrics]:
     """(loss, {"ce", "lb_loss", "z_loss"}): the next-token cross-entropy
     (hidden or logits at t against labels at t + 1) plus the MoE aux
-    losses.  On a ``("data", "model")`` ``mesh``: ``params`` the rank's
-    shard, ``batch`` its rows, the loss the whole batch's (forward only)."""
+    losses.  On a ``mesh`` ``batch`` is the rank's rows and the loss the
+    whole batch's (see the module's docstring); on a ``("data", "model")``
+    mesh ``params`` is the rank's shard.  ``microbatch``: (its index i, the
+    rank's label counts of every microbatch of the step), where ``batch``
+    is the rank's i-th of them (the loss is then its terms' share of the
+    step's; :func:`accumulate_grads` passes it)."""
     labels = batch["labels"]
+    model_mesh = mesh if _tensor_parallel(mesh) else None
     if fused:
-        hidden, head, aux = forward_hidden(params, batch, cfg, mesh=mesh)
+        hidden, head, aux = forward_hidden(params, batch, cfg, mesh=model_mesh)
         shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], 1)
-        ce = chunked_cross_entropy(hidden, head, shifted, chunk=loss_chunk, mesh=mesh)
+        ce = chunked_cross_entropy(hidden, head, shifted, chunk=loss_chunk, mesh=model_mesh)
     else:
-        logits, aux = train_forward(params, batch, cfg, mesh=mesh)
-        ce = cross_entropy_loss(logits[:, :-1], labels[:, 1:], mesh=mesh)
+        logits, aux = train_forward(params, batch, cfg, mesh=model_mesh)
+        ce = cross_entropy_loss(logits[:, :-1], labels[:, 1:], mesh=model_mesh)
     if mesh is not None:
-        ce, aux = _data_mean(ce, (labels[:, 1:] != -1).sum(), aux, mesh)
+        index, counts = microbatch or (0, _label_count(labels)[None])
+        ce, aux = _data_mean(ce, counts, index, aux, mesh)
     loss = ce + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
     return loss, {"ce": ce, "lb_loss": aux["lb_loss"], "z_loss": aux["z_loss"]}
 
 
-def _data_mean(ce: torch.Tensor, count: torch.Tensor, aux: Metrics,
+def _label_count(labels: torch.Tensor) -> torch.Tensor:
+    """The count of next-token labels that are not -1."""
+    return (labels[:, 1:] != -1).sum()
+
+
+def _data_mean(ce: torch.Tensor, counts: torch.Tensor, index: int, aux: Metrics,
                mesh) -> Tuple[torch.Tensor, Metrics]:
-    """The data ranks' cross-entropies weighted by their label counts, and
-    their aux losses averaged: one rank-ordered reduction over the data
-    axis."""
+    """The data ranks' cross-entropies of their ``index``-th microbatch,
+    each weighted by its share of the label count of the reference's
+    microbatch it lies in, summed in rank order, and their aux losses
+    averaged: one gather of the data axis (``tensor.gather_data``, whose
+    backward keeps the rank's own row) of the cross-entropy, the rank's
+    ``counts`` of every microbatch and the aux losses.  Rank r's
+    microbatch i is the global batch's (r accum + i)-th slice of rows, in
+    the reference's microbatch (r accum + i) // data.  At one microbatch
+    each weight is ``count_r / total``, exactly 1 / data where the counts
+    are equal."""
     from ..parallel import tensor as tp
 
     if tp.data_size(mesh) == 1:
         return ce, aux
-    names = sorted(aux)
-    mine = torch.stack([ce * count, count.to(ce.dtype)] + [aux[k].float() for k in names])
-    total = tp.reduce_data(mine, mesh)
-    world = tp.data_size(mesh)
-    return total[0] / total[1], {k: total[2 + i] / world for i, k in enumerate(names)}
+    names, accum, world = sorted(aux), counts.numel(), tp.data_size(mesh)
+    mine = torch.cat([ce[None], counts.to(ce.dtype), torch.stack([aux[k].float() for k in names])])
+    every = tp.gather_data(mine, mesh)
+    slices = every[:, 1:1 + accum].detach()
+    # the label count of each of the reference's microbatches: its data
+    # consecutive slices of the global batch, summed in rank order
+    totals = sum_ranks(slices.reshape(accum, world).T, slices.dtype)
+    group = [(r * accum + index) // world for r in range(world)]
+    weights = slices[:, index] / totals[group].clamp_min(1)
+    total = sum_ranks(every[:, 0] * weights, ce.dtype)
+    return total, {k: sum_ranks(every[:, 1 + accum + i], torch.float32) / world
+                   for i, k in enumerate(names)}
 
 
 def grad_buffers(named: Named) -> Named:
@@ -113,15 +164,19 @@ def _microbatches(batch: Dict[str, torch.Tensor], accum: int):
 
 
 def accumulate_grads(params, batch: Dict[str, torch.Tensor], cfg, *, accum: int = 1,
-                     fused_loss: bool = False) -> Tuple[torch.Tensor, Metrics, Named]:
+                     fused_loss: bool = False,
+                     mesh: Any = None) -> Tuple[torch.Tensor, Metrics, Named]:
     """(loss, metrics, gradients by name) over ``accum`` microbatches: at 1
     the loss's own gradients in the parameters' dtype; above 1 the float32
     mean of the microbatches' gradients (:func:`grad_buffers`) and the mean
-    loss, with ``lb_loss`` and ``z_loss`` reported as 0."""
+    loss, with ``lb_loss`` and ``z_loss`` reported as 0.  On a ``mesh``
+    the loss is the whole batch's and the gradients the rank's terms of
+    it (:func:`loss_fn`), before any combine."""
     named = named_parameters(params)
 
-    def grad_fn(mb):
-        loss, metrics = loss_fn(params, mb, cfg, fused=fused_loss)
+    def grad_fn(mb, microbatch=None):
+        loss, metrics = loss_fn(params, mb, cfg, fused=fused_loss, mesh=mesh,
+                                microbatch=microbatch)
         grads = torch.autograd.grad(loss, list(named.values()))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(named, grads))
 
@@ -129,8 +184,10 @@ def accumulate_grads(params, batch: Dict[str, torch.Tensor], cfg, *, accum: int 
         return grad_fn(batch)
     acc = grad_buffers(named)
     loss_sum = None
-    for mb in _microbatches(batch, accum):
-        loss, _, grads = grad_fn(mb)
+    mbs = _microbatches(batch, accum)
+    counts = torch.stack([_label_count(mb["labels"]) for mb in mbs])
+    for i, mb in enumerate(mbs):
+        loss, _, grads = grad_fn(mb, (i, counts))
         for k, g in grads.items():
             acc[k] += g
         del grads
@@ -141,14 +198,14 @@ def accumulate_grads(params, batch: Dict[str, torch.Tensor], cfg, *, accum: int 
     return loss, {"ce": loss, "lb_loss": zero, "z_loss": zero}, grads
 
 
-def _mesh_mean(tree: Any, mesh) -> Any:
-    """Every rank's tensors summed in rank order (one gather per dtype)
-    and divided by the world."""
-    from ..core.mapreduce import tree_map
-    from ..parallel import psum_tree
-
-    world = mesh.size()
-    return tree_map(lambda t: t / world, psum_tree(tree, mesh))
+def init_state(params, cfg, mesh: Any = None) -> AdamWState:
+    """The optimizer state a step of :func:`make_train_step` takes: whole
+    moments (``adamw_init``), or on a ``("data", "model")`` mesh the rank's
+    ZeRO-1 moments and their plan (``zero1_init``)."""
+    named = named_parameters(params)
+    if not _tensor_parallel(mesh):
+        return adamw_init(named)
+    return zero1_init(named, zero1_plan(named, cfg, mesh))
 
 
 def make_train_step(cfg, *, lr_fn: Union[Callable[[torch.Tensor], torch.Tensor], float] = 3e-4,
@@ -157,25 +214,35 @@ def make_train_step(cfg, *, lr_fn: Union[Callable[[torch.Tensor], torch.Tensor],
                     mesh: Any = None) -> Callable:
     """``step(model, opt_state, batch) -> (model, opt_state, metrics)``;
     ``lr_fn`` maps the optimizer's step (before the update) to the learning
-    rate, or is a constant.  ``mesh``: a data mesh (a model axis of 1)."""
-    if mesh is not None:
-        from ..parallel import tensor as tp
+    rate, or is a constant.  ``mesh``: a 1-D data mesh (any family), or a
+    ``("data", "model")`` mesh (the dense family on a model axis above 1:
+    ``model`` the rank's shard, ``opt_state`` from :func:`init_state`)."""
+    from ..parallel import tensor as tp
 
-        if tp.model_size(mesh) > 1:
-            raise NotImplementedError(
-                f"a train step on a model axis of {tp.model_size(mesh)}: {tp.NEXT_SLICE}")
+    tensor_parallel = _tensor_parallel(mesh)
+    if tensor_parallel:
+        tp.check_family(cfg)
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
-        loss, metrics, grads = accumulate_grads(params, batch, cfg, accum=accum,
-                                                fused_loss=fused_loss)
-        if mesh is not None:
-            mean = _mesh_mean({"grads": grads, "loss": loss, "metrics": metrics}, mesh)
-            grads, loss, metrics = mean["grads"], mean["loss"], mean["metrics"]
+        with collective_stage("forward"):
+            loss, metrics, grads = accumulate_grads(params, batch, cfg, accum=accum,
+                                                    fused_loss=fused_loss, mesh=mesh)
+        named = named_parameters(params)
         lr = lr_fn(opt_state.step) if callable(lr_fn) else lr_fn
-        _, opt_state = adamw_update(grads, opt_state, named_parameters(params), lr=lr,
-                                    weight_decay=weight_decay, clip_norm=clip_norm)
+        kw = dict(lr=lr, weight_decay=weight_decay, clip_norm=clip_norm)
+        with collective_stage("combine"):
+            if tensor_parallel:
+                grads = tp.combine_model_grads(grads, cfg, mesh)
+            if mesh is not None and tp.data_size(mesh) > 1:
+                grads = psum_tree(grads, mesh)
+        if tensor_parallel:
+            norm = tp.global_norm(grads, cfg, mesh)
+            _, opt_state = zero1_update(grads, opt_state, named, mesh, norm=norm, **kw)
+        else:
+            _, opt_state = adamw_update(grads, opt_state, named, **kw)
+            norm = global_norm(grads)
         lr = torch.as_tensor(lr, dtype=torch.float32, device=loss.device)
-        metrics = dict(metrics, loss=loss, lr=lr, grad_norm=global_norm(grads))
+        metrics = dict(metrics, loss=loss, lr=lr, grad_norm=norm)
         return params, opt_state, metrics
 
     return train_step

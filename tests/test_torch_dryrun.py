@@ -13,9 +13,10 @@ collective payload bytes the dry run predicts for its cell.  chip_smoke's
 dryrun phase holds lm_serve's prefill and lm_train's step at full width
 against their hand counts and catches its two planted counts.  ``run_cell``
 writes the reference's skip reasons and JSON keys; on the production
-meshes the dense family's prefill and decode cells are traced as one
-tensor-parallel rank (the step's own bytes beside the rule tables'), and
-the cells that wait for a later slice are ``partial`` with their reason;
+meshes the dense family's train, prefill and decode cells are traced as
+one tensor-parallel rank (the step's own bytes beside the rule tables',
+a train step's collectives by stage), and the cells that wait for a later
+slice are ``partial`` with their reason;
 the counting mesh's collective payload equals the hand count; the report
 renders its tables from written cells; the two modules import with no
 jax.  The reference's ``repro.launch.dryrun`` is never
@@ -151,8 +152,15 @@ def test_run_cell_statuses_and_keys(written):
     assert cells["heads"]["status"] == "partial"
     assert cells["heads"]["reason"].startswith(
         "phi3-medium-14b: 40 query heads do not split over a model axis of 16")
-    assert cells["tp_train"]["status"] == "partial"
-    assert "train cell on a model axis of 16" in cells["tp_train"]["reason"]
+    # one tensor-parallel rank's train step: 2L + 1 reductions in the
+    # backward, L in the recompute (remat stops once the saved tensors are
+    # back: the block's last reduction is not rerun), ZeRO-1 moments
+    assert cells["tp_train"]["status"] == "ok", cells["tp_train"].get("error")
+    stages = cells["tp_train"]["roofline"]["executed_collectives"]["stages"]
+    assert stages["backward.count"] == 2 * 28 + 1 and stages["recompute.count"] == 28
+    assert stages["zero1.count"] == 1 and stages["norm.count"] == 1
+    mem = cells["tp_train"]["roofline"]["memory_per_device"]
+    assert mem["opt_bytes"] < mem["opt_bytes_port_step"] < mem["opt_bytes_replicated"] / 8
     assert cells["sp"]["status"] == "partial" and cells["sp"]["sp_mode"] is True
     assert "sequence parallelism waits for a later slice" in cells["sp"]["reason"]
     skip = cells["skipped"]
@@ -196,8 +204,9 @@ def test_report_renders_written_cells(written):
                for ln in report.dryrun_table("h100x1", out))
     assert any("partial" in ln for ln in report.dryrun_table("pod16x16", out))
     tp_rows = report.tensor_parallel_table(out)
-    assert len(tp_rows) == 4 and tp_rows[2].startswith("| qwen3-0.6b | decode_32k | pod16x16 |")
+    assert len(tp_rows) == 5 and tp_rows[2].startswith("| qwen3-0.6b | decode_32k | pod16x16 |")
     assert "| 57 |" in tp_rows[2]
+    assert tp_rows[3].startswith("| qwen3-0.6b | train_4k | pod16x16 |")
     assert "## Tensor-parallel cells" in text
     roof = report.roofline_table("h100x1", out)
     assert len(roof) == 3 and "**memory**" in roof[2]
@@ -229,14 +238,15 @@ def test_counting_mesh_payload_equals_hand_count(kind, mesh):
 
 
 DENSE_TP = [(a, s, m) for a in ("qwen3", "danube", "glm4", "phi3")
-            for s in ("prefill_32k", "decode_32k") for m in ("pod16x16", "pod2x16x16")]
+            for s in ("prefill_32k", "decode_32k", "train_4k")
+            for m in ("pod16x16", "pod2x16x16")]
 
 
 @pytest.mark.parametrize("arch,shape,mesh", DENSE_TP, ids=["-".join(c) for c in DENSE_TP])
 def test_dense_production_cells_traced(tmp_path, arch, shape, mesh):
-    """The dense family's prefill and decode cells of the production meshes
-    are traced tensor-parallel, but phi3-medium-14b's, whose 40 heads do
-    not split over 16."""
+    """The dense family's train, prefill and decode cells of the production
+    meshes are traced tensor-parallel, but phi3-medium-14b's, whose 40
+    heads do not split over 16."""
     cell = dryrun.run_cell(arch, shape, mesh, str(tmp_path))
     if arch == "phi3":
         assert cell["status"] == "partial" and "40 query heads" in cell["reason"]
@@ -244,15 +254,26 @@ def test_dense_production_cells_traced(tmp_path, arch, shape, mesh):
     roof = cell["roofline"]
     assert cell["status"] == "ok", cell.get("error")
     cfg = get_arch(arch)
-    assert roof["collective_counts"]["all-reduce"] == 2 * cfg.n_layers + 1
     assert roof["wire_bytes"] > 0 and roof["flops"] > 0 and roof["hbm_bytes"] > 0
-    # the all-reduce's wire bytes (twice its payload) against the port's
-    # gathers of 16 partials: 8x
     ex = roof["executed_collectives"]
-    assert ex["counts"]["all-gather"] == 2 * cfg.n_layers + 1
-    assert ex["wire_bytes"] == pytest.approx(8 * roof["wire_bytes"], rel=1e-9)
     mem = roof["memory_per_device"]
     assert mem["peak_bytes_port_step"] > mem["param_bytes_port_step"] > 0
+    if shape == "train_4k":
+        # the forward's 2L + 1 and the loss's two a chunk, the backward's
+        # 2L + 1, the recompute's L; the data axis's loss gather, gradient
+        # sum and ZeRO-1 gather
+        stages = ex["stages"]
+        assert stages["backward.count"] == 2 * cfg.n_layers + 1
+        assert stages["forward.count"] == 2 * cfg.n_layers + 1 + 2 + 1
+        assert stages["recompute.count"] == cfg.n_layers
+        assert stages["zero1.count"] == 1 and stages["norm.count"] == 1
+        assert mem["opt_bytes_port_step"] >= mem["opt_bytes"]
+        return
+    assert roof["collective_counts"]["all-reduce"] == 2 * cfg.n_layers + 1
+    # the all-reduce's wire bytes (twice its payload) against the port's
+    # gathers of 16 partials: 8x
+    assert ex["counts"]["all-gather"] == 2 * cfg.n_layers + 1
+    assert ex["wire_bytes"] == pytest.approx(8 * roof["wire_bytes"], rel=1e-9)
 
 
 def test_main_and_imports_without_jax(tmp_path):

@@ -36,8 +36,9 @@ from repro_torch.launch.costing import trace_cell
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.steps import build_cell
 from repro_torch.models import init_params, prefill
-from repro_torch.parallel import abstract_mesh, tensor as tp
-from repro_torch.training import loss_fn, make_train_step
+from repro_torch.parallel import (abstract_mesh, collective_stages, reset_collective_count,
+                                  tensor as tp)
+from repro_torch.training import make_train_step
 from test_torch_mesh import ROOT, _finish, _start
 
 torch.set_num_threads(2)  # intra-op threads per pytest-xdist worker: the workers share the CPUs
@@ -394,12 +395,16 @@ def test_other_families_raise_on_a_model_axis(arch):
 
 
 def test_train_step_and_mismatches_raise():
+    """A non-dense train step on a model axis raises (the dense one runs:
+    tests/test_torch_tp_train.py), as do the sequence-parallel layout and
+    a shard and mesh that do not match."""
     cfg = get_arch("qwen3").reduced()
     mesh = make_test_mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="train step"):
-        make_train_step(cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="train step"):
-        build_cell(cfg, ShapeConfig("t", 8, 2, "train"), mesh=mesh)
+    moe = get_arch("llama4").reduced()
+    with pytest.raises(NotImplementedError, match="tensor parallelism: moe waits"):
+        make_train_step(moe, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="tensor parallelism: moe waits"):
+        build_cell(moe, ShapeConfig("t", 8, 2, "train"), mesh=mesh)
     with pytest.raises(NotImplementedError, match="sequence parallelism"):
         build_cell(cfg, ShapeConfig("d", 64, 1, "decode"), mesh=make_test_mesh(2, 2))
     whole = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
@@ -411,15 +416,12 @@ def test_train_step_and_mismatches_raise():
         prefill(whole, {"tokens": tok}, cfg, mesh=mesh)
     with pytest.raises(ValueError, match=r"\(0, 2\)"):
         prefill(shard, {"tokens": tok}, cfg, mesh=make_test_mesh(1, 4))
-    # forward only: the collectives' backward comes with the next slice
-    trained = tp.shard_params(whole, mesh)
-    trained.requires_grad_(True)
+    # the backward runs through the collectives (the counting mesh only
+    # counts: the gradient's shape, one reduction of the model axis)
+    reset_collective_count()
     x = torch.ones(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tp.replicated(x, mesh).sum().backward()
-    loss, _ = loss_fn(trained, {"tokens": tok, "labels": tok}, cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="backward"):
-        loss.backward()
+    tp.replicated(x, mesh).sum().backward()
+    assert x.grad.shape == (3,) and collective_stages() == {"backward": (1, 2 * 3 * 4.0)}
 
 
 def test_model_mesh_takes_the_named_transport():
